@@ -1,0 +1,34 @@
+"""Architecture registry: ``get("<arch-id>")`` -> ArchConfig.
+
+Only gemma3-1b is ported so far; the reference's other architectures are
+named as not yet ported.
+"""
+
+from __future__ import annotations
+
+import importlib
+
+ARCH_IDS = ("gemma3-1b",)
+
+_NOT_YET = (
+    "qwen2-72b",
+    "gemma3-4b",
+    "minitron-4b",
+    "whisper-base",
+    "xlstm-1.3b",
+    "zamba2-1.2b",
+    "kimi-k2-1t-a32b",
+    "qwen3-moe-235b-a22b",
+    "qwen2-vl-72b",
+)
+
+
+def get(arch_id: str):
+    if arch_id in _NOT_YET:
+        raise NotImplementedError(f"arch {arch_id!r} is not yet ported; "
+                                  f"have {ARCH_IDS}")
+    if arch_id not in ARCH_IDS:
+        raise KeyError(f"unknown arch {arch_id!r}; have {ARCH_IDS}")
+    mod = importlib.import_module(
+        "repro_torch.configs." + arch_id.replace("-", "_").replace(".", "_"))
+    return mod.CONFIG

@@ -1,0 +1,104 @@
+"""Public entry points for the bq codec kernels.
+
+Dispatch is by the tensor's device (see :mod:`repro_torch.kernels.bq`): a
+CPU tensor runs the plain PyTorch version, a CUDA tensor launches the
+Hopper kernel.  ``backend="torch"`` forces the plain version on any device;
+it exists for the tests and ``chip_smoke.py``, which hold the kernels
+against it on the card.
+
+Shape handling follows ``repro.kernels.ops``: tensors of any shape are
+flattened, zero-padded to whole ``(TILE_M, BLOCK)`` tiles and viewed as an
+``(M, 128)`` block matrix.  The padding fixes the wire bytes, so it is kept
+exactly.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import bq, ref
+from repro_torch.kernels.ref import BLOCK
+
+_TILE_ELEMS = bq.TILE_M * BLOCK
+_BACKENDS = (None, "torch")
+
+
+def _plain(backend) -> bool:
+    if backend not in _BACKENDS:
+        raise ValueError(f"backend must be one of {_BACKENDS}, got {backend!r}")
+    return backend == "torch"
+
+
+def padded_rows(n: int) -> int:
+    """Number of BLOCK-wide rows after padding n elements to whole tiles."""
+    n_pad = max(-(-n // _TILE_ELEMS), 1) * _TILE_ELEMS
+    return n_pad // BLOCK
+
+
+def to_blocks(x: torch.Tensor) -> torch.Tensor:
+    """Flatten + zero-pad to an (M, 128) f32 block matrix."""
+    flat = x.reshape(-1).to(torch.float32)
+    n = flat.shape[0]
+    m = padded_rows(n)
+    flat = torch.nn.functional.pad(flat, (0, m * BLOCK - n))
+    return flat.reshape(m, BLOCK)
+
+
+def from_blocks(x2d: torch.Tensor, shape, dtype=torch.float32) -> torch.Tensor:
+    """Inverse of :func:`to_blocks`."""
+    n = 1
+    for d in shape:
+        n *= d
+    return x2d.reshape(-1)[:n].reshape(tuple(shape)).to(dtype)
+
+
+def wire_nbytes(wire) -> int:
+    """Bytes of every tensor leaf of a wire dict (nested dicts and lists
+    are walked, ``None`` planes count zero)."""
+    if wire is None:
+        return 0
+    if isinstance(wire, torch.Tensor):
+        return wire.numel() * wire.element_size()
+    if isinstance(wire, dict):
+        return sum(wire_nbytes(v) for v in wire.values())
+    return sum(wire_nbytes(v) for v in wire)
+
+
+# --------------------------------------------------------------------------
+# block-matrix level ops
+# --------------------------------------------------------------------------
+
+def bq_encode_blocks(x2d: torch.Tensor, bits: int, backend=None) -> dict:
+    """(M,128) f32 -> wire dict {q_hi, q_lo|None, scale}."""
+    enc = ref.bq_encode_ref if _plain(backend) else bq.bq_encode
+    hi, lo, scale = enc(x2d, bits)
+    return {"q_hi": hi, "q_lo": lo, "scale": scale}
+
+
+def bq_decode_blocks(wire: dict, bits: int, backend=None) -> torch.Tensor:
+    """wire dict -> (M,128) f32."""
+    dec = ref.bq_decode_ref if _plain(backend) else bq.bq_decode
+    return dec(wire["q_hi"], wire["q_lo"], wire["scale"], bits)
+
+
+def bq_gather_decode(wire: dict, idx: torch.Tensor, bits: int,
+                     backend=None) -> torch.Tensor:
+    """Paged decode-read: decode the pool rows named by the block table
+    ``idx`` (int32, any shape).  ``wire`` holds pool planes with a leading
+    block axis (``q_hi (n_blocks, ..., w)``, ``scale (n_blocks, ..., 1)``).
+    Returns f32 of shape ``idx.shape + pool.shape[1:-1] + (128,)``."""
+    gd = ref.bq_gather_decode_ref if _plain(backend) else bq.bq_gather_decode
+    return gd(wire["q_hi"], wire["q_lo"], wire["scale"], idx, bits)
+
+
+# --------------------------------------------------------------------------
+# tensor-level ops (arbitrary shape)
+# --------------------------------------------------------------------------
+
+def bq_encode(x: torch.Tensor, bits: int, backend=None) -> dict:
+    return bq_encode_blocks(to_blocks(x), bits, backend)
+
+
+def bq_decode(wire: dict, bits: int, shape, dtype=torch.float32,
+              backend=None) -> torch.Tensor:
+    return from_blocks(bq_decode_blocks(wire, bits, backend), shape, dtype)

@@ -1,0 +1,201 @@
+"""Attention (port of ``repro.models.attention``): the head-sharded decode
+path against a paged KV pool, with the reference's online-softmax core.
+
+All softmax statistics are f32; GQA is grouped natively (no KV
+duplication).  Masking is position-based.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import comms
+from repro_torch.models.layers import apply_rope, rms_norm
+from repro_torch.models.params import D as Dd, MeshInfo
+from repro_torch.serve import paged_kv
+
+_F32 = torch.float32
+_NEG = -1e30
+
+
+# --------------------------------------------------------------------------
+# plan
+# --------------------------------------------------------------------------
+
+def attn_plan(cfg, mode: str):
+    if mode != "head":
+        raise NotImplementedError(f"attention mode {mode!r} is not yet ported")
+    hd, H, KV, Dm = cfg.head_dim_, cfg.n_heads, cfg.n_kv_heads, cfg.d_model
+    q_spec, o_spec = (None, "model"), ("model", None)
+    p = {
+        "wq": Dd((Dm, H * hd), spec=q_spec, dtype=cfg.dtype),
+        "wk": Dd((Dm, KV * hd), spec=q_spec, dtype=cfg.dtype),
+        "wv": Dd((Dm, KV * hd), spec=q_spec, dtype=cfg.dtype),
+        "wo": Dd((H * hd, Dm), spec=o_spec, dtype=cfg.dtype),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = Dd((H * hd,), spec=q_spec[1:], init="zeros", dtype=cfg.dtype)
+        p["bk"] = Dd((KV * hd,), spec=q_spec[1:], init="zeros", dtype=cfg.dtype)
+        p["bv"] = Dd((KV * hd,), spec=q_spec[1:], init="zeros", dtype=cfg.dtype)
+    if cfg.qk_norm:
+        p["qn"] = Dd((hd,), init="zeros", dtype="float32", fsdp_ok=False)
+        p["kn"] = Dd((hd,), init="zeros", dtype="float32", fsdp_ok=False)
+    return p
+
+
+# --------------------------------------------------------------------------
+# online-softmax core
+# --------------------------------------------------------------------------
+
+def _mask_bias(q_pos, k_pos, causal, window, k_valid=None):
+    """Additive bias [B, 1, 1, Sq, Sk] from position predicates."""
+    qp = q_pos[:, :, None]              # [B,Sq,1]
+    kp = k_pos[:, None, :]              # [B,1,Sk]
+    ok = torch.ones(qp.shape[0], qp.shape[1], kp.shape[2], dtype=torch.bool,
+                    device=q_pos.device)
+    if causal:
+        ok &= kp <= qp
+    if window:
+        ok &= kp > qp - window
+    if k_valid is not None:
+        ok &= k_valid[:, None, :]
+    bias = torch.where(ok, torch.zeros((), dtype=_F32, device=ok.device),
+                       torch.full((), _NEG, dtype=_F32, device=ok.device))
+    return bias[:, None, None, :, :]
+
+
+def _attn_part(q, k, v, bias, scale):
+    """One KV block of attention, unnormalized.
+
+    q [B,Sq,H,hd], k/v [B,Sk,KV,hd], bias [B,1,1,Sq,Sk]
+    -> (o [B,Sq,H,hd] f32, m [B,Sq,H] f32, l [B,Sq,H] f32)
+    """
+    B, Sq, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    qg = q.reshape(B, Sq, KV, G, hd).to(_F32)
+    s = torch.einsum("bqkgh,bskh->bkgqs", qg, k.to(_F32)) * scale
+    s = s + bias                                             # [B,KV,G,Sq,Sk]
+    m = torch.amax(s, dim=-1)                                # [B,KV,G,Sq]
+    p = torch.exp(s - m[..., None])
+    l = torch.sum(p, dim=-1)
+    o = torch.einsum("bkgqs,bskh->bkgqh", p, v.to(_F32))
+    o = torch.movedim(o, 3, 1).reshape(B, Sq, H, hd)
+    m = torch.movedim(m, 3, 1).reshape(B, Sq, H)
+    l = torch.movedim(l, 3, 1).reshape(B, Sq, H)
+    return o, m, l
+
+
+def _combine(a, b):
+    o1, m1, l1 = a
+    o2, m2, l2 = b
+    m = torch.maximum(m1, m2)
+    w1 = torch.exp(m1 - m)
+    w2 = torch.exp(m2 - m)
+    return (o1 * w1[..., None] + o2 * w2[..., None], m, l1 * w1 + l2 * w2)
+
+
+def _finish(o, m, l, dtype):
+    return (o / torch.clamp(l, min=1e-30)[..., None]).to(dtype)
+
+
+def _empty_acc(q):
+    B, Sq, H, hd = q.shape
+    return (torch.zeros((B, Sq, H, hd), dtype=_F32, device=q.device),
+            torch.full((B, Sq, H), _NEG, dtype=_F32, device=q.device),
+            torch.zeros((B, Sq, H), dtype=_F32, device=q.device))
+
+
+def full_attention(q, k, v, q_pos, k_pos, causal, window, k_valid=None,
+                   kv_chunk: int = 2048):
+    """Local attention, walking KV in chunks with an online softmax (the
+    reference's ``lax.scan`` over chunks is a Python loop here)."""
+    scale = q.shape[-1] ** -0.5
+    Sk = k.shape[1]
+    if Sk <= kv_chunk:
+        bias = _mask_bias(q_pos, k_pos, causal, window, k_valid)
+        o, m, l = _attn_part(q, k, v, bias, scale)
+        return _finish(o, m, l, q.dtype)
+    valid = (torch.ones(k_pos.shape, dtype=torch.bool, device=k_pos.device)
+             if k_valid is None else k_valid)
+    acc = _empty_acc(q)
+    for c0 in range(0, Sk, kv_chunk):
+        sl = slice(c0, c0 + kv_chunk)
+        bias = _mask_bias(q_pos, k_pos[:, sl], causal, window, valid[:, sl])
+        acc = _combine(acc, _attn_part(q, k[:, sl], v[:, sl], bias, scale))
+    return _finish(*acc, q.dtype)
+
+
+# --------------------------------------------------------------------------
+# projections (+ rope/qk-norm)
+# --------------------------------------------------------------------------
+
+def _project_qkv(p, xq, xkv, pos_q, pos_kv, cfg, mi, theta):
+    hd = cfg.head_dim_
+    q = xq @ p["wq"]
+    k = xkv @ p["wk"]
+    v = xkv @ p["wv"]
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+        k = k + p["bk"]
+        v = v + p["bv"]
+    q = q.reshape(*q.shape[:2], -1, hd)
+    k = k.reshape(*k.shape[:2], -1, hd)
+    v = v.reshape(*v.shape[:2], -1, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["qn"], cfg.norm_eps)
+        k = rms_norm(k, p["kn"], cfg.norm_eps)
+    if cfg.mrope:
+        raise NotImplementedError("M-RoPE is not yet ported")
+    if theta:
+        q = apply_rope(q, pos_q, theta)
+        k = apply_rope(k, pos_kv, theta)
+    return q, k, v
+
+
+def _theta(cfg, window):
+    """gemma3: global (window=0) layers use the long-context rope base."""
+    if cfg.rope_theta_global and window == 0:
+        return cfg.rope_theta_global
+    return cfg.rope_theta
+
+
+# --------------------------------------------------------------------------
+# paged decode
+# --------------------------------------------------------------------------
+
+def attn_decode_paged(p, x, pool, tables, pos, active, cfg, mi: MeshInfo,
+                      *, bits, block_tokens, window=0, backend=None):
+    """Single-token decode against one layer's paged KV pool (head mode).
+
+    x [N, 1, D], one row per decode slot; ``pool`` is this layer's pool
+    (:mod:`repro_torch.serve.paged_kv`), written IN PLACE; tables
+    [N, max_blocks] int32 block ids; pos [N] per-slot positions; active [N]
+    bool slot mask.  Inactive slots write nowhere (their block id is set
+    out of range, and the write drops it) and attend over a fully masked
+    sequence.  Returns (out [N, 1, D], pool).
+    """
+    theta = _theta(cfg, window)
+    N = x.shape[0]
+    pos = pos.long()
+    pos_q = pos[:, None]
+    q, k_new, v_new = _project_qkv(p, x, x, pos_q, pos_q, cfg, mi, theta)
+    kv_loc, hd = k_new.shape[2], cfg.head_dim_
+
+    nb_loc = (pool["k"] if bits is None else pool["k"]["q_hi"]).shape[0]
+    blk = torch.gather(tables.long(), 1, (pos // block_tokens)[:, None])[:, 0]
+    blk = torch.where(active, blk, torch.full_like(blk, nb_loc))
+    pool = paged_kv.write_token(pool, blk, pos % block_tokens,
+                                k_new[:, 0], v_new[:, 0], bits, backend)
+
+    k, v = paged_kv.read_tables(pool, tables, bits, kv_loc, hd, x.dtype,
+                                backend)
+    s_pad = k.shape[1]
+    k_pos = torch.arange(s_pad, dtype=torch.long,
+                         device=x.device)[None].expand(N, s_pad)
+    valid = (k_pos <= pos[:, None]) & active[:, None]
+    o = full_attention(q, k, v, pos_q, k_pos,
+                       causal=False, window=window, k_valid=valid)
+    y = o.reshape(N, 1, -1) @ p["wo"]
+    out = comms.psum(y, mi.tp_axes, "tp/attn_out")
+    return out, pool
