@@ -3,26 +3,43 @@
 
     python3 chip_smoke.py            # from the root of a checkout
 
-Phase 1 builds the bq kernels from src/repro_torch/kernels/csrc with nvcc.
+Phase 1 builds the bq kernels from src/repro_torch/kernels/csrc with nvcc,
+in this process, before any rank is spawned.
 Phase 2 holds each kernel against its plain PyTorch version on the card,
 bit for bit, at rates 4/8/16/24 on random, all-zero, extreme-magnitude and
-denormal rows, at the shapes the main path gives them and at 65536 rows,
-and times both (device time by CUDA-graph replay, and per eager call).
-Phase 3 drives the main path: gemma3-1b at full published width (bf16,
-random weights from a seed) served by continuous batching over a paged KV
-pool quantized at rest (bq8), 8 requests of 560 prompt + 24 generated
-tokens on 8 slots, which crosses the 512-token sliding window.  It runs
-once through the kernels and once through their plain versions, requires
-identical tokens and pool planes, requires the kernels' launch counts to
-be non-zero in the first run and zero in the second, and checks the first
-layer's quantized pool against a dense-pool run within the bq error bound.
+denormal rows: encode, decode and the fused ring hops (#3 with the sum and
+wire-only, #4) at M = 8, 16, 65536 and at the training step's ring shapes,
+gather-decode on the serving table.  It times every kernel and its plain
+version beside the byte bound: device time with the L2 flushed before
+each call (the time the kernel line reports), device time by CUDA-graph
+replay on warm L2, and the time per eager call.
+Phase 3 serves gemma3-1b (full published width and depth) by continuous
+batching over a bq8 paged KV pool, 8 requests of
+560 + 24 tokens on 8 slots, through the kernels, through their plain
+versions and with a dense pool, and requires identical tokens and pool
+planes between the first two and the bq8 error bound against the third.
+Phase 4 drives the main path: the compressed ZeRO-1, Megatron-SP training
+step of gemma3-1b at full published width and depth (bf16 weights from a
+seed), 5 steps at dp 2 x tp 2 (four ranks sharing the card, exchanging
+through gloo), sequence 1024, global batch 4, under zhybrid_16_8 through
+the kernels, through their plain versions, and under baseline, with
+deterministic algorithms and TF32 off and the exchanges timed (a device
+drain before each, to split the step into compute and exchange).  It requires equal losses, grad
+norms and per-dimension ledger bytes between the first two, launches of
+the fused hops in the first and none in the second, every loss finite and
+within 1 % of baseline's, and the dp and zero wire bytes below baseline's
+by their codecs' ratios.
+Phase 5 runs reduce_scatter_flat and the all-reduce ring over a 4-rank
+data axis at bq8, unidirectional and bidirectional, on one rank's flat
+gradient from phase 4, through the kernels and the plain versions, and
+requires identical sums and wires on every rank and launches of the
+wire-only fused hop.
 
 Every line with a number carries the card's name and power limit.  Before
-the last line come the kernel JSON (the kernels the main path launches:
-device time at the main path's shapes, byte bound, launch counts) and the
-card line; the last line is the result JSON.
-Any failure exits non-zero; without a card, or outside a checkout, it
-fails before printing a result.
+the last line come the kernel JSON (all five kernels: launches on their
+path, cold-L2 device time at the path's shape, byte bound, plain time) and the
+card line; the last line is the result JSON.  Any failure exits non-zero;
+without a card, or outside a checkout, it fails before printing a result.
 """
 
 from __future__ import annotations
@@ -39,11 +56,17 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (data sheet)
 F32_OPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
+L2_FLUSH_BYTES = 256 << 20    # five times the H100's 50 MB L2
+SPIN_CYCLES = 2_000_000       # about 1 ms of the card's clock
 BITS = (4, 8, 16, 24)
-MAIN_BITS = 8                 # the main path stores the pool as bq8
+MAIN_BITS = 8                 # the serving pool is bq8
 
-# main path: gemma3-1b, 8 slots, 16-token blocks, 560 + 24 tokens
+# serving: gemma3-1b at full depth, 8 slots, 16-token blocks, 560 + 24
 SLOTS, BLOCK_TOKENS, PROMPT, GEN, SEED = 8, 16, 560, 24, 0
+# main path: the training step at full width and depth
+DP, TP, STEPS, SEQ, GLOBAL_BATCH = 2, 2, 5, 1024, 4
+RING_WORLD = 4                # phase 5's data axis
+SCRATCH = ROOT / ".smoke"     # git-ignored: phase 4's flat gradient
 
 
 def fail(msg: str):
@@ -102,10 +125,35 @@ def graph_ms(torch, fn, iters: int = 50, reps: int = 5) -> float:
     return t0.elapsed_time(t1) / (reps * iters)
 
 
-def timings(torch, kernel, plain):
-    """(kernel device ms, plain device ms, kernel eager ms, plain eager ms)."""
-    return (graph_ms(torch, kernel), graph_ms(torch, plain),
-            eager_ms(torch, kernel), eager_ms(torch, plain))
+def cold_ms(torch, fn, iters: int = 20) -> float:
+    """Device time per call with a cold L2, the median over ``iters``
+    calls: before each, a 256 MB write evicts the L2 and a spin on the card
+    gives the host time to queue the call, so the two events bracket the
+    call's device work alone."""
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    fn()
+    pairs = []
+    for _ in range(iters):
+        flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        pairs.append((a, b))
+    torch.cuda.synchronize()
+    return float(np.median([a.elapsed_time(b) for a, b in pairs]))
+
+
+def timings(torch, kernel, plain, iters: int = 50):
+    """(kernel, plain) device ms with a cold L2, then (kernel, plain)
+    device ms by graph replay on a warm L2, then (kernel, plain) ms per
+    eager call."""
+    return (cold_ms(torch, kernel), cold_ms(torch, plain),
+            graph_ms(torch, kernel, iters), graph_ms(torch, plain, iters),
+            eager_ms(torch, kernel, 2 * iters), eager_ms(torch, plain,
+                                                         2 * iters))
 
 
 def row_bytes(torch, bits: int) -> int:
@@ -161,7 +209,7 @@ def max_diff(a, b) -> float:
     return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
 
 
-def drive_main_path(torch, model, params, card) -> dict:
+def drive_serving(torch, model, params, card) -> dict:
     """Serve SLOTS random prompts through the kernels, through their plain
     versions and with a dense pool; check the three runs against each
     other; return the kernel run's launch counts."""
@@ -252,6 +300,178 @@ def drive_main_path(torch, model, params, card) -> dict:
     return k_launch
 
 
+def ring_rows(cfg) -> dict:
+    """Rows per hop (padded, per rank) of the training step's rings: the
+    shapes the path gives the fused hops, and the rows of its TP
+    all-gather's encode and decode."""
+    from repro_torch.kernels.ops import padded_rows
+    from repro_torch.models.params import MeshInfo, defs, local_shape
+    from repro_torch.models.transformer import model_plan
+
+    mi = MeshInfo(tp=TP, dp=DP)
+    ds = defs(model_plan(cfg, mi))
+    n_flat = sum(int(np.prod(local_shape(d, mi))) for d in ds)
+    n_rep = sum(int(np.prod(local_shape(d, mi))) for d in ds
+                if "model" not in d.spec)
+    act = (GLOBAL_BATCH // DP) * (SEQ // TP) * cfg.d_model
+    return {"zero1_rs": padded_rows(-(-n_flat // DP)),          # bq8, #4
+            "grad_rep_psum": padded_rows(-(-n_rep // TP)),      # bq16, #3
+            "mlp_out_rs": padded_rows(act),                     # bq16, #4
+            "phase5_ring": padded_rows(-(-n_flat // RING_WORLD)),  # bq8
+            "mlp_in_encode": padded_rows(act),                  # bq16, #1
+            "mlp_in_decode": TP * padded_rows(act)}             # bq16, #2
+
+
+def fused_bytes(torch, kind: str, m: int, bits: int) -> int:
+    """Bytes a fused hop must move at M rows: the received wire and the
+    local f32 rows in; the new wire (#3) and the f32 sum (#3 with the
+    sum, #4) out."""
+    w, f = m * row_bytes(torch, bits), m * 128 * 4
+    return {"sum": 2 * w + 2 * f, "wire": 2 * w + f, "add": w + 2 * f}[kind]
+
+
+def fused_fns(torch, kind: str, m: int, bits: int, seed: int):
+    """(kernel call, plain call) of one fused-hop form on fresh rows."""
+    from repro_torch.kernels import ops
+    w = ops.bq_encode_blocks(test_rows(torch, m, seed), bits,
+                             backend="torch")
+    local = test_rows(torch, m, seed + 1) * 0.25
+    if kind == "add":
+        return (lambda be=None: ops.bq_decode_add_blocks(w, local, bits, be),
+                lambda: ops.bq_decode_add_blocks(w, local, bits, "torch"))
+    want = kind == "sum"
+    return (lambda be=None: ops.bq_decode_add_encode_blocks(
+                w, local, bits, be, want_sum=want),
+            lambda: ops.bq_decode_add_encode_blocks(
+                w, local, bits, "torch", want_sum=want))
+
+
+def check_fused(torch, kind: str, m: int, bits: int) -> float:
+    """Hold one fused-hop form against its plain version bit for bit;
+    returns the max abs difference (0)."""
+    kern, plain = fused_fns(torch, kind, m, bits, seed=bits * 31 + m % 997)
+    got, want = kern(), plain()
+    if kind == "add":
+        pairs = [(got, want, "sum")]
+    else:
+        (gw, gs), (ww, ws) = got, want
+        pairs = [(gw[k], ww[k], k) for k in ww if ww[k] is not None]
+        pairs += [(gs, ws, "sum")] if ws is not None or gs is not None else []
+    worst = 0.0
+    for a, b, k in pairs:
+        if not torch.equal(a, b):
+            fail(f"fused hop {kind} rate {bits} M={m}: {k} differs")
+        worst = max(worst, max_diff(a, b))
+    return worst
+
+
+def drive_training(torch, card) -> dict:
+    """Phase 4: the training step through the kernels, the plain versions
+    and baseline; returns the kernel run's launches (all ranks) and the
+    file holding rank 0's flat gradient."""
+    from repro_torch.launch import train
+
+    SCRATCH.mkdir(exist_ok=True)
+    grad_path = SCRATCH / "flat_grad.pt"
+    ap = train.parser()
+    base = ["--arch", "gemma3-1b", "--dp", str(DP), "--tp", str(TP),
+            "--steps", str(STEPS), "--seq", str(SEQ), "--global-batch",
+            str(GLOBAL_BATCH), "--seed", str(SEED)]
+
+    def run(scheme, backend, label, **kw):
+        args = ap.parse_args(base + ["--scheme", scheme])
+        t0 = time.perf_counter()
+        res = train.run(args, backend=backend, deterministic=True,
+                        time_staging=True, **kw)
+        wall = time.perf_counter() - t0
+        step = [float(np.median(r["step_s"][1:])) for r in res]
+        share = [sum(r["staging_s"][1:]) / sum(r["step_s"][1:]) for r in res]
+        ms = max(step) * 1e3
+        print(f"  {label}: losses {res[0]['losses']} grad norms "
+              f"{[round(g, 6) for g in res[0]['grad_norms']]}; median "
+              f"{ms:.1f} ms/step (steps 2-{STEPS}, slowest rank), "
+              f"{GLOBAL_BATCH * SEQ / (ms / 1e3):.0f} tokens/s, peak "
+              f"{[round(r['peak_bytes'] / 2**30, 2) for r in res]} GiB per "
+              f"rank, staging+exchange {min(share) * 100:.0f}-"
+              f"{max(share) * 100:.0f} % of step time, "
+              f"{res[0]['staging_bytes'][-1] / 1e9:.2f} GB staged per step "
+              f"(rank 0), wall {wall:.0f}s [{card}]")
+        return res
+
+    k = run("zhybrid_16_8", None, "zhybrid_16_8 kernels",
+            flat_grad_out=str(grad_path))
+    p = run("zhybrid_16_8", "torch", "zhybrid_16_8 plain")
+    b = run("baseline", None, "baseline")
+    for rk, rp in zip(k, p):
+        for key in ("losses", "grad_norms", "wire_per_dim", "priced_per_dim"):
+            if rk[key] != rp[key]:
+                fail(f"rank {rk['rank']}: {key} differ between the kernel "
+                     f"run ({rk[key]}) and the plain run ({rp[key]})")
+    launches = {n: sum(r["launches"][n] for r in k) for n in k[0]["launches"]}
+    for n in ("bq_encode", "bq_decode", "bq_decode_add_encode",
+              "bq_decode_add"):
+        if launches[n] <= 0:
+            fail(f"the training step never launched {n}: {launches}")
+    if any(v for r in p for v in r["launches"].values()):
+        fail(f"the plain run launched kernels: {[r['launches'] for r in p]}")
+    for r, rb in zip(k, b):
+        for s, (lk, lb) in enumerate(zip(r["losses"], rb["losses"])):
+            if not (np.isfinite(lk) and np.isfinite(lb)) or \
+                    abs(lk - lb) > 0.01 * abs(lb):
+                fail(f"rank {r['rank']} step {s}: loss {lk} vs baseline {lb}")
+    zk, zb = k[0]["priced_per_dim"], b[0]["priced_per_dim"]
+    ratio = {d: zk[d] / zb[d] for d in zb}
+    for d, bits in (("dp", 8), ("zero", 16)):
+        want = (bits + 32 / 128) / 32
+        if not want <= ratio[d] <= want * 1.01:
+            fail(f"{d} wire bytes {zk[d]} vs baseline {zb[d]}: ratio "
+                 f"{ratio[d]:.4f}, codec ratio {want:.4f}")
+    if not ratio["tp"] < 1:
+        fail(f"tp wire bytes {zk['tp']} not below baseline {zb['tp']}")
+    print(f"phase 4: kernel run == plain run (losses, grad norms, ledger "
+          f"per dim) on every rank; losses within 1 % of baseline; priced "
+          f"wire bytes per rank per step, zhybrid_16_8 vs baseline: "
+          + ", ".join(f"{d} {zk[d] / 1e6:.1f} vs {zb[d] / 1e6:.1f} MB "
+                      f"({ratio[d]:.4f})" for d in sorted(zb))
+          + f"; measured {k[0]['wire_per_dim']}; launches (all ranks) "
+          f"{launches} [{card}]")
+    if not grad_path.exists():
+        fail("phase 4 saved no flat gradient for phase 5")
+    return {"launches": launches, "grad_path": grad_path}
+
+
+def drive_rings(torch, card, grad_path) -> dict:
+    """Phase 5: the flat collectives alone over a 4-rank data axis."""
+    from repro_torch.launch.train import spawn_world
+
+    cases = [dict(op=op, codec="bq8", bidir=bd, chunks=1)
+             for bd in (False, True) for op in ("reduce_scatter_flat", "ring")]
+    kw = dict(cases=cases, payload=str(grad_path), device="cuda",
+              digest=True)
+    target = "repro_torch.launch.ring_check:collectives_rank"
+    k = spawn_world(target, RING_WORLD, {**kw, "backend": None})
+    p = spawn_world(target, RING_WORLD, {**kw, "backend": "torch"})
+    for rk, rp in zip(k, p):
+        for ck, cp in zip(rk, rp):
+            if ck["result"] != cp["result"] or ck["wire"] != cp["wire"]:
+                fail(f"phase 5 {ck['case']}: kernel and plain runs differ")
+            if any(cp["launches"].values()):
+                fail(f"phase 5 plain run launched {cp['launches']}")
+    launches = {n: sum(c["launches"][n] for r in k for c in r)
+                for n in k[0][0]["launches"]}
+    if launches["bq_decode_add_encode_wire"] <= 0:
+        fail(f"phase 5 never launched the wire-only hop: {launches}")
+    for i, c in enumerate(cases):
+        tk = max(r[i]["seconds"] for r in k)
+        tp_ = max(r[i]["seconds"] for r in p)
+        print(f"  {c['op']} bq8 {'bidir' if c['bidir'] else 'unidir'} over "
+              f"{RING_WORLD} ranks: {tk:.2f}s kernels, {tp_:.2f}s plain "
+              f"(slowest rank, exchange through gloo included) [{card}]")
+    print(f"phase 5: kernel run == plain run (sums and wires, every rank); "
+          f"launches (all ranks) {launches} [{card}]")
+    return {"launches": launches}
+
+
 def main():
     import torch
 
@@ -287,8 +507,18 @@ def main():
     r = paged_kv.token_rows(cfg.n_kv_heads, cfg.head_dim_)
     rpb = BLOCK_TOKENS * r                       # rows per pool block
     mb = nb // SLOTS
-    err = {"bq_encode": 0.0, "bq_decode": 0.0, "bq_gather_decode": 0.0}
+    err = {"bq_encode": 0.0, "bq_decode": 0.0, "bq_gather_decode": 0.0,
+           "bq_decode_add_encode": 0.0, "bq_decode_add": 0.0}
+    rows = ring_rows(cfg)
+    fused_m = sorted({8, 16, 65536, rows["zero1_rs"], rows["grad_rep_psum"],
+                      rows["mlp_out_rs"], rows["phase5_ring"]})
     for bits in BITS:
+        for m in fused_m:
+            for kind, name in (("sum", "bq_decode_add_encode"),
+                               ("wire", "bq_decode_add_encode"),
+                               ("add", "bq_decode_add")):
+                err[name] = max(err[name], check_fused(torch, kind, m, bits))
+            torch.cuda.empty_cache()
         for m in (8, 16, 65536):
             x = test_rows(torch, m, seed=bits * 7 + m)
             w = ops.bq_encode_blocks(x, bits)
@@ -331,7 +561,8 @@ def main():
             fail(f"bq_gather_decode rate {bits}: in-range rows disturbed")
     torch.cuda.synchronize()
     print(f"phase 2: kernels == plain versions bit for bit at rates "
-          f"{list(BITS)} (encode/decode M=8,16,65536; gather-decode "
+          f"{list(BITS)} (encode/decode M=8,16,65536; fused hops with the "
+          f"sum, wire-only and decode-add at M={fused_m}; gather-decode "
           f"{SLOTS}x{mb} table over {nb} blocks x {BLOCK_TOKENS} tokens x "
           f"{r} rows) [{card}]")
 
@@ -366,51 +597,118 @@ def main():
                  + rows * 128 * 4, rows * 128)
 
     def show(name, bits, shape, t, b):
-        (ms, pms, ems, epms), (bms, by) = t, b
-        print(f"  {name} rate {bits} {shape}: device {ms * 1e3:.2f} us "
-              f"kernel ({bms / ms * 100:.1f}% of bound) vs {pms * 1e3:.2f} "
-              f"us plain; per eager call {ems * 1e3:.2f} us kernel vs "
-              f"{epms * 1e3:.2f} us plain; bound {bms * 1e3:.3f} us ({by}) "
+        (ms, pms, wms, wpms, ems, epms), (bms, by) = t, b
+        print(f"  {name} rate {bits} {shape}: device, L2 flushed, "
+              f"{ms * 1e3:.2f} us kernel ({bms / ms * 100:.1f}% of bound) vs "
+              f"{pms * 1e3:.2f} us plain; warm L2 (graph) {wms * 1e3:.2f} "
+              f"vs {wpms * 1e3:.2f} us; per eager call {ems * 1e3:.2f} vs "
+              f"{epms * 1e3:.2f} us; bound {bms * 1e3:.3f} us ({by}) "
               f"[{card}]")
 
-    # main-path shapes at rate 8 (the kernel line) and 65536 rows at
-    # every rate
-    enc_m = -(-SLOTS * r // bq.TILE_M) * bq.TILE_M   # new K (or V) rows/step
-    main_shape = {
-        "bq_encode": (f"M={enc_m}", *time_encode(enc_m, MAIN_BITS)),
-        "bq_decode": (f"M={nb * rpb}", *time_decode(nb * rpb, MAIN_BITS)),
-        "bq_gather_decode": (f"idx {SLOTS}x{mb}, {rpb} rows/block",
+    def time_fused(kind, m, bits, iters=50):
+        kern, plain = fused_fns(torch, kind, m, bits, seed=5)
+        return timings(torch, kern, plain, iters), \
+            bound(fused_bytes(torch, kind, m, bits), m * 128 * 8)
+
+    # each kernel at the shape and rate its path gives it (the kernel
+    # line), then at 65536 rows at every rate
+    big = dict(iters=5)                  # GB-sized rows: fewer graph calls
+    enc_m, dec_m = rows["mlp_in_encode"], rows["mlp_in_decode"]
+    path = {
+        "bq_encode": ("tp@mlp_in all-gather", 16, f"M={enc_m}",
+                      *time_encode(enc_m, 16)),
+        "bq_decode": ("tp@mlp_in all-gather", 16, f"M={dec_m}",
+                      *time_decode(dec_m, 16)),
+        "bq_decode_add_encode": (
+            "tp@grad_rep all-reduce, last hop", 16,
+            f"M={rows['grad_rep_psum']}",
+            *time_fused("sum", rows["grad_rep_psum"], 16, **big)),
+        "bq_decode_add_encode_wire": (
+            "phase-5 ring, intermediate hops", 8,
+            f"M={rows['phase5_ring']}",
+            *time_fused("wire", rows["phase5_ring"], 8, **big)),
+        "bq_decode_add": ("dp@zero1_grad reduce-scatter, last hop", 8,
+                          f"M={rows['zero1_rs']}",
+                          *time_fused("add", rows["zero1_rs"], 8, **big)),
+        "bq_gather_decode": ("serving read", MAIN_BITS,
+                             f"idx {SLOTS}x{mb}, {rpb} rows/block",
                              *time_gather(MAIN_BITS, nb)),
     }
-    for name, (shape, t, b) in main_shape.items():
-        show(name, MAIN_BITS, shape, t, b)
+    for name, (where, bits, shape, t, b) in path.items():
+        show(f"{name} [{where}]", bits, shape, t, b)
+        torch.cuda.empty_cache()
+    show("bq_decode_add [tp@mlp_out reduce-scatter, last hop]", 16,
+         f"M={rows['mlp_out_rs']}", *time_fused("add", rows["mlp_out_rs"],
+                                                 16))
     for bits in BITS:
         show("bq_encode", bits, "65536 rows", *time_encode(65536, bits))
         show("bq_decode", bits, "65536 rows", *time_decode(65536, bits))
         show("bq_gather_decode", bits, "65536 rows",
              *time_gather(bits, 65536 // rpb))
+        for kind, name in (("sum", "bq_decode_add_encode"),
+                           ("wire", "bq_decode_add_encode_wire"),
+                           ("add", "bq_decode_add")):
+            show(name, bits, "65536 rows", *time_fused(kind, 65536, bits))
+    torch.cuda.empty_cache()
 
     # ---------------------------------------------------------- phase 3
     model = Model(cfg)                                    # on the card
     t0 = time.perf_counter()
     params = model.init(SEED)
     torch.cuda.synchronize()
-    print(f"phase 3: gemma3-1b {model.n_params() / 1e9:.3f}B params bf16, "
-          f"init {time.perf_counter() - t0:.2f}s [{card}]")
-    k_launch = drive_main_path(torch, model, params, card)
+    print(f"phase 3: gemma3-1b, {cfg.n_layers} layers, "
+          f"{model.n_params() / 1e9:.3f}B params bf16, init "
+          f"{time.perf_counter() - t0:.2f}s [{card}]")
+    s_launch = drive_serving(torch, model, params, card)
+    del model, params
+    torch.cuda.empty_cache()
 
+    # ---------------------------------------------------------- phase 4
+    # the ranks (fresh processes) share the card: growable segments keep
+    # their reserved-but-free memory from fragmenting it
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    print(f"phase 4: gemma3-1b full width and depth, dp {DP} x tp {TP} "
+          f"ranks on this card, {STEPS} steps, seq {SEQ}, global batch "
+          f"{GLOBAL_BATCH}; this process keeps "
+          f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved "
+          f"[{card}]")
+    train = drive_training(torch, card)
+
+    # ---------------------------------------------------------- phase 5
+    rings = drive_rings(torch, card, train["grad_path"])
+    train["grad_path"].unlink()
+
+    # kernel line: launches on each kernel's path (phase 4 the training
+    # step, phase 3 serving, phase 5 the rings), times at the path's shape
+    t_launch, r_launch = train["launches"], rings["launches"]
     kernels = []
-    # the kernels the main path launches (bq_decode, the same device
-    # routine without a table, is checked and timed in phase 2 only)
-    for name, line in (("bq_encode", 173), ("bq_gather_decode", 302)):
-        _, (ms, pms, _, _), (bms, by) = main_shape[name]
-        kernels.append({
+    for name, line, launches in (
+            ("bq_encode", 173, t_launch["bq_encode"]),
+            ("bq_decode", 205, t_launch["bq_decode"]),
+            ("bq_decode_add_encode", 229,
+             t_launch["bq_decode_add_encode"]
+             + r_launch["bq_decode_add_encode_wire"]),
+            ("bq_decode_add", 278, t_launch["bq_decode_add"]),
+            ("bq_gather_decode", 302, s_launch["bq_gather_decode"])):
+        where, bits, shape, (ms, pms, wms, _, _, _), (bms, by) = path[name]
+        entry = {
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/bq.cu",
             "replaces": f"src/repro/kernels/bq.py:{line}",
-            "launches": k_launch[name], "max_abs_err": err[name],
+            "launches": launches, "max_abs_err": err[name],
             "ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
-            "library_ms": None})
+            "library_ms": None, "l2": "flushed before each call",
+            "warm_l2_ms": wms, "path": where, "rate": bits, "shape": shape}
+        if name == "bq_decode_add_encode":
+            wh, wb, wsh, (ows, owps, owws, _, _, _), (wbms, _) = \
+                path["bq_decode_add_encode_wire"]
+            entry["launches_with_sum"] = t_launch["bq_decode_add_encode"]
+            entry["wire_only"] = {
+                "path": wh, "rate": wb, "shape": wsh, "ms": ows,
+                "plain_ms": owps, "warm_l2_ms": owws, "bound_ms": wbms,
+                "launches": r_launch["bq_decode_add_encode_wire"]}
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

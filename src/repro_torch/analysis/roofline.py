@@ -1,0 +1,127 @@
+"""Collective bytes from the comms ledger (port of the ledger-pricing half
+of ``repro.analysis.roofline``).
+
+:func:`ledger_summary` prices the analytic events of
+:class:`repro_torch.core.comms.record_traffic` exactly as the reference
+prices its own ledger: per-device link bytes of each collective, its
+backward twin included, from the ring schedule the event recorded.  The
+device-time terms of the reference's roofline were for a TPU and are not
+carried over.
+"""
+
+from __future__ import annotations
+
+from repro_torch.core import codecs
+from repro_torch.kernels import ops
+
+_PER_DEVICE_FACTOR = {
+    # fraction of the local payload E that crosses this device's link
+    "all_gather": lambda n: n - 1,
+    "reduce_scatter": lambda n: (n - 1) / n,
+    "all_reduce": lambda n: 2 * (n - 1) / n,
+    "ppermute": lambda n: 1.0,
+    "all_to_all": lambda n: (n - 1) / n,
+    "none": lambda n: 0.0,
+}
+
+_ITEMSIZE = {"float32": 4, "bfloat16": 2, "float16": 2, "int32": 4,
+             "int64": 8, "int8": 1, "uint8": 1, "int16": 2, "bool": 1}
+
+
+def _wire_bytes(codec_name: str, elems: int, dtype: str) -> float:
+    c = codecs.get(codec_name)
+    if c.is_identity:
+        return elems * _ITEMSIZE.get(dtype, 4)
+    return c.wire_nbytes_for(elems)
+
+
+def _block_codec(codec_name: str):
+    """The codec iff it rides the block ring (the families with fused
+    decode-add-encode hops), else None."""
+    c = codecs.get(codec_name)
+    return c if hasattr(c, "decode_add_encode_blocks") else None
+
+
+def _ring_hop_bytes(c, rows: int, parts=None) -> float:
+    if parts:
+        return sum(c.wire_nbytes_for((hi - lo) * 128) for lo, hi, _ in parts)
+    return c.wire_nbytes_for(rows * 128)
+
+
+def _coll_bytes(op: str, codec_name: str, elems: int, dtype: str, n: int,
+                bidir: bool, ring: dict | None) -> float:
+    """Per-device link bytes of one collective: analytic factors for
+    identity codecs; the chunk geometry the compressed lowering runs for
+    block codecs (all-gather: n-1 hops of the padded local wire;
+    reduce-scatter: n-1 ring hops of the padded chunk wire; all-reduce:
+    both)."""
+    c = _block_codec(codec_name)
+    if c is None or op in ("ppermute", "all_to_all", "none"):
+        factor = _PER_DEVICE_FACTOR[op](n)
+        if bidir:
+            factor *= 0.5  # two-direction rings: each link carries half
+        return _wire_bytes(codec_name, elems, dtype) * factor
+    if op == "all_gather":
+        hop = _ring_hop_bytes(c, ops.padded_rows(int(elems)))
+        return (n - 1) * hop * (0.5 if bidir else 1.0)
+    rows, ring_bidir, parts = ring["rows"], ring["bidir"], ring["parts"]
+    hop = _ring_hop_bytes(c, rows, parts)
+    out = (n - 1) * hop * (0.5 if ring_bidir else 1.0)
+    if op == "all_reduce":
+        out += (n - 1) * hop * (0.5 if bidir else 1.0)
+    return out
+
+
+def event_bytes(ev: dict, train: bool) -> dict:
+    """Per-device link bytes of one ledger event: ``fwd`` and, when
+    ``train``, its backward twin ``bwd`` under the backward codec."""
+    n = ev["n"]
+    if n <= 1:
+        return {"fwd": 0.0, "bwd": 0.0}
+    fwd = _coll_bytes(ev["op"], ev["codec_fwd"], ev["elems"], ev["dtype"],
+                      n, bool(ev.get("bidir")), ev.get("ring"))
+    bwd = 0.0
+    if train and ev.get("bwd_op"):
+        op_b = ev["bwd_op"]
+        if ev["op"] == "all_gather" and op_b == "reduce_scatter":
+            e_b = ev["elems"] * n        # cotangent of the gather output
+        elif ev["op"] == "reduce_scatter" and op_b == "all_gather":
+            e_b = -(-ev["elems"] // n)   # cotangent of the scattered chunk
+        else:
+            e_b = ev["elems"]
+        ring_b = ev.get("ring") if op_b == ev["op"] else None
+        if ring_b is None and op_b in ("all_reduce", "reduce_scatter"):
+            from repro_torch.core import comms
+            s = comms._ring_schedule(ops.padded_rows(-(-int(e_b) // n)),
+                                     bidir=bool(ev.get("bidir")), chunks=1)
+            ring_b = dict(rows=s.rows, bidir=s.bidir, parts=s.parts)
+        bwd = _coll_bytes(op_b, ev["codec_bwd"], e_b, ev["dtype"],
+                          n, bool(ev.get("bidir")), ring_b)
+    return {"fwd": fwd * ev["mult"], "bwd": bwd * ev["mult"]}
+
+
+def tag_dim(tag: str) -> str:
+    """Communication tag -> parallelism dimension (tp_fwd@x -> tp)."""
+    return tag.split("@")[0].split("_")[0]
+
+
+def ledger_summary(events, train: bool) -> dict:
+    """Per-device bytes per dimension and in total."""
+    per_dim, total = {}, 0.0
+    for ev in events:
+        b = event_bytes(ev, train)
+        tot = b["fwd"] + b["bwd"]
+        dim = tag_dim(ev["tag"])
+        per_dim[dim] = per_dim.get(dim, 0.0) + tot
+        total += tot
+    return {"total_bytes": total, "per_dim": per_dim}
+
+
+def wire_per_dim(wire_events) -> dict:
+    """Measured wire bytes (payload x hops) per dimension, from the
+    ledger's ``.wire`` events."""
+    out = {}
+    for w in wire_events:
+        dim = tag_dim(w["tag"])
+        out[dim] = out.get(dim, 0) + w["payload_bytes"] * w["hops"] * w["mult"]
+    return out

@@ -1,19 +1,28 @@
-"""Codec registry, stateless part: ``none`` and the fixed-rate ``bq*`` family.
+"""Codec registry: the wire-compression schemes collectives can carry (port
+of ``repro.core.codecs``).
 
-Mirrors ``repro.core.codecs`` for what the paged serving path needs: the
-codec names, their wire rate, and the per-row plane layout that the paged
-KV pool stores at rest.  The other families of the reference (``mpc``,
-``gq*``, ``tq*``, ``ef:<codec>``, ``plr<rank>``) are not yet ported;
-:func:`get` names them as such.
+* ``none`` — uncompressed baseline.
+* ``mpc`` — the lossless MPC analogue: a full-size, bit-exact wire.
+* ``bq4/bq8/bq16/bq24`` — fixed-rate block quantization (the ZFP-rate
+  analogue), on the Hopper kernels of :mod:`repro_torch.kernels.bq`.
+* ``gq8``, ``tq8``, ``tq4`` — the per-tensor-scale and truncating ablation
+  codecs, in plain PyTorch as in the reference.
+* ``ef:<codec>`` and ``plr<rank>`` — the carried-state families.  Their
+  names parse and validate, so every registered scheme compiles, but any
+  use of their wire raises: carried codec state is not yet ported.
+
+A codec turns a tensor into a *wire dict* whose tensors are what crosses
+between ranks; :mod:`repro_torch.core.comms` moves those tensors.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import re
 
 import torch
 
-from repro_torch.kernels import bq
+from repro_torch.kernels import bq, ops
 from repro_torch.kernels.ref import BLOCK
 
 
@@ -24,8 +33,43 @@ class Codec:
     name: str = "none"
     lossless: bool = True
 
+    # dispatch key of the stateful families ("ef" / "lowrank"); None for
+    # stateless codecs
+    kind: str | None = dataclasses.field(default=None, init=False, repr=False)
+
+    @property
+    def stateful(self) -> bool:
+        return False
+
+    def init_state(self, shape, dtype):
+        return None
+
+    def encode(self, x, state=None):
+        return {"raw": x}, None
+
+    def decode(self, wire, shape, dtype):
+        return wire["raw"].reshape(shape).to(dtype)
+
     def wire_bits_per_value(self, dtype=torch.float32) -> float:
         return torch.empty((), dtype=dtype).element_size() * 8
+
+    def wire_nbytes_for(self, n_elems: int) -> float:
+        return n_elems * self.wire_bits_per_value() / 8.0
+
+    @property
+    def is_identity(self) -> bool:
+        return True
+
+    def __str__(self):
+        return self.name
+
+
+@dataclasses.dataclass(frozen=True)
+class MpcCodec(Codec):
+    """Lossless MPC analogue: bit-exact wire, ratio 1.0."""
+
+    name: str = "mpc"
+    lossless: bool = True
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,6 +82,27 @@ class BqCodec(Codec):
 
     def __post_init__(self):
         object.__setattr__(self, "name", f"bq{self.bits}")
+
+    def encode(self, x, state=None):
+        return ops.bq_encode(x, self.bits), None
+
+    def decode(self, wire, shape, dtype):
+        return ops.bq_decode(wire, self.bits, shape, dtype)
+
+    # block-matrix fast path for the ring collectives
+    def encode_blocks(self, x2d):
+        return ops.bq_encode_blocks(x2d, self.bits)
+
+    def decode_blocks(self, wire):
+        return ops.bq_decode_blocks(wire, self.bits)
+
+    def decode_add_encode_blocks(self, wire, local2d, want_sum=True):
+        return ops.bq_decode_add_encode_blocks(wire, local2d, self.bits,
+                                               want_sum=want_sum)
+
+    def decode_add_blocks(self, wire, local2d):
+        """Last ring hop: local + decode(wire), no re-encode."""
+        return ops.bq_decode_add_blocks(wire, local2d, self.bits)
 
     def wire_bits_per_value(self, dtype=torch.float32) -> float:
         return self.bits + 32.0 / BLOCK  # mantissa + per-row f32 scale
@@ -52,22 +117,182 @@ class BqCodec(Codec):
             out["q_lo"] = (BLOCK, torch.uint8)
         return out
 
+    @property
+    def is_identity(self) -> bool:
+        return False
+
+
+@dataclasses.dataclass(frozen=True)
+class GqCodec(Codec):
+    """Ablation codec: fixed-rate quantization with ONE scale per block
+    matrix (per-tensor granularity), broadcast per 128-lane row on the
+    wire so gathered wires keep the bq layout."""
+
+    name: str = "gq"
+    lossless: bool = False
+    bits: int = 8
+
+    def __post_init__(self):
+        object.__setattr__(self, "name", f"gq{self.bits}")
+
+    def _qmax(self):
+        return float(2 ** (self.bits - 1) - 1)
+
+    def encode(self, x, state=None):
+        return self.encode_blocks(ops.to_blocks(x)), None
+
+    def decode(self, wire, shape, dtype):
+        return ops.from_blocks(self.decode_blocks(wire), shape, dtype)
+
+    def encode_blocks(self, x2d):
+        x2d = x2d.to(torch.float32)
+        amax = x2d.abs().amax(dim=(-1, -2), keepdim=True)
+        scale = torch.where(amax == 0.0, torch.ones_like(amax), amax)
+        q = torch.clamp(torch.round(x2d / scale * self._qmax()),
+                        -self._qmax(), self._qmax()).to(torch.int8)
+        scale_b = scale.expand(*q.shape[:-1], 1).contiguous()
+        return {"q_hi": q, "q_lo": None, "scale": scale_b}
+
+    def decode_blocks(self, wire):
+        return wire["q_hi"].to(torch.float32) * (wire["scale"] / self._qmax())
+
+    def decode_add_encode_blocks(self, wire, local2d, want_sum=True):
+        s = self.decode_blocks(wire) + local2d.to(torch.float32)
+        return self.encode_blocks(s), s if want_sum else None
+
+    def decode_add_blocks(self, wire, local2d):
+        return self.decode_blocks(wire) + local2d.to(torch.float32)
+
+    def wire_bits_per_value(self, dtype=torch.float32) -> float:
+        return self.bits + 32.0 / BLOCK
+
+    @property
+    def is_identity(self) -> bool:
+        return False
+
+
+@dataclasses.dataclass(frozen=True)
+class TqCodec(GqCodec):
+    """Ablation codec: block-scaled quantization that truncates toward
+    zero (the error profile of dropped bitplanes)."""
+
+    name: str = "tq"
+
+    def __post_init__(self):
+        object.__setattr__(self, "name", f"tq{self.bits}")
+
+    def encode_blocks(self, x2d):
+        x2d = x2d.to(torch.float32)
+        amax = x2d.abs().amax(dim=-1, keepdim=True)
+        scale = torch.where(amax == 0.0, torch.ones_like(amax), amax)
+        q = torch.trunc(x2d / scale * self._qmax())
+        q = torch.clamp(q, -self._qmax(), self._qmax()).to(torch.int8)
+        return {"q_hi": q, "q_lo": None, "scale": scale}
+
+
+# --------------------------------------------------------------------------
+# carried-state families: named and validated, not yet ported
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class _StatefulCodec(Codec):
+    """A carried-state codec the port does not run yet.  It resolves in
+    policies (so schemes naming it compile); its wire raises."""
+
+    lossless: bool = False
+
+    @property
+    def stateful(self) -> bool:
+        return True
+
+    @property
+    def is_identity(self) -> bool:
+        return False
+
+    def _unported(self, *_, **__):
+        raise NotImplementedError(
+            f"codec {self.name!r} carries state, which is not yet ported")
+
+    init_state = encode = decode = _unported
+
+
+@dataclasses.dataclass(frozen=True)
+class EfCodec(_StatefulCodec):
+    """Error-feedback wrapper around a lossy codec (``ef:<codec>``)."""
+
+    name: str = "ef"
+    inner: Codec = None
+
+    kind = "ef"
+
+    def __post_init__(self):
+        if not isinstance(self.inner, Codec):
+            raise KeyError("ef codec needs an inner codec ('ef:<codec>')")
+        if self.inner.is_identity:
+            raise KeyError(
+                f"ef wraps *lossy* codecs (there is no error to feed back "
+                f"for {self.inner.name!r})")
+        if isinstance(self.inner, EfCodec):
+            raise KeyError("ef:ef:* is redundant — one residual suffices")
+        object.__setattr__(self, "name", f"ef:{self.inner.name}")
+
+    def wire_bits_per_value(self, dtype=torch.float32) -> float:
+        return self.inner.wire_bits_per_value(dtype)
+
+    def wire_nbytes_for(self, n_elems: int) -> float:
+        return self.inner.wire_nbytes_for(n_elems)
+
+
+@dataclasses.dataclass(frozen=True)
+class PlrCodec(_StatefulCodec):
+    """PowerSGD-style low-rank projection (``plr<rank>``)."""
+
+    name: str = "plr"
+    rank: int = 8
+
+    kind = "lowrank"
+    MAX_RANK = 64
+
+    def __post_init__(self):
+        if not 1 <= self.rank <= self.MAX_RANK:
+            raise KeyError(f"plr rank must be in [1, {self.MAX_RANK}], "
+                           f"got {self.rank}")
+        object.__setattr__(self, "name", f"plr{self.rank}")
+
+    wire_nbytes_for = wire_bits_per_value = _StatefulCodec._unported
+
 
 NONE = Codec()
+MPC = MpcCodec()
+GQ8 = GqCodec(bits=8)
+TQ8 = TqCodec(bits=8)
+TQ4 = TqCodec(bits=4)
 BQ4 = BqCodec(bits=4)
 BQ8 = BqCodec(bits=8)
 BQ16 = BqCodec(bits=16)
 BQ24 = BqCodec(bits=24)
 
-_REGISTRY = {c.name: c for c in (NONE, BQ4, BQ8, BQ16, BQ24)}
-
-# registered in the reference, not yet in this package
-_NOT_YET = ("mpc", "gq8", "tq8", "tq4")
+_REGISTRY = {c.name: c for c in (NONE, MPC, GQ8, TQ8, TQ4, BQ4, BQ8, BQ16,
+                                 BQ24)}
+_PARAMETRIC: dict = {}
+_PLR_RE = re.compile(r"plr(\d+)$")
 
 
 def names() -> list[str]:
-    """Registered codec names."""
+    """Registered concrete codec names (``ef:<codec>`` and ``plr<rank>``
+    are parsed on demand by :func:`get`)."""
     return sorted(_REGISTRY)
+
+
+def _parse(name: str) -> Codec:
+    if name.startswith("ef:"):
+        return EfCodec(inner=get(name[3:]))
+    m = _PLR_RE.match(name)
+    if m:
+        return PlrCodec(rank=int(m.group(1)))
+    raise KeyError(
+        f"unknown codec {name!r}; registered: {names()}; parameterized "
+        f"forms: 'ef:<lossy codec>' and 'plr<rank>'")
 
 
 def get(name) -> Codec:
@@ -76,8 +301,10 @@ def get(name) -> Codec:
     c = _REGISTRY.get(name)
     if c is not None:
         return c
-    if isinstance(name, str) and (name in _NOT_YET or name.startswith("ef:")
-                                  or name.startswith("plr")):
-        raise NotImplementedError(f"codec {name!r} is not yet ported; "
-                                  f"have {names()}")
-    raise KeyError(f"unknown codec {name!r}; have {names()}")
+    c = _PARAMETRIC.get(name)
+    if c is None:
+        if not isinstance(name, str):
+            raise KeyError(f"unknown codec {name!r}; have {names()}")
+        c = _parse(name)
+        _PARAMETRIC[name] = c
+    return c

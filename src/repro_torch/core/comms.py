@@ -1,40 +1,865 @@
-"""Collectives, single-device stub.
+"""Compression-assisted collectives over ``torch.distributed`` (port of the
+flat half of ``repro.core.comms``).
 
-The model code calls :func:`psum` and :func:`pmax` where the reference
-(``repro.core.comms``) does, so the collectives slice only has to fill
-them in.  On a one-way axis they return their input; over a wider axis
-they raise, since the compressed ring collectives are not yet ported.
+Every collective the model and the optimizer emit goes through this module,
+tagged with a :class:`Site`.  The active compiled
+:class:`~repro_torch.core.policy.CommPlan` (``policy.use_plan``, else the
+adapter plan of the current scheme) maps the site and its payload size to a
+codec:
+
+* identity codecs (``none``, ``mpc``) run the plain collective;
+* ``bq*`` codecs run the compressed forms, whose payload is the encoded
+  wire dict: all-gather encodes once, exchanges the wire and decodes;
+  reduce-scatter and all-reduce run a ring whose hop body is the fused
+  decode-add-encode kernel (wire-only on intermediate hops, with the sum on
+  the all-reduce tail), ending in decode-add on the last reduce-scatter
+  hop.  All-reduce is the ring reduce-scatter plus an all-gather of the
+  final compressed chunk (paper §IV-A).
+
+Autodiff: each collective is a ``torch.autograd.Function`` whose backward
+runs the transpose collective under the backward-direction codec, as the
+reference's ``custom_vjp`` pairs do.
+
+An :class:`Axis` is one mesh axis seen from this rank: its size, this
+rank's index along it, its process group and the global ranks it holds.
+Ranks exchange through small private helpers.  Gloo, the backend used
+here, exchanges host tensors only, so a CUDA payload is staged through
+pinned host memory explicitly (``STAGING`` counts the bytes, and the
+seconds under :func:`time_staging`); every encode, fused hop and decode
+stays on the device.
+
+The ledger (:class:`record_traffic`), the ring options and the wire-site
+tag are process-wide rather than thread-local: autograd runs the backward
+of CUDA tensors on its own thread, which must see the same bindings.
+Hierarchical (``AxisPair``), tuned, stateful and all-to-all paths are not
+yet ported and raise.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import time
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.core import codecs, policy
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import BLOCK
+
+Site = policy.Site
+site = policy.site
 
 
 @dataclasses.dataclass(frozen=True)
 class Axis:
-    """A named mesh axis and its size (the reference reads the size from
-    the enclosing ``shard_map``; here the caller carries it)."""
+    """One mesh axis as this rank sees it.  ``ranks[i]`` is the global
+    rank at axis index ``i``; ``group`` is the process group over them
+    (``None`` with ``size == 1``, or for the default group)."""
 
     name: str
     size: int = 1
+    index: int = 0
+    group: object = dataclasses.field(default=None, compare=False,
+                                      repr=False)
+    ranks: tuple = ()
 
 
-def _one_way(op: str, axis: Axis, tag) -> None:
-    if axis.size != 1:
-        site = f" at site {tag!r}" if tag else ""
+# --------------------------------------------------------------------------
+# process-wide state: the ledger, the ring options, the wire-site tag
+# --------------------------------------------------------------------------
+
+class _State:
+    events = None
+    bidir = False
+    chunks = 1
+    wire_tag = "-"
+    time_staging = False
+
+
+_rec = _State()
+
+# bytes copied between the card and host memory for the exchange, and the
+# host seconds spent staging and exchanging (under time_staging only)
+STAGING = {"bytes": 0, "seconds": 0.0}
+
+
+def reset_staging() -> None:
+    STAGING.update(bytes=0, seconds=0.0)
+
+
+def time_staging(on: bool) -> None:
+    """Split step time into compute and exchange: with ``on``, every
+    exchange first drains the device and adds its host seconds to
+    ``STAGING["seconds"]``.  Off (the default), exchanges carry no
+    measurement sync and only the staged bytes are counted."""
+    _rec.time_staging = bool(on)
+
+
+class _EventLog(list):
+    """The ledger :class:`record_traffic` yields: the list holds the
+    analytic per-call events (:func:`_account`), ``.wire`` the measured
+    per-phase wire events (:func:`_log`)."""
+
+    def __init__(self):
+        super().__init__()
+        self.wire = []
+
+
+class record_traffic:
+    """Collective ledger.  Every public comms call appends one analytic
+    event (local payload elements, axis size, both codecs, the ring
+    schedule of ring-lowered ops) with the reference's keys, so both
+    packages' ledgers price alike; the implementations append the measured
+    wire events (encoded bytes per hop x hops).  Unlike the reference,
+    backward events carry the site tag of their forward call."""
+
+    def __enter__(self):
+        self.prev = _rec.events
+        self.events = _EventLog()
+        _rec.events = self.events
+        return self.events
+
+    def __exit__(self, *exc):
+        _rec.events = self.prev
+        return False
+
+
+def _dtype_name(dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def _account(op, tag, x, axis, c_fwd, c_bwd, bwd_op=None, level="flat",
+             elems=None, nbytes=None):
+    """Append one analytic ledger event (see the reference's docstring)."""
+    events = _rec.events
+    if events is None:
+        return
+    if level == "flat" and tag.endswith(("_inner", "_outer")):
+        level = tag.rsplit("_", 1)[1]
+    if elems is None:
+        elems = x.numel()
+    if nbytes is None:
+        nbytes = int(elems) * x.element_size()
+    n = int(axis.size)
+    ev = dict(
+        op=op, tag=tag, axis=axis.name, n=n,
+        elems=int(elems), dtype=_dtype_name(x.dtype), nbytes=int(nbytes),
+        codec_fwd=c_fwd.name, codec_bwd=c_bwd.name,
+        bwd_op=bwd_op, mult=1, remat=False,
+        bidir=_bidir(), level=level)
+    if op in ("all_reduce", "reduce_scatter") and n > 1:
+        sched = _ring_schedule(ops.padded_rows(-(-int(elems) // n)))
+        ev["ring"] = dict(rows=sched.rows, hops=n - 1,
+                          parts=[list(p) for p in sched.parts],
+                          bidir=sched.bidir, fallback=sched.fallback,
+                          chunks=sched.chunks)
+    events.append(ev)
+
+
+def _log(op, tag, codec, payload_bytes, hops, **facts):
+    """Measured wire event: ``payload_bytes`` encoded bytes per hop (tile
+    padding included), repeated ``hops`` times."""
+    events = _rec.events
+    if events is None:
+        return
+    if not tag or tag == "-":
+        tag = _rec.wire_tag
+    events.wire.append(dict(
+        op=op, tag=tag, codec=codec.name, payload_bytes=int(payload_bytes),
+        hops=int(hops), mult=1, **facts))
+
+
+class _bind:
+    """Bind the wire-site tag and ring options (``None`` keeps the current
+    value) for the duration of a block."""
+
+    def __init__(self, tag=None, bidir=None, chunks=None):
+        self.new = (tag, bidir, chunks)
+
+    def __enter__(self):
+        self.prev = (_rec.wire_tag, _rec.bidir, _rec.chunks)
+        tag, bidir, chunks = self.new
+        if tag is not None:
+            _rec.wire_tag = tag
+        if bidir is not None:
+            _rec.bidir = bool(bidir)
+        if chunks is not None:
+            _rec.chunks = int(chunks)
+        return self
+
+    def __exit__(self, *exc):
+        _rec.wire_tag, _rec.bidir, _rec.chunks = self.prev
+        return False
+
+
+def _wire_site(tag: str):
+    return _bind(tag=tag)
+
+
+class ring_options(_bind):
+    """Levers of the compressed rings: ``bidir`` splits the payload rows
+    over two counter-rotating rings; ``chunks`` stripes each directional
+    ring into up to that many row-striped sub-rings.  Both are bit-exact
+    for bq codecs (scales are per 128-lane row) at a fixed ``bidir``."""
+
+    def __init__(self, bidir: bool, chunks: int = 1):
+        if chunks < 1:
+            raise ValueError(f"ring chunks must be >= 1, got {chunks}")
+        super().__init__(bidir=bidir, chunks=chunks)
+
+
+def _bidir() -> bool:
+    return bool(_rec.bidir)
+
+
+def _ring_chunks() -> int:
+    return int(_rec.chunks)
+
+
+def _payload_nbytes(x) -> int:
+    return int(x.numel() * x.element_size())
+
+
+def _codec_pair(tag, nbytes: int | None = None):
+    """(fwd, bwd) codecs of one single-stage collective, resolved through
+    the active compiled plan."""
+    return policy.current_plan().codec_pair(policy.as_site(tag), nbytes)
+
+
+def _require_stateless(s, *cs):
+    for c in cs:
+        if getattr(c, "stateful", False):
+            raise NotImplementedError(
+                f"stateful codec {c.name!r} resolved at site "
+                f"{s.ledger_tag!r}: carried codec state is not yet ported "
+                f"(and never rides autodiff traffic).  Route this site to a "
+                f"stateless codec with a policy rule, e.g. "
+                f"Rule('bq8', dim='{s.dim}').")
+
+
+def _require_flat(axis):
+    if not isinstance(axis, Axis):
         raise NotImplementedError(
-            f"{op} over axis {axis.name!r} of size {axis.size}{site} is not "
-            f"yet ported")
+            f"collectives over {axis!r}: only a flat Axis is ported "
+            f"(hierarchical AxisPair collectives are not yet ported)")
 
 
-def psum(x, axis: Axis, tag=None):
-    """All-reduce-sum over ``axis`` (identity on a one-way axis)."""
-    _one_way("psum", axis, tag)
-    return x
+# --------------------------------------------------------------------------
+# raw exchange between ranks (uncompressed; gloo takes host tensors)
+# --------------------------------------------------------------------------
+
+def _host(t: torch.Tensor, copy: bool = False) -> torch.Tensor:
+    """A host copy of ``t`` for the exchange (pinned when it comes from the
+    card); a host ``t`` is copied only when ``copy`` (the exchange writes
+    into it)."""
+    if t.device.type == "cpu":
+        return t.clone(memory_format=torch.contiguous_format) if copy \
+            else t.contiguous()
+    h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    h.copy_(t)
+    STAGING["bytes"] += h.numel() * h.element_size()
+    return h
+
+
+def _device(h: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    if like.device.type == "cpu":
+        return h
+    STAGING["bytes"] += h.numel() * h.element_size()
+    return h.to(like.device)
+
+
+def _pinned_empty(shape, dtype, like):
+    return torch.empty(shape, dtype=dtype,
+                       pin_memory=like.device.type == "cuda")
+
+
+class _staged:
+    """Under :func:`time_staging`, time one exchange on the host clock,
+    with the device drained first so queued kernels do not count as
+    exchange time; otherwise do nothing."""
+
+    def __init__(self, like: torch.Tensor):
+        self.on = _rec.time_staging
+        self.like = like
+
+    def __enter__(self):
+        if self.on:
+            if self.like.device.type == "cuda":
+                torch.cuda.synchronize(self.like.device)
+            self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        if self.on:
+            STAGING["seconds"] += time.perf_counter() - self.t0
+        return False
+
+
+def _pack(wire: dict):
+    """Wire dict -> (one uint8 tensor, layout): one message per exchange."""
+    layout, parts = [], []
+    for k, v in wire.items():
+        if v is None:
+            layout.append((k, None, None, 0))
+            continue
+        b = v.contiguous().reshape(-1).view(torch.uint8)
+        layout.append((k, tuple(v.shape), v.dtype, b.numel()))
+        parts.append(b)
+    return torch.cat(parts) if len(parts) > 1 else parts[0], layout
+
+
+def _unpack(buf: torch.Tensor, layout) -> dict:
+    out, at = {}, 0
+    for k, shape, dtype, nb in layout:
+        if shape is None:
+            out[k] = None
+            continue
+        out[k] = buf[at:at + nb].view(dtype).reshape(shape)
+        at += nb
+    return out
+
+
+def _bound(axis: Axis) -> Axis:
+    if axis.size > 1 and len(axis.ranks) != axis.size:
+        raise RuntimeError(
+            f"axis {axis.name!r} of size {axis.size} is not bound to a "
+            f"process group (build the mesh with launch.mesh.make_mesh)")
+    return axis
+
+
+def _exchange(buf: torch.Tensor, axis: Axis, perm) -> torch.Tensor:
+    """Point-to-point permutation of one tensor over ``axis``: for each
+    ``(src, dst)`` pair of axis indices, ``src`` sends and ``dst``
+    receives; a rank that receives nothing gets zeros.  Every send and
+    receive of the rank is posted together, so a ring cannot deadlock."""
+    idx = _bound(axis).index
+    with _staged(buf):
+        h = _host(buf)
+        out = torch.zeros_like(h)
+        ops_ = [dist.P2POp(dist.isend, h, axis.ranks[d], group=axis.group)
+                for s, d in perm if s == idx]
+        ops_ += [dist.P2POp(dist.irecv, out, axis.ranks[s], group=axis.group)
+                 for s, d in perm if d == idx]
+        if ops_:
+            for req in dist.batch_isend_irecv(ops_):
+                req.wait()
+        return _device(out, buf)
+
+
+def _shift_wire(wire: dict, axis: Axis, shift: int) -> dict:
+    """Ring hop: send ``wire`` to axis index ``(i + shift) % n`` and return
+    the wire received from ``(i - shift) % n``."""
+    n = axis.size
+    buf, layout = _pack(wire)
+    perm = [(j, (j + shift) % n) for j in range(n)]
+    return _unpack(_exchange(buf, axis, perm), layout)
+
+
+def _all_gather_raw(t: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """-> ``[n, *t.shape]``: every rank's ``t`` in axis order."""
+    _bound(axis)
+    with _staged(t):
+        h = _host(t)
+        out = _pinned_empty((axis.size,) + tuple(h.shape), h.dtype, t)
+        dist.all_gather(list(out.unbind(0)), h, group=axis.group)
+        return _device(out, t)
+
+
+def _all_gather_wire(wire: dict, axis: Axis) -> dict:
+    """Wire dict -> wire dict of ``[n, ...]`` planes in axis order."""
+    buf, layout = _pack(wire)
+    g = _all_gather_raw(buf, axis)
+    per = [_unpack(g[j], layout) for j in range(axis.size)]
+    return {k: None if per[0][k] is None else
+            torch.stack([p[k] for p in per]) for k in wire}
+
+
+def _reduce_dtype(dtype) -> torch.dtype:
+    """Sums of low-precision floats run in f32 and round once."""
+    return torch.float32 if dtype in (torch.bfloat16, torch.float16) \
+        else dtype
+
+
+def _all_reduce_raw(x: torch.Tensor, axis: Axis, op=dist.ReduceOp.SUM):
+    if _bound(axis).size == 1:
+        return x
+    with _staged(x):
+        h = _host(x.to(_reduce_dtype(x.dtype)), copy=True)
+        dist.all_reduce(h, op=op, group=axis.group)
+        return _device(h, x).to(x.dtype)
+
+
+def _psum_scatter_raw(x: torch.Tensor, axis: Axis, axis_dim: int):
+    """Uncompressed tiled reduce-scatter of dim ``axis_dim``: an all-to-all
+    of the n chunks, then a sum in axis order."""
+    n = _bound(axis).size
+    xs = x.unflatten(axis_dim, (n, -1)).movedim(axis_dim, 0)  # [n, ..chunk..]
+    with _staged(x):
+        h = _host(xs.to(_reduce_dtype(x.dtype)))
+        out = _pinned_empty(h.shape, h.dtype, x)
+        dist.all_to_all_single(out, h, group=axis.group)
+        return _device(out.sum(dim=0), x).to(x.dtype)
+
+
+def raw_psum(x: torch.Tensor, axis: Axis, mean: bool = False):
+    """Uncompressed all-reduce (``lax.psum``/``pmean``), outside the
+    ledger.  Differentiable: its backward is the same all-reduce of the
+    cotangent, the transpose the reference's step differentiates through
+    (its shard_map runs without varying-axes checks)."""
+    if axis.size == 1:
+        return x
+    return _RawPsumFn.apply(x, axis, mean)
+
+
+class _RawPsumFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, mean):
+        ctx.axis, ctx.mean = axis, mean
+        out = _all_reduce_raw(x, axis)
+        return out / axis.size if mean else out
+
+    @staticmethod
+    def backward(ctx, g):
+        out = _all_reduce_raw(g, ctx.axis)
+        return (out / ctx.axis.size if ctx.mean else out), None, None
 
 
 def pmax(x, axis: Axis):
-    """Max-reduce over ``axis`` (identity on a one-way axis)."""
-    _one_way("pmax", axis, None)
-    return x
+    """Max all-reduce over ``axis`` (never compressed: tiny softmax-stat
+    payloads).  No gradient flows through it, as in the reference, whose
+    VJP is zero; callers pass detached values."""
+    _require_flat(axis)
+    if axis.size == 1:
+        return x
+    with torch.no_grad():
+        return _all_reduce_raw(x.detach(), axis, op=dist.ReduceOp.MAX)
+
+
+# --------------------------------------------------------------------------
+# block-layout helpers
+# --------------------------------------------------------------------------
+
+def _chunked_blocks(flat: torch.Tensor, n: int) -> torch.Tensor:
+    """1-D -> [n, M, BLOCK] f32 with each of the n chunks tile-padded."""
+    per = -(-flat.shape[0] // n)
+    m = ops.padded_rows(per)
+    out = torch.zeros(n * m * BLOCK, dtype=torch.float32, device=flat.device)
+    out[:flat.shape[0]] = flat
+    return out.reshape(n, m, BLOCK)
+
+
+def _split_for_scatter(x: torch.Tensor, axis_dim: int, n: int):
+    """x with x.shape[axis_dim] % n == 0 -> ([n, M, BLOCK] blocks of the
+    n chunks, chunk_shape)."""
+    s = x.shape[axis_dim]
+    if s % n:
+        raise ValueError(f"dim {axis_dim} of size {s} not divisible by axis "
+                         f"size {n}")
+    chunk_shape = x.shape[:axis_dim] + (s // n,) + x.shape[axis_dim + 1:]
+    xs = x.reshape(x.shape[:axis_dim] + (n, s // n) + x.shape[axis_dim + 1:])
+    flat = torch.movedim(xs, axis_dim, 0).reshape(n, -1)
+    m = ops.padded_rows(flat.shape[1])
+    out = torch.zeros((n, m * BLOCK), dtype=torch.float32, device=x.device)
+    out[:, :flat.shape[1]] = flat
+    return out.reshape(n, m, BLOCK), tuple(chunk_shape)
+
+
+# --------------------------------------------------------------------------
+# the compressed ring (reduce-scatter core)
+# --------------------------------------------------------------------------
+
+_RING_TILE = 8  # kernel row tile: every sub-ring keeps tile alignment
+
+RingSchedule = collections.namedtuple(
+    "RingSchedule", ["parts", "rows", "bidir", "fallback", "chunks"])
+
+
+def _ring_schedule(m: int, bidir: bool | None = None,
+                   chunks: int | None = None) -> RingSchedule:
+    """Row partition of an ``[n, m, BLOCK]`` ring payload into independent
+    sub-rings: ``parts`` is a tuple of ``(row_lo, row_hi, direction)``.
+    The bidirectional split comes first (skipped, ``fallback=True``, when
+    the halves would break the 8-row tile), then each directional segment
+    is striped into up to ``chunks`` tile-aligned parts.  ``bidir`` and
+    ``chunks`` record what was realized.  (Verbatim from the reference.)"""
+    want_bidir = _bidir() if bidir is None else bool(bidir)
+    want_chunks = _ring_chunks() if chunks is None else int(chunks)
+    half = (m // 2) // _RING_TILE * _RING_TILE
+    bidir = want_bidir and half >= _RING_TILE
+    fallback = want_bidir and not bidir
+    segs = [(0, half, +1), (half, m, -1)] if bidir else [(0, m, +1)]
+    parts = []
+    realized = 1
+    for lo, hi, d in segs:
+        tiles = (hi - lo) // _RING_TILE
+        k = max(1, min(want_chunks, tiles))
+        realized = max(realized, k)
+        base, rem = divmod(tiles, k)
+        at = lo
+        for i in range(k):
+            rows = (base + (1 if i < rem else 0)) * _RING_TILE
+            parts.append((at, at + rows, d))
+            at += rows
+        assert at == hi
+    return RingSchedule(tuple(parts), m, bidir, fallback, realized)
+
+
+def _ring_rs_dir(xb, axis: Axis, codec, direction: int,
+                 want_wire: bool = True):
+    """One directional ring (+1 clockwise, -1 counter-clockwise).  Rank i
+    ends owning the full sum of chunk i.  Returns ``(acc, wire,
+    hop_nbytes)``.  Intermediate hops run the wire-only fused hop; the last
+    hop runs the fused hop with the sum (``want_wire``: the all-reduce
+    gathers the compressed chunk) or decode-add (plain reduce-scatter)."""
+    n = xb.shape[0]
+    idx = axis.index
+
+    def take(k):
+        return xb[k % n]
+
+    acc = take(idx - direction)
+    wire = codec.encode_blocks(acc)
+    hop_nbytes = ops.wire_nbytes(wire)
+    for t in range(n - 1):
+        wire = _shift_wire(wire, axis, direction)
+        local = take(idx - direction * (2 + t))
+        if t < n - 2:
+            wire, _ = codec.decode_add_encode_blocks(wire, local,
+                                                     want_sum=False)
+        elif want_wire:
+            wire, acc = codec.decode_add_encode_blocks(wire, local)
+        else:
+            acc = codec.decode_add_blocks(wire, local)
+            wire = None
+    return acc, wire, hop_nbytes
+
+
+def _ring_reduce_scatter(xb, axis: Axis, codec, want_wire: bool = True):
+    """xb: [n, M, BLOCK] per-rank addends -> (sum chunk [M, BLOCK] f32 owned
+    by this rank — rank i owns chunk i — and the final compressed wire,
+    ``None`` unless ``want_wire``).  The row partition comes from
+    :func:`_ring_schedule`; sub-rings run one after another, in the same
+    order on every rank."""
+    n, m = xb.shape[0], xb.shape[1]
+    sched = _ring_schedule(m)
+    accs, wires, hop_nbytes = [], [], 0
+    for lo, hi, d in sched.parts:
+        part = xb if len(sched.parts) == 1 else xb[:, lo:hi]
+        acc, wire, nb = _ring_rs_dir(part, axis, codec, d,
+                                     want_wire=want_wire)
+        accs.append(acc)
+        wires.append(wire)
+        hop_nbytes += nb
+    _log("rs_ring", "-", codec, hop_nbytes, n - 1,
+         parts=len(sched.parts), bidir=sched.bidir, fallback=sched.fallback)
+    if len(sched.parts) == 1:
+        return accs[0], wires[0]
+    acc = torch.cat(accs, dim=0)
+    wire = None if not want_wire else {
+        k: None if wires[0][k] is None else
+        torch.cat([w[k] for w in wires], dim=0) for k in wires[0]}
+    return acc, wire
+
+
+# --------------------------------------------------------------------------
+# primitive implementations (no autodiff)
+# --------------------------------------------------------------------------
+
+def _psum_impl(x, axis: Axis, codec):
+    if codec.is_identity:
+        _log("all_reduce", "-", codec, 2 * _payload_nbytes(x), 1)
+        return _all_reduce_raw(x, axis)
+    n = axis.size
+    if n == 1:
+        return x
+    xb = _chunked_blocks(x.reshape(-1), n)
+    acc, wire = _ring_reduce_scatter(xb, axis, codec)
+    del acc, xb  # the all-reduce gathers the final compressed chunk instead
+    gathered = _all_gather_wire(wire, axis)
+    _log("ar_allgather", "-", codec, ops.wire_nbytes(wire), n - 1)
+    full = codec.decode_blocks(gathered)            # [n, M, BLOCK]
+    return full.reshape(-1)[:x.numel()].reshape(x.shape).to(x.dtype)
+
+
+def _reduce_scatter_impl(x, axis: Axis, axis_dim: int, codec):
+    n = axis.size
+    if n == 1:
+        return x
+    if codec.is_identity:
+        _log("reduce_scatter", "-", codec, _payload_nbytes(x), 1)
+        return _psum_scatter_raw(x, axis, axis_dim)
+    xb, chunk_shape = _split_for_scatter(x, axis_dim, n)
+    acc, _ = _ring_reduce_scatter(xb, axis, codec, want_wire=False)
+    return ops.from_blocks(acc, chunk_shape, x.dtype)
+
+
+def _all_gather_impl(x, axis: Axis, axis_dim: int, codec):
+    n = axis.size
+    if n == 1:
+        return x
+    shape = list(x.shape)
+    shape[axis_dim] *= n
+    if codec.is_identity:
+        _log("all_gather", "-", codec, _payload_nbytes(x), n - 1)
+        parts = _all_gather_raw(x, axis)
+    else:
+        wire, _ = codec.encode(x)
+        _log("all_gather", "-", codec, ops.wire_nbytes(wire), n - 1)
+        blocks = codec.decode_blocks(_all_gather_wire(wire, axis))
+        # strip each shard's tile padding BEFORE concatenating shards
+        parts = blocks.reshape(n, -1)[:, :x.numel()] \
+            .reshape((n,) + tuple(x.shape)).to(x.dtype)
+    return torch.movedim(parts, 0, axis_dim).reshape(shape)
+
+
+def _ppermute_impl(x, axis: Axis, perm, codec):
+    """Point-to-point permutation of ``x`` (ranks that receive nothing get
+    zeros), its wire encoded under ``codec``."""
+    if codec.is_identity:
+        _log("ppermute", "-", codec, _payload_nbytes(x), 1)
+        return _exchange(x.contiguous(), axis, perm)
+    wire, _ = codec.encode(x)
+    _log("ppermute", "-", codec, ops.wire_nbytes(wire), 1)
+    buf, layout = _pack(wire)
+    return codec.decode(_unpack(_exchange(buf, axis, perm), layout),
+                        x.shape, x.dtype)
+
+
+# --------------------------------------------------------------------------
+# autodiff-aware pairs (the reference's custom_vjp pairs)
+# --------------------------------------------------------------------------
+
+def _opts():
+    """The bindings a backward must re-establish on autograd's thread."""
+    return _rec.wire_tag, _rec.bidir, _rec.chunks
+
+
+class _PsumFn(torch.autograd.Function):
+    """All-reduce forward, all-reduce of the cotangent backward."""
+
+    @staticmethod
+    def forward(ctx, x, axis, c_fwd, c_bwd):
+        ctx.saved = (axis, c_bwd, _opts())
+        return _psum_impl(x, axis, c_fwd)
+
+    @staticmethod
+    def backward(ctx, g):
+        axis, c_bwd, opts = ctx.saved
+        with _bind(*opts):
+            return _psum_impl(g, axis, c_bwd), None, None, None
+
+
+class _AgFn(torch.autograd.Function):
+    """All-gather forward, reduce-scatter of the cotangent backward."""
+
+    @staticmethod
+    def forward(ctx, x, axis, axis_dim, c_fwd, c_bwd):
+        ctx.saved = (axis, axis_dim, c_bwd, _opts())
+        return _all_gather_impl(x, axis, axis_dim, c_fwd)
+
+    @staticmethod
+    def backward(ctx, g):
+        axis, axis_dim, c_bwd, opts = ctx.saved
+        with _bind(*opts):
+            return (_reduce_scatter_impl(g, axis, axis_dim, c_bwd),
+                    None, None, None, None)
+
+
+class _RsFn(torch.autograd.Function):
+    """Reduce-scatter forward, all-gather of the cotangent backward."""
+
+    @staticmethod
+    def forward(ctx, x, axis, axis_dim, c_fwd, c_bwd):
+        ctx.saved = (axis, axis_dim, c_bwd, _opts())
+        return _reduce_scatter_impl(x, axis, axis_dim, c_fwd)
+
+    @staticmethod
+    def backward(ctx, g):
+        axis, axis_dim, c_bwd, opts = ctx.saved
+        with _bind(*opts):
+            return (_all_gather_impl(g, axis, axis_dim, c_bwd),
+                    None, None, None, None)
+
+
+class _GFn(torch.autograd.Function):
+    """Megatron 'g': identity forward, all-reduce backward."""
+
+    @staticmethod
+    def forward(ctx, x, axis, c_bwd):
+        ctx.saved = (axis, c_bwd, _opts())
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        axis, c_bwd, opts = ctx.saved
+        with _bind(*opts):
+            return _psum_impl(g, axis, c_bwd), None, None
+
+
+class _FFn(torch.autograd.Function):
+    """Megatron 'f': all-reduce forward, identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, axis, c_fwd):
+        return _psum_impl(x, axis, c_fwd)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+# --------------------------------------------------------------------------
+# public, site-resolving entry points
+# --------------------------------------------------------------------------
+
+def psum(x, axis: Axis, tag):
+    """All-reduce-sum over ``axis`` under the active plan's codec for
+    ``tag`` (backward: all-reduce under the bwd codec)."""
+    s = policy.as_site(tag)
+    _require_flat(axis)
+    c_fwd, c_bwd = _codec_pair(s, _payload_nbytes(x))
+    _require_stateless(s, c_fwd, c_bwd)
+    _account("all_reduce", s.ledger_tag, x, axis, c_fwd, c_bwd,
+             bwd_op="all_reduce", level=s.level or "flat")
+    with _wire_site(s.ledger_tag):
+        if axis.size == 1:
+            return _psum_impl(x, axis, c_fwd)
+        return _PsumFn.apply(x, axis, c_fwd, c_bwd)
+
+
+def all_gather(x, axis: Axis, axis_dim: int, tag):
+    """All-gather dim ``axis_dim`` over ``axis`` (backward: reduce-scatter
+    under the bwd codec)."""
+    s = policy.as_site(tag)
+    _require_flat(axis)
+    c_fwd, c_bwd = _codec_pair(s, _payload_nbytes(x))
+    _require_stateless(s, c_fwd, c_bwd)
+    _account("all_gather", s.ledger_tag, x, axis, c_fwd, c_bwd,
+             bwd_op="reduce_scatter", level=s.level or "flat")
+    if axis.size == 1:
+        return x
+    with _wire_site(s.ledger_tag):
+        return _AgFn.apply(x, axis, axis_dim, c_fwd, c_bwd)
+
+
+def reduce_scatter(x, axis: Axis, axis_dim: int, tag):
+    """Sum-reduce-scatter dim ``axis_dim`` over ``axis`` (backward:
+    all-gather under the bwd codec)."""
+    s = policy.as_site(tag)
+    _require_flat(axis)
+    c_fwd, c_bwd = _codec_pair(s, _payload_nbytes(x))
+    _require_stateless(s, c_fwd, c_bwd)
+    _account("reduce_scatter", s.ledger_tag, x, axis, c_fwd, c_bwd,
+             bwd_op="all_gather", level=s.level or "flat")
+    if axis.size == 1:
+        return x
+    with _wire_site(s.ledger_tag):
+        return _RsFn.apply(x, axis, axis_dim, c_fwd, c_bwd)
+
+
+def copy_fwd_psum_bwd(x, axis: Axis, tag):
+    """Megatron 'g': identity forward, (compressed) all-reduce backward."""
+    s = policy.as_site(tag)
+    _require_flat(axis)
+    _, c_bwd = _codec_pair(s, _payload_nbytes(x))
+    _require_stateless(s, c_bwd)
+    _account("none", s.ledger_tag, x, axis, c_bwd, c_bwd,
+             bwd_op="all_reduce", level=s.level or "flat")
+    if axis.size == 1:
+        return x
+    with _wire_site(s.ledger_tag):
+        return _GFn.apply(x, axis, c_bwd)
+
+
+def psum_fwd_copy_bwd(x, axis: Axis, tag):
+    """Megatron 'f': (compressed) all-reduce forward, identity backward."""
+    s = policy.as_site(tag)
+    _require_flat(axis)
+    c_fwd, _ = _codec_pair(s, _payload_nbytes(x))
+    _require_stateless(s, c_fwd)
+    _account("all_reduce", s.ledger_tag, x, axis, c_fwd, c_fwd,
+             bwd_op=None, level=s.level or "flat")
+    with _wire_site(s.ledger_tag):
+        if axis.size == 1:
+            return _psum_impl(x, axis, c_fwd)
+        return _FFn.apply(x, axis, c_fwd)
+
+
+# --------------------------------------------------------------------------
+# flat-vector paths for the optimizer (outside autodiff)
+# --------------------------------------------------------------------------
+
+def _stateful_unported(s, c):
+    raise NotImplementedError(
+        f"codec {c.name!r} at optimizer site {s.ledger_tag!r}: carried "
+        f"codec state (ef:*, plr*) is not yet ported")
+
+
+def reduce_scatter_flat(flat: torch.Tensor, axis: Axis, tag="dp",
+                        mean: bool = False) -> torch.Tensor:
+    """1-D sum-reduce-scatter: rank i returns padded chunk i (length
+    ``padded_rows(ceil(len / n)) * BLOCK``)."""
+    s = policy.as_site(tag)
+    _require_flat(axis)
+    c, _ = _codec_pair(s, _payload_nbytes(flat))
+    if c.stateful and axis.size > 1:
+        _stateful_unported(s, c)
+    if c.stateful:          # trivial axis: nothing crosses the wire
+        c = codecs.NONE
+    _account("reduce_scatter", s.ledger_tag, flat, axis, c, c, bwd_op=None,
+             level=s.level or "flat")
+    with _wire_site(s.ledger_tag):
+        return _reduce_scatter_flat_impl(flat, axis, c, mean)
+
+
+def _reduce_scatter_flat_impl(flat, axis: Axis, c, mean):
+    n = axis.size
+    if n == 1:
+        # still tile-pad: the ZeRO-1 master chunk is sized
+        # padded_rows(ceil(len / n)) * BLOCK even on a trivial axis
+        m = ops.padded_rows(flat.shape[0])
+        flat = torch.nn.functional.pad(flat, (0, m * BLOCK - flat.shape[0]))
+        return flat / n if mean else flat
+    xb = _chunked_blocks(flat, n)
+    if c.is_identity:
+        _log("reduce_scatter", "-", c, _payload_nbytes(flat), 1)
+        chunk = _psum_scatter_raw(xb, axis, 0)[0]
+    else:
+        chunk, _ = _ring_reduce_scatter(xb, axis, c, want_wire=False)
+    chunk = chunk.reshape(-1)
+    return chunk / n if mean else chunk
+
+
+def all_gather_flat(chunk: torch.Tensor, axis: Axis, total: int,
+                    tag="zero") -> torch.Tensor:
+    """Inverse of :func:`reduce_scatter_flat`: gather the padded chunks,
+    trim to ``total``."""
+    s = policy.as_site(tag)
+    _require_flat(axis)
+    c, _ = _codec_pair(s, _payload_nbytes(chunk))
+    if c.stateful and axis.size > 1:
+        _stateful_unported(s, c)
+    if c.stateful:
+        c = codecs.NONE
+    _account("all_gather", s.ledger_tag, chunk, axis, c, c, bwd_op=None,
+             level=s.level or "flat")
+    with _wire_site(s.ledger_tag):
+        return _all_gather_flat_impl(chunk, axis, total, c)
+
+
+def _all_gather_flat_impl(chunk, axis: Axis, total, c):
+    n = axis.size
+    if n == 1:
+        return chunk[:total]
+    if c.is_identity:
+        _log("all_gather", "-", c, _payload_nbytes(chunk), n - 1)
+        full = _all_gather_raw(chunk, axis).reshape(-1)
+    else:
+        wire = c.encode_blocks(chunk.reshape(-1, BLOCK))
+        _log("all_gather", "-", c, ops.wire_nbytes(wire), n - 1)
+        gathered = {k: None if v is None else v.reshape(-1, v.shape[-1])
+                    for k, v in _all_gather_wire(wire, axis).items()}
+        full = c.decode_blocks(gathered).reshape(-1)
+    return full[:total]

@@ -1,7 +1,7 @@
 """Hopper kernels for the block-quantization (bq) codec, with their plain
 PyTorch versions beside them.
 
-Three kernels, hand-written in CUDA C++ for ``sm_90a`` (``csrc/bq.cu``):
+Five kernels, hand-written in CUDA C++ for ``sm_90a`` (``csrc/bq.cu``):
 
 * :func:`bq_encode` replaces ``repro/kernels/bq.py::bq_encode_pallas``
   (``_encode_kernel``/``_encode24_kernel``): ``(M, 128)`` f32 -> wire planes.
@@ -9,8 +9,15 @@ Three kernels, hand-written in CUDA C++ for ``sm_90a`` (``csrc/bq.cu``):
   (``_decode_kernel``/``_decode24_kernel``): wire planes -> ``(M, 128)`` f32.
 * :func:`bq_gather_decode` replaces ``bq_gather_decode_pallas``: decodes the
   pool rows named by a block table, reading the table inside the kernel.
+* :func:`bq_decode_add_encode` replaces ``bq_decode_add_encode_pallas``,
+  the fused ring hop ``encode(local + decode(wire))``: with the f32 sum
+  (``_dae_kernel``/``_dae24_kernel``, the all-reduce tail) or wire-only
+  (``_daew_kernel``/``_daew24_kernel``, intermediate reduce-scatter hops).
+* :func:`bq_decode_add` replaces ``bq_decode_add_pallas``
+  (``_da_kernel``/``_da24_kernel``), the last reduce-scatter hop
+  ``local + decode(wire)``.
 
-All three move a few bytes per flop, so on an H100 they are bound by bytes
+All five move a few bytes per flop, so on an H100 they are bound by bytes
 moved over 3.35 TB/s.  The kernels give each 128-value row to one warp,
 read and write every byte once with coalesced vector accesses, and keep
 the gathered planes out of device memory (see the source note in
@@ -49,13 +56,17 @@ _BUILD = Path(__file__).parent / "_build"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-LAUNCHES = {"bq_encode": 0, "bq_decode": 0, "bq_gather_decode": 0}
+LAUNCHES = {"bq_encode": 0, "bq_decode": 0, "bq_gather_decode": 0,
+            "bq_decode_add_encode": 0, "bq_decode_add_encode_wire": 0,
+            "bq_decode_add": 0}
 
 # plain PyTorch versions of the three kernels: the CPU path, and the
 # yardstick the kernels are compared with on the card
 encode_plain = ref.bq_encode_ref
 decode_plain = ref.bq_decode_ref
 gather_decode_plain = ref.bq_gather_decode_ref
+decode_add_encode_plain = ref.bq_decode_add_encode_ref
+decode_add_plain = ref.bq_decode_add_ref
 
 
 def reset_launches() -> None:
@@ -135,7 +146,11 @@ def _load():
             lib.bq_decode.argtypes = [vp, vp, vp, vp, ll, i, f, vp]
             lib.bq_gather_decode.argtypes = [vp, vp, vp, vp, ll, ll, ll, vp,
                                              i, f, vp]
-            for fn in (lib.bq_encode, lib.bq_decode, lib.bq_gather_decode):
+            lib.bq_decode_add_encode.argtypes = [vp, vp, vp, vp, vp, vp, vp,
+                                                 vp, ll, i, f, f, vp]
+            lib.bq_decode_add.argtypes = [vp, vp, vp, vp, vp, ll, i, f, vp]
+            for fn in (lib.bq_encode, lib.bq_decode, lib.bq_gather_decode,
+                       lib.bq_decode_add_encode, lib.bq_decode_add):
                 fn.restype = ctypes.c_int
             _lib = lib
     return _lib
@@ -255,4 +270,53 @@ def bq_gather_decode(q_hi, q_lo, scale, idx: torch.Tensor,
                 q_hi.data_ptr(), _ptr(q_lo), scale.data_ptr(),
                 idx.data_ptr(), n_idx, n_blocks, rows_per_block,
                 out.data_ptr(), bits, _INV_QMAX[bits])
+    return out
+
+
+def _check_local(local, m: int) -> None:
+    _check(local, "local", torch.float32, (m, BLOCK), align=16)
+
+
+def bq_decode_add_encode(q_hi, q_lo, scale, local, bits: int,
+                         want_sum: bool = True):
+    """Fused ring hop: wire planes ``(M, w)`` + local ``(M, 128)`` f32 ->
+    ``(q_hi', q_lo' | None, scale', sum | None)``; ``want_sum=False`` is the
+    wire-only form, which never writes the f32 sum."""
+    ref._check_bits(bits)
+    if _on_cpu(q_hi, q_lo, scale, local):
+        hi, lo, sc, s = decode_add_encode_plain(q_hi, q_lo, scale, local, bits)
+        return hi, lo, sc, s if want_sum else None
+    m = q_hi.shape[0]
+    _check_planes(q_hi, q_lo, scale, bits, (m,))
+    _check_local(local, m)
+    dev = q_hi.device
+    o_hi = torch.empty((m, hi_width(bits)), dtype=hi_dtype(bits), device=dev)
+    o_lo = (torch.empty((m, BLOCK), dtype=torch.uint8, device=dev)
+            if bits == 24 else None)
+    o_scale = torch.empty((m, 1), dtype=torch.float32, device=dev)
+    s = (torch.empty((m, BLOCK), dtype=torch.float32, device=dev)
+         if want_sum else None)
+    if m:
+        _launch("bq_decode_add_encode" if want_sum
+                else "bq_decode_add_encode_wire", q_hi,
+                _load().bq_decode_add_encode, q_hi.data_ptr(), _ptr(q_lo),
+                scale.data_ptr(), local.data_ptr(), o_hi.data_ptr(),
+                _ptr(o_lo), o_scale.data_ptr(), _ptr(s), m, bits,
+                float(_QMAX[bits]), _INV_QMAX[bits])
+    return o_hi, o_lo, o_scale, s
+
+
+def bq_decode_add(q_hi, q_lo, scale, local, bits: int) -> torch.Tensor:
+    """Last reduce-scatter hop: ``local + decode(wire)`` -> ``(M, 128)`` f32."""
+    ref._check_bits(bits)
+    if _on_cpu(q_hi, q_lo, scale, local):
+        return decode_add_plain(q_hi, q_lo, scale, local, bits)
+    m = q_hi.shape[0]
+    _check_planes(q_hi, q_lo, scale, bits, (m,))
+    _check_local(local, m)
+    out = torch.empty((m, BLOCK), dtype=torch.float32, device=q_hi.device)
+    if m:
+        _launch("bq_decode_add", q_hi, _load().bq_decode_add,
+                q_hi.data_ptr(), _ptr(q_lo), scale.data_ptr(),
+                local.data_ptr(), out.data_ptr(), m, bits, _INV_QMAX[bits])
     return out

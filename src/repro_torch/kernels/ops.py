@@ -21,12 +21,26 @@ from repro_torch.kernels.ref import BLOCK
 
 _TILE_ELEMS = bq.TILE_M * BLOCK
 _BACKENDS = (None, "torch")
+_DEFAULT_BACKEND = None
+
+
+def set_default_backend(name) -> None:
+    """Backend taken when a call passes none: ``None`` dispatches by device
+    (the kernels on the card), ``"torch"`` forces the plain versions.
+    ``launch.train.run`` and ``launch.ring_check`` set it for a whole run
+    from their ``backend`` argument, so that ``chip_smoke.py`` can hold the
+    kernels against their plain versions end to end; a single call passes
+    ``backend`` itself."""
+    global _DEFAULT_BACKEND
+    if name not in _BACKENDS:
+        raise ValueError(f"backend must be one of {_BACKENDS}, got {name!r}")
+    _DEFAULT_BACKEND = name
 
 
 def _plain(backend) -> bool:
     if backend not in _BACKENDS:
         raise ValueError(f"backend must be one of {_BACKENDS}, got {backend!r}")
-    return backend == "torch"
+    return (backend or _DEFAULT_BACKEND) == "torch"
 
 
 def padded_rows(n: int) -> int:
@@ -68,17 +82,53 @@ def wire_nbytes(wire) -> int:
 # block-matrix level ops
 # --------------------------------------------------------------------------
 
+def _rows(t):
+    """``(..., w)`` -> ``(rows, w)``: the kernels take 2-D row matrices."""
+    return None if t is None else t.reshape(-1, t.shape[-1])
+
+
+def _unrows(wire: dict, lead: tuple) -> dict:
+    return {k: None if v is None else v.reshape(*lead, v.shape[-1])
+            for k, v in wire.items()}
+
+
 def bq_encode_blocks(x2d: torch.Tensor, bits: int, backend=None) -> dict:
-    """(M,128) f32 -> wire dict {q_hi, q_lo|None, scale}."""
+    """(..., M, 128) f32 -> wire dict {q_hi, q_lo|None, scale}."""
     enc = ref.bq_encode_ref if _plain(backend) else bq.bq_encode
-    hi, lo, scale = enc(x2d, bits)
-    return {"q_hi": hi, "q_lo": lo, "scale": scale}
+    hi, lo, scale = enc(_rows(x2d), bits)
+    return _unrows({"q_hi": hi, "q_lo": lo, "scale": scale},
+                   tuple(x2d.shape[:-1]))
 
 
 def bq_decode_blocks(wire: dict, bits: int, backend=None) -> torch.Tensor:
-    """wire dict -> (M,128) f32."""
+    """wire dict -> (..., M, 128) f32."""
     dec = ref.bq_decode_ref if _plain(backend) else bq.bq_decode
-    return dec(wire["q_hi"], wire["q_lo"], wire["scale"], bits)
+    lead = tuple(wire["scale"].shape[:-1])
+    out = dec(_rows(wire["q_hi"]), _rows(wire["q_lo"]), _rows(wire["scale"]),
+              bits)
+    return out.reshape(*lead, BLOCK)
+
+
+def bq_decode_add_encode_blocks(wire: dict, local2d: torch.Tensor, bits: int,
+                                backend=None, want_sum: bool = True):
+    """Fused ring hop: returns ``(wire', sum_f32 (M, 128) | None)``.
+    ``want_sum=False`` is the wire-only form of the intermediate hops."""
+    if _plain(backend):
+        hi, lo, scale, s = ref.bq_decode_add_encode_ref(
+            wire["q_hi"], wire["q_lo"], wire["scale"], local2d, bits)
+        s = s if want_sum else None
+    else:
+        hi, lo, scale, s = bq.bq_decode_add_encode(
+            wire["q_hi"], wire["q_lo"], wire["scale"], local2d, bits,
+            want_sum=want_sum)
+    return {"q_hi": hi, "q_lo": lo, "scale": scale}, s
+
+
+def bq_decode_add_blocks(wire: dict, local2d: torch.Tensor, bits: int,
+                         backend=None) -> torch.Tensor:
+    """Last reduce-scatter hop: local + decode(wire) -> (M, 128) f32."""
+    da = ref.bq_decode_add_ref if _plain(backend) else bq.bq_decode_add
+    return da(wire["q_hi"], wire["q_lo"], wire["scale"], local2d, bits)
 
 
 def bq_gather_decode(wire: dict, idx: torch.Tensor, bits: int,

@@ -8,7 +8,8 @@ These functions are the CPU path of every bq entry point and the yardstick
 the hand-written CUDA kernels in :mod:`repro_torch.kernels.bq` are held to
 bit for bit.  The arithmetic order matters: quantization is an IEEE divide,
 then a multiply by ``qmax``, then round-half-to-even, then clip; decode is
-``q * (scale * _INV_QMAX[bits])``.
+``q * (scale * _INV_QMAX[bits])``; the fused ring hops add ``local`` to
+that product as a separate operation.
 """
 
 from __future__ import annotations
@@ -54,15 +55,18 @@ def bq_encode_ref(x: torch.Tensor, bits: int):
     x = x.to(torch.float32)
     scale = block_scale_ref(x)
     qmax = _QMAX[bits]
-    q = torch.clamp(torch.round(x / scale * qmax), -qmax, qmax).to(torch.int32)
-    if bits == 4:
-        qq = (q + 8).reshape(*q.shape[:-1], q.shape[-1] // 2, 2)
-        packed = (qq[..., 0] << 4) | qq[..., 1]
-        return packed.to(torch.uint8), None, scale
+    # round(x / scale * qmax) clipped; in place after the divide, so a
+    # gigabyte-sized payload needs one temporary, not five
+    q = (x / scale).mul_(qmax).round_().clamp_(-qmax, qmax)
     if bits == 8:
         return q.to(torch.int8), None, scale
     if bits == 16:
         return q.to(torch.int16), None, scale
+    q = q.to(torch.int32)
+    if bits == 4:
+        qq = (q + 8).reshape(*q.shape[:-1], q.shape[-1] // 2, 2)
+        packed = (qq[..., 0] << 4) | qq[..., 1]
+        return packed.to(torch.uint8), None, scale
     # bits == 24: arithmetic shift for the high plane, low byte unsigned
     return (q >> 8).to(torch.int16), (q & 0xFF).to(torch.uint8), scale
 
@@ -74,12 +78,30 @@ def bq_decode_ref(q_hi: torch.Tensor, q_lo, scale: torch.Tensor,
     if bits == 4:
         p = q_hi.to(torch.int32)
         q = torch.stack([(p >> 4) - 8, (p & 0xF) - 8], dim=-1)
-        q = q.reshape(*p.shape[:-1], p.shape[-1] * 2)
+        q = q.reshape(*p.shape[:-1], p.shape[-1] * 2).to(torch.float32)
     elif bits == 24:
-        q = q_hi.to(torch.int32) * 256 + q_lo.to(torch.int32)
-    else:
-        q = q_hi.to(torch.int32)
-    return q.to(torch.float32) * (scale * _INV_QMAX[bits])
+        q = (q_hi.to(torch.int32) * 256 + q_lo.to(torch.int32)) \
+            .to(torch.float32)
+    else:                                  # int8 / int16 -> f32 is exact
+        q = q_hi.to(torch.float32)
+    return q.mul_(scale * _INV_QMAX[bits])
+
+
+def bq_decode_add_encode_ref(q_hi, q_lo, scale, local: torch.Tensor,
+                             bits: int):
+    """Fused ring hop: ``encode(local + decode(wire))``, the inner step of
+    the compressed ring reduce-scatter.  Returns ``(q_hi', q_lo', scale',
+    sum_f32)``."""
+    s = bq_decode_ref(q_hi, q_lo, scale, bits) + local.to(torch.float32)
+    hi, lo, sc = bq_encode_ref(s, bits)
+    return hi, lo, sc, s
+
+
+def bq_decode_add_ref(q_hi, q_lo, scale, local: torch.Tensor,
+                      bits: int) -> torch.Tensor:
+    """Last reduce-scatter hop: ``local + decode(wire)``, no re-encode;
+    bit-identical to the ``sum_f32`` of :func:`bq_decode_add_encode_ref`."""
+    return bq_decode_ref(q_hi, q_lo, scale, bits) + local.to(torch.float32)
 
 
 def bq_gather_decode_ref(q_hi, q_lo, scale, idx: torch.Tensor, bits: int):

@@ -1,0 +1,102 @@
+"""The flat collectives alone, over one axis of a world of processes
+(``collectives_rank`` is a target for ``launch.train.spawn_world``).
+
+Each rank takes its input, runs the listed collectives under one codec
+(every site resolves to it) and the ring options, and reports per case:
+the outputs (arrays, or SHA-256 digests of their bytes), the ledger's
+analytic and measured wire events, the kernel launches, and the seconds.
+``test_torch_comms.py`` holds these against the reference's ring on the
+CPU; ``chip_smoke.py`` holds the kernels against their plain versions on
+the card with it.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import time
+
+import numpy as np
+import torch
+
+OPS = ("psum", "reduce_scatter", "all_gather", "reduce_scatter_flat",
+       "all_gather_flat", "ring", "ppermute")
+
+
+def _digest(t: torch.Tensor) -> str:
+    return hashlib.sha256(t.detach().contiguous().cpu().reshape(-1)
+                          .view(torch.uint8).numpy()).hexdigest()
+
+
+def rank_input(payload, rank: int, device) -> torch.Tensor:
+    """This rank's input: row ``rank`` of an array, or a tensor file
+    rotated by ``rank * 1000003`` elements (so each rank adds a different
+    vector)."""
+    if isinstance(payload, str):
+        x = torch.load(payload, map_location="cpu").reshape(-1)
+        x = torch.roll(x, rank * 1000003)
+    else:
+        x = torch.from_numpy(np.ascontiguousarray(payload[rank]))
+    return x.to(device)
+
+
+def _run_op(op, x, axis, n):
+    from repro_torch.core import comms
+    if op == "psum":
+        return {"out": comms.psum(x, axis, "dp")}
+    if op == "reduce_scatter":
+        return {"out": comms.reduce_scatter(x, axis, 0, "dp")}
+    if op == "all_gather":
+        return {"out": comms.all_gather(x, axis, 0, "dp")}
+    if op in ("reduce_scatter_flat", "all_gather_flat"):
+        chunk = comms.reduce_scatter_flat(x.reshape(-1), axis, "dp")
+        if op == "reduce_scatter_flat":
+            return {"out": chunk}
+        return {"out": comms.all_gather_flat(chunk, axis, x.numel(), "zero")}
+    if op == "ring":
+        from repro_torch.core.policy import current_plan
+        codec = current_plan().codec("dp")
+        xb = comms._chunked_blocks(x.reshape(-1), n)
+        acc, wire = comms._ring_reduce_scatter(xb, axis, codec)
+        return {"out": acc, **{f"wire.{k}": v for k, v in wire.items()
+                               if v is not None}}
+    if op == "ppermute":
+        from repro_torch.core import policy
+        codec = policy.current_plan().codec("pp", "fwd")
+        perm = [(j, (j + 1) % n) for j in range(n)]
+        return {"out": comms._ppermute_impl(x, axis, perm, codec)}
+    raise ValueError(f"unknown op {op!r}; have {OPS}")
+
+
+def collectives_rank(*, rank: int, world: int, cases: list, payload,
+                     device="cpu", backend=None, digest: bool = False):
+    """Run ``cases`` (dicts of ``op``, ``codec``, ``bidir``, ``chunks``) on
+    this rank over an axis ``"x"`` of the whole world."""
+    from repro_torch.core import comms, policy
+    from repro_torch.kernels import bq, ops
+    from repro_torch.launch.train import rank_device
+
+    dev = rank_device(device, rank)
+    ops.set_default_backend(backend)
+    axis = comms.Axis("x", world, rank, None, tuple(range(world)))
+    x = rank_input(payload, rank, dev)
+    out = []
+    for case in cases:
+        plan = policy.CommPolicy(f"rc_{case['codec']}",
+                                 rules=(policy.Rule(case["codec"]),)).compile()
+        bq.reset_launches()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        with policy.use_plan(plan), comms.record_traffic() as events, \
+                comms.ring_options(case.get("bidir", False),
+                                   case.get("chunks", 1)):
+            res = _run_op(case["op"], x, axis, world)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        secs = time.perf_counter() - t0
+        res = {k: _digest(v) if digest else v.detach().cpu().numpy()
+               for k, v in res.items()}
+        out.append({"case": case, "result": res, "events": list(events),
+                    "wire": list(events.wire), "launches": dict(bq.LAUNCHES),
+                    "seconds": secs})
+    return out

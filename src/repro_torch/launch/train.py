@@ -1,0 +1,398 @@
+"""Training entry point: the compressed ZeRO-1, Megatron-SP step over a
+``dp x tp`` world of processes.
+
+    # on the card: gemma3-1b at full width, 4 ranks sharing it
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-1b \\
+        --dp 2 --tp 2 --scheme zhybrid_16_8 --steps 5 --seq 1024 \\
+        --global-batch 4
+
+    # on the CPU, reduced width
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-1b \\
+        --reduced --dp 2 --tp 2 --scheme zhybrid_16_8 --device cpu
+
+Under ``torchrun`` (``RANK`` / ``WORLD_SIZE`` set) each process joins that
+group as one rank.  Otherwise the command spawns ``dp * tp`` processes
+itself, so one command runs the step as in the reference.  Ranks exchange
+through ``torch.distributed``'s gloo backend: on the card, every encode,
+fused ring hop and decode runs as a kernel, and only the wire planes cross
+between ranks through host memory.
+
+The flags are those of ``repro.launch.train`` for this path, plus
+``--device``; the flags of unported features (pipeline, context
+parallelism, node-factored meshes, policy overrides, tuning,
+checkpoints) are accepted and refused as not yet ported, never ignored.
+"""
+
+from __future__ import annotations
+
+import argparse
+import datetime
+import importlib
+import os
+import queue
+import socket
+import statistics
+import sys
+import time
+import traceback
+
+import torch
+import torch.distributed as dist
+
+# flags of the reference this package refuses at a non-default value:
+# (attribute, default)
+_UNPORTED = (("pp", 1), ("cp", 1), ("pod", 1), ("nodes", "1"),
+             ("tp_nodes", "1"), ("pp_nodes", "1"), ("cp_nodes", "1"),
+             ("microbatches", 1), ("vpp", 1), ("remat_policy", "none"),
+             ("host_devices", 0), ("no_compress_below", 0), ("codec_for", []),
+             ("tune", False), ("tune_interval", 50), ("tune_guard", 0.05),
+             ("policy_from", ""), ("ckpt_dir", ""), ("ckpt_every", 50),
+             ("resume", False))
+
+
+def parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true",
+                    help="family-preserving smoke-size config")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="override the config's layer count (resets "
+                         "heterogeneous layer groups to uniform)")
+    ap.add_argument("--dp", type=int, default=1)
+    ap.add_argument("--tp", type=int, default=1)
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--global-batch", type=int, default=8)
+    ap.add_argument("--scheme", default="baseline")
+    ap.add_argument("--ring-bidir", action="store_true",
+                    help="split compressed rings into two counter-rotating "
+                         "half-rings")
+    ap.add_argument("--ring-chunks", type=int, default=1,
+                    help="stripe each compressed ring into N row chunks")
+    ap.add_argument("--grad-buckets", type=int, default=1,
+                    help="split the flat ZeRO-1 DP gradient sync into N "
+                         "buckets, clip applied after the sync")
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--opt-state-bits", type=int, default=32)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="cuda (default; raises without a card) or cpu")
+    # refused: not yet ported
+    for flag, kw in (("--pp", dict(type=int, default=1)),
+                     ("--cp", dict(type=int, default=1)),
+                     ("--pod", dict(type=int, default=1)),
+                     ("--nodes", dict(default="1")),
+                     ("--tp-nodes", dict(default="1")),
+                     ("--pp-nodes", dict(default="1")),
+                     ("--cp-nodes", dict(default="1")),
+                     ("--microbatches", dict(type=int, default=1)),
+                     ("--vpp", dict(type=int, default=1)),
+                     ("--remat-policy", dict(default="none")),
+                     ("--host-devices", dict(type=int, default=0)),
+                     ("--no-compress-below", dict(type=int, default=0)),
+                     ("--codec-for", dict(action="append", default=[])),
+                     ("--tune", dict(action="store_true")),
+                     ("--tune-interval", dict(type=int, default=50)),
+                     ("--tune-guard", dict(type=float, default=0.05)),
+                     ("--policy-from", dict(default="")),
+                     ("--ckpt-dir", dict(default="")),
+                     ("--ckpt-every", dict(type=int, default=50)),
+                     ("--resume", dict(action="store_true"))):
+        ap.add_argument(flag, help="not yet ported", **kw)
+    return ap
+
+
+def unported(args) -> list[str]:
+    """Messages for every flag set to something this package cannot run."""
+    out = []
+    for attr, default in _UNPORTED:
+        val = getattr(args, attr)
+        if val != default:
+            flag = "--" + attr.replace("_", "-")
+            out.append(f"{flag} {val!r} is not yet ported (this package "
+                       f"runs the flat dp x tp step)")
+    return out
+
+
+# --------------------------------------------------------------------------
+# a world of processes
+# --------------------------------------------------------------------------
+
+def _free_port() -> int:
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _resolve(target: str):
+    mod, _, fn = target.partition(":")
+    return getattr(importlib.import_module(mod), fn)
+
+
+def _rank_main(target, rank, world, port, kwargs, out_q):
+    """Body of one spawned rank: join the gloo group, run ``target``, put
+    ``(rank, ok, result or traceback)`` on the queue."""
+    try:
+        dist.init_process_group(
+            "gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+            world_size=world, timeout=datetime.timedelta(minutes=10))
+        out_q.put((rank, True, _resolve(target)(rank=rank, world=world,
+                                                **kwargs)))
+    except BaseException:
+        out_q.put((rank, False, traceback.format_exc()))
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def spawn_world(target: str, world: int, kwargs: dict,
+                timeout: float | None = None) -> list:
+    """Run ``module:function`` in ``world`` fresh processes joined in one
+    gloo group (``function(rank=, world=, **kwargs)``); return the results
+    in rank order.  Any rank's failure raises here with its traceback, and
+    every process is stopped before this returns."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    out_q = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=_rank_main,
+                         args=(target, r, world, port, kwargs, out_q))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    results, t0 = {}, time.monotonic()
+    try:
+        while len(results) < world:
+            try:
+                rank, ok, payload = out_q.get(timeout=1.0)
+            except queue.Empty:
+                dead = [i for i, p in enumerate(procs)
+                        if p.exitcode not in (None, 0)]
+                if dead:
+                    raise RuntimeError(f"ranks {dead} died (exit codes "
+                                       f"{[procs[i].exitcode for i in dead]})")
+                if timeout is not None and time.monotonic() - t0 > timeout:
+                    raise TimeoutError(f"world of {world} timed out")
+                continue
+            if not ok:
+                raise RuntimeError(f"rank {rank} failed:\n{payload}")
+            results[rank] = payload
+        for p in procs:
+            p.join(timeout=120)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=10)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return [results[r] for r in range(world)]
+
+
+def rank_device(device, rank: int) -> torch.device:
+    """``cpu``, or the card of this rank (ranks share the cards round-robin;
+    one card holds every rank)."""
+    from repro_torch.models.params import resolve_device
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", rank % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+    return dev
+
+
+# --------------------------------------------------------------------------
+# one rank's run
+# --------------------------------------------------------------------------
+
+def train_rank(*, rank: int = 0, world: int = 1, arch: str,
+               reduced: bool = False, layers: int = 0, dp: int = 1,
+               tp: int = 1, steps: int = 20, seq: int = 64,
+               global_batch: int = 8, scheme: str = "baseline",
+               ring_bidir: bool = False, ring_chunks: int = 1,
+               grad_buckets: int = 1, lr: float = 1e-3,
+               opt_state_bits: int = 32, seed: int = 0, device=None,
+               backend=None, deterministic: bool = False,
+               time_staging: bool = False, flat_grad_out: str = "",
+               init_from: str = "") -> dict:
+    """Train ``steps`` steps as rank ``rank`` of a ``dp x tp`` world whose
+    process group is initialized (or alone, for a one-rank world).
+
+    ``backend="torch"`` runs every bq op through its plain version;
+    ``deterministic`` turns on ``torch.use_deterministic_algorithms`` and
+    turns TF32 off; ``time_staging`` times every exchange
+    (:func:`comms.time_staging`, a device drain before each);
+    ``flat_grad_out`` names a file where rank 0 saves its last pre-sync
+    flat gradient; ``init_from`` names a pickle of a global parameter tree
+    (numpy arrays in the plan's layout, such as the reference package's
+    weights) to start from instead of ``seed``.  Returns this rank's
+    metrics: losses, grad norms, step seconds, the staged bytes and (under
+    ``time_staging``) seconds, peak device memory, kernel launches, and the
+    first step's ledger per dimension (measured wire bytes and the priced
+    analytic events)."""
+    from repro_torch import configs
+    from repro_torch.analysis import roofline
+    from repro_torch.core import comms
+    from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
+    from repro_torch.kernels import bq, ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import Model
+    from repro_torch.train.optimizer import AdamConfig
+    from repro_torch.train.train_step import Trainer
+
+    if dp * tp != world:
+        raise ValueError(f"dp {dp} x tp {tp} != world {world}")
+    dev = rank_device(device, rank)
+    if dev.type == "cpu":
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    if deterministic:
+        torch.use_deterministic_algorithms(True)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    ops.set_default_backend(backend)
+    comms.time_staging(time_staging)
+    cfg = configs.get(arch)
+    if reduced:
+        cfg = cfg.reduced()
+    if layers:
+        cfg = cfg.replace(n_layers=layers, groups=())
+    mi = make_mesh(dp, tp)
+    model = Model(cfg, mi, device=dev)
+    trainer = Trainer(model, scheme=scheme,
+                      opt_cfg=AdamConfig(lr=lr, state_bits=opt_state_bits,
+                                         grad_buckets=grad_buckets),
+                      ring_bidir=ring_bidir, ring_chunks=ring_chunks)
+    if init_from:
+        import pickle
+
+        from repro_torch.models.params import from_jax_params
+        with open(init_from, "rb") as f:
+            params = from_jax_params(pickle.load(f), cfg, dev, mi)
+        ostate = trainer.opt.init(params)
+    else:
+        params, ostate = trainer.init_all(seed)
+    data = SyntheticCorpus(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                      global_batch=global_batch, seed=seed))
+    if global_batch % dp:
+        raise ValueError(f"--global-batch {global_batch} not divisible by "
+                         f"--dp {dp}")
+    b_loc, d = global_batch // dp, mi.dp_axes.index
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    out = {"rank": rank, "coords": [d, mi.tp_axes.index], "losses": [],
+           "grad_norms": [], "step_s": [], "staging_s": [],
+           "staging_bytes": []}
+    bq.reset_launches()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    for step in range(steps):
+        nb = data.batch(step)
+        batch = {k: torch.from_numpy(v[d * b_loc:(d + 1) * b_loc]).to(dev)
+                 for k, v in nb.items()}
+        trainer.opt.keep_flat_grad = bool(flat_grad_out) and rank == 0 \
+            and step == steps - 1
+        comms.reset_staging()
+        sync()
+        t0 = time.perf_counter()
+        with comms.record_traffic() as events:
+            params, ostate, metrics = trainer.step(params, ostate, batch)
+            sync()
+        out["step_s"].append(time.perf_counter() - t0)
+        out["staging_s"].append(comms.STAGING["seconds"])
+        out["staging_bytes"].append(comms.STAGING["bytes"])
+        out["losses"].append(float(metrics["loss"]))
+        out["grad_norms"].append(float(metrics["grad_norm"]))
+        if step == 0:
+            out["wire_per_dim"] = roofline.wire_per_dim(events.wire)
+            out["priced_per_dim"] = roofline.ledger_summary(
+                events, train=True)["per_dim"]
+    if trainer.opt.last_flat_grad is not None:
+        torch.save(trainer.opt.last_flat_grad.cpu(), flat_grad_out)
+        trainer.opt.last_flat_grad = None
+    out["launches"] = dict(bq.LAUNCHES)
+    out["peak_bytes"] = (torch.cuda.max_memory_allocated(dev)
+                         if dev.type == "cuda" else 0)
+    out["device"] = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                     else "cpu")
+    out["teacher_floor"] = data.optimal_xent()
+    out["foreign_modules"] = sorted(
+        m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+    return out
+
+
+def run(args, **extra) -> list:
+    """Run the parsed flags (plus :func:`train_rank` keywords ``extra``) as
+    a world of ``dp * tp`` spawned processes; returns the per-rank
+    results."""
+    from repro_torch.kernels import bq
+    from repro_torch.models.params import resolve_device
+
+    dev = resolve_device(args.device)       # no card: raise before spawning
+    kwargs = dict(arch=args.arch, reduced=args.reduced, layers=args.layers,
+                  dp=args.dp, tp=args.tp, steps=args.steps, seq=args.seq,
+                  global_batch=args.global_batch, scheme=args.scheme,
+                  ring_bidir=args.ring_bidir, ring_chunks=args.ring_chunks,
+                  grad_buckets=args.grad_buckets, lr=args.lr,
+                  opt_state_bits=args.opt_state_bits, seed=args.seed,
+                  device=dev.type, **extra)
+    world = args.dp * args.tp
+    if dev.type == "cuda":
+        bq.build()                           # once, before the ranks start
+        # ranks share one card: growable segments keep each rank's
+        # reserved-but-free memory from fragmenting the card
+        os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                              "expandable_segments:True")
+        if kwargs.get("deterministic"):
+            os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    if world == 1:
+        return [train_rank(**kwargs)]
+    return spawn_world("repro_torch.launch.train:train_rank", world, kwargs)
+
+
+def _report(res: list, args) -> None:
+    r0 = res[0]
+    for step, (loss, gn, dt) in enumerate(zip(r0["losses"], r0["grad_norms"],
+                                              r0["step_s"])):
+        print(f"step {step:5d} loss={loss:.4f} gnorm={gn:.3f} dt={dt:.2f}s")
+    tail = r0["step_s"][1:] or r0["step_s"]
+    tok = args.global_batch * args.seq
+    peak = max(r["peak_bytes"] for r in res) / 2**30
+    print(f"done: final loss {r0['losses'][-1]:.4f}, teacher floor "
+          f"{r0['teacher_floor']:.4f}; {statistics.median(tail) * 1e3:.1f} "
+          f"ms/step ({tok / statistics.median(tail):.0f} tok/s) on "
+          f"{r0['device']}, {len(res)} ranks, peak {peak:.2f} GiB per rank")
+
+
+def main(argv=None):
+    ap = parser()
+    args = ap.parse_args(argv)
+    bad = unported(args)
+    if bad:
+        ap.error("; ".join(bad))
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:   # torchrun
+        rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+        dist.init_process_group("gloo", rank=rank, world_size=world)
+        try:
+            res = train_rank(
+                rank=rank, world=world, arch=args.arch, reduced=args.reduced,
+                layers=args.layers, dp=args.dp, tp=args.tp, steps=args.steps,
+                seq=args.seq, global_batch=args.global_batch,
+                scheme=args.scheme, ring_bidir=args.ring_bidir,
+                ring_chunks=args.ring_chunks, grad_buckets=args.grad_buckets,
+                lr=args.lr, opt_state_bits=args.opt_state_bits,
+                seed=args.seed, device=args.device)
+        finally:
+            dist.destroy_process_group()
+        if rank == 0:
+            _report([res], args)
+        return
+    _report(run(args), args)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,8 +1,19 @@
-"""Attention (port of ``repro.models.attention``): the head-sharded decode
-path against a paged KV pool, with the reference's online-softmax core.
+"""Attention (port of ``repro.models.attention``): training attention in
+head and ring mode, and the head-sharded decode path against a paged KV
+pool, on the reference's online-softmax core.
+
+Mode selection (``cfg.attn_mode_for(tp)``):
+
+* ``head`` — Megatron-SP: all-gather the sequence over tp, attend with
+  the local heads, reduce-scatter the sequence back.  Needs q and kv
+  heads divisible by tp.
+* ``ring`` — the sequence stays sharded; with tp > 1 the GQA-small K/V
+  are all-gathered over tp once, so the weights stay replicated for any
+  head count (gemma3-1b's single kv-head at tp 2).
 
 All softmax statistics are f32; GQA is grouped natively (no KV
-duplication).  Masking is position-based.
+duplication).  Masking is position-based.  Context parallelism (the cp
+ring) is not yet ported.
 """
 
 from __future__ import annotations
@@ -23,10 +34,13 @@ _NEG = -1e30
 # --------------------------------------------------------------------------
 
 def attn_plan(cfg, mode: str):
-    if mode != "head":
-        raise NotImplementedError(f"attention mode {mode!r} is not yet ported")
     hd, H, KV, Dm = cfg.head_dim_, cfg.n_heads, cfg.n_kv_heads, cfg.d_model
-    q_spec, o_spec = (None, "model"), ("model", None)
+    if mode == "head":
+        q_spec, o_spec = (None, "model"), ("model", None)
+    elif mode == "ring":  # weights replicated: the sequence carries tp
+        q_spec, o_spec = (None, None), (None, None)
+    else:
+        raise ValueError(f"unknown attention mode {mode!r}")
     p = {
         "wq": Dd((Dm, H * hd), spec=q_spec, dtype=cfg.dtype),
         "wk": Dd((Dm, KV * hd), spec=q_spec, dtype=cfg.dtype),
@@ -126,6 +140,16 @@ def full_attention(q, k, v, q_pos, k_pos, causal, window, k_valid=None,
     return _finish(*acc, q.dtype)
 
 
+def ring_attention(q, k, v, q_pos, k_pos, mi: MeshInfo, causal, window,
+                   k_valid=None):
+    """Attention of the local queries over the given K/V block.  Without a
+    context-parallel axis (the only mesh ported) the ring has one block."""
+    scale = q.shape[-1] ** -0.5
+    bias = _mask_bias(q_pos, k_pos, causal, window, k_valid)
+    o, m, l = _attn_part(q, k, v, bias, scale)
+    return _finish(o, m, l, q.dtype)
+
+
 # --------------------------------------------------------------------------
 # projections (+ rope/qk-norm)
 # --------------------------------------------------------------------------
@@ -158,6 +182,42 @@ def _theta(cfg, window):
     if cfg.rope_theta_global and window == 0:
         return cfg.rope_theta_global
     return cfg.rope_theta
+
+
+# --------------------------------------------------------------------------
+# training attention
+# --------------------------------------------------------------------------
+
+def attn_train(p, x, pos, cfg, mi: MeshInfo, mode: str, causal=True,
+               window=0):
+    """Training attention sublayer: x [B, S_loc, D] sequence-sharded, pos
+    [B, S_loc] global positions -> [B, S_loc, D]."""
+    theta = _theta(cfg, window)
+    if mode == "head":
+        xg = comms.all_gather(x, mi.tp_axes, 1, comms.site("tp", "attn_in"))
+        pos_g = _gather_pos(pos, mi)
+        q, k, v = _project_qkv(p, xg, xg, pos_g, pos_g, cfg, mi, theta)
+        o = full_attention(q, k, v, pos_g, pos_g, causal, window)
+        y = o.reshape(*o.shape[:2], -1) @ p["wo"]
+        return comms.reduce_scatter(y, mi.tp_axes, 1,
+                                    comms.site("tp", "attn_out"))
+    # ring: the sequence stays sharded, the weights are replicated
+    q, k, v = _project_qkv(p, x, x, pos, pos, cfg, mi, theta)
+    kb, vb, pkv = k, v, pos
+    if mi.tp > 1:
+        # K/V are GQA-small: gather the tp sub-slices once, so queries
+        # never move
+        kb = comms.all_gather(kb, mi.tp_axes, 1, comms.site("tp", "attn_kv"))
+        vb = comms.all_gather(vb, mi.tp_axes, 1, comms.site("tp", "attn_kv"))
+        pkv = _gather_pos(pos, mi)
+    o = ring_attention(q, kb, vb, pos, pkv, mi, causal, window)
+    return o.reshape(*o.shape[:2], -1) @ p["wo"]
+
+
+def _gather_pos(pos, mi):
+    return comms.all_gather(pos, mi.tp_axes, 1,
+                            comms.site("tp", "attn_pos")) \
+        if mi.tp > 1 else pos
 
 
 # --------------------------------------------------------------------------
@@ -197,5 +257,5 @@ def attn_decode_paged(p, x, pool, tables, pos, active, cfg, mi: MeshInfo,
     o = full_attention(q, k, v, pos_q, k_pos,
                        causal=False, window=window, k_valid=valid)
     y = o.reshape(N, 1, -1) @ p["wo"]
-    out = comms.psum(y, mi.tp_axes, "tp/attn_out")
+    out = comms.psum(y, mi.tp_axes, comms.site("tp", "attn_out"))
     return out, pool

@@ -1,10 +1,12 @@
-"""Shared layer primitives (port of ``repro.models.layers`` for the decode
-path on one device).
+"""Shared layer primitives (port of ``repro.models.layers``), written
+against this rank's shard shapes.
 
-Cast points follow the reference exactly: norms and rope compute in f32
-and return the input dtype, the embedding scale multiplies in the model
-dtype, and logits are f32.  Collectives go through
-:mod:`repro_torch.core.comms`, where the reference calls them.
+Training layout ("SP"): activations ``[B_loc, S_loc, D]``, batch over
+data, sequence over model.  Decode layout: ``[B, 1, D]`` replicated over
+model.  Cast points follow the reference exactly: norms and rope compute
+in f32 and return the input dtype, the embedding scale multiplies in the
+model dtype, and logits are f32.  Every collective goes through
+:mod:`repro_torch.core.comms` at the reference's sites.
 """
 
 from __future__ import annotations
@@ -62,7 +64,7 @@ def apply_rope(x, pos, theta: float):
 
 
 # --------------------------------------------------------------------------
-# embedding & head (vocab-parallel in the reference; one shard here)
+# vocab-parallel embedding & cross-entropy (Megatron-style)
 # --------------------------------------------------------------------------
 
 def embed_plan(cfg):
@@ -70,26 +72,36 @@ def embed_plan(cfg):
                         dtype=cfg.dtype)}
 
 
-def embed(p, tokens, cfg, mi):
-    """Decode-form embedding: tokens [B, 1] -> [B, 1, D]."""
+def embed(p, tokens, cfg, mi, sp: bool = True):
+    """Vocab-parallel embedding.  ``sp`` with tp > 1: tokens are the FULL
+    sequence [B, S]; each vocab shard contributes its rows and the partial
+    embeddings are reduce-scattered over the sequence -> [B, S_loc, D].
+    Otherwise (decode, or one model shard) a psum -> [B, S, D]."""
     table = p["table"]                                    # [V_loc, D]
     v_loc = table.shape[0]
-    lo = 0                                                # one vocab shard
+    lo = mi.tp_axes.index * v_loc
     local = tokens.long() - lo
     ok = (local >= 0) & (local < v_loc)
     e = table[local.clamp(0, v_loc - 1)]
     e = e * ok[..., None].to(e.dtype)
-    e = comms.psum(e, mi.tp_axes, "tp/embed")
+    if sp and mi.tp > 1:
+        e = comms.reduce_scatter(e, mi.tp_axes, 1, comms.site("tp", "embed"))
+    else:
+        e = comms.psum(e, mi.tp_axes, comms.site("tp", "embed"))
     if cfg.scale_embed:
         e = e * torch.tensor(cfg.d_model ** 0.5, dtype=e.dtype,
                              device=e.device)
     return e
 
 
-def lm_head_logits(params, x, cfg, mi):
-    """x [B, S, D] -> logits [B, S, V] (f32), tied to the embedding."""
+def lm_head_logits(params, x, cfg, mi, sp: bool = True):
+    """x [B, S_loc, D] -> vocab-sharded logits [B, S, V_loc] (f32), tied to
+    the embedding.  ``sp`` gathers the sequence over model first, so every
+    model shard scores the full sequence against its vocab slice."""
     if not cfg.tie_embeddings:
         raise NotImplementedError("untied lm_head is not yet ported")
+    if sp and mi.tp > 1:
+        x = comms.all_gather(x, mi.tp_axes, 1, comms.site("tp", "lm_head"))
     w = params["embed"]["table"]                          # [V_loc, D]
     return torch.einsum("bsd,vd->bsv", x.to(_F32), w.to(_F32))
 
@@ -98,6 +110,29 @@ def lm_head_plan(cfg):
     if not cfg.tie_embeddings:
         raise NotImplementedError("untied lm_head is not yet ported")
     return {}
+
+
+def vocab_parallel_xent(logits, labels, cfg, mi):
+    """Vocab-sharded cross-entropy: logits [B, S, V_loc] f32, labels [B, S]
+    (-1 = pad) -> per-token loss [B, S] and weight mask [B, S]."""
+    v_loc = logits.shape[-1]
+    lo = mi.tp_axes.index * v_loc
+    # padded vocab columns exist as logits but never as labels: mask them
+    # out of the lse
+    col = lo + torch.arange(v_loc, device=logits.device)
+    logits = torch.where(col < cfg.vocab_size, logits, -1e30)
+    # the stabilizer carries no gradient (the lse is shift-invariant)
+    m = comms.pmax(logits.detach().amax(dim=-1), mi.tp_axes)       # [B,S]
+    z = torch.exp(logits - m[..., None]).sum(dim=-1)
+    z = comms.psum(z, mi.tp_axes, comms.site("tp", "xent"))
+    lse = m + torch.log(z)
+    local = labels.long() - lo
+    ok = (local >= 0) & (local < v_loc)
+    tl = torch.gather(logits, -1, local.clamp(0, v_loc - 1)[..., None])[..., 0]
+    tl = comms.psum(torch.where(ok, tl, 0.0), mi.tp_axes,
+                    comms.site("tp", "xent"))
+    w = (labels >= 0).to(_F32)
+    return (lse - tl) * w, w
 
 
 # --------------------------------------------------------------------------
@@ -127,11 +162,20 @@ def _act(h, kind):
     raise ValueError(kind)
 
 
-def mlp(p, x, cfg, mi):
-    """Decode-form MLP: x [B, 1, D] replicated; row-parallel output psum."""
-    h = x @ p["w1"]
-    h = _act(h, cfg.mlp_kind)
+def mlp(p, x, cfg, mi, sp: bool = True):
+    """Column -> row parallel MLP.  ``sp`` (train): all-gather the sequence
+    over model -> matmuls -> reduce-scatter it back.  Otherwise (decode,
+    x replicated over model): the f/g conjugate pair around the matmuls."""
+    if sp:
+        xg = comms.all_gather(x, mi.tp_axes, 1, comms.site("tp", "mlp_in"))
+    else:
+        xg = comms.copy_fwd_psum_bwd(x, mi.tp_axes,
+                                     comms.site("tp", "mlp_in"))
+    h = _act(xg @ p["w1"], cfg.mlp_kind)
     if cfg.mlp_kind in _GATED:
-        h = h * (x @ p["w3"])
+        h = h * (xg @ p["w3"])
     y = h.to(x.dtype) @ p["w2"]
-    return comms.psum(y, mi.tp_axes, "tp/mlp_out")
+    if sp:
+        return comms.reduce_scatter(y, mi.tp_axes, 1,
+                                    comms.site("tp", "mlp_out"))
+    return comms.psum_fwd_copy_bwd(y, mi.tp_axes, comms.site("tp", "mlp_out"))

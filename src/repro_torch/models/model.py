@@ -1,11 +1,12 @@
-"""Top-level model: plan, parameter init and access (port of
-``repro.models.model`` for the decoder the paged server drives)."""
+"""Top-level model: plan, parameter init, training forward and loss (port
+of ``repro.models.model`` for the dense decoder)."""
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models import transformer
+from repro_torch.core import comms
+from repro_torch.models import layers, transformer
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.params import (MeshInfo, count_params, init_params,
                                        resolve_device)
@@ -13,20 +14,57 @@ from repro_torch.models.params import (MeshInfo, count_params, init_params,
 
 class Model:
     """``device=None`` means the card (raises without one); pass
-    ``device="cpu"`` to run on the CPU."""
+    ``device="cpu"`` to run on the CPU.  ``mi`` is this rank's view of the
+    mesh (one rank by default)."""
 
     def __init__(self, cfg: ArchConfig, mi: MeshInfo | None = None,
                  device=None):
         self.cfg = cfg
         self.mi = mi or MeshInfo()
         self.device = resolve_device(device)
+        self.mode = cfg.attn_mode_for(self.mi.tp)
         self.plan = transformer.model_plan(cfg, self.mi)
 
     def init(self, seed: int) -> dict:
-        """Random weights from ``seed`` through a ``torch.Generator`` on
-        the model's device."""
+        """This rank's shards of random weights from ``seed``, drawn through
+        a ``torch.Generator`` on the model's device (the same global
+        tensors on every mesh)."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        return init_params(self.plan, gen, self.device)
+        return init_params(self.plan, gen, self.device, self.mi)
 
     def n_params(self) -> int:
         return count_params(self.plan)
+
+    # -- training ----------------------------------------------------------
+    def _positions(self, B: int, S_loc: int) -> torch.Tensor:
+        """GLOBAL positions of this rank's tokens [B, S_loc]: tp slices the
+        sequence contiguously (the embedding's reduce-scatter)."""
+        j = self.mi.tp_axes.index * S_loc + torch.arange(
+            S_loc, dtype=torch.int32, device=self.device)
+        return j[None].expand(B, S_loc)
+
+    def forward(self, params, batch) -> torch.Tensor:
+        """batch {tokens [B_loc, S]} -> logits [B_loc, S, V_loc] f32."""
+        cfg, mi = self.cfg, self.mi
+        x = layers.embed(params["embed"], batch["tokens"], cfg, mi)
+        pos = self._positions(x.shape[0], x.shape[1])
+        for gp, g in zip(params["groups"], cfg.layer_groups):
+            x = transformer.run_group(gp, x, g, cfg, mi, self.mode, pos)
+        x = layers.norm(params["final_norm"], x, cfg, mi)
+        return layers.lm_head_logits(params, x, cfg, mi)
+
+    def loss_fn(self, params, batch):
+        """Global-mean token cross-entropy (a scalar, the same on every
+        rank) and its metrics."""
+        cfg, mi = self.cfg, self.mi
+        logits = self.forward(params, batch)
+        ltok, w = layers.vocab_parallel_xent(logits, batch["labels"], cfg, mi)
+        del logits
+        num = comms.raw_psum(ltok.sum(), mi.dp_axes)
+        den = comms.raw_psum(w.sum(), mi.dp_axes)
+        # every model shard holds the full-sequence loss: the mean over the
+        # model axis folds the replication into one scalar
+        num = comms.raw_psum(num, mi.tp_axes, mean=True)
+        den = comms.raw_psum(den, mi.tp_axes, mean=True)
+        loss = num / torch.clamp(den, min=1.0)
+        return loss, {"xent": loss.detach(), "tokens": den.detach()}

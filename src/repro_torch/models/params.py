@@ -5,8 +5,11 @@ A *plan* is a tree of dicts and lists whose leaves are :class:`ParamDef`.
 :func:`from_jax_params` fills it from the reference package's parameter
 tree instead, so both packages can compute with the same weights.
 
-This package runs on one device: :class:`MeshInfo` is the one-way mesh,
-and the sharding tags of the reference's plans are kept only as metadata.
+A leaf's ``spec`` tags each dim as in the reference: ``"model"`` dims are
+sharded over the tensor-parallel axis, ``"data"`` dims (ZeRO-3, not yet
+ported) over the data axis, ``None`` dims are replicated.  Parameters are
+plain tensors holding this rank's shard; the optimizer reads each leaf's
+spec from the plan.
 """
 
 from __future__ import annotations
@@ -34,25 +37,49 @@ def resolve_device(device=None) -> torch.device:
 
 @dataclasses.dataclass(frozen=True)
 class MeshInfo:
-    """Logical view of the mesh: one device (``tp = dp = 1``)."""
+    """Logical view of the ``(data, model)`` mesh from this rank.
+
+    ``model`` / ``data`` / ``world`` are the bound comms axes
+    (:func:`repro_torch.launch.mesh.make_mesh` builds them over process
+    groups); left ``None`` they are one-rank axes of the right name and
+    size, which is all a one-process run, or a plan that only needs
+    shapes, asks for."""
 
     tp: int = 1
     dp: int = 1
     model_axis: str = "model"
+    data_axis: str = "data"
+    model: Axis | None = None
+    data: Axis | None = None
+    world: Axis | None = None
 
     def __post_init__(self):
-        if self.tp != 1 or self.dp != 1:
-            raise NotImplementedError(
-                f"dp={self.dp} x tp={self.tp}: only one device is ported "
-                f"(dp = tp = 1); sharded meshes are not yet ported")
+        for ax, n in ((self.model, self.tp), (self.data, self.dp),
+                      (self.world, self.tp * self.dp)):
+            if ax is not None and ax.size != n:
+                raise ValueError(f"axis {ax.name!r} has size {ax.size}, "
+                                 f"mesh wants {n}")
 
     @property
     def tp_axes(self) -> Axis:
-        return Axis(self.model_axis, self.tp)
+        return self.model or Axis(self.model_axis, self.tp)
+
+    @property
+    def dp_axes(self) -> Axis:
+        return self.data or Axis(self.data_axis, self.dp)
+
+    @property
+    def all_axes(self) -> Axis:
+        return self.world or Axis("world", self.tp * self.dp)
 
     @property
     def batch_ways(self) -> int:
         return self.dp
+
+    @property
+    def coords(self) -> dict:
+        """This rank's index along each sharded spec tag."""
+        return {"model": self.tp_axes.index, "data": self.dp_axes.index}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,7 +97,7 @@ class ParamDef:
 def D(shape, spec=None, init="normal", scale=0.02, dtype="bfloat16",
       fsdp_ok=True) -> ParamDef:
     """Declare a parameter (``fsdp_ok`` is accepted for plan parity with the
-    reference; nothing here shards)."""
+    reference; ZeRO-3 sharding is not yet ported)."""
     spec = spec if spec is not None else (None,) * len(shape)
     if len(spec) != len(shape):
         raise ValueError(f"spec {spec} does not match shape {shape}")
@@ -108,21 +135,70 @@ def count_params(plan) -> int:
     return sum(d.size() for _, d in _leaves(plan))
 
 
-def init_params(plan, gen: torch.Generator, device) -> dict:
-    """Materialize the plan; normal leaves draw f32 from ``gen`` (a
-    generator on ``device``) in sorted-key order, scale, then cast."""
+def defs(plan) -> list:
+    """The plan's :class:`ParamDef` leaves in the reference's flatten
+    order."""
+    return [d for _, d in _leaves(plan)]
+
+
+def leaves(plan, tree) -> list:
+    """``(ParamDef, tensor)`` pairs of ``tree`` in the reference's flatten
+    order (dict keys sorted, lists in order) — the order the ZeRO-1 flat
+    vector concatenates in."""
+    out = []
+    for path, d in _leaves(plan):
+        t = tree
+        for k in path:
+            t = t[k]
+        out.append((d, t))
+    return out
+
+
+def _ways(mi: MeshInfo) -> dict:
+    return {"model": mi.tp, "data": mi.dp}
+
+
+def local_shape(d: ParamDef, mi: MeshInfo) -> tuple:
+    """Shape of this rank's shard of ``d``."""
+    ways = _ways(mi)
+    return tuple(s // ways.get(sp, 1) for s, sp in zip(d.shape, d.spec))
+
+
+def local_slice(t, d: ParamDef, mi: MeshInfo):
+    """This rank's shard of a global tensor (or numpy array) ``t``."""
+    ways, coords = _ways(mi), mi.coords
+    for dim, (s, sp) in enumerate(zip(d.shape, d.spec)):
+        if sp in ways:
+            n = s // ways[sp]
+            idx = [slice(None)] * len(d.shape)
+            idx[dim] = slice(coords[sp] * n, (coords[sp] + 1) * n)
+            t = t[tuple(idx)]
+    return t
+
+
+def init_params(plan, gen: torch.Generator, device,
+                mi: MeshInfo | None = None) -> dict:
+    """Materialize this rank's shards of the plan.  Normal leaves draw the
+    GLOBAL f32 tensor from ``gen`` (a generator on ``device``) in
+    sorted-key order, scale, keep this rank's slice, then cast — so every
+    rank draws the same numbers, replicated leaves agree across ranks, and
+    the shards of any mesh assemble into the one-device weights."""
     dev = torch.device(device)
+    mi = mi or MeshInfo()
     vals = {}
     for path, d in _leaves(plan):
         dt = torch_dtype(d.dtype)
+        shape = local_shape(d, mi)
         if d.init == "zeros":
-            v = torch.zeros(d.shape, dtype=dt, device=dev)
+            v = torch.zeros(shape, dtype=dt, device=dev)
         elif d.init == "ones":
-            v = torch.ones(d.shape, dtype=dt, device=dev)
+            v = torch.ones(shape, dtype=dt, device=dev)
         else:
-            v = (torch.randn(d.shape, generator=gen, dtype=torch.float32,
-                             device=dev) * d.scale).to(dt)
-        vals[path] = v
+            g = torch.randn(d.shape, generator=gen, dtype=torch.float32,
+                            device=dev)
+            v = (local_slice(g, d, mi) * d.scale).to(dt)
+            del g
+        vals[path] = v.contiguous()
     return _fill(plan, vals)
 
 
@@ -134,17 +210,21 @@ def _fill(plan, vals, path=()):
     return [_fill(v, vals, path + (i,)) for i, v in enumerate(plan)]
 
 
-def from_jax_params(tree, cfg, device=None) -> dict:
-    """The reference's parameter tree, with each ``Pv`` leaf unwrapped to a
-    numpy array, -> this package's parameter tree on ``device``.
+def from_jax_params(tree, cfg, device=None, mi: MeshInfo | None = None) -> dict:
+    """The reference's GLOBAL parameter tree, with each ``Pv`` leaf
+    unwrapped to a numpy array, -> this rank's shards on ``device`` (the
+    slice of each leaf that ``mi``'s coordinates name; the whole tree on a
+    one-rank mesh).
 
     The tree must have exactly the layout of this package's plan for
-    ``cfg`` (dicts by key, layer groups as a list of stacked leaves); each
-    leaf's shape is checked and its dtype set to the plan's."""
+    ``cfg`` on ``mi`` (dicts by key, layer groups as a list of stacked
+    leaves); each leaf's global shape is checked and its dtype set to the
+    plan's."""
     from repro_torch.models.transformer import model_plan
 
     dev = resolve_device(device)
-    plan = model_plan(cfg, MeshInfo())
+    mi = mi or MeshInfo()
+    plan = model_plan(cfg, mi)
 
     def conv(p, t, path):
         if isinstance(p, ParamDef):
@@ -154,6 +234,7 @@ def from_jax_params(tree, cfg, device=None) -> dict:
             if tuple(a.shape) != p.shape:
                 raise ValueError(f"param {'/'.join(map(str, path))}: shape "
                                  f"{tuple(a.shape)}, plan wants {p.shape}")
+            a = local_slice(a, p, mi)
             return torch.from_numpy(np.array(a, copy=True)).to(
                 device=dev, dtype=torch_dtype(p.dtype))
         if isinstance(p, dict):

@@ -1,9 +1,10 @@
 """Block assembly (port of ``repro.models.transformer`` for attention
-groups): parameter plans and the paged decode bodies.
+groups): parameter plans, the training bodies and the paged decode bodies.
 
 Each group's ``n`` identical layers are stacked on a leading axis, as in
 the reference; where the reference runs ``lax.scan`` over that axis, a
-Python loop walks it here.
+Python loop walks it here.  Training runs without rematerialization: the
+activations of every layer stay alive for the backward pass.
 """
 
 from __future__ import annotations
@@ -55,6 +56,40 @@ def layer_slice(tree, i: int):
     return tree[i]
 
 
+def _unstack(tree, n: int) -> list:
+    """A stacked group tree -> ``n`` per-layer trees of views.  ``unbind``
+    keeps autograd to one stacked gradient per leaf (indexing each layer
+    would allocate a full-size gradient per layer)."""
+    if isinstance(tree, dict):
+        per = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: per[k][i] for k in tree} for i in range(n)]
+    return list(tree.unbind(0))
+
+
+# --------------------------------------------------------------------------
+# training bodies
+# --------------------------------------------------------------------------
+
+def run_block(kind, p, x, cfg, mi, mode, g: BlockGroup, pos):
+    """One training layer: x [B, S_loc, D] -> [B, S_loc, D]."""
+    if kind != "attn":
+        raise NotImplementedError(f"layer kind {kind!r} is not yet ported")
+    h = layers.norm(p["ln1"], x, cfg, mi)
+    x = x + attention.attn_train(p["attn"], h, pos, cfg, mi, mode,
+                                 causal=cfg.causal, window=g.window)
+    if cfg.d_ff:
+        h = layers.norm(p["ln2"], x, cfg, mi)
+        x = x + layers.mlp(p["mlp"], h, cfg, mi, sp=True)
+    return x
+
+
+def run_group(gp, x, g: BlockGroup, cfg, mi, mode, pos):
+    """The group's ``n`` layers in order."""
+    for p in _unstack(gp, g.n):
+        x = run_block(g.kind, p, x, cfg, mi, mode, g, pos)
+    return x
+
+
 # --------------------------------------------------------------------------
 # paged decode bodies
 # --------------------------------------------------------------------------
@@ -72,7 +107,7 @@ def decode_block_paged(kind, p, x, pool, tables, pos, active, cfg, mi,
     x = x + r
     if cfg.d_ff:
         h = layers.norm(p["ln2"], x, cfg, mi)
-        x = x + layers.mlp(p["mlp"], h, cfg, mi)
+        x = x + layers.mlp(p["mlp"], h, cfg, mi, sp=False)
     return x, pool
 
 

@@ -47,6 +47,8 @@ def storage_bits(codec: str) -> int | None:
     if codec in (None, "none"):
         return None
     c = codecs.get(codec)
+    if c.stateful:
+        c.encode(None)                       # raises: not yet ported
     if not isinstance(c, codecs.BqCodec):
         raise ValueError(
             f"kv storage codec must be 'none' or a bq* codec (random-access"

@@ -57,14 +57,14 @@ class PagedServer:
         """(token [N,1], pool, tables [N,mb] int32, pos [N], active [N]
         bool) -> (next_token [N] int32, pool updated in place)."""
         model, cfg, mi = self.model, self.model.cfg, self.model.mi
-        x = layers.embed(params["embed"], token, cfg, mi)
+        x = layers.embed(params["embed"], token, cfg, mi, sp=False)
         for i, g in enumerate(cfg.layer_groups):
             x, pool[i] = transformer.decode_group_paged(
                 params["groups"][i], x, pool[i], tables, pos, active, g, cfg,
                 mi, bits=self.bits, block_tokens=self.block_tokens,
                 backend=self.backend)
         x = layers.norm(params["final_norm"], x, cfg, mi)
-        logits = layers.lm_head_logits(params, x, cfg, mi)
+        logits = layers.lm_head_logits(params, x, cfg, mi, sp=False)
         return greedy_token(logits, cfg, mi), pool
 
     def decode_step(self, n_slots: int, n_blocks: int, max_blocks: int):

@@ -1,0 +1,249 @@
+"""The port's compressed collectives (repro_torch.core.comms) over gloo
+worlds of 2, 3 and 4 CPU processes, against the reference's rings over as
+many XLA host devices.
+
+Contract asserted here:
+  * ``_ring_schedule`` equals the reference's over a sweep of row counts,
+    bidirectional splits and chunk counts;
+  * for ``psum``, ``reduce_scatter``, ``all_gather``,
+    ``reduce_scatter_flat``, ``all_gather_flat``, the ring core
+    (``_ring_reduce_scatter``: the sum chunk and the final wire) and
+    ``_ppermute_impl`` under bq8, bq16 and bq24, unidirectional and
+    bidirectional (realized, and fallen back below the tile floor), every
+    rank's outputs are bit-equal to the reference's, and the ledger's
+    analytic events and measured wire events are equal, event for event;
+  * under ``none`` the outputs agree to f32 rounding (gloo and XLA sum in
+    different orders) and the ledger bytes are equal.
+
+XLA:CPU fuses the multiply of the reference's fused ring hop into its add
+(see ``test_torch_kernels_ring.py``); the port rounds them separately, as
+its CUDA kernels do.  The reference here runs with its jnp hop oracles
+rounding the multiply first (an opaque integer no-op between multiply and
+add), so every other step of the ring is compared bit for bit.
+
+The reference runs in a subprocess with
+``--xla_force_host_platform_device_count=4`` (this file re-invokes itself
+with ``--reference``), like ``tests/test_comms_multidev.py``.
+"""
+
+import os
+import pickle
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+WORLDS = (2, 3, 4)
+BIG, SMALL = (48, 1000), (12, 37)
+
+
+def _cases(n: int) -> list:
+    out = []
+    for codec in ("bq8", "bq16", "bq24"):
+        for bidir in (False, True):
+            ops = ("psum", "reduce_scatter", "all_gather",
+                   "reduce_scatter_flat", "all_gather_flat", "ring")
+            if bidir and codec != "bq8":      # the ring core suffices
+                ops = ("psum", "ring")
+            for op in ops:
+                out.append(dict(op=op, codec=codec, bidir=bidir, chunks=1,
+                                shape=BIG))
+    out.append(dict(op="ring", codec="bq8", bidir=True, chunks=2, shape=BIG))
+    out.append(dict(op="psum", codec="bq8", bidir=True, chunks=1,
+                    shape=SMALL))                        # tile-floor fallback
+    out.append(dict(op="ppermute", codec="bq8", bidir=False, chunks=1,
+                    shape=SMALL))
+    for op in ("psum", "reduce_scatter", "all_gather"):
+        out.append(dict(op=op, codec="none", bidir=False, chunks=1,
+                        shape=BIG))
+    return out
+
+
+def _inputs(n: int, shape) -> np.ndarray:
+    rng = np.random.default_rng(1000 * n + shape[0])
+    x = rng.normal(size=(n,) + tuple(shape)) * 3.0
+    x[:, 0] = 0.0                                      # an all-zero row
+    return x.astype(np.float32)
+
+
+# --------------------------------------------------------------------------
+# the reference, in a subprocess with 4 host devices
+# --------------------------------------------------------------------------
+
+def _reference(out_path: str) -> None:
+    import jax
+    import jax.numpy as jnp
+    from jax import lax
+    from jax.sharding import PartitionSpec as P
+
+    from repro.core import comms, compat, policy
+    from repro.kernels import ops, ref
+
+    def sep_add(a, b):
+        m = (b != b).astype(jnp.uint32)
+        return lax.bitcast_convert_type(
+            lax.bitcast_convert_type(a, jnp.uint32) ^ m, jnp.float32) + b
+
+    def dae(q_hi, q_lo, scale, local, *, bits):
+        s = sep_add(ref.bq_decode_ref(q_hi, q_lo, scale, bits),
+                    local.astype(jnp.float32))
+        return ref.bq_encode_ref(s, bits) + (s,)
+
+    st = ("bits",)
+    ops._dae_ref = jax.jit(dae, static_argnames=st)
+    ops._daew_ref = jax.jit(lambda *a, bits: dae(*a, bits=bits)[:3],
+                            static_argnames=st)
+    ops._da_ref = jax.jit(lambda q_hi, q_lo, scale, local, *, bits: sep_add(
+        ref.bq_decode_ref(q_hi, q_lo, scale, bits),
+        local.astype(jnp.float32)), static_argnames=st)
+
+    def body(op, n, codec_name):
+        def f(xl):
+            x = xl[0]
+            if op == "psum":
+                outs = {"out": comms.psum(x, "x", "dp")}
+            elif op == "reduce_scatter":
+                outs = {"out": comms.reduce_scatter(x, "x", 0, "dp")}
+            elif op == "all_gather":
+                outs = {"out": comms.all_gather(x, "x", 0, "dp")}
+            elif op in ("reduce_scatter_flat", "all_gather_flat"):
+                ch = comms.reduce_scatter_flat(x.reshape(-1), "x", "dp")
+                outs = {"out": ch if op == "reduce_scatter_flat" else
+                        comms.all_gather_flat(ch, "x", x.size, "zero")}
+            elif op == "ring":
+                codec = policy.current_plan().codec("dp")
+                xb = comms._chunked_blocks(x.reshape(-1), n)
+                acc, wire = comms._ring_reduce_scatter(xb, "x", codec)
+                outs = {"out": acc, **{f"wire.{k}": v for k, v in
+                                       wire.items() if v is not None}}
+            else:
+                codec = policy.current_plan().codec("pp", "fwd")
+                perm = [(j, (j + 1) % n) for j in range(n)]
+                outs = {"out": comms._ppermute_impl(x, "x", perm, codec)}
+            return {k: v[None] for k, v in outs.items()}
+        return f
+
+    res = {}
+    for n in WORLDS:
+        mesh = compat.make_mesh((n,), ("x",), devices=jax.devices()[:n])
+        for i, case in enumerate(_cases(n)):
+            plan = policy.CommPolicy(
+                "rc", rules=(policy.Rule(case["codec"]),)).compile()
+            x = jnp.asarray(_inputs(n, case["shape"]))
+
+            def wrapped(xl, case=case):
+                with policy.use_plan(plan), comms.ring_options(
+                        case["bidir"], case["chunks"]):
+                    return body(case["op"], n, case["codec"])(xl)
+            fn = jax.jit(compat.shard_map(wrapped, mesh=mesh,
+                                          in_specs=(P("x"),),
+                                          out_specs=P("x"),
+                                          check_vma=False))
+            with comms.record_traffic() as events:
+                out = jax.block_until_ready(fn(x))
+            res[(n, i)] = ({k: np.asarray(v) for k, v in out.items()},
+                           list(events), list(events.wire))
+    with open(out_path, "wb") as f:
+        pickle.dump(res, f)
+
+
+@pytest.fixture(scope="module")
+def reference(tmp_path_factory):
+    out = tmp_path_factory.mktemp("ref") / "comms.pkl"
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "XLA_FLAGS": "--xla_force_host_platform_device_count=4",
+           "JAX_PLATFORMS": "cpu"}
+    proc = subprocess.run([sys.executable, __file__, "--reference", str(out)],
+                          env=env, capture_output=True, text=True,
+                          timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    with open(out, "rb") as f:
+        return pickle.load(f)
+
+
+@pytest.fixture(scope="module")
+def port():
+    from repro_torch.launch.train import spawn_world
+    res = {}
+    for n in WORLDS:
+        cases = [{k: v for k, v in c.items() if k != "shape"}
+                 for c in _cases(n)]
+        # the ranks take row ``rank`` of their case's input
+        per_rank = spawn_world(
+            "test_torch_comms:_port_rank", n,
+            dict(cases=cases, shapes=[c["shape"] for c in _cases(n)]),
+            timeout=600)
+        for i in range(len(cases)):
+            res[(n, i)] = [r[i] for r in per_rank]
+    return res
+
+
+def _port_rank(*, rank, world, cases, shapes):
+    """One rank of the port's world: each case on its own input."""
+    from repro_torch.launch.ring_check import collectives_rank
+    out = []
+    for case, shape in zip(cases, shapes):
+        out += collectives_rank(rank=rank, world=world, cases=[case],
+                                payload=_inputs(world, shape))
+    return out
+
+
+# --------------------------------------------------------------------------
+# tests
+# --------------------------------------------------------------------------
+
+def test_ring_schedule_matches_reference():
+    from repro.core import comms as jcomms
+    from repro_torch.core import comms as tcomms
+    for m in (0, 8, 16, 24, 40, 96, 128, 1000, 1024):
+        for bidir in (False, True):
+            for chunks in (1, 2, 3, 5):
+                assert tcomms._ring_schedule(m, bidir, chunks) == \
+                    jcomms._ring_schedule(m, bidir, chunks), \
+                    (m, bidir, chunks)
+
+
+@pytest.mark.parametrize("n", WORLDS)
+def test_rings_match_reference(n, reference, port):
+    for i, case in enumerate(_cases(n)):
+        j_out, j_events, j_wire = reference[(n, i)]
+        for rank, r in enumerate(port[(n, i)]):
+            assert set(r["result"]) == set(j_out), case
+            for k, got in r["result"].items():
+                want = j_out[k][rank]
+                assert got.shape == want.shape, (case, k)
+                if case["codec"] == "none":
+                    np.testing.assert_allclose(got, want, rtol=1e-6,
+                                               atol=1e-5, err_msg=str(case))
+                else:
+                    np.testing.assert_array_equal(got, want,
+                                                  err_msg=f"{case} {k}")
+            assert r["events"] == j_events, case
+            assert r["wire"] == j_wire, case
+
+
+@pytest.mark.parametrize("n", WORLDS)
+def test_ledger_shows_realized_schedule(n, port):
+    """The bidirectional split is realized on the big payload and falls
+    back, visibly, below the tile floor; compressed wires are smaller."""
+    cases = _cases(n)
+    by = {(c["op"], c["codec"], c["bidir"], c["chunks"], c["shape"]): i
+          for i, c in enumerate(cases)}
+    big = port[(n, by[("psum", "bq8", True, 1, BIG)])][0]["wire"][0]
+    assert big["op"] == "rs_ring" and big["bidir"] and big["parts"] == 2
+    small = port[(n, by[("psum", "bq8", True, 1, SMALL)])][0]["wire"][0]
+    assert small["fallback"] and not small["bidir"] and small["parts"] == 1
+    striped = port[(n, by[("ring", "bq8", True, 2, BIG)])][0]["wire"][0]
+    assert striped["parts"] == 4
+    raw = sum(w["payload_bytes"] * w["hops"] for w in
+              port[(n, by[("all_gather", "none", False, 1, BIG)])][0]["wire"])
+    bq8 = sum(w["payload_bytes"] * w["hops"] for w in
+              port[(n, by[("all_gather", "bq8", False, 1, BIG)])][0]["wire"])
+    assert bq8 < 0.3 * raw
+
+
+if __name__ == "__main__" and sys.argv[1:2] == ["--reference"]:
+    _reference(sys.argv[2])

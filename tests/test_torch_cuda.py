@@ -4,9 +4,10 @@ with only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Contract asserted here: each kernel equals its plain PyTorch version bit
-for bit at rates 4/8/16/24 on random, all-zero, extreme-magnitude and
-denormal rows; a block id outside the pool decodes to NaN without
+Contract asserted here: each kernel (encode, decode, gather-decode, the
+fused ring hop with the sum and wire-only, decode-add) equals its plain
+PyTorch version bit for bit at rates 4/8/16/24 on random, all-zero,
+extreme-magnitude and denormal rows; a block id outside the pool decodes to NaN without
 disturbing the other rows; each wrapper counts exactly its own launches;
 tensors of the wrong dtype, shape or device raise.
 """
@@ -62,7 +63,9 @@ def test_kernels_match_plain(cuda, bits):
                        ops.bq_gather_decode(pool, idx, bits, backend="torch"))
     torch.cuda.synchronize()
     assert bq.LAUNCHES == {"bq_encode": 1, "bq_decode": 1,
-                           "bq_gather_decode": 1}
+                           "bq_gather_decode": 1, "bq_decode_add_encode": 0,
+                           "bq_decode_add_encode_wire": 0,
+                           "bq_decode_add": 0}
 
 
 @pytest.mark.cuda
@@ -93,3 +96,46 @@ def test_wrappers_validate_inputs(cuda):
     w = ops.bq_encode_blocks(torch.zeros(8, 128, device=cuda), 24)
     with pytest.raises(ValueError):
         bq.bq_decode(w["q_hi"], None, w["scale"], 24)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", BITS)
+@pytest.mark.parametrize("m", [8, 48, 65536])
+def test_fused_hops_match_plain(cuda, bits, m):
+    """Pallas #3 (with the sum and wire-only) and #4 on the card equal
+    their plain versions bit for bit; each form counts its own launches."""
+    w = ops.bq_encode_blocks(_rows(m, bits, cuda), bits, backend="torch")
+    local = _rows(m, bits + 100, cuda) * 0.3
+    bq.reset_launches()
+    got_w, got_s = ops.bq_decode_add_encode_blocks(w, local, bits)
+    want_w, want_s = ops.bq_decode_add_encode_blocks(w, local, bits,
+                                                     backend="torch")
+    wire_w, none = ops.bq_decode_add_encode_blocks(w, local, bits,
+                                                   want_sum=False)
+    got_a = ops.bq_decode_add_blocks(w, local, bits)
+    want_a = ops.bq_decode_add_blocks(w, local, bits, backend="torch")
+    torch.cuda.synchronize()
+    assert none is None
+    assert torch.equal(got_s, want_s) and torch.equal(got_a, want_a)
+    for k in PLANES:
+        if want_w[k] is not None:
+            assert torch.equal(got_w[k], want_w[k]), k
+            assert torch.equal(wire_w[k], want_w[k]), k
+    assert (bq.LAUNCHES["bq_decode_add_encode"],
+            bq.LAUNCHES["bq_decode_add_encode_wire"],
+            bq.LAUNCHES["bq_decode_add"]) == (1, 1, 1)
+
+
+@pytest.mark.cuda
+def test_fused_hops_validate_inputs(cuda):
+    w = ops.bq_encode_blocks(torch.zeros(16, 128, device=cuda), 8)
+    with pytest.raises(TypeError):          # local must be f32
+        bq.bq_decode_add(w["q_hi"], None, w["scale"],
+                         torch.zeros(16, 128, dtype=torch.bfloat16,
+                                     device=cuda), 8)
+    with pytest.raises(ValueError):         # and match the wire's rows
+        bq.bq_decode_add_encode(w["q_hi"], None, w["scale"],
+                                torch.zeros(8, 128, device=cuda), 8)
+    with pytest.raises(ValueError):         # and be contiguous
+        bq.bq_decode_add(w["q_hi"], None, w["scale"],
+                         torch.zeros(128, 16, device=cuda).t(), 8)

@@ -1,5 +1,6 @@
 """The port stands alone: no module of ``repro_torch``, and not
-``chip_smoke.py``, imports ``jax`` or the reference package ``repro``;
+``chip_smoke.py``, imports ``jax`` or the reference package ``repro``, and
+neither does a rank that ``launch/train.py`` spawns (a fresh interpreter);
 entry points asked for the card raise without one instead of running on
 the CPU; ``chip_smoke.py`` fails without a card and outside the repo."""
 
@@ -76,6 +77,18 @@ def test_cuda_entry_points_raise_without_a_card():
         from_jax_params({}, cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", "gemma3-1b", "--reduced"])
+    from repro_torch.launch import train
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "gemma3-1b", "--reduced", "--dp", "2"])
+
+
+def test_spawned_ranks_import_no_reference():
+    from repro_torch.launch.train import spawn_world
+    res = spawn_world("repro_torch.launch.train:train_rank", 2,
+                      dict(arch="gemma3-1b", reduced=True, dp=2, tp=1,
+                           steps=1, seq=8, global_batch=2, device="cpu"),
+                      timeout=300)
+    assert [r["foreign_modules"] for r in res] == [[], []]
 
 
 def _run_smoke(cwd: Path):

@@ -209,8 +209,9 @@ def test_cpu_tensors_run_plain_and_launch_nothing():
     pool = {k: None if w[k] is None else w[k].reshape(4, 2, 2, -1)
             for k in PLANES}
     tops.bq_gather_decode(pool, torch.zeros((1, 2), dtype=torch.int32), 8)
-    assert tbq.LAUNCHES == {"bq_encode": 0, "bq_decode": 0,
-                            "bq_gather_decode": 0}
+    assert set(tbq.LAUNCHES) >= {"bq_encode", "bq_decode",
+                                 "bq_gather_decode"}
+    assert not any(tbq.LAUNCHES.values())
 
 
 def test_non_cpu_tensor_never_runs_plain():
