@@ -3,16 +3,25 @@
 
     python3 chip_smoke.py            # from the root of a checkout
 
-Phase 1 builds the bq kernels from src/repro_torch/kernels/csrc with nvcc,
-in this process, before any rank is spawned.
+Phase 1 builds the kernels from src/repro_torch/kernels/csrc with nvcc (one
+nvcc per source, all started together), in this process, before any rank
+is spawned.
 Phase 2 holds each kernel against its plain PyTorch version on the card,
 bit for bit, at rates 4/8/16/24 on random, all-zero, extreme-magnitude and
 denormal rows: encode, decode and the fused ring hops (#3 with the sum and
 wire-only, #4) at M = 8, 16, 65536 and at the training step's ring shapes,
-gather-decode on the serving table.  It times every kernel and its plain
-version beside the byte bound: device time with the L2 flushed before
-each call (the time the kernel line reports), device time by CUDA-graph
-replay on warm L2, and the time per eager call.
+gather-decode on the serving table.  It holds the lowrank matmul's three
+forms (tall M @ Q, M.T @ P as a view, the small-k reconstruction P @ Q.T)
+at the training step's shape (gemma3-1b's per-rank gradient at dp 2 x tp
+2, 1051352 x 512) at r = 8 and 64: equal to their plain versions on
+integer operands in [-2, 2] (exact in any sum order), within
+lowrank.error_bound of them and within lowrank.order_bound of the f64
+product on normal operands, and a second call repeating bit for bit; it
+times the plr step's Gram-Schmidt at the same shapes.  It
+times every kernel and its plain version beside its bound: device time
+with the L2 flushed before each call (the time the kernel line reports),
+device time by CUDA-graph replay on warm L2, and the time per eager call;
+the matmul forms also beside torch.matmul with TF32 off.
 Phase 3 serves gemma3-1b (full published width and depth) by continuous
 batching over a bq8 paged KV pool, 8 requests of
 560 + 24 tokens on 8 slots, through the kernels, through their plain
@@ -34,11 +43,20 @@ data axis at bq8, unidirectional and bidirectional, on one rank's flat
 gradient from phase 4, through the kernels and the plain versions, and
 requires identical sums and wires on every rank and launches of the
 wire-only fused hop.
+Phase 6 drives the carried-state codecs on phase 4's training step, 4
+steps each: zhybrid_16_8 with plr8 on the DP gradient sync
+(--codec-for 'dp@zero1_grad*=plr8') through the kernels and through their
+plain versions, and ef_zhybrid_16_4 (ef:bq4) through the kernels.  It
+requires equal ledger bytes and losses within PLR_RTOL between the two plr
+runs, every lowrank form launched in the kernel run and nothing in the
+plain run, finite and falling losses, and the dp wire bytes at plr8's and
+bq4's priced ratios to phase 4's baseline.
 
 Every line with a number carries the card's name and power limit.  Before
-the last line come the kernel JSON (all five kernels: launches on their
-path, cold-L2 device time at the path's shape, byte bound, plain time) and the
-card line; the last line is the result JSON.  Any failure exits non-zero;
+the last line come the kernel JSON (all six kernels: launches on their
+path, cold-L2 device time at the path's shape, bound, plain time, and the
+library call's time where one exists) and the card line; the last line is
+the result JSON.  Any failure exits non-zero;
 without a card, or outside a checkout, it fails before printing a result.
 """
 
@@ -66,6 +84,12 @@ SLOTS, BLOCK_TOKENS, PROMPT, GEN, SEED = 8, 16, 560, 24, 0
 # main path: the training step at full width and depth
 DP, TP, STEPS, SEQ, GLOBAL_BATCH = 2, 2, 5, 1024, 4
 RING_WORLD = 4                # phase 5's data axis
+STATEFUL_STEPS = 4            # phase 6
+PLR = ["--codec-for", "dp@zero1_grad*=plr8"]
+# plr8 kernel run vs plain run: the matmuls sum in other orders (each
+# within lowrank.error_bound), so losses and grad norms agree to this
+PLR_RTOL = 1e-4
+MM_FORMS = ("tall", "at_b", "small_k")
 SCRATCH = ROOT / ".smoke"     # git-ignored: phase 4's flat gradient
 
 
@@ -365,49 +389,133 @@ def check_fused(torch, kind: str, m: int, bits: int) -> float:
     return worst
 
 
-def drive_training(torch, card) -> dict:
-    """Phase 4: the training step through the kernels, the plain versions
-    and baseline; returns the kernel run's launches (all ranks) and the
-    file holding rank 0's flat gradient."""
+def train_run(card, scheme, backend, label, steps=STEPS, extra=(), **kw):
+    """One run of the launcher's training step (``dp x tp`` ranks on this
+    card, deterministic, exchanges timed); prints its numbers and returns
+    the per-rank results."""
     from repro_torch.launch import train
 
+    args = train.parser().parse_args(
+        ["--arch", "gemma3-1b", "--dp", str(DP), "--tp", str(TP),
+         "--steps", str(steps), "--seq", str(SEQ), "--global-batch",
+         str(GLOBAL_BATCH), "--seed", str(SEED), "--scheme", scheme,
+         *extra])
+    t0 = time.perf_counter()
+    res = train.run(args, backend=backend, deterministic=True,
+                    time_staging=True, **kw)
+    wall = time.perf_counter() - t0
+    step = [float(np.median(r["step_s"][1:])) for r in res]
+    share = [sum(r["staging_s"][1:]) / sum(r["step_s"][1:]) for r in res]
+    ms = max(step) * 1e3
+    print(f"  {label}: losses {res[0]['losses']} grad norms "
+          f"{[round(g, 6) for g in res[0]['grad_norms']]}; median "
+          f"{ms:.1f} ms/step (steps 2-{steps}, slowest rank), "
+          f"{GLOBAL_BATCH * SEQ / (ms / 1e3):.0f} tokens/s, peak "
+          f"{[round(r['peak_bytes'] / 2**30, 2) for r in res]} GiB per "
+          f"rank, staging+exchange {min(share) * 100:.0f}-"
+          f"{max(share) * 100:.0f} % of step time, "
+          f"{res[0]['staging_bytes'][-1] / 1e9:.2f} GB staged per step "
+          f"(rank 0), wall {wall:.0f}s [{card}]")
+    return res
+
+
+def launch_sums(res) -> dict:
+    return {n: sum(r["launches"][n] for r in res) for n in res[0]["launches"]}
+
+
+def mm_operands(torch, kind: str, rows: int, width: int, r: int, seed: int,
+                integer: bool = False):
+    """(a, b) of one lowrank product form as the plr codec passes them:
+    ``tall`` M @ Q, ``at_b`` M.T @ P (a view of M), ``small_k`` P @ Q.T (a
+    view of Q), M the (rows, width) matrix view of the flat gradient;
+    standard normals, or integers in [-2, 2] under ``integer``."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def draw(*shape):
+        if integer:
+            return torch.randint(-2, 3, shape, generator=g, device="cuda",
+                                 dtype=torch.int32).float()
+        return torch.randn(*shape, generator=g, device="cuda")
+    if kind == "tall":
+        return draw(rows, width), draw(width, r)
+    if kind == "at_b":
+        return draw(rows, width).T, draw(rows, r)
+    return draw(rows, r), draw(width, r).T
+
+
+def check_matmul(torch, kind: str, rows: int, width: int, r: int):
+    """Hold one form against its plain version: bit for bit on integer
+    operands in [-2, 2] (every partial sum is an integer below 2^24, exact
+    in any order, so a dropped or doubled slab shows); on normal operands
+    within lowrank.error_bound of it and within lowrank.order_bound (the
+    kernel's own sum order) of the f64 product, and a second call repeats
+    bit for bit.  Returns (max abs difference from the plain version on
+    normal operands, the largest share of the order bound)."""
+    from repro_torch.kernels import lowrank
+
+    a, b = mm_operands(torch, kind, rows, width, r, seed=r + len(kind),
+                       integer=True)
+    if lowrank.form(a, b) != kind:
+        fail(f"matmul {kind}: operands take form {lowrank.form(a, b)}")
+    got, want = lowrank.matmul(a, b), lowrank.matmul(a, b, backend="torch")
+    if not torch.equal(got, want):
+        fail(f"matmul {kind} r={r}: differs from the plain version on "
+             f"integer operands (exact) by {max_diff(got, want)}")
+    del a, b, got, want
+    a, b = mm_operands(torch, kind, rows, width, r, seed=r + len(kind))
+    got, again = lowrank.matmul(a, b), lowrank.matmul(a, b)
+    want = lowrank.matmul(a, b, backend="torch")
+    if not torch.equal(got, again):
+        fail(f"matmul {kind} r={r}: a second call differs")
+    err = (got.double() - want.double()).abs()
+    bnd = lowrank.error_bound(a, b)
+    if not bool((err <= bnd).all()):
+        fail(f"matmul {kind} r={r}: beyond the error bound by "
+             f"{float((err - bnd).max())}")
+    e_abs = float(err.max())
+    del err, bnd, want
+    with lowrank._no_tf32():
+        err = (got.double() - torch.matmul(a.double(), b.double())).abs()
+    bnd = lowrank.order_bound(a, b)
+    if not bool((err <= bnd).all()):
+        fail(f"matmul {kind} r={r}: beyond its order bound of the f64 "
+             f"product by {float((err - bnd).max())}")
+    return e_abs, float((err / bnd.clamp_min(1e-300)).max())
+
+
+def time_matmul(torch, kind: str, rows: int, width: int, r: int):
+    """(timings, bound, torch.matmul's cold-L2 ms) of one form."""
+    from repro_torch.kernels import lowrank
+
+    a, b = mm_operands(torch, kind, rows, width, r, seed=1)
+    m, k = a.shape
+    n = b.shape[1]
+
+    def library():
+        with lowrank._no_tf32():
+            return torch.matmul(a, b)
+    t = timings(torch, lambda: lowrank.matmul(a, b),
+                lambda: lowrank.matmul(a, b, backend="torch"), iters=5)
+    return t, bound((m * k + k * n + m * n) * 4, 2 * m * k * n), \
+        cold_ms(torch, library)
+
+
+def drive_training(torch, card) -> dict:
+    """Phase 4: the training step through the kernels, the plain versions
+    and baseline; returns the kernel run's launches (all ranks), the file
+    holding rank 0's flat gradient, and baseline's priced ledger."""
     SCRATCH.mkdir(exist_ok=True)
     grad_path = SCRATCH / "flat_grad.pt"
-    ap = train.parser()
-    base = ["--arch", "gemma3-1b", "--dp", str(DP), "--tp", str(TP),
-            "--steps", str(STEPS), "--seq", str(SEQ), "--global-batch",
-            str(GLOBAL_BATCH), "--seed", str(SEED)]
-
-    def run(scheme, backend, label, **kw):
-        args = ap.parse_args(base + ["--scheme", scheme])
-        t0 = time.perf_counter()
-        res = train.run(args, backend=backend, deterministic=True,
-                        time_staging=True, **kw)
-        wall = time.perf_counter() - t0
-        step = [float(np.median(r["step_s"][1:])) for r in res]
-        share = [sum(r["staging_s"][1:]) / sum(r["step_s"][1:]) for r in res]
-        ms = max(step) * 1e3
-        print(f"  {label}: losses {res[0]['losses']} grad norms "
-              f"{[round(g, 6) for g in res[0]['grad_norms']]}; median "
-              f"{ms:.1f} ms/step (steps 2-{STEPS}, slowest rank), "
-              f"{GLOBAL_BATCH * SEQ / (ms / 1e3):.0f} tokens/s, peak "
-              f"{[round(r['peak_bytes'] / 2**30, 2) for r in res]} GiB per "
-              f"rank, staging+exchange {min(share) * 100:.0f}-"
-              f"{max(share) * 100:.0f} % of step time, "
-              f"{res[0]['staging_bytes'][-1] / 1e9:.2f} GB staged per step "
-              f"(rank 0), wall {wall:.0f}s [{card}]")
-        return res
-
-    k = run("zhybrid_16_8", None, "zhybrid_16_8 kernels",
-            flat_grad_out=str(grad_path))
-    p = run("zhybrid_16_8", "torch", "zhybrid_16_8 plain")
-    b = run("baseline", None, "baseline")
+    k = train_run(card, "zhybrid_16_8", None, "zhybrid_16_8 kernels",
+                  flat_grad_out=str(grad_path))
+    p = train_run(card, "zhybrid_16_8", "torch", "zhybrid_16_8 plain")
+    b = train_run(card, "baseline", None, "baseline")
     for rk, rp in zip(k, p):
         for key in ("losses", "grad_norms", "wire_per_dim", "priced_per_dim"):
             if rk[key] != rp[key]:
                 fail(f"rank {rk['rank']}: {key} differ between the kernel "
                      f"run ({rk[key]}) and the plain run ({rp[key]})")
-    launches = {n: sum(r["launches"][n] for r in k) for n in k[0]["launches"]}
+    launches = launch_sums(k)
     for n in ("bq_encode", "bq_decode", "bq_decode_add_encode",
               "bq_decode_add"):
         if launches[n] <= 0:
@@ -437,7 +545,89 @@ def drive_training(torch, card) -> dict:
           f"{launches} [{card}]")
     if not grad_path.exists():
         fail("phase 4 saved no flat gradient for phase 5")
-    return {"launches": launches, "grad_path": grad_path}
+    return {"launches": launches, "grad_path": grad_path,
+            "zhybrid": zk, "baseline": zb, "baseline_losses": b[0]["losses"]}
+
+
+def flat_elems(cfg) -> int:
+    """Per-rank flat gradient elements of the training step (the DP
+    sync's payload)."""
+    from repro_torch.models.params import MeshInfo, defs, local_shape
+    from repro_torch.models.transformer import model_plan
+
+    mi = MeshInfo(tp=TP, dp=DP)
+    return sum(int(np.prod(local_shape(d, mi)))
+               for d in defs(model_plan(cfg, mi)))
+
+
+def drive_stateful(torch, card, train, n_flat) -> dict:
+    """Phase 6: plr8 on the DP gradient sync through the kernels and the
+    plain versions, and ef_zhybrid_16_4 through the kernels; returns the
+    kernel runs' launches (all ranks)."""
+    from repro_torch.core import codecs
+
+    k = train_run(card, "zhybrid_16_8", None, "plr8 kernels",
+                  STATEFUL_STEPS, PLR)
+    p = train_run(card, "zhybrid_16_8", "torch", "plr8 plain",
+                  STATEFUL_STEPS, PLR)
+    e = train_run(card, "ef_zhybrid_16_4", None, "ef_zhybrid_16_4 kernels",
+                  STATEFUL_STEPS)
+    for rk, rp in zip(k, p):
+        for key in ("wire_per_dim", "priced_per_dim"):
+            if rk[key] != rp[key]:
+                fail(f"phase 6 rank {rk['rank']}: {key} differ between the "
+                     f"plr8 kernel run ({rk[key]}) and plain run "
+                     f"({rp[key]})")
+        for key in ("losses", "grad_norms"):
+            if not np.allclose(rk[key], rp[key], rtol=PLR_RTOL, atol=0):
+                fail(f"phase 6 rank {rk['rank']}: plr8 {key} beyond rtol "
+                     f"{PLR_RTOL}: kernels {rk[key]}, plain {rp[key]}")
+    worst = max(abs(a / b - 1) for rk, rp in zip(k, p)
+                for key in ("losses", "grad_norms")
+                for a, b in zip(rk[key], rp[key]))
+    kl, el = launch_sums(k), launch_sums(e)
+    for n in MM_FORMS:
+        if kl[f"matmul_{n}"] <= 0:
+            fail(f"the plr8 step never launched matmul_{n}: {kl}")
+    if any(v for r in p for v in r["launches"].values()):
+        fail(f"the plr8 plain run launched kernels: "
+             f"{[r['launches'] for r in p]}")
+    for n in ("bq_encode", "bq_decode", "bq_decode_add"):
+        if el[n] <= 0:
+            fail(f"the ef_zhybrid_16_4 step never launched {n}: {el}")
+    for label, res in (("plr8", k), ("ef_zhybrid_16_4", e)):
+        for r in res:
+            ls = r["losses"]
+            if not (np.isfinite(ls).all() and ls[-1] < ls[0]):
+                fail(f"{label} rank {r['rank']}: losses {ls} not finite and "
+                     f"falling")
+    base, zh = train["baseline"], train["zhybrid"]
+    pk, pe = k[0]["priced_per_dim"], e[0]["priced_per_dim"]
+    want = {"plr8": 2 * codecs.get("plr8").wire_nbytes_for(n_flat)
+            / (4 * n_flat),
+            "ef:bq4": (4 + 32 / 128) / 32}
+    got = {"plr8": pk["dp"] / base["dp"], "ef:bq4": pe["dp"] / base["dp"]}
+    if abs(got["plr8"] / want["plr8"] - 1) > 1e-9:
+        fail(f"plr8 dp bytes {pk['dp']} vs baseline {base['dp']}: ratio "
+             f"{got['plr8']:.6f}, priced {want['plr8']:.6f}")
+    if not want["ef:bq4"] <= got["ef:bq4"] <= want["ef:bq4"] * 1.01:
+        fail(f"ef:bq4 dp bytes {pe['dp']} vs baseline {base['dp']}: ratio "
+             f"{got['ef:bq4']:.4f}, codec ratio {want['ef:bq4']:.4f}")
+    for d in ("tp", "zero"):
+        if not pk[d] == pe[d] == zh[d]:
+            fail(f"{d} bytes differ from zhybrid_16_8's: plr8 {pk[d]}, "
+                 f"ef {pe[d]}, zhybrid {zh[d]}")
+    print(f"phase 6: plr8 kernel run vs plain run: ledger equal, losses and "
+          f"grad norms within {worst:.2e} (rtol {PLR_RTOL}); priced wire per "
+          f"rank per step vs baseline: dp plr8 {pk['dp'] / 1e6:.2f} MB "
+          f"({got['plr8']:.5f}), ef:bq4 {pe['dp'] / 1e6:.1f} MB "
+          f"({got['ef:bq4']:.4f}), baseline {base['dp'] / 1e6:.1f} MB; tp "
+          f"{pk['tp'] / 1e6:.1f} and zero {pk['zero'] / 1e6:.1f} MB as "
+          f"zhybrid_16_8; measured plr8 {k[0]['wire_per_dim']}, ef "
+          f"{e[0]['wire_per_dim']}; codec state rank 0: plr8 "
+          f"{k[0]['codec_state']}, ef {e[0]['codec_state']}; launches (all "
+          f"ranks) plr8 {kl}, ef {el} [{card}]")
+    return {"plr": kl, "ef": el}
 
 
 def drive_rings(torch, card, grad_path) -> dict:
@@ -481,7 +671,7 @@ def main():
         fail(f"{ROOT} is not a checkout of the repo (src/repro_torch missing)")
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import configs
-    from repro_torch.kernels import bq, ops
+    from repro_torch.kernels import bq, lowrank, ops
     from repro_torch.models.model import Model
     from repro_torch.serve import paged_kv
 
@@ -494,6 +684,7 @@ def main():
     # ---------------------------------------------------------- phase 1
     t0 = time.perf_counter()
     bq._load()
+    lowrank._load()
     print(f"phase 1: built {bq.build_info['path']} in "
           f"{bq.build_info['seconds']:.2f}s "
           f"(load {time.perf_counter() - t0:.2f}s) [{card}]")
@@ -651,6 +842,43 @@ def main():
             show(name, bits, "65536 rows", *time_fused(kind, 65536, bits))
     torch.cuda.empty_cache()
 
+    # the lowrank matmul's three forms at the training step's matrix view
+    n_flat = flat_elems(cfg)
+    mm_rows, mm_width = lowrank.mat_shape(n_flat)
+    mm = {}
+    for r_mm in (8, 64):
+        for kind in MM_FORMS:
+            e_abs, share = check_matmul(torch, kind, mm_rows, mm_width, r_mm)
+            t, b, lib = time_matmul(torch, kind, mm_rows, mm_width, r_mm)
+            mm[(kind, r_mm)] = (e_abs, share, t, b, lib)
+            (ms, pms, wms, wpms, ems, epms), (bms, by) = t, b
+            print(f"  lowrank matmul {kind} r={r_mm} on the {mm_rows} x "
+                  f"{mm_width} view: equal to plain on integers; on normals "
+                  f"max abs diff from plain {e_abs:.3g}, from the f64 "
+                  f"product {share * 100:.2f}% of its order bound, repeats "
+                  f"bit for bit; "
+                  f"device, L2 flushed, {ms * 1e3:.2f} us kernel "
+                  f"({bms / ms * 100:.1f}% of bound) vs {pms * 1e3:.2f} us "
+                  f"plain, torch.matmul {lib * 1e3:.2f} us; warm L2 (graph) "
+                  f"{wms * 1e3:.2f} vs {wpms * 1e3:.2f} us; per eager call "
+                  f"{ems * 1e3:.2f} vs {epms * 1e3:.2f} us; bound "
+                  f"{bms * 1e3:.3f} us ({by}) [{card}]")
+            torch.cuda.empty_cache()
+    # modified Gram-Schmidt (plain PyTorch, not a kernel) at the plr8 step's
+    # shapes: P^ of the view and Q' of its width, once each per step
+    gs = {}
+    for name, rows_gs in (("p", mm_rows), ("q", mm_width)):
+        x = torch.randn(rows_gs, 8, device="cuda")
+        gs[name] = eager_ms(torch, lambda x=x: lowrank.orthonormalize(x),
+                            iters=10, warmup=2)
+    gs["step"] = gs["p"] + gs["q"]
+    print(f"phase 2: lowrank matmul equal to its plain version on integers, "
+          f"within lowrank.error_bound of it and lowrank.order_bound of the "
+          f"f64 product on normals, deterministic, all three forms at r=8 "
+          f"and 64 on the {mm_rows} x {mm_width} view; orthonormalize per "
+          f"eager call {gs['p']:.3f} ms ({mm_rows} x 8) + {gs['q']:.3f} ms "
+          f"({mm_width} x 8) = {gs['step']:.3f} ms per plr8 step [{card}]")
+
     # ---------------------------------------------------------- phase 3
     model = Model(cfg)                                    # on the card
     t0 = time.perf_counter()
@@ -678,6 +906,12 @@ def main():
     # ---------------------------------------------------------- phase 5
     rings = drive_rings(torch, card, train["grad_path"])
     train["grad_path"].unlink()
+
+    # ---------------------------------------------------------- phase 6
+    print(f"phase 6: carried-state codecs on phase 4's step, "
+          f"{STATEFUL_STEPS} steps: plr8 on the DP sync (kernels, plain), "
+          f"ef_zhybrid_16_4 (kernels) [{card}]")
+    stateful = drive_stateful(torch, card, train, n_flat)
 
     # kernel line: launches on each kernel's path (phase 4 the training
     # step, phase 3 serving, phase 5 the rings), times at the path's shape
@@ -708,7 +942,39 @@ def main():
                 "path": wh, "rate": wb, "shape": wsh, "ms": ows,
                 "plain_ms": owps, "warm_l2_ms": owws, "bound_ms": wbms,
                 "launches": r_launch["bq_decode_add_encode_wire"]}
+        entry["launches_ef_zhybrid_16_4"] = stateful["ef"][name]
         kernels.append(entry)
+    # the lowrank matmul: one plr exchange runs each form once, so the
+    # entry's times are the three forms' sums at the path's r = 8
+    forms = {}
+    for kind in MM_FORMS:
+        e_abs, share, (ms, pms, wms, _, _, _), (bms, by), lib = \
+            mm[(kind, 8)]
+        e64, share64, (ms64, pms64, _, _, _, _), (bms64, by64), lib64 = \
+            mm[(kind, 64)]
+        forms[kind] = {
+            "launches": stateful["plr"][f"matmul_{kind}"],
+            "max_abs_err": e_abs, "share_of_order_bound": share, "ms": ms,
+            "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+            "library_ms": lib, "warm_l2_ms": wms,
+            "r64": {"max_abs_err": e64, "share_of_order_bound": share64,
+                    "ms": ms64, "plain_ms": pms64, "bound_ms": bms64,
+                    "bound_by": by64, "library_ms": lib64}}
+    total = {k: sum(f[k] for f in forms.values())
+             for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+    kernels.append({
+        "name": "lowrank_matmul", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/lowrank.cu",
+        "replaces": "src/repro/kernels/lowrank.py:103",
+        "launches": sum(f["launches"] for f in forms.values()),
+        "max_abs_err": max(f["max_abs_err"] for f in forms.values()),
+        **total, "bound_by": "bytes" if all(
+            f["bound_by"] == "bytes" for f in forms.values()) else
+        "operations",
+        "l2": "flushed before each call",
+        "path": "dp@zero1_grad plr8 exchange (one of each form)", "rate": 8,
+        "shape": f"{mm_rows}x{mm_width}, r=8", "forms": forms,
+        "orthonormalize_eager_ms": gs})
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

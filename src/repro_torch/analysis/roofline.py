@@ -29,6 +29,10 @@ _ITEMSIZE = {"float32": 4, "bfloat16": 2, "float16": 2, "int32": 4,
 
 
 def _wire_bytes(codec_name: str, elems: int, dtype: str) -> float:
+    """Wire bytes of an ``elems``-value payload: constant-rate codecs at
+    their bits per value; ``plr<r>`` at ``r * (rows + cols)`` floats of its
+    matrix view and ``ef:*`` at its inner codec's cost, through
+    ``Codec.wire_nbytes_for``."""
     c = codecs.get(codec_name)
     if c.is_identity:
         return elems * _ITEMSIZE.get(dtype, 4)
@@ -37,8 +41,12 @@ def _wire_bytes(codec_name: str, elems: int, dtype: str) -> float:
 
 def _block_codec(codec_name: str):
     """The codec iff it rides the block ring (the families with fused
-    decode-add-encode hops), else None."""
+    decode-add-encode hops), else None.  ``ef:*`` sends exactly its inner
+    codec's wire through the same ring, so it prices at the inner codec's
+    chunk geometry."""
     c = codecs.get(codec_name)
+    if getattr(c, "kind", None) == "ef":
+        c = c.inner
     return c if hasattr(c, "decode_add_encode_blocks") else None
 
 

@@ -7,9 +7,23 @@ of ``repro.core.codecs``).
   analogue), on the Hopper kernels of :mod:`repro_torch.kernels.bq`.
 * ``gq8``, ``tq8``, ``tq4`` — the per-tensor-scale and truncating ablation
   codecs, in plain PyTorch as in the reference.
-* ``ef:<codec>`` and ``plr<rank>`` — the carried-state families.  Their
-  names parse and validate, so every registered scheme compiles, but any
-  use of their wire raises: carried codec state is not yet ported.
+* ``ef:<codec>`` — error feedback around any lossy codec: compensate with
+  the stashed residual, encode, stash the new quantization error.
+* ``plr<rank>`` — PowerSGD-style low-rank projection with a warm-started
+  factor; wire ``r*(m+n)`` floats instead of ``m*n``, on the Hopper
+  kernels of :mod:`repro_torch.kernels.lowrank`.
+
+Stateful protocol, as in the reference::
+
+    state  = codec.init_state(shape, dtype, device)   # None: stateless
+    wire, state = codec.encode(x, state)
+    x~     = codec.decode(wire, shape, dtype)
+
+``ef:*`` carries the residual (plus the inner codec's state: ``ef:plr8``
+is PowerSGD with error feedback); ``plr*`` carries the factor ``Q``.  The
+trainer threads a dict of these states through its step (template:
+``CommPlan.codec_state_template``) and the comms entry points read and
+write it through ``comms.codec_state_io``.
 
 A codec turns a tensor into a *wire dict* whose tensors are what crosses
 between ranks; :mod:`repro_torch.core.comms` moves those tensors.
@@ -18,11 +32,12 @@ between ranks; :mod:`repro_torch.core.comms` moves those tensors.
 from __future__ import annotations
 
 import dataclasses
+import math
 import re
 
 import torch
 
-from repro_torch.kernels import bq, ops
+from repro_torch.kernels import bq, lowrank, ops
 from repro_torch.kernels.ref import BLOCK
 
 
@@ -41,7 +56,9 @@ class Codec:
     def stateful(self) -> bool:
         return False
 
-    def init_state(self, shape, dtype):
+    def init_state(self, shape, dtype, device="cpu"):
+        """Per-site state for a payload of ``shape``/``dtype`` on
+        ``device``; ``None`` for stateless codecs."""
         return None
 
     def encode(self, x, state=None):
@@ -191,36 +208,26 @@ class TqCodec(GqCodec):
 
 
 # --------------------------------------------------------------------------
-# carried-state families: named and validated, not yet ported
+# carried-state families
 # --------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
-class _StatefulCodec(Codec):
-    """A carried-state codec the port does not run yet.  It resolves in
-    policies (so schemes naming it compile); its wire raises."""
+class EfCodec(Codec):
+    """Error-feedback wrapper: carry the inner codec's quantization error
+    as a residual and re-inject it before the next encode (EF-SGD):
+    ``xc = x + e_t``; transmit ``C(xc)``; ``e_{t+1} = xc - D(C(xc))``.
+    Wire and rate are exactly the inner codec's; the carried residual is
+    one f32 per payload element.  ``ef:plr<r>`` nests the low-rank
+    codec's factor state under ``state["inner"]``.
 
-    lossless: bool = False
-
-    @property
-    def stateful(self) -> bool:
-        return True
-
-    @property
-    def is_identity(self) -> bool:
-        return False
-
-    def _unported(self, *_, **__):
-        raise NotImplementedError(
-            f"codec {self.name!r} carries state, which is not yet ported")
-
-    init_state = encode = decode = _unported
-
-
-@dataclasses.dataclass(frozen=True)
-class EfCodec(_StatefulCodec):
-    """Error-feedback wrapper around a lossy codec (``ef:<codec>``)."""
+    Memory: :meth:`compensate` can add the residual into a payload its
+    caller gives up (``inplace``), and :meth:`next_state` can write the new
+    residual into the old residual's buffer (``out``), whose value is spent
+    once ``xc`` is formed.  At gemma3-1b's per-rank gradient each saves a
+    2.15 GB copy."""
 
     name: str = "ef"
+    lossless: bool = False
     inner: Codec = None
 
     kind = "ef"
@@ -236,22 +243,83 @@ class EfCodec(_StatefulCodec):
             raise KeyError("ef:ef:* is redundant — one residual suffices")
         object.__setattr__(self, "name", f"ef:{self.inner.name}")
 
+    @property
+    def stateful(self) -> bool:
+        return True
+
+    def init_state(self, shape, dtype, device="cpu"):
+        st = {"residual": torch.zeros(shape, dtype=torch.float32,
+                                      device=device)}
+        inner_st = self.inner.init_state(shape, dtype, device)
+        if inner_st is not None:
+            st["inner"] = inner_st
+        return st
+
+    def compensate(self, x, state, inplace: bool = False):
+        """x + stashed residual, in f32; into ``x`` itself when
+        ``inplace`` and ``x`` is f32."""
+        r = state["residual"].reshape(x.shape)
+        if inplace and x.dtype == torch.float32:
+            return x.add_(r)
+        return x.to(torch.float32) + r
+
+    def _residual_state(self, xc, wire, inner_state, out=None):
+        """State after transmitting ``wire`` for compensated ``xc``: the
+        roundtrip error is the new residual (written into ``out`` when
+        given)."""
+        dec = self.inner.decode(wire, xc.shape, torch.float32)
+        res = xc - dec if out is None else torch.sub(
+            xc.reshape(out.shape), dec.reshape(out.shape), out=out)
+        st = {"residual": res}
+        if inner_state is not None:
+            st["inner"] = inner_state
+        return st
+
+    def next_state(self, xc, inner_state=None, out=None):
+        """New state after transmitting ``xc``: the local roundtrip error
+        of the inner codec (the local-quantization-error proxy for ring
+        collectives, whose hop re-encodes are not observable)."""
+        wire, inner_state = self.inner.encode(xc, inner_state)
+        return self._residual_state(xc, wire, inner_state, out)
+
+    def encode(self, x, state=None):
+        if state is None:
+            state = self.init_state(x.shape, x.dtype, x.device)
+        xc = self.compensate(x, state)
+        wire, inner_st = self.inner.encode(xc, state.get("inner"))
+        return wire, self._residual_state(xc, wire, inner_st)
+
+    def decode(self, wire, shape, dtype):
+        return self.inner.decode(wire, shape, dtype)
+
     def wire_bits_per_value(self, dtype=torch.float32) -> float:
         return self.inner.wire_bits_per_value(dtype)
 
     def wire_nbytes_for(self, n_elems: int) -> float:
         return self.inner.wire_nbytes_for(n_elems)
 
+    @property
+    def is_identity(self) -> bool:
+        return False
+
 
 @dataclasses.dataclass(frozen=True)
-class PlrCodec(_StatefulCodec):
-    """PowerSGD-style low-rank projection (``plr<rank>``)."""
+class PlrCodec(Codec):
+    """PowerSGD-style low-rank projection with a warm-started factor.
+
+    The payload is viewed as a near-square matrix ``M (m, n)``
+    (:func:`repro_torch.kernels.lowrank.mat_shape`); the wire is the factor
+    pair ``(P^, Q') = (orth(M Q), M^T P^)`` — ``r*(m+n)`` floats vs
+    ``m*n`` — and the carried state is ``Q``.  Both wire factors are
+    linear in ``M``, which lets the comms layer all-reduce them raw and
+    reconstruct the summed gradient."""
 
     name: str = "plr"
+    lossless: bool = False
     rank: int = 8
 
     kind = "lowrank"
-    MAX_RANK = 64
+    MAX_RANK = lowrank.MAX_RANK
 
     def __post_init__(self):
         if not 1 <= self.rank <= self.MAX_RANK:
@@ -259,7 +327,67 @@ class PlrCodec(_StatefulCodec):
                            f"got {self.rank}")
         object.__setattr__(self, "name", f"plr{self.rank}")
 
-    wire_nbytes_for = wire_bits_per_value = _StatefulCodec._unported
+    @property
+    def stateful(self) -> bool:
+        return True
+
+    def init_state(self, shape, dtype, device="cpu"):
+        n = math.prod(shape)
+        _, ncols = lowrank.mat_shape(n)
+        return {"q": lowrank.init_factor(ncols, lowrank.rank_for(n, self.rank),
+                                         device)}
+
+    def encode(self, x, state=None):
+        if state is None:
+            state = self.init_state(x.shape, x.dtype, x.device)
+        mat = lowrank.to_mat(x.reshape(-1))
+        phat = lowrank.orthonormalize(lowrank.matmul(mat, state["q"]))
+        q_new = lowrank.matmul(mat.T, phat)
+        return {"p": phat, "q": q_new}, {"q": lowrank.orthonormalize(q_new)}
+
+    def decode(self, wire, shape, dtype):
+        out = lowrank.matmul(wire["p"], wire["q"].T)
+        return lowrank.from_mat(out, math.prod(shape)).reshape(shape).to(dtype)
+
+    def wire_nbytes_for(self, n_elems: int) -> float:
+        m, ncols = lowrank.mat_shape(n_elems)
+        return float(lowrank.rank_for(n_elems, self.rank) * (m + ncols) * 4)
+
+    def wire_bits_per_value(self, dtype=torch.float32) -> float:
+        # nominal asymptotic rate (m >> n): 32 * r / ncols bits per value;
+        # the exact, shape-aware pricing is wire_nbytes_for
+        return 32.0 * self.rank / lowrank.NCOLS_MAX
+
+    @property
+    def is_identity(self) -> bool:
+        return False
+
+
+# --------------------------------------------------------------------------
+# carried-state introspection: read residual energy or warm-factor rank out
+# of a slot without knowing which codec family owns it
+# --------------------------------------------------------------------------
+
+def state_residual_sq(state):
+    """``||residual||^2`` of one codec-state slot (0.0 when the slot
+    carries no error-feedback residual, e.g. a pure ``plr`` factor)."""
+    if not isinstance(state, dict) or "residual" not in state:
+        return 0.0
+    return (state["residual"].to(torch.float32) ** 2).sum()
+
+
+def state_rank(state):
+    """Column count of the warm low-rank factor in a codec-state slot
+    (``plr*`` directly, ``ef:plr*`` through the nested inner state);
+    ``None`` for slots without one."""
+    if not isinstance(state, dict):
+        return None
+    if "q" in state:
+        return int(state["q"].shape[-1])
+    inner = state.get("inner")
+    if isinstance(inner, dict) and "q" in inner:
+        return int(inner["q"].shape[-1])
+    return None
 
 
 NONE = Codec()

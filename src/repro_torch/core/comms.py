@@ -28,11 +28,19 @@ pinned host memory explicitly (``STAGING`` counts the bytes, and the
 seconds under :func:`time_staging`); every encode, fused hop and decode
 stays on the device.
 
-The ledger (:class:`record_traffic`), the ring options and the wire-site
-tag are process-wide rather than thread-local: autograd runs the backward
-of CUDA tensors on its own thread, which must see the same bindings.
-Hierarchical (``AxisPair``), tuned, stateful and all-to-all paths are not
-yet ported and raise.
+Carried-state codecs (``ef:*``, ``plr*``) ride only the optimizer's sync
+sites, inside a :class:`codec_state_io` region that binds the step's codec
+state: ``ef:*`` compensates with its residual, rides the inner codec and
+stashes the new error; ``plr*`` runs the two-factor low-rank all-reduce on
+the kernels of :mod:`repro_torch.kernels.lowrank`, its factors summed
+uncompressed as the reference's ``lax.psum`` does.  Autodiff traffic never
+carries them.
+
+The ledger (:class:`record_traffic`), the ring options, the wire-site tag
+and the codec-state region are process-wide rather than thread-local:
+autograd runs the backward of CUDA tensors on its own thread, which must
+see the same bindings.  Hierarchical (``AxisPair``), tuned and all-to-all
+paths are not yet ported and raise.
 """
 
 from __future__ import annotations
@@ -45,7 +53,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core import codecs, policy
-from repro_torch.kernels import ops
+from repro_torch.kernels import lowrank, ops
 from repro_torch.kernels.ref import BLOCK
 
 Site = policy.Site
@@ -76,6 +84,7 @@ class _State:
     chunks = 1
     wire_tag = "-"
     time_staging = False
+    state_io = None
 
 
 _rec = _State()
@@ -229,14 +238,81 @@ def _codec_pair(tag, nbytes: int | None = None):
 
 
 def _require_stateless(s, *cs):
+    """Raise for a stateful codec at an autodiff site (the reference's
+    message)."""
     for c in cs:
         if getattr(c, "stateful", False):
             raise NotImplementedError(
                 f"stateful codec {c.name!r} resolved at site "
-                f"{s.ledger_tag!r}: carried codec state is not yet ported "
-                f"(and never rides autodiff traffic).  Route this site to a "
-                f"stateless codec with a policy rule, e.g. "
-                f"Rule('bq8', dim='{s.dim}').")
+                f"{s.ledger_tag!r}: error-feedback / low-rank codecs ride "
+                f"only the optimizer's sync sites (inside a "
+                f"codec_state_io region), never autodiff traffic.  "
+                f"Exempt this site with a policy rule, e.g. "
+                f"Rule('bq8', dim='{s.dim}') ordered before the stateful "
+                f"rule.")
+
+
+# --------------------------------------------------------------------------
+# codec-state io: the carried state of stateful codecs (ef:*, plr*)
+# --------------------------------------------------------------------------
+
+class codec_state_io:
+    """Bind the codec-state dict for the optimizer's sync region.
+
+    The trainer passes the step's codec state (one slot per stateful site,
+    keyed by the site's ledger tag; template from
+    ``CommPlan.codec_state_template``); each stateful comms site reads its
+    slot and writes the updated state back.  ``collect()`` returns the
+    post-region dict (slots of sites that did not fire keep their old
+    value).  Process-wide, like the ledger."""
+
+    def __init__(self, states: dict | None):
+        self.states = dict(states or {})
+
+    def __enter__(self):
+        self.prev = _rec.state_io
+        _rec.state_io = self
+        return self
+
+    def __exit__(self, *exc):
+        _rec.state_io = self.prev
+        return False
+
+    def read(self, key: str):
+        try:
+            return self.states[key]
+        except KeyError:
+            raise KeyError(
+                f"no codec-state slot for site {key!r} (have "
+                f"{sorted(self.states)}); the trainer's state template "
+                f"(Trainer.codec_sites) does not cover this site — route "
+                f"it to a stateless codec with a policy rule") from None
+
+    def write(self, key: str, st):
+        self.states[key] = st
+
+    def collect(self) -> dict:
+        return dict(self.states)
+
+
+def _state_slot(s, c):
+    """(io, key, state) for a stateful codec at a supported site."""
+    io = _rec.state_io
+    key = s.ledger_tag
+    if io is None:
+        raise RuntimeError(
+            f"stateful codec {c.name!r} resolved for site {key!r} outside "
+            f"a codec-state region: ef:*/plr* codecs ride only the "
+            f"optimizer's dp/zero sync sites, which the trainers wrap in "
+            f"comms.codec_state_io(...).  Route this site to a stateless "
+            f"codec with a policy rule (e.g. Rule('bq8', dim='{s.dim}')).")
+    return io, key, io.read(key)
+
+
+def _stateful_ok() -> bool:
+    """True inside a ``codec_state_io`` region, the optimizer's sync
+    scope; autodiff traffic runs outside it."""
+    return _rec.state_io is not None
 
 
 def _require_flat(axis):
@@ -716,11 +792,17 @@ class _FFn(torch.autograd.Function):
 
 def psum(x, axis: Axis, tag):
     """All-reduce-sum over ``axis`` under the active plan's codec for
-    ``tag`` (backward: all-reduce under the bwd codec)."""
+    ``tag`` (backward: all-reduce under the bwd codec).  A stateful codec
+    routes through the carried-state sum (no backward), valid only inside
+    a ``codec_state_io`` region, never under autodiff."""
     s = policy.as_site(tag)
     _require_flat(axis)
     c_fwd, c_bwd = _codec_pair(s, _payload_nbytes(x))
-    _require_stateless(s, c_fwd, c_bwd)
+    if c_fwd.stateful or c_bwd.stateful:
+        if s.dim in policy.DIRECTED_DIMS and not _stateful_ok():
+            _require_stateless(s, c_fwd, c_bwd)  # raises: autodiff traffic
+        with _wire_site(s.ledger_tag):
+            return _stateful_psum(x, axis, s, c_fwd)
     _account("all_reduce", s.ledger_tag, x, axis, c_fwd, c_bwd,
              bwd_op="all_reduce", level=s.level or "flat")
     with _wire_site(s.ledger_tag):
@@ -791,21 +873,24 @@ def psum_fwd_copy_bwd(x, axis: Axis, tag):
 # flat-vector paths for the optimizer (outside autodiff)
 # --------------------------------------------------------------------------
 
-def _stateful_unported(s, c):
-    raise NotImplementedError(
-        f"codec {c.name!r} at optimizer site {s.ledger_tag!r}: carried "
-        f"codec state (ef:*, plr*) is not yet ported")
-
-
 def reduce_scatter_flat(flat: torch.Tensor, axis: Axis, tag="dp",
-                        mean: bool = False) -> torch.Tensor:
+                        mean: bool = False,
+                        donate: bool = False) -> torch.Tensor:
     """1-D sum-reduce-scatter: rank i returns padded chunk i (length
-    ``padded_rows(ceil(len / n)) * BLOCK``)."""
+    ``padded_rows(ceil(len / n)) * BLOCK``).
+
+    Stateful codecs: ``ef:*`` compensates with the stashed residual, rides
+    the inner codec's ring on the compensated vector and stashes the new
+    local error; ``plr*`` runs the two-factor low-rank all-reduce and
+    reconstructs this rank's chunk only.  ``donate`` says the caller gives
+    ``flat`` up: ``ef:*`` then compensates into it in place."""
     s = policy.as_site(tag)
     _require_flat(axis)
     c, _ = _codec_pair(s, _payload_nbytes(flat))
     if c.stateful and axis.size > 1:
-        _stateful_unported(s, c)
+        with _wire_site(s.ledger_tag):
+            return _stateful_reduce_scatter_flat(flat, axis, s, c, mean,
+                                                 donate)
     if c.stateful:          # trivial axis: nothing crosses the wire
         c = codecs.NONE
     _account("reduce_scatter", s.ledger_tag, flat, axis, c, c, bwd_op=None,
@@ -835,12 +920,35 @@ def _reduce_scatter_flat_impl(flat, axis: Axis, c, mean):
 def all_gather_flat(chunk: torch.Tensor, axis: Axis, total: int,
                     tag="zero") -> torch.Tensor:
     """Inverse of :func:`reduce_scatter_flat`: gather the padded chunks,
-    trim to ``total``."""
+    trim to ``total``.
+
+    ``ef:*`` codecs compensate the local chunk before encoding (error
+    feedback on the lossy param broadcast); low-rank codecs ride sum
+    collectives only and raise here."""
     s = policy.as_site(tag)
     _require_flat(axis)
     c, _ = _codec_pair(s, _payload_nbytes(chunk))
     if c.stateful and axis.size > 1:
-        _stateful_unported(s, c)
+        if c.kind != "ef" or c.inner.stateful:
+            raise NotImplementedError(
+                f"codec {c.name!r} at gather site {s.ledger_tag!r}: "
+                "low-rank codecs ride sum collectives only (ef:<bq*> "
+                "works on gathers)")
+        io, key, st = _state_slot(s, c)
+        xc = c.compensate(chunk, st)
+        _account("all_gather", s.ledger_tag, xc, axis, c, c, bwd_op=None,
+                 level=s.level or "flat")
+        # one encode serves both the wire and the residual (unlike the
+        # ring paths, the gathered wire IS the local encode)
+        wire = c.inner.encode_blocks(xc.reshape(-1, BLOCK))
+        dec = c.inner.decode_blocks(wire).reshape(xc.shape)
+        io.write(key, {"residual": torch.sub(xc, dec, out=st["residual"])})
+        del dec
+        _log("all_gather", s.ledger_tag, c, ops.wire_nbytes(wire),
+             axis.size - 1)
+        gathered = {k: None if v is None else v.reshape(-1, v.shape[-1])
+                    for k, v in _all_gather_wire(wire, axis).items()}
+        return c.inner.decode_blocks(gathered).reshape(-1)[:total]
     if c.stateful:
         c = codecs.NONE
     _account("all_gather", s.ledger_tag, chunk, axis, c, c, bwd_op=None,
@@ -863,3 +971,134 @@ def _all_gather_flat_impl(chunk, axis: Axis, total, c):
                     for k, v in _all_gather_wire(wire, axis).items()}
         full = c.decode_blocks(gathered).reshape(-1)
     return full[:total]
+
+
+# --------------------------------------------------------------------------
+# carried-state sum collectives (ef:* and plr*), optimizer-side, no autodiff
+# --------------------------------------------------------------------------
+
+def _lowrank_factors(flat, axis: Axis, state):
+    """PowerSGD's two factor exchanges on the matrix view of ``flat``
+    (arXiv:1905.13727).  Every rank holds the same warm factor ``Q``, and
+    both updates come from all-reduced values, so every rank keeps the
+    same factors:
+
+        P   = allreduce_sum(M_i @ Q)        (a)  wire: m x r floats
+        P^  = orth(P)                       local, identical on all ranks
+        Q'  = allreduce_sum(M_i^T @ P^)     (b)  wire: n x r floats
+
+    Returns ``(P^, M_i^T P^, Q')``; the sum's low-rank approximation is
+    ``P^ @ Q'^T`` (c).  The factors are summed uncompressed
+    (``raw_psum``), as the reference's ``lax.psum``."""
+    mat = lowrank.to_mat(flat)
+    p = raw_psum(lowrank.matmul(mat, state["q"]), axis)
+    phat = lowrank.orthonormalize(p)
+    q_loc = lowrank.matmul(mat.T, phat)
+    del mat
+    return phat, q_loc, raw_psum(q_loc, axis)
+
+
+def _lowrank_psum_impl(x, axis: Axis, c, state, want_local: bool = False):
+    """Two-factor low-rank all-reduce of ``x``: ``(sum, state')``, plus this
+    rank's own transmitted reconstruction ``P^ @ (M_i^T P^)^T`` when
+    ``want_local`` (the error-feedback wrapper's residual needs it)."""
+    flat = x.reshape(-1).to(torch.float32)
+    n = flat.shape[0]
+    phat, q_loc, q_new = _lowrank_factors(flat, axis, state)
+    out = lowrank.from_mat(lowrank.matmul(phat, q_new.T), n).reshape(x.shape)
+    state2 = {"q": lowrank.orthonormalize(q_new)}
+    if want_local:
+        rec = lowrank.from_mat(lowrank.matmul(phat, q_loc.T), n)
+        return out, state2, rec.reshape(x.shape)
+    return out, state2
+
+
+def _lowrank_rows(phat, q, lo: int, length: int, n: int) -> torch.Tensor:
+    """Elements ``[lo, lo + length)`` of ``from_mat(P^ @ Q^T, n)`` padded
+    with zeros past ``n``: the reconstruction (c) of those matrix rows
+    only.  ``lo`` and ``length`` are multiples of the view's width."""
+    ncols = q.shape[0]
+    out = torch.empty(length, dtype=torch.float32, device=phat.device)
+    r0 = lo // ncols
+    r1 = max(r0, min(phat.shape[0], (lo + length) // ncols))
+    done = (r1 - r0) * ncols          # rows past the view's are zero
+    if done:
+        lowrank.matmul(phat[r0:r1], q.T, out=out[:done].view(r1 - r0, ncols))
+    out[min(max(n - lo, 0), done):].zero_()
+    return out
+
+
+def _stateful_psum(x, axis: Axis, s, c):
+    """All-reduce under a carried-state codec (optimizer-side, no VJP)."""
+    io, key, st = _state_slot(s, c)
+    if axis.size == 1:
+        return x        # nothing crosses the wire; the slot carries over
+    # bwd_op matches what the stateless psum records at the same site, so
+    # stateful-vs-stateless byte comparisons stay like for like
+    if c.kind == "lowrank":
+        _account("all_reduce", s.ledger_tag, x, axis, c, c,
+                 bwd_op="all_reduce", level=s.level or "flat")
+        out, st2 = _lowrank_psum_impl(x, axis, c, st)
+        io.write(key, st2)
+        return out.to(x.dtype)
+    if c.kind != "ef":
+        raise NotImplementedError(
+            f"carried-state codec {c.name!r} (kind={c.kind!r}) has no "
+            "sum-collective implementation in comms")
+    xc = c.compensate(x, st)
+    _account("all_reduce", s.ledger_tag, xc, axis, c, c,
+             bwd_op="all_reduce", level=s.level or "flat")
+    if c.inner.stateful:    # ef:plr* — PowerSGD with error feedback
+        out, inner_st2, rec = _lowrank_psum_impl(xc, axis, c.inner,
+                                                 st["inner"], want_local=True)
+        io.write(key, {"residual": torch.sub(xc, rec, out=st["residual"]),
+                       "inner": inner_st2})
+    else:
+        io.write(key, c.next_state(xc, out=st["residual"]))
+        out = _psum_impl(xc, axis, c.inner)
+    return out.to(x.dtype)
+
+
+def _stateful_reduce_scatter_flat(flat, axis: Axis, s, c, mean: bool,
+                                  donate: bool):
+    """Reduce-scatter under a carried-state codec.  Memory, at gemma3-1b's
+    per-rank gradient (2.15 GB): ``ef:*`` compensates into ``flat`` when
+    donated and writes the new residual into the old one's buffer;
+    ``plr*`` reconstructs only this rank's chunk (its matrix rows: a chunk
+    is whole rows, since chunk lengths are multiples of 1024) instead of
+    the whole sum."""
+    io, key, st = _state_slot(s, c)
+    n_ranks = axis.size
+    total = flat.shape[0]
+    chunk_len = ops.padded_rows(-(-total // n_ranks)) * BLOCK
+
+    def take(phat, q_sum):
+        chunk = _lowrank_rows(phat, q_sum, axis.index * chunk_len, chunk_len,
+                              total)
+        return chunk.div_(n_ranks) if mean else chunk
+
+    if c.kind == "lowrank":
+        # the low-rank op is inherently an all-reduce; RS = AR + local rows
+        _account("all_reduce", s.ledger_tag, flat, axis, c, c, bwd_op=None,
+                 level=s.level or "flat")
+        phat, _, q_sum = _lowrank_factors(flat.to(torch.float32), axis, st)
+        io.write(key, {"q": lowrank.orthonormalize(q_sum)})
+        return take(phat, q_sum)
+    if c.kind != "ef":
+        raise NotImplementedError(
+            f"carried-state codec {c.name!r} (kind={c.kind!r}) has no "
+            "reduce-scatter implementation in comms")
+    xc = c.compensate(flat, st, inplace=donate)
+    if c.inner.stateful:    # ef:plr* — PowerSGD with error feedback
+        _account("all_reduce", s.ledger_tag, xc, axis, c, c, bwd_op=None,
+                 level=s.level or "flat")
+        phat, q_loc, q_sum = _lowrank_factors(xc, axis, st["inner"])
+        rec = lowrank.from_mat(lowrank.matmul(phat, q_loc.T), total)
+        io.write(key, {"residual": torch.sub(xc, rec, out=st["residual"]),
+                       "inner": {"q": lowrank.orthonormalize(q_sum)}})
+        del rec
+        return take(phat, q_sum)
+    _account("reduce_scatter", s.ledger_tag, xc, axis, c, c, bwd_op=None,
+             level=s.level or "flat")
+    io.write(key, c.next_state(xc, out=st["residual"]))
+    return _reduce_scatter_flat_impl(xc, axis, c.inner, mean)

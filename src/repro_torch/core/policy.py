@@ -353,6 +353,44 @@ class CommPlan:
         return (self.codec(site_.dim, "fwd", "flat", nbytes, site_.name),
                 self.codec(site_.dim, "bwd", "flat", nbytes, site_.name))
 
+    def stateful_sites(self, sites) -> dict:
+        """Resolve the carried-state sites of this plan, once.
+
+        ``sites`` is an iterable of ``(Site, local_shape, dtype)``: the
+        carried-state-capable call sites a trainer emits with their
+        per-rank payload shapes.  Each site's codec is resolved exactly as
+        the comms entry point will (same nbytes, same name); sites whose
+        codec is stateful map ``{ledger_tag: (codec, shape, dtype)}``,
+        stateless sites are dropped.  The state template and the trainer's
+        state init both derive from this one resolution."""
+        import math
+
+        import torch
+
+        out = {}
+        for site_, shape, dtype in sites:
+            nbytes = math.prod(shape) * torch.empty((), dtype=dtype) \
+                .element_size()
+            c_fwd, _ = self.codec_pair(site_, nbytes)
+            if getattr(c_fwd, "stateful", False):
+                out[site_.ledger_tag] = (c_fwd, tuple(shape), dtype)
+        return out
+
+    def codec_state_template(self, sites) -> dict:
+        """The codec-state dict the trainer threads through its step: one
+        ``{ledger_tag: state}`` slot per stateful site of
+        :meth:`stateful_sites`, each leaf given as ``(shape, dtype)``
+        (the state built on the ``meta`` device, which allocates
+        nothing); stateless codecs contribute nothing."""
+        def shapes(st):
+            if isinstance(st, dict):
+                return {k: shapes(v) for k, v in st.items()}
+            return tuple(st.shape), st.dtype
+
+        return {key: shapes(c.init_state(shape, dtype, "meta"))
+                for key, (c, shape, dtype)
+                in self.stateful_sites(sites).items()}
+
     def hier_codec_pairs(self, site_: Site, nbytes_inner: int | None = None,
                          nbytes_outer: int | None = None):
         """((inner_fwd, inner_bwd), (outer_fwd, outer_bwd)) for one

@@ -7,8 +7,9 @@ a scheme maps each communication tag ``<dimension>[_<direction>][_<level>]``
 dims, level inner/outer for hierarchical stages) to a codec.  Each scheme is
 sugar over an ordered :class:`~repro_torch.core.policy.Rule` list
 (:meth:`Scheme.as_policy`).  Schemes that name a carried-state codec
-(``ef:*``, ``plr*``) compile; their first stateful site raises, since
-carried codec state is not yet ported.
+(``ef:*``, ``plr*``) run on the flat mesh: ``ef_zhybrid_16_4`` puts
+``ef:bq4`` on the DP gradient sync.  The ``hier_zpp_*`` schemes compile but
+need the node-factored mesh, which is not yet ported.
 """
 
 from __future__ import annotations

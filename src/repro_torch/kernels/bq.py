@@ -26,7 +26,8 @@ the gathered planes out of device memory (see the source note in
 Dispatch is by the tensor's device: a CPU tensor goes to the plain version
 (:mod:`repro_torch.kernels.ref`), a CUDA tensor launches the kernel or
 raises.  There is no fallback from the card to the plain version.  The
-library is built with ``nvcc`` on first use, from ``csrc/`` only, into
+library is built with ``nvcc`` on first use, from ``csrc/`` only (this
+file's kernels and those of :mod:`repro_torch.kernels.lowrank`), into
 ``_build/<hash of the sources>/`` beside this file.
 
 ``LAUNCHES`` counts kernel launches per wrapper; it is incremented right
@@ -53,8 +54,10 @@ TILE_M = 8  # rows of one tile: padding unit of the block-matrix layout
 
 _CSRC = Path(__file__).parent / "csrc"
 _BUILD = Path(__file__).parent / "_build"
-_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+_COMPILE_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                  "-Xptxas", "-v")
+_LINK_FLAGS = (*_ARCH, "-shared")
 
 LAUNCHES = {"bq_encode": 0, "bq_decode": 0, "bq_gather_decode": 0,
             "bq_decode_add_encode": 0, "bq_decode_add_encode_wire": 0,
@@ -103,35 +106,54 @@ def _nvcc() -> str:
         if cand and os.path.exists(cand):
             return cand
     raise RuntimeError("nvcc not found (on PATH or under $CUDA_HOME/bin): "
-                       "the bq kernels are built from source at first use")
+                       "the kernels are built from source at first use")
 
 
 def build() -> Path:
-    """Compile ``csrc/*.cu`` into a shared library keyed by a hash of the
+    """Compile every ``csrc/*.cu`` (one ``nvcc`` per source, all started
+    together) and link them into one shared library keyed by a hash of the
     sources and flags; reuse it only when the hash matches."""
     srcs = _sources()
-    h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(_COMPILE_FLAGS + _LINK_FLAGS).encode())
     for p in srcs:
         h.update(p.name.encode())
         h.update(p.read_bytes())
     out_dir = _BUILD / h.hexdigest()[:16]
     so = out_dir / "libbq.so"
     if so.exists():
-        build_info.update(path=str(so), seconds=0.0, cached=True)
+        if build_info.get("path") != str(so):    # keep this process's build
+            build_info.update(path=str(so), seconds=0.0, cached=True)
         return so
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"libbq.{os.getpid()}.so"
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
+    tag = os.getpid()
+    nvcc = _nvcc()
+    cus = [p for p in srcs if p.suffix == ".cu"]
+    objs = [out_dir / f"{p.stem}.{tag}.o" for p in cus]
+    cmds = [[nvcc, *_COMPILE_FLAGS, "-c", "-o", str(o), str(p)]
+            for p, o in zip(cus, objs)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for c in cmds]
+    outs = [p.communicate() for p in procs]
+    log = "".join(o + e for o, e in outs)
+    failed = [(c, p.returncode, e) for c, p, (_, e) in zip(cmds, procs, outs)
+              if p.returncode != 0]
+    tmp = out_dir / f"libbq.{tag}.so"
+    if not failed:
+        link = [nvcc, *_LINK_FLAGS, "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        log += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            failed.append((link, proc.returncode, proc.stderr))
     secs = time.perf_counter() - t0
-    (out_dir / "build.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stderr}")
+    (out_dir / "build.log").write_text(log)
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if failed:
+        cmd, rc, err = failed[0]
+        raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{err}")
     os.replace(tmp, so)
-    build_info.update(path=str(so), seconds=secs, cached=False,
-                      log=proc.stdout + proc.stderr)
+    build_info.update(path=str(so), seconds=secs, cached=False, log=log)
     return so
 
 

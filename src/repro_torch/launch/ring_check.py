@@ -5,6 +5,10 @@ Each rank takes its input, runs the listed collectives under one codec
 (every site resolves to it) and the ring options, and reports per case:
 the outputs (arrays, or SHA-256 digests of their bytes), the ledger's
 analytic and measured wire events, the kernel launches, and the seconds.
+Under a carried-state codec (``ef:*``, ``plr*``) the collective runs twice
+inside one ``codec_state_io`` region, so the second call sees the state
+the first left (outputs ``out`` and ``out2``), and the final state's
+leaves are reported as ``state.<slot>.<leaf>``.
 ``test_torch_comms.py`` holds these against the reference's ring on the
 CPU; ``chip_smoke.py`` holds the kernels against their plain versions on
 the card with it.
@@ -12,6 +16,7 @@ the card with it.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import time
 
@@ -67,12 +72,35 @@ def _run_op(op, x, axis, n):
     raise ValueError(f"unknown op {op!r}; have {OPS}")
 
 
+def _init_states(op: str, codec, x: torch.Tensor, n: int) -> dict:
+    """Initial codec state of the sites ``op`` reads: ``dp`` (the payload;
+    flat for the flat paths) and, for ``all_gather_flat``, ``zero`` (one
+    padded chunk)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import BLOCK
+    shapes = {"dp": tuple(x.shape) if op == "psum" else (x.numel(),)}
+    if op == "all_gather_flat":
+        shapes["zero"] = (ops.padded_rows(-(-x.numel() // n)) * BLOCK,)
+    return {k: codec.init_state(sh, torch.float32, x.device)
+            for k, sh in shapes.items()}
+
+
+def _state_leaves(states: dict, prefix: str = "state") -> dict:
+    out = {}
+    for k, v in states.items():
+        if isinstance(v, dict):
+            out.update(_state_leaves(v, f"{prefix}.{k}"))
+        else:
+            out[f"{prefix}.{k}"] = v
+    return out
+
+
 def collectives_rank(*, rank: int, world: int, cases: list, payload,
                      device="cpu", backend=None, digest: bool = False):
     """Run ``cases`` (dicts of ``op``, ``codec``, ``bidir``, ``chunks``) on
     this rank over an axis ``"x"`` of the whole world."""
-    from repro_torch.core import comms, policy
-    from repro_torch.kernels import bq, ops
+    from repro_torch.core import codecs, comms, policy
+    from repro_torch.kernels import bq, lowrank, ops
     from repro_torch.launch.train import rank_device
 
     dev = rank_device(device, rank)
@@ -83,20 +111,31 @@ def collectives_rank(*, rank: int, world: int, cases: list, payload,
     for case in cases:
         plan = policy.CommPolicy(f"rc_{case['codec']}",
                                  rules=(policy.Rule(case["codec"]),)).compile()
+        codec = codecs.get(case["codec"])
+        states = _init_states(case["op"], codec, x, world) \
+            if codec.stateful else None
         bq.reset_launches()
+        lowrank.reset_launches()
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
         with policy.use_plan(plan), comms.record_traffic() as events, \
                 comms.ring_options(case.get("bidir", False),
-                                   case.get("chunks", 1)):
+                                   case.get("chunks", 1)), \
+                (comms.codec_state_io(states) if codec.stateful
+                 else contextlib.nullcontext()) as cio:
             res = _run_op(case["op"], x, axis, world)
+            if codec.stateful:
+                res["out2"] = _run_op(case["op"], x, axis, world)["out"]
+        if codec.stateful:
+            res.update(_state_leaves(cio.collect()))
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         secs = time.perf_counter() - t0
         res = {k: _digest(v) if digest else v.detach().cpu().numpy()
                for k, v in res.items()}
         out.append({"case": case, "result": res, "events": list(events),
-                    "wire": list(events.wire), "launches": dict(bq.LAUNCHES),
+                    "wire": list(events.wire),
+                    "launches": {**bq.LAUNCHES, **lowrank.LAUNCHES},
                     "seconds": secs})
     return out

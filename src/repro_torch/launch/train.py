@@ -10,6 +10,10 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-1b \\
         --reduced --dp 2 --tp 2 --scheme zhybrid_16_8 --device cpu
 
+    # carried-state codecs: plr8 on the DP gradient sync, or error feedback
+    ... --scheme zhybrid_16_8 --codec-for 'dp@zero1_grad*=plr8'
+    ... --scheme ef_zhybrid_16_4
+
 Under ``torchrun`` (``RANK`` / ``WORLD_SIZE`` set) each process joins that
 group as one rank.  Otherwise the command spawns ``dp * tp`` processes
 itself, so one command runs the step as in the reference.  Ranks exchange
@@ -18,8 +22,9 @@ fused ring hop and decode runs as a kernel, and only the wire planes cross
 between ranks through host memory.
 
 The flags are those of ``repro.launch.train`` for this path, plus
-``--device``; the flags of unported features (pipeline, context
-parallelism, node-factored meshes, policy overrides, tuning,
+``--device``; ``--codec-for`` and ``--no-compress-below`` prepend policy
+rules as in the reference (:func:`comm_policy`).  The flags of unported
+features (pipeline, context parallelism, node-factored meshes, tuning,
 checkpoints) are accepted and refused as not yet ported, never ignored.
 """
 
@@ -29,6 +34,7 @@ import argparse
 import datetime
 import importlib
 import os
+import pickle
 import queue
 import socket
 import statistics
@@ -44,10 +50,9 @@ import torch.distributed as dist
 _UNPORTED = (("pp", 1), ("cp", 1), ("pod", 1), ("nodes", "1"),
              ("tp_nodes", "1"), ("pp_nodes", "1"), ("cp_nodes", "1"),
              ("microbatches", 1), ("vpp", 1), ("remat_policy", "none"),
-             ("host_devices", 0), ("no_compress_below", 0), ("codec_for", []),
-             ("tune", False), ("tune_interval", 50), ("tune_guard", 0.05),
-             ("policy_from", ""), ("ckpt_dir", ""), ("ckpt_every", 50),
-             ("resume", False))
+             ("host_devices", 0), ("tune", False), ("tune_interval", 50),
+             ("tune_guard", 0.05), ("policy_from", ""), ("ckpt_dir", ""),
+             ("ckpt_every", 50), ("resume", False))
 
 
 def parser() -> argparse.ArgumentParser:
@@ -77,6 +82,13 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="cuda (default; raises without a card) or cpu")
+    ap.add_argument("--no-compress-below", type=int, default=0,
+                    help="route payloads below this many bytes to 'none'")
+    ap.add_argument("--codec-for", action="append", default=[],
+                    metavar="[DIM@]NAME_GLOB=CODEC",
+                    help="prepend a policy rule, e.g. "
+                         "'dp@zero1_grad*=plr8', 'dp=ef:bq4', 'embed*=bq16' "
+                         "(repeatable; first match wins)")
     # refused: not yet ported
     for flag, kw in (("--pp", dict(type=int, default=1)),
                      ("--cp", dict(type=int, default=1)),
@@ -89,8 +101,6 @@ def parser() -> argparse.ArgumentParser:
                      ("--vpp", dict(type=int, default=1)),
                      ("--remat-policy", dict(default="none")),
                      ("--host-devices", dict(type=int, default=0)),
-                     ("--no-compress-below", dict(type=int, default=0)),
-                     ("--codec-for", dict(action="append", default=[])),
                      ("--tune", dict(action="store_true")),
                      ("--tune-interval", dict(type=int, default=50)),
                      ("--tune-guard", dict(type=float, default=0.05)),
@@ -112,6 +122,36 @@ def unported(args) -> list[str]:
             out.append(f"{flag} {val!r} is not yet ported (this package "
                        f"runs the flat dp x tp step)")
     return out
+
+
+def comm_policy(scheme: str, codec_for=(), no_compress_below: int = 0):
+    """The named scheme as a policy, with the override rules of
+    ``--no-compress-below`` and ``--codec-for [DIM@]NAME_GLOB=CODEC``
+    prepended (first match wins), as the reference's launcher builds it.
+    Raises ``ValueError`` for a malformed spec and ``KeyError`` for an
+    unknown codec or dimension."""
+    from repro_torch.core import policy as policy_lib
+
+    pol = policy_lib.as_policy(scheme)
+    overrides = []
+    if no_compress_below > 0:
+        overrides.append(policy_lib.Rule("none", max_bytes=no_compress_below))
+    for spec in codec_for:
+        pat, _, codec = spec.partition("=")
+        if not pat or not codec:
+            raise ValueError(f"--codec-for wants [DIM@]NAME_GLOB=CODEC, got "
+                             f"{spec!r}")
+        dim, at, name = pat.partition("@")
+        if at and dim:                           # dp@zero1_grad*=ef:bq4
+            overrides.append(policy_lib.Rule(codec, dim=dim,
+                                             name=name or None))
+        elif pat in policy_lib.DIMS:             # dp=plr8 (whole dimension)
+            overrides.append(policy_lib.Rule(codec, dim=pat))
+        else:                                    # embed*=bq16 (name glob)
+            overrides.append(policy_lib.Rule(codec, name=pat))
+    if overrides:
+        pol = pol.with_rules(*overrides, name=f"{pol.name}+cli")
+    return pol
 
 
 # --------------------------------------------------------------------------
@@ -211,32 +251,38 @@ def train_rank(*, rank: int = 0, world: int = 1, arch: str,
                reduced: bool = False, layers: int = 0, dp: int = 1,
                tp: int = 1, steps: int = 20, seq: int = 64,
                global_batch: int = 8, scheme: str = "baseline",
+               codec_for=(), no_compress_below: int = 0,
                ring_bidir: bool = False, ring_chunks: int = 1,
                grad_buckets: int = 1, lr: float = 1e-3,
                opt_state_bits: int = 32, seed: int = 0, device=None,
                backend=None, deterministic: bool = False,
                time_staging: bool = False, flat_grad_out: str = "",
-               init_from: str = "") -> dict:
+               init_from: str = "", codec_state_from: str = "") -> dict:
     """Train ``steps`` steps as rank ``rank`` of a ``dp x tp`` world whose
     process group is initialized (or alone, for a one-rank world).
 
-    ``backend="torch"`` runs every bq op through its plain version;
+    ``codec_for`` and ``no_compress_below`` prepend policy rules to
+    ``scheme`` (:func:`comm_policy`); ``backend="torch"`` runs every bq and
+    lowrank op through its plain version;
     ``deterministic`` turns on ``torch.use_deterministic_algorithms`` and
     turns TF32 off; ``time_staging`` times every exchange
     (:func:`comms.time_staging`, a device drain before each);
     ``flat_grad_out`` names a file where rank 0 saves its last pre-sync
     flat gradient; ``init_from`` names a pickle of a global parameter tree
     (numpy arrays in the plan's layout, such as the reference package's
-    weights) to start from instead of ``seed``.  Returns this rank's
-    metrics: losses, grad norms, step seconds, the staged bytes and (under
-    ``time_staging``) seconds, peak device memory, kernel launches, and the
+    weights) to start from instead of ``seed``; ``codec_state_from`` names
+    a pickle of the reference's global codec state (numpy leaves) to start
+    from instead of this package's own init.  Returns this rank's metrics:
+    losses, grad norms, step seconds, the staged bytes and (under
+    ``time_staging``) seconds, peak device memory, kernel launches, the
     first step's ledger per dimension (measured wire bytes and the priced
-    analytic events)."""
+    analytic events), and per codec-state slot its residual energy and
+    factor rank after the last step."""
     from repro_torch import configs
     from repro_torch.analysis import roofline
-    from repro_torch.core import comms
+    from repro_torch.core import codecs, comms
     from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
-    from repro_torch.kernels import bq, ops
+    from repro_torch.kernels import bq, lowrank, ops
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.model import Model
     from repro_torch.train.optimizer import AdamConfig
@@ -260,19 +306,22 @@ def train_rank(*, rank: int = 0, world: int = 1, arch: str,
         cfg = cfg.replace(n_layers=layers, groups=())
     mi = make_mesh(dp, tp)
     model = Model(cfg, mi, device=dev)
-    trainer = Trainer(model, scheme=scheme,
+    trainer = Trainer(model, scheme=comm_policy(scheme, codec_for,
+                                                no_compress_below),
                       opt_cfg=AdamConfig(lr=lr, state_bits=opt_state_bits,
                                          grad_buckets=grad_buckets),
                       ring_bidir=ring_bidir, ring_chunks=ring_chunks)
     if init_from:
-        import pickle
-
         from repro_torch.models.params import from_jax_params
         with open(init_from, "rb") as f:
             params = from_jax_params(pickle.load(f), cfg, dev, mi)
         ostate = trainer.opt.init(params)
+        cstate = trainer.init_codec_state()
     else:
-        params, ostate = trainer.init_all(seed)
+        params, ostate, cstate = trainer.init_all(seed)
+    if codec_state_from:
+        with open(codec_state_from, "rb") as f:
+            cstate = trainer.codec_state_from_jax(pickle.load(f))
     data = SyntheticCorpus(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
                                       global_batch=global_batch, seed=seed))
     if global_batch % dp:
@@ -288,6 +337,7 @@ def train_rank(*, rank: int = 0, world: int = 1, arch: str,
            "grad_norms": [], "step_s": [], "staging_s": [],
            "staging_bytes": []}
     bq.reset_launches()
+    lowrank.reset_launches()
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     for step in range(steps):
@@ -300,7 +350,8 @@ def train_rank(*, rank: int = 0, world: int = 1, arch: str,
         sync()
         t0 = time.perf_counter()
         with comms.record_traffic() as events:
-            params, ostate, metrics = trainer.step(params, ostate, batch)
+            params, ostate, cstate, metrics = trainer.step(params, ostate,
+                                                           cstate, batch)
             sync()
         out["step_s"].append(time.perf_counter() - t0)
         out["staging_s"].append(comms.STAGING["seconds"])
@@ -314,7 +365,10 @@ def train_rank(*, rank: int = 0, world: int = 1, arch: str,
     if trainer.opt.last_flat_grad is not None:
         torch.save(trainer.opt.last_flat_grad.cpu(), flat_grad_out)
         trainer.opt.last_flat_grad = None
-    out["launches"] = dict(bq.LAUNCHES)
+    out["launches"] = {**bq.LAUNCHES, **lowrank.LAUNCHES}
+    out["codec_state"] = {
+        k: {"residual_sq": float(codecs.state_residual_sq(st)),
+            "rank": codecs.state_rank(st)} for k, st in cstate.items()}
     out["peak_bytes"] = (torch.cuda.max_memory_allocated(dev)
                          if dev.type == "cuda" else 0)
     out["device"] = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
@@ -336,6 +390,8 @@ def run(args, **extra) -> list:
     kwargs = dict(arch=args.arch, reduced=args.reduced, layers=args.layers,
                   dp=args.dp, tp=args.tp, steps=args.steps, seq=args.seq,
                   global_batch=args.global_batch, scheme=args.scheme,
+                  codec_for=list(args.codec_for),
+                  no_compress_below=args.no_compress_below,
                   ring_bidir=args.ring_bidir, ring_chunks=args.ring_chunks,
                   grad_buckets=args.grad_buckets, lr=args.lr,
                   opt_state_bits=args.opt_state_bits, seed=args.seed,
@@ -366,6 +422,11 @@ def _report(res: list, args) -> None:
           f"{r0['teacher_floor']:.4f}; {statistics.median(tail) * 1e3:.1f} "
           f"ms/step ({tok / statistics.median(tail):.0f} tok/s) on "
           f"{r0['device']}, {len(res)} ranks, peak {peak:.2f} GiB per rank")
+    launches = {k: sum(r["launches"][k] for r in res) for k in r0["launches"]}
+    print(f"kernel launches (all ranks): {launches}")
+    for k, st in r0["codec_state"].items():
+        print(f"codec state {k} (rank 0): residual^2 {st['residual_sq']:.4g}"
+              + (f", factor rank {st['rank']}" if st["rank"] else ""))
 
 
 def main(argv=None):
@@ -374,6 +435,10 @@ def main(argv=None):
     bad = unported(args)
     if bad:
         ap.error("; ".join(bad))
+    try:
+        comm_policy(args.scheme, args.codec_for, args.no_compress_below)
+    except (KeyError, ValueError) as e:
+        ap.error(str(e))
     if "RANK" in os.environ and "WORLD_SIZE" in os.environ:   # torchrun
         rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
         dist.init_process_group("gloo", rank=rank, world_size=world)
@@ -382,7 +447,9 @@ def main(argv=None):
                 rank=rank, world=world, arch=args.arch, reduced=args.reduced,
                 layers=args.layers, dp=args.dp, tp=args.tp, steps=args.steps,
                 seq=args.seq, global_batch=args.global_batch,
-                scheme=args.scheme, ring_bidir=args.ring_bidir,
+                scheme=args.scheme, codec_for=list(args.codec_for),
+                no_compress_below=args.no_compress_below,
+                ring_bidir=args.ring_bidir,
                 ring_chunks=args.ring_chunks, grad_buckets=args.grad_buckets,
                 lr=args.lr, opt_state_bits=args.opt_state_bits,
                 seed=args.seed, device=args.device)

@@ -42,13 +42,11 @@ DEFAULT_BLOCK_TOKENS = 16
 def storage_bits(codec: str) -> int | None:
     """KV storage codec -> bq mantissa bits (None = dense, bit-exact).
 
-    Only ``none`` and the fixed-rate ``bq*`` family are valid at-rest
-    codecs: storage needs random-access decode of single rows."""
+    Only ``none`` and the stateless fixed-rate ``bq*`` family are valid
+    at-rest codecs: storage needs random-access decode of single rows."""
     if codec in (None, "none"):
         return None
     c = codecs.get(codec)
-    if c.stateful:
-        c.encode(None)                       # raises: not yet ported
     if not isinstance(c, codecs.BqCodec):
         raise ValueError(
             f"kv storage codec must be 'none' or a bq* codec (random-access"

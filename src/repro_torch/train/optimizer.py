@@ -18,10 +18,16 @@ does.  ``state_bits=8`` keeps m and v as bq8 wire planes (encode/decode on
 the bq kernels).  ``grad_buckets > 1`` splits the flat sync into that many
 reduce-scatter / all-gather chains and applies the clip after the sync.
 
+The sync sites are named as in the reference (``tp_bwd@grad_rep``,
+``dp@zero1_grad{b}``, ``zero@zero1_param{b}``), so a policy may put a
+carried-state codec (``ef:*``, ``plr*``) on any of them; the trainer binds
+their state around :meth:`Adam.apply` (``comms.codec_state_io``).
+
 Unlike the reference, whose arrays are immutable, :meth:`Adam.apply`
-writes the new parameters into the parameter tensors in place and builds
-the flat gradient straight from the per-leaf gradients: at gemma3-1b's
-width each saves a full copy of the rank's parameters.
+writes the new parameters into the parameter tensors in place, builds the
+flat gradient straight from the per-leaf gradients, and donates it to the
+DP sync (error feedback compensates into it): at gemma3-1b's width each
+saves a full copy of the rank's parameters or gradient.
 """
 
 from __future__ import annotations
@@ -207,8 +213,11 @@ class Adam:
         chunks = []
         for b, (lo, hi) in enumerate(self._bucket_bounds(gflat.shape[0])):
             sfx = str(b) if bucketed else ""
+            # the sync consumes the flat gradient (error feedback may
+            # compensate into it), unless it is kept for the caller
             chunks.append(comms.reduce_scatter_flat(
-                gflat[lo:hi], mi.dp_axes, comms.Site("dp", f"zero1_grad{sfx}")))
+                gflat[lo:hi], mi.dp_axes, comms.Site("dp", f"zero1_grad{sfx}"),
+                donate=not self.keep_flat_grad))
         del gflat
         gchunk = chunks[0] if len(chunks) == 1 else torch.cat(chunks)
         del chunks

@@ -1,22 +1,26 @@
-"""The training step (port of ``repro.train.train_step`` without tuning and
-without codec state).
+"""The training step (port of ``repro.train.train_step`` without tuning).
 
 One step = forward -> backward under the compiled plan and the ring
-options -> the optimizer's compressed ZeRO-1 sync and update.  PyTorch runs
-it eagerly, so the reference's ``jit``, ``shard_map`` and buffer donation
-have no counterpart: each rank runs the step on its own shards, and the
-optimizer updates the parameter tensors in place.
+options -> the optimizer's compressed ZeRO-1 sync and update, inside a
+``comms.codec_state_io`` region that threads the carried state of stateful
+codecs (``ef:*``, ``plr*``).  PyTorch runs it eagerly, so the reference's
+``jit``, ``shard_map`` and buffer donation have no counterpart: each rank
+runs the step on its own shards, and the optimizer updates the parameter
+tensors in place.
 """
 
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 
 from repro_torch.core import comms
 from repro_torch.core import policy as policy_lib
 from repro_torch.models.model import Model
-from repro_torch.models.params import leaves
-from repro_torch.train.optimizer import Adam, AdamConfig
+from repro_torch.models.params import defs, leaves, local_shape
+from repro_torch.train.optimizer import Adam, AdamConfig, _leaf_class
 
 
 class Trainer:
@@ -34,14 +38,89 @@ class Trainer:
         self.ring_chunks = ring_chunks
         self.opt = Adam(opt_cfg or AdamConfig(), model.mi, model.plan)
 
-    def init_all(self, seed: int):
-        """``(params, opt_state)`` of this rank."""
-        params = self.model.init(seed)
-        return params, self.opt.init(params)
+    # ------------------------------------------------------------------
+    # codec state
+    # ------------------------------------------------------------------
+    def codec_sites(self) -> list:
+        """The carried-state-capable comm sites of the step, with their
+        per-rank payload shapes: the tp class-C gradient fold and the flat
+        ZeRO-1 dp/zero sync, one chain per grad-sync bucket.  Mirrors
+        :meth:`Adam.apply` (site names and payload sizes), as the
+        reference's ``Trainer.codec_sites`` does without its class-A, node
+        and pod sites."""
+        mi = self.model.mi
+        local = [(math.prod(local_shape(d, mi)), _leaf_class(d.spec))
+                 for d in defs(self.model.plan)]
+        f32 = torch.float32
+        sites = []
+        n_c = sum(n for n, c in local if c == "C")
+        if mi.tp > 1 and n_c:
+            sites.append((comms.Site("tp", "grad_rep", "bwd"), (n_c,), f32))
+        bucketed = self.opt.cfg.grad_buckets > 1
+        for b, (lo, hi) in enumerate(
+                self.opt._bucket_bounds(sum(n for n, _ in local))):
+            sfx = str(b) if bucketed else ""
+            sites.append((comms.Site("dp", f"zero1_grad{sfx}"), (hi - lo,),
+                          f32))
+            sites.append((comms.Site("zero", f"zero1_param{sfx}"),
+                          (self.opt._chunk_len(hi - lo),), f32))
+        return sites
 
-    def step(self, params, opt_state, batch):
-        """One training step; ``params`` are updated in place.  Returns
-        ``(params, opt_state, metrics)``."""
+    def codec_state_template(self) -> dict:
+        """``{ledger_tag: state}`` with each leaf as ``(shape, dtype)``;
+        empty for stateless policies."""
+        return self.plan.codec_state_template(self.codec_sites())
+
+    def init_codec_state(self) -> dict:
+        """This rank's initial codec state on the model's device: zero
+        residuals for error feedback, the deterministic warm factor for
+        plr (identical on every rank).  Its slots come from the same
+        ``plan.stateful_sites`` resolution as the template."""
+        return {key: c.init_state(shape, dtype, self.model.device)
+                for key, (c, shape, dtype) in
+                self.plan.stateful_sites(self.codec_sites()).items()}
+
+    def codec_state_from_jax(self, tree: dict) -> dict:
+        """This rank's codec state from the reference's (numpy leaves): the
+        reference stacks every rank's slot along dim 0 in the order of
+        ``MeshInfo.all_axes`` (data major, then model), which is the
+        global rank here."""
+        mi = self.model.mi
+        world, r = mi.all_axes.size, mi.all_axes.index
+        tmpl = self.codec_state_template()
+        if sorted(tree) != sorted(tmpl):
+            raise KeyError(f"codec-state slots {sorted(tree)} do not match "
+                           f"this trainer's {sorted(tmpl)}")
+
+        def take(leaf, want):
+            shape, dtype = want
+            a = np.asarray(leaf)
+            per = a.shape[0] // world
+            out = torch.from_numpy(np.ascontiguousarray(
+                a[r * per:(r + 1) * per])).to(dtype)
+            if tuple(out.shape) != shape:
+                raise ValueError(f"codec-state leaf of global shape "
+                                 f"{a.shape} gives {tuple(out.shape)} per "
+                                 f"rank, template {shape}")
+            return out.to(self.model.device)
+
+        def walk(t, w):
+            if isinstance(w, dict):
+                return {k: walk(t[k], w[k]) for k in w}
+            return take(t, w)
+        return {k: walk(tree[k], tmpl[k]) for k in tmpl}
+
+    # ------------------------------------------------------------------
+    def init_all(self, seed: int):
+        """``(params, opt_state, codec_state)`` of this rank; the codec
+        state is ``{}`` under stateless policies."""
+        params = self.model.init(seed)
+        return params, self.opt.init(params), self.init_codec_state()
+
+    def step(self, params, opt_state, codec_state, batch):
+        """One training step; ``params`` are updated in place, and so are
+        the codec state's residual buffers.  Returns ``(params, opt_state,
+        codec_state, metrics)``."""
         ts = [t for _, t in leaves(self.model.plan, params)]
         with policy_lib.use_plan(self.plan), \
                 comms.ring_options(self.ring_bidir, self.ring_chunks):
@@ -53,5 +132,11 @@ class Trainer:
             finally:
                 for t in ts:
                     t.requires_grad_(False)
-            opt_state, stats = self.opt.apply(params, grads, opt_state)
-        return params, opt_state, {"loss": loss.detach(), **metrics, **stats}
+            # the optimizer's sync sites read and write their codec-state
+            # slots in this region; everything the model emits under
+            # autodiff stays stateless (guarded in comms)
+            with comms.codec_state_io(codec_state) as cio:
+                opt_state, stats = self.opt.apply(params, grads, opt_state)
+            codec_state = cio.collect()
+        return params, opt_state, codec_state, \
+            {"loss": loss.detach(), **metrics, **stats}

@@ -13,13 +13,23 @@ Contract asserted here:
     rank's outputs are bit-equal to the reference's, and the ledger's
     analytic events and measured wire events are equal, event for event;
   * under ``none`` the outputs agree to f32 rounding (gloo and XLA sum in
-    different orders) and the ledger bytes are equal.
+    different orders) and the ledger bytes are equal;
+  * carried-state codecs over worlds of 2 and 4, each collective called
+    twice in one ``codec_state_io`` region (the second call sees the
+    first's state): ``ef:bq8`` (``reduce_scatter_flat``, ``psum``,
+    ``all_gather_flat``) equal to the reference bit for bit, outputs and
+    residuals; ``plr8`` and ``ef:plr8`` (``reduce_scatter_flat``, ``psum``)
+    within ``PLR_TOL`` of the largest output, residual or factor entry
+    (the port draws Q0 without JAX, 1e-6 from the reference's, and both
+    sum in other orders); the ledger equal event for event; every rank
+    holding a bit-identical factor Q after the calls.
 
 XLA:CPU fuses the multiply of the reference's fused ring hop into its add
-(see ``test_torch_kernels_ring.py``); the port rounds them separately, as
-its CUDA kernels do.  The reference here runs with its jnp hop oracles
-rounding the multiply first (an opaque integer no-op between multiply and
-add), so every other step of the ring is compared bit for bit.
+(see ``test_torch_kernels_ring.py``), and a decode's multiply into error
+feedback's ``xc - dec``; the port rounds them separately, as its CUDA
+kernels do.  The reference here runs with its jnp hop and decode oracles
+rounding the multiply first (an opaque integer no-op after it), so every
+other step is compared bit for bit.
 
 The reference runs in a subprocess with
 ``--xla_force_host_platform_device_count=4`` (this file re-invokes itself
@@ -37,7 +47,12 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 WORLDS = (2, 3, 4)
+STATEFUL_WORLDS = (2, 4)
 BIG, SMALL = (48, 1000), (12, 37)
+# plr8 / ef:plr8 against the reference, relative to the largest entry of
+# each output, residual or factor.  Measured on these inputs: at most
+# 1.8e-6 (worlds of 2 and 4).
+PLR_TOL = 2e-5
 
 
 def _cases(n: int) -> list:
@@ -62,6 +77,20 @@ def _cases(n: int) -> list:
     return out
 
 
+def _stateful_cases() -> list:
+    out = []
+    for codec in ("plr8", "ef:bq8", "ef:plr8"):
+        for op in ("reduce_scatter_flat", "psum"):
+            out.append(dict(op=op, codec=codec, bidir=False, chunks=1,
+                            shape=BIG))
+    out.append(dict(op="all_gather_flat", codec="ef:bq8", bidir=False,
+                    chunks=1, shape=BIG))
+    # a payload whose chunks reach past the matrix view (zero chunks)
+    out.append(dict(op="reduce_scatter_flat", codec="plr8", bidir=False,
+                    chunks=1, shape=SMALL))
+    return out
+
+
 def _inputs(n: int, shape) -> np.ndarray:
     rng = np.random.default_rng(1000 * n + shape[0])
     x = rng.normal(size=(n,) + tuple(shape)) * 3.0
@@ -79,8 +108,9 @@ def _reference(out_path: str) -> None:
     from jax import lax
     from jax.sharding import PartitionSpec as P
 
-    from repro.core import comms, compat, policy
+    from repro.core import codecs, comms, compat, policy
     from repro.kernels import ops, ref
+    from repro.kernels.ref import BLOCK
 
     def sep_add(a, b):
         m = (b != b).astype(jnp.uint32)
@@ -92,7 +122,15 @@ def _reference(out_path: str) -> None:
                     local.astype(jnp.float32))
         return ref.bq_encode_ref(s, bits) + (s,)
 
+    def dec(q_hi, q_lo, scale, *, bits):
+        # an opaque no-op after the decode, so XLA cannot fuse its multiply
+        # into a consumer (error feedback's xc - dec)
+        d = ref.bq_decode_ref(q_hi, q_lo, scale, bits)
+        return lax.bitcast_convert_type(lax.bitcast_convert_type(
+            d, jnp.uint32) ^ (d != d).astype(jnp.uint32), jnp.float32)
+
     st = ("bits",)
+    ops._decode_ref = jax.jit(dec, static_argnames=st)
     ops._dae_ref = jax.jit(dae, static_argnames=st)
     ops._daew_ref = jax.jit(lambda *a, bits: dae(*a, bits=bits)[:3],
                             static_argnames=st)
@@ -126,6 +164,30 @@ def _reference(out_path: str) -> None:
             return {k: v[None] for k, v in outs.items()}
         return f
 
+    def leaves(st, prefix="state"):
+        out = {}
+        for k, v in st.items():
+            out.update(leaves(v, f"{prefix}.{k}") if isinstance(v, dict)
+                       else {f"{prefix}.{k}": v})
+        return out
+
+    def stateful_body(op, n, codec_name):
+        c = codecs.get(codec_name)
+
+        def f(xl):
+            x = xl[0]
+            shapes = {"dp": x.shape if op == "psum" else (x.size,)}
+            if op == "all_gather_flat":
+                shapes["zero"] = (ops.padded_rows(-(-x.size // n)) * BLOCK,)
+            states = {k: c.init_state(sh, jnp.float32)
+                      for k, sh in shapes.items()}
+            with comms.codec_state_io(states) as cio:
+                outs = {"out": body(op, n, codec_name)(xl)["out"][0],
+                        "out2": body(op, n, codec_name)(xl)["out"][0]}
+            outs.update(leaves(cio.collect()))
+            return {k: v[None] for k, v in outs.items()}
+        return f
+
     res = {}
     for n in WORLDS:
         mesh = compat.make_mesh((n,), ("x",), devices=jax.devices()[:n])
@@ -146,6 +208,24 @@ def _reference(out_path: str) -> None:
                 out = jax.block_until_ready(fn(x))
             res[(n, i)] = ({k: np.asarray(v) for k, v in out.items()},
                            list(events), list(events.wire))
+        if n not in STATEFUL_WORLDS:
+            continue
+        for i, case in enumerate(_stateful_cases()):
+            plan = policy.CommPolicy(
+                "rc", rules=(policy.Rule(case["codec"]),)).compile()
+            x = jnp.asarray(_inputs(n, case["shape"]))
+
+            def wrapped(xl, case=case):
+                with policy.use_plan(plan):
+                    return stateful_body(case["op"], n, case["codec"])(xl)
+            fn = jax.jit(compat.shard_map(wrapped, mesh=mesh,
+                                          in_specs=(P("x"),),
+                                          out_specs=P("x"),
+                                          check_vma=False))
+            with comms.record_traffic() as events:
+                out = jax.block_until_ready(fn(x))
+            res[(n, "s", i)] = ({k: np.asarray(v) for k, v in out.items()},
+                                list(events), list(events.wire))
     with open(out_path, "wb") as f:
         pickle.dump(res, f)
 
@@ -178,6 +258,17 @@ def port():
             timeout=600)
         for i in range(len(cases)):
             res[(n, i)] = [r[i] for r in per_rank]
+        if n not in STATEFUL_WORLDS:
+            continue
+        cases = _stateful_cases()
+        per_rank = spawn_world(
+            "test_torch_comms:_port_rank", n,
+            dict(cases=[{k: v for k, v in c.items() if k != "shape"}
+                        for c in cases],
+                 shapes=[c["shape"] for c in cases]),
+            timeout=600)
+        for i in range(len(cases)):
+            res[(n, "s", i)] = [r[i] for r in per_rank]
     return res
 
 
@@ -223,6 +314,35 @@ def test_rings_match_reference(n, reference, port):
                                                   err_msg=f"{case} {k}")
             assert r["events"] == j_events, case
             assert r["wire"] == j_wire, case
+
+
+@pytest.mark.parametrize("n", STATEFUL_WORLDS)
+def test_stateful_collectives_match_reference(n, reference, port):
+    for i, case in enumerate(_stateful_cases()):
+        j_out, j_events, j_wire = reference[(n, "s", i)]
+        ranks = port[(n, "s", i)]
+        for rank, r in enumerate(ranks):
+            assert set(r["result"]) == set(j_out), case
+            for k, got in r["result"].items():
+                want = j_out[k][rank]
+                assert got.shape == want.shape, (case, k)
+                if "plr" in case["codec"]:
+                    scale = max(np.abs(want).max(), 1e-30)
+                    np.testing.assert_allclose(got, want, rtol=0,
+                                               atol=PLR_TOL * scale,
+                                               err_msg=f"{case} {k}")
+                else:
+                    np.testing.assert_array_equal(got, want,
+                                                  err_msg=f"{case} {k}")
+            assert r["events"] == j_events, case
+            assert r["wire"] == j_wire, case
+        for k in ranks[0]["result"]:
+            if k.endswith(".q"):             # every rank holds the same Q
+                for r in ranks[1:]:
+                    assert r["result"][k].tobytes() == \
+                        ranks[0]["result"][k].tobytes(), (case, k)
+        if case["codec"].startswith("ef:"):  # the residual was exercised
+            assert np.abs(ranks[0]["result"]["state.dp.residual"]).max() > 0
 
 
 @pytest.mark.parametrize("n", WORLDS)

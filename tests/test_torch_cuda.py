@@ -4,18 +4,30 @@ with only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Contract asserted here: each kernel (encode, decode, gather-decode, the
+Contract asserted here: each bq kernel (encode, decode, gather-decode, the
 fused ring hop with the sum and wire-only, decode-add) equals its plain
 PyTorch version bit for bit at rates 4/8/16/24 on random, all-zero,
 extreme-magnitude and denormal rows; a block id outside the pool decodes to NaN without
 disturbing the other rows; each wrapper counts exactly its own launches;
 tensors of the wrong dtype, shape or device raise.
+
+The lowrank matmul's three forms (``tall``, ``at_b``, ``small_k``) at
+small, ragged and the training step's shapes (gemma3-1b's per-rank
+gradient at dp 2 x tp 2: 1051352 x 512), at r = 1, 8 and 64: within
+``lowrank.error_bound`` of the plain version (each side a sum of k f32
+products, so both within gamma_k |a| @ |b| of the exact product) and
+within ``lowrank.order_bound`` of the f64 product (the kernel's own sum
+order: at the path's 1051352-row reduction about 400 times tighter),
+equal to the plain version bit for bit on integer inputs in [-2, 2] at
+every shape (every partial sum is an integer below 2^24, so exact in any
+order: a dropped or doubled slab of ``at_b`` shows), bit-identical on a
+second call, one launch per call of its own form.
 """
 
 import pytest
 import torch
 
-from repro_torch.kernels import bq, ops
+from repro_torch.kernels import bq, lowrank, ops
 
 BITS = (4, 8, 16, 24)
 PLANES = ("q_hi", "q_lo", "scale")
@@ -139,3 +151,102 @@ def test_fused_hops_validate_inputs(cuda):
     with pytest.raises(ValueError):         # and be contiguous
         bq.bq_decode_add(w["q_hi"], None, w["scale"],
                          torch.zeros(128, 16, device=cuda).t(), 8)
+
+
+# --------------------------------------------------------------------------
+# the lowrank matmul (Pallas #6)
+# --------------------------------------------------------------------------
+
+PATH_ROWS = 1051352                      # gemma3-1b, dp 2 x tp 2, per rank
+# (rows, width) of the matrix view per size: small, ragged, the path's
+MM_SHAPES = {"small": (64, 128), "ragged": (5001, 300), "path": (PATH_ROWS,
+                                                                 512)}
+
+
+def _mm_operands(kind: str, size: str, r: int, dev, integer=False):
+    """(a, b) of one product form as the plr codec passes them: ``tall``
+    M @ Q, ``at_b`` M.T @ P (a view of M), ``small_k`` P @ Q.T (a view)."""
+    rows, width = MM_SHAPES[size]
+    if kind == "small_k" and size == "ragged":
+        width = 260                      # float4 stores with a ragged tail
+    g = torch.Generator(device=dev).manual_seed(rows + width + r)
+
+    def draw(*shape):
+        if integer:     # |partial sums| <= 4 * 1051352 < 2^24: exact
+            return torch.randint(-2, 3, shape, generator=g, device=dev,
+                                 dtype=torch.int32).float()
+        return torch.randn(*shape, generator=g, device=dev)
+    if kind == "tall":
+        return draw(rows, width), draw(width, r)
+    if kind == "at_b":
+        return draw(rows, width).T, draw(rows, r)
+    return draw(rows, r), draw(width, r).T
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [1, 8, 64])
+@pytest.mark.parametrize("size", list(MM_SHAPES))
+@pytest.mark.parametrize("kind", ["tall", "at_b", "small_k"])
+def test_lowrank_matmul_within_bound(cuda, kind, size, r):
+    a, b = _mm_operands(kind, size, r, cuda)
+    assert lowrank.form(a, b) == kind
+    lowrank.reset_launches()
+    got = lowrank.matmul(a, b)
+    again = lowrank.matmul(a, b)
+    want = lowrank.matmul(a, b, backend="torch")
+    torch.cuda.synchronize()
+    assert lowrank.LAUNCHES == {f"matmul_{k}": 2 if k == kind else 0
+                                for k in ("tall", "at_b", "small_k")}
+    assert torch.equal(got, again)                   # deterministic
+    err = (got.double() - want.double()).abs()
+    assert bool((err <= lowrank.error_bound(a, b)).all()), float(err.max())
+    with lowrank._no_tf32():
+        exact = torch.matmul(a.double(), b.double())
+    err = (got.double() - exact).abs()
+    assert bool((err <= lowrank.order_bound(a, b)).all()), float(err.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", list(MM_SHAPES))
+@pytest.mark.parametrize("kind", ["tall", "at_b", "small_k"])
+def test_lowrank_matmul_exact_on_integers(cuda, kind, size):
+    for r in (1, 3, 8, 64):
+        a, b = _mm_operands(kind, size, r, cuda, integer=True)
+        got = lowrank.matmul(a, b)
+        want = lowrank.matmul(a, b, backend="torch")
+        assert torch.equal(got, want), (size, r)
+
+
+@pytest.mark.cuda
+def test_lowrank_matmul_writes_out(cuda):
+    a, b = _mm_operands("small_k", "ragged", 8, cuda)
+    buf = torch.full((a.shape[0] * b.shape[1] + 7,), 5.0, device=cuda)
+    out = buf[:a.shape[0] * b.shape[1]].view(a.shape[0], b.shape[1])
+    assert lowrank.matmul(a, b, out=out) is out
+    assert torch.equal(out, lowrank.matmul(a, b))
+    assert bool((buf[out.numel():] == 5.0).all())    # nothing past it
+
+
+@pytest.mark.cuda
+def test_lowrank_matmul_validates_inputs(cuda):
+    a = torch.zeros(64, 128, device=cuda)
+    with pytest.raises(TypeError):
+        lowrank.matmul(a.double(), torch.zeros(128, 8, device=cuda,
+                                               dtype=torch.float64))
+    with pytest.raises(ValueError):                  # devices mixed
+        lowrank.matmul(a, torch.zeros(128, 8))
+    with pytest.raises(ValueError):                  # inner dims differ
+        lowrank.matmul(a, torch.zeros(64, 8, device=cuda))
+    with pytest.raises(ValueError):                  # no form takes it
+        lowrank.matmul(torch.zeros(64, 1024, device=cuda),
+                       torch.zeros(1024, 128, device=cuda))
+    with pytest.raises(ValueError):                  # out of the wrong shape
+        lowrank.matmul(a, torch.zeros(128, 8, device=cuda),
+                       out=torch.empty(64, 9, device=cuda))
+    p = torch.zeros(64, 8, device=cuda)
+    with pytest.raises(ValueError):                  # small_k: n % 4 != 0
+        lowrank.matmul(p, torch.zeros(8, 130, device=cuda))
+    buf = torch.empty(64 * 128 + 1, device=cuda)
+    with pytest.raises(ValueError):                  # small_k: out unaligned
+        lowrank.matmul(p, torch.zeros(8, 128, device=cuda),
+                       out=buf[1:].view(64, 128))

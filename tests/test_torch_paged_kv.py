@@ -105,8 +105,11 @@ def test_pool_structs_match_reference(reduced, codec):
 def test_storage_bits_validation():
     assert tpkv.storage_bits("none") is None
     assert tpkv.storage_bits("bq8") == 8
-    with pytest.raises(NotImplementedError):
-        tpkv.storage_bits("plr8")            # not yet ported
+    for stateful in ("plr8", "ef:bq8"):      # as the reference refuses
+        with pytest.raises(ValueError):
+            tpkv.storage_bits(stateful)
+        with pytest.raises(ValueError):
+            jpkv.storage_bits(stateful)
     with pytest.raises(KeyError):
         tpkv.storage_bits("nope")
 

@@ -6,8 +6,9 @@ resolve every ``(dim, direction, level)`` query, every site's codec pair
 and every hierarchical pair to the same codec names, and have the same
 ``table_hash``; rules resolve first-match-wins with size and name windows
 as in the reference; bad codecs, dims, directions and levels fail at
-construction.  Carried-state codecs (``ef:*``, ``plr*``) resolve by name,
-and their wire raises as not yet ported.
+construction.  Carried-state codecs (``ef:*``, ``plr*``) resolve by name
+and encode, and the collectives refuse them at autodiff sites and outside
+a codec-state region.
 """
 
 import random
@@ -119,11 +120,24 @@ def test_eager_validation():
 
 
 def test_stateful_codecs_resolve_and_refuse_their_wire():
-    for name in ("ef:bq4", "plr8"):
+    """Carried-state codecs resolve by name and their wire works at the
+    codec level; the collectives refuse it at an autodiff site and outside
+    a codec-state region."""
+    import torch
+    x = torch.linspace(-3, 3, 5000)
+    for name in ("ef:bq4", "plr8", "ef:plr8"):
         c = tcodecs.get(name)
         assert c.stateful and c.name == name
-        with pytest.raises(NotImplementedError):
-            c.encode(None)
+        wire, st = c.encode(x, c.init_state(x.shape, x.dtype))
+        assert c.decode(wire, x.shape, x.dtype).shape == x.shape
+        assert st is not None
+    ax = tcomms.Axis("model", 2, 0, None, (0, 1))
+    with tpolicy.use_plan(tpolicy.CommPolicy(
+            "s", rules=(tpolicy.Rule("ef:bq4"),)).compile()):
+        with pytest.raises(NotImplementedError, match="autodiff"):
+            tcomms.all_gather(x, ax, 0, "tp")
+        with pytest.raises(RuntimeError, match="codec-state region"):
+            tcomms.reduce_scatter_flat(x, ax, "dp")
     with pytest.raises(KeyError):
         tcodecs.get("ef:none")             # nothing to feed back
     with pytest.raises(KeyError):

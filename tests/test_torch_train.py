@@ -24,10 +24,19 @@ Contract asserted here, with the tolerances and their reasons:
     most 4 entries one quantization step apart, their scales within 2 ulp,
     the parameters within 1e-5 (XLA contracts the moment updates into
     FMAs; measured 1 entry, 2.3e-7 relative, 3.4e-6);
+  * carried-state codecs, each run starting from the reference's initial
+    codec state (``codec_state_from``; the port's own Q0 is 1e-6 from it):
+    ``zhybrid_16_8`` with ``plr8`` or ``ef:plr8`` on the DP gradient sync,
+    and ``ef_zhybrid_16_4`` (``ef:bq4``).  Losses, grad norms and the
+    final codec state within ``STATEFUL_TOL`` of the reference's (see
+    there for the measured values); the ranks of a dp group (one tp
+    shard of the gradient) hold the same factor Q, bit for bit;
   * the first step's ledger, priced per dimension, equals the reference's
-    under both schemes, byte for byte;
-  * the launcher refuses unported flags, runs on the CPU only when asked,
-    and its ranks import neither ``jax`` nor ``repro``.
+    under every case, byte for byte;
+  * the launcher refuses unported flags, builds ``--codec-for`` policies,
+    runs on the CPU only when asked, refuses a stateful codec at an
+    autodiff site with the reference's message, and its ranks import
+    neither ``jax`` nor ``repro``.
 """
 
 import os
@@ -49,7 +58,23 @@ CASES = {
     "zhybrid_16_8": dict(scheme="zhybrid_16_8"),
     "zhybrid_16_8_buckets2": dict(scheme="zhybrid_16_8", grad_buckets=2),
     "zhybrid_16_8_state8": dict(scheme="zhybrid_16_8", opt_state_bits=8),
+    # carried-state codecs: low rank and error feedback on the DP sync
+    "zhybrid_16_8_plr8": dict(scheme="zhybrid_16_8",
+                              codec_for=["dp@zero1_grad*=plr8"]),
+    "ef_zhybrid_16_4": dict(scheme="ef_zhybrid_16_4"),
+    "zhybrid_16_8_efplr8": dict(scheme="zhybrid_16_8",
+                                codec_for=["dp@zero1_grad*=ef:plr8"]),
 }
+STATEFUL = ("zhybrid_16_8_plr8", "ef_zhybrid_16_4", "zhybrid_16_8_efplr8")
+# (loss rtol, grad-norm rtol, final-state tol) against the reference: the
+# factor Q within tol of its largest entry, the ef residual's norm within
+# rtol (a bq4 rounding flip moves single entries by a quantization step).
+# Measured on these inputs, losses / grad norms / state: plr8 1.5e-7 /
+# 6.7e-7 / 4.5e-5; ef:bq4 1.5e-7 / 6.7e-7 / 1.1e-5; ef:plr8 1.5e-7 /
+# 6.7e-7 / 2.6e-5.
+STATEFUL_TOL = {"zhybrid_16_8_plr8": (1e-5, 1e-4, 2e-4),
+                "ef_zhybrid_16_4": (1e-5, 1e-4, 1e-4),
+                "zhybrid_16_8_efplr8": (1e-5, 1e-4, 2e-4)}
 # bq8 m and v amplify an ulp: most of a row's v quantizes to 0, so where an
 # ulp moves m across a rounding boundary the update m/(sqrt(v) + eps) jumps
 # by a quantization step of m over eps.  Only the leading steps hold at the
@@ -66,7 +91,7 @@ def _reference(out_path: str) -> None:
 
     from repro import configs
     from repro.analysis import roofline
-    from repro.core import comms
+    from repro.core import comms, policy
     from repro.data.pipeline import DataConfig, SyntheticCorpus
     from repro.launch.mesh import make_mesh
     from repro.models.model import Model
@@ -79,13 +104,19 @@ def _reference(out_path: str) -> None:
     mi = MeshInfo.from_mesh(mesh)
     out = {}
     for case, kw in CASES.items():
-        trainer = Trainer(Model(cfg, mi), mesh, scheme=kw["scheme"],
+        pol = policy.as_policy(kw["scheme"])
+        for spec in kw.get("codec_for", ()):       # DIM@NAME_GLOB=CODEC
+            pat, _, codec = spec.partition("=")
+            dim, _, name = pat.partition("@")
+            pol = pol.with_rules(policy.Rule(codec, dim=dim, name=name))
+        trainer = Trainer(Model(cfg, mi), mesh, scheme=pol,
                           opt_cfg=AdamConfig(
                               lr=1e-3, grad_buckets=kw.get("grad_buckets", 1),
                               state_bits=kw.get("opt_state_bits", 32)))
         params, ostate, cstate = trainer.init_all(jax.random.key(0))
         out["tree"] = jax.tree.map(lambda pv: np.asarray(pv.v), params,
                                    is_leaf=lambda x: isinstance(x, Pv))
+        cstate0 = jax.tree.map(np.asarray, cstate)
         data = SyntheticCorpus(DataConfig(vocab_size=cfg.vocab_size,
                                           seq_len=SEQ, global_batch=GB,
                                           seed=0))
@@ -102,7 +133,9 @@ def _reference(out_path: str) -> None:
                                                   train=True)["per_dim"]
             losses.append(float(m["loss"]))
             gnorms.append(float(m["grad_norm"]))
-        out[case] = dict(losses=losses, gnorms=gnorms, per_dim=per_dim)
+        out[case] = dict(losses=losses, gnorms=gnorms, per_dim=per_dim,
+                         cstate0=cstate0,
+                         cstate=jax.tree.map(np.asarray, cstate))
     with open(out_path, "wb") as f:
         pickle.dump(out, f)
 
@@ -123,7 +156,38 @@ def reference(tmp_path_factory):
     with open(weights, "wb") as f:
         pickle.dump(ref["tree"], f)
     ref["weights"] = str(weights)
+    for case in STATEFUL:
+        path = out.parent / f"cstate_{case}.pkl"
+        with open(path, "wb") as f:
+            pickle.dump(ref[case]["cstate0"], f)
+        ref[case]["cstate0_path"] = str(path)
     return ref
+
+
+def train_rank_keeping_codec_state(**kw) -> dict:
+    """``train_rank`` in a spawned rank, plus the codec state after its
+    last step as numpy (``codec_state_arrays``), kept by wrapping
+    ``Trainer.step`` in this rank's process."""
+    from repro_torch.launch.train import train_rank
+    from repro_torch.train.train_step import Trainer
+
+    kept, step = {}, Trainer.step
+
+    def keep(self, *args):
+        out = step(self, *args)
+        kept["cstate"] = out[2]
+        return out
+
+    def host(t):
+        return {k: host(v) for k, v in t.items()} if isinstance(t, dict) \
+            else t.cpu().numpy()
+    Trainer.step = keep
+    try:
+        res = train_rank(**kw)
+    finally:
+        Trainer.step = step
+    res["codec_state_arrays"] = host(kept["cstate"])
+    return res
 
 
 @pytest.fixture(scope="module")
@@ -131,8 +195,12 @@ def port(reference):
     from repro_torch.launch.train import spawn_world
     res = {}
     for case, kw in CASES.items():
+        target = "repro_torch.launch.train:train_rank"
+        if case in STATEFUL:
+            kw = dict(kw, codec_state_from=reference[case]["cstate0_path"])
+            target = f"{__name__}:train_rank_keeping_codec_state"
         res[case] = spawn_world(
-            "repro_torch.launch.train:train_rank", 4,
+            target, 4,
             dict(arch="gemma3-1b", reduced=True, dp=2, tp=2, steps=STEPS,
                  seq=SEQ, global_batch=GB, lr=1e-3, seed=0, device="cpu",
                  init_from=reference["weights"], **kw),
@@ -288,6 +356,47 @@ def test_trajectory_matches_reference(case, rtol_loss, rtol_gnorm,
     assert want["losses"][-1] < want["losses"][0]
 
 
+def _leaves(st, prefix=""):
+    out = {}
+    for k, v in st.items():
+        out.update(_leaves(v, f"{prefix}{k}.") if isinstance(v, dict)
+                   else {prefix + k: np.asarray(v)})
+    return out
+
+
+@pytest.mark.parametrize("case", STATEFUL)
+def test_stateful_trajectory_matches_reference(case, reference, port):
+    want = reference[case]
+    rtol_loss, rtol_gnorm, tol_state = STATEFUL_TOL[case]
+    ref_state = _leaves(want["cstate"])
+    for rank, r in enumerate(port[case]):
+        np.testing.assert_allclose(r["losses"], want["losses"],
+                                   rtol=rtol_loss)
+        np.testing.assert_allclose(r["grad_norms"], want["gnorms"],
+                                   rtol=rtol_gnorm)
+        assert r["losses"] == port[case][0]["losses"]
+        got_state = _leaves(r["codec_state_arrays"])
+        assert set(got_state) == set(ref_state)
+        for k, glob in ref_state.items():
+            per = glob.shape[0] // 4                # stacked in rank order
+            ref_k = glob[rank * per:(rank + 1) * per]
+            got = got_state[k]
+            assert got.shape == ref_k.shape, k
+            if k.endswith("residual"):              # quantization flips
+                np.testing.assert_allclose(np.linalg.norm(got),
+                                           np.linalg.norm(ref_k),
+                                           rtol=tol_state, err_msg=k)
+            else:
+                np.testing.assert_allclose(
+                    got, ref_k, rtol=0, atol=tol_state * np.abs(ref_k).max(),
+                    err_msg=k)
+            if k.endswith("q"):     # the same Q across each dp group
+                peer = port[case][rank % 2]          # data index 0, same tp
+                assert got.tobytes() == \
+                    _leaves(peer["codec_state_arrays"])[k].tobytes()
+    assert want["losses"][-1] < want["losses"][0]
+
+
 @pytest.mark.parametrize("case", list(CASES))
 def test_ledger_bytes_per_dim_match_reference(case, reference, port):
     want = reference[case]["per_dim"]
@@ -317,13 +426,57 @@ def test_launcher_refuses_unported_flags():
     assert tlaunch.unported(ok) == []
     for extra in (["--pp", "2"], ["--cp", "2"], ["--nodes", "2"],
                   ["--microbatches", "2"], ["--tune"], ["--resume"],
-                  ["--codec-for", "embed*=bq16"], ["--ckpt-dir", "x"],
+                  ["--vpp", "2"], ["--ckpt-dir", "x"],
                   ["--remat-policy", "full"]):
         args = ap.parse_args(["--arch", "gemma3-1b", *extra])
         msgs = tlaunch.unported(args)
         assert len(msgs) == 1 and "not yet ported" in msgs[0], extra
     with pytest.raises(SystemExit):
         tlaunch.main(["--arch", "gemma3-1b", "--pp", "2", "--device", "cpu"])
+
+
+def test_launcher_builds_codec_for_policies():
+    from repro_torch.core import policy
+    from repro_torch.launch import train as tlaunch
+    pol = tlaunch.comm_policy("zhybrid_16_8", ["dp@zero1_grad*=plr8",
+                                               "zero=ef:bq8", "embed*=bq16"],
+                              no_compress_below=4096)
+    plan = pol.compile()
+    assert pol.name == "zhybrid_16_8+cli"
+    assert plan.codec_pair(policy.Site("dp", "zero1_grad"), 1 << 20)[0].name \
+        == "plr8"
+    assert plan.codec_pair(policy.Site("dp", "zero1_grad"), 100)[0].name \
+        == "none"
+    assert plan.codec("zero").name == "ef:bq8"
+    assert plan.codec_pair(policy.Site("tp", "embed"), 1 << 20)[0].name \
+        == "bq16"
+    assert plan.codec("dp").name == "bq8"
+    for bad in (["dp@zero1_grad*"], ["dp=ef:bq9"], ["xx@a=bq8"]):
+        with pytest.raises((KeyError, ValueError)):
+            tlaunch.comm_policy("zhybrid_16_8", bad)
+    with pytest.raises(SystemExit):
+        tlaunch.main(["--arch", "gemma3-1b", "--codec-for", "dp=plr0",
+                      "--device", "cpu"])
+
+
+def test_launcher_refuses_stateful_codec_at_autodiff_site():
+    from repro_torch.launch import train as tlaunch
+    with pytest.raises(RuntimeError, match="never autodiff traffic"):
+        tlaunch.main(["--arch", "gemma3-1b", "--reduced", "--dp", "2",
+                      "--tp", "2", "--steps", "1", "--seq", "16",
+                      "--global-batch", "2", "--codec-for", "tp=ef:bq8",
+                      "--device", "cpu"])
+
+
+def test_launcher_trains_plr8_on_cpu(capsys):
+    from repro_torch.launch import train as tlaunch
+    tlaunch.main(["--arch", "gemma3-1b", "--reduced", "--dp", "2", "--tp",
+                  "2", "--steps", "2", "--seq", "16", "--global-batch", "2",
+                  "--scheme", "zhybrid_16_8", "--codec-for",
+                  "dp@zero1_grad*=plr8", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "done: final loss" in out
+    assert "codec state dp@zero1_grad (rank 0)" in out and "rank 8" in out
 
 
 def test_launcher_trains_on_cpu(capsys):
