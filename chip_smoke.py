@@ -13,7 +13,9 @@ wire-only, #4) at M = 8, 16, 65536 and at the training step's ring shapes,
 gather-decode on the serving table.  It holds the lowrank matmul's three
 forms (tall M @ Q, M.T @ P as a view, the small-k reconstruction P @ Q.T)
 at the training step's shape (gemma3-1b's per-rank gradient at dp 2 x tp
-2, 1051352 x 512) at r = 8 and 64: equal to their plain versions on
+2, 1051352 x 512) at r = 8 and 64, and the register-tiled tall and
+small_k also at the plr ladder's other ranks (2, 4) and at 16 and 32
+(each form's wide instance below 64): equal to their plain versions on
 integer operands in [-2, 2] (exact in any sum order), within
 lowrank.error_bound of them and within lowrank.order_bound of the f64
 product on normal operands, and a second call repeating bit for bit; it
@@ -90,6 +92,11 @@ PLR = ["--codec-for", "dp@zero1_grad*=plr8"]
 # within lowrank.error_bound), so losses and grad norms agree to this
 PLR_RTOL = 1e-4
 MM_FORMS = ("tall", "at_b", "small_k")
+# ranks each form is checked and timed at: at_b at plr8's rank and the
+# widest; the register-tiled forms also at the plr ladder's ranks 2 and 4
+# (tune.ladder.PLR_RANKS) and at 16 and 32 (their wide instance below 64)
+MM_RANKS = {"tall": (2, 4, 8, 16, 32, 64), "at_b": (8, 64),
+            "small_k": (2, 4, 8, 16, 32, 64)}
 SCRATCH = ROOT / ".smoke"     # git-ignored: phase 4's flat gradient
 
 
@@ -105,6 +112,27 @@ def card_line() -> str:
     if out.returncode != 0 or not out.stdout.strip():
         fail(f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_lines(log: str):
+    """(kernel, line) for each register and spill line of ``nvcc -Xptxas
+    -v``: the kernel's name and integer template arguments read from the
+    mangled name of the entry function the lines follow."""
+    import re
+    name = "?"
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '_ZN(\w+)'", line)
+        if entry:
+            rest, name = entry.group(1), "?"
+            while (part := re.match(r"(\d+)", rest)):      # <len><id> ...
+                n = int(part.group(1))
+                name = rest[len(part.group(1)):len(part.group(1)) + n]
+                rest = rest[len(part.group(1)) + n:]
+            if rest.startswith("I"):
+                args = re.findall(r"L[ib](\d+)E", rest.split("EE", 1)[0] + "E")
+                name += f"<{','.join(args)}>"
+        elif "registers" in line or "spill" in line:
+            yield name, line.split(":", 1)[-1].strip()
 
 
 def eager_ms(torch, fn, iters: int = 100, warmup: int = 10) -> float:
@@ -688,9 +716,8 @@ def main():
     print(f"phase 1: built {bq.build_info['path']} in "
           f"{bq.build_info['seconds']:.2f}s "
           f"(load {time.perf_counter() - t0:.2f}s) [{card}]")
-    for line in bq.build_info.get("log", "").splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    for name, line in ptxas_lines(bq.build_info.get("log", "")):
+        print(f"  ptxas: {name}: {line}")
 
     # ---------------------------------------------------------- phase 2
     nb = SLOTS * paged_kv.blocks_needed(PROMPT + GEN, BLOCK_TOKENS)
@@ -846,8 +873,8 @@ def main():
     n_flat = flat_elems(cfg)
     mm_rows, mm_width = lowrank.mat_shape(n_flat)
     mm = {}
-    for r_mm in (8, 64):
-        for kind in MM_FORMS:
+    for r_mm in sorted({r for rs in MM_RANKS.values() for r in rs}):
+        for kind in (f for f in MM_FORMS if r_mm in MM_RANKS[f]):
             e_abs, share = check_matmul(torch, kind, mm_rows, mm_width, r_mm)
             t, b, lib = time_matmul(torch, kind, mm_rows, mm_width, r_mm)
             mm[(kind, r_mm)] = (e_abs, share, t, b, lib)
@@ -875,7 +902,8 @@ def main():
     print(f"phase 2: lowrank matmul equal to its plain version on integers, "
           f"within lowrank.error_bound of it and lowrank.order_bound of the "
           f"f64 product on normals, deterministic, all three forms at r=8 "
-          f"and 64 on the {mm_rows} x {mm_width} view; orthonormalize per "
+          f"and 64 (tall and small_k also at 2, 4, 16, 32) on the {mm_rows} x "
+          f"{mm_width} view; orthonormalize per "
           f"eager call {gs['p']:.3f} ms ({mm_rows} x 8) + {gs['q']:.3f} ms "
           f"({mm_width} x 8) = {gs['step']:.3f} ms per plr8 step [{card}]")
 
@@ -950,16 +978,18 @@ def main():
     for kind in MM_FORMS:
         e_abs, share, (ms, pms, wms, _, _, _), (bms, by), lib = \
             mm[(kind, 8)]
-        e64, share64, (ms64, pms64, _, _, _, _), (bms64, by64), lib64 = \
-            mm[(kind, 64)]
         forms[kind] = {
             "launches": stateful["plr"][f"matmul_{kind}"],
             "max_abs_err": e_abs, "share_of_order_bound": share, "ms": ms,
             "plain_ms": pms, "bound_ms": bms, "bound_by": by,
-            "library_ms": lib, "warm_l2_ms": wms,
-            "r64": {"max_abs_err": e64, "share_of_order_bound": share64,
-                    "ms": ms64, "plain_ms": pms64, "bound_ms": bms64,
-                    "bound_by": by64, "library_ms": lib64}}
+            "library_ms": lib, "warm_l2_ms": wms}
+        for r_mm in (r for r in MM_RANKS[kind] if r != 8):
+            er, sr, (msr, pmsr, _, _, _, _), (bmsr, byr), libr = \
+                mm[(kind, r_mm)]
+            forms[kind][f"r{r_mm}"] = {
+                "max_abs_err": er, "share_of_order_bound": sr, "ms": msr,
+                "plain_ms": pmsr, "bound_ms": bmsr, "bound_by": byr,
+                "library_ms": libr}
     total = {k: sum(f[k] for f in forms.values())
              for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
     kernels.append({

@@ -20,19 +20,37 @@
 //                n <= 512: the reconstruction P^ @ Q'^T.
 //
 // Arithmetic is f32 with an f32 accumulator on the CUDA cores (no TF32, no
-// tensor cores).  What bounds them on an H100 (3.35 TB/s, 67 TFLOP/s f32):
-// at r = 8 each moves about 2.2 GB for about 9 GFLOP, so all three are
-// bound by device memory (about 0.65 ms); at r = 64 (a) and (c) do 69 GFLOP
-// and are bound by f32 FMA throughput.  The designs, simple first:
+// tensor cores: the reference accumulates in f32).  What bounds them on an
+// H100 (3.35 TB/s, 67 TFLOP/s f32): at r = 8 each moves about 2.2 GB for
+// about 9 GFLOP, so all three are bound by device memory (about 0.65 ms);
+// at r = 64 (a) and (c) do 69 GFLOP and are bound by f32 FMA throughput
+// (about 1.03 ms).
 //
-//   (a) One warp per row (RPW rows per warp at small n, to reuse each B
-//       value).  B is staged transposed in shared memory once per block;
-//       lane l reads A[row][l + 32 j], so every warp load is 128 contiguous
-//       bytes and every shared-memory read conflict-free.  The n partial
-//       sums of a row are reduced across the warp by a transposing
-//       butterfly: each shuffle step halves the values a lane holds, so an
-//       n-wide row costs about n shuffles instead of 5 n.  Blocks are
-//       persistent (grid-stride over rows).
+//   (a) and (c) are one register-tiled GEMM, mm_panel_kernel: a tall A
+//       times a small B, the two differing only in which of k and n is
+//       large.  Each block keeps its BN columns of B (k x BN, read once from
+//       any strides, zero past k and n; 128 KB at most) in shared memory and
+//       walks BM-row panels of A (persistent grid, panels interleaved across
+//       blocks; in (c) the grid is a multiple of the n / BN column slices,
+//       one slice per block).  A streams through shared memory in BK-deep
+//       slices by cp.async with an L2 prefetch of 256 bytes, 2-3 stages in
+//       flight, one pipeline across panels; a staged row's 16-byte chunks
+//       are XOR-permuted by the row's low bits, so the rows read at once
+//       fall in distinct banks without padding.  Each thread holds a TM x
+//       TN block of C in registers (float4 groups of columns 4 tx + 4 g TX)
+//       and per 4 k-steps loads TM + TN float4s for 4 TM TN FMAs: 16 FMAs a
+//       load at 8 x 8, against one 4-byte load per FMA in a dot-product
+//       kernel.  (a)'s instances let each warp stage and read its own rows
+//       of A, so a warp waits on a warp barrier, not on the whole block,
+//       every slice.  Each form has two instances: one for the ranks the
+//       plr ladder sends (2, 4, 8) and one for any rank up to 64, tuned at
+//       64 (a narrower rank runs it with B's columns or k past r zero).
+//       At r = 8 the design is about bytes: 16-byte loads of 256
+//       contiguous bytes per row, and (c)'s float4 stores, 256 contiguous bytes per half-warp.  A row
+//       slice of A that is not 16-byte aligned (odd rank, P^[r0:r1]) loads
+//       by 4-byte cp.async instead.  Every output is one serial FMA chain
+//       over k, in k order, in one thread (no split-k, shuffles or atomics),
+//       so a call repeats bit for bit and the chain is k roundings long.
 //   (b) Two passes, deterministic: the rows are cut into fixed slabs (a
 //       function of m alone, never of the card), one block per slab; thread
 //       t holds columns t and t + 256 of A for all n outputs in registers
@@ -40,17 +58,11 @@
 //       memory.  Each block writes its partial (n x k) to scratch that the
 //       wrapper allocates; the second pass sums the slabs in slab order.
 //       No atomics, so a call repeats bit for bit.
-//   (c) One warp per row (two rows per step), B in shared memory; lane l
-//       owns columns 4 l + 128 t and stores them as float4, so every store
-//       is 16 bytes and a warp writes 512 contiguous bytes.  It takes n a
-//       multiple of 4 and a contiguous, 16-byte aligned C (the plr codec's
-//       widths are 128, 256 and 512, its outputs fresh or at offset 0).
-//       A's few values per row are read by all lanes at once (one
-//       broadcast load each).
 //
-// Ragged edges (m, k, n, row strides; n in steps of 4 in (c)) are masked in
-// every kernel.  Each C entry point launches on the given stream and returns
-// cudaGetLastError().
+// Ragged edges (m, k, n, row strides) are masked in every kernel; (c) takes
+// n a multiple of 4 and a contiguous, 16-byte aligned C (the plr codec's
+// widths are 128, 256 and 512).  Each C entry point launches on the given
+// stream and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -58,105 +70,252 @@
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
 constexpr int AT_B_ROWS = 32;        // P^ rows staged per step in (b)
-constexpr int SMALL_K_RPW = 2;       // rows per warp step in (c)
-constexpr int SMALL_K_CPL = 16;      // columns per lane in (c): n <= 512
 
-// Transposing warp reduction of NP per-lane partial sums.  After it, lane
-// `lane` holds the full sums of max(1, NP / 32) consecutive columns
-// starting at column_of<NP>(lane); lanes of one group hold the same sums.
-template <int CNT, int O, int NP>
-__device__ __forceinline__ void transpose_reduce(float (&v)[NP], int lane) {
-  if constexpr (O > 0) {
-    if constexpr (CNT > 1) {
-      constexpr int H = CNT / 2;
-      const bool up = (lane & O) != 0;
-#pragma unroll
-      for (int i = 0; i < H; ++i) {
-        const float send = up ? v[i] : v[i + H];
-        const float keep = up ? v[i + H] : v[i];
-        v[i] = keep + __shfl_xor_sync(0xffffffffu, send, O);
-      }
-      transpose_reduce<H, O / 2, NP>(v, lane);
-    } else {
-      v[0] += __shfl_xor_sync(0xffffffffu, v[0], O);
-      transpose_reduce<1, O / 2, NP>(v, lane);
-    }
-  }
+// ---- cp.async: global -> shared, zero-filling past src_bytes --------------
+
+// 16 bytes, with a hint to fetch the 256 bytes around them into L2: the
+// next k slices of the same rows follow a few steps later
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global.L2::256B [%0], [%1], 16, %2;\n"
+               ::"r"(s), "l"(src), "r"(src_bytes));
 }
 
-template <int NP>
-__device__ __forceinline__ int log2_np() {
-  return NP >= 64 ? 6 : NP >= 32 ? 5 : NP >= 16 ? 4 : 3;
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(src_bytes));
 }
 
-// First column whose sum lane `lane` holds, and whether it stores it (one
-// lane per group).
-template <int NP>
-__device__ __forceinline__ int column_of(int lane) {
-  constexpr int VPL = NP > 32 ? NP / 32 : 1;
-  const int shift = NP > 32 ? 0 : 5 - log2_np<NP>();
-  return (lane >> shift) * VPL;
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
 }
 
-template <int NP>
-__device__ __forceinline__ bool stores(int lane) {
-  constexpr int GROUP = NP >= 32 ? 1 : 32 / NP;
-  return (lane & (GROUP - 1)) == 0;
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// ---- (a) tall A x small B ------------------------------------------------
+// ---- (a) and (c): tall A (m x k) @ small B (k x n), register-tiled ---------
 
-template <int NP>
-__global__ void __launch_bounds__(THREADS)
-mm_tall_kernel(const float* __restrict__ a, long long m, int k, long long lda,
-               const float* __restrict__ b, long long ldb_k, long long ldb_n,
-               int n, float* __restrict__ c, long long ldc) {
+// Offset of A's (row, kk) in a staged slice (kk < BK): rows of BK floats,
+// a row's 16-byte chunks XOR-permuted by the row's two low bits, so the 4
+// consecutive rows a quarter-warp reads at one kk fall in distinct banks
+// without padding.
+template <int BK>
+__device__ __forceinline__ int a_off(int row, int kk) {
+  constexpr int KEY = BK / 4 >= 4 ? 3 : BK / 4 - 1;
+  return row * BK + ((((kk >> 2) ^ (row & KEY)) << 2) | (kk & 3));
+}
+
+// NT threads, each a TM x TN block of the BM x BN tile (BM = NT / (BN / TN)
+// * TM); A in BK-deep slices, STAGES of them in the pipeline; B (k x BN)
+// resident; WARPA: each warp stages its own rows of A.
+template <int NT, int BN, int TM, int TN, int BK, int STAGES, int MINB,
+          bool WARPA>
+__global__ void __launch_bounds__(NT, MINB)
+mm_panel_kernel(const float* __restrict__ a, long long m, int k,
+                long long lda, bool vec_a, const float* __restrict__ b,
+                long long ldb_k, long long ldb_n, int n,
+                float* __restrict__ c, long long ldc, bool vec_c,
+                int slices, long long blocks_per_slice) {
+  constexpr int TX = BN / TN, TY = NT / TX, BM = TY * TM;
+  constexpr int G4 = TN / 4, CH = BK / 4;
+  // WARPA: warp w stages and reads rows [w WR, (w + 1) WR) of the panel on
+  // its own (a warp barrier per step, not a block barrier)
+  constexpr int TYW = 32 / TX, WR = TYW * TM, RS = WARPA ? TYW : TY;
+  static_assert(TN % 4 == 0 && BN % TN == 0 && NT % TX == 0 && 32 % TX == 0,
+                "tile");
+  static_assert(BK % 4 == 0 && (WARPA ? 32 : NT) % CH == 0 &&
+                (WARPA ? WR : BM) * CH % (WARPA ? 32 : NT) == 0, "slice");
   extern __shared__ float4 smem4[];
-  float* bt = reinterpret_cast<float*>(smem4);          // [NP][k], B^T
-  for (int i = threadIdx.x; i < NP * k; i += THREADS) {
-    const int col = i / k, kk = i - col * k;
-    bt[i] = col < n ? b[kk * ldb_k + col * ldb_n] : 0.f;
-  }
-  __syncthreads();
+  const int ks = (k + BK - 1) / BK;                       // k slices
+  float* as = reinterpret_cast<float*>(smem4);            // [STAGES][BM][BK]
+  float* bs = as + STAGES * BM * BK;                     // [ks * BK][BN]
 
-  constexpr int RPW = NP >= 32 ? 1 : 32 / NP;
-  constexpr int VPL = NP > 32 ? NP / 32 : 1;
-  const int lane = threadIdx.x & 31;
-  const long long stride = static_cast<long long>(gridDim.x) * WARPS * RPW;
-  for (long long r0 = (static_cast<long long>(blockIdx.x) * WARPS +
-                       (threadIdx.x >> 5)) * RPW;
-       r0 < m; r0 += stride) {
-    float acc[RPW][NP];
-#pragma unroll
-    for (int r = 0; r < RPW; ++r)
-#pragma unroll
-      for (int j = 0; j < NP; ++j) acc[r][j] = 0.f;
-#pragma unroll 4
-    for (int kk = lane; kk < k; kk += 32) {
-      float av[RPW];
-#pragma unroll
-      for (int r = 0; r < RPW; ++r)
-        av[r] = r0 + r < m ? __ldg(a + (r0 + r) * lda + kk) : 0.f;
-#pragma unroll
-      for (int j = 0; j < NP; ++j) {
-        const float bv = bt[j * k + kk];
-#pragma unroll
-        for (int r = 0; r < RPW; ++r) acc[r][j] = fmaf(av[r], bv, acc[r][j]);
-      }
+  const int slice = static_cast<int>(blockIdx.x % slices);
+  const long long pb = blockIdx.x / slices;
+  const int col0 = slice * BN;
+
+  // this block's columns of B, resident; coalesced in whichever of B's
+  // dimensions is contiguous
+  const int kb = ks * BK;
+  const bool kk_fast = ldb_k == 1 && ldb_n != 1;
+  for (int i = threadIdx.x; i < kb * BN; i += NT) {
+    int kk, col;
+    if (kk_fast) {
+      col = i / kb;
+      kk = i - col * kb;
+    } else {
+      kk = i / BN;
+      col = i - kk * BN;
     }
-    const int col0 = column_of<NP>(lane);
-#pragma unroll
-    for (int r = 0; r < RPW; ++r) {
-      transpose_reduce<NP, 16, NP>(acc[r], lane);
-      if (r0 + r < m && stores<NP>(lane)) {
-#pragma unroll
-        for (int i = 0; i < VPL; ++i)
-          if (col0 + i < n) c[(r0 + r) * ldc + col0 + i] = acc[r][i];
-      }
-    }
+    const int gc = col0 + col;
+    bs[kk * BN + col] =
+        kk < k && gc < n ? __ldg(b + kk * ldb_k + gc * ldb_n) : 0.f;
   }
+  if constexpr (WARPA) __syncthreads();     // the loop syncs warps only
+
+  // panels pb, pb + blocks_per_slice, ...: the blocks in flight read
+  // neighbouring panels (contiguous shares of m per block, and splitting
+  // the last round's rows among all blocks, were both slower)
+  const long long panels = (m + BM - 1) / BM;
+  const long long tiles =
+      pb < panels ? (panels - 1 - pb) / blocks_per_slice + 1 : 0;
+  const long long steps = tiles * ks;
+
+  // Steps run over (panel t, k slice j) in order; the issue side keeps its
+  // own counters (no 64-bit division in the loop).  issue() stages A's
+  // slice ij of panel it into stage istage, zero-filled past m and k.
+  long long it = 0;
+  int ij = 0, istage = 0;
+  auto issue = [&]() {
+    const int kb0 = ij * BK;
+    const long long r0 = (pb + it * blocks_per_slice) * BM;
+    float* dst = as + istage * (BM * BK);
+    // the P threads that stage rows [w0, w0 + R): the whole block, or
+    // under WARPA the warp's own rows (it then waits on its copies alone)
+    constexpr int P = WARPA ? 32 : NT, R = WARPA ? WR : BM;
+    const int id = threadIdx.x % P, w0 = threadIdx.x / P * R;
+    if (vec_a && r0 + BM <= m && kb0 + BK <= k) {
+      // a full tile: each thread's chunks sit at fixed offsets, no masks
+      const int row = w0 + id / CH, ch = id % CH;
+      const float* src = a + (r0 + row) * lda + kb0 + ch * 4;
+      const long long step = static_cast<long long>(P / CH) * lda;
+#pragma unroll
+      for (int u = 0; u < R * CH / P; ++u)
+        cp_async16(dst + a_off<BK>(row + u * (P / CH), ch * 4),
+                   src + u * step, 16);
+    } else if (vec_a) {
+#pragma unroll
+      for (int u = 0; u < R * CH / P; ++u) {
+        const int i = id + u * P;
+        const int row = w0 + i / CH, kk = kb0 + (i % CH) * 4;
+        const long long gr = r0 + row;
+        const int bytes = gr < m && kk < k ? 4 * min(4, k - kk) : 0;
+        cp_async16(dst + a_off<BK>(row, kk - kb0),
+                   bytes ? a + gr * lda + kk : a, bytes);
+      }
+    } else {
+#pragma unroll 4
+      for (int u = 0; u < R * BK / P; ++u) {
+        const int i = id + u * P;
+        const int row = w0 + i / BK, kk = kb0 + i % BK;
+        const long long gr = r0 + row;
+        const bool in = gr < m && kk < k;
+        cp_async4(dst + a_off<BK>(row, kk - kb0),
+                  in ? a + gr * lda + kk : a, in ? 4 : 0);
+      }
+    }
+  };
+  long long issued = 0;
+  auto issue_next = [&]() {
+    if (issued < steps) {
+      issue();
+      ++issued;
+      if (++ij == ks) {
+        ij = 0;
+        ++it;
+      }
+      istage = istage + 1 == STAGES ? 0 : istage + 1;
+    }
+    cp_async_commit();
+  };
+
+  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
+  const int row0 = WARPA ? ty / TYW * WR + ty % TYW : ty;  // C row of acc[0]
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int jj = 0; jj < TN; ++jj) acc[i][jj] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) issue_next();
+  long long t = 0;
+  int j = 0, stage = 0;
+  for (long long st = 0; st < steps; ++st) {
+    cp_async_wait<STAGES - 2>();
+    if constexpr (WARPA)
+      __syncwarp();
+    else
+      __syncthreads();            // step st landed; step st - 1 is consumed
+    issue_next();
+
+    const float* at = as + stage * (BM * BK);
+    const float* bt = bs + j * BK * BN + tx * 4;
+#pragma unroll
+    for (int k4 = 0; k4 < BK; k4 += 4) {
+      // copied to scalars, not kept as float4s: nvcc then allocates the
+      // FMA block's registers better, and tall r = 64 runs faster
+      float av[TM][4];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        const float4 v = *reinterpret_cast<const float4*>(
+            at + a_off<BK>(row0 + i * RS, k4));
+        av[i][0] = v.x;
+        av[i][1] = v.y;
+        av[i][2] = v.z;
+        av[i][3] = v.w;
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        float bv[TN];
+#pragma unroll
+        for (int g = 0; g < G4; ++g) {
+          const float4 v = *reinterpret_cast<const float4*>(
+              bt + (k4 + q) * BN + g * 4 * TX);
+          bv[4 * g] = v.x;
+          bv[4 * g + 1] = v.y;
+          bv[4 * g + 2] = v.z;
+          bv[4 * g + 3] = v.w;
+        }
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          const float x = av[i][q];
+#pragma unroll
+          for (int jj = 0; jj < TN; ++jj)
+            acc[i][jj] = fmaf(x, bv[jj], acc[i][jj]);
+        }
+      }
+    }
+
+    if (j == ks - 1) {            // the panel's last k slice: store, reset
+      const long long r0 = (pb + t * blocks_per_slice) * BM;
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        const long long row = r0 + row0 + i * RS;
+        if (row < m) {
+          float* crow = c + row * ldc;
+#pragma unroll
+          for (int g = 0; g < G4; ++g) {
+            const int col = col0 + tx * 4 + g * 4 * TX;
+            if (vec_c) {
+              if (col < n)
+                *reinterpret_cast<float4*>(crow + col) =
+                    make_float4(acc[i][4 * g], acc[i][4 * g + 1],
+                                acc[i][4 * g + 2], acc[i][4 * g + 3]);
+            } else {
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                if (col + e < n) crow[col + e] = acc[i][4 * g + e];
+            }
+          }
+        }
+#pragma unroll
+        for (int jj = 0; jj < TN; ++jj) acc[i][jj] = 0.f;
+      }
+    }
+    if (++j == ks) {
+      j = 0;
+      ++t;
+    }
+    stage = stage + 1 == STAGES ? 0 : stage + 1;
+  }
+  cp_async_wait<0>();
 }
 
 // ---- (b) A^T @ B, A row-major: per-slab partials, then a fixed-order sum --
@@ -232,80 +391,17 @@ mm_at_b_sum_kernel(const float* __restrict__ part, int slabs, int k, int n,
   c[kk * ldc + q] = s;
 }
 
-// ---- (c) small-k product, bound by its writes ---------------------------
-
-__global__ void __launch_bounds__(THREADS)
-mm_small_k_kernel(const float* __restrict__ a, long long m, int k,
-                  long long lda, const float* __restrict__ b, long long ldb_k,
-                  long long ldb_n, int n, float* __restrict__ c,
-                  long long ldc) {
-  extern __shared__ float4 smem4[];
-  float* bs = reinterpret_cast<float*>(smem4);           // [k][n]
-  for (int i = threadIdx.x; i < k * n; i += THREADS) {
-    const int kk = i / n, col = i - kk * n;
-    bs[i] = b[kk * ldb_k + col * ldb_n];
-  }
-  __syncthreads();
-
-  constexpr int RPW = SMALL_K_RPW, CPL = SMALL_K_CPL;
-  const int lane = threadIdx.x & 31;
-  const long long stride = static_cast<long long>(gridDim.x) * WARPS * RPW;
-  for (long long r0 = (static_cast<long long>(blockIdx.x) * WARPS +
-                       (threadIdx.x >> 5)) * RPW;
-       r0 < m; r0 += stride) {
-    float acc[RPW][CPL];
-#pragma unroll
-    for (int r = 0; r < RPW; ++r)
-#pragma unroll
-      for (int t = 0; t < CPL; ++t) acc[r][t] = 0.f;
-    for (int j = 0; j < k; ++j) {
-      float av[RPW];
-#pragma unroll
-      for (int r = 0; r < RPW; ++r)
-        av[r] = r0 + r < m ? __ldg(a + (r0 + r) * lda + j) : 0.f;
-      const float* brow = bs + j * n;
-#pragma unroll
-      for (int t = 0; t < CPL / 4; ++t) {
-        const int c0 = 4 * lane + 128 * t;
-        if (c0 < n) {
-          const float4 bv = *reinterpret_cast<const float4*>(brow + c0);
-#pragma unroll
-          for (int r = 0; r < RPW; ++r) {
-            acc[r][4 * t + 0] = fmaf(av[r], bv.x, acc[r][4 * t + 0]);
-            acc[r][4 * t + 1] = fmaf(av[r], bv.y, acc[r][4 * t + 1]);
-            acc[r][4 * t + 2] = fmaf(av[r], bv.z, acc[r][4 * t + 2]);
-            acc[r][4 * t + 3] = fmaf(av[r], bv.w, acc[r][4 * t + 3]);
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < RPW; ++r) {
-      if (r0 + r >= m) break;
-      float* crow = c + (r0 + r) * ldc;
-#pragma unroll
-      for (int t = 0; t < CPL / 4; ++t) {
-        const int c0 = 4 * lane + 128 * t;
-        if (c0 < n)
-          *reinterpret_cast<float4*>(crow + c0) = make_float4(
-              acc[r][4 * t], acc[r][4 * t + 1], acc[r][4 * t + 2],
-              acc[r][4 * t + 3]);
-      }
-    }
-  }
-}
-
 // Blocks that fill the card once (persistent grid), at most `needed`.
 template <typename Kernel>
-cudaError_t persistent_grid(Kernel kernel, size_t smem, long long needed,
-                            int* grid) {
+cudaError_t persistent_grid(Kernel kernel, int threads, size_t smem,
+                            long long needed, int* grid) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      THREADS, smem);
+                                                      threads, smem);
   if (e != cudaSuccess) return e;
   long long g = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
   if (needed < g) g = needed > 0 ? needed : 1;
@@ -313,22 +409,35 @@ cudaError_t persistent_grid(Kernel kernel, size_t smem, long long needed,
   return cudaSuccess;
 }
 
-template <int NP>
-int launch_tall(const float* a, long long m, int k, long long lda,
-                const float* b, long long ldb_k, long long ldb_n, int n,
-                float* c, long long ldc, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(NP) * k * sizeof(float);
+// (a) and (c): A's rows load as float4 when A and its row stride are
+// 16-byte aligned, C's as float4 when C, ldc and n are.
+template <int NT, int BN, int TM, int TN, int BK, int STAGES, int MINB,
+          bool WARPA>
+int launch_panel(const float* a, long long m, int k, long long lda,
+                 const float* b, long long ldb_k, long long ldb_n, int n,
+                 float* c, long long ldc, cudaStream_t stream) {
+  constexpr int BM = NT / (BN / TN) * TM;
+  auto kernel = mm_panel_kernel<NT, BN, TM, TN, BK, STAGES, MINB, WARPA>;
+  const int ks = (k + BK - 1) / BK;
+  const size_t smem =
+      (static_cast<size_t>(ks) * BK * BN +
+       static_cast<size_t>(STAGES) * BM * BK) * sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
-      mm_tall_kernel<NP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  constexpr int RPW = NP >= 32 ? 1 : 32 / NP;
+  const int slices = (n + BN - 1) / BN;
+  const long long panels = (m + BM - 1) / BM;
   int grid = 0;
-  e = persistent_grid(mm_tall_kernel<NP>, smem,
-                      (m + WARPS * RPW - 1) / (WARPS * RPW), &grid);
+  e = persistent_grid(kernel, NT, smem, panels * slices, &grid);
   if (e != cudaSuccess) return e;
-  mm_tall_kernel<NP><<<grid, THREADS, smem, stream>>>(a, m, k, lda, b, ldb_k,
-                                                      ldb_n, n, c, ldc);
+  const long long per_slice = grid / slices > 0 ? grid / slices : 1;
+  const bool vec_a = reinterpret_cast<uintptr_t>(a) % 16 == 0 && lda % 4 == 0;
+  const bool vec_c = reinterpret_cast<uintptr_t>(c) % 16 == 0 &&
+                     ldc % 4 == 0 && n % 4 == 0;
+  kernel<<<static_cast<int>(per_slice * slices), NT, smem, stream>>>(
+      a, m, k, lda, vec_a, b, ldb_k, ldb_n, n, c, ldc, vec_c, slices,
+      per_slice);
   return cudaGetLastError();
 }
 
@@ -362,18 +471,20 @@ int launch_at_b_np(const float* a, long long m, int k, long long lda,
 
 extern "C" {
 
-// (a): k <= 512, n <= 64; B read through (ldb_k, ldb_n) strides.
+// (a): k <= 512, n <= 64; B read through (ldb_k, ldb_n) strides.  n <= 8
+// (the plr ladder's ranks) is bound by bytes: 1 x 4 per thread, BK = 64
+// (256 contiguous bytes per row and slice).  Any wider n runs the r = 64
+// instance, bound by FMA: 8 x 8 per thread, warp-private A slices, 12 warps
+// (B's 128 KB leaves room for BK = 16 only).
 int lowrank_mm_tall(const float* a, long long m, int k, long long lda,
                     const float* b, long long ldb_k, long long ldb_n, int n,
                     float* c, long long ldc, cudaStream_t stream) {
   if (k < 1 || k > 512 || n < 1 || n > 64) return cudaErrorInvalidValue;
   if (n <= 8)
-    return launch_tall<8>(a, m, k, lda, b, ldb_k, ldb_n, n, c, ldc, stream);
-  if (n <= 16)
-    return launch_tall<16>(a, m, k, lda, b, ldb_k, ldb_n, n, c, ldc, stream);
-  if (n <= 32)
-    return launch_tall<32>(a, m, k, lda, b, ldb_k, ldb_n, n, c, ldc, stream);
-  return launch_tall<64>(a, m, k, lda, b, ldb_k, ldb_n, n, c, ldc, stream);
+    return launch_panel<256, 8, 1, 4, 64, 2, 2, true>(
+        a, m, k, lda, b, ldb_k, ldb_n, n, c, ldc, stream);
+  return launch_panel<384, 64, 8, 8, 16, 2, 1, true>(
+      a, m, k, lda, b, ldb_k, ldb_n, n, c, ldc, stream);
 }
 
 // (b): C (k x n) = A^T @ B for A (m x k) row-major, k <= 512, n <= 64;
@@ -399,26 +510,20 @@ int lowrank_mm_at_b(const float* a, long long m, int k, long long lda,
 }
 
 // (c): k <= 64, n <= 512 with n % 4 == 0 and C 16-byte aligned, ldc == n
-// (float4 stores; the wrapper refuses any other output).
+// (float4 stores; the wrapper refuses any other output).  128-column
+// slices, 8 x 8 per thread, one block per SM; BK = 8 for k <= 8 (the plr
+// ladder's ranks), else BK = 32 in 12 warps (the r = 64 instance).
 int lowrank_mm_small_k(const float* a, long long m, int k, long long lda,
                        const float* b, long long ldb_k, long long ldb_n,
                        int n, float* c, cudaStream_t stream) {
-  if (k < 1 || k > 64 || n < 1 || n > 32 * SMALL_K_CPL || n % 4 != 0 ||
+  if (k < 1 || k > 64 || n < 1 || n > 512 || n % 4 != 0 ||
       reinterpret_cast<uintptr_t>(c) % 16 != 0)
     return cudaErrorInvalidValue;
-  const size_t smem = static_cast<size_t>(k) * n * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      mm_small_k_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (e != cudaSuccess) return e;
-  int grid = 0;
-  e = persistent_grid(mm_small_k_kernel, smem,
-                      (m + WARPS * SMALL_K_RPW - 1) / (WARPS * SMALL_K_RPW),
-                      &grid);
-  if (e != cudaSuccess) return e;
-  mm_small_k_kernel<<<grid, THREADS, smem, stream>>>(a, m, k, lda, b, ldb_k,
-                                                     ldb_n, n, c, n);
-  return cudaGetLastError();
+  if (k <= 8)
+    return launch_panel<256, 128, 8, 8, 8, 3, 1, false>(
+        a, m, k, lda, b, ldb_k, ldb_n, n, c, n, stream);
+  return launch_panel<384, 128, 8, 8, 32, 3, 1, false>(
+      a, m, k, lda, b, ldb_k, ldb_n, n, c, n, stream);
 }
 
 }  // extern "C"

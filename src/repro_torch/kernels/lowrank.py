@@ -32,6 +32,20 @@ forces the plain version.  The kernels sum in another order than the plain
 version, so they are held to it within :func:`error_bound`, not bit for
 bit; each repeats bit for bit from call to call.
 
+``tall`` and ``small_k`` are one register-tiled f32 GEMM for a tall ``a``
+times a small ``b``: each block keeps its columns of ``b`` in shared
+memory (read from any strides, so ``q`` and ``q.T`` go in as they are),
+streams row panels of ``a`` through shared memory by ``cp.async``, and
+each thread keeps an up to 8 x 8 block of the output in registers.  At
+r = 8 both are bound by device memory (about 2.2 GB at the training step's
+view), and the design keeps the loads and the stores 16 bytes wide and
+coalesced; at r = 64 both are bound by f32 FMA throughput (69 GFLOP), and
+the register tile does 16 FMAs per 16-byte shared-memory load.  A row
+slice of ``a`` that is not 16-byte aligned (``phat[r0:r1]`` at an odd
+rank) loads 4 bytes at a time instead; nothing is refused for it.  Each
+output is one serial chain of ``k`` FMAs in ``k`` order (no split-k), the
+depth :func:`order_bound` counts.
+
 ``LAUNCHES`` counts kernel launches per form, incremented right where the
 kernel launches and nowhere else.
 
@@ -221,16 +235,13 @@ def order_bound(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Per-element bound on ``|kernel - exact|`` for the kernel that takes
     ``a @ b`` (:func:`form`), from its own sum order: ``gamma_d (|a| @
     |b|)`` with ``d`` the longest chain of f32 roundings into one output
-    (``tall``: ``ceil(k / 32)`` FMAs per lane, then the 5-step warp
-    butterfly; ``small_k``: ``k`` FMAs; ``at_b``: a slab's rows, then the
-    sum over slabs), plus the f64 roundoff of the exact product it is held
-    against.  Far tighter than :func:`error_bound` on a long reduction:
-    ``at_b`` at the training step's 1051352 rows has ``d`` = 2560, not
-    1051352."""
+    (``tall`` and ``small_k``: ``k`` FMAs in one thread, in ``k`` order;
+    ``at_b``: a slab's rows, then the sum over slabs), plus the f64
+    roundoff of the exact product it is held against.  Far tighter than
+    :func:`error_bound` on a long reduction: ``at_b`` at the training
+    step's 1051352 rows has ``d`` = 2560, not 1051352."""
     kind, k = form(a, b), a.shape[1]
-    if kind == "tall":
-        d = -(-k // 32) + 5
-    elif kind == "small_k":
+    if kind in ("tall", "small_k"):
         d = k
     else:
         slabs, per = at_b_slabs(k)

@@ -13,7 +13,9 @@ tensors of the wrong dtype, shape or device raise.
 
 The lowrank matmul's three forms (``tall``, ``at_b``, ``small_k``) at
 small, ragged and the training step's shapes (gemma3-1b's per-rank
-gradient at dp 2 x tp 2: 1051352 x 512), at r = 1, 8 and 64: within
+gradient at dp 2 x tp 2: 1051352 x 512), at r = 1, 3, 5, 8, 16, 32, 33
+and 64 (every instance of the register-tiled ``tall`` and ``small_k``,
+and ranks that are no multiple of 4): within
 ``lowrank.error_bound`` of the plain version (each side a sum of k f32
 products, so both within gamma_k |a| @ |b| of the exact product) and
 within ``lowrank.order_bound`` of the f64 product (the kernel's own sum
@@ -21,7 +23,11 @@ order: at the path's 1051352-row reduction about 400 times tighter),
 equal to the plain version bit for bit on integer inputs in [-2, 2] at
 every shape (every partial sum is an integer below 2^24, so exact in any
 order: a dropped or doubled slab of ``at_b`` shows), bit-identical on a
-second call, one launch per call of its own form.
+second call, one launch per call of its own form.  ``small_k`` on a row
+slice ``phat[r0:r1]`` that is not 16-byte aligned, written with ``out=``
+as ``comms._lowrank_rows`` writes it, and ``tall`` on a factor of odd rank,
+on a strided factor and on a misaligned ``a``, equal the plain version on
+integers and write nothing past their output.
 """
 
 import pytest
@@ -183,8 +189,11 @@ def _mm_operands(kind: str, size: str, r: int, dev, integer=False):
     return draw(rows, r), draw(width, r).T
 
 
+MM_RANKS = [1, 3, 5, 8, 16, 32, 33, 64]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("r", [1, 8, 64])
+@pytest.mark.parametrize("r", MM_RANKS)
 @pytest.mark.parametrize("size", list(MM_SHAPES))
 @pytest.mark.parametrize("kind", ["tall", "at_b", "small_k"])
 def test_lowrank_matmul_within_bound(cuda, kind, size, r):
@@ -210,7 +219,7 @@ def test_lowrank_matmul_within_bound(cuda, kind, size, r):
 @pytest.mark.parametrize("size", list(MM_SHAPES))
 @pytest.mark.parametrize("kind", ["tall", "at_b", "small_k"])
 def test_lowrank_matmul_exact_on_integers(cuda, kind, size):
-    for r in (1, 3, 8, 64):
+    for r in MM_RANKS:
         a, b = _mm_operands(kind, size, r, cuda, integer=True)
         got = lowrank.matmul(a, b)
         want = lowrank.matmul(a, b, backend="torch")
@@ -225,6 +234,64 @@ def test_lowrank_matmul_writes_out(cuda):
     assert lowrank.matmul(a, b, out=out) is out
     assert torch.equal(out, lowrank.matmul(a, b))
     assert bool((buf[out.numel():] == 5.0).all())    # nothing past it
+
+
+def _ints(shape, seed, dev):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(-2, 3, shape, generator=g, device=dev,
+                         dtype=torch.int32).float()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,r0", [(3, 1), (5, 3), (6, 1), (33, 1)])
+def test_lowrank_small_k_on_misaligned_row_slice(cuda, r, r0):
+    """P^[r0:r1] @ Q^T as comms._lowrank_rows runs it: a starts r0 * r
+    floats into its buffer (not 16-byte aligned), b is a view of q."""
+    from repro_torch.core import comms
+
+    rows, width = 5001, 256
+    phat, q = _ints((rows, r), r, cuda), _ints((width, r), r + 1, cuda)
+    r1 = rows - 2
+    a = phat[r0:r1]
+    assert (a.data_ptr() % 16) != 0
+    buf = torch.full(((r1 - r0) * width + 7,), 5.0, device=cuda)
+    out = buf[:(r1 - r0) * width].view(r1 - r0, width)
+    lowrank.reset_launches()
+    assert lowrank.matmul(a, q.T, out=out) is out
+    torch.cuda.synchronize()
+    assert lowrank.LAUNCHES["matmul_small_k"] == 1
+    assert torch.equal(out, lowrank.matmul(a, q.T, backend="torch"))
+    assert bool((buf[out.numel():] == 5.0).all())    # nothing past it
+    # the path's own call, rows [r0, r1) of the reconstruction
+    n = rows * width - 100
+    got = comms._lowrank_rows(phat, q, r0 * width, (r1 - r0) * width, n)
+    want = lowrank.matmul(phat, q.T, backend="torch").reshape(-1)
+    want[n:] = 0
+    assert torch.equal(got, want[r0 * width:r1 * width])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [3, 5, 33])
+def test_lowrank_tall_odd_rank_and_strides(cuda, r):
+    """M @ Q with Q of odd rank (n not a multiple of 4: scalar stores),
+    Q a column slice of a wider factor (strided), and M a misaligned row
+    view (lda = 301, scalar loads)."""
+    rows, width = 5001, 300
+    m = _ints((rows, width), r, cuda)
+    q = _ints((width, r), r + 1, cuda)
+    wide = _ints((width, 64), r + 2, cuda)
+    odd = _ints((rows + 1, width + 1), r + 3, cuda)[1:, 1:]
+    assert odd.data_ptr() % 16 and odd.stride(0) == width + 1
+    lowrank.reset_launches()
+    for a, b in ((m, q), (m, wide[:, :r]), (odd, q)):
+        assert lowrank.form(a, b) == "tall"
+        buf = torch.full((rows * r + 5,), 5.0, device=cuda)
+        out = buf[:rows * r].view(rows, r)
+        lowrank.matmul(a, b, out=out)
+        assert torch.equal(out, lowrank.matmul(a, b, backend="torch"))
+        assert bool((buf[out.numel():] == 5.0).all())
+    torch.cuda.synchronize()
+    assert lowrank.LAUNCHES["matmul_tall"] == 3
 
 
 @pytest.mark.cuda
