@@ -13,9 +13,9 @@ wire-only, #4) at M = 8, 16, 65536 and at the training step's ring shapes,
 gather-decode on the serving table.  It holds the lowrank matmul's three
 forms (tall M @ Q, M.T @ P as a view, the small-k reconstruction P @ Q.T)
 at the training step's shape (gemma3-1b's per-rank gradient at dp 2 x tp
-2, 1051352 x 512) at r = 8 and 64, and the register-tiled tall and
-small_k also at the plr ladder's other ranks (2, 4) and at 16 and 32
-(each form's wide instance below 64): equal to their plain versions on
+2, 1051352 x 512) at the plr ladder's ranks 2, 4 and 8 and at 64, and the
+register-tiled tall and small_k also at 16 and 32 (each form's wide
+instance below 64): equal to their plain versions on
 integer operands in [-2, 2] (exact in any sum order), within
 lowrank.error_bound of them and within lowrank.order_bound of the f64
 product on normal operands, and a second call repeating bit for bit; it
@@ -23,7 +23,8 @@ times the plr step's Gram-Schmidt at the same shapes.  It
 times every kernel and its plain version beside its bound: device time
 with the L2 flushed before each call (the time the kernel line reports),
 device time by CUDA-graph replay on warm L2, and the time per eager call;
-the matmul forms also beside torch.matmul with TF32 off.
+the matmul forms also beside torch.matmul with TF32 off, and at_b's two
+passes apart (torch.profiler's kernel times, L2 flushed).
 Phase 3 serves gemma3-1b (full published width and depth) by continuous
 batching over a bq8 paged KV pool, 8 requests of
 560 + 24 tokens on 8 slots, through the kernels, through their plain
@@ -66,6 +67,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -92,10 +94,10 @@ PLR = ["--codec-for", "dp@zero1_grad*=plr8"]
 # within lowrank.error_bound), so losses and grad norms agree to this
 PLR_RTOL = 1e-4
 MM_FORMS = ("tall", "at_b", "small_k")
-# ranks each form is checked and timed at: at_b at plr8's rank and the
-# widest; the register-tiled forms also at the plr ladder's ranks 2 and 4
-# (tune.ladder.PLR_RANKS) and at 16 and 32 (their wide instance below 64)
-MM_RANKS = {"tall": (2, 4, 8, 16, 32, 64), "at_b": (8, 64),
+# ranks each form is checked and timed at: the plr ladder's ranks 2, 4
+# and 8 (tune.ladder.PLR_RANKS) and the widest, 64; the register-tiled
+# forms also at 16 and 32 (their wide instance below 64)
+MM_RANKS = {"tall": (2, 4, 8, 16, 32, 64), "at_b": (2, 4, 8, 64),
             "small_k": (2, 4, 8, 16, 32, 64)}
 SCRATCH = ROOT / ".smoke"     # git-ignored: phase 4's flat gradient
 
@@ -118,7 +120,6 @@ def ptxas_lines(log: str):
     """(kernel, line) for each register and spill line of ``nvcc -Xptxas
     -v``: the kernel's name and integer template arguments read from the
     mangled name of the entry function the lines follow."""
-    import re
     name = "?"
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '_ZN(\w+)'", line)
@@ -196,6 +197,33 @@ def cold_ms(torch, fn, iters: int = 20) -> float:
         pairs.append((a, b))
     torch.cuda.synchronize()
     return float(np.median([a.elapsed_time(b) for a, b in pairs]))
+
+
+def kernel_ms(torch, fn, match: str, iters: int = 10) -> dict:
+    """Device ms per call of each kernel whose name holds ``match`` that
+    ``fn`` launches, with the L2 flushed before each call: the kernels'
+    own durations from torch.profiler's CUDA activity, by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        name = re.search(rf"\w*{match}\w*(<[^>]*>)?", e.key)
+        if name:
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = e.self_cuda_time_total
+            out[name.group(0)] = us / 1e3 / iters
+    if not out:
+        fail(f"the profiler saw no device time for kernels named *{match}*")
+    return out
 
 
 def timings(torch, kernel, plain, iters: int = 50):
@@ -512,7 +540,9 @@ def check_matmul(torch, kind: str, rows: int, width: int, r: int):
 
 
 def time_matmul(torch, kind: str, rows: int, width: int, r: int):
-    """(timings, bound, torch.matmul's cold-L2 ms) of one form."""
+    """(timings, bound, torch.matmul's cold-L2 ms, the kernels' own ms by
+    name) of one form; the last only for at_b, whose two passes are two
+    kernels."""
     from repro_torch.kernels import lowrank
 
     a, b = mm_operands(torch, kind, rows, width, r, seed=1)
@@ -524,8 +554,10 @@ def time_matmul(torch, kind: str, rows: int, width: int, r: int):
             return torch.matmul(a, b)
     t = timings(torch, lambda: lowrank.matmul(a, b),
                 lambda: lowrank.matmul(a, b, backend="torch"), iters=5)
+    passes = kernel_ms(torch, lambda: lowrank.matmul(a, b), "mm_at_b") \
+        if kind == "at_b" else None
     return t, bound((m * k + k * n + m * n) * 4, 2 * m * k * n), \
-        cold_ms(torch, library)
+        cold_ms(torch, library), passes
 
 
 def drive_training(torch, card) -> dict:
@@ -876,9 +908,12 @@ def main():
     for r_mm in sorted({r for rs in MM_RANKS.values() for r in rs}):
         for kind in (f for f in MM_FORMS if r_mm in MM_RANKS[f]):
             e_abs, share = check_matmul(torch, kind, mm_rows, mm_width, r_mm)
-            t, b, lib = time_matmul(torch, kind, mm_rows, mm_width, r_mm)
-            mm[(kind, r_mm)] = (e_abs, share, t, b, lib)
+            t, b, lib, passes = time_matmul(torch, kind, mm_rows, mm_width,
+                                            r_mm)
+            mm[(kind, r_mm)] = (e_abs, share, t, b, lib, passes)
             (ms, pms, wms, wpms, ems, epms), (bms, by) = t, b
+            each = "" if passes is None else "; kernels alone " + ", ".join(
+                f"{nm} {v * 1e3:.2f} us" for nm, v in passes.items())
             print(f"  lowrank matmul {kind} r={r_mm} on the {mm_rows} x "
                   f"{mm_width} view: equal to plain on integers; on normals "
                   f"max abs diff from plain {e_abs:.3g}, from the f64 "
@@ -889,7 +924,7 @@ def main():
                   f"plain, torch.matmul {lib * 1e3:.2f} us; warm L2 (graph) "
                   f"{wms * 1e3:.2f} vs {wpms * 1e3:.2f} us; per eager call "
                   f"{ems * 1e3:.2f} vs {epms * 1e3:.2f} us; bound "
-                  f"{bms * 1e3:.3f} us ({by}) [{card}]")
+                  f"{bms * 1e3:.3f} us ({by}){each} [{card}]")
             torch.cuda.empty_cache()
     # modified Gram-Schmidt (plain PyTorch, not a kernel) at the plr8 step's
     # shapes: P^ of the view and Q' of its width, once each per step
@@ -901,8 +936,8 @@ def main():
     gs["step"] = gs["p"] + gs["q"]
     print(f"phase 2: lowrank matmul equal to its plain version on integers, "
           f"within lowrank.error_bound of it and lowrank.order_bound of the "
-          f"f64 product on normals, deterministic, all three forms at r=8 "
-          f"and 64 (tall and small_k also at 2, 4, 16, 32) on the {mm_rows} x "
+          f"f64 product on normals, deterministic, all three forms at r=2, "
+          f"4, 8 and 64 (tall and small_k also at 16, 32) on the {mm_rows} x "
           f"{mm_width} view; orthonormalize per "
           f"eager call {gs['p']:.3f} ms ({mm_rows} x 8) + {gs['q']:.3f} ms "
           f"({mm_width} x 8) = {gs['step']:.3f} ms per plr8 step [{card}]")
@@ -976,20 +1011,24 @@ def main():
     # entry's times are the three forms' sums at the path's r = 8
     forms = {}
     for kind in MM_FORMS:
-        e_abs, share, (ms, pms, wms, _, _, _), (bms, by), lib = \
+        e_abs, share, (ms, pms, wms, _, _, _), (bms, by), lib, passes = \
             mm[(kind, 8)]
         forms[kind] = {
             "launches": stateful["plr"][f"matmul_{kind}"],
             "max_abs_err": e_abs, "share_of_order_bound": share, "ms": ms,
             "plain_ms": pms, "bound_ms": bms, "bound_by": by,
             "library_ms": lib, "warm_l2_ms": wms}
+        if passes:
+            forms[kind]["kernels_ms"] = passes
         for r_mm in (r for r in MM_RANKS[kind] if r != 8):
-            er, sr, (msr, pmsr, _, _, _, _), (bmsr, byr), libr = \
+            er, sr, (msr, pmsr, _, _, _, _), (bmsr, byr), libr, pr = \
                 mm[(kind, r_mm)]
             forms[kind][f"r{r_mm}"] = {
                 "max_abs_err": er, "share_of_order_bound": sr, "ms": msr,
                 "plain_ms": pmsr, "bound_ms": bmsr, "bound_by": byr,
                 "library_ms": libr}
+            if pr:
+                forms[kind][f"r{r_mm}"]["kernels_ms"] = pr
     total = {k: sum(f[k] for f in forms.values())
              for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
     kernels.append({

@@ -51,13 +51,31 @@
 //       by 4-byte cp.async instead.  Every output is one serial FMA chain
 //       over k, in k order, in one thread (no split-k, shuffles or atomics),
 //       so a call repeats bit for bit and the chain is k roundings long.
-//   (b) Two passes, deterministic: the rows are cut into fixed slabs (a
-//       function of m alone, never of the card), one block per slab; thread
-//       t holds columns t and t + 256 of A for all n outputs in registers
-//       and walks the slab's rows in order, P^'s rows staged in shared
-//       memory.  Each block writes its partial (n x k) to scratch that the
-//       wrapper allocates; the second pass sums the slabs in slab order.
-//       No atomics, so a call repeats bit for bit.
+//   (b) Two passes, deterministic.  Every A value is used by one thread
+//       only (its column's n outputs), so (b) is a stream of A at HBM's
+//       rate with 4 n FMAs per 16 bytes beside it, and what it needs is
+//       bytes in flight (about 25 KB per SM at 3.35 TB/s and a microsecond
+//       of latency) and no stall of that stream.  The rows are cut into
+//       fixed slabs (a function of m alone, never of the card), one block
+//       per slab, and a block into row groups of 128 threads; thread c of a
+//       group holds columns 4c .. 4c + 3 of A (16-byte copies: 128 threads
+//       span a 512-wide row) against n columns of B in registers.  Each
+//       group streams its own rows of A and, beside them, their rows of B
+//       through a cp.async ring of its own, with a named barrier of its
+//       128 threads per stage (B is read by all of them) and no block
+//       barrier, so P^ never stalls the stream of A.  For n <= 8: two
+//       groups of 4-row stages, 4 deep, two blocks per SM, so 96 KB of A
+//       is in flight per SM, with registers to spare (two blocks of four
+//       groups would cap a thread at 64 registers, and spill).  At the end
+//       group 1 hands its sums to group 0 through shared memory.  Each
+//       block writes its partial (n x k) to scratch that the wrapper
+//       allocates; the second pass is wide: 32 float4 outputs per block,
+//       16 lanes each summing every 16th slab in order, then the lanes in
+//       lane order.  No atomics: the order is fixed by (m, k, n), so a
+//       call repeats bit for bit, and the chain into an output is a
+//       group's rows + the group adds + a lane's slabs + the lane adds
+//       (1073 at the training step's 1051352 rows, r <= 8;
+//       lowrank.at_b_depth).
 //
 // Ragged edges (m, k, n, row strides) are masked in every kernel; (c) takes
 // n a multiple of 4 and a contiguous, 16-byte aligned C (the plr codec's
@@ -69,8 +87,9 @@
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int AT_B_ROWS = 32;        // P^ rows staged per step in (b)
+// (b): threads across a row (4 columns each, k <= 512); pass 2's float4
+// outputs per block and slab lanes per output
+constexpr int AT_B_COLS = 128, AT_B_UNITS = 32, AT_B_LANES = 16;
 
 // ---- cp.async: global -> shared, zero-filling past src_bytes --------------
 
@@ -320,75 +339,191 @@ mm_panel_kernel(const float* __restrict__ a, long long m, int k,
 
 // ---- (b) A^T @ B, A row-major: per-slab partials, then a fixed-order sum --
 
-template <int NP, int KPT>
-__global__ void __launch_bounds__(THREADS)
+// Named barrier over the nt threads of one row group (id 0 is
+// __syncthreads's)
+__device__ __forceinline__ void group_sync(int id, int nt) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(nt) : "memory");
+}
+
+// Slab s (rows [s rps, (s + 1) rps) of A) is one block of G row groups of
+// AT_B_COLS * NS threads.  The block walks its slab in stages of G RS
+// rows, group g summing rows g RS .. g RS + RS - 1 of each stage; thread
+// (c, ns) of a group holds columns 4c .. 4c + 3 of A against B's columns
+// [ns NP, (ns + 1) NP) in registers.  Each group streams its rows of A and
+// of B through its own STAGES-deep cp.async ring (a named barrier per
+// stage, no block barrier); at the end groups 1 .. G - 1 hand their sums
+// to group 0 through shared memory, added in group order.
+template <int NP, int NS, int G, int RS, int STAGES, int MINB>
+__global__ void __launch_bounds__(AT_B_COLS * NS * G, MINB)
 mm_at_b_partial_kernel(const float* __restrict__ a, long long m, int k,
-                       long long lda, const float* __restrict__ b,
-                       long long ldb, int n, float* __restrict__ part,
-                       long long rows_per_slab) {
-  __shared__ float4 ps4[AT_B_ROWS * NP / 4];
-  float* ps = reinterpret_cast<float*>(ps4);            // [AT_B_ROWS][NP]
+                       long long lda, bool vec_a,
+                       const float* __restrict__ b, long long ldb, int n,
+                       float* __restrict__ part, long long rows_per_slab) {
+  constexpr int GT = AT_B_COLS * NS;              // threads of a group
+  constexpr int NB = NP * NS;                     // B columns staged
+  constexpr int A_ST = RS * AT_B_COLS * 4, B_ST = RS * NB;
+  constexpr int GSM = STAGES * (A_ST + B_ST);     // floats per group
+  static_assert(RS % NS == 0 && NP % 4 == 0, "tile");
+  static_assert((G - 1) * 4 * NP * GT <= G * GSM, "room for the sums");
+  extern __shared__ float4 smem4[];
+  const int g = threadIdx.x / GT, t = threadIdx.x % GT;
+  const int c = t % AT_B_COLS, ns = NS == 1 ? 0 : t / AT_B_COLS;
+  const int kk = 4 * c;                           // this thread's columns
+  float* as = reinterpret_cast<float*>(smem4) + g * GSM;  // [STAGES][RS][512]
+  float* bs = as + STAGES * A_ST;                          // [STAGES][RS][NB]
+
   const long long lo = static_cast<long long>(blockIdx.x) * rows_per_slab;
   const long long hi = lo + rows_per_slab < m ? lo + rows_per_slab : m;
-  float acc[KPT][NP];
-#pragma unroll
-  for (int j = 0; j < KPT; ++j)
-#pragma unroll
-    for (int q = 0; q < NP; ++q) acc[j][q] = 0.f;
+  const int steps = static_cast<int>((hi - lo + G * RS - 1) / (G * RS));
 
-  for (long long r0 = lo; r0 < hi; r0 += AT_B_ROWS) {
-    const int rows = hi - r0 < AT_B_ROWS ? static_cast<int>(hi - r0) : AT_B_ROWS;
-    __syncthreads();
-    for (int i = threadIdx.x; i < AT_B_ROWS * NP; i += THREADS) {
-      const int rr = i / NP, q = i - rr * NP;
-      ps[i] = rr < rows && q < n ? b[(r0 + rr) * ldb + q] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int rr = 0; rr < rows; ++rr) {
-      float av[KPT];
+  // stage `issued` of this group: A's chunk c of rows ns, ns + NS, ... and
+  // B's RS rows, zero-filled past the slab, k and n
+  int issued = 0, istage = 0;
+  auto issue = [&]() {
+    if (issued < steps) {
+      const long long r0 =
+          lo + static_cast<long long>(issued) * (G * RS) + g * RS;
+      float* ad = as + istage * A_ST + kk;
 #pragma unroll
-      for (int j = 0; j < KPT; ++j) {
-        const int kk = threadIdx.x + j * THREADS;
-        av[j] = kk < k ? __ldg(a + (r0 + rr) * lda + kk) : 0.f;
+      for (int j = 0; j < RS / NS; ++j) {
+        const int i = ns + j * NS;
+        const long long gr = r0 + i;
+        const bool in = gr < hi && kk < k;
+        const float* src = a + gr * lda + kk;
+        if (vec_a) {
+          const int bytes = in ? 4 * min(4, k - kk) : 0;
+          cp_async16(ad + i * (AT_B_COLS * 4), bytes ? src : a, bytes);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const bool ok = in && kk + e < k;
+            cp_async4(ad + i * (AT_B_COLS * 4) + e, ok ? src + e : a,
+                      ok ? 4 : 0);
+          }
+        }
       }
-      const float4* prow = reinterpret_cast<const float4*>(ps + rr * NP);
+      float* bd = bs + istage * B_ST;
+      for (int i = t; i < B_ST; i += GT) {
+        const int rr = i / NB, q = i - rr * NB;
+        const long long gr = r0 + rr;
+        const bool ok = gr < hi && q < n;
+        cp_async4(bd + i, ok ? b + gr * ldb + q : b, ok ? 4 : 0);
+      }
+      ++issued;
+      istage = istage + 1 == STAGES ? 0 : istage + 1;
+    }
+    cp_async_commit();
+  };
+
+  float acc[4][NP];                       // [column kk + e][B column]
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+#pragma unroll
+    for (int q = 0; q < NP; ++q) acc[e][q] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) issue();
+  int stage = 0;
+  for (int st = 0; st < steps; ++st) {
+    cp_async_wait<STAGES - 2>();
+    group_sync(1 + g, GT);        // stage st landed; stage st - 1 consumed
+    issue();
+    const float* at = as + stage * A_ST + kk;
+    const float* bt = bs + stage * B_ST + ns * NP;
+#pragma unroll
+    for (int i = 0; i < RS; ++i) {
+      const float4 v =
+          *reinterpret_cast<const float4*>(at + i * (AT_B_COLS * 4));
 #pragma unroll
       for (int q4 = 0; q4 < NP / 4; ++q4) {
-        const float4 p = prow[q4];
+        const float4 p = *reinterpret_cast<const float4*>(bt + i * NB + 4 * q4);
+        const float pv[4] = {p.x, p.y, p.z, p.w};
 #pragma unroll
-        for (int j = 0; j < KPT; ++j) {
-          acc[j][4 * q4 + 0] = fmaf(av[j], p.x, acc[j][4 * q4 + 0]);
-          acc[j][4 * q4 + 1] = fmaf(av[j], p.y, acc[j][4 * q4 + 1]);
-          acc[j][4 * q4 + 2] = fmaf(av[j], p.z, acc[j][4 * q4 + 2]);
-          acc[j][4 * q4 + 3] = fmaf(av[j], p.w, acc[j][4 * q4 + 3]);
+        for (int u = 0; u < 4; ++u) {
+          const int q = 4 * q4 + u;
+          acc[0][q] = fmaf(v.x, pv[u], acc[0][q]);
+          acc[1][q] = fmaf(v.y, pv[u], acc[1][q]);
+          acc[2][q] = fmaf(v.z, pv[u], acc[2][q]);
+          acc[3][q] = fmaf(v.w, pv[u], acc[3][q]);
         }
       }
     }
+    stage = stage + 1 == STAGES ? 0 : stage + 1;
   }
-  // partials as [slab][n][k]: neighbouring threads store neighbouring k
-  float* out = part + static_cast<long long>(blockIdx.x) * n * k;
+  cp_async_wait<0>();
+
+  if constexpr (G > 1) {
+    // the stages are free: groups 1 .. G - 1 leave their sums there,
+    // group 0 adds them in group order
+    float* red = reinterpret_cast<float*>(smem4);
+    __syncthreads();
+    if (g > 0) {
 #pragma unroll
-  for (int j = 0; j < KPT; ++j) {
-    const int kk = threadIdx.x + j * THREADS;
-    if (kk < k) {
+      for (int e = 0; e < 4; ++e)
 #pragma unroll
-      for (int q = 0; q < NP; ++q)
-        if (q < n) out[static_cast<long long>(q) * k + kk] = acc[j][q];
+        for (int q = 0; q < NP; ++q)
+          red[(((g - 1) * 4 + e) * NP + q) * GT + t] = acc[e][q];
+    }
+    __syncthreads();
+    if (g > 0) return;
+    for (int h = 1; h < G; ++h)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+#pragma unroll
+        for (int q = 0; q < NP; ++q)
+          acc[e][q] += red[(((h - 1) * 4 + e) * NP + q) * GT + t];
+  }
+  // the slab's partial as [n][kp], kp = k rounded up to 4 (float4 stores)
+  if (kk < k) {
+    const int kp = (k + 3) & ~3;
+    float* out = part + static_cast<long long>(blockIdx.x) * n * kp + kk;
+#pragma unroll
+    for (int q = 0; q < NP; ++q) {
+      const int col = ns * NP + q;
+      if (col < n)
+        *reinterpret_cast<float4*>(out + static_cast<long long>(col) * kp) =
+            make_float4(acc[0][q], acc[1][q], acc[2][q], acc[3][q]);
     }
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
+// Pass 2: C (k x n) from the slabs' partials.  A block takes AT_B_UNITS
+// float4s of the [n][kp] partial; lane l of each sums slabs l, l +
+// AT_B_LANES, ... in order, then lane 0 adds the lanes in lane order.
+__global__ void __launch_bounds__(AT_B_UNITS * AT_B_LANES)
 mm_at_b_sum_kernel(const float* __restrict__ part, int slabs, int k, int n,
                    float* __restrict__ c, long long ldc) {
-  const int i = blockIdx.x * THREADS + threadIdx.x;      // over [n][k]
-  if (i >= n * k) return;
-  const int q = i / k, kk = i - q * k;
-  float s = 0.f;
-  for (int t = 0; t < slabs; ++t)                         // slab order
-    s += part[static_cast<long long>(t) * n * k + i];
-  c[kk * ldc + q] = s;
+  __shared__ float4 red[AT_B_LANES][AT_B_UNITS];
+  const int kq = (k + 3) / 4, units = n * kq;
+  const int ul = threadIdx.x % AT_B_UNITS, lane = threadIdx.x / AT_B_UNITS;
+  const int u = blockIdx.x * AT_B_UNITS + ul;
+  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (u < units) {
+    const float4* p = reinterpret_cast<const float4*>(part) + u;
+#pragma unroll 4
+    for (int t = lane; t < slabs; t += AT_B_LANES) {
+      const float4 v = __ldg(p + static_cast<long long>(t) * units);
+      s.x += v.x;
+      s.y += v.y;
+      s.z += v.z;
+      s.w += v.w;
+    }
+  }
+  red[lane][ul] = s;
+  __syncthreads();
+  if (lane != 0 || u >= units) return;
+  for (int l = 1; l < AT_B_LANES; ++l) {
+    const float4 v = red[l][ul];
+    s.x += v.x;
+    s.y += v.y;
+    s.z += v.z;
+    s.w += v.w;
+  }
+  const int q = u / kq, kk = 4 * (u - q * kq);
+  const float sv[4] = {s.x, s.y, s.z, s.w};
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    if (kk + e < k) c[(kk + e) * ldc + q] = sv[e];
 }
 
 // Blocks that fill the card once (persistent grid), at most `needed`.
@@ -441,30 +576,32 @@ int launch_panel(const float* a, long long m, int k, long long lda,
   return cudaGetLastError();
 }
 
-template <int NP, int KPT>
+// (b): pass 1 over `slabs` slabs of rows_per_slab rows into `part`
+// (slabs * n * kp floats), then pass 2 into C.  A's rows stage as 16-byte
+// copies when A and its row stride are 16-byte aligned, else 4 bytes at a
+// time.
+template <int NP, int NS, int G, int RS, int STAGES, int MINB>
 int launch_at_b(const float* a, long long m, int k, long long lda,
                 const float* b, long long ldb, int n, float* c,
                 long long ldc, float* part, int slabs,
                 long long rows_per_slab, cudaStream_t stream) {
-  mm_at_b_partial_kernel<NP, KPT><<<slabs, THREADS, 0, stream>>>(
-      a, m, k, lda, b, ldb, n, part, rows_per_slab);
-  cudaError_t e = cudaGetLastError();
+  auto kernel = mm_at_b_partial_kernel<NP, NS, G, RS, STAGES, MINB>;
+  constexpr size_t smem = static_cast<size_t>(G) * STAGES *
+                          (RS * AT_B_COLS * 4 + RS * NP * NS) * sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  mm_at_b_sum_kernel<<<(n * k + THREADS - 1) / THREADS, THREADS, 0, stream>>>(
+  const bool vec_a = reinterpret_cast<uintptr_t>(a) % 16 == 0 && lda % 4 == 0;
+  kernel<<<slabs, AT_B_COLS * NS * G, smem, stream>>>(
+      a, m, k, lda, vec_a, b, ldb, n, part, rows_per_slab);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const int units = n * ((k + 3) / 4);
+  mm_at_b_sum_kernel<<<(units + AT_B_UNITS - 1) / AT_B_UNITS,
+                       AT_B_UNITS * AT_B_LANES, 0, stream>>>(
       part, slabs, k, n, c, ldc);
   return cudaGetLastError();
-}
-
-template <int NP>
-int launch_at_b_np(const float* a, long long m, int k, long long lda,
-                   const float* b, long long ldb, int n, float* c,
-                   long long ldc, float* part, int slabs,
-                   long long rows_per_slab, cudaStream_t stream) {
-  if (k <= THREADS)
-    return launch_at_b<NP, 1>(a, m, k, lda, b, ldb, n, c, ldc, part, slabs,
-                              rows_per_slab, stream);
-  return launch_at_b<NP, 2>(a, m, k, lda, b, ldb, n, c, ldc, part, slabs,
-                            rows_per_slab, stream);
 }
 
 }  // namespace
@@ -488,25 +625,23 @@ int lowrank_mm_tall(const float* a, long long m, int k, long long lda,
 }
 
 // (b): C (k x n) = A^T @ B for A (m x k) row-major, k <= 512, n <= 64;
-// `part` holds slabs * n * k floats, slab s covering rows
-// [s * rows_per_slab, (s + 1) * rows_per_slab).
+// `part` holds slabs * n * kp floats (kp = k rounded up to 4), slab s
+// covering rows [s * rows_per_slab, (s + 1) * rows_per_slab).  n <= 8 (the
+// plr ladder's ranks) is bound by bytes: 2 row groups of 128 threads per
+// slab, two blocks per SM.  Any wider n runs one untuned instance: a group
+// of 512 threads, four per column quad, 16 of B's columns each.
 int lowrank_mm_at_b(const float* a, long long m, int k, long long lda,
                     const float* b, long long ldb, int n, float* c,
                     long long ldc, float* part, int slabs,
                     long long rows_per_slab, cudaStream_t stream) {
-  if (k < 1 || k > 2 * THREADS || n < 1 || n > 64 || slabs < 1)
+  if (k < 1 || k > 4 * AT_B_COLS || n < 1 || n > 64 || slabs < 1 ||
+      rows_per_slab < 1)
     return cudaErrorInvalidValue;
   if (n <= 8)
-    return launch_at_b_np<8>(a, m, k, lda, b, ldb, n, c, ldc, part, slabs,
-                             rows_per_slab, stream);
-  if (n <= 16)
-    return launch_at_b_np<16>(a, m, k, lda, b, ldb, n, c, ldc, part, slabs,
-                              rows_per_slab, stream);
-  if (n <= 32)
-    return launch_at_b_np<32>(a, m, k, lda, b, ldb, n, c, ldc, part, slabs,
-                              rows_per_slab, stream);
-  return launch_at_b_np<64>(a, m, k, lda, b, ldb, n, c, ldc, part, slabs,
-                            rows_per_slab, stream);
+    return launch_at_b<8, 1, 2, 4, 4, 2>(a, m, k, lda, b, ldb, n, c, ldc,
+                                         part, slabs, rows_per_slab, stream);
+  return launch_at_b<16, 4, 1, 8, 3, 1>(a, m, k, lda, b, ldb, n, c, ldc, part,
+                                        slabs, rows_per_slab, stream);
 }
 
 // (c): k <= 64, n <= 512 with n % 4 == 0 and C 16-byte aligned, ldc == n

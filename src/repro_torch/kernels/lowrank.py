@@ -21,7 +21,10 @@ operands' shapes and layout:
 * ``at_b`` (b): ``a`` the transpose of a row-major matrix (``mat.T``, a
   view: the kernel reads ``mat`` in its own layout, never a transposed
   copy), ``a.shape[0] <= 512``, ``n <= 64``; a deterministic two-pass
-  reduction over the long dimension through scratch the wrapper allocates;
+  reduction over the long dimension through scratch the wrapper allocates
+  (fixed slabs of rows, each summed by row groups that stream ``mat`` and
+  their rows of ``b`` through a cp.async ring, then a wide fixed-order sum
+  over the slabs: :func:`at_b_slabs`, :func:`at_b_depth`);
 * ``small_k`` (c): ``a`` row-major with ``k <= 64``, ``n <= 512`` a
   multiple of 4, and a 16-byte aligned output (float4 stores).
 
@@ -223,12 +226,40 @@ def form(a: torch.Tensor, b: torch.Tensor) -> str:
         f"{a.stride()} @ {tuple(b.shape)}")
 
 
+# the at_b kernel's sum order (csrc/lowrank.cu, lowrank_mm_at_b): slabs of
+# rows, one block each, summed by row groups (2 for the ladder's ranks n <=
+# 8, one for wider n), then by pass 2's lanes
+AT_B_SLAB_ROWS = 2048   # target rows per slab
+AT_B_MAX_SLABS = 1024
+AT_B_STAGE_ROWS = 8     # a block's rows per pipeline stage, either instance
+AT_B_LANES = 16         # pass 2's lanes per output (AT_B_LANES in the .cu)
+
+
 def at_b_slabs(rows: int) -> tuple[int, int]:
     """(slabs, rows per slab) of the ``at_b`` reduction over ``rows``: a
     function of the shape alone, so the sum order never depends on the
-    card."""
-    slabs = max(1, min(1024, -(-rows // 2048)))
-    return slabs, max(1, -(-rows // slabs))
+    card.  Rows per slab are a multiple of a pipeline stage; only the last
+    slab is short, and none is empty."""
+    slabs = max(1, min(AT_B_MAX_SLABS, -(-rows // AT_B_SLAB_ROWS)))
+    per = -(-max(rows, 1) // slabs)
+    per = -(-per // AT_B_STAGE_ROWS) * AT_B_STAGE_ROWS
+    return -(-max(rows, 1) // per), per
+
+
+def at_b_groups(n: int) -> int:
+    """Row groups per slab of the ``at_b`` instance that takes ``n``
+    columns of ``b``."""
+    return 2 if n <= 8 else 1
+
+
+def at_b_depth(rows: int, n: int) -> int:
+    """Longest chain of f32 roundings into one ``at_b`` output: a group's
+    FMAs over its share of a slab, the adds of the other groups' sums, a
+    pass-2 lane's adds over its slabs, the adds of the other lanes."""
+    slabs, per = at_b_slabs(rows)
+    groups = at_b_groups(n)
+    return per // groups + groups - 1 + -(-slabs // AT_B_LANES) \
+        + AT_B_LANES - 1
 
 
 def order_bound(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -236,16 +267,13 @@ def order_bound(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     ``a @ b`` (:func:`form`), from its own sum order: ``gamma_d (|a| @
     |b|)`` with ``d`` the longest chain of f32 roundings into one output
     (``tall`` and ``small_k``: ``k`` FMAs in one thread, in ``k`` order;
-    ``at_b``: a slab's rows, then the sum over slabs), plus the f64
-    roundoff of the exact product it is held against.  Far tighter than
-    :func:`error_bound` on a long reduction: ``at_b`` at the training
-    step's 1051352 rows has ``d`` = 2560, not 1051352."""
+    ``at_b``: :func:`at_b_depth`), plus the f64 roundoff of the exact
+    product it is held against.  Far tighter than :func:`error_bound` on a
+    long reduction: ``at_b`` at the training step's 1051352 rows has ``d``
+    = 1073 for ``n <= 8`` (1024 rows per group, 1 group add, 33 slabs per
+    lane, 15 lane adds) and 2096 for wider ``n``, not 1051352."""
     kind, k = form(a, b), a.shape[1]
-    if kind in ("tall", "small_k"):
-        d = k
-    else:
-        slabs, per = at_b_slabs(k)
-        d = per + slabs
+    d = k if kind in ("tall", "small_k") else at_b_depth(k, b.shape[1])
     gamma = d * _U / (1 - d * _U) + k * 2.0 ** -53 / (1 - k * 2.0 ** -53)
     with _no_tf32():
         return gamma * torch.matmul(a.abs().double(), b.abs().double())
@@ -294,7 +322,8 @@ def _matmul_kernel(a, b, out):
         if not _row_major(b):
             raise ValueError("at_b: b must be row-major")
         slabs, per = at_b_slabs(k)
-        part = torch.empty(slabs * m * n, dtype=_F32, device=a.device)
+        kp = -(-m // 4) * 4
+        part = torch.empty(slabs * n * kp, dtype=_F32, device=a.device)
         # a = mat.T: the kernel reads mat (k rows of m) in its own layout
         _launch("matmul_at_b", a, lib.lowrank_mm_at_b, a.data_ptr(), k, m,
                 a.stride(1), b.data_ptr(), b.stride(0), n, out.data_ptr(), n,

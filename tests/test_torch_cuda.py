@@ -13,9 +13,9 @@ tensors of the wrong dtype, shape or device raise.
 
 The lowrank matmul's three forms (``tall``, ``at_b``, ``small_k``) at
 small, ragged and the training step's shapes (gemma3-1b's per-rank
-gradient at dp 2 x tp 2: 1051352 x 512), at r = 1, 3, 5, 8, 16, 32, 33
-and 64 (every instance of the register-tiled ``tall`` and ``small_k``,
-and ranks that are no multiple of 4): within
+gradient at dp 2 x tp 2: 1051352 x 512), at r = 1, 2, 3, 4, 5, 8, 16,
+32, 33 and 64 (the plr ladder's ranks 2, 4 and 8, every instance of each
+form, and ranks that are no multiple of 4): within
 ``lowrank.error_bound`` of the plain version (each side a sum of k f32
 products, so both within gamma_k |a| @ |b| of the exact product) and
 within ``lowrank.order_bound`` of the f64 product (the kernel's own sum
@@ -25,9 +25,10 @@ every shape (every partial sum is an integer below 2^24, so exact in any
 order: a dropped or doubled slab of ``at_b`` shows), bit-identical on a
 second call, one launch per call of its own form.  ``small_k`` on a row
 slice ``phat[r0:r1]`` that is not 16-byte aligned, written with ``out=``
-as ``comms._lowrank_rows`` writes it, and ``tall`` on a factor of odd rank,
-on a strided factor and on a misaligned ``a``, equal the plain version on
-integers and write nothing past their output.
+as ``comms._lowrank_rows`` writes it, ``tall`` on a factor of odd rank,
+on a strided factor and on a misaligned ``a``, and ``at_b`` on a column
+slice of a wider matrix (base and row stride not 16-byte aligned), equal
+the plain version on integers and write nothing past their output.
 """
 
 import pytest
@@ -189,7 +190,7 @@ def _mm_operands(kind: str, size: str, r: int, dev, integer=False):
     return draw(rows, r), draw(width, r).T
 
 
-MM_RANKS = [1, 3, 5, 8, 16, 32, 33, 64]
+MM_RANKS = [1, 2, 3, 4, 5, 8, 16, 32, 33, 64]
 
 
 @pytest.mark.cuda
@@ -292,6 +293,31 @@ def test_lowrank_tall_odd_rank_and_strides(cuda, r):
         assert bool((buf[out.numel():] == 5.0).all())
     torch.cuda.synchronize()
     assert lowrank.LAUNCHES["matmul_tall"] == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [2, 3, 8, 33])
+def test_lowrank_at_b_misaligned_rows(cuda, r):
+    """M.T @ P^ with M a column slice of a wider matrix: its base pointer
+    and its row stride (301 floats) are not 16-byte aligned, so the kernel
+    stages M 4 bytes at a time; equal to the plain version on integers,
+    twice alike, nothing written past the output."""
+    rows, width = 5001, 300
+    mat = _ints((rows, width + 1), r, cuda)[:, 1:]
+    p = _ints((rows, r), r + 1, cuda)
+    assert mat.data_ptr() % 16 and mat.stride(0) == width + 1
+    a = mat.T
+    assert lowrank.form(a, p) == "at_b"
+    buf = torch.full((width * r + 5,), 5.0, device=cuda)
+    out = buf[:width * r].view(width, r)
+    lowrank.reset_launches()
+    assert lowrank.matmul(a, p, out=out) is out
+    again = lowrank.matmul(a, p)
+    torch.cuda.synchronize()
+    assert lowrank.LAUNCHES["matmul_at_b"] == 2
+    assert torch.equal(out, lowrank.matmul(a, p, backend="torch"))
+    assert torch.equal(out, again)
+    assert bool((buf[out.numel():] == 5.0).all())    # nothing past it
 
 
 @pytest.mark.cuda

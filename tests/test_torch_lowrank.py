@@ -15,7 +15,10 @@ Contract asserted here:
     ``init_factor``'s Q0 within 1e-5 of the reference's for ncols 128,
     256, 512 and every rank 1-64 (its f64 erfinv differs from JAX's f32
     one by a few ulps; measured at most 9.9e-7);
-  * the at_b slab split depends on the row count alone and covers it.
+  * the at_b slab split depends on the row count alone and covers it, and
+    ``order_bound``'s at_b depth is the rounding chain of the kernel's sum
+    order (counted row by row), at most the 2560 of the order it replaced
+    at the training step's 1051352 rows.
 """
 
 import jax
@@ -133,8 +136,44 @@ def test_init_factor_matches_reference(ncols):
 
 
 def test_at_b_slabs_cover_the_rows():
-    for rows in (1, 2047, 2048, 2049, 5001, 1051352, 3 * 10 ** 6):
+    for rows in (1, 7, 8, 9, 2047, 2048, 2049, 5001, 1051352, 3 * 10 ** 6):
         slabs, per = tlr.at_b_slabs(rows)
-        assert 1 <= slabs <= 1024 and slabs * per >= rows
+        assert 1 <= slabs <= tlr.AT_B_MAX_SLABS and slabs * per >= rows
         assert (slabs - 1) * per < rows            # no empty slab
+        assert per % tlr.AT_B_STAGE_ROWS == 0      # whole pipeline stages
         assert tlr.at_b_slabs(rows) == (slabs, per)
+    assert tlr.at_b_slabs(1051352) == (514, 2048)
+
+
+def _kernel_chain(rows: int, n: int) -> int:
+    """Longest rounding chain of the at_b kernel's order, counted row by
+    row: row i of slab s goes to group (i // rows per group stage) % groups,
+    a group's FMAs run over its rows, group 0 adds the other groups, pass
+    2's lane l sums slabs l, l + lanes, ..., and lane 0 adds the others."""
+    slabs, per = tlr.at_b_slabs(rows)
+    groups = tlr.at_b_groups(n)
+    r = np.arange(rows)
+    slab, i = r // per, r % per
+    group = i // (tlr.AT_B_STAGE_ROWS // groups) % groups
+    chain = np.bincount(slab * groups + group).max()
+    lane = np.bincount(np.arange(slabs) % tlr.AT_B_LANES).max()
+    return int(chain) + groups - 1 + int(lane) + tlr.AT_B_LANES - 1
+
+
+@pytest.mark.parametrize("n", [2, 8, 64])
+@pytest.mark.parametrize("rows", [2049, 5001, 1051352])
+def test_at_b_depth_is_the_kernels_order(rows, n):
+    """order_bound's at_b depth is the chain the kernel's order gives, and
+    at the training step's 1051352 rows no deeper than the 2560 of the
+    order it replaced (2046 rows + 514 slabs)."""
+    d = tlr.at_b_depth(rows, n)
+    assert d == _kernel_chain(rows, n)
+    if rows == 1051352:
+        assert d <= 2560
+        assert d == (1073 if n <= 8 else 2096)        # order_bound's doc
+    a = torch.ones(rows, 4).T                          # the at_b form
+    b = torch.ones(rows, n)
+    assert tlr.form(a, b) == "at_b"
+    gamma = d * tlr._U / (1 - d * tlr._U) + 4 * 2.0 ** -53 / (1 - 4 * 2.0 ** -53)
+    assert torch.allclose(tlr.order_bound(a, b),
+                          torch.full((4, n), gamma * rows, dtype=torch.float64))
