@@ -2,6 +2,11 @@
 """Smoke run of the PyTorch/CUDA port (src/repro_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the root of a checkout
+    python3 chip_smoke.py --bq-only  # phase 1 and the bq timings alone
+
+``--bq-only`` prints the bq kernels' and the TP all-gather ops' timings
+and stops; copied into a checkout of another commit it times that
+commit's kernels the same way, so two trees compare in one call.
 
 Phase 1 builds the kernels from src/repro_torch/kernels/csrc with nvcc (one
 nvcc per source, all started together), in this process, before any rank
@@ -10,7 +15,13 @@ Phase 2 holds each kernel against its plain PyTorch version on the card,
 bit for bit, at rates 4/8/16/24 on random, all-zero, extreme-magnitude and
 denormal rows: encode, decode and the fused ring hops (#3 with the sum and
 wire-only, #4) at M = 8, 16, 65536 and at the training step's ring shapes,
-gather-decode on the serving table.  It holds the lowrank matmul's three
+the encode also on rows whose scales span 2^-70..2^110, gather-decode on
+the serving table.  It holds the flat encode and decode (the TP
+all-gather's, fused with the cast, the padding and the shard layout)
+against their plain versions bit for bit (NaN by position) from and to
+bf16, f16 and f32 (encode also int32) at ragged n and the TP activation's
+size, misaligned and strided inputs included, and the gathered decode of
+two shards along every axis.  It holds the lowrank matmul's three
 forms (tall M @ Q, M.T @ P as a view, the small-k reconstruction P @ Q.T)
 at the training step's shape (gemma3-1b's per-rank gradient at dp 2 x tp
 2, 1051352 x 512) at the plr ladder's ranks 2, 4 and 8 and at 64, and the
@@ -24,7 +35,13 @@ times every kernel and its plain version beside its bound: device time
 with the L2 flushed before each call (the time the kernel line reports),
 device time by CUDA-graph replay on warm L2, and the time per eager call;
 the matmul forms also beside torch.matmul with TF32 off, and at_b's two
-passes apart (torch.profiler's kernel times, L2 flushed).
+passes apart (torch.profiler's kernel times, L2 flushed).  It times the
+TP all-gather's encode and gathered decode of the bf16 [2, 512, 1152]
+activation as the path calls them (the fused ops), as it called them
+before (cast, padded copy and block encode; block decode, strip, cast
+and movedim copy) and through the plain versions, with the kernels' own
+times, a copy of the same bytes as the floor, and the host's time per
+step of each.
 Phase 3 serves gemma3-1b (full published width and depth) by continuous
 batching over a bq8 paged KV pool, 8 requests of
 560 + 24 tokens on 8 slots, through the kernels, through their plain
@@ -38,7 +55,8 @@ the kernels, through their plain versions, and under baseline, with
 deterministic algorithms and TF32 off and the exchanges timed (a device
 drain before each, to split the step into compute and exchange).  It requires equal losses, grad
 norms and per-dimension ledger bytes between the first two, launches of
-the fused hops in the first and none in the second, every loss finite and
+the fused hops and of the flat encode and decode in the first and none
+in the second, every loss finite and
 within 1 % of baseline's, and the dp and zero wire bytes below baseline's
 by their codecs' ratios.
 Phase 5 runs reduce_scatter_flat and the all-reduce ring over a 4-rank
@@ -55,10 +73,17 @@ runs, every lowrank form launched in the kernel run and nothing in the
 plain run, finite and falling losses, and the dp wire bytes at plr8's and
 bq4's priced ratios to phase 4's baseline.
 
+After phase 6, a fresh process (this script with ``--reckon FILE``, which
+the script starts itself) times each (kernel, rows, rate) that phase 4's
+kernel run launched, at its shape, and reckons launches x (time - bound)
+per rank per step.
+
 Every line with a number carries the card's name and power limit.  Before
 the last line come the kernel JSON (all six kernels: launches on their
 path, cold-L2 device time at the path's shape, bound, plain time, and the
-library call's time where one exists) and the card line; the last line is
+library call's time where one exists; the encode and decode also with
+their flat form, and the bq kernels with the per-shape reckoning) and the
+card line; the last line is
 the result JSON.  Any failure exits non-zero;
 without a card, or outside a checkout, it fails before printing a result.
 """
@@ -152,6 +177,20 @@ def eager_ms(torch, fn, iters: int = 100, warmup: int = 10) -> float:
     return t0.elapsed_time(t1) / iters
 
 
+def host_us(torch, fn, iters: int = 1000) -> float:
+    """Host us per call of ``fn`` called back to back (perf_counter_ns):
+    what the caller's thread spends per call while the card keeps up."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter_ns()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter_ns()
+    torch.cuda.synchronize()
+    return (t1 - t0) / iters / 1e3
+
+
 def graph_ms(torch, fn, iters: int = 50, reps: int = 5) -> float:
     """Device time per call: ``iters`` calls captured in one CUDA graph and
     replayed ``reps`` times between two events, so no host work falls in
@@ -199,30 +238,59 @@ def cold_ms(torch, fn, iters: int = 20) -> float:
     return float(np.median([a.elapsed_time(b) for a, b in pairs]))
 
 
-def kernel_ms(torch, fn, match: str, iters: int = 10) -> dict:
-    """Device ms per call of each kernel whose name holds ``match`` that
-    ``fn`` launches, with the L2 flushed before each call: the kernels'
-    own durations from torch.profiler's CUDA activity, by name."""
+def _profiled_us(torch, fn, iters: int) -> dict:
+    """Device us per profiled run of ``fn`` (``iters`` runs) by kernel
+    name, from torch.profiler's CUDA activity."""
     from torch.profiler import ProfilerActivity, profile
 
-    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
-    fn()
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
-            flush.zero_()
             fn()
         torch.cuda.synchronize()
     out = {}
     for e in prof.key_averages():
-        name = re.search(rf"\w*{match}\w*(<[^>]*>)?", e.key)
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if us > 0:
+            out[e.key] = us
+    return out
+
+
+def kernel_ms(torch, fn, match: str | None = None, iters: int = 10) -> dict:
+    """Device ms per call of each kernel that ``fn`` launches, with the L2
+    flushed before each call: the kernels' own durations from
+    torch.profiler's CUDA activity, by name.  With ``match``, only the
+    kernels whose name holds it, under their short names; without, every
+    kernel but the flush's, under its full name."""
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+
+    def profiled(f, n):
+        # a profiler session now and then reports nothing: retry
+        for _ in range(3):
+            got = _profiled_us(torch, f, n)
+            if got:
+                return got
+        fail("the profiler saw no device time")
+    flush_keys = set(profiled(flush.zero_, 2))
+
+    def call():
+        flush.zero_()
+        fn()
+    out = {}
+    for key, us in profiled(call, iters).items():
+        if match is None:
+            if key not in flush_keys:
+                out[key] = us / 1e3 / iters
+            continue
+        name = re.search(rf"\w*{match}\w*(<[^>]*>)?", key)
         if name:
-            us = getattr(e, "self_device_time_total", None)
-            if us is None:
-                us = e.self_cuda_time_total
             out[name.group(0)] = us / 1e3 / iters
     if not out:
-        fail(f"the profiler saw no device time for kernels named *{match}*")
+        fail(f"the profiler saw no device time for kernels named "
+             f"*{match or ''}*")
     return out
 
 
@@ -274,6 +342,26 @@ def special_rows(torch):
         torch.cat([torch.tensor([2e-31]), u()[1:] * 2e-31]),
     ]
     return torch.stack(rows).to(torch.float32)
+
+
+def division_rows(torch, m: int, seed: int):
+    """Rows whose scales span 2^-70 .. 2^110 (both sides of the encode's
+    fast-division range, csrc/bq.cu div_rn) with uniform values, powers of
+    two of the scale, and values near the rounding boundaries of every
+    rate; each row reaches its scale."""
+    g = torch.Generator().manual_seed(seed)
+    scale = torch.exp2(torch.rand(m, 1, generator=g) * 180 - 70)
+    u = torch.rand(m, 128, generator=g) * 2 - 1
+    x = u * scale
+    x[0::5] = torch.exp2(-torch.randint(0, 40, (len(x[0::5]), 128),
+                                        generator=g).float()) * \
+        torch.sign(u[0::5]) * scale[0::5]
+    for i, qmax in enumerate((7, 127, 32767, 8388607)):
+        rows = x[1 + i::5]
+        k = torch.randint(-qmax, qmax, rows.shape, generator=g).double()
+        rows.copy_(((k + 0.5) / qmax * scale[1 + i::5].double()).float())
+    x[:, 0] = scale[:, 0]
+    return x.cuda()
 
 
 def test_rows(torch, m: int, seed: int):
@@ -410,12 +498,14 @@ def fused_bytes(torch, kind: str, m: int, bits: int) -> int:
     return {"sum": 2 * w + 2 * f, "wire": 2 * w + f, "add": w + 2 * f}[kind]
 
 
-def fused_fns(torch, kind: str, m: int, bits: int, seed: int):
-    """(kernel call, plain call) of one fused-hop form on fresh rows."""
+def fused_fns(torch, kind: str, m: int, bits: int, seed: int,
+              data=None):
+    """(kernel call, plain call) of one fused-hop form on fresh rows
+    (``data(torch, m, seed)``, by default ``test_rows``)."""
     from repro_torch.kernels import ops
-    w = ops.bq_encode_blocks(test_rows(torch, m, seed), bits,
-                             backend="torch")
-    local = test_rows(torch, m, seed + 1) * 0.25
+    data = data or test_rows
+    w = ops.bq_encode_blocks(data(torch, m, seed), bits, backend="torch")
+    local = data(torch, m, seed + 1) * 0.25
     if kind == "add":
         return (lambda be=None: ops.bq_decode_add_blocks(w, local, bits, be),
                 lambda: ops.bq_decode_add_blocks(w, local, bits, "torch"))
@@ -443,6 +533,432 @@ def check_fused(torch, kind: str, m: int, bits: int) -> float:
             fail(f"fused hop {kind} rate {bits} M={m}: {k} differs")
         worst = max(worst, max_diff(a, b))
     return worst
+
+
+def normal_rows(torch, m: int, seed: int):
+    """m rows of normals x 10 drawn on the card: activations and gradients
+    have no denormal, infinite or near-f32-max rows, which the division
+    takes its slow path on."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(m, 128, generator=g, device="cuda") * 10
+
+
+def big_rows(torch, m: int, seed: int):
+    """``test_rows`` up to 65536 rows; above, ``normal_rows``."""
+    return test_rows(torch, m, seed) if m <= 65536 else \
+        normal_rows(torch, m, seed)
+
+
+def time_encode(torch, m, bits, iters=50):
+    from repro_torch.kernels import ops
+    x = big_rows(torch, m, seed=1)
+    return timings(torch, lambda: ops.bq_encode_blocks(x, bits),
+                   lambda: ops.bq_encode_blocks(x, bits, backend="torch"),
+                   iters), bound(m * 128 * 4 + m * row_bytes(torch, bits),
+                            m * 128 * 6)
+
+
+def time_decode(torch, m, bits, iters=50):
+    from repro_torch.kernels import ops
+    w = ops.bq_encode_blocks(big_rows(torch, m, seed=2), bits)
+    return timings(torch, lambda: ops.bq_decode_blocks(w, bits),
+                   lambda: ops.bq_decode_blocks(w, bits, backend="torch"),
+                   iters), bound(m * row_bytes(torch, bits) + m * 128 * 4,
+                            m * 128)
+
+
+def time_gather(torch, bits, n_blocks, serve):
+    """Gather-decode of every block of an ``n_blocks`` pool in a SLOTS-row
+    table; ``serve`` = (rows per token, rows per pool block, -)."""
+    from repro_torch.kernels import ops
+    r, rpb, _ = serve
+    w = ops.bq_encode_blocks(test_rows(torch, n_blocks * rpb, seed=3), bits)
+    pool = {k: None if v is None else
+            v.reshape(n_blocks, BLOCK_TOKENS, r, -1) for k, v in w.items()}
+    idx = torch.arange(n_blocks, dtype=torch.int32,
+                       device="cuda").reshape(SLOTS, -1)
+    rows = idx.numel() * rpb
+    uniq = int(torch.unique(idx).numel()) * rpb
+    return timings(
+        torch, lambda: ops.bq_gather_decode(pool, idx, bits),
+        lambda: ops.bq_gather_decode(pool, idx, bits, backend="torch")
+    ), bound(idx.numel() * 4 + uniq * row_bytes(torch, bits)
+             + rows * 128 * 4, rows * 128)
+
+
+def time_fused(torch, kind, m, bits, iters=50):
+    kern, plain = fused_fns(torch, kind, m, bits, seed=5)
+    return timings(torch, kern, plain, iters), \
+        bound(fused_bytes(torch, kind, m, bits), m * 128 * 8)
+
+
+def show(card, name, bits, shape, t, b, extra=""):
+    (ms, pms, wms, wpms, ems, epms), (bms, by) = t, b
+    print(f"  {name} rate {bits} {shape}: device, L2 flushed, "
+          f"{ms * 1e3:.2f} us kernel ({bms / ms * 100:.1f}% of bound) vs "
+          f"{pms * 1e3:.2f} us plain; warm L2 (graph) {wms * 1e3:.2f} "
+          f"vs {wpms * 1e3:.2f} us; per eager call {ems * 1e3:.2f} vs "
+          f"{epms * 1e3:.2f} us; bound {bms * 1e3:.3f} us ({by}){extra} "
+          f"[{card}]")
+
+
+def time_bq(torch, card, rows, serve):
+    """Each bq kernel at the shape and rate its path gives it (the kernel
+    line), the block encode and decode also at the ZeRO-1 parameter
+    gather's rows, then every kernel at 65536 rows at every rate.  Returns
+    ``{kernel: (where, rate, shape, timings, bound)}`` at the path and the
+    block encode's and decode's own device ms at the path (torch.profiler,
+    L2 flushed)."""
+    from repro_torch.kernels import ops
+    big = dict(iters=5)                  # GB-sized rows: fewer graph calls
+    enc_m, dec_m = rows["mlp_in_encode"], rows["mlp_in_decode"]
+    nb = serve[2]
+    path = {
+        "bq_encode": ("tp@mlp_out reduce-scatter, first hop", 16,
+                      f"M={enc_m}", *time_encode(torch, enc_m, 16)),
+        "bq_decode": ("TP shards of the activation (the gather decodes "
+                      "them flat)", 16, f"M={dec_m}",
+                      *time_decode(torch, dec_m, 16)),
+        "bq_decode_add_encode": (
+            "tp@grad_rep all-reduce, last hop", 16,
+            f"M={rows['grad_rep_psum']}",
+            *time_fused(torch, "sum", rows["grad_rep_psum"], 16, **big)),
+        "bq_decode_add_encode_wire": (
+            "phase-5 ring, intermediate hops", 8,
+            f"M={rows['phase5_ring']}",
+            *time_fused(torch, "wire", rows["phase5_ring"], 8, **big)),
+        "bq_decode_add": ("dp@zero1_grad reduce-scatter, last hop", 8,
+                          f"M={rows['zero1_rs']}",
+                          *time_fused(torch, "add", rows["zero1_rs"], 8,
+                                      **big)),
+        "bq_gather_decode": ("serving read", MAIN_BITS,
+                             f"idx {SLOTS}x{nb // SLOTS}, {serve[1]} "
+                             f"rows/block",
+                             *time_gather(torch, MAIN_BITS, nb, serve)),
+    }
+    x = big_rows(torch, enc_m, seed=1)
+    w = ops.bq_encode_blocks(big_rows(torch, dec_m, seed=2), 16)
+    block_kms = {
+        "bq_encode": sum(kernel_ms(
+            torch, lambda: ops.bq_encode_blocks(x, 16)).values()),
+        "bq_decode": sum(kernel_ms(
+            torch, lambda: ops.bq_decode_blocks(w, 16)).values())}
+    del x, w
+    for name, (where, bits, shape, t, b) in path.items():
+        extra = "" if name not in block_kms else (
+            f"; the kernel alone (profiler) {block_kms[name] * 1e3:.2f} us")
+        show(card, f"{name} [{where}]", bits, shape, t, b, extra)
+        torch.cuda.empty_cache()
+    show(card, "bq_decode_add [tp@mlp_out reduce-scatter, last hop]", 16,
+         f"M={rows['mlp_out_rs']}",
+         *time_fused(torch, "add", rows["mlp_out_rs"], 16))
+    zm = rows["zero1_rs"]
+    show(card, "bq_encode [zero param all-gather]", 16, f"M={zm}",
+         *time_encode(torch, zm, 16, **big))
+    show(card, "bq_decode [zero param all-gather]", 16, f"M={DP * zm}",
+         *time_decode(torch, DP * zm, 16, **big))
+    torch.cuda.empty_cache()
+    for bits in BITS:
+        show(card, "bq_encode", bits, "65536 rows",
+             *time_encode(torch, 65536, bits))
+        show(card, "bq_decode", bits, "65536 rows",
+             *time_decode(torch, 65536, bits))
+        show(card, "bq_gather_decode", bits, "65536 rows",
+             *time_gather(torch, bits, 65536 // serve[1], serve))
+        for kind, name in (("sum", "bq_decode_add_encode"),
+                           ("wire", "bq_decode_add_encode_wire"),
+                           ("add", "bq_decode_add")):
+            show(card, name, bits, "65536 rows",
+                 *time_fused(torch, kind, 65536, bits))
+    torch.cuda.empty_cache()
+    return path, block_kms
+
+
+# --------------------------------------------------------------------------
+# the flat encode and decode (the TP all-gather's, fused with its layout)
+# --------------------------------------------------------------------------
+
+FLAT_N = (1, 127, 1025, 70000)
+FLAT_DTYPES = ("bfloat16", "float16", "float32")
+GATHER_SHAPES = ((3, 5, 7),)
+
+
+def tp_shape(cfg) -> tuple:
+    """One rank's sequence-sharded activation at the training step."""
+    return (GLOBAL_BATCH // DP, SEQ // TP, cfg.d_model)
+
+
+def flat_input(torch, n: int, dtype: str, seed: int):
+    """n values in ``dtype`` on the card: normals x 50 with a near-f32-max
+    row, an all-zero row and (for floats) values past the 16-bit types'
+    range, cast by torch."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(n, generator=g) * 50
+    if n > 512:
+        x[:128] = special_rows(torch)[1]
+        x[128:256] = 0.0
+        x[256:384] *= 1e4
+    return x.to(getattr(torch, dtype)).cuda()
+
+
+def same_bits(torch, a, b) -> bool:
+    """Equal bit for bit, but a NaN only needs a NaN in the same place
+    (the kernel's NaN payload may differ from torch's canonical one)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if not a.dtype.is_floating_point:
+        return torch.equal(a, b)
+    na, nb = a.isnan(), b.isnan()
+    return torch.equal(na, nb) and torch.equal(a[~na], b[~nb])
+
+
+def check_flat(torch, err: dict) -> None:
+    """Hold bq_encode_flat and bq_decode_flat against their plain versions
+    (fail on any difference): encode from bf16, f16, f32 and int32, decode
+    to the three float types, at n in FLAT_N and the TP activation's size,
+    the encode also on a misaligned and a strided view; the gathered
+    decode of TP shards along every axis of a small 3-D shape and of the
+    TP activation's.  Scales of inf and NaN are planted in the decode's
+    wire, so NaN positions are held too."""
+    from repro_torch import configs
+    from repro_torch.kernels import bq, ops
+
+    shape = tp_shape(configs.get("gemma3-1b"))
+    sizes = FLAT_N + (int(np.prod(shape)),)
+    for bits in BITS:
+        for dtype in FLAT_DTYPES + ("int32",):
+            for n in sizes:
+                x = flat_input(torch, n, dtype, seed=bits * 1000 + n % 997)
+                for view, xv in (("", x), (" misaligned", x[1:]),
+                                 (" strided", x[::3])):
+                    got = bq.bq_encode_flat(xv, bits)
+                    want = bq.encode_flat_plain(xv, bits)
+                    for k, a, b in zip(("q_hi", "q_lo", "scale"), got, want):
+                        if b is not None and not torch.equal(a, b):
+                            fail(f"bq_encode_flat rate {bits} {dtype} "
+                                 f"n={n}{view}: {k} differs")
+                if dtype == "int32":
+                    continue
+                w = bq.encode_flat_plain(x, bits)
+                if w[2].shape[0] > 8:
+                    w[2][1], w[2][2] = float("inf"), float("nan")
+                got = bq.bq_decode_flat(*w, bits, n, x.dtype)
+                if not same_bits(torch, got, bq.decode_flat_plain(
+                        *w, bits, n, x.dtype)):
+                    fail(f"bq_decode_flat rate {bits} {dtype} n={n} differs")
+        for dtype in FLAT_DTYPES:
+            for shp in GATHER_SHAPES + (shape,):
+                ws = [ops.bq_encode(flat_input(torch, int(np.prod(shp)),
+                                               dtype, seed=s).reshape(shp),
+                                    bits, backend="torch")
+                      for s in range(TP)]
+                gw = {k: None if ws[0][k] is None else
+                      torch.stack([w[k] for w in ws]) for k in ws[0]}
+                for ax in range(len(shp)):
+                    args = (gw, bits, shp, getattr(torch, dtype), ax)
+                    if not same_bits(torch, ops.bq_decode_gathered(*args),
+                                     ops.bq_decode_gathered(
+                                         *args, backend="torch")):
+                        fail(f"gathered decode rate {bits} {dtype} {shp} "
+                             f"axis {ax} differs")
+        torch.cuda.empty_cache()
+    err["bq_encode_flat"] = err["bq_decode_flat"] = 0.0
+
+
+def tp_calls(torch, shape, bits: int = 16):
+    """The TP all-gather's encode and gathered decode of a bf16 activation
+    of ``shape`` (the gather along axis 1 over TP shards), each as
+    ``(fused, plain, unfused, nbytes)``: the fused op the path calls
+    (None before it existed), its plain version, the unfused composition
+    the path called before (cast, padded copy, block encode; block decode,
+    strip, cast, movedim copy), and the bytes the op must move."""
+    from repro_torch.kernels import bq, ops
+    g = torch.Generator().manual_seed(11)
+    x = (torch.randn(*shape, generator=g) * 3).to(torch.bfloat16).cuda()
+    n, ax = x.numel(), 1
+    full = list(shape)
+    full[ax] *= TP
+    w = ops.bq_encode_blocks(ops.to_blocks(x), bits, backend="torch")
+    gw = {k: None if v is None else torch.stack([v] * TP) for k, v in
+          w.items()}
+    m = w["scale"].shape[0]
+    rb = row_bytes(torch, bits)
+
+    def dec_unfused(backend=None):
+        blocks = ops.bq_decode_blocks(gw, bits, backend)
+        parts = blocks.reshape(TP, -1)[:, :n].reshape(
+            (TP,) + tuple(shape)).to(x.dtype)
+        return torch.movedim(parts, 0, ax).reshape(full)
+    fused = hasattr(bq, "bq_encode_flat")
+    return {
+        "encode": (
+            (lambda: ops.bq_encode(x, bits)) if fused else None,
+            lambda: ops.bq_encode(x, bits, backend="torch"),
+            lambda: ops.bq_encode_blocks(ops.to_blocks(x), bits),
+            n * 2 + m * rb),
+        "decode": (
+            (lambda: ops.bq_decode_gathered(gw, bits, shape, x.dtype, ax))
+            if fused else None,
+            lambda: dec_unfused("torch"),
+            dec_unfused,
+            TP * m * rb + TP * n * 2)}
+
+
+def time_tp_ops(torch, card, shape) -> dict:
+    """Times of the fused ops, their plain versions and the unfused
+    compositions at ``shape``: device ms with the L2 flushed, by graph
+    replay on a warm L2 and per eager call, the kernels' own device ms
+    (torch.profiler, summed over every kernel the call launches) and host
+    us per call; the kernel time of a plain streaming kernel that moves
+    the same bytes (``stream_kernel_ms``), the floor such a call meets on
+    the card below its bound; and the unfused composition's kernels one by
+    one."""
+    out = {}
+    for op, (fused, plain, unfused, nbytes) in tp_calls(torch, shape).items():
+        n = int(np.prod(shape))
+        b = bound(nbytes, n * (6 if op == "encode" else TP))
+        res = {"bound_ms": b[0], "plain_ms": cold_ms(torch, plain)}
+        for label, fn in (("", fused), ("unfused_", unfused)):
+            if fn is None:
+                continue
+            res.update({
+                f"{label}ms": cold_ms(torch, fn),
+                f"{label}warm_l2_ms": graph_ms(torch, fn),
+                f"{label}eager_ms": eager_ms(torch, fn, 200),
+                f"{label}kernel_ms": sum(kernel_ms(torch, fn).values()),
+                f"{label}host_us": host_us(torch, fn)})
+        # what a plain streaming kernel takes to move these bytes (torch's
+        # vectorized elementwise negation reading half of them and writing
+        # the other half), L2 flushed: the floor at this size
+        src = torch.zeros(nbytes // 8, dtype=torch.float32, device="cuda")
+        dst = torch.empty_like(src)
+        res["stream_kernel_ms"] = sum(kernel_ms(
+            torch, lambda: torch.neg(src, out=dst)).values())
+        del src, dst
+        if unfused is not None:
+            kernels = kernel_ms(torch, unfused)
+            print(f"  TP all-gather {op}, unfused: kernels alone (profiler) "
+                  + "; ".join(f"{k.removeprefix('void ')[:72]} {v * 1e3:.2f}"
+                              f" us" for k, v in kernels.items())
+                  + f" [{card}]")
+        line = ", ".join(f"{k} {v * 1e3:.2f} us" if k.endswith("ms") else
+                         f"{k} {v:.2f} us" for k, v in res.items())
+        print(f"  TP all-gather {op}, bf16 {list(shape)} x {TP} shards, "
+              f"rate 16: {line}; kernel share of bound "
+              + (f"{b[0] / res['kernel_ms'] * 100:.1f} %"
+                 if "kernel_ms" in res else "-") + f" [{card}]")
+        out[op] = res
+    return out
+
+
+def host_breakdown(torch, card, shape, bits: int = 16) -> None:
+    """Host us per call of each step of the fused and the unfused TP ops
+    (``host_us``: the caller's thread, the card keeping up)."""
+    from repro_torch.kernels import bq, ops
+    (fe, _, ue, _), (fd, _, ud, _) = tp_calls(torch, shape, bits).values()
+    x = torch.zeros(shape, dtype=torch.bfloat16, device="cuda")
+    flat = x.reshape(-1)
+    n, m = flat.numel(), bq.padded_rows(flat.numel())
+    lib, dev = bq._load(), x.device
+    hi, lo, sc = bq._wire_empty(m, bits, dev)
+    stream = bq._stream(dev.index)
+    blocks = torch.zeros((TP, m, 128), device=dev)
+    steps = {
+        "encode, fused op": fe,
+        "  bq.bq_encode_flat wrapper": lambda: bq.bq_encode_flat(x, bits),
+        "  output planes (torch.empty)": lambda: bq._wire_empty(m, bits,
+                                                                dev),
+        "  stream handle": lambda: bq._stream(dev.index),
+        "  C call alone (ctypes + launch)": lambda: lib.bq_encode(
+            flat.data_ptr(), 1, n, 1, hi.data_ptr(), None, sc.data_ptr(),
+            m, bits, 32767.0, stream),
+        "encode, unfused": ue,
+        "  ops.to_blocks (cast + pad)": lambda: ops.to_blocks(x),
+        "decode, fused op": fd,
+        "decode, unfused": ud,
+        "  strip + cast + movedim": lambda: torch.movedim(
+            blocks.reshape(TP, -1)[:, :n].reshape((TP,) + tuple(shape))
+            .to(torch.bfloat16), 0, 1).reshape(-1)}
+    print("  host us per call (TP ops, rate 16): " + "; ".join(
+        f"{k.strip()} {host_us(torch, f):.2f}" for k, f in steps.items())
+        + f" [{card}]")
+
+
+# --------------------------------------------------------------------------
+# launches x (time - bound) per shape on the training path
+# --------------------------------------------------------------------------
+
+SHAPE_KERNELS = ("bq_encode", "bq_encode_flat", "bq_decode",
+                 "bq_decode_flat", "bq_decode_add_encode",
+                 "bq_decode_add_encode_wire", "bq_decode_add")
+
+
+def shape_call(torch, name: str, rows: int, bits: int):
+    """(call, bytes, operations) of one bq kernel at ``rows`` wire rows
+    and rate ``bits`` on normals; the flat forms in bf16 with every row
+    full (a gathered decode's shards as one)."""
+    from repro_torch.kernels import bq
+    rb = row_bytes(torch, bits)
+    if name in ("bq_encode", "bq_encode_flat"):
+        x = normal_rows(torch, rows, seed=1)
+        if name == "bq_encode":
+            return (lambda: bq.bq_encode(x, bits)), rows * (512 + rb), \
+                rows * 128 * 6
+        x = x.to(torch.bfloat16).reshape(-1)
+        return (lambda: bq.bq_encode_flat(x, bits)), rows * (256 + rb), \
+            rows * 128 * 6
+    if name in ("bq_decode", "bq_decode_flat"):
+        w = bq.encode_plain(normal_rows(torch, rows, seed=2), bits)
+        if name == "bq_decode":
+            return (lambda: bq.bq_decode(*w, bits)), rows * (rb + 512), \
+                rows * 128
+        return (lambda: bq.bq_decode_flat(*w, bits, rows * 128,
+                                          torch.bfloat16)), \
+            rows * (rb + 256), rows * 128
+    kind = {"bq_decode_add_encode": "sum", "bq_decode_add_encode_wire":
+            "wire", "bq_decode_add": "add"}[name]
+    return fused_fns(torch, kind, rows, bits, seed=5, data=normal_rows)[0], \
+        fused_bytes(torch, kind, rows, bits), rows * 128 * 8
+
+
+def shape_sums(res) -> dict:
+    """{(kernel, rows, rate): launches} over the ranks of one run."""
+    out = {}
+    for r in res:
+        for name, rows, bits, count in r["launch_shapes"]:
+            out[(name, rows, bits)] = out.get((name, rows, bits), 0) + count
+    return out
+
+
+def reckon_shapes(torch, card, shapes: dict, rank_steps: int) -> dict:
+    """Each (kernel, rows, rate) launched on the path, timed at its shape
+    (L2 flushed: by events and the kernel alone by the profiler) beside its
+    bound; launches and launches x (time - bound) per rank per step."""
+    out = {}
+    for (name, rows, bits), count in sorted(shapes.items()):
+        if name not in SHAPE_KERNELS:
+            continue
+        fn, nbytes, nops = shape_call(torch, name, rows, bits)
+        ms, kms = cold_ms(torch, fn), sum(kernel_ms(torch, fn).values())
+        bms = bound(nbytes, nops)[0]
+        per = count / rank_steps
+        e = {"rows": rows, "rate": bits, "launches_per_rank_step": per,
+             "ms": ms, "kernel_ms": kms, "bound_ms": bms,
+             "gap_ms": per * (ms - bms), "kernel_gap_ms": per * (kms - bms)}
+        out.setdefault(name, []).append(e)
+        print(f"  {name} M={rows} rate {bits}: {per:g} launches per rank "
+              f"per step, {ms * 1e3:.2f} us (L2 flushed; the kernel alone "
+              f"{kms * 1e3:.2f} us) vs bound {bms * 1e3:.3f} us: "
+              f"{e['gap_ms'] * 1e3:.1f} us ({e['kernel_gap_ms'] * 1e3:.1f} "
+              f"us by the kernel alone) per rank per step [{card}]")
+        del fn
+        torch.cuda.empty_cache()
+    for name, es in out.items():
+        print(f"  {name}: launches x (time - bound) per rank per step "
+              f"{sum(e['gap_ms'] for e in es):.4f} ms (kernel alone "
+              f"{sum(e['kernel_gap_ms'] for e in es):.4f} ms) over "
+              f"{len(es)} shapes [{card}]")
+    return out
 
 
 def train_run(card, scheme, backend, label, steps=STEPS, extra=(), **kw):
@@ -576,8 +1092,8 @@ def drive_training(torch, card) -> dict:
                 fail(f"rank {rk['rank']}: {key} differ between the kernel "
                      f"run ({rk[key]}) and the plain run ({rp[key]})")
     launches = launch_sums(k)
-    for n in ("bq_encode", "bq_decode", "bq_decode_add_encode",
-              "bq_decode_add"):
+    for n in ("bq_encode", "bq_encode_flat", "bq_decode", "bq_decode_flat",
+              "bq_decode_add_encode", "bq_decode_add"):
         if launches[n] <= 0:
             fail(f"the training step never launched {n}: {launches}")
     if any(v for r in p for v in r["launches"].values()):
@@ -605,7 +1121,8 @@ def drive_training(torch, card) -> dict:
           f"{launches} [{card}]")
     if not grad_path.exists():
         fail("phase 4 saved no flat gradient for phase 5")
-    return {"launches": launches, "grad_path": grad_path,
+    return {"launches": launches, "shapes": shape_sums(k),
+            "grad_path": grad_path,
             "zhybrid": zk, "baseline": zb, "baseline_losses": b[0]["losses"]}
 
 
@@ -757,9 +1274,21 @@ def main():
     r = paged_kv.token_rows(cfg.n_kv_heads, cfg.head_dim_)
     rpb = BLOCK_TOKENS * r                       # rows per pool block
     mb = nb // SLOTS
+    rows = ring_rows(cfg)
+    if sys.argv[1:] == ["--bq-only"]:
+        # the bq timings alone, so that two trees can be compared in one
+        # call (this file copied into each)
+        path, block_kms = time_bq(torch, card, rows, (r, rpb, nb))
+        tp_ops = time_tp_ops(torch, card, tp_shape(cfg))
+        print(json.dumps({"bq_only": {
+            "path": {k: {"ms": v[3][0], "warm_l2_ms": v[3][2],
+                         "eager_ms": v[3][4], "bound_ms": v[4][0]}
+                     for k, v in path.items()},
+            "block_kernel_ms": block_kms, "tp_ops": tp_ops}}))
+        print(f"card: {card}")
+        return
     err = {"bq_encode": 0.0, "bq_decode": 0.0, "bq_gather_decode": 0.0,
            "bq_decode_add_encode": 0.0, "bq_decode_add": 0.0}
-    rows = ring_rows(cfg)
     fused_m = sorted({8, 16, 65536, rows["zero1_rs"], rows["grad_rep_psum"],
                       rows["mlp_out_rs"], rows["phase5_ring"]})
     for bits in BITS:
@@ -784,6 +1313,16 @@ def main():
             if not torch.equal(d, dp):
                 fail(f"bq_decode rate {bits} M={m} differs")
             err["bq_decode"] = max(err["bq_decode"], max_diff(d, dp))
+        # the encode's division on scales across and beyond its fast range
+        xd = division_rows(torch, 262144, seed=bits)
+        for form, got, want in (
+                ("block", bq.bq_encode(xd, bits), bq.encode_plain(xd, bits)),
+                ("flat bf16", bq.bq_encode_flat(xd.to(torch.bfloat16), bits),
+                 bq.encode_flat_plain(xd.to(torch.bfloat16), bits))):
+            for k, a, b in zip(("q_hi", "q_lo", "scale"), got, want):
+                if b is not None and not torch.equal(a, b):
+                    fail(f"bq_encode {form} rate {bits} on division rows: "
+                         f"{k} differs")
         # gather-decode at the main path's pool and table shapes
         x = test_rows(torch, nb * rpb, seed=bits)
         w = ops.bq_encode_blocks(x, bits, backend="torch")
@@ -811,95 +1350,23 @@ def main():
             fail(f"bq_gather_decode rate {bits}: in-range rows disturbed")
     torch.cuda.synchronize()
     print(f"phase 2: kernels == plain versions bit for bit at rates "
-          f"{list(BITS)} (encode/decode M=8,16,65536; fused hops with the "
+          f"{list(BITS)} (encode/decode M=8,16,65536, encode also on 262144 "
+          f"rows of scales 2^-70..2^110; fused hops with the "
           f"sum, wire-only and decode-add at M={fused_m}; gather-decode "
           f"{SLOTS}x{mb} table over {nb} blocks x {BLOCK_TOKENS} tokens x "
           f"{r} rows) [{card}]")
 
-    def time_encode(m, bits):
-        x = test_rows(torch, m, seed=1)
-        return timings(torch, lambda: ops.bq_encode_blocks(x, bits),
-                       lambda: ops.bq_encode_blocks(x, bits, backend="torch")
-                       ), bound(m * 128 * 4 + m * row_bytes(torch, bits),
-                                m * 128 * 6)
-
-    def time_decode(m, bits):
-        w = ops.bq_encode_blocks(test_rows(torch, m, seed=2), bits)
-        return timings(torch, lambda: ops.bq_decode_blocks(w, bits),
-                       lambda: ops.bq_decode_blocks(w, bits, backend="torch")
-                       ), bound(m * row_bytes(torch, bits) + m * 128 * 4,
-                                m * 128)
-
-    def time_gather(bits, n_blocks):
-        w = ops.bq_encode_blocks(test_rows(torch, n_blocks * rpb, seed=3),
-                                 bits)
-        pool = {k: None if v is None else
-                v.reshape(n_blocks, BLOCK_TOKENS, r, -1)
-                for k, v in w.items()}
-        idx = torch.arange(n_blocks, dtype=torch.int32,
-                           device=dev).reshape(SLOTS, -1)
-        rows = idx.numel() * rpb
-        uniq = int(torch.unique(idx).numel()) * rpb
-        return timings(
-            torch, lambda: ops.bq_gather_decode(pool, idx, bits),
-            lambda: ops.bq_gather_decode(pool, idx, bits, backend="torch")
-        ), bound(idx.numel() * 4 + uniq * row_bytes(torch, bits)
-                 + rows * 128 * 4, rows * 128)
-
-    def show(name, bits, shape, t, b):
-        (ms, pms, wms, wpms, ems, epms), (bms, by) = t, b
-        print(f"  {name} rate {bits} {shape}: device, L2 flushed, "
-              f"{ms * 1e3:.2f} us kernel ({bms / ms * 100:.1f}% of bound) vs "
-              f"{pms * 1e3:.2f} us plain; warm L2 (graph) {wms * 1e3:.2f} "
-              f"vs {wpms * 1e3:.2f} us; per eager call {ems * 1e3:.2f} vs "
-              f"{epms * 1e3:.2f} us; bound {bms * 1e3:.3f} us ({by}) "
-              f"[{card}]")
-
-    def time_fused(kind, m, bits, iters=50):
-        kern, plain = fused_fns(torch, kind, m, bits, seed=5)
-        return timings(torch, kern, plain, iters), \
-            bound(fused_bytes(torch, kind, m, bits), m * 128 * 8)
-
-    # each kernel at the shape and rate its path gives it (the kernel
-    # line), then at 65536 rows at every rate
-    big = dict(iters=5)                  # GB-sized rows: fewer graph calls
-    enc_m, dec_m = rows["mlp_in_encode"], rows["mlp_in_decode"]
-    path = {
-        "bq_encode": ("tp@mlp_in all-gather", 16, f"M={enc_m}",
-                      *time_encode(enc_m, 16)),
-        "bq_decode": ("tp@mlp_in all-gather", 16, f"M={dec_m}",
-                      *time_decode(dec_m, 16)),
-        "bq_decode_add_encode": (
-            "tp@grad_rep all-reduce, last hop", 16,
-            f"M={rows['grad_rep_psum']}",
-            *time_fused("sum", rows["grad_rep_psum"], 16, **big)),
-        "bq_decode_add_encode_wire": (
-            "phase-5 ring, intermediate hops", 8,
-            f"M={rows['phase5_ring']}",
-            *time_fused("wire", rows["phase5_ring"], 8, **big)),
-        "bq_decode_add": ("dp@zero1_grad reduce-scatter, last hop", 8,
-                          f"M={rows['zero1_rs']}",
-                          *time_fused("add", rows["zero1_rs"], 8, **big)),
-        "bq_gather_decode": ("serving read", MAIN_BITS,
-                             f"idx {SLOTS}x{mb}, {rpb} rows/block",
-                             *time_gather(MAIN_BITS, nb)),
-    }
-    for name, (where, bits, shape, t, b) in path.items():
-        show(f"{name} [{where}]", bits, shape, t, b)
-        torch.cuda.empty_cache()
-    show("bq_decode_add [tp@mlp_out reduce-scatter, last hop]", 16,
-         f"M={rows['mlp_out_rs']}", *time_fused("add", rows["mlp_out_rs"],
-                                                 16))
-    for bits in BITS:
-        show("bq_encode", bits, "65536 rows", *time_encode(65536, bits))
-        show("bq_decode", bits, "65536 rows", *time_decode(65536, bits))
-        show("bq_gather_decode", bits, "65536 rows",
-             *time_gather(bits, 65536 // rpb))
-        for kind, name in (("sum", "bq_decode_add_encode"),
-                           ("wire", "bq_decode_add_encode_wire"),
-                           ("add", "bq_decode_add")):
-            show(name, bits, "65536 rows", *time_fused(kind, 65536, bits))
-    torch.cuda.empty_cache()
+    check_flat(torch, err)
+    print(f"phase 2: flat encode and decode == plain versions bit for bit "
+          f"(NaN positions equal) at rates {list(BITS)}, in "
+          f"{list(FLAT_DTYPES)} (encode also int32) at n = {list(FLAT_N)} "
+          f"and the TP activation's {int(np.prod(tp_shape(cfg)))}, "
+          f"misaligned and strided inputs included; gathered decode of "
+          f"{TP} shards of {list(GATHER_SHAPES)} and the TP activation "
+          f"along axes 0, 1 and 2 [{card}]")
+    path, block_kms = time_bq(torch, card, rows, (r, rpb, nb))
+    tp_ops = time_tp_ops(torch, card, tp_shape(cfg))
+    host_breakdown(torch, card, tp_shape(cfg))
 
     # the lowrank matmul's three forms at the training step's matrix view
     n_flat = flat_elems(cfg)
@@ -976,6 +1443,20 @@ def main():
           f"ef_zhybrid_16_4 (kernels) [{card}]")
     stateful = drive_stateful(torch, card, train, n_flat)
 
+    # launches x (time - bound) per shape of phase 4's kernel run, timed in
+    # a fresh process (this one's profiler reports nothing after phases
+    # 3-6 have run)
+    print(f"launches by shape on phase 4's path (zhybrid_16_8, per rank per "
+          f"step) [{card}]", flush=True)
+    shapes_path = SCRATCH / "launch_shapes.json"
+    shapes_path.write_text(json.dumps([[*k, v] for k, v in
+                                       train["shapes"].items()]))
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                           "--reckon", str(shapes_path)], timeout=600)
+    if proc.returncode != 0:
+        fail(f"timing the path's shapes failed ({proc.returncode})")
+    by_shape = json.loads(shapes_path.with_suffix(".out.json").read_text())
+
     # kernel line: launches on each kernel's path (phase 4 the training
     # step, phase 3 serving, phase 5 the rings), times at the path's shape
     t_launch, r_launch = train["launches"], rings["launches"]
@@ -1006,6 +1487,31 @@ def main():
                 "plain_ms": owps, "warm_l2_ms": owws, "bound_ms": wbms,
                 "launches": r_launch["bq_decode_add_encode_wire"]}
         entry["launches_ef_zhybrid_16_4"] = stateful["ef"][name]
+        if name in ("bq_encode", "bq_decode"):
+            # the block form's kernel alone, and the flat form the TP
+            # all-gather calls (the same kernel, fused with its layout)
+            entry["kernel_ms"] = block_kms[name]
+            op = tp_ops[name[3:]]
+            entry["flat"] = {
+                "path": "tp@mlp_in all-gather, bf16 "
+                        f"{list(tp_shape(cfg))} x {TP} shards", "rate": 16,
+                "ms": op["ms"], "plain_ms": op["plain_ms"],
+                "unfused_ms": op["unfused_ms"],
+                "warm_l2_ms": op["warm_l2_ms"],
+                "unfused_warm_l2_ms": op["unfused_warm_l2_ms"],
+                "eager_ms": op["eager_ms"],
+                "unfused_eager_ms": op["unfused_eager_ms"],
+                "kernel_ms": op["kernel_ms"],
+                "unfused_kernel_ms": op["unfused_kernel_ms"],
+                "bound_ms": op["bound_ms"], "bound_by": "bytes",
+                "stream_kernel_ms": op["stream_kernel_ms"],
+                "launches": t_launch[f"{name}_flat"],
+                "max_abs_err": err[f"{name}_flat"],
+                "by_shape": by_shape.get(f"{name}_flat", [])}
+        entry["by_shape"] = by_shape.get(name, [])
+        if name == "bq_decode_add_encode":
+            entry["wire_only"]["by_shape"] = by_shape.get(
+                "bq_decode_add_encode_wire", [])
         kernels.append(entry)
     # the lowrank matmul: one plr exchange runs each form once, so the
     # entry's times are the three forms' sums at the path's r = 8
@@ -1051,6 +1557,27 @@ def main():
         "count": torch.cuda.device_count()}}))
 
 
+def reckon_main(path: str) -> None:
+    """``--reckon FILE``: time the (kernel, rows, rate, launches) of FILE
+    (phase 4's launch shapes) in this fresh process; write the result
+    beside it."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a GPU")
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import bq
+
+    bq._load()
+    shapes = {(n, r, b): c for n, r, b, c in json.loads(Path(path)
+                                                        .read_text())}
+    out = reckon_shapes(torch, card_line(), shapes, DP * TP * STEPS)
+    Path(path).with_suffix(".out.json").write_text(json.dumps(out))
+
+
 if __name__ == "__main__":
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
-    main()
+    if sys.argv[1:2] == ["--reckon"]:
+        reckon_main(sys.argv[2])
+    else:
+        main()

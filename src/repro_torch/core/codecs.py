@@ -67,6 +67,12 @@ class Codec:
     def decode(self, wire, shape, dtype):
         return wire["raw"].reshape(shape).to(dtype)
 
+    def decode_gathered(self, wire, shape, dtype, axis_dim: int):
+        """Wire of S shards' encodes stacked on a leading axis (the
+        all-gather's) -> the S decoded tensors of ``shape`` joined along
+        ``axis_dim``: block decode, then :func:`ops.ungather`."""
+        return ops.ungather(self.decode_blocks(wire), shape, dtype, axis_dim)
+
     def wire_bits_per_value(self, dtype=torch.float32) -> float:
         return torch.empty((), dtype=dtype).element_size() * 8
 
@@ -105,6 +111,10 @@ class BqCodec(Codec):
 
     def decode(self, wire, shape, dtype):
         return ops.bq_decode(wire, self.bits, shape, dtype)
+
+    def decode_gathered(self, wire, shape, dtype, axis_dim: int):
+        """One kernel launch on the card (``bq.bq_decode_flat``)."""
+        return ops.bq_decode_gathered(wire, self.bits, shape, dtype, axis_dim)
 
     # block-matrix fast path for the ring collectives
     def encode_blocks(self, x2d):

@@ -675,19 +675,15 @@ def _all_gather_impl(x, axis: Axis, axis_dim: int, codec):
     n = axis.size
     if n == 1:
         return x
-    shape = list(x.shape)
-    shape[axis_dim] *= n
     if codec.is_identity:
         _log("all_gather", "-", codec, _payload_nbytes(x), n - 1)
-        parts = _all_gather_raw(x, axis)
-    else:
-        wire, _ = codec.encode(x)
-        _log("all_gather", "-", codec, ops.wire_nbytes(wire), n - 1)
-        blocks = codec.decode_blocks(_all_gather_wire(wire, axis))
-        # strip each shard's tile padding BEFORE concatenating shards
-        parts = blocks.reshape(n, -1)[:, :x.numel()] \
-            .reshape((n,) + tuple(x.shape)).to(x.dtype)
-    return torch.movedim(parts, 0, axis_dim).reshape(shape)
+        return torch.movedim(_all_gather_raw(x, axis), 0, axis_dim).reshape(
+            ops.gathered_shape(x.shape, n, axis_dim))
+    wire, _ = codec.encode(x)
+    _log("all_gather", "-", codec, ops.wire_nbytes(wire), n - 1)
+    # each shard's tile padding is stripped before the shards are joined
+    return codec.decode_gathered(_all_gather_wire(wire, axis), x.shape,
+                                 x.dtype, axis_dim)
 
 
 def _ppermute_impl(x, axis: Axis, perm, codec):

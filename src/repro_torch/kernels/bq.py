@@ -5,8 +5,16 @@ Five kernels, hand-written in CUDA C++ for ``sm_90a`` (``csrc/bq.cu``):
 
 * :func:`bq_encode` replaces ``repro/kernels/bq.py::bq_encode_pallas``
   (``_encode_kernel``/``_encode24_kernel``): ``(M, 128)`` f32 -> wire planes.
+  :func:`bq_encode_flat` is the same kernel on a tensor of any shape in
+  bf16, f16 or f32: the cast to f32 and the zero padding of the last tile
+  happen in the kernel, so ``bq_encode_flat(x) == bq_encode(to_blocks(x))``
+  in one launch.
 * :func:`bq_decode` replaces ``bq_decode_pallas``
   (``_decode_kernel``/``_decode24_kernel``): wire planes -> ``(M, 128)`` f32.
+  :func:`bq_decode_flat` is the same kernel writing the payload itself in
+  bf16, f16 or f32, the padding stripped and, for the wires of several
+  shards, the shards joined along an axis (the compressed all-gather's
+  tail) in one launch.
 * :func:`bq_gather_decode` replaces ``bq_gather_decode_pallas``: decodes the
   pool rows named by a block table, reading the table inside the kernel.
 * :func:`bq_decode_add_encode` replaces ``bq_decode_add_encode_pallas``,
@@ -18,10 +26,10 @@ Five kernels, hand-written in CUDA C++ for ``sm_90a`` (``csrc/bq.cu``):
   ``local + decode(wire)``.
 
 All five move a few bytes per flop, so on an H100 they are bound by bytes
-moved over 3.35 TB/s.  The kernels give each 128-value row to one warp,
-read and write every byte once with coalesced vector accesses, and keep
-the gathered planes out of device memory (see the source note in
-``csrc/bq.cu``).
+moved over 3.35 TB/s.  The kernels read and write every byte once with
+coalesced vector accesses and keep intermediates (the f32 copy of a bf16
+payload, its padded blocks, the gathered planes) out of device memory
+(see the source note in ``csrc/bq.cu``).
 
 Dispatch is by the tensor's device: a CPU tensor goes to the plain version
 (:mod:`repro_torch.kernels.ref`), a CUDA tensor launches the kernel or
@@ -31,13 +39,16 @@ file's kernels and those of :mod:`repro_torch.kernels.lowrank`), into
 ``_build/<hash of the sources>/`` beside this file.
 
 ``LAUNCHES`` counts kernel launches per wrapper; it is incremented right
-where the kernel launches and nowhere else.
+where the kernel launches and nowhere else, beside ``LAUNCH_SHAPES``, the
+launches of each (wrapper, rows, rate).
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -59,12 +70,19 @@ _COMPILE_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                   "-Xptxas", "-v")
 _LINK_FLAGS = (*_ARCH, "-shared")
 
-LAUNCHES = {"bq_encode": 0, "bq_decode": 0, "bq_gather_decode": 0,
+LAUNCHES = {"bq_encode": 0, "bq_encode_flat": 0, "bq_decode": 0,
+            "bq_decode_flat": 0, "bq_gather_decode": 0,
             "bq_decode_add_encode": 0, "bq_decode_add_encode_wire": 0,
             "bq_decode_add": 0}
+# launches by (wrapper, wire rows, rate)
+LAUNCH_SHAPES: collections.Counter = collections.Counter()
 
-# plain PyTorch versions of the three kernels: the CPU path, and the
-# yardstick the kernels are compared with on the card
+# value types the encode and decode kernels read and write themselves
+# (codes of csrc/bq.cu's bq_encode / bq_decode)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+# plain PyTorch versions of the kernels: the CPU path, and the yardstick
+# the kernels are compared with on the card
 encode_plain = ref.bq_encode_ref
 decode_plain = ref.bq_decode_ref
 gather_decode_plain = ref.bq_gather_decode_ref
@@ -75,6 +93,61 @@ decode_add_plain = ref.bq_decode_add_ref
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    LAUNCH_SHAPES.clear()
+
+
+def launch_shapes() -> list:
+    """``[(wrapper, rows, rate, launches), ...]`` since the last reset."""
+    return sorted((*k, v) for k, v in LAUNCH_SHAPES.items())
+
+
+def padded_rows(n: int) -> int:
+    """Number of BLOCK-wide rows after padding n elements to whole tiles."""
+    tile = TILE_M * BLOCK
+    return max(-(-n // tile), 1) * tile // BLOCK
+
+
+def to_blocks(x: torch.Tensor) -> torch.Tensor:
+    """Flatten + zero-pad to an (M, 128) f32 block matrix."""
+    flat = x.reshape(-1).to(torch.float32)
+    n = flat.shape[0]
+    m = padded_rows(n)
+    flat = torch.nn.functional.pad(flat, (0, m * BLOCK - n))
+    return flat.reshape(m, BLOCK)
+
+
+def gathered_shape(shape, shards: int, axis_dim: int) -> tuple:
+    out = list(shape)
+    out[axis_dim] *= shards
+    return tuple(out)
+
+
+def ungather(blocks: torch.Tensor, shape, dtype, axis_dim: int):
+    """``[S, M, 128]`` decoded blocks of S shards of ``shape`` -> the shards
+    joined along ``axis_dim`` in ``dtype``: each shard's tile padding
+    stripped before the shards are joined."""
+    s, n = blocks.shape[0], math.prod(shape)
+    parts = blocks.reshape(s, -1)[:, :n].reshape((s,) + tuple(shape)) \
+        .to(dtype)
+    return torch.movedim(parts, 0, axis_dim).reshape(
+        gathered_shape(shape, s, axis_dim))
+
+
+def encode_flat_plain(x: torch.Tensor, bits: int):
+    """:func:`bq_encode_flat`'s plain version: cast, pad, encode."""
+    return encode_plain(to_blocks(x), bits)
+
+
+def decode_flat_plain(q_hi, q_lo, scale, bits: int, n: int,
+                      dtype=torch.float32, shards: int = 1,
+                      inner: int | None = None) -> torch.Tensor:
+    """:func:`bq_decode_flat`'s plain version: decode the blocks, then
+    :func:`ungather`."""
+    rows = lambda t: None if t is None else t.reshape(-1, t.shape[-1])  # noqa: E731
+    blocks = decode_plain(rows(q_hi), rows(q_lo), rows(scale), bits)
+    inner = (n or 1) if inner is None else inner
+    return ungather(blocks.reshape(shards, -1, BLOCK), (n // inner, inner),
+                    dtype, 1).reshape(-1)
 
 
 def hi_dtype(bits: int) -> torch.dtype:
@@ -158,14 +231,22 @@ def build() -> Path:
 
 
 def _load():
+    lib = _lib
+    if lib is not None:                 # loaded: no lock per call
+        return lib
+    return _load_locked()
+
+
+def _load_locked():
     global _lib
     with _lib_lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             vp, ll, i, f = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                             ctypes.c_float)
-            lib.bq_encode.argtypes = [vp, vp, vp, vp, ll, i, f, vp]
-            lib.bq_decode.argtypes = [vp, vp, vp, vp, ll, i, f, vp]
+            lib.bq_encode.argtypes = [vp, i, ll, i, vp, vp, vp, ll, i, f, vp]
+            lib.bq_decode.argtypes = [vp, vp, vp, vp, i, ll, ll, ll, ll, i,
+                                      f, vp]
             lib.bq_gather_decode.argtypes = [vp, vp, vp, vp, ll, ll, ll, vp,
                                              i, f, vp]
             lib.bq_decode_add_encode.argtypes = [vp, vp, vp, vp, vp, vp, vp,
@@ -178,16 +259,28 @@ def _load():
     return _lib
 
 
-def _launch(name: str, t: torch.Tensor, fn, *args) -> None:
+def _stream(index: int) -> int:
+    """Handle of the current stream of CUDA device ``index``."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:                 # no Stream object built per call
+        return raw(index)
+    return torch.cuda.current_stream(index).cuda_stream
+
+
+def _launch(name: str, rows: int, bits: int, t: torch.Tensor, fn,
+            *args) -> None:
     """Call C entry ``fn`` on ``t``'s device and current stream (the stream
-    is appended to ``args``); raise on a CUDA error, count the launch."""
-    if torch.cuda.current_device() != t.device.index:
+    is appended to ``args``); raise on a CUDA error, count the launch and
+    its (rows, rate)."""
+    index = t.device.index
+    if torch.cuda.current_device() != index:
         with torch.cuda.device(t.device):
-            return _launch(name, t, fn, *args)
-    rc = fn(*args, torch.cuda.current_stream(t.device).cuda_stream)
+            return _launch(name, rows, bits, t, fn, *args)
+    rc = fn(*args, _stream(index))
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
     LAUNCHES[name] += 1
+    LAUNCH_SHAPES[(name, rows, bits)] += 1
 
 
 def _ptr(t) -> int | None:
@@ -222,6 +315,26 @@ def _on_cpu(*ts) -> bool:
 # wrappers
 # --------------------------------------------------------------------------
 
+def _wire_empty(m: int, bits: int, dev):
+    """Fresh ``(q_hi, q_lo | None, scale)`` planes of ``m`` rows."""
+    q_hi = torch.empty((m, hi_width(bits)), dtype=hi_dtype(bits), device=dev)
+    q_lo = (torch.empty((m, BLOCK), dtype=torch.uint8, device=dev)
+            if bits == 24 else None)
+    return q_hi, q_lo, torch.empty((m, 1), dtype=torch.float32, device=dev)
+
+
+def _encode(name: str, flat: torch.Tensor, m: int, bits: int):
+    """Launch the encode kernel on the 1-D contiguous ``flat`` (f32, bf16
+    or f16) into ``m`` fresh wire rows."""
+    q_hi, q_lo, scale = _wire_empty(m, bits, flat.device)
+    ptr = flat.data_ptr()
+    _launch(name, m, bits, flat, _load().bq_encode, ptr,
+            _DTYPE_CODE[flat.dtype], flat.shape[0], ptr % 16 == 0,
+            q_hi.data_ptr(), _ptr(q_lo), scale.data_ptr(), m, bits,
+            float(_QMAX[bits]))
+    return q_hi, q_lo, scale
+
+
 def bq_encode(x2d: torch.Tensor, bits: int):
     """``(M, 128)`` f32 -> ``(q_hi, q_lo | None, scale)``."""
     ref._check_bits(bits)
@@ -230,16 +343,29 @@ def bq_encode(x2d: torch.Tensor, bits: int):
     if x2d.dim() != 2 or x2d.shape[1] != BLOCK:
         raise ValueError(f"x2d must be (M, {BLOCK}), got {tuple(x2d.shape)}")
     _check(x2d, "x2d", torch.float32, align=16)
-    m, dev = x2d.shape[0], x2d.device
-    q_hi = torch.empty((m, hi_width(bits)), dtype=hi_dtype(bits), device=dev)
-    q_lo = (torch.empty((m, BLOCK), dtype=torch.uint8, device=dev)
-            if bits == 24 else None)
-    scale = torch.empty((m, 1), dtype=torch.float32, device=dev)
-    if m:
-        _launch("bq_encode", x2d, _load().bq_encode, x2d.data_ptr(),
-                q_hi.data_ptr(), _ptr(q_lo), scale.data_ptr(), m, bits,
-                float(_QMAX[bits]))
-    return q_hi, q_lo, scale
+    m = x2d.shape[0]
+    if not m:
+        return _wire_empty(0, bits, x2d.device)
+    return _encode("bq_encode", x2d.reshape(-1), m, bits)
+
+
+def bq_encode_flat(x: torch.Tensor, bits: int):
+    """Tensor of any shape holding n values -> ``(q_hi, q_lo | None,
+    scale)`` of ``padded_rows(n)`` rows, equal to ``bq_encode(to_blocks(x),
+    bits)``, in one launch.  bf16, f16 and f32 are read as they are and
+    converted in registers (exact); values past n encode as the zero
+    padding.  Other types (the int32 positions of ``tp@attn_pos``) are cast
+    to f32 by torch first.  A non-contiguous x is copied to a contiguous
+    one first; a base that is not 16-byte aligned is read value by
+    value."""
+    ref._check_bits(bits)
+    if _on_cpu(x):
+        return encode_flat_plain(x, bits)
+    flat = x.reshape(-1)
+    if flat.dtype not in _DTYPE_CODE:
+        flat = flat.to(torch.float32)
+    return _encode("bq_encode_flat", flat.contiguous(),
+                   padded_rows(flat.shape[0]), bits)
 
 
 def _check_planes(q_hi, q_lo, scale, bits: int, lead: tuple) -> None:
@@ -253,6 +379,18 @@ def _check_planes(q_hi, q_lo, scale, bits: int, lead: tuple) -> None:
     _check(scale, "scale", torch.float32, lead + (1,))
 
 
+def _decode(name: str, q_hi, q_lo, scale, bits: int, out: torch.Tensor,
+            m: int, n: int, shards: int, inner: int) -> torch.Tensor:
+    """Launch the decode kernel from checked planes of ``shards * m`` rows
+    into the fresh ``out`` (f32, bf16 or f16)."""
+    if out.numel():
+        _launch(name, shards * m, bits, q_hi, _load().bq_decode,
+                q_hi.data_ptr(), _ptr(q_lo), scale.data_ptr(), out.data_ptr(),
+                _DTYPE_CODE[out.dtype], m, n, shards, inner, bits,
+                _INV_QMAX[bits])
+    return out
+
+
 def bq_decode(q_hi, q_lo, scale, bits: int) -> torch.Tensor:
     """Wire planes ``(M, w)`` + scale ``(M, 1)`` -> ``(M, 128)`` f32."""
     ref._check_bits(bits)
@@ -261,11 +399,43 @@ def bq_decode(q_hi, q_lo, scale, bits: int) -> torch.Tensor:
     m = q_hi.shape[0]
     _check_planes(q_hi, q_lo, scale, bits, (m,))
     out = torch.empty((m, BLOCK), dtype=torch.float32, device=q_hi.device)
-    if m:
-        _launch("bq_decode", q_hi, _load().bq_decode, q_hi.data_ptr(),
-                _ptr(q_lo), scale.data_ptr(), out.data_ptr(), m, bits,
-                _INV_QMAX[bits])
-    return out
+    return _decode("bq_decode", q_hi, q_lo, scale, bits, out, m, m * BLOCK, 1,
+                   m * BLOCK)
+
+
+def bq_decode_flat(q_hi, q_lo, scale, bits: int, n: int,
+                   dtype=torch.float32, shards: int = 1,
+                   inner: int | None = None) -> torch.Tensor:
+    """Wire planes of ``shards`` encodes of n values each, stacked on a
+    leading axis (``(S, M, w)``; ``(M, w)`` for one) -> the ``S * n``
+    values, 1-D, in ``dtype``, in one launch: shard s's value f goes to
+    ``(f // inner) * S * inner + s * inner + f % inner``.  That is
+    ``decode(planes).reshape(S, -1)[:, :n].reshape((S,) + shape).to(dtype)``
+    moved to put the shard axis before the axis whose trailing size is
+    ``inner = prod(shape[axis_dim:])`` and flattened: the compressed
+    all-gather's tail (with one shard, ``from_blocks``).  bf16, f16 and f32
+    are written by the kernel (rounded to nearest even, as ``.to()``);
+    other types are decoded to f32 and cast by torch.  At most 65535
+    shards (the kernel's grid has one row of blocks per shard)."""
+    ref._check_bits(bits)
+    inner = (n or 1) if inner is None else inner
+    if n < 0 or inner <= 0 or n % inner or not 1 <= shards <= 65535:
+        raise ValueError(f"bad layout: n={n}, inner={inner}, shards={shards}")
+    if _on_cpu(q_hi, q_lo, scale):
+        return decode_flat_plain(q_hi, q_lo, scale, bits, n, dtype, shards,
+                                 inner)
+    lead = tuple(scale.shape[:-1])
+    _check_planes(q_hi, q_lo, scale, bits, lead)
+    rows = scale.numel()
+    m = rows // shards
+    if rows != m * shards or n > m * BLOCK:
+        raise ValueError(f"{rows} wire rows do not hold {shards} shards of "
+                         f"{n} values")
+    kind = dtype if dtype in _DTYPE_CODE else torch.float32
+    out = torch.empty(shards * n, dtype=kind, device=q_hi.device)
+    out = _decode("bq_decode_flat", q_hi, q_lo, scale, bits, out, m, n,
+                  shards, inner)
+    return out if kind == dtype else out.to(dtype)
 
 
 def bq_gather_decode(q_hi, q_lo, scale, idx: torch.Tensor,
@@ -288,7 +458,8 @@ def bq_gather_decode(q_hi, q_lo, scale, idx: torch.Tensor,
                       dtype=torch.float32, device=q_hi.device)
     n_idx = idx.numel()
     if n_idx and rows_per_block:
-        _launch("bq_gather_decode", q_hi, _load().bq_gather_decode,
+        _launch("bq_gather_decode", n_idx * rows_per_block, bits, q_hi,
+                _load().bq_gather_decode,
                 q_hi.data_ptr(), _ptr(q_lo), scale.data_ptr(),
                 idx.data_ptr(), n_idx, n_blocks, rows_per_block,
                 out.data_ptr(), bits, _INV_QMAX[bits])
@@ -312,15 +483,12 @@ def bq_decode_add_encode(q_hi, q_lo, scale, local, bits: int,
     _check_planes(q_hi, q_lo, scale, bits, (m,))
     _check_local(local, m)
     dev = q_hi.device
-    o_hi = torch.empty((m, hi_width(bits)), dtype=hi_dtype(bits), device=dev)
-    o_lo = (torch.empty((m, BLOCK), dtype=torch.uint8, device=dev)
-            if bits == 24 else None)
-    o_scale = torch.empty((m, 1), dtype=torch.float32, device=dev)
+    o_hi, o_lo, o_scale = _wire_empty(m, bits, dev)
     s = (torch.empty((m, BLOCK), dtype=torch.float32, device=dev)
          if want_sum else None)
     if m:
         _launch("bq_decode_add_encode" if want_sum
-                else "bq_decode_add_encode_wire", q_hi,
+                else "bq_decode_add_encode_wire", m, bits, q_hi,
                 _load().bq_decode_add_encode, q_hi.data_ptr(), _ptr(q_lo),
                 scale.data_ptr(), local.data_ptr(), o_hi.data_ptr(),
                 _ptr(o_lo), o_scale.data_ptr(), _ptr(s), m, bits,
@@ -338,7 +506,7 @@ def bq_decode_add(q_hi, q_lo, scale, local, bits: int) -> torch.Tensor:
     _check_local(local, m)
     out = torch.empty((m, BLOCK), dtype=torch.float32, device=q_hi.device)
     if m:
-        _launch("bq_decode_add", q_hi, _load().bq_decode_add,
+        _launch("bq_decode_add", m, bits, q_hi, _load().bq_decode_add,
                 q_hi.data_ptr(), _ptr(q_lo), scale.data_ptr(),
                 local.data_ptr(), out.data_ptr(), m, bits, _INV_QMAX[bits])
     return out

@@ -9,17 +9,21 @@ against it on the card.
 Shape handling follows ``repro.kernels.ops``: tensors of any shape are
 flattened, zero-padded to whole ``(TILE_M, BLOCK)`` tiles and viewed as an
 ``(M, 128)`` block matrix.  The padding fixes the wire bytes, so it is kept
-exactly.
+exactly.  On the card the tensor-level ops (:func:`bq_encode`,
+:func:`bq_decode`, :func:`bq_decode_gathered`) do that layout work inside
+one kernel launch (``bq.bq_encode_flat``, ``bq.bq_decode_flat``);
+``backend="torch"`` runs the plain sequence of block ops.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
 from repro_torch.kernels import bq, ref
 from repro_torch.kernels.ref import BLOCK
 
-_TILE_ELEMS = bq.TILE_M * BLOCK
 _BACKENDS = (None, "torch")
 _DEFAULT_BACKEND = None
 
@@ -43,19 +47,10 @@ def _plain(backend) -> bool:
     return (backend or _DEFAULT_BACKEND) == "torch"
 
 
-def padded_rows(n: int) -> int:
-    """Number of BLOCK-wide rows after padding n elements to whole tiles."""
-    n_pad = max(-(-n // _TILE_ELEMS), 1) * _TILE_ELEMS
-    return n_pad // BLOCK
-
-
-def to_blocks(x: torch.Tensor) -> torch.Tensor:
-    """Flatten + zero-pad to an (M, 128) f32 block matrix."""
-    flat = x.reshape(-1).to(torch.float32)
-    n = flat.shape[0]
-    m = padded_rows(n)
-    flat = torch.nn.functional.pad(flat, (0, m * BLOCK - n))
-    return flat.reshape(m, BLOCK)
+padded_rows = bq.padded_rows
+to_blocks = bq.to_blocks
+ungather = bq.ungather
+gathered_shape = bq.gathered_shape
 
 
 def from_blocks(x2d: torch.Tensor, shape, dtype=torch.float32) -> torch.Tensor:
@@ -146,9 +141,35 @@ def bq_gather_decode(wire: dict, idx: torch.Tensor, bits: int,
 # --------------------------------------------------------------------------
 
 def bq_encode(x: torch.Tensor, bits: int, backend=None) -> dict:
-    return bq_encode_blocks(to_blocks(x), bits, backend)
+    """Any-shape tensor -> the wire dict of ``to_blocks(x)``."""
+    if _plain(backend):
+        return bq_encode_blocks(to_blocks(x), bits, backend)
+    hi, lo, scale = bq.bq_encode_flat(x, bits)
+    return {"q_hi": hi, "q_lo": lo, "scale": scale}
 
 
 def bq_decode(wire: dict, bits: int, shape, dtype=torch.float32,
               backend=None) -> torch.Tensor:
-    return from_blocks(bq_decode_blocks(wire, bits, backend), shape, dtype)
+    """Wire dict -> the tensor of ``shape`` in ``dtype``."""
+    if _plain(backend):
+        return from_blocks(bq_decode_blocks(wire, bits, backend), shape,
+                           dtype)
+    return bq.bq_decode_flat(wire["q_hi"], wire["q_lo"], wire["scale"], bits,
+                             math.prod(shape), dtype).reshape(tuple(shape))
+
+
+def bq_decode_gathered(wire: dict, bits: int, shape, dtype, axis_dim: int,
+                       backend=None) -> torch.Tensor:
+    """Wire dict of S shards' encodes stacked on a leading axis (planes
+    ``[S, M, w]``) -> the S decoded tensors of ``shape`` joined along
+    ``axis_dim``, in ``dtype``: the compressed all-gather's tail.  On the
+    card one launch of ``bq.bq_decode_flat``; ``backend="torch"`` the plain
+    :func:`ungather` of the decoded blocks."""
+    if _plain(backend):
+        return ungather(bq_decode_blocks(wire, bits, backend), shape, dtype,
+                        axis_dim)
+    s = wire["scale"].shape[0]
+    out = bq.bq_decode_flat(wire["q_hi"], wire["q_lo"], wire["scale"], bits,
+                            math.prod(shape), dtype, shards=s,
+                            inner=math.prod(shape[axis_dim:]))
+    return out.reshape(gathered_shape(shape, s, axis_dim))

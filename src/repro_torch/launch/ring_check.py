@@ -44,14 +44,14 @@ def rank_input(payload, rank: int, device) -> torch.Tensor:
     return x.to(device)
 
 
-def _run_op(op, x, axis, n):
+def _run_op(op, x, axis, n, axis_dim=0):
     from repro_torch.core import comms
     if op == "psum":
         return {"out": comms.psum(x, axis, "dp")}
     if op == "reduce_scatter":
         return {"out": comms.reduce_scatter(x, axis, 0, "dp")}
     if op == "all_gather":
-        return {"out": comms.all_gather(x, axis, 0, "dp")}
+        return {"out": comms.all_gather(x, axis, axis_dim, "dp")}
     if op in ("reduce_scatter_flat", "all_gather_flat"):
         chunk = comms.reduce_scatter_flat(x.reshape(-1), axis, "dp")
         if op == "reduce_scatter_flat":
@@ -70,6 +70,11 @@ def _run_op(op, x, axis, n):
         perm = [(j, (j + 1) % n) for j in range(n)]
         return {"out": comms._ppermute_impl(x, axis, perm, codec)}
     raise ValueError(f"unknown op {op!r}; have {OPS}")
+
+
+def _report_dtype(dtype):
+    """numpy has no bf16: report it as f32 (exact)."""
+    return torch.float32 if dtype == torch.bfloat16 else dtype
 
 
 def _init_states(op: str, codec, x: torch.Tensor, n: int) -> dict:
@@ -97,8 +102,9 @@ def _state_leaves(states: dict, prefix: str = "state") -> dict:
 
 def collectives_rank(*, rank: int, world: int, cases: list, payload,
                      device="cpu", backend=None, digest: bool = False):
-    """Run ``cases`` (dicts of ``op``, ``codec``, ``bidir``, ``chunks``) on
-    this rank over an axis ``"x"`` of the whole world."""
+    """Run ``cases`` (dicts of ``op``, ``codec``, ``bidir``, ``chunks``, and
+    optionally ``axis_dim`` for ``all_gather`` and the input's ``dtype``)
+    on this rank over an axis ``"x"`` of the whole world."""
     from repro_torch.core import codecs, comms, policy
     from repro_torch.kernels import bq, lowrank, ops
     from repro_torch.launch.train import rank_device
@@ -106,9 +112,10 @@ def collectives_rank(*, rank: int, world: int, cases: list, payload,
     dev = rank_device(device, rank)
     ops.set_default_backend(backend)
     axis = comms.Axis("x", world, rank, None, tuple(range(world)))
-    x = rank_input(payload, rank, dev)
+    x0 = rank_input(payload, rank, dev)
     out = []
     for case in cases:
+        x = x0.to(getattr(torch, case.get("dtype", "float32")))
         plan = policy.CommPolicy(f"rc_{case['codec']}",
                                  rules=(policy.Rule(case["codec"]),)).compile()
         codec = codecs.get(case["codec"])
@@ -124,7 +131,8 @@ def collectives_rank(*, rank: int, world: int, cases: list, payload,
                                    case.get("chunks", 1)), \
                 (comms.codec_state_io(states) if codec.stateful
                  else contextlib.nullcontext()) as cio:
-            res = _run_op(case["op"], x, axis, world)
+            res = _run_op(case["op"], x, axis, world,
+                          case.get("axis_dim", 0))
             if codec.stateful:
                 res["out2"] = _run_op(case["op"], x, axis, world)["out"]
         if codec.stateful:
@@ -132,7 +140,8 @@ def collectives_rank(*, rank: int, world: int, cases: list, payload,
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         secs = time.perf_counter() - t0
-        res = {k: _digest(v) if digest else v.detach().cpu().numpy()
+        res = {k: _digest(v) if digest else
+               v.detach().cpu().to(_report_dtype(v.dtype)).numpy()
                for k, v in res.items()}
         out.append({"case": case, "result": res, "events": list(events),
                     "wire": list(events.wire),

@@ -274,7 +274,8 @@ def train_rank(*, rank: int = 0, world: int = 1, arch: str,
     a pickle of the reference's global codec state (numpy leaves) to start
     from instead of this package's own init.  Returns this rank's metrics:
     losses, grad norms, step seconds, the staged bytes and (under
-    ``time_staging``) seconds, peak device memory, kernel launches, the
+    ``time_staging``) seconds, peak device memory, kernel launches (also
+    by bq kernel, wire rows and rate), the
     first step's ledger per dimension (measured wire bytes and the priced
     analytic events), and per codec-state slot its residual energy and
     factor rank after the last step."""
@@ -366,6 +367,7 @@ def train_rank(*, rank: int = 0, world: int = 1, arch: str,
         torch.save(trainer.opt.last_flat_grad.cpu(), flat_grad_out)
         trainer.opt.last_flat_grad = None
     out["launches"] = {**bq.LAUNCHES, **lowrank.LAUNCHES}
+    out["launch_shapes"] = bq.launch_shapes()
     out["codec_state"] = {
         k: {"residual_sq": float(codecs.state_residual_sq(st)),
             "rank": codecs.state_rank(st)} for k, st in cstate.items()}

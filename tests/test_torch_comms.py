@@ -14,6 +14,10 @@ Contract asserted here:
     analytic events and measured wire events are equal, event for event;
   * under ``none`` the outputs agree to f32 rounding (gloo and XLA sum in
     different orders) and the ledger bytes are equal;
+  * ``all_gather`` of a bf16 ``[2, 8, 64]`` activation along axis 0, 1 and
+    2 under bq16 (the card's fused gathered decode), and along axis 1
+    under gq8 (the codec's default decode tail), bit-equal in a world of
+    2;
   * carried-state codecs over worlds of 2 and 4, each collective called
     twice in one ``codec_state_io`` region (the second call sees the
     first's state): ``ef:bq8`` (``reduce_scatter_flat``, ``psum``,
@@ -49,6 +53,7 @@ ROOT = Path(__file__).resolve().parents[1]
 WORLDS = (2, 3, 4)
 STATEFUL_WORLDS = (2, 4)
 BIG, SMALL = (48, 1000), (12, 37)
+ACT = (2, 8, 64)                       # a bf16 activation shard
 # plr8 / ef:plr8 against the reference, relative to the largest entry of
 # each output, residual or factor.  Measured on these inputs: at most
 # 1.8e-6 (worlds of 2 and 4).
@@ -74,6 +79,14 @@ def _cases(n: int) -> list:
     for op in ("psum", "reduce_scatter", "all_gather"):
         out.append(dict(op=op, codec="none", bidir=False, chunks=1,
                         shape=BIG))
+    if n == 2:
+        # a bf16 activation gathered along each axis: bq16 in one fused
+        # decode on the card, gq8 through the codec's default tail
+        for codec, axis_dim in (("bq16", 0), ("bq16", 1), ("bq16", 2),
+                                ("gq8", 1)):
+            out.append(dict(op="all_gather", codec=codec, bidir=False,
+                            chunks=1, shape=ACT, axis_dim=axis_dim,
+                            dtype="bfloat16"))
     return out
 
 
@@ -138,7 +151,7 @@ def _reference(out_path: str) -> None:
         ref.bq_decode_ref(q_hi, q_lo, scale, bits),
         local.astype(jnp.float32)), static_argnames=st)
 
-    def body(op, n, codec_name):
+    def body(op, n, codec_name, axis_dim=0):
         def f(xl):
             x = xl[0]
             if op == "psum":
@@ -146,7 +159,7 @@ def _reference(out_path: str) -> None:
             elif op == "reduce_scatter":
                 outs = {"out": comms.reduce_scatter(x, "x", 0, "dp")}
             elif op == "all_gather":
-                outs = {"out": comms.all_gather(x, "x", 0, "dp")}
+                outs = {"out": comms.all_gather(x, "x", axis_dim, "dp")}
             elif op in ("reduce_scatter_flat", "all_gather_flat"):
                 ch = comms.reduce_scatter_flat(x.reshape(-1), "x", "dp")
                 outs = {"out": ch if op == "reduce_scatter_flat" else
@@ -194,19 +207,24 @@ def _reference(out_path: str) -> None:
         for i, case in enumerate(_cases(n)):
             plan = policy.CommPolicy(
                 "rc", rules=(policy.Rule(case["codec"]),)).compile()
-            x = jnp.asarray(_inputs(n, case["shape"]))
+            x = jnp.asarray(_inputs(n, case["shape"])).astype(
+                case.get("dtype", "float32"))
 
             def wrapped(xl, case=case):
                 with policy.use_plan(plan), comms.ring_options(
                         case["bidir"], case["chunks"]):
-                    return body(case["op"], n, case["codec"])(xl)
+                    return body(case["op"], n, case["codec"],
+                                case.get("axis_dim", 0))(xl)
             fn = jax.jit(compat.shard_map(wrapped, mesh=mesh,
                                           in_specs=(P("x"),),
                                           out_specs=P("x"),
                                           check_vma=False))
             with comms.record_traffic() as events:
                 out = jax.block_until_ready(fn(x))
-            res[(n, i)] = ({k: np.asarray(v) for k, v in out.items()},
+            # bf16 outputs as f32 (exact), as the port reports them
+            res[(n, i)] = ({k: np.asarray(v.astype(jnp.float32) if
+                                       v.dtype == jnp.bfloat16 else v)
+                            for k, v in out.items()},
                            list(events), list(events.wire))
         if n not in STATEFUL_WORLDS:
             continue

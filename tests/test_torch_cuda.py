@@ -9,7 +9,12 @@ fused ring hop with the sum and wire-only, decode-add) equals its plain
 PyTorch version bit for bit at rates 4/8/16/24 on random, all-zero,
 extreme-magnitude and denormal rows; a block id outside the pool decodes to NaN without
 disturbing the other rows; each wrapper counts exactly its own launches;
-tensors of the wrong dtype, shape or device raise.
+tensors of the wrong dtype, shape or device raise.  The flat encode and
+decode (``bq_encode_flat`` from bf16, f16, f32 and int32;
+``bq_decode_flat`` to the three float types, of one shard and of 2 or 3
+shards joined along every axis) equal their plain versions bit for bit
+(NaN by position) at n from 0 to the TP activation's 1179648 values, one
+launch each; misaligned and strided inputs are encoded by the kernel.
 
 The lowrank matmul's three forms (``tall``, ``at_b``, ``small_k``) at
 small, ragged and the training step's shapes (gemma3-1b's per-rank
@@ -81,7 +86,8 @@ def test_kernels_match_plain(cuda, bits):
     assert torch.equal(ops.bq_gather_decode(pool, idx, bits),
                        ops.bq_gather_decode(pool, idx, bits, backend="torch"))
     torch.cuda.synchronize()
-    assert bq.LAUNCHES == {"bq_encode": 1, "bq_decode": 1,
+    assert bq.LAUNCHES == {"bq_encode": 1, "bq_encode_flat": 0,
+                           "bq_decode": 1, "bq_decode_flat": 0,
                            "bq_gather_decode": 1, "bq_decode_add_encode": 0,
                            "bq_decode_add_encode_wire": 0,
                            "bq_decode_add": 0}
@@ -158,6 +164,148 @@ def test_fused_hops_validate_inputs(cuda):
     with pytest.raises(ValueError):         # and be contiguous
         bq.bq_decode_add(w["q_hi"], None, w["scale"],
                          torch.zeros(128, 16, device=cuda).t(), 8)
+
+
+# --------------------------------------------------------------------------
+# the flat encode and decode (the TP all-gather's, fused with its layout)
+# --------------------------------------------------------------------------
+
+FLAT_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
+FLAT_N = (0, 1, 127, 1025, 70000, 2 * 512 * 1152)
+
+
+def _flat(n: int, dtype, seed: int, dev) -> torch.Tensor:
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(n, generator=g) * 50
+    if n > 512:
+        x[:128] = _rows(8, seed, "cpu")[1]      # near f32 max
+        x[128:256] = 0.0
+        x[256:384] *= 1e4                       # past the f16 range
+    return x.to(dtype).to(dev)
+
+
+def _same_bits(a, b) -> bool:
+    """Bit for bit, but NaN only by position (payloads may differ)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if not a.dtype.is_floating_point:
+        return torch.equal(a, b)
+    na, nb = a.isnan(), b.isnan()
+    return torch.equal(na, nb) and torch.equal(a[~na], b[~nb])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", BITS)
+@pytest.mark.parametrize("dtype", FLAT_DTYPES + (torch.int32,))
+def test_flat_forms_match_plain(cuda, bits, dtype):
+    """bq_encode_flat equals bq_encode(to_blocks(x)) and bq_decode_flat
+    equals from_blocks(decode) cast to the type, bit for bit (NaN by
+    position: scales of inf and NaN are planted); one launch each."""
+    for n in FLAT_N:
+        x = _flat(n, dtype, bits + n, cuda)
+        bq.reset_launches()
+        got = bq.bq_encode_flat(x, bits)
+        want = bq.encode_flat_plain(x, bits)
+        assert bq.LAUNCHES["bq_encode_flat"] == 1
+        rows = ops.padded_rows(n)
+        assert bq.LAUNCH_SHAPES == {("bq_encode_flat", rows, bits): 1}
+        for k, a, b in zip(PLANES, got, want):
+            assert (a is None) == (b is None), k
+            if b is not None:
+                assert torch.equal(a, b), (n, k)
+        if dtype == torch.int32:
+            continue
+        w = [t.clone() if t is not None else None for t in want]
+        if rows > 8:
+            w[2][1], w[2][2] = float("inf"), float("nan")
+        d = bq.bq_decode_flat(*w, bits, n, dtype)
+        torch.cuda.synchronize()
+        assert _same_bits(d, bq.decode_flat_plain(*w, bits, n, dtype)), n
+        assert bq.LAUNCHES["bq_decode_flat"] == (1 if n else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", BITS)
+@pytest.mark.parametrize("dtype", FLAT_DTYPES)
+def test_gathered_decode_matches_plain(cuda, bits, dtype):
+    """The all-gather's tail in one launch: 2 and 3 shards joined along
+    every axis equal the plain block decode, strip, cast and movedim."""
+    for shape in ((3, 5, 7), (2, 8, 64), (2, 512, 1152)):
+        for shards in (2, 3):
+            n = 1
+            for d in shape:
+                n *= d
+            ws = [ops.bq_encode(_flat(n, dtype, s, cuda).reshape(shape),
+                                bits, backend="torch") for s in range(shards)]
+            gw = {k: None if ws[0][k] is None else
+                  torch.stack([w[k] for w in ws]) for k in PLANES}
+            for ax in range(len(shape)):
+                bq.reset_launches()
+                got = ops.bq_decode_gathered(gw, bits, shape, dtype, ax)
+                want = ops.bq_decode_gathered(gw, bits, shape, dtype, ax,
+                                              backend="torch")
+                torch.cuda.synchronize()
+                assert bq.LAUNCHES["bq_decode_flat"] == 1
+                assert _same_bits(got, want), (shape, shards, ax)
+
+
+def _division_rows(m: int, seed: int, dev) -> torch.Tensor:
+    """Rows whose scales span 2^-70 .. 2^110 (both sides of the encode's
+    fast-division range) with uniform values, powers of two of the scale,
+    and values near the rounding boundaries of every rate."""
+    g = torch.Generator().manual_seed(seed)
+    scale = torch.exp2(torch.rand(m, 1, generator=g) * 180 - 70)
+    u = torch.rand(m, 128, generator=g) * 2 - 1
+    x = u * scale
+    x[0::5] = torch.exp2(-torch.randint(0, 40, (len(x[0::5]), 128),
+                                        generator=g).float()) * \
+        torch.sign(u[0::5]) * scale[0::5]
+    for i, qmax in enumerate((7, 127, 32767, 8388607)):
+        rows = x[1 + i::5]
+        k = torch.randint(-qmax, qmax, rows.shape, generator=g).double()
+        rows.copy_(((k + 0.5) / qmax * scale[1 + i::5].double()).float())
+    x[:, 0] = scale[:, 0]                       # each row reaches its scale
+    return x.to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", BITS)
+def test_encode_division_matches_plain(cuda, bits):
+    """The encode kernel's per-row-reciprocal division equals the plain
+    version's IEEE division on 65536 rows across and beyond its range."""
+    x2d = _division_rows(65536, bits, cuda)
+    for got, want in ((bq.bq_encode(x2d, bits), bq.encode_plain(x2d, bits)),
+                      (bq.bq_encode_flat(x2d.to(torch.bfloat16), bits),
+                       bq.encode_flat_plain(x2d.to(torch.bfloat16), bits))):
+        for k, a, b in zip(PLANES, got, want):
+            assert (a is None) == (b is None), k
+            if b is not None:
+                assert torch.equal(a, b), k
+
+
+@pytest.mark.cuda
+def test_flat_wrappers_take_any_layout_and_validate(cuda):
+    """A misaligned or strided input is encoded by the kernel (strided:
+    made contiguous first), never by the plain version; malformed wires
+    raise."""
+    x = _flat(70001, torch.bfloat16, 3, cuda)
+    for view in (x[1:], x[::3], x[:-1].reshape(2, -1).t()):
+        bq.reset_launches()
+        got = bq.bq_encode_flat(view, 16)
+        assert bq.LAUNCHES["bq_encode_flat"] == 1
+        for a, b in zip(got, bq.encode_flat_plain(view, 16)):
+            assert (a is None and b is None) or torch.equal(a, b)
+    w = bq.bq_encode_flat(x, 8)
+    with pytest.raises(ValueError):          # 70001 values > 1 shard's rows
+        bq.bq_decode_flat(*w, 8, 70001 + 1024, torch.bfloat16)
+    with pytest.raises(ValueError):          # 552 rows in 5 shards
+        bq.bq_decode_flat(*w, 8, 100, torch.bfloat16, shards=5)
+    with pytest.raises(ValueError):          # inner must divide n
+        bq.bq_decode_flat(*w, 8, 100, torch.bfloat16, inner=7)
+    with pytest.raises(TypeError):           # the wire's type
+        bq.bq_decode_flat(w[0].view(torch.uint8), None, w[2], 8, 100)
+    with pytest.raises(ValueError):          # non-contiguous planes
+        bq.bq_decode_flat(w[0][::2], None, w[2][::2], 8, 100)
 
 
 # --------------------------------------------------------------------------

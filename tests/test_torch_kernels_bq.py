@@ -9,7 +9,14 @@ Contract asserted here:
     wire_nbytes) equal the reference's;
   * the fixed-rate error bound holds and equals the reference's;
   * a CPU tensor runs the plain version and launches nothing; a tensor on
-    another device raises instead of running on the CPU.
+    another device raises instead of running on the CPU;
+  * the tensor-level ops that the card runs as one fused launch
+    (``ops.bq_encode`` from bf16, f16, f32 and int32; ``ops.bq_decode``
+    back to the type; ``ops.bq_decode_gathered``, the all-gather's tail)
+    equal the reference's ``ops.bq_encode`` / ``ops.bq_decode`` (jnp
+    oracles) bit for bit at rates 4, 8, 16 and 24 on ragged n, and the
+    gathered decode equals the reference's per-shard decodes joined along
+    each axis.
 
 The CUDA kernels themselves are held against the plain versions on the
 card by ``test_torch_cuda.py`` and ``chip_smoke.py``.
@@ -155,6 +162,80 @@ def test_gather_decode_matches_pallas(bits):
 
 
 # --------------------------------------------------------------------------
+# tensor-level ops (the card's flat encode and decode) vs the reference
+# --------------------------------------------------------------------------
+
+FLAT_N = (1, 127, 1023, 1025, 70000)
+FLAT_DTYPES = ("bfloat16", "float16", "float32", "int32")
+
+
+def _flat_pair(n: int, dtype: str, seed: int):
+    """The same n values as a jnp array and a torch tensor of ``dtype``:
+    f32 normals x 50 with an all-zero, a signed-zero and an f16-max-range
+    row, cast by each framework (round to nearest even in both), or
+    integers for int32."""
+    rng = np.random.default_rng(seed)
+    if dtype == "int32":
+        x = rng.integers(-5000, 5000, n).astype(np.int32)
+        return jnp.asarray(x), torch.from_numpy(x)
+    x = (rng.normal(size=n) * 50).astype(np.float32)
+    sp = special_rows()[[0, 6, 15]].reshape(-1)
+    k = min(n, sp.size)
+    x[:k] = sp[:k]
+    return (jnp.asarray(x).astype(getattr(jnp, dtype)),
+            torch.from_numpy(x).to(getattr(torch, dtype)))
+
+
+def _bits(a) -> np.ndarray:
+    """The raw bits of a decoded array (numpy, ml_dtypes or torch)."""
+    if isinstance(a, torch.Tensor):
+        a = (a.view(torch.int16) if a.element_size() == 2 else a).numpy()
+    a = np.asarray(a)
+    return a.view({2: np.uint16, 4: np.uint32}[a.dtype.itemsize])
+
+
+@pytest.mark.parametrize("bits", BITS)
+@pytest.mark.parametrize("dtype", FLAT_DTYPES)
+@pytest.mark.parametrize("n", FLAT_N)
+def test_flat_encode_decode_match_reference(bits, dtype, n):
+    jx, tx = _flat_pair(n, dtype, seed=n + bits)
+    jw = jops.bq_encode(jx, bits, backend="jnp")
+    tw = tops.bq_encode(tx, bits)
+    _assert_wire_equal(jw, tw)
+    jd = jops.bq_decode(jw, bits, (n,), getattr(jnp, dtype), backend="jnp")
+    td = tops.bq_decode(tw, bits, (n,), getattr(torch, dtype))
+    assert td.dtype == tx.dtype and tuple(td.shape) == (n,)
+    np.testing.assert_array_equal(_bits(jd), _bits(td))
+
+
+@pytest.mark.parametrize("bits", BITS)
+@pytest.mark.parametrize("dtype", FLAT_DTYPES[:3])
+@pytest.mark.parametrize("axis_dim", [0, 1, 2])
+def test_gathered_decode_matches_reference(bits, dtype, axis_dim):
+    """Two shards' wires stacked (as the all-gather stacks them) decode to
+    the reference's per-shard decodes joined along ``axis_dim``."""
+    shape = (2, 8, 64)
+    pairs = [_flat_pair(2 * 8 * 64, dtype, seed=s) for s in range(2)]
+    jws = [jops.bq_encode(j.reshape(shape), bits, backend="jnp")
+           for j, _ in pairs]
+    tws = [tops.bq_encode(t.reshape(shape), bits) for _, t in pairs]
+    for jw, tw in zip(jws, tws):
+        _assert_wire_equal(jw, tw)
+    gw = {k: None if tws[0][k] is None else
+          torch.stack([w[k] for w in tws]) for k in PLANES}
+    td = tops.bq_decode_gathered(gw, bits, shape, getattr(torch, dtype),
+                                 axis_dim)
+    jd = np.concatenate([np.asarray(jops.bq_decode(
+        jw, bits, shape, getattr(jnp, dtype), backend="jnp"))
+        for jw in jws], axis=axis_dim)
+    assert tuple(td.shape) == jd.shape
+    np.testing.assert_array_equal(_bits(jd), _bits(td))
+    plain = tops.bq_decode_gathered(gw, bits, shape, getattr(torch, dtype),
+                                    axis_dim, backend="torch")
+    assert torch.equal(plain, td)
+
+
+# --------------------------------------------------------------------------
 # block-matrix helpers and constants
 # --------------------------------------------------------------------------
 
@@ -220,3 +301,23 @@ def test_non_cpu_tensor_never_runs_plain():
         tbq.bq_encode(x, 8)
     with pytest.raises(ValueError):
         tops.bq_encode_blocks(x, 8, backend="triton")
+
+
+def test_flat_ops_on_cpu_run_plain_and_launch_nothing():
+    tbq.reset_launches()
+    x = torch.from_numpy(_rand((3, 5, 7), seed=4)).to(torch.bfloat16)
+    hi, lo, scale = tbq.bq_encode_flat(x, 16)
+    want = tbq.encode_plain(tops.to_blocks(x), 16)
+    assert lo is None and torch.equal(hi, want[0]) and \
+        torch.equal(scale, want[2])
+    wire = {"q_hi": torch.stack([hi, hi]), "q_lo": None,
+            "scale": torch.stack([scale, scale])}
+    got = tbq.bq_decode_flat(wire["q_hi"], None, wire["scale"], 16, 105,
+                             torch.bfloat16, shards=2, inner=35)
+    assert torch.equal(got.reshape(3, 10, 7), tops.ungather(
+        tops.bq_decode_blocks(wire, 16), (3, 5, 7), torch.bfloat16, 1))
+    assert not any(tbq.LAUNCHES.values()) and not tbq.LAUNCH_SHAPES
+    with pytest.raises(ValueError):
+        tbq.bq_encode_flat(torch.empty(8, device="meta"), 8)
+    with pytest.raises(ValueError):          # inner must divide n
+        tbq.bq_decode_flat(hi, None, scale, 16, 105, inner=10)
