@@ -4,9 +4,11 @@
     python3 chip_smoke.py            # from the root of a checkout
     python3 chip_smoke.py --bq-only  # phase 1 and the bq timings alone
 
-``--bq-only`` prints the bq kernels' and the TP all-gather ops' timings
-and stops; copied into a checkout of another commit it times that
-commit's kernels the same way, so two trees compare in one call.
+``--bq-only`` prints the bq kernels' timings and those of the fused TP
+all-gather, TP reduce-scatter and KV-read ops beside the compositions
+they replace, and stops; copied into a checkout of another commit it
+times that commit's kernels the same way (an op the commit lacks is
+skipped), so two trees compare in one call.
 
 Phase 1 builds the kernels from src/repro_torch/kernels/csrc with nvcc (one
 nvcc per source, all started together), in this process, before any rank
@@ -31,6 +33,13 @@ integer operands in [-2, 2] (exact in any sum order), within
 lowrank.error_bound of them and within lowrank.order_bound of the f64
 product on normal operands, and a second call repeating bit for bit; it
 times the plr step's Gram-Schmidt at the same shapes.  It
+holds the TP reduce-scatter's shard-view forms (the view encode, the
+wire-only hop reading its local chunk through the view, the fused
+decode-add writing bf16, f16 or f32 to its place in the chunk) against
+their plain versions bit for bit (NaN by position), every chunk of
+payloads split 2, 3 and 4 ways along each axis and of the TP shapes, on
+whole chunks and ring parts, and the fused KV read (gather-decode writing
+bf16, f16 or f32 at a width) against gather-decode, slice and cast.  It
 times every kernel and its plain version beside its bound: device time
 with the L2 flushed before each call (the time the kernel line reports),
 device time by CUDA-graph replay on warm L2, and the time per eager call;
@@ -41,12 +50,18 @@ activation as the path calls them (the fused ops), as it called them
 before (cast, padded copy and block encode; block decode, strip, cast
 and movedim copy) and through the plain versions, with the kernels' own
 times, a copy of the same bytes as the floor, and the host's time per
-step of each.
+step of each; the same for the TP reduce-scatter's end at tp 2 (bf16
+[2, 1024, 1152] and [2, 1024, 256] along axis 1: the view encode and the
+fused decode-add, alone and together, against ``_split_for_scatter``,
+block encode, block decode-add and ``from_blocks``) and for the paged KV
+read at the serving table (the fused read against gather-decode and
+cast).
 Phase 3 serves gemma3-1b (full published width and depth) by continuous
 batching over a bq8 paged KV pool, 8 requests of
 560 + 24 tokens on 8 slots, through the kernels, through their plain
 versions and with a dense pool, and requires identical tokens and pool
-planes between the first two and the bq8 error bound against the third.
+planes between the first two and the bq8 error bound against the third,
+and the KV read through the fused form only.
 Phase 4 drives the main path: the compressed ZeRO-1, Megatron-SP training
 step of gemma3-1b at full published width and depth (bf16 weights from a
 seed), 5 steps at dp 2 x tp 2 (four ranks sharing the card, exchanging
@@ -55,8 +70,9 @@ the kernels, through their plain versions, and under baseline, with
 deterministic algorithms and TF32 off and the exchanges timed (a device
 drain before each, to split the step into compute and exchange).  It requires equal losses, grad
 norms and per-dimension ledger bytes between the first two, launches of
-the fused hops and of the flat encode and decode in the first and none
-in the second, every loss finite and
+the fused hops, of the flat encode and decode and of the view encode and
+fused decode-add in the first and none in the second, no block encode or
+decode-add at the TP reduce-scatters' rows, every loss finite and
 within 1 % of baseline's, and the dp and zero wire bytes below baseline's
 by their codecs' ratios.
 Phase 5 runs reduce_scatter_flat and the all-reduce ring over a 4-rank
@@ -82,9 +98,10 @@ Every line with a number carries the card's name and power limit.  Before
 the last line come the kernel JSON (all six kernels: launches on their
 path, cold-L2 device time at the path's shape, bound, plain time, and the
 library call's time where one exists; the encode and decode also with
-their flat form, and the bq kernels with the per-shape reckoning) and the
-card line; the last line is
-the result JSON.  Any failure exits non-zero;
+their flat form, the encode and decode-add with the TP reduce-scatter's
+view forms, the gather-decode's times those of the fused KV read, and
+the bq kernels with the per-shape reckoning) and the card line; the last
+line is the result JSON.  Any failure exits non-zero;
 without a card, or outside a checkout, it fails before printing a result.
 """
 
@@ -279,19 +296,20 @@ def kernel_ms(torch, fn, match: str | None = None, iters: int = 10) -> dict:
     def call():
         flush.zero_()
         fn()
-    out = {}
-    for key, us in profiled(call, iters).items():
-        if match is None:
-            if key not in flush_keys:
-                out[key] = us / 1e3 / iters
-            continue
-        name = re.search(rf"\w*{match}\w*(<[^>]*>)?", key)
-        if name:
-            out[name.group(0)] = us / 1e3 / iters
-    if not out:
-        fail(f"the profiler saw no device time for kernels named "
-             f"*{match or ''}*")
-    return out
+    for _ in range(3):      # a session may also report the flush's alone
+        out = {}
+        for key, us in profiled(call, iters).items():
+            if match is None:
+                if key not in flush_keys:
+                    out[key] = us / 1e3 / iters
+                continue
+            name = re.search(rf"\w*{match}\w*(<[^>]*>)?", key)
+            if name:
+                out[name.group(0)] = us / 1e3 / iters
+        if out:
+            return out
+    fail(f"the profiler saw no device time for kernels named "
+         f"*{match or ''}*")
 
 
 def timings(torch, kernel, plain, iters: int = 50):
@@ -765,13 +783,120 @@ def check_flat(torch, err: dict) -> None:
     err["bq_encode_flat"] = err["bq_decode_flat"] = 0.0
 
 
+VIEW_BASES = ((3, 5, 7), (2, 8, 64))
+
+
+def view_spans(x, axis_dim: int, n: int):
+    """Every shard view of the n chunks of x: whole, and the row ranges of
+    a bidirectional ring of two stripes (``comms._ring_schedule``)."""
+    from repro_torch.core import comms
+    from repro_torch.kernels import bq
+    m = bq.padded_rows(x.numel() // n)
+    spans = {(0, m)} | {(lo, hi) for lo, hi, _ in
+                        comms._ring_schedule(m, True, 2).parts}
+    return [bq.shard_view(x, axis_dim, n, k, lo, hi)
+            for k in range(n) for lo, hi in sorted(spans)]
+
+
+def check_view(torch, view, bits: int, what: str) -> None:
+    """Hold the view encode, the view wire-only hop and the fused
+    decode-add against their plain versions (the block forms on
+    ``bq.view_rows``, equal to ``comms._split_for_scatter``'s rows): bit
+    for bit, NaN by position (inf and NaN scales planted in the
+    decode-add's wire)."""
+    from repro_torch.kernels import bq
+    rows = bq.view_rows(view)
+    where = f"{what} chunk {view.index} rows [{view.lo}, {view.hi})"
+    for name, got, want in (
+            ("bq_encode_view", bq.bq_encode_view(view, bits),
+             bq.encode_plain(rows, bits)),
+            ("bq_decode_add_encode_view", bq.bq_decode_add_encode_view(
+                *bq.encode_plain(rows * 0.5 + 1.0, bits), view, bits),
+             bq.decode_add_encode_plain(*bq.encode_plain(rows * 0.5 + 1.0,
+                                                         bits), rows,
+                                        bits)[:3])):
+        for k, a, b in zip(("q_hi", "q_lo", "scale"), got, want):
+            if b is not None and not same_bits(torch, a, b):
+                fail(f"{name} {where}: {k} differs")
+    w = [t.clone() if t is not None else None for t in
+         bq.encode_plain(rows * 0.5 + 1.0, bits)]
+    if view.rows > 2:
+        w[2][1], w[2][2] = float("inf"), float("nan")
+    out = torch.full((view.n,), 7.0, dtype=view.x.dtype, device="cuda")
+    want = bq.decode_add_flat_plain(*w, view, bits, out.clone())
+    if not same_bits(torch, bq.bq_decode_add_flat(*w, view, bits, out),
+                     want):
+        fail(f"bq_decode_add_flat {where} differs")
+
+
+def check_views(torch, err: dict, serve) -> None:
+    """The TP reduce-scatter's view forms against their plain versions at
+    rates 4/8/16/24 in bf16, f16 and f32, every chunk of payloads split 2,
+    3 and 4 ways along each of three axes (aligned and misaligned) and of
+    the TP shapes (RS_SHAPES, along axis 1); the fused KV read (bf16, f16,
+    f32; widths 256, 192 and 100) against gather-decode, slice and cast at
+    the serving table, an id outside the pool writing NaN."""
+    from repro_torch.kernels import bq, ops
+    r, rpb, nb = serve
+    for bits in BITS:
+        for dtype in FLAT_DTYPES:
+            for base in VIEW_BASES:
+                for n in (2, 3, 4):
+                    for ax in range(3):
+                        shape = list(base)
+                        shape[ax] *= n
+                        x = flat_input(torch, int(np.prod(shape)) + 1, dtype,
+                                       seed=bits + n + ax)
+                        for xv in (x[:-1], x[1:]):
+                            for view in view_spans(xv.reshape(shape), ax,
+                                                   n):
+                                check_view(torch, view, bits,
+                                           f"rate {bits} {dtype} {shape} "
+                                           f"axis {ax}")
+        torch.cuda.empty_cache()
+    for shape in RS_SHAPES:
+        for bits in (8, 16):
+            x = flat_input(torch, int(np.prod(shape)), "bfloat16", seed=bits)
+            for view in view_spans(x.reshape(shape), 1, TP):
+                check_view(torch, view, bits, f"rate {bits} {list(shape)}")
+    w = ops.bq_encode_blocks(test_rows(torch, nb * rpb, seed=5), MAIN_BITS)
+    pool = [None if w[k] is None else w[k].reshape(nb, BLOCK_TOKENS, r, -1)
+            for k in ("q_hi", "q_lo", "scale")]
+    g = torch.Generator().manual_seed(5)
+    idx = torch.randint(0, nb, (SLOTS, nb // SLOTS), generator=g,
+                        dtype=torch.int32).cuda()
+    bad = idx.clone()
+    bad[0, 0], bad[1, 1] = nb, -1
+    ok = torch.ones(bad.shape, dtype=torch.bool, device="cuda")
+    ok[0, 0] = ok[1, 1] = False
+    for dtype in FLAT_DTYPES:
+        dt = getattr(torch, dtype)
+        for width in (100, 192, r * 128):
+            got = bq.bq_gather_decode(*pool, idx, MAIN_BITS, dtype=dt,
+                                      width=width)
+            want = bq.gather_decode_flat_plain(*pool, idx, MAIN_BITS, dt,
+                                               width)
+            if not same_bits(torch, got, want):
+                fail(f"bq_gather_decode {dtype} width {width} differs")
+        got = bq.bq_gather_decode(*pool, bad, MAIN_BITS, dtype=dt,
+                                  width=r * 128)   # want: this width's
+        torch.cuda.synchronize()
+        if not (got[0, 0].isnan().all() and got[1, 1].isnan().all()
+                and same_bits(torch, got[ok], want[ok])):
+            fail(f"bq_gather_decode {dtype}: out-of-range ids")
+    torch.cuda.empty_cache()
+    err["bq_encode_view"] = err["bq_decode_add_encode_view"] = 0.0
+    err["bq_decode_add_flat"] = 0.0
+
+
 def tp_calls(torch, shape, bits: int = 16):
     """The TP all-gather's encode and gathered decode of a bf16 activation
     of ``shape`` (the gather along axis 1 over TP shards), each as
-    ``(fused, plain, unfused, nbytes)``: the fused op the path calls
+    ``(fused, plain, unfused, nbytes, nops)``: the fused op the path calls
     (None before it existed), its plain version, the unfused composition
     the path called before (cast, padded copy, block encode; block decode,
-    strip, cast, movedim copy), and the bytes the op must move."""
+    strip, cast, movedim copy), and the bytes and operations the op must
+    move and do."""
     from repro_torch.kernels import bq, ops
     g = torch.Generator().manual_seed(11)
     x = (torch.randn(*shape, generator=g) * 3).to(torch.bfloat16).cuda()
@@ -795,38 +920,118 @@ def tp_calls(torch, shape, bits: int = 16):
             (lambda: ops.bq_encode(x, bits)) if fused else None,
             lambda: ops.bq_encode(x, bits, backend="torch"),
             lambda: ops.bq_encode_blocks(ops.to_blocks(x), bits),
-            n * 2 + m * rb),
+            n * 2 + m * rb, n * 6),
         "decode": (
             (lambda: ops.bq_decode_gathered(gw, bits, shape, x.dtype, ax))
             if fused else None,
             lambda: dec_unfused("torch"),
             dec_unfused,
-            TP * m * rb + TP * n * 2)}
+            TP * m * rb + TP * n * 2, TP * n)}
 
 
-def time_tp_ops(torch, card, shape) -> dict:
-    """Times of the fused ops, their plain versions and the unfused
-    compositions at ``shape``: device ms with the L2 flushed, by graph
-    replay on a warm L2 and per eager call, the kernels' own device ms
-    (torch.profiler, summed over every kernel the call launches) and host
-    us per call; the kernel time of a plain streaming kernel that moves
-    the same bytes (``stream_kernel_ms``), the floor such a call meets on
-    the card below its bound; and the unfused composition's kernels one by
-    one."""
+def rs_calls(torch, shape, bits: int = 16):
+    """One end of the TP reduce-scatter of a bf16 activation of ``shape``
+    along axis 1 over TP ranks, as rank 0 runs it at tp 2: the first
+    hop's encode of chunk 1 and the last hop's decode-add onto chunk 0 of
+    that wire (standing in for the peer's), alone and together (``end``),
+    each as ``(fused, plain, unfused, nbytes, nops)``: the view ops the
+    path calls (None before they existed), the plain versions of the
+    unfused composition, and the composition the path called before
+    (``comms._split_for_scatter``, block encode, block decode-add,
+    ``from_blocks``; alone, the block kernel on its split rows)."""
+    from repro_torch.core import comms
+    from repro_torch.kernels import bq, ops
+    g = torch.Generator().manual_seed(13)
+    x = (torch.randn(*shape, generator=g) * 3).to(torch.bfloat16).cuda()
+    nc = x.numel() // TP                      # values of one chunk
+    xb, cs = comms._split_for_scatter(x, 1, TP)
+    w = ops.bq_encode_blocks(xb[1], bits, backend="torch")
+    m, rb = w["scale"].shape[0], row_bytes(torch, bits)
+
+    def end_unfused(backend=None):
+        xb_, cs_ = comms._split_for_scatter(x, 1, TP)
+        wire = ops.bq_encode_blocks(xb_[1], bits, backend)
+        acc = ops.bq_decode_add_blocks(wire, xb_[0], bits, backend)
+        return ops.from_blocks(acc, cs_, x.dtype)
+    calls = {
+        "encode": (None, lambda: ops.bq_encode_blocks(xb[1], bits, "torch"),
+                   lambda: ops.bq_encode_blocks(xb[1], bits),
+                   nc * 2 + m * rb, nc * 6),
+        "decode_add": (None, lambda: ops.bq_decode_add_blocks(
+                           w, xb[0], bits, "torch"),
+                       lambda: ops.bq_decode_add_blocks(w, xb[0], bits),
+                       m * rb + 2 * nc * 2, nc * 2),
+        "end": (None, lambda: end_unfused("torch"), end_unfused,
+                3 * nc * 2 + 2 * m * rb, nc * 8)}
+    if hasattr(bq, "bq_decode_add_flat"):
+        view = lambda k: bq.shard_view(x, 1, TP, k)  # noqa: E731
+
+        def dec_add(wire):
+            out = torch.empty(cs, dtype=x.dtype, device=x.device)
+            return ops.bq_decode_add_view(wire, view(0), bits, out)
+
+        def end_fused():
+            return dec_add(ops.bq_encode_view(view(1), bits))
+        calls = {
+            "encode": (lambda: ops.bq_encode_view(view(1), bits),
+                       *calls["encode"][1:]),
+            "decode_add": (lambda: dec_add(w), *calls["decode_add"][1:]),
+            "end": (end_fused, *calls["end"][1:])}
+    return calls
+
+
+def kv_calls(torch, serve, bits: int = MAIN_BITS):
+    """The paged KV read of one pool plane at the serving table (every
+    block of the pool in a SLOTS-row table, as ``time_gather``) into bf16
+    tokens of ``R * 128`` values (``read_tables``): ``(fused, plain,
+    unfused, nbytes, nops)`` with the fused gather-decode writing bf16
+    (None before it existed), and the f32 gather-decode followed by the
+    cast the path ran before."""
+    from repro_torch.kernels import bq, ops
+    r, rpb, nb = serve
+    w = ops.bq_encode_blocks(test_rows(torch, nb * rpb, seed=3), bits)
+    pool = {k: None if v is None else
+            v.reshape(nb, BLOCK_TOKENS, r, -1) for k, v in w.items()}
+    idx = torch.arange(nb, dtype=torch.int32,
+                       device="cuda").reshape(SLOTS, -1)
+    rows, width = idx.numel() * rpb, r * 128
+    read = idx.numel() * 4 + rows * row_bytes(torch, bits)
+
+    def unfused(backend=None):
+        dec = ops.bq_gather_decode(pool, idx, bits, backend)
+        return dec.flatten(-2)[..., :width].to(torch.bfloat16)
+    fused = None
+    if hasattr(bq, "gather_decode_flat_plain"):
+        def fused():
+            return ops.bq_gather_decode(pool, idx, bits,
+                                        dtype=torch.bfloat16, width=width)
+    return {"read": (fused, lambda: unfused("torch"), unfused,
+                     read + rows * 128 * 2, rows * 128)}
+
+
+def time_ops(torch, card, label: str, calls: dict) -> dict:
+    """Times of fused ops, their plain versions and the unfused
+    compositions they replace (``calls``: ``{op: (fused, plain, unfused,
+    nbytes, nops)}``): device ms with the L2 flushed, by graph replay on a
+    warm L2 and per eager call, the kernels' own device ms (torch.profiler,
+    summed over every kernel the call launches) and host us per call; the
+    kernel time of a plain streaming kernel that moves the same bytes
+    (``stream_kernel_ms``), the floor such a call meets on the card below
+    its bound; and the unfused composition's kernels one by one.  Lines
+    are headed ``label`` with ``{op}`` filled in."""
     out = {}
-    for op, (fused, plain, unfused, nbytes) in tp_calls(torch, shape).items():
-        n = int(np.prod(shape))
-        b = bound(nbytes, n * (6 if op == "encode" else TP))
+    for op, (fused, plain, unfused, nbytes, nops) in calls.items():
+        b = bound(nbytes, nops)
         res = {"bound_ms": b[0], "plain_ms": cold_ms(torch, plain)}
-        for label, fn in (("", fused), ("unfused_", unfused)):
+        for lab, fn in (("", fused), ("unfused_", unfused)):
             if fn is None:
                 continue
             res.update({
-                f"{label}ms": cold_ms(torch, fn),
-                f"{label}warm_l2_ms": graph_ms(torch, fn),
-                f"{label}eager_ms": eager_ms(torch, fn, 200),
-                f"{label}kernel_ms": sum(kernel_ms(torch, fn).values()),
-                f"{label}host_us": host_us(torch, fn)})
+                f"{lab}ms": cold_ms(torch, fn),
+                f"{lab}warm_l2_ms": graph_ms(torch, fn),
+                f"{lab}eager_ms": eager_ms(torch, fn, 200),
+                f"{lab}kernel_ms": sum(kernel_ms(torch, fn).values()),
+                f"{lab}host_us": host_us(torch, fn)})
         # what a plain streaming kernel takes to move these bytes (torch's
         # vectorized elementwise negation reading half of them and writing
         # the other half), L2 flushed: the floor at this size
@@ -835,27 +1040,62 @@ def time_tp_ops(torch, card, shape) -> dict:
         res["stream_kernel_ms"] = sum(kernel_ms(
             torch, lambda: torch.neg(src, out=dst)).values())
         del src, dst
-        if unfused is not None:
-            kernels = kernel_ms(torch, unfused)
-            print(f"  TP all-gather {op}, unfused: kernels alone (profiler) "
-                  + "; ".join(f"{k.removeprefix('void ')[:72]} {v * 1e3:.2f}"
-                              f" us" for k, v in kernels.items())
-                  + f" [{card}]")
+        head = label.format(op=op)
+        kernels = kernel_ms(torch, unfused)
+        print(f"  {head}, unfused: kernels alone (profiler) "
+              + "; ".join(f"{k.removeprefix('void ')[:72]} {v * 1e3:.2f}"
+                          f" us" for k, v in kernels.items())
+              + f" [{card}]")
         line = ", ".join(f"{k} {v * 1e3:.2f} us" if k.endswith("ms") else
                          f"{k} {v:.2f} us" for k, v in res.items())
-        print(f"  TP all-gather {op}, bf16 {list(shape)} x {TP} shards, "
-              f"rate 16: {line}; kernel share of bound "
-              + (f"{b[0] / res['kernel_ms'] * 100:.1f} %"
-                 if "kernel_ms" in res else "-") + f" [{card}]")
+        share = {lab: f"{b[0] / res[lab + 'kernel_ms'] * 100:.1f} %"
+                 for lab in ("", "unfused_") if lab + "kernel_ms" in res}
+        print(f"  {head}: {line}; kernel share of bound {share.get('', '-')}"
+              f" (unfused {share.get('unfused_', '-')}) [{card}]")
         out[op] = res
+        torch.cuda.empty_cache()
     return out
+
+
+def time_tp_ops(torch, card, shape) -> dict:
+    """:func:`time_ops` of the TP all-gather's encode and decode."""
+    return time_ops(torch, card, f"TP all-gather {{op}}, bf16 {list(shape)} "
+                    f"x {TP} shards, rate 16", tp_calls(torch, shape))
+
+
+# the bf16 activations the TP reduce-scatters take, split along axis 1:
+# tp@mlp_out / tp@attn_out ([2, 1024, 1152]: chunks of 9216 rows) and the
+# narrow attention sites ([2, 1024, 256]: 2048 rows)
+RS_SHAPES = ((GLOBAL_BATCH // DP, SEQ, 1152), (GLOBAL_BATCH // DP, SEQ, 256))
+
+
+def time_rs_ops(torch, card) -> dict:
+    """:func:`time_ops` of the TP reduce-scatter's end at RS_SHAPES, keyed
+    by the chunk's wire rows."""
+    from repro_torch.kernels import bq
+    out = {}
+    for shape in RS_SHAPES:
+        rows = bq.padded_rows(int(np.prod(shape)) // TP)
+        out[rows] = time_ops(
+            torch, card, f"TP reduce-scatter {{op}}, bf16 {list(shape)} axis "
+            f"1 over {TP} ranks (M={rows}), rate 16", rs_calls(torch, shape))
+    return out
+
+
+def time_kv_ops(torch, card, serve) -> dict:
+    """:func:`time_ops` of the paged KV read at the serving table."""
+    r, rpb, nb = serve
+    return time_ops(torch, card, f"paged KV {{op}}, idx {SLOTS}x"
+                    f"{nb // SLOTS}, {BLOCK_TOKENS} tokens x {r * 128} "
+                    f"values, rate {MAIN_BITS}", kv_calls(torch, serve))
 
 
 def host_breakdown(torch, card, shape, bits: int = 16) -> None:
     """Host us per call of each step of the fused and the unfused TP ops
     (``host_us``: the caller's thread, the card keeping up)."""
     from repro_torch.kernels import bq, ops
-    (fe, _, ue, _), (fd, _, ud, _) = tp_calls(torch, shape, bits).values()
+    (fe, _, ue, _, _), (fd, _, ud, _, _) = tp_calls(torch, shape,
+                                                    bits).values()
     x = torch.zeros(shape, dtype=torch.bfloat16, device="cuda")
     flat = x.reshape(-1)
     n, m = flat.numel(), bq.padded_rows(flat.numel())
@@ -888,17 +1128,33 @@ def host_breakdown(torch, card, shape, bits: int = 16) -> None:
 # launches x (time - bound) per shape on the training path
 # --------------------------------------------------------------------------
 
-SHAPE_KERNELS = ("bq_encode", "bq_encode_flat", "bq_decode",
-                 "bq_decode_flat", "bq_decode_add_encode",
-                 "bq_decode_add_encode_wire", "bq_decode_add")
+SHAPE_KERNELS = ("bq_encode", "bq_encode_flat", "bq_encode_view",
+                 "bq_decode", "bq_decode_flat", "bq_decode_add_encode",
+                 "bq_decode_add_encode_wire", "bq_decode_add_encode_view",
+                 "bq_decode_add", "bq_decode_add_flat")
 
 
 def shape_call(torch, name: str, rows: int, bits: int):
     """(call, bytes, operations) of one bq kernel at ``rows`` wire rows
     and rate ``bits`` on normals; the flat forms in bf16 with every row
-    full (a gathered decode's shards as one)."""
+    full (a gathered decode's shards as one); the view forms on chunk 0 of
+    a bf16 payload split in two along an axis with runs of ``64 rows``
+    values (the TP reduce-scatters' layout: [2, 1024, d] along axis 1)."""
     from repro_torch.kernels import bq
     rb = row_bytes(torch, bits)
+    if name.endswith("_view") or name == "bq_decode_add_flat":
+        x = normal_rows(torch, 2 * rows, seed=1).to(torch.bfloat16)
+        view = bq.shard_view(x.reshape(2, 2 * rows * 64), 1, 2, 0)
+        w = bq.encode_plain(normal_rows(torch, rows, seed=2), bits)
+        if name == "bq_encode_view":
+            return (lambda: bq.bq_encode_view(view, bits)), \
+                rows * (256 + rb), rows * 128 * 6
+        if name == "bq_decode_add_encode_view":
+            return (lambda: bq.bq_decode_add_encode_view(*w, view, bits)), \
+                rows * (2 * rb + 256), rows * 128 * 8
+        out = torch.empty(rows * 128, dtype=torch.bfloat16, device="cuda")
+        return (lambda: bq.bq_decode_add_flat(*w, view, bits, out)), \
+            rows * (rb + 2 * 256), rows * 128 * 2
     if name in ("bq_encode", "bq_encode_flat"):
         x = normal_rows(torch, rows, seed=1)
         if name == "bq_encode":
@@ -1092,10 +1348,19 @@ def drive_training(torch, card) -> dict:
                 fail(f"rank {rk['rank']}: {key} differ between the kernel "
                      f"run ({rk[key]}) and the plain run ({rp[key]})")
     launches = launch_sums(k)
-    for n in ("bq_encode", "bq_encode_flat", "bq_decode", "bq_decode_flat",
-              "bq_decode_add_encode", "bq_decode_add"):
+    for n in ("bq_encode", "bq_encode_flat", "bq_encode_view", "bq_decode",
+              "bq_decode_flat", "bq_decode_add_encode", "bq_decode_add",
+              "bq_decode_add_flat"):
         if launches[n] <= 0:
             fail(f"the training step never launched {n}: {launches}")
+    # the TP reduce-scatters run on the view forms: no block encode or
+    # decode-add at their chunks' rows
+    from repro_torch.kernels.bq import padded_rows
+    tp_rows = {padded_rows(int(np.prod(sh)) // TP) for sh in RS_SHAPES}
+    block = {key: c for key, c in shape_sums(k).items()
+             if key[0] in ("bq_encode", "bq_decode_add") and key[1] in tp_rows}
+    if block:
+        fail(f"block forms launched at the TP reduce-scatters' rows: {block}")
     if any(v for r in p for v in r["launches"].values()):
         fail(f"the plain run launched kernels: {[r['launches'] for r in p]}")
     for r, rb in zip(k, b):
@@ -1280,11 +1545,14 @@ def main():
         # call (this file copied into each)
         path, block_kms = time_bq(torch, card, rows, (r, rpb, nb))
         tp_ops = time_tp_ops(torch, card, tp_shape(cfg))
+        rs_ops = time_rs_ops(torch, card)
+        kv_ops = time_kv_ops(torch, card, (r, rpb, nb))
         print(json.dumps({"bq_only": {
             "path": {k: {"ms": v[3][0], "warm_l2_ms": v[3][2],
                          "eager_ms": v[3][4], "bound_ms": v[4][0]}
                      for k, v in path.items()},
-            "block_kernel_ms": block_kms, "tp_ops": tp_ops}}))
+            "block_kernel_ms": block_kms, "tp_ops": tp_ops,
+            "rs_ops": rs_ops, "kv_ops": kv_ops}}))
         print(f"card: {card}")
         return
     err = {"bq_encode": 0.0, "bq_decode": 0.0, "bq_gather_decode": 0.0,
@@ -1364,8 +1632,19 @@ def main():
           f"misaligned and strided inputs included; gathered decode of "
           f"{TP} shards of {list(GATHER_SHAPES)} and the TP activation "
           f"along axes 0, 1 and 2 [{card}]")
+    check_views(torch, err, (r, rpb, nb))
+    print(f"phase 2: TP reduce-scatter view forms (encode, wire-only hop, "
+          f"fused decode-add) == plain versions bit for bit (NaN positions "
+          f"equal) at rates {list(BITS)} in {list(FLAT_DTYPES)}, every chunk "
+          f"of {list(VIEW_BASES)} split 2, 3 and 4 ways along each axis "
+          f"(whole and ring-part rows, aligned and misaligned) and of "
+          f"{[list(s) for s in RS_SHAPES]} along axis 1; fused KV read == "
+          f"gather-decode, slice and cast at the serving table in "
+          f"{list(FLAT_DTYPES)}, out-of-range ids NaN [{card}]")
     path, block_kms = time_bq(torch, card, rows, (r, rpb, nb))
     tp_ops = time_tp_ops(torch, card, tp_shape(cfg))
+    rs_ops = time_rs_ops(torch, card)
+    kv_ops = time_kv_ops(torch, card, (r, rpb, nb))
     host_breakdown(torch, card, tp_shape(cfg))
 
     # the lowrank matmul's three forms at the training step's matrix view
@@ -1512,6 +1791,38 @@ def main():
         if name == "bq_decode_add_encode":
             entry["wire_only"]["by_shape"] = by_shape.get(
                 "bq_decode_add_encode_wire", [])
+            # a middle hop of a TP ring of 3 or more ranks: checked in
+            # phase 2, not on this path (tp 2)
+            entry["view_wire_only"] = {
+                "launches": t_launch["bq_decode_add_encode_view"],
+                "max_abs_err": err["bq_decode_add_encode_view"]}
+        if name in ("bq_encode", "bq_decode_add"):
+            # the TP reduce-scatter's first and last hop on the view forms,
+            # beside the block kernel alone and (the decode-add) the whole
+            # end beside the composition it replaces
+            form = {"bq_encode": ("bq_encode_view", "encode"),
+                    "bq_decode_add": ("bq_decode_add_flat", "decode_add")}
+            fname, op = form[name]
+            entry["view" if op == "encode" else "flat"] = {
+                "path": f"TP reduce-scatter, bf16 {[list(sh) for sh in RS_SHAPES]}"
+                        f" along axis 1 over {TP} ranks", "rate": 16,
+                "launches": t_launch[fname], "max_abs_err": err[fname],
+                "bound_by": "bytes",
+                "by_rows": {rows: {**ops_[op], "end": ops_["end"]}
+                            for rows, ops_ in rs_ops.items()},
+                "by_shape": by_shape.get(fname, [])}
+        if name == "bq_gather_decode":
+            # the serving path reads through the fused KV read (bf16): the
+            # entry's times are its
+            kv = kv_ops["read"]
+            entry.update({
+                "ms": kv["ms"], "plain_ms": kv["plain_ms"],
+                "bound_ms": kv["bound_ms"], "warm_l2_ms": kv["warm_l2_ms"],
+                "kernel_ms": kv["kernel_ms"], "eager_ms": kv["eager_ms"],
+                "unfused_ms": kv["unfused_ms"],
+                "unfused_kernel_ms": kv["unfused_kernel_ms"],
+                "stream_kernel_ms": kv["stream_kernel_ms"],
+                "path": "serving read (fused KV read, bf16)"})
         kernels.append(entry)
     # the lowrank matmul: one plr exchange runs each form once, so the
     # entry's times are the three forms' sums at the path's r = 8

@@ -73,6 +73,13 @@ class Codec:
         ``axis_dim``: block decode, then :func:`ops.ungather`."""
         return ops.ungather(self.decode_blocks(wire), shape, dtype, axis_dim)
 
+    def view_forms(self, x) -> bool:
+        """Whether the ring reduce-scatter of ``x`` runs on the shard-view
+        forms (``encode_view``, ``decode_add_encode_view``,
+        ``decode_add_view``), reading each chunk in place, instead of the
+        block forms on ``comms._split_for_scatter``'s f32 copy."""
+        return False
+
     def wire_bits_per_value(self, dtype=torch.float32) -> float:
         return torch.empty((), dtype=dtype).element_size() * 8
 
@@ -130,6 +137,20 @@ class BqCodec(Codec):
     def decode_add_blocks(self, wire, local2d):
         """Last ring hop: local + decode(wire), no re-encode."""
         return ops.bq_decode_add_blocks(wire, local2d, self.bits)
+
+    # shard-view forms of the ring: the kernels, on the card
+    def view_forms(self, x) -> bool:
+        return ops.on_kernels(x) and x.dtype in (
+            torch.float32, torch.bfloat16, torch.float16)
+
+    def encode_view(self, view):
+        return ops.bq_encode_view(view, self.bits)
+
+    def decode_add_encode_view(self, wire, view):
+        return ops.bq_decode_add_encode_view(wire, view, self.bits)
+
+    def decode_add_view(self, wire, view, out):
+        return ops.bq_decode_add_view(wire, view, self.bits, out)
 
     def wire_bits_per_value(self, dtype=torch.float32) -> float:
         return self.bits + 32.0 / BLOCK  # mantissa + per-row f32 scale

@@ -526,20 +526,26 @@ def _chunked_blocks(flat: torch.Tensor, n: int) -> torch.Tensor:
     return out.reshape(n, m, BLOCK)
 
 
-def _split_for_scatter(x: torch.Tensor, axis_dim: int, n: int):
-    """x with x.shape[axis_dim] % n == 0 -> ([n, M, BLOCK] blocks of the
-    n chunks, chunk_shape)."""
+def _chunk_shape(x: torch.Tensor, axis_dim: int, n: int) -> tuple:
+    """Shape of one of the n chunks of x split along ``axis_dim``."""
     s = x.shape[axis_dim]
     if s % n:
         raise ValueError(f"dim {axis_dim} of size {s} not divisible by axis "
                          f"size {n}")
-    chunk_shape = x.shape[:axis_dim] + (s // n,) + x.shape[axis_dim + 1:]
+    return tuple(x.shape[:axis_dim] + (s // n,) + x.shape[axis_dim + 1:])
+
+
+def _split_for_scatter(x: torch.Tensor, axis_dim: int, n: int):
+    """x with x.shape[axis_dim] % n == 0 -> ([n, M, BLOCK] blocks of the
+    n chunks, chunk_shape)."""
+    chunk_shape = _chunk_shape(x, axis_dim, n)
+    s = x.shape[axis_dim]
     xs = x.reshape(x.shape[:axis_dim] + (n, s // n) + x.shape[axis_dim + 1:])
     flat = torch.movedim(xs, axis_dim, 0).reshape(n, -1)
     m = ops.padded_rows(flat.shape[1])
     out = torch.zeros((n, m * BLOCK), dtype=torch.float32, device=x.device)
     out[:, :flat.shape[1]] = flat
-    return out.reshape(n, m, BLOCK), tuple(chunk_shape)
+    return out.reshape(n, m, BLOCK), chunk_shape
 
 
 # --------------------------------------------------------------------------
@@ -582,61 +588,91 @@ def _ring_schedule(m: int, bidir: bool | None = None,
     return RingSchedule(tuple(parts), m, bidir, fallback, realized)
 
 
-def _ring_rs_dir(xb, axis: Axis, codec, direction: int,
-                 want_wire: bool = True):
-    """One directional ring (+1 clockwise, -1 counter-clockwise).  Rank i
-    ends owning the full sum of chunk i.  Returns ``(acc, wire,
-    hop_nbytes)``.  Intermediate hops run the wire-only fused hop; the last
-    hop runs the fused hop with the sum (``want_wire``: the all-reduce
-    gathers the compressed chunk) or decode-add (plain reduce-scatter)."""
-    n = xb.shape[0]
+def _ring_rs_dir(take, n: int, axis: Axis, codec, direction: int,
+                 want_wire: bool = True, out=None):
+    """One directional ring (+1 clockwise, -1 counter-clockwise) over n
+    chunks, ``take(k)`` giving chunk k's addend.  Rank i ends owning the
+    full sum of chunk i.  Returns ``(acc, wire, hop_nbytes)``.
+    Intermediate hops run the wire-only fused hop; the last hop runs the
+    fused hop with the sum (``want_wire``: the all-reduce gathers the
+    compressed chunk) or decode-add (plain reduce-scatter).  The addends
+    are ``[M, BLOCK]`` f32 blocks, or, with ``out``, shard views read in
+    place by the codec's view forms, whose last hop writes this rank's sums
+    into ``out`` (returned as ``acc``)."""
     idx = axis.index
-
-    def take(k):
-        return xb[k % n]
-
-    acc = take(idx - direction)
-    wire = codec.encode_blocks(acc)
+    view = out is not None
+    acc = take((idx - direction) % n)
+    wire = codec.encode_view(acc) if view else codec.encode_blocks(acc)
     hop_nbytes = ops.wire_nbytes(wire)
     for t in range(n - 1):
         wire = _shift_wire(wire, axis, direction)
-        local = take(idx - direction * (2 + t))
+        local = take((idx - direction * (2 + t)) % n)
         if t < n - 2:
-            wire, _ = codec.decode_add_encode_blocks(wire, local,
-                                                     want_sum=False)
+            wire = codec.decode_add_encode_view(wire, local) if view else \
+                codec.decode_add_encode_blocks(wire, local, want_sum=False)[0]
         elif want_wire:
             wire, acc = codec.decode_add_encode_blocks(wire, local)
         else:
-            acc = codec.decode_add_blocks(wire, local)
+            acc = codec.decode_add_view(wire, local, out) if view else \
+                codec.decode_add_blocks(wire, local)
             wire = None
     return acc, wire, hop_nbytes
+
+
+def _ring_parts(m: int, n: int, codec, part):
+    """Run the sub-rings of :func:`_ring_schedule` over ``m`` rows one
+    after another, in the same order on every rank (``part(lo, hi,
+    direction, whole)`` runs one), and log the ring; returns the parts'
+    ``(accs, wires)``."""
+    sched = _ring_schedule(m)
+    accs, wires, hop_nbytes = [], [], 0
+    for lo, hi, d in sched.parts:
+        acc, wire, nb = part(lo, hi, d, len(sched.parts) == 1)
+        accs.append(acc)
+        wires.append(wire)
+        hop_nbytes += nb
+    _log("rs_ring", "-", codec, hop_nbytes, n - 1,
+         parts=len(sched.parts), bidir=sched.bidir, fallback=sched.fallback)
+    return accs, wires
 
 
 def _ring_reduce_scatter(xb, axis: Axis, codec, want_wire: bool = True):
     """xb: [n, M, BLOCK] per-rank addends -> (sum chunk [M, BLOCK] f32 owned
     by this rank — rank i owns chunk i — and the final compressed wire,
     ``None`` unless ``want_wire``).  The row partition comes from
-    :func:`_ring_schedule`; sub-rings run one after another, in the same
-    order on every rank."""
+    :func:`_ring_schedule`."""
     n, m = xb.shape[0], xb.shape[1]
-    sched = _ring_schedule(m)
-    accs, wires, hop_nbytes = [], [], 0
-    for lo, hi, d in sched.parts:
-        part = xb if len(sched.parts) == 1 else xb[:, lo:hi]
-        acc, wire, nb = _ring_rs_dir(part, axis, codec, d,
-                                     want_wire=want_wire)
-        accs.append(acc)
-        wires.append(wire)
-        hop_nbytes += nb
-    _log("rs_ring", "-", codec, hop_nbytes, n - 1,
-         parts=len(sched.parts), bidir=sched.bidir, fallback=sched.fallback)
-    if len(sched.parts) == 1:
+
+    def part(lo, hi, d, whole):
+        p = xb if whole else xb[:, lo:hi]
+        return _ring_rs_dir(p.__getitem__, n, axis, codec, d, want_wire)
+    accs, wires = _ring_parts(m, n, codec, part)
+    if len(accs) == 1:
         return accs[0], wires[0]
     acc = torch.cat(accs, dim=0)
     wire = None if not want_wire else {
         k: None if wires[0][k] is None else
         torch.cat([w[k] for w in wires], dim=0) for k in wires[0]}
     return acc, wire
+
+
+def _ring_reduce_scatter_view(x, axis: Axis, axis_dim: int, codec):
+    """The ring reduce-scatter of x along ``axis_dim`` on the codec's
+    shard-view forms: every chunk is read in place and this rank's sum is
+    written in x's type to a fresh chunk-shaped tensor, with the wires,
+    ring schedule and ledger of ``_split_for_scatter`` + the block ring +
+    ``ops.from_blocks``, and no f32 copy of the payload or the sum."""
+    n = axis.size
+    out = torch.empty(_chunk_shape(x, axis_dim, n), dtype=x.dtype,
+                      device=x.device)
+    x = x.contiguous()
+
+    def part(lo, hi, d, whole):
+        return _ring_rs_dir(
+            lambda k: ops.shard_view(x, axis_dim, n, k, lo, hi), n, axis,
+            codec, d, want_wire=False, out=out)
+    _ring_parts(ops.padded_rows(out.numel()), n, codec, part)
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -666,6 +702,8 @@ def _reduce_scatter_impl(x, axis: Axis, axis_dim: int, codec):
     if codec.is_identity:
         _log("reduce_scatter", "-", codec, _payload_nbytes(x), 1)
         return _psum_scatter_raw(x, axis, axis_dim)
+    if codec.view_forms(x):
+        return _ring_reduce_scatter_view(x, axis, axis_dim, codec)
     xb, chunk_shape = _split_for_scatter(x, axis_dim, n)
     acc, _ = _ring_reduce_scatter(xb, axis, codec, want_wire=False)
     return ops.from_blocks(acc, chunk_shape, x.dtype)

@@ -1,7 +1,8 @@
 """Hopper kernels for the block-quantization (bq) codec, with their plain
 PyTorch versions beside them.
 
-Five kernels, hand-written in CUDA C++ for ``sm_90a`` (``csrc/bq.cu``):
+The ports of five Pallas kernels, hand-written in CUDA C++ for ``sm_90a``
+(``csrc/bq.cu``):
 
 * :func:`bq_encode` replaces ``repro/kernels/bq.py::bq_encode_pallas``
   (``_encode_kernel``/``_encode24_kernel``): ``(M, 128)`` f32 -> wire planes.
@@ -17,13 +18,24 @@ Five kernels, hand-written in CUDA C++ for ``sm_90a`` (``csrc/bq.cu``):
   tail) in one launch.
 * :func:`bq_gather_decode` replaces ``bq_gather_decode_pallas``: decodes the
   pool rows named by a block table, reading the table inside the kernel.
+  With ``dtype`` and ``width`` it writes each token's first ``width``
+  values in bf16, f16 or f32 (the paged KV read's slice and cast) in the
+  same launch.
 * :func:`bq_decode_add_encode` replaces ``bq_decode_add_encode_pallas``,
   the fused ring hop ``encode(local + decode(wire))``: with the f32 sum
   (``_dae_kernel``/``_dae24_kernel``, the all-reduce tail) or wire-only
   (``_daew_kernel``/``_daew24_kernel``, intermediate reduce-scatter hops).
 * :func:`bq_decode_add` replaces ``bq_decode_add_pallas``
   (``_da_kernel``/``_da24_kernel``), the last reduce-scatter hop
-  ``local + decode(wire)``.
+  ``local + decode(wire)``.  :func:`bq_decode_add_flat` is its form for
+  the TP reduce-scatter: the local chunk read in place through a
+  :class:`ShardView` of the payload, the sum written in the payload's
+  type to its place in the chunk.
+
+The reduce-scatter's first and middle hops read their chunk through the
+same view: :func:`bq_encode_view` (the encode kernel) and
+:func:`bq_decode_add_encode_view` (the wire-only fused hop), so no f32
+copy of the split payload is written.
 
 All five move a few bytes per flop, so on an H100 they are bound by bytes
 moved over 3.35 TB/s.  The kernels read and write every byte once with
@@ -70,10 +82,11 @@ _COMPILE_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                   "-Xptxas", "-v")
 _LINK_FLAGS = (*_ARCH, "-shared")
 
-LAUNCHES = {"bq_encode": 0, "bq_encode_flat": 0, "bq_decode": 0,
-            "bq_decode_flat": 0, "bq_gather_decode": 0,
-            "bq_decode_add_encode": 0, "bq_decode_add_encode_wire": 0,
-            "bq_decode_add": 0}
+LAUNCHES = {"bq_encode": 0, "bq_encode_flat": 0, "bq_encode_view": 0,
+            "bq_decode": 0, "bq_decode_flat": 0, "bq_gather_decode": 0,
+            "bq_decode_add_encode": 0,
+            "bq_decode_add_encode_wire": 0, "bq_decode_add_encode_view": 0,
+            "bq_decode_add": 0, "bq_decode_add_flat": 0}
 # launches by (wrapper, wire rows, rate)
 LAUNCH_SHAPES: collections.Counter = collections.Counter()
 
@@ -148,6 +161,81 @@ def decode_flat_plain(q_hi, q_lo, scale, bits: int, n: int,
     inner = (n or 1) if inner is None else inner
     return ungather(blocks.reshape(shards, -1, BLOCK), (n // inner, inner),
                     dtype, 1).reshape(-1)
+
+
+class ShardView(collections.namedtuple(
+        "ShardView", "x shards index inner lo hi")):
+    """Chunk ``index`` of a payload split ``shards`` ways along an axis,
+    read in place: ``x`` is the payload flat (contiguous, f32, bf16 or
+    f16), ``inner`` the chunk's trailing size from that axis on, so the
+    chunk's value f is ``x[(f // inner) * shards * inner + index * inner +
+    f % inner]`` (the layout ``bq_decode_flat`` writes).  ``[lo, hi)`` is a
+    range of the chunk's tile-padded 128-value rows; values past the chunk
+    read as 0."""
+
+    @property
+    def n(self) -> int:
+        """Values of the chunk."""
+        return self.x.numel() // self.shards
+
+    @property
+    def rows(self) -> int:
+        return self.hi - self.lo
+
+
+def shard_view(x: torch.Tensor, axis_dim: int, shards: int, index: int,
+               lo: int = 0, hi: int | None = None) -> ShardView:
+    """Chunk ``index`` of ``x`` split ``shards`` ways along ``axis_dim``,
+    rows ``[lo, hi)`` (all of them by default).  Types other than f32,
+    bf16 and f16 are cast to f32 by torch; a non-contiguous x is copied."""
+    s = x.shape[axis_dim]
+    if s % shards or not 0 <= index < shards:
+        raise ValueError(f"dim {axis_dim} of size {s} has no chunk {index} "
+                         f"of {shards}")
+    flat = x.reshape(-1)
+    if flat.dtype not in _DTYPE_CODE:
+        flat = flat.to(torch.float32)
+    m = padded_rows(flat.numel() // shards)
+    hi = m if hi is None else hi
+    if not 0 <= lo <= hi <= m:
+        raise ValueError(f"rows [{lo}, {hi}) outside the chunk's {m}")
+    inner = (s // shards) * math.prod(x.shape[axis_dim + 1:])
+    return ShardView(flat.contiguous(), shards, index, max(inner, 1), lo, hi)
+
+
+def view_rows(view: ShardView) -> torch.Tensor:
+    """The view's rows as ``(hi - lo, 128)`` f32 blocks, values past the
+    chunk 0: the plain read, equal to rows ``[lo, hi)`` of the chunk's
+    ``to_blocks``."""
+    n = view.n
+    chunk = view.x.reshape(-1, view.shards, view.inner)[:, view.index]
+    a, b = view.lo * BLOCK, min(view.hi * BLOCK, n)
+    out = torch.zeros(view.rows * BLOCK, dtype=torch.float32,
+                      device=view.x.device)
+    if b > a:
+        out[:b - a] = chunk.reshape(-1)[a:b]
+    return out.reshape(-1, BLOCK)
+
+
+def decode_add_flat_plain(q_hi, q_lo, scale, view: ShardView, bits: int,
+                          out: torch.Tensor) -> torch.Tensor:
+    """:func:`bq_decode_add_flat`'s plain version: decode-add onto the
+    view's rows, then write the chunk's values of them into ``out`` in its
+    type."""
+    acc = decode_add_plain(q_hi, q_lo, scale, view_rows(view), bits)
+    a, b = view.lo * BLOCK, min(view.hi * BLOCK, view.n)
+    if b > a:
+        out.view(-1)[a:b] = acc.reshape(-1)[:b - a].to(out.dtype)
+    return out
+
+
+def gather_decode_flat_plain(q_hi, q_lo, scale, idx, bits: int,
+                             dtype=torch.float32, width: int | None = None):
+    """:func:`bq_gather_decode`'s plain version with ``dtype`` and
+    ``width``: gather-decode, join each token's rows, keep its first
+    ``width`` values, cast."""
+    dec = gather_decode_plain(q_hi, q_lo, scale, idx, bits).flatten(-2)
+    return dec[..., :dec.shape[-1] if width is None else width].to(dtype)
 
 
 def hi_dtype(bits: int) -> torch.dtype:
@@ -247,13 +335,22 @@ def _load_locked():
             lib.bq_encode.argtypes = [vp, i, ll, i, vp, vp, vp, ll, i, f, vp]
             lib.bq_decode.argtypes = [vp, vp, vp, vp, i, ll, ll, ll, ll, i,
                                       f, vp]
-            lib.bq_gather_decode.argtypes = [vp, vp, vp, vp, ll, ll, ll, vp,
-                                             i, f, vp]
             lib.bq_decode_add_encode.argtypes = [vp, vp, vp, vp, vp, vp, vp,
                                                  vp, ll, i, f, f, vp]
             lib.bq_decode_add.argtypes = [vp, vp, vp, vp, vp, ll, i, f, vp]
+            lib.bq_encode_view.argtypes = [vp, i, ll, ll, ll, ll, ll, vp, vp,
+                                           vp, ll, i, f, vp]
+            lib.bq_decode_add_encode_view.argtypes = [
+                vp, vp, vp, vp, i, ll, ll, ll, ll, ll, vp, vp, vp, ll, i, f,
+                f, vp]
+            lib.bq_decode_add_view.argtypes = [vp, vp, vp, vp, i, ll, ll, ll,
+                                               ll, ll, ll, vp, i, f, vp]
+            lib.bq_gather_decode.argtypes = [vp, vp, vp, vp, ll, ll, ll, ll,
+                                             ll, vp, i, i, f, vp]
             for fn in (lib.bq_encode, lib.bq_decode, lib.bq_gather_decode,
-                       lib.bq_decode_add_encode, lib.bq_decode_add):
+                       lib.bq_decode_add_encode, lib.bq_decode_add,
+                       lib.bq_encode_view, lib.bq_decode_add_encode_view,
+                       lib.bq_decode_add_view):
                 fn.restype = ctypes.c_int
             _lib = lib
     return _lib
@@ -368,6 +465,30 @@ def bq_encode_flat(x: torch.Tensor, bits: int):
                    padded_rows(flat.shape[0]), bits)
 
 
+def _view_args(view: ShardView) -> tuple:
+    """The C entries' view arguments: payload pointer, type code, chunk
+    values, shards, chunk index, inner size, first chunk value."""
+    return (view.x.data_ptr(), _DTYPE_CODE[view.x.dtype], view.n,
+            view.shards, view.index, view.inner, view.lo * BLOCK)
+
+
+def bq_encode_view(view: ShardView, bits: int):
+    """The view's rows encoded -> ``(q_hi, q_lo | None, scale)`` of
+    ``view.rows`` rows, equal to ``bq_encode(view_rows(view), bits)``, in
+    one launch: the reduce-scatter's first hop, reading its chunk in place
+    (values converted in registers, the padding read as 0)."""
+    ref._check_bits(bits)
+    if _on_cpu(view.x):
+        return encode_plain(view_rows(view), bits)
+    m = view.rows
+    q_hi, q_lo, scale = _wire_empty(m, bits, view.x.device)
+    if m:
+        _launch("bq_encode_view", m, bits, view.x, _load().bq_encode_view,
+                *_view_args(view), q_hi.data_ptr(), _ptr(q_lo),
+                scale.data_ptr(), m, bits, float(_QMAX[bits]))
+    return q_hi, q_lo, scale
+
+
 def _check_planes(q_hi, q_lo, scale, bits: int, lead: tuple) -> None:
     _check(q_hi, "q_hi", hi_dtype(bits), lead + (hi_width(bits),), align=8)
     if bits == 24:
@@ -438,31 +559,48 @@ def bq_decode_flat(q_hi, q_lo, scale, bits: int, n: int,
     return out if kind == dtype else out.to(dtype)
 
 
-def bq_gather_decode(q_hi, q_lo, scale, idx: torch.Tensor,
-                     bits: int) -> torch.Tensor:
+def bq_gather_decode(q_hi, q_lo, scale, idx: torch.Tensor, bits: int,
+                     dtype=None, width: int | None = None) -> torch.Tensor:
     """Pool planes ``(n_blocks, ..., w)`` gathered by the int32 block table
     ``idx`` (any shape) and decoded -> f32 ``idx.shape + pool.shape[1:-1] +
-    (128,)``.  On the card an id outside ``[0, n_blocks)`` decodes to NaN
-    without reading the pool."""
+    (128,)``.  With ``dtype`` or ``width`` (the paged KV read): pool planes
+    ``(n_blocks, ..., R, w)`` of R rows per token -> ``idx.shape +
+    pool.shape[1:-2] + (width,)`` in ``dtype`` (f32, bf16 or f16; f32 by
+    default), each token's first ``width`` values (all ``R * 128`` by
+    default), in one launch.  On the card an id outside ``[0, n_blocks)``
+    decodes to NaN without reading the pool."""
     ref._check_bits(bits)
+    flat = dtype is not None or width is not None
+    if flat:
+        dtype = torch.float32 if dtype is None else dtype
+        width = scale.shape[-2] * BLOCK if width is None else width
     if _on_cpu(q_hi, q_lo, scale, idx):
+        if flat:
+            return gather_decode_flat_plain(q_hi, q_lo, scale, idx, bits,
+                                            dtype, width)
         return gather_decode_plain(q_hi, q_lo, scale, idx, bits)
     lead = tuple(scale.shape[:-1])
     _check_planes(q_hi, q_lo, scale, bits, lead)
     _check(idx, "idx", torch.int32)
-    n_blocks = lead[0]
-    rows_per_block = 1
-    for d in lead[1:]:
-        rows_per_block *= d
-    out = torch.empty(tuple(idx.shape) + lead[1:] + (BLOCK,),
-                      dtype=torch.float32, device=q_hi.device)
-    n_idx = idx.numel()
-    if n_idx and rows_per_block:
+    n_blocks, n_idx = lead[0], idx.numel()
+    rows_per_block = math.prod(lead[1:])
+    if flat:
+        if dtype not in _DTYPE_CODE or len(lead) < 2 or \
+                not 0 <= width <= lead[-1] * BLOCK:
+            raise ValueError(f"bad KV read: dtype {dtype}, width {width} "
+                             f"of pool rows {lead}")
+        tokens, rows, shape = math.prod(lead[1:-1]), lead[-1], lead[1:-1]
+    else:               # whole pool rows in f32: one row a token
+        dtype, width, tokens, rows, shape = (torch.float32, BLOCK,
+                                             rows_per_block, 1, lead[1:])
+    out = torch.empty(tuple(idx.shape) + shape + (width,), dtype=dtype,
+                      device=q_hi.device)
+    if out.numel():
         _launch("bq_gather_decode", n_idx * rows_per_block, bits, q_hi,
-                _load().bq_gather_decode,
-                q_hi.data_ptr(), _ptr(q_lo), scale.data_ptr(),
-                idx.data_ptr(), n_idx, n_blocks, rows_per_block,
-                out.data_ptr(), bits, _INV_QMAX[bits])
+                _load().bq_gather_decode, q_hi.data_ptr(), _ptr(q_lo),
+                scale.data_ptr(), idx.data_ptr(), out.numel(), n_blocks,
+                tokens, rows, width, out.data_ptr(), _DTYPE_CODE[dtype],
+                bits, _INV_QMAX[bits])
     return out
 
 
@@ -496,6 +634,28 @@ def bq_decode_add_encode(q_hi, q_lo, scale, local, bits: int,
     return o_hi, o_lo, o_scale, s
 
 
+def bq_decode_add_encode_view(q_hi, q_lo, scale, view: ShardView,
+                              bits: int):
+    """Wire-only fused ring hop with the local rows read through ``view``:
+    wire planes ``(view.rows, w)`` -> ``(q_hi', q_lo' | None, scale')``,
+    equal to ``bq_decode_add_encode(..., view_rows(view), bits,
+    want_sum=False)`` (a middle reduce-scatter hop)."""
+    ref._check_bits(bits)
+    if _on_cpu(q_hi, q_lo, scale, view.x):
+        return decode_add_encode_plain(q_hi, q_lo, scale, view_rows(view),
+                                       bits)[:3]
+    m = view.rows
+    _check_planes(q_hi, q_lo, scale, bits, (m,))
+    o_hi, o_lo, o_scale = _wire_empty(m, bits, q_hi.device)
+    if m:
+        _launch("bq_decode_add_encode_view", m, bits, q_hi,
+                _load().bq_decode_add_encode_view, q_hi.data_ptr(),
+                _ptr(q_lo), scale.data_ptr(), *_view_args(view),
+                o_hi.data_ptr(), _ptr(o_lo), o_scale.data_ptr(), m, bits,
+                float(_QMAX[bits]), _INV_QMAX[bits])
+    return o_hi, o_lo, o_scale
+
+
 def bq_decode_add(q_hi, q_lo, scale, local, bits: int) -> torch.Tensor:
     """Last reduce-scatter hop: ``local + decode(wire)`` -> ``(M, 128)`` f32."""
     ref._check_bits(bits)
@@ -509,4 +669,32 @@ def bq_decode_add(q_hi, q_lo, scale, local, bits: int) -> torch.Tensor:
         _launch("bq_decode_add", m, bits, q_hi, _load().bq_decode_add,
                 q_hi.data_ptr(), _ptr(q_lo), scale.data_ptr(),
                 local.data_ptr(), out.data_ptr(), m, bits, _INV_QMAX[bits])
+    return out
+
+
+def bq_decode_add_flat(q_hi, q_lo, scale, view: ShardView, bits: int,
+                       out: torch.Tensor) -> torch.Tensor:
+    """The last reduce-scatter hop fused with its layout: wire planes
+    ``(view.rows, w)`` decoded and added to the view's rows (read in
+    place), the sums of the chunk's values ``[128 lo, min(128 hi, n))``
+    written in ``out``'s type (rounded to nearest even, as ``.to()``) to
+    their places in ``out``, the chunk-shaped output (contiguous, n
+    values, the view's type).  Equal to ``from_blocks(bq_decode_add(...,
+    view_rows(view), bits), ...)`` on those values, in one launch; returns
+    ``out``."""
+    ref._check_bits(bits)
+    if _on_cpu(q_hi, q_lo, scale, view.x, out):
+        return decode_add_flat_plain(q_hi, q_lo, scale, view, bits, out)
+    m = view.rows
+    _check_planes(q_hi, q_lo, scale, bits, (m,))
+    _check(out, "out", view.x.dtype, align=16)
+    if out.numel() != view.n:
+        raise ValueError(f"out holds {out.numel()} values, the chunk "
+                         f"{view.n}")
+    f_lo, f_hi = view.lo * BLOCK, min(view.hi * BLOCK, view.n)
+    if f_hi > f_lo:
+        _launch("bq_decode_add_flat", m, bits, q_hi,
+                _load().bq_decode_add_view, q_hi.data_ptr(), _ptr(q_lo),
+                scale.data_ptr(), *_view_args(view), f_hi, out.data_ptr(),
+                bits, _INV_QMAX[bits])
     return out

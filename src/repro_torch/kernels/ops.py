@@ -11,7 +11,11 @@ flattened, zero-padded to whole ``(TILE_M, BLOCK)`` tiles and viewed as an
 ``(M, 128)`` block matrix.  The padding fixes the wire bytes, so it is kept
 exactly.  On the card the tensor-level ops (:func:`bq_encode`,
 :func:`bq_decode`, :func:`bq_decode_gathered`) do that layout work inside
-one kernel launch (``bq.bq_encode_flat``, ``bq.bq_decode_flat``);
+one kernel launch (``bq.bq_encode_flat``, ``bq.bq_decode_flat``), the
+shard-view ops (:func:`bq_encode_view`, :func:`bq_decode_add_encode_view`,
+:func:`bq_decode_add_view`) read a reduce-scatter's chunk in place and
+write its sum in the payload's type, and :func:`bq_gather_decode` with
+``dtype``/``width`` writes the paged KV read's tokens itself;
 ``backend="torch"`` runs the plain sequence of block ops.
 """
 
@@ -47,10 +51,17 @@ def _plain(backend) -> bool:
     return (backend or _DEFAULT_BACKEND) == "torch"
 
 
+def on_kernels(x: torch.Tensor) -> bool:
+    """Whether an op on ``x`` without a backend runs the kernels: a CUDA
+    tensor, the default backend not forced to the plain versions."""
+    return x.device.type == "cuda" and not _plain(None)
+
+
 padded_rows = bq.padded_rows
 to_blocks = bq.to_blocks
 ungather = bq.ungather
 gathered_shape = bq.gathered_shape
+shard_view = bq.shard_view
 
 
 def from_blocks(x2d: torch.Tensor, shape, dtype=torch.float32) -> torch.Tensor:
@@ -127,13 +138,55 @@ def bq_decode_add_blocks(wire: dict, local2d: torch.Tensor, bits: int,
 
 
 def bq_gather_decode(wire: dict, idx: torch.Tensor, bits: int,
-                     backend=None) -> torch.Tensor:
+                     backend=None, dtype=None,
+                     width: int | None = None) -> torch.Tensor:
     """Paged decode-read: decode the pool rows named by the block table
     ``idx`` (int32, any shape).  ``wire`` holds pool planes with a leading
     block axis (``q_hi (n_blocks, ..., w)``, ``scale (n_blocks, ..., 1)``).
-    Returns f32 of shape ``idx.shape + pool.shape[1:-1] + (128,)``."""
-    gd = ref.bq_gather_decode_ref if _plain(backend) else bq.bq_gather_decode
-    return gd(wire["q_hi"], wire["q_lo"], wire["scale"], idx, bits)
+    Returns f32 of shape ``idx.shape + pool.shape[1:-1] + (128,)``; with
+    ``dtype`` or ``width``, each token's (R pool rows') first ``width``
+    values in ``dtype``: ``idx.shape + pool.shape[1:-2] + (width,)`` (see
+    ``bq.bq_gather_decode``)."""
+    planes = (wire["q_hi"], wire["q_lo"], wire["scale"], idx, bits)
+    if not _plain(backend):
+        return bq.bq_gather_decode(*planes, dtype=dtype, width=width)
+    if dtype is None and width is None:
+        return ref.bq_gather_decode_ref(*planes)
+    return bq.gather_decode_flat_plain(*planes, dtype or torch.float32, width)
+
+
+# --------------------------------------------------------------------------
+# shard-view ops (the ring reduce-scatter's chunks, read in place)
+# --------------------------------------------------------------------------
+
+def bq_encode_view(view: bq.ShardView, bits: int, backend=None) -> dict:
+    """Wire dict of the view's rows (the first ring hop); the plain version
+    encodes ``bq.view_rows(view)``."""
+    if _plain(backend):
+        return bq_encode_blocks(bq.view_rows(view), bits, backend)
+    hi, lo, scale = bq.bq_encode_view(view, bits)
+    return {"q_hi": hi, "q_lo": lo, "scale": scale}
+
+
+def bq_decode_add_encode_view(wire: dict, view: bq.ShardView, bits: int,
+                              backend=None) -> dict:
+    """Wire-only fused ring hop onto the view's rows (a middle hop)."""
+    if _plain(backend):
+        return bq_decode_add_encode_blocks(wire, bq.view_rows(view), bits,
+                                           backend, want_sum=False)[0]
+    hi, lo, scale = bq.bq_decode_add_encode_view(
+        wire["q_hi"], wire["q_lo"], wire["scale"], view, bits)
+    return {"q_hi": hi, "q_lo": lo, "scale": scale}
+
+
+def bq_decode_add_view(wire: dict, view: bq.ShardView, bits: int,
+                       out: torch.Tensor, backend=None) -> torch.Tensor:
+    """Last ring hop onto the view's rows, the chunk's sums written in
+    ``out``'s type to their places in ``out`` (see
+    ``bq.bq_decode_add_flat``); returns ``out``."""
+    da = bq.decode_add_flat_plain if _plain(backend) else \
+        bq.bq_decode_add_flat
+    return da(wire["q_hi"], wire["q_lo"], wire["scale"], view, bits, out)
 
 
 # --------------------------------------------------------------------------

@@ -49,7 +49,7 @@ def _run_op(op, x, axis, n, axis_dim=0):
     if op == "psum":
         return {"out": comms.psum(x, axis, "dp")}
     if op == "reduce_scatter":
-        return {"out": comms.reduce_scatter(x, axis, 0, "dp")}
+        return {"out": comms.reduce_scatter(x, axis, axis_dim, "dp")}
     if op == "all_gather":
         return {"out": comms.all_gather(x, axis, axis_dim, "dp")}
     if op in ("reduce_scatter_flat", "all_gather_flat"):
@@ -103,7 +103,8 @@ def _state_leaves(states: dict, prefix: str = "state") -> dict:
 def collectives_rank(*, rank: int, world: int, cases: list, payload,
                      device="cpu", backend=None, digest: bool = False):
     """Run ``cases`` (dicts of ``op``, ``codec``, ``bidir``, ``chunks``, and
-    optionally ``axis_dim`` for ``all_gather`` and the input's ``dtype``)
+    optionally ``axis_dim`` for ``all_gather`` and ``reduce_scatter`` and
+    the input's ``dtype``)
     on this rank over an axis ``"x"`` of the whole world."""
     from repro_torch.core import codecs, comms, policy
     from repro_torch.kernels import bq, lowrank, ops

@@ -221,17 +221,17 @@ def read_tables(pool: dict, tables: torch.Tensor, bits: int | None,
     ``tables`` [N, max_blocks] int32 block ids (padding entries may be any
     in-range id; the attention validity mask kills them).  Returns
     ``(k, v)`` of shape [N, max_blocks * bt, KV, hd]; under a bq storage
-    codec the read decodes straight from the compressed planes."""
+    codec the read decodes straight from the compressed planes, and on the
+    card writes each token's ``KV * hd`` values in ``out_dtype`` in the same
+    launch."""
     out = []
     for nm in ("k", "v"):
         if bits is None:
             g = pool[nm][tables.long()]               # [N, mb, bt, KV, hd]
             out.append(g.reshape(g.shape[0], -1, *g.shape[-2:]))
             continue
-        dec = ops.bq_gather_decode(pool[nm], tables, bits, backend)
-        n, mb, bt, r, _ = dec.shape
-        flat = dec.reshape(n, mb * bt, r * BLOCK)
-        flat = flat[..., :kv_heads_loc * head_dim]
-        out.append(flat.reshape(n, mb * bt, kv_heads_loc,
-                                head_dim).to(out_dtype))
+        dec = ops.bq_gather_decode(pool[nm], tables, bits, backend,
+                                   dtype=out_dtype,
+                                   width=kv_heads_loc * head_dim)
+        out.append(dec.reshape(dec.shape[0], -1, kv_heads_loc, head_dim))
     return tuple(out)

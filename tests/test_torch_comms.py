@@ -18,6 +18,12 @@ Contract asserted here:
     2 under bq16 (the card's fused gathered decode), and along axis 1
     under gq8 (the codec's default decode tail), bit-equal in a world of
     2;
+  * ``reduce_scatter`` of a bf16 activation to ``[2, 8, 64]`` chunks along
+    axis 0, 1 and 2 (and to ``[2, 32, 64]`` chunks along axis 1, where the
+    bidirectional, two-stripe ring splits into four parts) under bq16 in
+    worlds of 2, 3 and 4, bit-equal, ledger included, through the block
+    forms and through the shard-view ring the card runs (forced on the
+    CPU, where the view forms run their plain versions);
   * carried-state codecs over worlds of 2 and 4, each collective called
     twice in one ``codec_state_io`` region (the second call sees the
     first's state): ``ef:bq8`` (``reduce_scatter_flat``, ``psum``,
@@ -87,6 +93,19 @@ def _cases(n: int) -> list:
             out.append(dict(op="all_gather", codec=codec, bidir=False,
                             chunks=1, shape=ACT, axis_dim=axis_dim,
                             dtype="bfloat16"))
+    # a bf16 activation reduce-scattered along each axis to chunks of ACT
+    # (the card reads the chunks in place through shard views), bidir
+    # with two stripes (below the tile floor: one part); and chunks of 32
+    # rows, where the ring's four parts are realized; each through the
+    # block forms (the CPU's path) and through the view forms' ring
+    # (``view``: the card's path, on the views' plain versions)
+    for axis_dim, chunk in ((0, ACT), (1, ACT), (2, ACT), (1, (2, 32, 64))):
+        shape = list(chunk)
+        shape[axis_dim] *= n
+        for view in (False, True):
+            out.append(dict(op="reduce_scatter", codec="bq16", bidir=True,
+                            chunks=2, shape=tuple(shape), axis_dim=axis_dim,
+                            dtype="bfloat16", view=view))
     return out
 
 
@@ -157,7 +176,7 @@ def _reference(out_path: str) -> None:
             if op == "psum":
                 outs = {"out": comms.psum(x, "x", "dp")}
             elif op == "reduce_scatter":
-                outs = {"out": comms.reduce_scatter(x, "x", 0, "dp")}
+                outs = {"out": comms.reduce_scatter(x, "x", axis_dim, "dp")}
             elif op == "all_gather":
                 outs = {"out": comms.all_gather(x, "x", axis_dim, "dp")}
             elif op in ("reduce_scatter_flat", "all_gather_flat"):
@@ -204,7 +223,13 @@ def _reference(out_path: str) -> None:
     res = {}
     for n in WORLDS:
         mesh = compat.make_mesh((n,), ("x",), devices=jax.devices()[:n])
+        seen = {}              # cases that differ only in the port's path
         for i, case in enumerate(_cases(n)):
+            same = repr({k: v for k, v in case.items() if k != "view"})
+            if same in seen:
+                res[(n, i)] = res[seen[same]]
+                continue
+            seen[same] = (n, i)
             plan = policy.CommPolicy(
                 "rc", rules=(policy.Rule(case["codec"]),)).compile()
             x = jnp.asarray(_inputs(n, case["shape"])).astype(
@@ -291,12 +316,20 @@ def port():
 
 
 def _port_rank(*, rank, world, cases, shapes):
-    """One rank of the port's world: each case on its own input."""
+    """One rank of the port's world: each case on its own input.  A case
+    with ``view`` runs the reduce-scatter ring on the codec's shard-view
+    forms, as on the card; on the CPU they run their plain versions."""
+    from unittest import mock
+
+    from repro_torch.core import codecs
     from repro_torch.launch.ring_check import collectives_rank
     out = []
     for case, shape in zip(cases, shapes):
-        out += collectives_rank(rank=rank, world=world, cases=[case],
-                                payload=_inputs(world, shape))
+        case = dict(case)
+        with mock.patch.object(codecs.BqCodec, "view_forms",
+                               lambda self, x, v=case.pop("view", False): v):
+            out += collectives_rank(rank=rank, world=world, cases=[case],
+                                    payload=_inputs(world, shape))
     return out
 
 

@@ -16,6 +16,20 @@ shards joined along every axis) equal their plain versions bit for bit
 (NaN by position) at n from 0 to the TP activation's 1179648 values, one
 launch each; misaligned and strided inputs are encoded by the kernel.
 
+The TP reduce-scatter's view forms (``bq_encode_view``,
+``bq_decode_add_encode_view`` wire-only, ``bq_decode_add_flat`` writing the
+payload's type) equal their plain versions (the block forms on
+``bq.view_rows``, which equal ``comms._split_for_scatter``'s rows) bit for
+bit, NaN by position, for chunk k = 0..n-1 of payloads split n = 2, 3 and
+4 ways along each of three axes (runs of the chunk that are and are not a
+multiple of 8 values; misaligned payloads), on whole chunks and on the
+row ranges of ``comms._ring_schedule``, one launch each.  The fused KV
+read (``bq_gather_decode`` with ``dtype``/``width``) equals the plain
+gather-decode, slice and cast bit for bit in bf16, f16 and f32 at widths
+that are and are not a multiple of 8, an id outside the pool writing NaN;
+without them the same kernel decodes whole pool rows in f32.  Bad views,
+outputs, widths and types raise.
+
 The lowrank matmul's three forms (``tall``, ``at_b``, ``small_k``) at
 small, ragged and the training step's shapes (gemma3-1b's per-rank
 gradient at dp 2 x tp 2: 1051352 x 512), at r = 1, 2, 3, 4, 5, 8, 16,
@@ -87,10 +101,12 @@ def test_kernels_match_plain(cuda, bits):
                        ops.bq_gather_decode(pool, idx, bits, backend="torch"))
     torch.cuda.synchronize()
     assert bq.LAUNCHES == {"bq_encode": 1, "bq_encode_flat": 0,
-                           "bq_decode": 1, "bq_decode_flat": 0,
-                           "bq_gather_decode": 1, "bq_decode_add_encode": 0,
+                           "bq_encode_view": 0, "bq_decode": 1,
+                           "bq_decode_flat": 0, "bq_gather_decode": 1,
+                           "bq_decode_add_encode": 0,
                            "bq_decode_add_encode_wire": 0,
-                           "bq_decode_add": 0}
+                           "bq_decode_add_encode_view": 0,
+                           "bq_decode_add": 0, "bq_decode_add_flat": 0}
 
 
 @pytest.mark.cuda
@@ -306,6 +322,173 @@ def test_flat_wrappers_take_any_layout_and_validate(cuda):
         bq.bq_decode_flat(w[0].view(torch.uint8), None, w[2], 8, 100)
     with pytest.raises(ValueError):          # non-contiguous planes
         bq.bq_decode_flat(w[0][::2], None, w[2][::2], 8, 100)
+
+
+# --------------------------------------------------------------------------
+# the reduce-scatter's view forms and the fused KV read (Pallas #4, #5)
+# --------------------------------------------------------------------------
+
+# (payload shape before the split, axis) per case: the split axis is
+# multiplied by the shard count; runs of 105, 35 and 7 values (scalar
+# loads), 1024, 512 and 64 (vector loads)
+VIEW_BASES = ((3, 5, 7), (2, 8, 64))
+
+
+def _views(x, axis_dim: int, n: int):
+    """Every (k, lo, hi) of the n chunks: the whole chunk and the parts of
+    a bidirectional ring of two stripes."""
+    from repro_torch.core import comms
+    m = ops.padded_rows(x.numel() // n)
+    spans = {(0, m)} | {(lo, hi) for lo, hi, _ in
+                        comms._ring_schedule(m, True, 2).parts}
+    return [bq.shard_view(x, axis_dim, n, k, lo, hi)
+            for k in range(n) for lo, hi in sorted(spans)]
+
+
+def _check_view_forms(view, bits: int) -> None:
+    rows = bq.view_rows(view)
+    bq.reset_launches()
+    got = bq.bq_encode_view(view, bits)
+    for k, a, b in zip(PLANES, got, bq.encode_plain(rows, bits)):
+        assert (a is None) == (b is None), k
+        if b is not None:
+            assert torch.equal(a, b), (view.index, view.lo, k)
+    wire = list(bq.encode_plain(rows * 0.5 + 1.0, bits))
+    got = bq.bq_decode_add_encode_view(*wire, view, bits)
+    want = bq.decode_add_encode_plain(*wire, rows, bits)[:3]
+    for k, a, b in zip(PLANES, got, want):     # sums past f32: NaN scales
+        if b is not None:
+            assert _same_bits(a, b), (view.index, view.lo, k)
+    if view.rows > 2:                    # scales of inf and NaN: NaN sums
+        wire[2] = wire[2].clone()
+        wire[2][1], wire[2][2] = float("inf"), float("nan")
+    out = torch.full((view.n,), 7.0, dtype=view.x.dtype, device=view.x.device)
+    want = bq.decode_add_flat_plain(*wire, view, bits, out.clone())
+    assert bq.bq_decode_add_flat(*wire, view, bits, out) is out
+    torch.cuda.synchronize()
+    assert _same_bits(out, want), (view.index, view.lo)
+    assert (bq.LAUNCHES["bq_encode_view"],
+            bq.LAUNCHES["bq_decode_add_encode_view"],
+            bq.LAUNCHES["bq_decode_add_flat"]) == (1, 1, int(
+                min(view.hi * 128, view.n) > view.lo * 128))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", BITS)
+@pytest.mark.parametrize("dtype", FLAT_DTYPES)
+def test_view_forms_match_plain(cuda, bits, dtype):
+    """Every chunk of payloads split 2, 3 and 4 ways along each axis."""
+    for base in VIEW_BASES:
+        for n in (2, 3, 4):
+            for ax in range(3):
+                shape = list(base)
+                shape[ax] *= n
+                numel = 1
+                for d in shape:
+                    numel *= d
+                x = _flat(numel + 1, dtype, bits + n + ax, cuda)
+                for payload in (x[:-1], x[1:]):        # aligned, misaligned
+                    for view in _views(payload.reshape(shape), ax, n):
+                        _check_view_forms(view, bits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 16])
+def test_view_forms_at_the_tp_shape(cuda, bits):
+    """The tp@mlp_out reduce-scatter's chunks (bf16 [2, 1024, 1152] along
+    axis 1, 9216 rows) and the narrow sites' ([2, 1024, 256], 2048 rows)."""
+    for shape in ((2, 1024, 1152), (2, 1024, 256)):
+        x = _flat(2 * 1024 * shape[2], torch.bfloat16, bits, cuda)
+        for view in _views(x.reshape(shape), 1, 2):
+            _check_view_forms(view, bits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", BITS)
+@pytest.mark.parametrize("dtype", FLAT_DTYPES)
+def test_gather_decode_flat_matches_plain(cuda, bits, dtype):
+    """The fused KV read equals gather-decode, slice and cast; an id
+    outside the pool writes NaN and leaves the other entries alone."""
+    for nb, bt, r in ((6, 4, 2), (296, 16, 2)):
+        w = ops.bq_encode_blocks(_rows(nb * bt * r, bits, cuda), bits)
+        pool = [None if w[k] is None else w[k].reshape(nb, bt, r, -1)
+                for k in PLANES]
+        g = torch.Generator().manual_seed(bits)
+        idx = torch.randint(0, nb, (8, 5), generator=g,
+                            dtype=torch.int32).to(cuda)
+        for width in (r * 128, 192, 100, 1):
+            bq.reset_launches()
+            got = bq.bq_gather_decode(*pool, idx, bits, dtype=dtype,
+                                      width=width)
+            want = bq.gather_decode_flat_plain(*pool, idx, bits, dtype, width)
+            torch.cuda.synchronize()
+            assert got.shape == (8, 5, bt, width)
+            assert _same_bits(got, want), (nb, width)
+            assert bq.LAUNCHES["bq_gather_decode"] == 1
+        bad = idx.clone()
+        bad[0, 0], bad[3, 2] = nb, -1
+        got = bq.bq_gather_decode(*pool, bad, bits, dtype=dtype, width=192)
+        torch.cuda.synchronize()
+        assert got[0, 0].isnan().all() and got[3, 2].isnan().all()
+        ok = torch.ones(bad.shape, dtype=torch.bool, device=cuda)
+        ok[0, 0] = ok[3, 2] = False
+        want = bq.gather_decode_flat_plain(*pool, idx, bits, dtype, 192)
+        assert _same_bits(got[ok], want[ok])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", BITS)
+def test_gather_decode_f32_form_matches_plain(cuda, bits):
+    """Without ``dtype``/``width`` the same kernel decodes whole pool rows
+    in f32, for pools of one to three axes after the block axis."""
+    for lead in ((6, 4, 2), (296, 16, 2), (7,), (3, 2, 3, 2)):
+        m = 1
+        for d in lead:
+            m *= d
+        w = ops.bq_encode_blocks(_rows(m, bits + len(lead), cuda), bits)
+        pool = [None if w[k] is None else w[k].reshape(*lead, -1)
+                for k in PLANES]
+        g = torch.Generator().manual_seed(bits)
+        idx = torch.randint(0, lead[0], (8, 5), generator=g,
+                            dtype=torch.int32).to(cuda)
+        bq.reset_launches()
+        got = bq.bq_gather_decode(*pool, idx, bits)
+        want = bq.gather_decode_plain(*pool, idx, bits)
+        torch.cuda.synchronize()
+        assert got.shape == (8, 5, *lead[1:], 128)
+        assert torch.equal(got, want), lead
+        assert bq.LAUNCHES["bq_gather_decode"] == 1
+
+
+@pytest.mark.cuda
+def test_view_and_kv_wrappers_validate(cuda):
+    x = torch.zeros(2, 8, 64, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):              # 8 rows in 3 chunks
+        bq.shard_view(x, 1, 3, 0)
+    with pytest.raises(ValueError):              # no chunk 2 of 2
+        bq.shard_view(x, 1, 2, 2)
+    with pytest.raises(ValueError):              # rows past the chunk
+        bq.shard_view(x, 1, 2, 0, 0, 16)
+    v = bq.shard_view(x, 1, 2, 0)
+    w = bq.bq_encode_view(v, 8)
+    with pytest.raises(TypeError):               # out in the view's type
+        bq.bq_decode_add_flat(*w, v, 8, torch.empty(512, device=cuda))
+    with pytest.raises(ValueError):              # and the chunk's size
+        bq.bq_decode_add_flat(*w, v, 8, torch.empty(
+            256, dtype=torch.bfloat16, device=cuda))
+    with pytest.raises(ValueError):              # the wire's rows
+        bq.bq_decode_add_encode_view(*(t[:4] if t is not None else None
+                                       for t in w), v, 8)
+    pool = ops.bq_encode_blocks(torch.zeros(32, 128, device=cuda), 8)
+    planes = [None if pool[k] is None else pool[k].reshape(4, 4, 2, -1)
+              for k in PLANES]
+    idx = torch.zeros(2, 2, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):              # the output's type
+        bq.bq_gather_decode(*planes, idx, 8, dtype=torch.int32)
+    with pytest.raises(ValueError):              # width past the rows
+        bq.bq_gather_decode(*planes, idx, 8, width=257)
+    with pytest.raises(TypeError):               # the table's type
+        bq.bq_gather_decode(*planes, idx.long(), 8, dtype=torch.bfloat16)
 
 
 # --------------------------------------------------------------------------

@@ -18,7 +18,14 @@ jnp oracle and its Pallas kernel in interpret mode alike.  So:
   * rows whose sum has a denormal max-abs keep IEEE denormals in the port
     and flush to zero in the reference (pinned, as in
     ``test_torch_kernels_bq.py``);
-  * a CPU tensor runs the plain version and launches nothing.
+  * a CPU tensor runs the plain version and launches nothing;
+  * the TP reduce-scatter's shard-view forms (``bq.view_rows`` and the
+    view encode, wire-only hop and fused decode-add on it) equal
+    ``comms._split_for_scatter``'s rows, the block forms on them and
+    ``from_blocks`` bit for bit: every chunk of bf16, f16 and f32
+    payloads split 2, 3 and 4 ways along each axis, with runs of the
+    chunk that are not a multiple of 8 values, chunks whose last tile is
+    padded, and the row ranges of ``comms._ring_schedule``.
 
 The CUDA kernels are held against the plain versions on the card by
 ``test_torch_cuda.py`` and ``chip_smoke.py``.
@@ -219,3 +226,73 @@ def test_cpu_tensors_launch_nothing():
     assert not any(tbq.LAUNCHES.values())
     assert {"bq_decode_add_encode", "bq_decode_add_encode_wire",
             "bq_decode_add"} <= set(tbq.LAUNCHES)
+
+
+# --------------------------------------------------------------------------
+# the reduce-scatter's shard-view forms (plain versions)
+# --------------------------------------------------------------------------
+
+# chunk shapes (the split axis multiplied by the shard count): runs of 35
+# and 7 values, a chunk of 1260 values (last tile padded), and one of
+# 4096 values (32 rows: four ring parts)
+VIEW_CHUNKS = ((4, 5, 7), (2, 32, 64))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16", "float32"])
+@pytest.mark.parametrize("n", [2, 3, 4])
+def test_view_forms_equal_split_blocks(n, dtype):
+    from repro_torch.core import comms as tcomms
+    bits = 16
+    rng = np.random.default_rng(n)
+    for chunk in VIEW_CHUNKS:
+        for ax in range(3):
+            shape = list(chunk)
+            shape[ax] *= n
+            x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)
+                                 * 5).to(getattr(torch, dtype))
+            xb, cs = tcomms._split_for_scatter(x, ax, n)
+            m = xb.shape[1]
+            parts = {(lo, hi) for lo, hi, _ in
+                     tcomms._ring_schedule(m, True, 2).parts}
+            wire = tops.bq_encode_blocks(xb[1 % n] * 0.5, bits)
+            for k in range(n):
+                outs = {}                    # whole chunk, and by ring part
+                for lo, hi in sorted(parts | {(0, m)}):
+                    view = tbq.shard_view(x, ax, n, k, lo, hi)
+                    assert torch.equal(tbq.view_rows(view), xb[k][lo:hi])
+                    _assert_wire_equal(
+                        {p: None if v is None else v.numpy() for p, v in
+                         tops.bq_encode_blocks(xb[k][lo:hi], bits).items()},
+                        tops.bq_encode_view(view, bits))
+                    part = {p: None if v is None else v[lo:hi]
+                            for p, v in wire.items()}
+                    want, _ = tops.bq_decode_add_encode_blocks(
+                        part, xb[k][lo:hi], bits, want_sum=False)
+                    _assert_wire_equal(
+                        {p: None if v is None else v.numpy()
+                         for p, v in want.items()},
+                        tops.bq_decode_add_encode_view(part, view, bits))
+                    for key in ("whole", "parts"):
+                        if (lo, hi) in {"whole": {(0, m)},
+                                        "parts": parts}[key]:
+                            out = outs.setdefault(
+                                key, torch.full(cs, 7.0, dtype=x.dtype))
+                            tops.bq_decode_add_view(part, view, bits, out)
+                # each wrote every value of the chunk
+                want = tops.from_blocks(tops.bq_decode_add_blocks(
+                    wire, xb[k], bits), cs, x.dtype)
+                assert set(outs) == {"whole", "parts"}
+                for key, out in outs.items():
+                    assert torch.equal(out, want), (chunk, ax, k, key)
+
+
+def test_shard_view_rejects_bad_layouts():
+    x = torch.zeros(2, 6, 5)
+    with pytest.raises(ValueError):
+        tbq.shard_view(x, 1, 4, 0)           # 6 rows in 4 chunks
+    with pytest.raises(ValueError):
+        tbq.shard_view(x, 1, 3, 3)           # no chunk 3 of 3
+    with pytest.raises(ValueError):
+        tbq.shard_view(x, 1, 3, 0, 4, 16)    # rows past the chunk's 8
+    v = tbq.shard_view(x.to(torch.int32), 2, 5, 4)
+    assert v.x.dtype == torch.float32 and (v.n, v.inner, v.rows) == (12, 1, 8)

@@ -9,7 +9,7 @@ Contract asserted here:
     only: nothing is allocated at full width);
   * ``write_token`` leaves the same pool planes as the reference's (bit
     for bit), including a dropped write from an inactive slot, and
-    ``read_tables`` returns the same K/V;
+    ``read_tables`` returns the same K/V in f32 and in bf16;
   * the scheduler hands the device step the same arrays as the
     reference's, step by step, for the same submissions.
 """
@@ -153,8 +153,9 @@ def _assert_pools_equal(jp, tp):
     np.testing.assert_array_equal(np.asarray(jp), tp.numpy())
 
 
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("bits", [None, 4, 8, 16, 24])
-def test_write_read_match_reference(bits):
+def test_write_read_match_reference(bits, out_dtype):
     nb, bt, kv, hd, n = 6, 4, 2, 96, 4          # kv*hd = 192: R = 2, padded
     rng = np.random.default_rng(0)
     jpool, tpool = _pools(nb, bt, kv, hd, bits)
@@ -174,12 +175,15 @@ def test_write_read_match_reference(bits):
                                  torch.from_numpy(v_tok), bits)
         _assert_pools_equal(jpool, tpool)
     jk, jv = jpkv.read_tables(jpool, jnp.asarray(tables), bits, kv, hd,
-                              jnp.float32, backend="jnp")
+                              getattr(jnp, out_dtype), backend="jnp")
     tk, tv = tpkv.read_tables(tpool, torch.from_numpy(tables), bits, kv, hd,
-                              torch.float32)
+                              getattr(torch, out_dtype))
     assert tuple(tk.shape) == (4, 2 * bt, kv, hd)
-    np.testing.assert_array_equal(np.asarray(jk), tk.numpy())
-    np.testing.assert_array_equal(np.asarray(jv), tv.numpy())
+    if bits is not None:                 # the read's type (dense: the pool's)
+        assert tk.dtype == tv.dtype == getattr(torch, out_dtype)
+    for j, t in ((jk, tk), (jv, tv)):    # bf16 compared as f32 (exact)
+        np.testing.assert_array_equal(np.asarray(j, np.float32),
+                                      t.float().numpy())
 
 
 @pytest.mark.parametrize("bits", [None, 8])
