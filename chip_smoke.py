@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # from the root of a checkout
     python3 chip_smoke.py --bq-only  # phase 1 and the bq timings alone
+    python3 chip_smoke.py --pp-only  # phase 1, phase 4's step, phase 7
 
 ``--bq-only`` prints the bq kernels' timings and those of the fused TP
 all-gather, TP reduce-scatter and KV-read ops beside the compositions
@@ -89,7 +90,22 @@ runs, every lowrank form launched in the kernel run and nothing in the
 plain run, finite and falling losses, and the dp wire bytes at plr8's and
 bq4's priced ratios to phase 4's baseline.
 
-After phase 6, a fresh process (this script with ``--reckon FILE``, which
+Phase 7 drives the pipeline (the paper's PP dimension): gemma3-1b at full
+published width, dp 1 x pp 2 x tp 2 (four ranks on the card), 4
+microbatches of 1 x 1024 tokens, zhybrid_16_8 (bq16 on the stage
+handoffs and the stage fold), deterministic: 7a 1F1B at ``--layers 26``, 3
+steps, and 7b interleaved (vpp 2, remat per_stage:0) at ``--layers 24``, 2
+steps (gemma3-1b's 5:1 local:global stack does not split into identical
+stages, so ``--layers`` makes it uniform), each through the kernels and
+through the plain versions.  It requires equal losses, grad norms and
+per-dimension ledger bytes between the two, finite losses, in the kernel
+run the flat decode launched at the handoff's 4608 rows exactly once per
+handoff and direction on every rank (and the flat encode at least as
+often), none in the plain run, and the pp sites' priced bytes at bq16's
+ratio to their payload (bf16 handoffs, the f32 fold); it prints the
+bubble fraction and the stage fold's share of the step.
+
+After phase 7, a fresh process (this script with ``--reckon FILE``, which
 the script starts itself) times each (kernel, rows, rate) that phase 4's
 kernel run launched, at its shape, and reckons launches x (time - bound)
 per rank per step.
@@ -142,6 +158,16 @@ MM_FORMS = ("tall", "at_b", "small_k")
 MM_RANKS = {"tall": (2, 4, 8, 16, 32, 64), "at_b": (2, 4, 8, 64),
             "small_k": (2, 4, 8, 16, 32, 64)}
 SCRATCH = ROOT / ".smoke"     # git-ignored: phase 4's flat gradient
+# phase 7: the pipeline, dp 1 x pp 2 x tp 2, 4 microbatches of 1 x SEQ;
+# (name, layers, steps, flags) of its two runs
+PP, PP_MICRO = 2, 4
+PP_RUNS = (("7a", 26, 3, ()),
+           ("7b", 24, 2, ("--vpp", "2", "--remat-policy", "per_stage:0")))
+# wire rows of one handoff: a microbatch's bf16 [1, SEQ / TP, 1152]
+HANDOFF_ROWS = (GLOBAL_BATCH // PP_MICRO) * (SEQ // TP) * 1152 // 128
+# the stage-replicated leaves' fold: the tied embedding's vocab shard and
+# the final norm
+STAGE_FOLD_ELEMS = 262144 // TP * 1152 + 1152
 
 
 def fail(msg: str):
@@ -1217,14 +1243,16 @@ def reckon_shapes(torch, card, shapes: dict, rank_steps: int) -> dict:
     return out
 
 
-def train_run(card, scheme, backend, label, steps=STEPS, extra=(), **kw):
-    """One run of the launcher's training step (``dp x tp`` ranks on this
-    card, deterministic, exchanges timed); prints its numbers and returns
-    the per-rank results."""
+def train_run(card, scheme, backend, label, steps=STEPS, extra=(), dp=DP,
+              **kw):
+    """One run of the launcher's training step (``dp x pp x tp`` ranks on
+    this card, ``extra`` flags after the defaults, deterministic,
+    exchanges timed); prints its numbers and returns the per-rank
+    results."""
     from repro_torch.launch import train
 
     args = train.parser().parse_args(
-        ["--arch", "gemma3-1b", "--dp", str(DP), "--tp", str(TP),
+        ["--arch", "gemma3-1b", "--dp", str(dp), "--tp", str(TP),
          "--steps", str(steps), "--seq", str(SEQ), "--global-batch",
          str(GLOBAL_BATCH), "--seed", str(SEED), "--scheme", scheme,
          *extra])
@@ -1245,6 +1273,75 @@ def train_run(card, scheme, backend, label, steps=STEPS, extra=(), **kw):
           f"{res[0]['staging_bytes'][-1] / 1e9:.2f} GB staged per step "
           f"(rank 0), wall {wall:.0f}s [{card}]")
     return res
+
+
+def drive_pipeline(torch, card) -> dict:
+    """Phase 7: the pipeline at full width, dp 1 x pp 2 x tp 2 (four ranks
+    on the card), 1F1B at ``--layers 26`` and interleaved (vpp 2, remat
+    per_stage:0) at ``--layers 24``, through the kernels and the plain
+    versions; returns each run's launches (all ranks), by shape too."""
+    out = {}
+    for name, layers, steps, extra in PP_RUNS:
+        flags = ["--layers", str(layers), "--pp", str(PP), "--microbatches",
+                 str(PP_MICRO), *extra]
+        k = train_run(card, "zhybrid_16_8", None, f"{name} kernels", steps,
+                      flags, dp=1)
+        p = train_run(card, "zhybrid_16_8", "torch", f"{name} plain", steps,
+                      flags, dp=1)
+        for rk, rp in zip(k, p):
+            for key in ("losses", "grad_norms", "wire_per_dim",
+                        "priced_per_dim"):
+                if rk[key] != rp[key]:
+                    fail(f"phase {name} rank {rk['rank']}: {key} differ "
+                         f"between the kernel run ({rk[key]}) and the plain "
+                         f"run ({rp[key]})")
+            if not np.isfinite(rk["losses"]).all():
+                fail(f"phase {name} rank {rk['rank']}: losses "
+                     f"{rk['losses']}")
+        if any(v for r in p for v in r["launches"].values()):
+            fail(f"phase {name}: the plain run launched kernels: "
+                 f"{[r['launches'] for r in p]}")
+        # every tick hands off once forward and, but for the first tick's
+        # (constant zeros), once backward; each decodes on every rank at
+        # the handoff's rows (a TP all-gather's gathered decode has twice
+        # as many)
+        ticks, shapes = k[0]["ticks"], shape_sums(k)
+        want = len(k) * steps * (2 * ticks - 1)
+        dec = shapes.get(("bq_decode_flat", HANDOFF_ROWS, 16), 0)
+        enc = shapes.get(("bq_encode_flat", HANDOFF_ROWS, 16), 0)
+        if dec != want or enc < want:
+            fail(f"phase {name}: flat decode {dec} and encode {enc} "
+                 f"launches at the handoff's {HANDOFF_ROWS} rows, want "
+                 f"{want} and at least {want}")
+        # the pp sites' priced bytes at bq16's ratio to their payload: the
+        # bf16 handoff and the f32 stage fold
+        ratios = {}
+        for tag, bits in (("pp@stage_handoff", 16), ("pp_bwd@grad_stage_rep",
+                                                      32)):
+            r = k[0]["priced_per_tag"][tag] / k[0]["payload_per_tag"][tag]
+            ratios[tag] = r
+            want_r = (16 + 32 / 128) / bits
+            if not want_r <= r <= want_r * 1.01:
+                fail(f"phase {name}: {tag} priced {r:.5f} of its payload, "
+                     f"bq16's ratio {want_r:.5f}")
+        step = max(float(np.median(r["step_s"][1:])) for r in k)
+        fold = max(float(np.median([sp.get("pp_bwd@grad_stage_rep", 0.0)
+                                    for sp in r["span_s"][1:]])) for r in k)
+        print(f"phase {name}: kernel run == plain run (losses, grad norms, "
+              f"ledger per dim) on every rank; {ticks} ticks, bubble "
+              f"fraction {k[0]['bubble']:.4f}; flat decode {dec} and encode "
+              f"{enc} launches at the handoff's {HANDOFF_ROWS} rows; the "
+              f"stage fold (bq16 psum of {STAGE_FOLD_ELEMS} floats) "
+              f"{fold * 1e3:.1f} ms of the slowest rank's {step * 1e3:.1f} ms "
+              f"step ({fold / step * 100:.1f} %); priced wire per rank per "
+              f"step {k[0]['priced_per_dim']} (pp: handoff "
+              f"{ratios['pp@stage_handoff']:.5f}, stage fold "
+              f"{ratios["pp_bwd@grad_stage_rep"]:.5f} of the payload); measured "
+              f"{k[0]['wire_per_dim']}; launches (all ranks) "
+              f"{launch_sums(k)} [{card}]")
+        out[name] = {"launches": launch_sums(k), "shapes": shapes,
+                     "step_ms": step * 1e3, "fold_ms": fold * 1e3}
+    return out
 
 
 def launch_sums(res) -> dict:
@@ -1533,6 +1630,15 @@ def main():
     for name, line in ptxas_lines(bq.build_info.get("log", "")):
         print(f"  ptxas: {name}: {line}")
 
+    if sys.argv[1:] == ["--pp-only"]:
+        # phase 7 alone, beside phase 4's zhybrid_16_8 step
+        os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                              "expandable_segments:True")
+        train_run(card, "zhybrid_16_8", None, "phase 4 zhybrid_16_8 kernels")
+        drive_pipeline(torch, card)
+        print(f"card: {card}")
+        return
+
     # ---------------------------------------------------------- phase 2
     nb = SLOTS * paged_kv.blocks_needed(PROMPT + GEN, BLOCK_TOKENS)
     cfg = configs.get("gemma3-1b")
@@ -1722,6 +1828,14 @@ def main():
           f"ef_zhybrid_16_4 (kernels) [{card}]")
     stateful = drive_stateful(torch, card, train, n_flat)
 
+    # ---------------------------------------------------------- phase 7
+    print(f"phase 7: the pipeline, gemma3-1b full width, dp 1 x pp {PP} x "
+          f"tp {TP} ranks on this card, {PP_MICRO} microbatches, seq {SEQ}, "
+          f"global batch {GLOBAL_BATCH}, zhybrid_16_8: 7a --layers "
+          f"{PP_RUNS[0][1]} (1F1B), 7b --layers {PP_RUNS[1][1]} (vpp 2, "
+          f"remat per_stage:0) [{card}]")
+    pipe = drive_pipeline(torch, card)
+
     # launches x (time - bound) per shape of phase 4's kernel run, timed in
     # a fresh process (this one's profiler reports nothing after phases
     # 3-6 have run)
@@ -1737,9 +1851,23 @@ def main():
     by_shape = json.loads(shapes_path.with_suffix(".out.json").read_text())
 
     # kernel line: launches on each kernel's path (phase 4 the training
-    # step, phase 3 serving, phase 5 the rings), times at the path's shape
+    # step, phase 3 serving, phase 5 the rings, phase 7 the pipeline),
+    # times at the path's shape
     t_launch, r_launch = train["launches"], rings["launches"]
     kernels = []
+
+    def p7_launches(kernel: str) -> int:
+        return sum(run["launches"][kernel] for run in pipe.values())
+
+    def p7_entry(kernel: str) -> dict:
+        """Phase 7's launches of one kernel (all ranks) per run, and by
+        (wire rows, rate)."""
+        return {run: {"launches": r["launches"][kernel],
+                      "by_shape": [[rows, bits, c] for (k, rows, bits), c
+                                   in sorted(r["shapes"].items())
+                                   if k == kernel]}
+                for run, r in pipe.items()}
+
     for name, line, launches in (
             ("bq_encode", 173, t_launch["bq_encode"]),
             ("bq_decode", 205, t_launch["bq_decode"]),
@@ -1766,6 +1894,8 @@ def main():
                 "plain_ms": owps, "warm_l2_ms": owws, "bound_ms": wbms,
                 "launches": r_launch["bq_decode_add_encode_wire"]}
         entry["launches_ef_zhybrid_16_4"] = stateful["ef"][name]
+        entry["launches"] += p7_launches(name)
+        entry["phase7"] = p7_entry(name)
         if name in ("bq_encode", "bq_decode"):
             # the block form's kernel alone, and the flat form the TP
             # all-gather calls (the same kernel, fused with its layout)
@@ -1784,7 +1914,9 @@ def main():
                 "unfused_kernel_ms": op["unfused_kernel_ms"],
                 "bound_ms": op["bound_ms"], "bound_by": "bytes",
                 "stream_kernel_ms": op["stream_kernel_ms"],
-                "launches": t_launch[f"{name}_flat"],
+                "launches": t_launch[f"{name}_flat"]
+                + p7_launches(f"{name}_flat"),
+                "phase7": p7_entry(f"{name}_flat"),
                 "max_abs_err": err[f"{name}_flat"],
                 "by_shape": by_shape.get(f"{name}_flat", [])}
         entry["by_shape"] = by_shape.get(name, [])
@@ -1806,7 +1938,8 @@ def main():
             entry["view" if op == "encode" else "flat"] = {
                 "path": f"TP reduce-scatter, bf16 {[list(sh) for sh in RS_SHAPES]}"
                         f" along axis 1 over {TP} ranks", "rate": 16,
-                "launches": t_launch[fname], "max_abs_err": err[fname],
+                "launches": t_launch[fname] + p7_launches(fname),
+                "phase7": p7_entry(fname), "max_abs_err": err[fname],
                 "bound_by": "bytes",
                 "by_rows": {rows: {**ops_[op], "end": ops_["end"]}
                             for rows, ops_ in rs_ops.items()},

@@ -125,6 +125,19 @@ def ledger_summary(events, train: bool) -> dict:
     return {"total_bytes": total, "per_dim": per_dim}
 
 
+def ledger_per_tag(events, plain: bool = False) -> dict:
+    """Per-device training bytes (backward twins included) per site tag;
+    ``plain`` prices every event as if its codecs were ``none``: the
+    payload the codecs compress."""
+    out = {}
+    for ev in events:
+        if plain:
+            ev = {**ev, "codec_fwd": "none", "codec_bwd": "none"}
+        b = event_bytes(ev, train=True)
+        out[ev["tag"]] = out.get(ev["tag"], 0.0) + b["fwd"] + b["bwd"]
+    return out
+
+
 def wire_per_dim(wire_events) -> dict:
     """Measured wire bytes (payload x hops) per dimension, from the
     ledger's ``.wire`` events."""
@@ -133,3 +146,44 @@ def wire_per_dim(wire_events) -> dict:
         dim = tag_dim(w["tag"])
         out[dim] = out.get(dim, 0) + w["payload_bytes"] * w["hops"] * w["mult"]
     return out
+
+
+# --------------------------------------------------------------------------
+# pipeline-parallel terms: the schedule's ticks and bubble, stage handoffs
+# --------------------------------------------------------------------------
+
+def pipeline_ticks(pp: int, n_micro: int, vpp: int = 1) -> int:
+    """Ticks of the realized schedule (the pipeline's loop runs exactly
+    this many): ``n_micro + pp - 1`` for 1F1B, ``n_micro * vpp + pp - 1``
+    for interleaved virtual stages, ``n_micro`` without a stage axis."""
+    if pp <= 1:
+        return max(n_micro, 1)
+    if n_micro < 1 or vpp < 1:
+        raise ValueError(f"n_micro {n_micro} and vpp {vpp} must be >= 1")
+    return n_micro * vpp + pp - 1
+
+
+def bubble_fraction(pp: int, n_micro: int, vpp: int = 1) -> float:
+    """Idle share of the schedule, ``(pp - 1) / pipeline_ticks``: a tick
+    runs ``1/vpp`` of a rank's depth, so interleaving cuts the bubble
+    about ``1/vpp`` at fixed ``pp``."""
+    if pp <= 1:
+        return 0.0
+    return (pp - 1) / pipeline_ticks(pp, n_micro, vpp)
+
+
+def stage_handoff_seconds(events, train: bool,
+                          link_bytes_per_s: float) -> float:
+    """Link time of the ``pp`` events alone (the stage handoffs and the
+    stage fold) at ``link_bytes_per_s``: the reference prices them at its
+    TPU's link rates, which do not apply here, so the caller names the
+    rate of its own link."""
+    pp_ev = [ev for ev in events if tag_dim(ev["tag"]) == "pp"]
+    return ledger_summary(pp_ev, train)["total_bytes"] / link_bytes_per_s
+
+
+def pipelined_step_time(base_step_s: float, pp: int, n_micro: int,
+                        vpp: int = 1) -> float:
+    """Step time with the schedule's bubble: the same per-rank work, busy
+    ``1 - bubble`` of the ticks."""
+    return base_step_s / max(1.0 - bubble_fraction(pp, n_micro, vpp), 1e-9)

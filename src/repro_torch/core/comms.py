@@ -80,6 +80,8 @@ class Axis:
 
 class _State:
     events = None
+    muted = 0
+    facts = {}
     bidir = False
     chunks = 1
     wire_tag = "-"
@@ -94,8 +96,13 @@ _rec = _State()
 STAGING = {"bytes": 0, "seconds": 0.0}
 
 
+# host seconds of named spans (under time_staging only)
+SPANS: collections.Counter = collections.Counter()
+
+
 def reset_staging() -> None:
     STAGING.update(bytes=0, seconds=0.0)
+    SPANS.clear()
 
 
 def time_staging(on: bool) -> None:
@@ -135,6 +142,46 @@ class record_traffic:
         return False
 
 
+class scope_facts:
+    """Attach key/value facts to every ledger event (analytic and wire)
+    recorded inside; inner scopes shadow outer keys.  The pipeline wraps
+    its ticks in ``scope_facts(vpp=V)``, as the reference does, so each
+    event records which schedule produced it.
+
+    The reference's ``scope_mult`` has no counterpart: it multiplies the
+    events of a body traced once and run many times, where this package
+    runs every tick eagerly and records each call's events."""
+
+    def __init__(self, **facts):
+        self.facts = facts
+
+    def __enter__(self):
+        self.prev = _rec.facts
+        _rec.facts = {**self.prev, **self.facts}
+        return self
+
+    def __exit__(self, *exc):
+        _rec.facts = self.prev
+        return False
+
+
+class mute_ledger:
+    """Drop the analytic events of the collectives called inside.
+
+    The pipeline's activation checkpointing re-runs a stage body during
+    the backward pass; the reference's ledger counts a checkpointed body
+    once (traced once), so the recompute's analytic events are muted.  Its
+    measured wire events are kept: those bytes do cross."""
+
+    def __enter__(self):
+        _rec.muted += 1
+        return self
+
+    def __exit__(self, *exc):
+        _rec.muted -= 1
+        return False
+
+
 def _dtype_name(dtype) -> str:
     return str(dtype).replace("torch.", "")
 
@@ -143,7 +190,7 @@ def _account(op, tag, x, axis, c_fwd, c_bwd, bwd_op=None, level="flat",
              elems=None, nbytes=None):
     """Append one analytic ledger event (see the reference's docstring)."""
     events = _rec.events
-    if events is None:
+    if events is None or _rec.muted:
         return
     if level == "flat" and tag.endswith(("_inner", "_outer")):
         level = tag.rsplit("_", 1)[1]
@@ -157,7 +204,7 @@ def _account(op, tag, x, axis, c_fwd, c_bwd, bwd_op=None, level="flat",
         elems=int(elems), dtype=_dtype_name(x.dtype), nbytes=int(nbytes),
         codec_fwd=c_fwd.name, codec_bwd=c_bwd.name,
         bwd_op=bwd_op, mult=1, remat=False,
-        bidir=_bidir(), level=level)
+        bidir=_bidir(), level=level, **_rec.facts)
     if op in ("all_reduce", "reduce_scatter") and n > 1:
         sched = _ring_schedule(ops.padded_rows(-(-int(elems) // n)))
         ev["ring"] = dict(rows=sched.rows, hops=n - 1,
@@ -177,7 +224,7 @@ def _log(op, tag, codec, payload_bytes, hops, **facts):
         tag = _rec.wire_tag
     events.wire.append(dict(
         op=op, tag=tag, codec=codec.name, payload_bytes=int(payload_bytes),
-        hops=int(hops), mult=1, **facts))
+        hops=int(hops), mult=1, **_rec.facts, **facts))
 
 
 class _bind:
@@ -373,6 +420,23 @@ class _staged:
         return False
 
 
+class span(_staged):
+    """Under :func:`time_staging`, add the host seconds of a region to
+    ``SPANS[name]``, the device drained at both ends; otherwise do
+    nothing."""
+
+    def __init__(self, name: str, like: torch.Tensor):
+        super().__init__(like)
+        self.name = name
+
+    def __exit__(self, *exc):
+        if self.on:
+            if self.like.device.type == "cuda":
+                torch.cuda.synchronize(self.like.device)
+            SPANS[self.name] += time.perf_counter() - self.t0
+        return False
+
+
 def _pack(wire: dict):
     """Wire dict -> (one uint8 tensor, layout): one message per exchange."""
     layout, parts = [], []
@@ -479,27 +543,33 @@ def _psum_scatter_raw(x: torch.Tensor, axis: Axis, axis_dim: int):
         return _device(out.sum(dim=0), x).to(x.dtype)
 
 
-def raw_psum(x: torch.Tensor, axis: Axis, mean: bool = False):
+def raw_psum(x: torch.Tensor, axis: Axis, mean: bool = False,
+             local_bwd: bool = False):
     """Uncompressed all-reduce (``lax.psum``/``pmean``), outside the
     ledger.  Differentiable: its backward is the same all-reduce of the
     cotangent, the transpose the reference's step differentiates through
-    (its shard_map runs without varying-axes checks)."""
+    (its shard_map runs without varying-axes checks).  ``local_bwd`` says
+    the cotangent is the same on every rank of ``axis`` (the output feeds
+    a replicated loss), so that all-reduce is a local multiply by the axis
+    size: no collective in the backward, and a rank whose ``x`` carries
+    no gradient need not join it."""
     if axis.size == 1:
         return x
-    return _RawPsumFn.apply(x, axis, mean)
+    return _RawPsumFn.apply(x, axis, mean, local_bwd)
 
 
 class _RawPsumFn(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, axis, mean):
-        ctx.axis, ctx.mean = axis, mean
+    def forward(ctx, x, axis, mean, local_bwd):
+        ctx.axis, ctx.mean, ctx.local_bwd = axis, mean, local_bwd
         out = _all_reduce_raw(x, axis)
         return out / axis.size if mean else out
 
     @staticmethod
     def backward(ctx, g):
-        out = _all_reduce_raw(g, ctx.axis)
-        return (out / ctx.axis.size if ctx.mean else out), None, None
+        out = g * ctx.axis.size if ctx.local_bwd else \
+            _all_reduce_raw(g, ctx.axis)
+        return (out / ctx.axis.size if ctx.mean else out), None, None, None
 
 
 def pmax(x, axis: Axis):
@@ -820,6 +890,24 @@ class _FFn(torch.autograd.Function):
         return g, None, None
 
 
+class _PpermuteFn(torch.autograd.Function):
+    """Permutation forward, the inverse permutation of the cotangent
+    backward (each rank gets the gradient of what it sent; a rank that
+    sent nothing gets zeros)."""
+
+    @staticmethod
+    def forward(ctx, x, axis, perm, c_fwd, c_bwd):
+        ctx.saved = (axis, tuple((d, s) for s, d in perm), c_bwd, _opts())
+        return _ppermute_impl(x, axis, perm, c_fwd)
+
+    @staticmethod
+    def backward(ctx, g):
+        axis, inv, c_bwd, opts = ctx.saved
+        with _bind(*opts):
+            return (_ppermute_impl(g.contiguous(), axis, inv, c_bwd), None,
+                    None, None, None)
+
+
 # --------------------------------------------------------------------------
 # public, site-resolving entry points
 # --------------------------------------------------------------------------
@@ -901,6 +989,58 @@ def psum_fwd_copy_bwd(x, axis: Axis, tag):
         if axis.size == 1:
             return _psum_impl(x, axis, c_fwd)
         return _FFn.apply(x, axis, c_fwd)
+
+
+def ppermute(x, axis: Axis, perm, tag):
+    """Point-to-point permutation over ``axis``: each ``(src, dst)`` pair of
+    axis indices sends ``src``'s ``x`` to ``dst``; a rank that receives
+    nothing gets zeros (backward: the inverse permutation under the bwd
+    codec).  A partial permutation is pro-rated in the ledger, as in the
+    reference: only ``len(perm) / n`` of the ranks send."""
+    s = policy.as_site(tag)
+    _require_flat(axis)
+    nbytes = _payload_nbytes(x)
+    c_fwd, c_bwd = _codec_pair(s, nbytes)
+    _require_stateless(s, c_fwd, c_bwd)
+    perm = tuple(perm)
+    n = int(axis.size)
+    _account("ppermute", s.ledger_tag, x, axis, c_fwd, c_bwd,
+             bwd_op="ppermute", elems=x.numel() * len(perm) // n,
+             level=s.level or "flat", nbytes=nbytes)
+    with _wire_site(s.ledger_tag):
+        return _PpermuteFn.apply(x, axis, perm, c_fwd, c_bwd)
+
+
+def stage_send(x, axis: Axis, tag="pp"):
+    """Pipeline stage handoff: stage ``s`` sends ``x`` to stage ``s + 1``
+    (no wraparound: the first stage receives zeros, the last sends
+    nothing).  Under the scheme's ``pp_fwd`` codec; the backward returns
+    the activation gradient upstream under ``pp_bwd``."""
+    n = int(axis.size)
+    if n == 1:
+        return torch.zeros_like(x)
+    return ppermute(x, axis, [(s, s + 1) for s in range(n - 1)], tag)
+
+
+def stage_ring_send(x, axis: Axis, tag="pp"):
+    """Wraparound stage handoff of the interleaved (vpp > 1) schedule:
+    stage ``s`` sends ``x`` to stage ``(s + 1) % pp``, since the chunk after
+    the last rank's slice ``v`` is the first rank's slice ``v + 1``.  Same
+    codecs as :func:`stage_send`."""
+    n = int(axis.size)
+    if n == 1:
+        return x
+    return ppermute(x, axis, [(s, (s + 1) % n) for s in range(n)], tag)
+
+
+def stage_recv(x, axis: Axis, tag="pp"):
+    """Reverse stage shift: stage ``s`` sends ``x`` to stage ``s - 1`` (the
+    backward-edge twin of :func:`stage_send`; its own backward is the
+    forward shift)."""
+    n = int(axis.size)
+    if n == 1:
+        return torch.zeros_like(x)
+    return ppermute(x, axis, [(s + 1, s) for s in range(n - 1)], tag)
 
 
 # --------------------------------------------------------------------------

@@ -270,13 +270,13 @@ class CommPolicy:
 def _resolve_axes(mesh_info) -> dict:
     """Logical dim -> comms :class:`~repro_torch.core.comms.Axis`, resolved
     once: ``dp`` and ``zero`` ride the data axis, ``tp`` and ``ep`` the
-    model axis; the port's meshes have no stage, cp or pool axes (and no
-    node-factored pairs) yet."""
+    model axis, ``pp`` the stage axis (``None`` without one); the port's
+    meshes have no cp or pool axes (and no node-factored pairs) yet."""
     if mesh_info is None:
         return {}
     mi = mesh_info
     return {"dp": mi.dp_axes, "zero": mi.dp_axes, "tp": mi.tp_axes,
-            "ep": mi.tp_axes, "pp": None, "cp": None, "kv": None}
+            "ep": mi.tp_axes, "pp": mi.stage_axes, "cp": None, "kv": None}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,5 +1,5 @@
 """Training entry point: the compressed ZeRO-1, Megatron-SP step over a
-``dp x tp`` world of processes.
+``dp x pp x tp`` world of processes.
 
     # on the card: gemma3-1b at full width, 4 ranks sharing it
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-1b \\
@@ -14,17 +14,25 @@
     ... --scheme zhybrid_16_8 --codec-for 'dp@zero1_grad*=plr8'
     ... --scheme ef_zhybrid_16_4
 
+    # pipeline stages: 1F1B over 2 stages, or interleaved with remat;
+    # gemma3-1b's 5:1 local:global pattern does not tile into stages, so
+    # --layers makes the stack uniform (global attention in every layer)
+    ... --arch gemma3-1b --reduced --layers 4 --dp 2 --tp 2 --pp 2 \\
+        --microbatches 2 --scheme zhybrid_16_8 --device cpu
+    ... --layers 8 --pp 2 --vpp 2 --microbatches 2 \\
+        --remat-policy per_stage:0
+
 Under ``torchrun`` (``RANK`` / ``WORLD_SIZE`` set) each process joins that
-group as one rank.  Otherwise the command spawns ``dp * tp`` processes
-itself, so one command runs the step as in the reference.  Ranks exchange
-through ``torch.distributed``'s gloo backend: on the card, every encode,
-fused ring hop and decode runs as a kernel, and only the wire planes cross
-between ranks through host memory.
+group as one rank.  Otherwise the command spawns ``dp * pp * tp``
+processes itself, so one command runs the step as in the reference.
+Ranks exchange through ``torch.distributed``'s gloo backend: on the card,
+every encode, fused ring hop and decode runs as a kernel, and only the
+wire planes cross between ranks through host memory.
 
 The flags are those of ``repro.launch.train`` for this path, plus
 ``--device``; ``--codec-for`` and ``--no-compress-below`` prepend policy
 rules as in the reference (:func:`comm_policy`).  The flags of unported
-features (pipeline, context parallelism, node-factored meshes, tuning,
+features (context parallelism, node-factored meshes, tuning,
 checkpoints) are accepted and refused as not yet ported, never ignored.
 """
 
@@ -47,9 +55,8 @@ import torch.distributed as dist
 
 # flags of the reference this package refuses at a non-default value:
 # (attribute, default)
-_UNPORTED = (("pp", 1), ("cp", 1), ("pod", 1), ("nodes", "1"),
+_UNPORTED = (("cp", 1), ("pod", 1), ("nodes", "1"),
              ("tp_nodes", "1"), ("pp_nodes", "1"), ("cp_nodes", "1"),
-             ("microbatches", 1), ("vpp", 1), ("remat_policy", "none"),
              ("host_devices", 0), ("tune", False), ("tune_interval", 50),
              ("tune_guard", 0.05), ("policy_from", ""), ("ckpt_dir", ""),
              ("ckpt_every", 50), ("resume", False))
@@ -65,6 +72,23 @@ def parser() -> argparse.ArgumentParser:
                          "heterogeneous layer groups to uniform)")
     ap.add_argument("--dp", type=int, default=1)
     ap.add_argument("--tp", type=int, default=1)
+    ap.add_argument("--pp", type=int, default=1,
+                    help="pipeline stages (a stage axis of processes; the "
+                         "layer stack splits into identical contiguous "
+                         "chunks)")
+    ap.add_argument("--microbatches", type=int, default=1,
+                    help="split the per-rank batch into N microbatches "
+                         "(1F1B on a stage mesh, gradient accumulation "
+                         "otherwise)")
+    ap.add_argument("--vpp", type=int, default=1,
+                    help="interleaved virtual stages per stage rank "
+                         "(needs --pp > 1 and --microbatches divisible by "
+                         "--pp)")
+    ap.add_argument("--remat-policy", default="none",
+                    help="activation checkpointing of the stage bodies: "
+                         "none | full | per_stage:<v,v,...>, optionally "
+                         "+offload (saved activations in pinned host "
+                         "memory instead)")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--global-batch", type=int, default=8)
@@ -90,16 +114,12 @@ def parser() -> argparse.ArgumentParser:
                          "'dp@zero1_grad*=plr8', 'dp=ef:bq4', 'embed*=bq16' "
                          "(repeatable; first match wins)")
     # refused: not yet ported
-    for flag, kw in (("--pp", dict(type=int, default=1)),
-                     ("--cp", dict(type=int, default=1)),
+    for flag, kw in (("--cp", dict(type=int, default=1)),
                      ("--pod", dict(type=int, default=1)),
                      ("--nodes", dict(default="1")),
                      ("--tp-nodes", dict(default="1")),
                      ("--pp-nodes", dict(default="1")),
                      ("--cp-nodes", dict(default="1")),
-                     ("--microbatches", dict(type=int, default=1)),
-                     ("--vpp", dict(type=int, default=1)),
-                     ("--remat-policy", dict(default="none")),
                      ("--host-devices", dict(type=int, default=0)),
                      ("--tune", dict(action="store_true")),
                      ("--tune-interval", dict(type=int, default=50)),
@@ -120,7 +140,7 @@ def unported(args) -> list[str]:
         if val != default:
             flag = "--" + attr.replace("_", "-")
             out.append(f"{flag} {val!r} is not yet ported (this package "
-                       f"runs the flat dp x tp step)")
+                       f"runs the dp x pp x tp step)")
     return out
 
 
@@ -152,6 +172,35 @@ def comm_policy(scheme: str, codec_for=(), no_compress_below: int = 0):
     if overrides:
         pol = pol.with_rules(*overrides, name=f"{pol.name}+cli")
     return pol
+
+
+def model_config(arch: str, reduced: bool = False, layers: int = 0):
+    """The architecture's config, at smoke size under ``reduced``;
+    ``layers`` resets the layer stack to that many uniform layers, as the
+    reference's ``--layers`` does."""
+    from repro_torch import configs
+
+    cfg = configs.get(arch)
+    if reduced:
+        cfg = cfg.reduced()
+    if layers:
+        cfg = cfg.replace(n_layers=layers, groups=())
+    return cfg
+
+
+def check_schedule(args) -> None:
+    """Raise ``ValueError`` for a pipeline the flags cannot run: a bad
+    ``--vpp`` or ``--remat-policy``, or a layer stack that does not split
+    into ``pp * vpp`` identical chunks (the reference's messages)."""
+    from repro_torch.launch.mesh import validate_vpp
+    from repro_torch.models.transformer import stage_partition
+    from repro_torch.train.pipeline import parse_remat_policy
+
+    validate_vpp(args.vpp, args.pp, args.microbatches)
+    parse_remat_policy(args.remat_policy, args.vpp)
+    if args.pp > 1:
+        stage_partition(model_config(args.arch, args.reduced, args.layers),
+                        args.pp, args.vpp)
 
 
 # --------------------------------------------------------------------------
@@ -249,7 +298,9 @@ def rank_device(device, rank: int) -> torch.device:
 
 def train_rank(*, rank: int = 0, world: int = 1, arch: str,
                reduced: bool = False, layers: int = 0, dp: int = 1,
-               tp: int = 1, steps: int = 20, seq: int = 64,
+               tp: int = 1, pp: int = 1, microbatches: int = 1,
+               vpp: int = 1, remat_policy: str = "none",
+               steps: int = 20, seq: int = 64,
                global_batch: int = 8, scheme: str = "baseline",
                codec_for=(), no_compress_below: int = 0,
                ring_bidir: bool = False, ring_chunks: int = 1,
@@ -258,8 +309,10 @@ def train_rank(*, rank: int = 0, world: int = 1, arch: str,
                backend=None, deterministic: bool = False,
                time_staging: bool = False, flat_grad_out: str = "",
                init_from: str = "", codec_state_from: str = "") -> dict:
-    """Train ``steps`` steps as rank ``rank`` of a ``dp x tp`` world whose
-    process group is initialized (or alone, for a one-rank world).
+    """Train ``steps`` steps as rank ``rank`` of a ``dp x pp x tp`` world
+    whose process group is initialized (or alone, for a one-rank world);
+    ``pp``, ``microbatches``, ``vpp`` and ``remat_policy`` select the
+    pipeline trainer as the reference's ``make_trainer`` does.
 
     ``codec_for`` and ``no_compress_below`` prepend policy rules to
     ``scheme`` (:func:`comm_policy`); ``backend="torch"`` runs every bq and
@@ -274,23 +327,25 @@ def train_rank(*, rank: int = 0, world: int = 1, arch: str,
     a pickle of the reference's global codec state (numpy leaves) to start
     from instead of this package's own init.  Returns this rank's metrics:
     losses, grad norms, step seconds, the staged bytes and (under
-    ``time_staging``) seconds, peak device memory, kernel launches (also
+    ``time_staging``) seconds and the seconds of the timed spans
+    (``comms.SPANS``), peak device memory, kernel launches (also
     by bq kernel, wire rows and rate), the
     first step's ledger per dimension (measured wire bytes and the priced
-    analytic events), and per codec-state slot its residual energy and
+    analytic events) and per site (priced, and priced as if uncompressed),
+    the schedule's ticks and bubble fraction, and per codec-state slot its residual energy and
     factor rank after the last step."""
-    from repro_torch import configs
     from repro_torch.analysis import roofline
     from repro_torch.core import codecs, comms
     from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
     from repro_torch.kernels import bq, lowrank, ops
-    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.mesh import make_mesh, validate_vpp
     from repro_torch.models.model import Model
     from repro_torch.train.optimizer import AdamConfig
-    from repro_torch.train.train_step import Trainer
+    from repro_torch.train.train_step import make_trainer
 
-    if dp * tp != world:
-        raise ValueError(f"dp {dp} x tp {tp} != world {world}")
+    if dp * pp * tp != world:
+        raise ValueError(f"dp {dp} x pp {pp} x tp {tp} != world {world}")
+    validate_vpp(vpp, pp, microbatches)
     dev = rank_device(device, rank)
     if dev.type == "cpu":
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
@@ -300,22 +355,19 @@ def train_rank(*, rank: int = 0, world: int = 1, arch: str,
         torch.backends.cudnn.allow_tf32 = False
     ops.set_default_backend(backend)
     comms.time_staging(time_staging)
-    cfg = configs.get(arch)
-    if reduced:
-        cfg = cfg.reduced()
-    if layers:
-        cfg = cfg.replace(n_layers=layers, groups=())
-    mi = make_mesh(dp, tp)
-    model = Model(cfg, mi, device=dev)
-    trainer = Trainer(model, scheme=comm_policy(scheme, codec_for,
-                                                no_compress_below),
-                      opt_cfg=AdamConfig(lr=lr, state_bits=opt_state_bits,
-                                         grad_buckets=grad_buckets),
-                      ring_bidir=ring_bidir, ring_chunks=ring_chunks)
+    cfg = model_config(arch, reduced, layers)
+    mi = make_mesh(dp, tp, pp)
+    model = Model(cfg, mi, device=dev, vpp=vpp)
+    trainer = make_trainer(
+        model, scheme=comm_policy(scheme, codec_for, no_compress_below),
+        opt_cfg=AdamConfig(lr=lr, state_bits=opt_state_bits,
+                           grad_buckets=grad_buckets),
+        n_micro=microbatches, ring_bidir=ring_bidir,
+        ring_chunks=ring_chunks, remat_policy=remat_policy)
     if init_from:
         from repro_torch.models.params import from_jax_params
         with open(init_from, "rb") as f:
-            params = from_jax_params(pickle.load(f), cfg, dev, mi)
+            params = from_jax_params(pickle.load(f), cfg, dev, mi, vpp)
         ostate = trainer.opt.init(params)
         cstate = trainer.init_codec_state()
     else:
@@ -334,9 +386,11 @@ def train_rank(*, rank: int = 0, world: int = 1, arch: str,
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
-    out = {"rank": rank, "coords": [d, mi.tp_axes.index], "losses": [],
-           "grad_norms": [], "step_s": [], "staging_s": [],
-           "staging_bytes": []}
+    out = {"rank": rank, "coords": [d, mi.coords["stage"], mi.tp_axes.index],
+           "losses": [], "grad_norms": [], "step_s": [], "staging_s": [],
+           "span_s": [], "staging_bytes": [],
+           "ticks": roofline.pipeline_ticks(pp, microbatches, vpp),
+           "bubble": roofline.bubble_fraction(pp, microbatches, vpp)}
     bq.reset_launches()
     lowrank.reset_launches()
     if dev.type == "cuda":
@@ -356,6 +410,7 @@ def train_rank(*, rank: int = 0, world: int = 1, arch: str,
             sync()
         out["step_s"].append(time.perf_counter() - t0)
         out["staging_s"].append(comms.STAGING["seconds"])
+        out["span_s"].append(dict(comms.SPANS))
         out["staging_bytes"].append(comms.STAGING["bytes"])
         out["losses"].append(float(metrics["loss"]))
         out["grad_norms"].append(float(metrics["grad_norm"]))
@@ -363,6 +418,9 @@ def train_rank(*, rank: int = 0, world: int = 1, arch: str,
             out["wire_per_dim"] = roofline.wire_per_dim(events.wire)
             out["priced_per_dim"] = roofline.ledger_summary(
                 events, train=True)["per_dim"]
+            out["priced_per_tag"] = roofline.ledger_per_tag(events)
+            out["payload_per_tag"] = roofline.ledger_per_tag(events,
+                                                             plain=True)
     if trainer.opt.last_flat_grad is not None:
         torch.save(trainer.opt.last_flat_grad.cpu(), flat_grad_out)
         trainer.opt.last_flat_grad = None
@@ -383,14 +441,17 @@ def train_rank(*, rank: int = 0, world: int = 1, arch: str,
 
 def run(args, **extra) -> list:
     """Run the parsed flags (plus :func:`train_rank` keywords ``extra``) as
-    a world of ``dp * tp`` spawned processes; returns the per-rank
+    a world of ``dp * pp * tp`` spawned processes; returns the per-rank
     results."""
     from repro_torch.kernels import bq
     from repro_torch.models.params import resolve_device
 
     dev = resolve_device(args.device)       # no card: raise before spawning
     kwargs = dict(arch=args.arch, reduced=args.reduced, layers=args.layers,
-                  dp=args.dp, tp=args.tp, steps=args.steps, seq=args.seq,
+                  dp=args.dp, tp=args.tp, pp=args.pp,
+                  microbatches=args.microbatches, vpp=args.vpp,
+                  remat_policy=args.remat_policy, steps=args.steps,
+                  seq=args.seq,
                   global_batch=args.global_batch, scheme=args.scheme,
                   codec_for=list(args.codec_for),
                   no_compress_below=args.no_compress_below,
@@ -398,7 +459,7 @@ def run(args, **extra) -> list:
                   grad_buckets=args.grad_buckets, lr=args.lr,
                   opt_state_bits=args.opt_state_bits, seed=args.seed,
                   device=dev.type, **extra)
-    world = args.dp * args.tp
+    world = args.dp * args.pp * args.tp
     if dev.type == "cuda":
         bq.build()                           # once, before the ranks start
         # ranks share one card: growable segments keep each rank's
@@ -424,6 +485,10 @@ def _report(res: list, args) -> None:
           f"{r0['teacher_floor']:.4f}; {statistics.median(tail) * 1e3:.1f} "
           f"ms/step ({tok / statistics.median(tail):.0f} tok/s) on "
           f"{r0['device']}, {len(res)} ranks, peak {peak:.2f} GiB per rank")
+    if args.pp > 1 or args.microbatches > 1:
+        print(f"pipeline: pp {args.pp} x vpp {args.vpp}, "
+              f"{args.microbatches} microbatches, {r0['ticks']} ticks, "
+              f"bubble fraction {r0['bubble']:.4f}")
     launches = {k: sum(r["launches"][k] for r in res) for k in r0["launches"]}
     print(f"kernel launches (all ranks): {launches}")
     for k, st in r0["codec_state"].items():
@@ -439,6 +504,7 @@ def main(argv=None):
         ap.error("; ".join(bad))
     try:
         comm_policy(args.scheme, args.codec_for, args.no_compress_below)
+        check_schedule(args)
     except (KeyError, ValueError) as e:
         ap.error(str(e))
     if "RANK" in os.environ and "WORLD_SIZE" in os.environ:   # torchrun
@@ -447,7 +513,9 @@ def main(argv=None):
         try:
             res = train_rank(
                 rank=rank, world=world, arch=args.arch, reduced=args.reduced,
-                layers=args.layers, dp=args.dp, tp=args.tp, steps=args.steps,
+                layers=args.layers, dp=args.dp, tp=args.tp, pp=args.pp,
+                microbatches=args.microbatches, vpp=args.vpp,
+                remat_policy=args.remat_policy, steps=args.steps,
                 seq=args.seq, global_batch=args.global_batch,
                 scheme=args.scheme, codec_for=list(args.codec_for),
                 no_compress_below=args.no_compress_below,

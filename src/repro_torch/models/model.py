@@ -15,15 +15,25 @@ from repro_torch.models.params import (MeshInfo, count_params, init_params,
 class Model:
     """``device=None`` means the card (raises without one); pass
     ``device="cpu"`` to run on the CPU.  ``mi`` is this rank's view of the
-    mesh (one rank by default)."""
+    mesh (one rank by default).  On a stage mesh the plan's layer groups
+    describe one stage chunk (``stage_groups``), stage-stacked, and
+    ``vpp > 1`` interleaves ``vpp`` round-robin chunks per stage rank; the
+    pipeline (:mod:`repro_torch.train.pipeline`) drives them through
+    :meth:`run_stage`."""
 
     def __init__(self, cfg: ArchConfig, mi: MeshInfo | None = None,
-                 device=None):
+                 device=None, vpp: int = 1):
         self.cfg = cfg
         self.mi = mi or MeshInfo()
+        if vpp != 1 and self.mi.pp == 1:
+            raise ValueError("vpp > 1 (interleaved virtual stages) needs a "
+                             "stage mesh")
+        self.vpp = vpp
         self.device = resolve_device(device)
         self.mode = cfg.attn_mode_for(self.mi.tp)
-        self.plan = transformer.model_plan(cfg, self.mi)
+        self.stage_groups = transformer.stage_partition(
+            cfg, self.mi.pp, vpp) if self.mi.pp > 1 else None
+        self.plan = transformer.model_plan(cfg, self.mi, vpp)
 
     def init(self, seed: int) -> dict:
         """This rank's shards of random weights from ``seed``, drawn through
@@ -43,15 +53,42 @@ class Model:
             S_loc, dtype=torch.int32, device=self.device)
         return j[None].expand(B, S_loc)
 
+    def _embed_input(self, params, batch) -> torch.Tensor:
+        """tokens [B_loc, S] -> this rank's embedded sequence slice."""
+        return layers.embed(params["embed"], batch["tokens"], self.cfg,
+                            self.mi)
+
+    def run_decoder(self, params, x, pos) -> torch.Tensor:
+        """Every layer group on ``x`` (a stage-free mesh)."""
+        for gp, g in zip(params["groups"], self.cfg.layer_groups):
+            x = transformer.run_group(gp, x, g, self.cfg, self.mi, self.mode,
+                                      pos)
+        return x
+
+    def run_stage(self, params, x, pos, v=None) -> torch.Tensor:
+        """This stage rank's layer chunk on ``x`` (a stage mesh only);
+        ``v`` selects which of the rank's ``vpp`` round-robin chunks runs
+        (interleaved layout).  Embedding and head stay with the caller."""
+        for i, g in enumerate(self.stage_groups):
+            gp = transformer.take_stage(params["groups"][i], v)
+            x = transformer.run_group(gp, x, g, self.cfg, self.mi, self.mode,
+                                      pos)
+        return x
+
+    def head(self, params, x) -> torch.Tensor:
+        """Final norm and the tied head: [B, S_loc, D] -> logits [B, S,
+        V_loc] f32."""
+        x = layers.norm(params["final_norm"], x, self.cfg, self.mi)
+        return layers.lm_head_logits(params, x, self.cfg, self.mi)
+
     def forward(self, params, batch) -> torch.Tensor:
         """batch {tokens [B_loc, S]} -> logits [B_loc, S, V_loc] f32."""
-        cfg, mi = self.cfg, self.mi
-        x = layers.embed(params["embed"], batch["tokens"], cfg, mi)
+        if self.mi.pp > 1:
+            raise ValueError("flat forward on a stage mesh: use "
+                             "repro_torch.train.pipeline")
+        x = self._embed_input(params, batch)
         pos = self._positions(x.shape[0], x.shape[1])
-        for gp, g in zip(params["groups"], cfg.layer_groups):
-            x = transformer.run_group(gp, x, g, cfg, mi, self.mode, pos)
-        x = layers.norm(params["final_norm"], x, cfg, mi)
-        return layers.lm_head_logits(params, x, cfg, mi)
+        return self.head(params, self.run_decoder(params, x, pos))
 
     def loss_fn(self, params, batch):
         """Global-mean token cross-entropy (a scalar, the same on every

@@ -6,8 +6,9 @@ A *plan* is a tree of dicts and lists whose leaves are :class:`ParamDef`.
 tree instead, so both packages can compute with the same weights.
 
 A leaf's ``spec`` tags each dim as in the reference: ``"model"`` dims are
-sharded over the tensor-parallel axis, ``"data"`` dims (ZeRO-3, not yet
-ported) over the data axis, ``None`` dims are replicated.  Parameters are
+sharded over the tensor-parallel axis, ``"stage"`` dims (the pipeline's
+stage-stacked layer groups) over the stage axis, ``"data"`` dims (ZeRO-3,
+not yet ported) over the data axis, ``None`` dims are replicated.  Parameters are
 plain tensors holding this rank's shard; the optimizer reads each leaf's
 spec from the plan.
 """
@@ -37,25 +38,30 @@ def resolve_device(device=None) -> torch.device:
 
 @dataclasses.dataclass(frozen=True)
 class MeshInfo:
-    """Logical view of the ``(data, model)`` mesh from this rank.
+    """Logical view of the ``(data, stage, model)`` mesh from this rank.
 
-    ``model`` / ``data`` / ``world`` are the bound comms axes
+    ``model`` / ``data`` / ``stage`` / ``world`` are the bound comms axes
     (:func:`repro_torch.launch.mesh.make_mesh` builds them over process
     groups); left ``None`` they are one-rank axes of the right name and
     size, which is all a one-process run, or a plan that only needs
-    shapes, asks for."""
+    shapes, asks for.  ``pp`` is the pipeline-stage count; a mesh with
+    ``pp == 1`` has no stage axis (``stage_axes`` is ``None``)."""
 
     tp: int = 1
     dp: int = 1
+    pp: int = 1
     model_axis: str = "model"
     data_axis: str = "data"
+    stage_axis: str = "stage"
     model: Axis | None = None
     data: Axis | None = None
+    stage: Axis | None = None
     world: Axis | None = None
 
     def __post_init__(self):
         for ax, n in ((self.model, self.tp), (self.data, self.dp),
-                      (self.world, self.tp * self.dp)):
+                      (self.stage, self.pp),
+                      (self.world, self.tp * self.dp * self.pp)):
             if ax is not None and ax.size != n:
                 raise ValueError(f"axis {ax.name!r} has size {ax.size}, "
                                  f"mesh wants {n}")
@@ -69,8 +75,25 @@ class MeshInfo:
         return self.data or Axis(self.data_axis, self.dp)
 
     @property
+    def stage_axes(self) -> Axis | None:
+        """The axis the pipeline passes to comms for stage handoffs, or
+        ``None`` on a mesh without a stage axis."""
+        if self.pp == 1:
+            return None
+        return self.stage or Axis(self.stage_axis, self.pp)
+
+    @property
+    def sp_axes(self) -> Axis | None:
+        """The physical axis implementing pipeline stages: the stage axis
+        itself (``--pp-nodes``, which would factor it, is not yet
+        ported)."""
+        return self.stage_axes
+
+    @property
     def all_axes(self) -> Axis:
-        return self.world or Axis("world", self.tp * self.dp)
+        """Every rank, ordered data, stage, model: global rank
+        ``(d * pp + s) * tp + t``."""
+        return self.world or Axis("world", self.tp * self.dp * self.pp)
 
     @property
     def batch_ways(self) -> int:
@@ -79,7 +102,8 @@ class MeshInfo:
     @property
     def coords(self) -> dict:
         """This rank's index along each sharded spec tag."""
-        return {"model": self.tp_axes.index, "data": self.dp_axes.index}
+        return {"model": self.tp_axes.index, "data": self.dp_axes.index,
+                "stage": self.stage_axes.index if self.pp > 1 else 0}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -155,7 +179,7 @@ def leaves(plan, tree) -> list:
 
 
 def _ways(mi: MeshInfo) -> dict:
-    return {"model": mi.tp, "data": mi.dp}
+    return {"model": mi.tp, "data": mi.dp, "stage": mi.pp}
 
 
 def local_shape(d: ParamDef, mi: MeshInfo) -> tuple:
@@ -210,21 +234,23 @@ def _fill(plan, vals, path=()):
     return [_fill(v, vals, path + (i,)) for i, v in enumerate(plan)]
 
 
-def from_jax_params(tree, cfg, device=None, mi: MeshInfo | None = None) -> dict:
+def from_jax_params(tree, cfg, device=None, mi: MeshInfo | None = None,
+                    vpp: int = 1) -> dict:
     """The reference's GLOBAL parameter tree, with each ``Pv`` leaf
     unwrapped to a numpy array, -> this rank's shards on ``device`` (the
     slice of each leaf that ``mi``'s coordinates name; the whole tree on a
     one-rank mesh).
 
     The tree must have exactly the layout of this package's plan for
-    ``cfg`` on ``mi`` (dicts by key, layer groups as a list of stacked
-    leaves); each leaf's global shape is checked and its dtype set to the
-    plan's."""
+    ``cfg`` on ``mi`` with ``vpp`` virtual stages (dicts by key, layer
+    groups as a list of stacked leaves; on a stage mesh each group leaf
+    stage-stacked ``[pp, n, ...]``, or ``[vpp, pp, n, ...]``); each leaf's
+    global shape is checked and its dtype set to the plan's."""
     from repro_torch.models.transformer import model_plan
 
     dev = resolve_device(device)
     mi = mi or MeshInfo()
-    plan = model_plan(cfg, mi)
+    plan = model_plan(cfg, mi, vpp)
 
     def conv(p, t, path):
         if isinstance(p, ParamDef):

@@ -3,8 +3,11 @@ groups): parameter plans, the training bodies and the paged decode bodies.
 
 Each group's ``n`` identical layers are stacked on a leading axis, as in
 the reference; where the reference runs ``lax.scan`` over that axis, a
-Python loop walks it here.  Training runs without rematerialization: the
-activations of every layer stay alive for the backward pass.
+Python loop walks it here.  On a pipeline mesh the groups describe one
+stage's chunk and carry a leading stage dim (``[pp, n, ...]``, or ``[vpp,
+pp, n, ...]`` under interleaved virtual stages), as in the reference.
+Within a stage body every layer's activations stay alive for the backward
+pass; the pipeline's remat policy checkpoints whole stage bodies.
 """
 
 from __future__ import annotations
@@ -14,6 +17,11 @@ import dataclasses
 from repro_torch.models import attention, layers
 from repro_torch.models.config import ArchConfig, BlockGroup
 from repro_torch.models.params import MeshInfo, tree_map_defs
+
+# kinds the stage-stacked pipeline plan cannot express (the reference's
+# list): encoder context and cross-stage weight sharing both couple layers
+# that would live on different stages
+_PP_UNSUPPORTED = ("enc_attn", "dec_attn", "shared_attn")
 
 
 # --------------------------------------------------------------------------
@@ -37,13 +45,99 @@ def _stack(plan, n: int):
                                       spec=(None,) + d.spec), plan)
 
 
-def model_plan(cfg: ArchConfig, mi: MeshInfo):
+def _stage_stack(plan, pp: int, vpp: int = 1):
+    """Prepend a leading stage dim sharded over the stage axis; ``vpp > 1``
+    prepends ``(vpp, pp)`` instead (dim 0 the rank's round-robin slice,
+    replicated; dim 1 the stage shard), whose v-major order ``v * pp + s``
+    is the global chunk order."""
+    if vpp > 1:
+        return tree_map_defs(
+            lambda d: dataclasses.replace(d, shape=(vpp, pp) + d.shape,
+                                          spec=(None, "stage") + d.spec),
+            plan)
+    return tree_map_defs(
+        lambda d: dataclasses.replace(d, shape=(pp,) + d.shape,
+                                      spec=("stage",) + d.spec), plan)
+
+
+def take_stage(tree, v=None):
+    """This rank's stage-stacked group params ``[1, n, ...]`` -> its
+    ``[n, ...]`` slice (views); with ``v`` (interleaved layout, local
+    ``[vpp, 1, n, ...]``) the rank's ``v``-th round-robin slice."""
+    if isinstance(tree, dict):
+        return {k: take_stage(t, v) for k, t in tree.items()}
+    return tree[0] if v is None else tree[v, 0]
+
+
+def stage_partition(cfg: ArchConfig, pp: int, vpp: int = 1) -> tuple:
+    """Partition the layer stack into ``pp * vpp`` contiguous, identical
+    chunks and return the BlockGroup plan of one chunk (every chunk runs
+    the same layer sequence: the stages share one stage-stacked plan).
+    Chunk ``c`` lives on stage ``c % pp`` as its ``c // pp``-th virtual
+    slice.  Raises ValueError, with the reference's messages, when the
+    per-layer (kind, window) sequence does not tile."""
+    per_layer = [(g.kind, g.window) for g in cfg.layer_groups
+                 for _ in range(g.n)]
+    bad = sorted({k for k, _ in per_layer if k in _PP_UNSUPPORTED})
+    if bad:
+        raise ValueError(
+            f"pipeline stages cannot hold {bad} layers (encoder context / "
+            "cross-stage weight sharing)")
+    total = len(per_layer)
+    chunks = pp * vpp
+    layout = f"pp={pp} x vpp={vpp} virtual" if vpp > 1 else f"pp={pp}"
+    if total % chunks:
+        raise ValueError(
+            f"{total} layers do not split into {layout} stages")
+    per = total // chunks
+    first = per_layer[:per]
+    for s in range(1, chunks):
+        if per_layer[s * per:(s + 1) * per] != first:
+            raise ValueError(
+                f"stages are not identical ({layout}): chunk {s} is "
+                f"{per_layer[s * per:(s + 1) * per]}, chunk 0 is {first} — "
+                "the SPMD 1F1B schedule needs a uniform per-stage layer "
+                "sequence")
+    groups = []
+    for kind, window in first:
+        if groups and groups[-1].kind == kind and groups[-1].window == window:
+            groups[-1] = dataclasses.replace(groups[-1], n=groups[-1].n + 1)
+        else:
+            groups.append(BlockGroup(kind, 1, window=window))
+    return tuple(groups)
+
+
+def chunk_layer_ranges(n_layers: int, pp: int, vpp: int = 1) -> dict:
+    """Global layer interval of every ``(stage, v)`` chunk: chunk ``c = v *
+    pp + s`` covers ``[c * Lc, (c + 1) * Lc)``, ``Lc = n_layers // (pp *
+    vpp)``."""
+    chunks = pp * vpp
+    if n_layers % chunks:
+        raise ValueError(f"{n_layers} layers do not split into {chunks} "
+                         "chunks")
+    lc = n_layers // chunks
+    return {(s, v): ((v * pp + s) * lc, (v * pp + s + 1) * lc)
+            for v in range(vpp) for s in range(pp)}
+
+
+def model_plan(cfg: ArchConfig, mi: MeshInfo, vpp: int = 1):
+    """The parameter plan.  On a stage mesh (``mi.pp > 1``) the groups
+    describe one stage chunk, stage-stacked; the embedding (tied head) and
+    the final norm stay stage-replicated: consumed on the first and last
+    stage, their gradients folded over the stage axis by the optimizer."""
     mode = cfg.attn_mode_for(mi.tp)
     plan = {"embed": layers.embed_plan(cfg)}
     plan.update(layers.lm_head_plan(cfg))
     plan["final_norm"] = layers.norm_plan(cfg, cfg.d_model)
-    plan["groups"] = [_stack(block_plan(cfg, g.kind, mode), g.n)
-                      for g in cfg.layer_groups]
+    stage_groups = stage_partition(cfg, mi.pp, vpp) if mi.pp > 1 \
+        else cfg.layer_groups
+    groups = []
+    for g in stage_groups:
+        gp = _stack(block_plan(cfg, g.kind, mode), g.n)
+        if mi.pp > 1:
+            gp = _stage_stack(gp, mi.pp, vpp)
+        groups.append(gp)
+    plan["groups"] = groups
     return plan
 
 

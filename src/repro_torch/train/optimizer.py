@@ -12,10 +12,13 @@ plan):
      over the model axis under the *tp_bwd* codec (paper §III-A: MP
      gradients take the MP codec), then class B's flat DP path.
 
-The global grad-norm clip sums each class's squares divided by its
-replication factor over the whole world, uncompressed, as the reference
-does.  ``state_bits=8`` keeps m and v as bq8 wire planes (encode/decode on
-the bq kernels).  ``grad_buckets > 1`` splits the flat sync into that many
+On a pipeline mesh the stage-replicated leaves (embedding, final norm)
+hold one partial gradient per stage, folded over the stage axis under the
+*pp_bwd* codec (site ``pp@grad_stage_rep``); ZeRO-1 shards each stage
+rank's own flat vector over data only.  The global grad-norm clip sums
+each class's squares divided by its replication factor over the whole
+world, uncompressed, as the reference does.  ``state_bits=8`` keeps m
+and v as bq8 wire planes (encode/decode on the bq kernels).  ``grad_buckets > 1`` splits the flat sync into that many
 reduce-scatter / all-gather chains and applies the clip after the sync.
 
 The sync sites are named as in the reference (``tp_bwd@grad_rep``,
@@ -39,7 +42,7 @@ import torch
 from repro_torch.core import comms
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import BLOCK
-from repro_torch.models.params import MeshInfo, leaves
+from repro_torch.models.params import MeshInfo, defs, leaves
 
 _F32 = torch.float32
 
@@ -79,6 +82,18 @@ def _flat_concat(ts, scale=None) -> torch.Tensor:
     return out
 
 
+def _fold(grads: list, idx: list, axis, site) -> None:
+    """All-reduce the gradients ``grads[i]``, ``i`` in ``idx``, over
+    ``axis`` at ``site`` as one flat f32 vector; each is replaced by its
+    slice of the sum."""
+    flat = comms.psum(_flat_concat([grads[i] for i in idx]), axis, site)
+    off = 0
+    for i in idx:
+        n = grads[i].numel()
+        grads[i] = flat[off:off + n].reshape(grads[i].shape)
+        off += n
+
+
 def _lr_at(cfg: AdamConfig, step: int, device) -> torch.Tensor:
     warm = torch.clamp(torch.tensor(step, dtype=_F32, device=device)
                        / max(cfg.warmup, 1), max=1.0)
@@ -103,6 +118,12 @@ class Adam:
             raise NotImplementedError(
                 "ZeRO-3 (fsdp_params) leaves are not yet ported")
         return [t for _, t in ls], classes
+
+    def _stage_rep(self) -> list:
+        """Whether each leaf is stage-replicated (on a stage mesh, every
+        leaf but the stage-stacked layer groups)."""
+        return [self.mi.pp > 1 and "stage" not in d.spec
+                for d in defs(self.plan)]
 
     # ------------------------------------------------------------------
     def _chunk_len(self, n: int) -> int:
@@ -182,22 +203,26 @@ class Adam:
 
         # -- class C: fold the model-axis partial grads (MP codec)
         if mi.tp > 1 and "C" in classes:
-            cidx = [i for i, c in enumerate(classes) if c == "C"]
-            cflat = comms.psum(_flat_concat([grads[i] for i in cidx]),
-                               mi.tp_axes, comms.Site("tp", "grad_rep",
-                                                      "bwd"))
-            off = 0
-            for i in cidx:
-                n = grads[i].numel()
-                grads[i] = cflat[off:off + n].reshape(grads[i].shape)
-                off += n
+            _fold(grads, [i for i, c in enumerate(classes) if c == "C"],
+                  mi.tp_axes, comms.Site("tp", "grad_rep", "bwd"))
+
+        # -- stage-replicated leaves (embedding, final norm): each stage
+        # holds a partial gradient, folded over the stage axis (PP codec)
+        srep = self._stage_rep()
+        if any(srep):
+            site = comms.Site("pp", "grad_stage_rep", "bwd")
+            with comms.span(site.ledger_tag, ts[0]):
+                _fold(grads, [i for i, r in enumerate(srep) if r],
+                      mi.stage_axes, site)
 
         # -- global grad-norm clip: each class's squares over its
-        # replication factor, summed over the whole world
+        # replication factor (stage-replicated leaves also over pp),
+        # summed over the whole world
         rep = {"B": mi.dp, "C": mi.dp * mi.tp}
         sq = torch.zeros((), dtype=_F32, device=ts[0].device)
-        for g, c in zip(grads, classes):
-            sq = sq + torch.sum(g.to(_F32) ** 2) / rep[c]
+        for g, c, r in zip(grads, classes, srep):
+            sq = sq + torch.sum(g.to(_F32) ** 2) / (rep[c] * (mi.pp if r
+                                                              else 1))
         sq = comms.raw_psum(sq, mi.all_axes)
         gnorm = torch.sqrt(sq)
         scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12),

@@ -1,0 +1,297 @@
+"""Microbatched pipeline-parallel training over the ``stage`` axis (port of
+``repro.train.pipeline``).
+
+The schedule is the reference's SPMD form of 1F1B: the local batch splits
+into ``n_micro`` microbatches and every rank runs ``T = n_micro + pp - 1``
+ticks; at tick ``t`` stage ``s`` processes microbatch ``t - s`` (masked
+outside the fill/drain window):
+
+    tick          0     1     2     3       (pp = 2, n_micro = 3)
+    stage 0     mb0   mb1   mb2    --
+    stage 1      --   mb0   mb1   mb2      -> loss(mb) as each drains
+
+Each tick first hands the previous tick's output one stage down
+(:func:`repro_torch.core.comms.stage_send`, under the scheme's ``pp_fwd``
+codec; its backward returns the activation gradient upstream under
+``pp_bwd``), then the first stage takes the embedded microbatch in place
+of what it received, every stage runs its layer chunk, and the last stage
+drains: final norm, head and vocab-parallel cross-entropy, summed into the
+global token mean.
+
+Interleaved virtual stages (``model.vpp = V > 1``): rank ``s`` holds ``V``
+round-robin chunks (chunk ``c = v * pp + s`` is its slice ``v``), the step
+runs ``T = n_micro * V + pp - 1`` ticks of ``1/V`` of its depth, and the
+handoff is a full ring (:func:`~repro_torch.core.comms.stage_ring_send`):
+the chunk after the last rank's slice ``v`` is the first rank's ``v + 1``.
+Rank ``s`` at tick ``t`` decodes its work from ``u = t - s``: slot ``r = u %
+pp``, slice ``v = (u % (pp V)) // pp``, microbatch ``(u // (pp V)) * pp +
+r``.
+
+How the SPMD schedule runs as processes:
+
+* every rank runs every tick, the stage body on fill and drain ticks (on
+  zeros or a clamped microbatch) and every handoff included, so the TP
+  and PP collectives, and the ledger, match the reference's event for
+  event (the reference records its tick body ``T`` times);
+* work whose result the reference weighs by zero and which emits no ledger
+  event is skipped: the embedding of a tick whose stage does not take it
+  and the head of a tick that does not drain run without autograd (their
+  forward collectives are the reference's events), so no backward runs for
+  them;
+* stage 0 blends its received activation away with ``torch.where``, as the
+  reference does, which keeps the handoff in the graph, and the backward
+  (one ``torch.autograd.grad`` per rank) takes every handoff's output as
+  a root with a zero cotangent: every rank runs every handoff's backward,
+  tick by tick in reverse order (a handoff's backward needs its tick's
+  stage body's, which needs the next handoff's), so the two sides of each
+  exchange meet and no rank waits on a backward its neighbour never posts;
+* the stage fold of the loss's numerator and denominator is an all-reduce
+  whose cotangent is the same on every stage rank (the loss is
+  replicated), so its backward multiplies by ``pp`` locally and the first
+  stage, whose partial sums carry no gradient, need not join it.
+
+Activation memory (``--remat-policy``): without remat every tick's
+activations live until the backward, as in the reference.  ``full``
+checkpoints every stage body (``torch.utils.checkpoint``, non-reentrant;
+its recompute re-runs the body's TP collectives, whose analytic ledger
+events are muted, as the reference's ledger counts a checkpointed body
+once); ``per_stage:<v,...>`` checkpoints the ticks where stage 0 runs the
+named slices, keyed on the tick, never on the rank's slice, as in the
+reference.  ``+offload`` parks the body's saved activations in pinned host
+memory (``torch.autograd.graph.save_on_cpu``) instead of recomputing them:
+the reference offloads its checkpoint's matmul residuals, which PyTorch
+has no policy for.  The handoff stays outside, so remat never re-sends
+stage traffic.
+
+The gradients of the stage-replicated embedding and final norm are folded
+over the stage axis by :meth:`repro_torch.train.optimizer.Adam.apply`.
+``pp == 1`` is plain gradient accumulation over ``n_micro`` microbatches.
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.analysis.roofline import pipeline_ticks
+from repro_torch.core import comms, policy
+from repro_torch.models import layers
+from repro_torch.models.model import Model
+from repro_torch.models.params import torch_dtype
+from repro_torch.train.train_step import Trainer
+
+_F32 = torch.float32
+
+
+def parse_remat_policy(spec, vpp: int):
+    """``--remat-policy`` spec -> ``(mode, flags, offload)`` (the
+    reference's): ``mode`` is ``none`` / ``full`` / ``per_stage`` (a
+    ``per_stage:`` naming every slice is ``full``, naming none ``none``),
+    ``flags`` one checkpoint-this-slice boolean per virtual slice,
+    ``offload`` the ``+offload`` suffix."""
+    if spec is None or spec == "none":
+        return "none", (False,) * vpp, False
+    offload = False
+    if spec.endswith("+offload"):
+        offload, spec = True, spec[: -len("+offload")]
+    if spec == "none":
+        raise ValueError("--remat-policy none+offload: offload stashes "
+                         "checkpoint residuals — it needs remat enabled")
+    if spec == "full":
+        return "full", (True,) * vpp, offload
+    if spec.startswith("per_stage:"):
+        body = spec[len("per_stage:"):]
+        try:
+            idx = sorted({int(tok) for tok in body.split(",") if tok != ""})
+        except ValueError:
+            raise ValueError(
+                f"bad --remat-policy spec {spec!r}: per_stage wants a "
+                "comma list of virtual-stage indices, e.g. per_stage:0,2"
+            ) from None
+        bad = [i for i in idx if not 0 <= i < vpp]
+        if bad:
+            raise ValueError(f"--remat-policy {spec!r}: virtual stage(s) "
+                             f"{bad} out of range for vpp={vpp}")
+        flags = tuple(i in idx for i in range(vpp))
+        if all(flags):
+            return "full", flags, offload
+        if not any(flags):
+            return "none", flags, False
+        return "per_stage", flags, offload
+    raise ValueError(f"unknown --remat-policy {spec!r} (expected none | "
+                     "full | per_stage:<v,v,...>, optionally +offload)")
+
+
+def _remat_wrap(fn, offload: bool):
+    """A stage body under the remat policy: checkpointed, or with
+    ``offload`` its saved activations parked in pinned host memory.  The
+    recompute runs in the backward, on autograd's thread for CUDA tensors:
+    it re-binds the forward's compiled plan (thread-local) so that its
+    collectives take the same codecs, and mutes their analytic ledger
+    events."""
+    if offload:
+        def parked(*args):
+            with torch.autograd.graph.save_on_cpu(pin_memory=True):
+                return fn(*args)
+        return parked
+
+    def checkpointed(*args):
+        plan = policy.current_plan()
+        calls = []
+
+        def body(*a):
+            calls.append(1)
+            if len(calls) > 1:          # the recompute, in the backward
+                with policy.use_plan(plan), comms.mute_ledger():
+                    return fn(*a)
+            return fn(*a)
+        return checkpoint(body, *args, use_reentrant=False)
+    return checkpointed
+
+
+def _stage_body(model: Model, params, x, pos, v=None):
+    """One tick's layers: the rank's chunk on a stage mesh, the whole
+    decoder on a flat one (``pp == 1`` gradient accumulation)."""
+    if model.mi.pp > 1:
+        return model.run_stage(params, x, pos, v)
+    return model.run_decoder(params, x, pos)
+
+
+def pipeline_loss_fn(model: Model, n_micro: int, remat_policy=None):
+    """The microbatched 1F1B loss: ``(params, batch) -> (loss, metrics,
+    handoffs)``, ``loss`` the global-mean token cross-entropy (replicated
+    on every rank) and ``handoffs`` every stage handoff's output, which
+    the backward takes as roots with a zero cotangent (see the module
+    docstring).  ``model.vpp > 1`` selects the interleaved schedule;
+    ``remat_policy`` is a :func:`parse_remat_policy` spec."""
+    cfg, mi = model.cfg, model.mi
+    pp, M, V = mi.pp, n_micro, model.vpp
+    if V > 1:
+        if pp == 1:
+            raise ValueError("vpp > 1 (interleaved virtual stages) needs "
+                             "pp > 1")
+        if M % pp:
+            raise ValueError(
+                f"interleaved 1F1B needs n_micro divisible by pp (n_micro="
+                f"{M}, pp={pp}) — the round-robin decode walks "
+                "microbatches in groups of pp")
+    rmode, rflags, roffload = parse_remat_policy(remat_policy, V)
+    T = pipeline_ticks(pp, M, V)
+    stage_ax = mi.stage_axes
+    sidx = stage_ax.index if pp > 1 else 0
+    handoff = comms.site("pp", "stage_handoff")
+
+    def run(p, x, pos, v=None):
+        return _stage_body(model, p, x, pos, v)
+    ckpt = _remat_wrap(run, roffload)
+
+    def clip(i, hi):
+        return min(max(i, 0), hi - 1)
+
+    def decode(t):
+        """(microbatch embedded, microbatch whose labels drain, virtual
+        slice, takes the embedding, drains into the loss, checkpoints its
+        body) of this rank at tick ``t``."""
+        if V == 1:
+            # stage 0 embeds microbatch t; the last stage drains t - (pp-1)
+            return (clip(t, M), clip(t - (pp - 1), M), None, sidx == 0,
+                    t >= pp - 1 and sidx == pp - 1, rflags[0])
+        u = t - sidx
+        live = 0 <= u < M * V
+        uc = clip(u, M * V)
+        r, v = uc % pp, (uc % (pp * V)) // pp
+        m = (uc // (pp * V)) * pp + r
+        # keyed on the tick (stage 0's slice), never on this rank's slice
+        vtick = (clip(t, M * V) % (pp * V)) // pp
+        return (m, m, v, sidx == 0 and v == 0,
+                live and v == V - 1 and sidx == pp - 1,
+                rmode == "full" or (rmode == "per_stage" and rflags[vtick]))
+
+    def loss_fn(params, batch):
+        B, S = batch["tokens"].shape
+        if B % M:
+            raise ValueError(f"local batch {B} not divisible by {M} "
+                             "microbatches")
+        mb = {k: v.reshape((M, B // M) + v.shape[1:])
+              for k, v in batch.items()}
+        s_loc = S // mi.tp if mi.tp > 1 else S
+        pos = model._positions(B // M, s_loc)
+        dev = model.device
+        y = torch.zeros((B // M, s_loc, cfg.d_model),
+                        dtype=torch_dtype(cfg.dtype), device=dev)
+        num = torch.zeros((), dtype=_F32, device=dev)
+        den = torch.zeros((), dtype=_F32, device=dev)
+        handoffs = []
+        first = {b: torch.tensor(b, device=dev) for b in (False, True)}
+        facts = comms.scope_facts(vpp=V) if pp > 1 \
+            else contextlib.nullcontext()
+        with facts:
+            for t in range(T):
+                m, m_lab, v, takes_embed, drains, remat = decode(t)
+                # 1. handoff: the previous tick's output moves one stage on
+                if pp > 1:
+                    send = comms.stage_send if V == 1 \
+                        else comms.stage_ring_send
+                    recv = send(y, stage_ax, handoff)
+                    if recv.requires_grad:
+                        handoffs.append(recv)
+                # 2. the embedded microbatch, taken by the first chunk only
+                with torch.set_grad_enabled(takes_embed and
+                                            torch.is_grad_enabled()):
+                    e = model._embed_input(params, {k: val[m] for k, val
+                                                    in mb.items()})
+                x_in = torch.where(first[takes_embed], e, recv) \
+                    if pp > 1 else e
+                # 3. this tick's layers, under the remat policy
+                y = (ckpt if remat else run)(params, x_in, pos, v)
+                # 4. drain: head and cross-entropy; the ticks that do not
+                #    drain run them for their collectives alone
+                with torch.set_grad_enabled(drains and
+                                            torch.is_grad_enabled()):
+                    logits = model.head(params, y)
+                    ltok, w = layers.vocab_parallel_xent(
+                        logits, mb["labels"][m_lab], cfg, mi)
+                    del logits
+                    if drains:
+                        num = num + ltok.sum()
+                        den = den + w.sum()
+        # fold the per-stage partials (the last stage holds them), then
+        # the batch and model axes as the flat loss does
+        if pp > 1:
+            num = comms.raw_psum(num, mi.sp_axes, local_bwd=True)
+            den = comms.raw_psum(den, mi.sp_axes, local_bwd=True)
+        num = comms.raw_psum(num, mi.dp_axes)
+        den = comms.raw_psum(den, mi.dp_axes)
+        num = comms.raw_psum(num, mi.tp_axes, mean=True)
+        den = comms.raw_psum(den, mi.tp_axes, mean=True)
+        loss = num / torch.clamp(den, min=1.0)
+        return loss, {"xent": loss.detach(), "tokens": den.detach()}, \
+            handoffs
+
+    return loss_fn
+
+
+class PipelineTrainer(Trainer):
+    """:class:`~repro_torch.train.train_step.Trainer` running the
+    microbatched 1F1B schedule (interleaved when the model was built with
+    ``vpp > 1``); on a stage-free mesh it is plain gradient accumulation
+    over ``n_micro`` microbatches."""
+
+    def __init__(self, model: Model, scheme="baseline", opt_cfg=None,
+                 n_micro: int = 1, ring_bidir: bool = False,
+                 ring_chunks: int = 1, remat_policy=None):
+        super().__init__(model, scheme=scheme, opt_cfg=opt_cfg,
+                         ring_bidir=ring_bidir, ring_chunks=ring_chunks)
+        # fails here on a bad spec or schedule
+        self.loss_fn = pipeline_loss_fn(model, n_micro, remat_policy)
+
+    def _loss_and_grads(self, params, batch, ts):
+        loss, metrics, handoffs = self.loss_fn(params, batch)
+        roots = ([loss] if loss.requires_grad else []) + handoffs
+        cots = [None if r is loss else torch.zeros_like(r) for r in roots]
+        grads = torch.autograd.grad(roots, ts, grad_outputs=cots,
+                                    allow_unused=True)
+        return loss, metrics, [torch.zeros_like(t) if g is None else g
+                               for g, t in zip(grads, ts)]

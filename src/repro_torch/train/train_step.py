@@ -43,8 +43,9 @@ class Trainer:
     # ------------------------------------------------------------------
     def codec_sites(self) -> list:
         """The carried-state-capable comm sites of the step, with their
-        per-rank payload shapes: the tp class-C gradient fold and the flat
-        ZeRO-1 dp/zero sync, one chain per grad-sync bucket.  Mirrors
+        per-rank payload shapes: the tp class-C gradient fold, the pp fold
+        of the stage-replicated leaves and the flat ZeRO-1 dp/zero sync,
+        one chain per grad-sync bucket.  Mirrors
         :meth:`Adam.apply` (site names and payload sizes), as the
         reference's ``Trainer.codec_sites`` does without its class-A, node
         and pod sites."""
@@ -56,6 +57,12 @@ class Trainer:
         n_c = sum(n for n, c in local if c == "C")
         if mi.tp > 1 and n_c:
             sites.append((comms.Site("tp", "grad_rep", "bwd"), (n_c,), f32))
+        # the stage-replicated leaves' fold over the stage axis
+        n_s = sum(math.prod(local_shape(d, mi)) for d in defs(self.model.plan)
+                  if "stage" not in d.spec)
+        if mi.pp > 1 and n_s:
+            sites.append((comms.Site("pp", "grad_stage_rep", "bwd"), (n_s,),
+                          f32))
         bucketed = self.opt.cfg.grad_buckets > 1
         for b, (lo, hi) in enumerate(
                 self.opt._bucket_bounds(sum(n for n, _ in local))):
@@ -83,8 +90,8 @@ class Trainer:
     def codec_state_from_jax(self, tree: dict) -> dict:
         """This rank's codec state from the reference's (numpy leaves): the
         reference stacks every rank's slot along dim 0 in the order of
-        ``MeshInfo.all_axes`` (data major, then model), which is the
-        global rank here."""
+        ``MeshInfo.all_axes`` (data major, then stage, then model), which
+        is the global rank here."""
         mi = self.model.mi
         world, r = mi.all_axes.size, mi.all_axes.index
         tmpl = self.codec_state_template()
@@ -117,6 +124,11 @@ class Trainer:
         params = self.model.init(seed)
         return params, self.opt.init(params), self.init_codec_state()
 
+    def _loss_and_grads(self, params, batch, ts):
+        """(loss, metrics, the gradients of ``ts`` as a list)."""
+        loss, metrics = self.model.loss_fn(params, batch)
+        return loss, metrics, list(torch.autograd.grad(loss, ts))
+
     def step(self, params, opt_state, codec_state, batch):
         """One training step; ``params`` are updated in place, and so are
         the codec state's residual buffers.  Returns ``(params, opt_state,
@@ -127,8 +139,7 @@ class Trainer:
             for t in ts:
                 t.requires_grad_(True)
             try:
-                loss, metrics = self.model.loss_fn(params, batch)
-                grads = list(torch.autograd.grad(loss, ts))
+                loss, metrics, grads = self._loss_and_grads(params, batch, ts)
             finally:
                 for t in ts:
                     t.requires_grad_(False)
@@ -140,3 +151,21 @@ class Trainer:
             codec_state = cio.collect()
         return params, opt_state, codec_state, \
             {"loss": loss.detach(), **metrics, **stats}
+
+
+def make_trainer(model: Model, scheme="baseline",
+                 opt_cfg: AdamConfig | None = None, n_micro: int = 1,
+                 ring_bidir: bool = False, ring_chunks: int = 1,
+                 remat_policy: str | None = None) -> Trainer:
+    """The flat step, or the microbatched 1F1B pipeline trainer when the
+    mesh has a stage axis, the batch splits into microbatches or a remat
+    policy is set (a model built with ``vpp > 1`` runs the interleaved
+    schedule)."""
+    if model.mi.pp > 1 or n_micro > 1 or remat_policy not in (None, "none"):
+        from repro_torch.train.pipeline import PipelineTrainer
+        return PipelineTrainer(model, scheme=scheme, opt_cfg=opt_cfg,
+                               n_micro=n_micro, ring_bidir=ring_bidir,
+                               ring_chunks=ring_chunks,
+                               remat_policy=remat_policy)
+    return Trainer(model, scheme=scheme, opt_cfg=opt_cfg,
+                   ring_bidir=ring_bidir, ring_chunks=ring_chunks)

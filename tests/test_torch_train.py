@@ -33,8 +33,10 @@ Contract asserted here, with the tolerances and their reasons:
     shard of the gradient) hold the same factor Q, bit for bit;
   * the first step's ledger, priced per dimension, equals the reference's
     under every case, byte for byte;
-  * the launcher refuses unported flags, builds ``--codec-for`` policies,
-    runs on the CPU only when asked, refuses a stateful codec at an
+  * the launcher refuses unported flags, accepts the pipeline's and
+    refuses a schedule it cannot run, trains pp 2 (and pp 2 x vpp 2) on
+    the CPU when asked, builds ``--codec-for`` policies, runs on the CPU
+    only when asked, refuses a stateful codec at an
     autodiff site with the reference's message, and its ranks import
     neither ``jax`` nor ``repro``.
 """
@@ -424,15 +426,15 @@ def test_launcher_refuses_unported_flags():
     ok = ap.parse_args(["--arch", "gemma3-1b", "--dp", "2", "--tp", "2",
                         "--scheme", "zhybrid_16_8", "--ring-bidir"])
     assert tlaunch.unported(ok) == []
-    for extra in (["--pp", "2"], ["--cp", "2"], ["--nodes", "2"],
-                  ["--microbatches", "2"], ["--tune"], ["--resume"],
-                  ["--vpp", "2"], ["--ckpt-dir", "x"],
-                  ["--remat-policy", "full"]):
+    for extra in (["--pp-nodes", "2"], ["--cp", "2"], ["--nodes", "2"],
+                  ["--tune"], ["--resume"], ["--ckpt-dir", "x"],
+                  ["--ckpt-every", "5"]):
         args = ap.parse_args(["--arch", "gemma3-1b", *extra])
         msgs = tlaunch.unported(args)
         assert len(msgs) == 1 and "not yet ported" in msgs[0], extra
     with pytest.raises(SystemExit):
-        tlaunch.main(["--arch", "gemma3-1b", "--pp", "2", "--device", "cpu"])
+        tlaunch.main(["--arch", "gemma3-1b", "--pp-nodes", "2", "--device",
+                      "cpu"])
 
 
 def test_launcher_builds_codec_for_policies():
@@ -477,6 +479,41 @@ def test_launcher_trains_plr8_on_cpu(capsys):
     out = capsys.readouterr().out
     assert "done: final loss" in out
     assert "codec state dp@zero1_grad (rank 0)" in out and "rank 8" in out
+
+
+def test_launcher_accepts_pipeline_flags():
+    from repro_torch.launch import train as tlaunch
+    ap = tlaunch.parser()
+    args = ap.parse_args(["--arch", "gemma3-1b", "--layers", "8", "--pp", "2",
+                          "--vpp", "2", "--microbatches", "4",
+                          "--remat-policy", "per_stage:0+offload"])
+    assert tlaunch.unported(args) == []
+    tlaunch.check_schedule(args)
+    # gemma3-1b's 5:1 local:global stack does not tile into stages, nor
+    # does an interleaved schedule over microbatches not divisible by pp
+    for bad, msg in ((["--pp", "2"], "not identical"),
+                     (["--layers", "8", "--pp", "2", "--vpp", "2",
+                       "--microbatches", "3"], "divisible by --pp"),
+                     (["--layers", "8", "--pp", "2", "--remat-policy",
+                       "per_stage:3"], "out of range")):
+        with pytest.raises(ValueError, match=msg):
+            tlaunch.check_schedule(ap.parse_args(["--arch", "gemma3-1b",
+                                                  *bad]))
+        with pytest.raises(SystemExit):
+            tlaunch.main(["--arch", "gemma3-1b", *bad, "--device", "cpu"])
+
+
+@pytest.mark.parametrize("extra", [[], ["--vpp", "2", "--layers", "8",
+                                        "--remat-policy", "per_stage:0"]])
+def test_launcher_trains_pipeline_on_cpu(extra, capsys):
+    from repro_torch.launch import train as tlaunch
+    tlaunch.main(["--arch", "gemma3-1b", "--reduced", "--layers", "4",
+                  "--pp", "2", "--microbatches", "2", "--steps", "2",
+                  "--seq", "16", "--global-batch", "2", "--scheme",
+                  "zhybrid_16_8", "--device", "cpu", *extra])
+    out = capsys.readouterr().out
+    assert "done: final loss" in out and "bubble fraction" in out
+    assert ("5 ticks" if extra else "3 ticks") in out
 
 
 def test_launcher_trains_on_cpu(capsys):
