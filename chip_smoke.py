@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # from the root of a checkout
     python3 chip_smoke.py --bq-only  # phase 1 and the bq timings alone
     python3 chip_smoke.py --pp-only  # phase 1, phase 4's step, phase 7
+    python3 chip_smoke.py --ckpt-only  # phase 1, phase 6's plr8 run, phase 8
 
 ``--bq-only`` prints the bq kernels' timings and those of the fused TP
 all-gather, TP reduce-scatter and KV-read ops beside the compositions
@@ -93,10 +94,11 @@ bq4's priced ratios to phase 4's baseline.
 Phase 7 drives the pipeline (the paper's PP dimension): gemma3-1b at full
 published width, dp 1 x pp 2 x tp 2 (four ranks on the card), 4
 microbatches of 1 x 1024 tokens, zhybrid_16_8 (bq16 on the stage
-handoffs and the stage fold), deterministic: 7a 1F1B at ``--layers 26``, 3
-steps, and 7b interleaved (vpp 2, remat per_stage:0) at ``--layers 24``, 2
-steps (gemma3-1b's 5:1 local:global stack does not split into identical
-stages, so ``--layers`` makes it uniform), each through the kernels and
+handoffs and the stage fold), deterministic: 7a 1F1B at ``--layers 26``, 2
+steps, and 7b interleaved (vpp 2, remat per_stage:0) at ``--layers 16``, 2
+steps (cut from 3 steps and 24 layers when phase 8 came in; gemma3-1b's
+5:1 local:global stack does not split into identical stages, so
+``--layers`` makes it uniform), each through the kernels and
 through the plain versions.  It requires equal losses, grad norms and
 per-dimension ledger bytes between the two, finite losses, in the kernel
 run the flat decode launched at the handoff's 4608 rows exactly once per
@@ -105,7 +107,25 @@ often), none in the plain run, and the pp sites' priced bytes at bq16's
 ratio to their payload (bf16 handoffs, the f32 fold); it prints the
 bubble fraction and the stage fold's share of the step.
 
-After phase 7, a fresh process (this script with ``--reckon FILE``, which
+Phase 8 checkpoints and resumes phase 6's plr8 kernel run (gemma3-1b at
+full published width and depth, dp 2 x tp 2, deterministic): 8a trains 2
+steps with ``--ckpt-dir .smoke/ckpt --ckpt-every 2`` (a non-blocking save
+of params, optimizer state and codec state, 14.9 GB), 8b resumes and
+trains 2 steps, 8c resumes from step 2 at dp 4 x tp 1 and trains 1 step.
+It checks the free disk space first and fails with the numbers when it
+is short.  It requires 8a's losses and grad norms bit-equal to phase 6's
+first two and 8b's to its last two, 8b's kernel launches per step those
+of phase 6 (every lowrank form, the bq kernels), the heartbeat at step 3,
+8b's state restored, and 8c's optimizer and codec state each restored
+where its global layout at dp 4 x tp 1 is the one saved and otherwise
+re-initialized with the reference's ``WARNING:`` line (at full width the
+ZeRO-1 chunks change and plr8's factor keeps its shape), and 8c's first
+loss within 1 % of 8b's (the same params on the same batch).  It prints
+the seconds in save calls, in the saving threads, waiting for them and
+restoring, the bytes written and each step's seconds beside phase 6's,
+and deletes the checkpoints.
+
+After phase 8, a fresh process (this script with ``--reckon FILE``, which
 the script starts itself) times each (kernel, rows, rate) that phase 4's
 kernel run launched, at its shape, and reckons launches x (time - bound)
 per rank per step.
@@ -158,11 +178,13 @@ MM_FORMS = ("tall", "at_b", "small_k")
 MM_RANKS = {"tall": (2, 4, 8, 16, 32, 64), "at_b": (2, 4, 8, 64),
             "small_k": (2, 4, 8, 16, 32, 64)}
 SCRATCH = ROOT / ".smoke"     # git-ignored: phase 4's flat gradient
+CKPT_DIR = SCRATCH / "ckpt"   # phase 8's checkpoints
+CKPT_STEPS = 2                # phase 8: save after 8a's 2 steps
 # phase 7: the pipeline, dp 1 x pp 2 x tp 2, 4 microbatches of 1 x SEQ;
 # (name, layers, steps, flags) of its two runs
 PP, PP_MICRO = 2, 4
-PP_RUNS = (("7a", 26, 3, ()),
-           ("7b", 24, 2, ("--vpp", "2", "--remat-policy", "per_stage:0")))
+PP_RUNS = (("7a", 26, 2, ()),
+           ("7b", 16, 2, ("--vpp", "2", "--remat-policy", "per_stage:0")))
 # wire rows of one handoff: a microbatch's bf16 [1, SEQ / TP, 1152]
 HANDOFF_ROWS = (GLOBAL_BATCH // PP_MICRO) * (SEQ // TP) * 1152 // 128
 # the stage-replicated leaves' fold: the tied embedding's vocab shard and
@@ -1243,51 +1265,89 @@ def reckon_shapes(torch, card, shapes: dict, rank_steps: int) -> dict:
     return out
 
 
-def train_run(card, scheme, backend, label, steps=STEPS, extra=(), dp=DP,
-              **kw):
-    """One run of the launcher's training step (``dp x pp x tp`` ranks on
-    this card, ``extra`` flags after the defaults, deterministic,
-    exchanges timed); prints its numbers and returns the per-rank
-    results."""
+def rank_runs(*, rank: int, world: int, runs: list) -> list:
+    """Body of one rank of :func:`train_runs`' world: ``train_rank`` for
+    each keyword set of ``runs``, in turn."""
+    from repro_torch.launch.train import train_rank
+    return [train_rank(rank=rank, world=world, **kw) for kw in runs]
+
+
+def run(label, scheme, backend=None, steps=STEPS, extra=(), dp=DP, tp=TP,
+        **kw) -> dict:
+    """One run of :func:`train_runs`: the launcher's flags for the main
+    path's model, ``extra`` after them, and ``train_rank`` keywords."""
+    return dict(label=label, scheme=scheme, backend=backend, steps=steps,
+                extra=tuple(extra), dp=dp, tp=tp, kw=kw)
+
+
+def train_runs(card, runs: list) -> list:
+    """Runs of the launcher's training step in one world of ``dp x pp x
+    tp`` processes on this card (:func:`run`; the ranks start once and
+    train the runs in turn, each deterministic with its exchanges timed);
+    prints each run's numbers and the world's wall, and returns each run's
+    per-rank results."""
     from repro_torch.launch import train
 
-    args = train.parser().parse_args(
-        ["--arch", "gemma3-1b", "--dp", str(dp), "--tp", str(TP),
-         "--steps", str(steps), "--seq", str(SEQ), "--global-batch",
-         str(GLOBAL_BATCH), "--seed", str(SEED), "--scheme", scheme,
-         *extra])
+    kws, worlds = [], set()
+    for r in runs:
+        args = train.parser().parse_args(
+            ["--arch", "gemma3-1b", "--dp", str(r["dp"]), "--tp",
+             str(r["tp"]), "--steps", str(r["steps"]), "--seq", str(SEQ),
+             "--global-batch", str(GLOBAL_BATCH), "--seed", str(SEED),
+             "--scheme", r["scheme"], *r["extra"]])
+        kws.append(train.rank_kwargs(args, backend=r["backend"],
+                                     deterministic=True, time_staging=True,
+                                     **r["kw"]))
+        worlds.add(args.dp * args.pp * args.tp)
+    if len(worlds) != 1:
+        fail(f"runs of one world need one world size, got {worlds}")
     t0 = time.perf_counter()
-    res = train.run(args, backend=backend, deterministic=True,
-                    time_staging=True, **kw)
+    per_rank = train.spawn_world("chip_smoke:rank_runs", worlds.pop(),
+                                 {"runs": kws})
     wall = time.perf_counter() - t0
-    step = [float(np.median(r["step_s"][1:])) for r in res]
-    share = [sum(r["staging_s"][1:]) / sum(r["step_s"][1:]) for r in res]
-    ms = max(step) * 1e3
-    print(f"  {label}: losses {res[0]['losses']} grad norms "
-          f"{[round(g, 6) for g in res[0]['grad_norms']]}; median "
-          f"{ms:.1f} ms/step (steps 2-{steps}, slowest rank), "
-          f"{GLOBAL_BATCH * SEQ / (ms / 1e3):.0f} tokens/s, peak "
-          f"{[round(r['peak_bytes'] / 2**30, 2) for r in res]} GiB per "
-          f"rank, staging+exchange {min(share) * 100:.0f}-"
-          f"{max(share) * 100:.0f} % of step time, "
-          f"{res[0]['staging_bytes'][-1] / 1e9:.2f} GB staged per step "
-          f"(rank 0), wall {wall:.0f}s [{card}]")
-    return res
+    out = []
+    for i, r in enumerate(runs):
+        res = [ranks[i] for ranks in per_rank]
+        k = 1 if r["steps"] > 1 else 0         # the first step warms up
+        step = [float(np.median(x["step_s"][k:])) for x in res]
+        share = [sum(x["staging_s"][k:]) / sum(x["step_s"][k:]) for x in res]
+        ms = max(step) * 1e3
+        print(f"  {r['label']}: losses {res[0]['losses']} grad norms "
+              f"{[round(g, 6) for g in res[0]['grad_norms']]}; median "
+              f"{ms:.1f} ms/step (steps {k + 1}-{r['steps']}, slowest "
+              f"rank), {GLOBAL_BATCH * SEQ / (ms / 1e3):.0f} tokens/s, peak "
+              f"{[round(x['peak_bytes'] / 2**30, 2) for x in res]} GiB per "
+              f"rank, staging+exchange {min(share) * 100:.0f}-"
+              f"{max(share) * 100:.0f} % of step time, "
+              f"{res[0]['staging_bytes'][-1] / 1e9:.2f} GB staged per step "
+              f"(rank 0) [{card}]")
+        out.append(res)
+    print(f"  wall {wall:.0f}s for {len(runs)} run(s) in one world of "
+          f"processes [{card}]")
+    return out
+
+
+def train_run(card, *args, **kw) -> list:
+    """One :func:`run` in a world of its own."""
+    return train_runs(card, [run(*args, **kw)])[0]
 
 
 def drive_pipeline(torch, card) -> dict:
     """Phase 7: the pipeline at full width, dp 1 x pp 2 x tp 2 (four ranks
     on the card), 1F1B at ``--layers 26`` and interleaved (vpp 2, remat
-    per_stage:0) at ``--layers 24``, through the kernels and the plain
+    per_stage:0) at ``--layers 16``, through the kernels and the plain
     versions; returns each run's launches (all ranks), by shape too."""
-    out = {}
+    out, runs = {}, []
     for name, layers, steps, extra in PP_RUNS:
         flags = ["--layers", str(layers), "--pp", str(PP), "--microbatches",
                  str(PP_MICRO), *extra]
-        k = train_run(card, "zhybrid_16_8", None, f"{name} kernels", steps,
-                      flags, dp=1)
-        p = train_run(card, "zhybrid_16_8", "torch", f"{name} plain", steps,
-                      flags, dp=1)
+        runs += [run(f"{name} kernels", "zhybrid_16_8", None, steps, flags,
+                     dp=1),
+                 run(f"{name} plain", "zhybrid_16_8", "torch", steps, flags,
+                     dp=1)]
+    res = train_runs(card, runs)
+    for i, (name, layers, steps, extra) in enumerate(PP_RUNS):
+        k, p = res[2 * i], res[2 * i + 1]
         for rk, rp in zip(k, p):
             for key in ("losses", "grad_norms", "wire_per_dim",
                         "priced_per_dim"):
@@ -1435,10 +1495,11 @@ def drive_training(torch, card) -> dict:
     holding rank 0's flat gradient, and baseline's priced ledger."""
     SCRATCH.mkdir(exist_ok=True)
     grad_path = SCRATCH / "flat_grad.pt"
-    k = train_run(card, "zhybrid_16_8", None, "zhybrid_16_8 kernels",
-                  flat_grad_out=str(grad_path))
-    p = train_run(card, "zhybrid_16_8", "torch", "zhybrid_16_8 plain")
-    b = train_run(card, "baseline", None, "baseline")
+    k, p, b = train_runs(card, [
+        run("zhybrid_16_8 kernels", "zhybrid_16_8",
+            flat_grad_out=str(grad_path)),
+        run("zhybrid_16_8 plain", "zhybrid_16_8", "torch"),
+        run("baseline", "baseline")])
     for rk, rp in zip(k, p):
         for key in ("losses", "grad_norms", "wire_per_dim", "priced_per_dim"):
             if rk[key] != rp[key]:
@@ -1505,12 +1566,11 @@ def drive_stateful(torch, card, train, n_flat) -> dict:
     kernel runs' launches (all ranks)."""
     from repro_torch.core import codecs
 
-    k = train_run(card, "zhybrid_16_8", None, "plr8 kernels",
-                  STATEFUL_STEPS, PLR)
-    p = train_run(card, "zhybrid_16_8", "torch", "plr8 plain",
-                  STATEFUL_STEPS, PLR)
-    e = train_run(card, "ef_zhybrid_16_4", None, "ef_zhybrid_16_4 kernels",
-                  STATEFUL_STEPS)
+    k, p, e = train_runs(card, [
+        run("plr8 kernels", "zhybrid_16_8", None, STATEFUL_STEPS, PLR),
+        run("plr8 plain", "zhybrid_16_8", "torch", STATEFUL_STEPS, PLR),
+        run("ef_zhybrid_16_4 kernels", "ef_zhybrid_16_4", None,
+            STATEFUL_STEPS)])
     for rk, rp in zip(k, p):
         for key in ("wire_per_dim", "priced_per_dim"):
             if rk[key] != rp[key]:
@@ -1566,7 +1626,133 @@ def drive_stateful(torch, card, train, n_flat) -> dict:
           f"{e[0]['wire_per_dim']}; codec state rank 0: plr8 "
           f"{k[0]['codec_state']}, ef {e[0]['codec_state']}; launches (all "
           f"ranks) plr8 {kl}, ef {el} [{card}]")
-    return {"plr": kl, "ef": el}
+    return {"plr": kl, "ef": el, "plr_run": k}
+
+
+def ckpt_bytes(cfg, n_flat) -> int:
+    """Bytes of one phase-8 checkpoint but its codec state: the bf16
+    parameters and the f32 master, m and v of every rank's ZeRO-1 chunk."""
+    from repro_torch.kernels.ops import padded_rows
+    from repro_torch.models.params import MeshInfo, count_params
+    from repro_torch.models.transformer import model_plan
+
+    chunk = padded_rows(-(-n_flat // DP)) * 128
+    return 2 * count_params(model_plan(cfg, MeshInfo())) \
+        + 3 * 4 * DP * TP * chunk
+
+
+def layout_shapes(cfg, dp: int, tp: int) -> dict:
+    """Global shapes of phase 8's optimizer and codec state on a dp x tp
+    mesh (the layout a checkpoint holds)."""
+    from repro_torch.launch.train import comm_policy
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import MeshInfo
+    from repro_torch.train import checkpoint
+    from repro_torch.train.train_step import make_trainer
+
+    tr = make_trainer(Model(cfg, MeshInfo(tp=tp, dp=dp), device="cpu"),
+                      scheme=comm_policy("zhybrid_16_8", PLR[1:]))
+    return {k: [s.shape for s in checkpoint.flatten(shards)]
+            for k, shards in (("opt", tr.opt_state_shards()),
+                              ("codec", tr.codec_state_shards()))}
+
+
+def point_latest(step: int) -> None:
+    """Make ``step`` the restore point of phase 8's checkpoints again (a
+    restart from an earlier checkpoint): drop the later step, flip
+    ``latest`` back, atomically as the save does."""
+    import shutil
+    for sub in ("", "opt", "codec"):
+        d = CKPT_DIR / sub
+        for later in d.glob("step_*"):
+            if int(later.name[5:]) > step:
+                shutil.rmtree(later)
+        tmp = d / ".latest.tmp"
+        tmp.symlink_to(f"step_{step}")
+        os.replace(tmp, d / "latest")
+
+
+def drive_checkpoint(torch, card, plr, cfg, n_flat) -> dict:
+    """Phase 8: save, resume and an elastic resume of phase 6's plr8
+    kernel run ``plr`` (its per-rank results); returns 8b's launches (all
+    ranks) and the checkpoints' numbers."""
+    import shutil
+
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    SCRATCH.mkdir(exist_ok=True)
+    need = 2 * ckpt_bytes(cfg, n_flat)       # 8a's and 8b's (8c's replaces)
+    free = shutil.disk_usage(SCRATCH).free
+    if free < need * 1.1:
+        fail(f"phase 8 needs {need / 1e9:.1f} GB (+10 %) free beside the "
+             f"checkpoints' directory, {free / 1e9:.1f} GB are")
+    print(f"phase 8: {free / 1e9:.1f} GB free, {need / 1e9:.1f} GB needed "
+          f"for two checkpoints [{card}]")
+    flags = [*PLR, "--ckpt-dir", str(CKPT_DIR), "--ckpt-every",
+             str(CKPT_STEPS)]
+    try:
+        a = train_run(card, "8a plr8 kernels, save", "zhybrid_16_8", None,
+                      CKPT_STEPS, flags)
+        b = train_run(card, "8b resume", "zhybrid_16_8", None, CKPT_STEPS,
+                      [*flags, "--resume"])
+        hb = json.loads((CKPT_DIR / "heartbeat.json").read_text())
+        point_latest(CKPT_STEPS)
+        c = train_run(card, "8c resume at dp 4 x tp 1", "zhybrid_16_8", None,
+                      1, [*flags, "--resume"], dp=DP * TP, tp=1)
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    ck = {run: r[0]["ckpt"] for run, r in (("8a", a), ("8b", b), ("8c", c))}
+    for run, x in ck.items():
+        print(f"  {run}: saved steps {x['steps']}, {x['bytes'] / 1e9:.3f} GB "
+              f"on disk; {x['save_s']:.2f}s in save calls (a blocking save "
+              f"whole), {x['thread_s']:.2f}s in saving threads, "
+              f"{x['wait_s']:.2f}s waiting for them after the last step, "
+              f"{x['restore_s']:.2f}s restoring (rank 0) [{card}]")
+    # the steps around the checkpoints beside phase 6's (slowest rank)
+    secs = {run: [round(max(s), 4) for s in zip(*(r["step_s"] for r in res))]
+            for run, res in (("phase 6", plr), ("8a", a), ("8b", b),
+                             ("8c", c))}
+    print(f"  step seconds, slowest rank: {secs} [{card}]")
+    for ra, rb, rp in zip(a, b, plr):
+        for key in ("losses", "grad_norms"):
+            if ra[key] + rb[key] != rp[key]:
+                fail(f"phase 8 rank {rp['rank']}: {key} of 8a and 8b "
+                     f"{ra[key] + rb[key]} differ from phase 6's "
+                     f"uninterrupted run {rp[key]}")
+    if hb["step"] != 2 * CKPT_STEPS - 1:
+        fail(f"phase 8: heartbeat at step {hb['step']} after 8b, want "
+             f"{2 * CKPT_STEPS - 1}")
+    # 8b runs phase 6's step: the same launches per step
+    lb, lp = launch_sums(b), launch_sums(plr)
+    if any(lb[n] * STATEFUL_STEPS != lp[n] * CKPT_STEPS for n in lp) or \
+            not all(lb[f"matmul_{n}"] for n in MM_FORMS):
+        fail(f"phase 8: 8b's launches {lb} in {CKPT_STEPS} steps are not "
+             f"phase 6's {lp} in {STATEFUL_STEPS}")
+    # the state restores where its global layout is the same at dp 4 x tp
+    # 1, and falls back loudly where it is not (the reference's rule)
+    same = {k: v == layout_shapes(cfg, DP * TP, 1)[k]
+            for k, v in layout_shapes(cfg, DP, TP).items()}
+    name = {"opt": "optimizer", "codec": "codec"}
+    want = {"8b": [f"restored {name[k]} state at step {CKPT_STEPS}"
+                   for k in name],
+            "8c": [f"restored {name[k]} state at step {CKPT_STEPS}"
+                   if same[k] else f"WARNING: {name[k]} state not portable "
+                   f"to this topology" for k in name]}
+    logs = {"8b": b[0]["restore_log"], "8c": c[0]["restore_log"]}
+    for run, lines in want.items():
+        for got, line in zip(logs[run], lines):
+            if not got.startswith(line):
+                fail(f"phase 8: {run} printed {got!r}, want {line!r}...")
+    l8b, l8c = b[0]["losses"][0], c[0]["losses"][0]
+    if not (np.isfinite(l8c) and abs(l8c - l8b) <= 0.01 * abs(l8b)):
+        fail(f"phase 8: 8c's first loss {l8c} not within 1 % of 8b's {l8b}")
+    print(f"phase 8: 8a + 8b == phase 6's plr8 kernel run bit for bit "
+          f"(losses, grad norms, every rank); 8b launched phase 6's kernels "
+          f"per step {lb}; heartbeat at step {hb['step']}; 8c at dp "
+          f"{DP * TP} x tp 1 (global layout unchanged: {same}): "
+          f"{[m[:60] for m in logs['8c'][:2]]}; first loss {l8c} vs 8b's "
+          f"{l8b} ({abs(l8c / l8b - 1) * 100:.4f} %) [{card}]")
+    return {"launches": lb, "ckpt": ck, "free_bytes": free,
+            "need_bytes": need}
 
 
 def drive_rings(torch, card, grad_path) -> dict:
@@ -1630,11 +1816,22 @@ def main():
     for name, line in ptxas_lines(bq.build_info.get("log", "")):
         print(f"  ptxas: {name}: {line}")
 
+    if sys.argv[1:] == ["--ckpt-only"]:
+        # phase 6's plr8 kernel run and phase 8 alone
+        os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                              "expandable_segments:True")
+        cfg = configs.get("gemma3-1b")
+        plr = train_run(card, "phase 6 plr8 kernels", "zhybrid_16_8", None,
+                        STATEFUL_STEPS, PLR)
+        drive_checkpoint(torch, card, plr, cfg, flat_elems(cfg))
+        print(f"card: {card}")
+        return
+
     if sys.argv[1:] == ["--pp-only"]:
         # phase 7 alone, beside phase 4's zhybrid_16_8 step
         os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
                               "expandable_segments:True")
-        train_run(card, "zhybrid_16_8", None, "phase 4 zhybrid_16_8 kernels")
+        train_run(card, "phase 4 zhybrid_16_8 kernels", "zhybrid_16_8")
         drive_pipeline(torch, card)
         print(f"card: {card}")
         return
@@ -1836,6 +2033,12 @@ def main():
           f"remat per_stage:0) [{card}]")
     pipe = drive_pipeline(torch, card)
 
+    # ---------------------------------------------------------- phase 8
+    print(f"phase 8: checkpoint and resume phase 6's plr8 kernel run "
+          f"(8a {CKPT_STEPS} steps and a save, 8b resume {CKPT_STEPS} steps, "
+          f"8c resume at dp {DP * TP} x tp 1, 1 step) [{card}]")
+    ckpt = drive_checkpoint(torch, card, stateful["plr_run"], cfg, n_flat)
+
     # launches x (time - bound) per shape of phase 4's kernel run, timed in
     # a fresh process (this one's profiler reports nothing after phases
     # 3-6 have run)
@@ -1851,8 +2054,8 @@ def main():
     by_shape = json.loads(shapes_path.with_suffix(".out.json").read_text())
 
     # kernel line: launches on each kernel's path (phase 4 the training
-    # step, phase 3 serving, phase 5 the rings, phase 7 the pipeline),
-    # times at the path's shape
+    # step, phase 3 serving, phase 5 the rings, phase 7 the pipeline, phase 8
+    # the resumed step), times at the path's shape
     t_launch, r_launch = train["launches"], rings["launches"]
     kernels = []
 
@@ -1894,8 +2097,9 @@ def main():
                 "plain_ms": owps, "warm_l2_ms": owws, "bound_ms": wbms,
                 "launches": r_launch["bq_decode_add_encode_wire"]}
         entry["launches_ef_zhybrid_16_4"] = stateful["ef"][name]
-        entry["launches"] += p7_launches(name)
+        entry["launches"] += p7_launches(name) + ckpt["launches"][name]
         entry["phase7"] = p7_entry(name)
+        entry["phase8"] = ckpt["launches"][name]        # after the restore
         if name in ("bq_encode", "bq_decode"):
             # the block form's kernel alone, and the flat form the TP
             # all-gather calls (the same kernel, fused with its layout)
@@ -1964,7 +2168,9 @@ def main():
         e_abs, share, (ms, pms, wms, _, _, _), (bms, by), lib, passes = \
             mm[(kind, 8)]
         forms[kind] = {
-            "launches": stateful["plr"][f"matmul_{kind}"],
+            "launches": stateful["plr"][f"matmul_{kind}"]
+            + ckpt["launches"][f"matmul_{kind}"],
+            "phase8": ckpt["launches"][f"matmul_{kind}"],
             "max_abs_err": e_abs, "share_of_order_bound": share, "ms": ms,
             "plain_ms": pms, "bound_ms": bms, "bound_by": by,
             "library_ms": lib, "warm_l2_ms": wms}

@@ -14,6 +14,12 @@
     ... --scheme zhybrid_16_8 --codec-for 'dp@zero1_grad*=plr8'
     ... --scheme ef_zhybrid_16_4
 
+    # checkpoints every 2 steps (params, <dir>/opt, <dir>/codec), then a
+    # resume from the latest, here elastically onto dp 4 x tp 1 (the opt
+    # and codec state fall back, loudly, where their layout changed)
+    ... --dp 2 --tp 2 --steps 2 --ckpt-dir /tmp/ck --ckpt-every 2
+    ... --dp 4 --tp 1 --steps 2 --ckpt-dir /tmp/ck --resume
+
     # pipeline stages: 1F1B over 2 stages, or interleaved with remat;
     # gemma3-1b's 5:1 local:global pattern does not tile into stages, so
     # --layers makes the stack uniform (global attention in every layer)
@@ -32,8 +38,17 @@ wire planes cross between ranks through host memory.
 The flags are those of ``repro.launch.train`` for this path, plus
 ``--device``; ``--codec-for`` and ``--no-compress-below`` prepend policy
 rules as in the reference (:func:`comm_policy`).  The flags of unported
-features (context parallelism, node-factored meshes, tuning,
-checkpoints) are accepted and refused as not yet ported, never ignored.
+features (context parallelism, node-factored meshes, tuning) are accepted
+and refused as not yet ported, never ignored.
+
+Checkpoints are the reference's (:mod:`repro_torch.train.checkpoint`):
+each rank writes its own shards of the global leaves, every
+``--ckpt-every`` steps without blocking, and a final blocking save when
+the last step has none.  ``--resume`` continues from the latest step
+(the data stream continues from it too); the optimizer and codec state
+restore where their global layout did not change, and otherwise
+re-initialize with the reference's ``WARNING:`` lines.  Rank 0 keeps
+``<ckpt>/heartbeat.json`` (:class:`~repro_torch.train.fault.StepMonitor`).
 """
 
 from __future__ import annotations
@@ -58,8 +73,7 @@ import torch.distributed as dist
 _UNPORTED = (("cp", 1), ("pod", 1), ("nodes", "1"),
              ("tp_nodes", "1"), ("pp_nodes", "1"), ("cp_nodes", "1"),
              ("host_devices", 0), ("tune", False), ("tune_interval", 50),
-             ("tune_guard", 0.05), ("policy_from", ""), ("ckpt_dir", ""),
-             ("ckpt_every", 50), ("resume", False))
+             ("tune_guard", 0.05), ("policy_from", ""))
 
 
 def parser() -> argparse.ArgumentParser:
@@ -104,6 +118,9 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--opt-state-bits", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--resume", action="store_true")
     ap.add_argument("--device", default=None,
                     help="cuda (default; raises without a card) or cpu")
     ap.add_argument("--no-compress-below", type=int, default=0,
@@ -124,10 +141,7 @@ def parser() -> argparse.ArgumentParser:
                      ("--tune", dict(action="store_true")),
                      ("--tune-interval", dict(type=int, default=50)),
                      ("--tune-guard", dict(type=float, default=0.05)),
-                     ("--policy-from", dict(default="")),
-                     ("--ckpt-dir", dict(default="")),
-                     ("--ckpt-every", dict(type=int, default=50)),
-                     ("--resume", dict(action="store_true"))):
+                     ("--policy-from", dict(default=""))):
         ap.add_argument(flag, help="not yet ported", **kw)
     return ap
 
@@ -201,6 +215,57 @@ def check_schedule(args) -> None:
     if args.pp > 1:
         stage_partition(model_config(args.arch, args.reduced, args.layers),
                         args.pp, args.vpp)
+
+
+# --------------------------------------------------------------------------
+# resume: the reference's loud fallbacks
+# --------------------------------------------------------------------------
+
+def _restore_opt(trainer, params, opt_dir, step, checkpoint, say=print):
+    """Resume the optimizer state saved alongside the params.
+
+    A param-only checkpoint (no ``opt/`` subdir, or another step there) or
+    an elastic restart whose new topology changes the state's global
+    layout both fall back to a fresh state, with the reference's loud
+    warning, since that resets the Adam moments."""
+    if not opt_dir or checkpoint.latest_step(opt_dir) != step:
+        say("WARNING: no optimizer checkpoint for this step — "
+            "reinitializing Adam moments (old param-only checkpoint?)")
+        return trainer.opt.init(params)
+    try:
+        ostate, _ = checkpoint.restore(opt_dir, trainer.opt_state_shards(),
+                                       step=step)
+        say(f"restored optimizer state at step {step}")
+        return trainer.opt.state_from_shards(ostate)
+    except (ValueError, AssertionError) as e:
+        say(f"WARNING: optimizer state not portable to this topology "
+            f"({e}) — reinitializing Adam moments")
+        return trainer.opt.init(params)
+
+
+def _restore_codec(trainer, codec_dir, step, checkpoint, say=print):
+    """Resume the carried codec state (ef residuals / plr factors) saved
+    alongside the params, with :func:`_restore_opt`'s loud fallbacks:
+    resetting an error-feedback residual silently would quietly re-bias
+    the very gradients the ef codec exists to de-bias.  A stateless policy
+    has nothing to restore and says nothing."""
+    if not trainer.codec_state_template():
+        return {}
+    if not codec_dir or checkpoint.latest_step(codec_dir) != step:
+        say("WARNING: no codec-state checkpoint for this step — "
+            "reinitializing error-feedback/low-rank codec state "
+            "(pre-stateful-codec checkpoint?)")
+        return trainer.init_codec_state()
+    try:
+        cstate, _ = checkpoint.restore(codec_dir,
+                                       trainer.codec_state_shards(),
+                                       step=step)
+        say(f"restored codec state at step {step}")
+        return cstate
+    except (ValueError, AssertionError) as e:
+        say(f"WARNING: codec state not portable to this topology "
+            f"({e}) — reinitializing")
+        return trainer.init_codec_state()
 
 
 # --------------------------------------------------------------------------
@@ -308,7 +373,9 @@ def train_rank(*, rank: int = 0, world: int = 1, arch: str,
                opt_state_bits: int = 32, seed: int = 0, device=None,
                backend=None, deterministic: bool = False,
                time_staging: bool = False, flat_grad_out: str = "",
-               init_from: str = "", codec_state_from: str = "") -> dict:
+               init_from: str = "", codec_state_from: str = "",
+               ckpt_dir: str = "", ckpt_every: int = 50,
+               resume: bool = False) -> dict:
     """Train ``steps`` steps as rank ``rank`` of a ``dp x pp x tp`` world
     whose process group is initialized (or alone, for a one-rank world);
     ``pp``, ``microbatches``, ``vpp`` and ``remat_policy`` select the
@@ -325,21 +392,28 @@ def train_rank(*, rank: int = 0, world: int = 1, arch: str,
     (numpy arrays in the plan's layout, such as the reference package's
     weights) to start from instead of ``seed``; ``codec_state_from`` names
     a pickle of the reference's global codec state (numpy leaves) to start
-    from instead of this package's own init.  Returns this rank's metrics:
+    from instead of this package's own init.  ``ckpt_dir``, ``ckpt_every``
+    and ``resume`` checkpoint and resume as the reference's launcher does
+    (a resumed run starts at the checkpoint's step and ignores
+    ``init_from`` and ``codec_state_from``).  Returns this rank's metrics:
     losses, grad norms, step seconds, the staged bytes and (under
     ``time_staging``) seconds and the seconds of the timed spans
     (``comms.SPANS``), peak device memory, kernel launches (also
     by bq kernel, wire rows and rate), the
     first step's ledger per dimension (measured wire bytes and the priced
     analytic events) and per site (priced, and priced as if uncompressed),
-    the schedule's ticks and bubble fraction, and per codec-state slot its residual energy and
-    factor rank after the last step."""
+    the schedule's ticks and bubble fraction, per codec-state slot its
+    residual energy and factor rank after the last step, the first step,
+    what the resume printed, the straggler flags, and the checkpoints'
+    seconds (``ckpt``: in ``save`` calls, in the saving threads, waiting
+    for them at the end, restoring) and bytes on disk."""
     from repro_torch.analysis import roofline
     from repro_torch.core import codecs, comms
     from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
     from repro_torch.kernels import bq, lowrank, ops
     from repro_torch.launch.mesh import make_mesh, validate_vpp
     from repro_torch.models.model import Model
+    from repro_torch.train import checkpoint, fault
     from repro_torch.train.optimizer import AdamConfig
     from repro_torch.train.train_step import make_trainer
 
@@ -364,7 +438,34 @@ def train_rank(*, rank: int = 0, world: int = 1, arch: str,
                            grad_buckets=grad_buckets),
         n_micro=microbatches, ring_bidir=ring_bidir,
         ring_chunks=ring_chunks, remat_policy=remat_policy)
-    if init_from:
+    log = []
+
+    def say(msg):
+        log.append(msg)
+        if rank == 0:
+            print(msg, flush=True)
+
+    opt_dir = os.path.join(ckpt_dir, "opt") if ckpt_dir else ""
+    codec_dir = os.path.join(ckpt_dir, "codec") if ckpt_dir else ""
+    # seconds: in save() (host copies, file creation; a blocking save
+    # whole), in the saving threads, waiting for them after the last step,
+    # restoring; bytes of the last checkpoint
+    ck = {"save_s": 0.0, "thread_s": 0.0, "wait_s": 0.0, "restore_s": 0.0,
+          "bytes": 0, "steps": []}
+    start = 0
+    if resume and ckpt_dir and checkpoint.latest_step(ckpt_dir) is not None:
+        t0 = time.perf_counter()
+        tree, man = checkpoint.restore(ckpt_dir, trainer.param_shards())
+        params = checkpoint.unwrap(tree)
+        start = man["step"]
+        ostate = _restore_opt(trainer, params, opt_dir, start, checkpoint,
+                              say)
+        trainer.params_from_master(params, ostate)
+        cstate = _restore_codec(trainer, codec_dir, start, checkpoint, say)
+        ck["restore_s"] = time.perf_counter() - t0
+        say(f"resumed from step {start} (elastic onto dp={dp} tp={tp} "
+            f"pp={pp})")
+    elif init_from:
         from repro_torch.models.params import from_jax_params
         with open(init_from, "rb") as f:
             params = from_jax_params(pickle.load(f), cfg, dev, mi, vpp)
@@ -372,7 +473,7 @@ def train_rank(*, rank: int = 0, world: int = 1, arch: str,
         cstate = trainer.init_codec_state()
     else:
         params, ostate, cstate = trainer.init_all(seed)
-    if codec_state_from:
+    if codec_state_from and not start:
         with open(codec_state_from, "rb") as f:
             cstate = trainer.codec_state_from_jax(pickle.load(f))
     data = SyntheticCorpus(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
@@ -386,7 +487,25 @@ def train_rank(*, rank: int = 0, world: int = 1, arch: str,
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
+    pending = []
+
+    def save_all(at: int, blocking: bool) -> None:
+        t0 = time.perf_counter()
+        for where, tree in ((ckpt_dir, trainer.param_shards(params)),
+                            (opt_dir, trainer.opt_state_shards(ostate)),
+                            (codec_dir, trainer.codec_state_shards(cstate))):
+            p = checkpoint.save(where, at, tree, blocking=blocking)
+            if p is not None:
+                pending.append(p)
+        ck["save_s"] += time.perf_counter() - t0
+        ck["steps"].append(at)
+
+    if ckpt_dir and rank == 0:
+        os.makedirs(ckpt_dir, exist_ok=True)
+    mon = fault.StepMonitor(heartbeat_path=os.path.join(
+        ckpt_dir, "heartbeat.json") if ckpt_dir and rank == 0 else None)
     out = {"rank": rank, "coords": [d, mi.coords["stage"], mi.tp_axes.index],
+           "start": start, "restore_log": log, "straggler": [],
            "losses": [], "grad_norms": [], "step_s": [], "staging_s": [],
            "span_s": [], "staging_bytes": [],
            "ticks": roofline.pipeline_ticks(pp, microbatches, vpp),
@@ -395,12 +514,13 @@ def train_rank(*, rank: int = 0, world: int = 1, arch: str,
     lowrank.reset_launches()
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    for step in range(steps):
+    for step in range(start, start + steps):
+        mon.begin()
         nb = data.batch(step)
         batch = {k: torch.from_numpy(v[d * b_loc:(d + 1) * b_loc]).to(dev)
                  for k, v in nb.items()}
         trainer.opt.keep_flat_grad = bool(flat_grad_out) and rank == 0 \
-            and step == steps - 1
+            and step == start + steps - 1
         comms.reset_staging()
         sync()
         t0 = time.perf_counter()
@@ -409,18 +529,34 @@ def train_rank(*, rank: int = 0, world: int = 1, arch: str,
                                                            cstate, batch)
             sync()
         out["step_s"].append(time.perf_counter() - t0)
+        out["straggler"].append(mon.end(step)["straggler"])
         out["staging_s"].append(comms.STAGING["seconds"])
         out["span_s"].append(dict(comms.SPANS))
         out["staging_bytes"].append(comms.STAGING["bytes"])
         out["losses"].append(float(metrics["loss"]))
         out["grad_norms"].append(float(metrics["grad_norm"]))
-        if step == 0:
+        if step == start:
             out["wire_per_dim"] = roofline.wire_per_dim(events.wire)
             out["priced_per_dim"] = roofline.ledger_summary(
                 events, train=True)["per_dim"]
             out["priced_per_tag"] = roofline.ledger_per_tag(events)
             out["payload_per_tag"] = roofline.ledger_per_tag(events,
                                                              plain=True)
+        if ckpt_dir and (step + 1) % ckpt_every == 0:
+            save_all(step + 1, blocking=False)
+    if ckpt_dir:
+        t0 = time.perf_counter()
+        checkpoint.join_all(pending)
+        ck["wait_s"] = time.perf_counter() - t0
+        ck["thread_s"] = sum(p.seconds for p in pending)
+        last = start + steps
+        if checkpoint.latest_step(ckpt_dir) != last:
+            save_all(last, blocking=True)
+        ck["bytes"] = sum(checkpoint.nbytes(where, last)
+                          for where in (ckpt_dir, opt_dir, codec_dir))
+        say(f"checkpointed at step {last}")
+    out["stragglers"] = mon.stragglers
+    out["ckpt"] = ck
     if trainer.opt.last_flat_grad is not None:
         torch.save(trainer.opt.last_flat_grad.cpu(), flat_grad_out)
         trainer.opt.last_flat_grad = None
@@ -439,28 +575,36 @@ def train_rank(*, rank: int = 0, world: int = 1, arch: str,
     return out
 
 
+def rank_kwargs(args, **extra) -> dict:
+    """:func:`train_rank`'s keywords for the parsed flags (plus ``extra``);
+    raises before anything starts when the flags ask for a card and there
+    is none."""
+    from repro_torch.models.params import resolve_device
+
+    dev = resolve_device(args.device)
+    return dict(arch=args.arch, reduced=args.reduced, layers=args.layers,
+                dp=args.dp, tp=args.tp, pp=args.pp,
+                microbatches=args.microbatches, vpp=args.vpp,
+                remat_policy=args.remat_policy, steps=args.steps,
+                seq=args.seq, global_batch=args.global_batch,
+                scheme=args.scheme, codec_for=list(args.codec_for),
+                no_compress_below=args.no_compress_below,
+                ring_bidir=args.ring_bidir, ring_chunks=args.ring_chunks,
+                grad_buckets=args.grad_buckets, lr=args.lr,
+                opt_state_bits=args.opt_state_bits, seed=args.seed,
+                device=dev.type, ckpt_dir=args.ckpt_dir,
+                ckpt_every=args.ckpt_every, resume=args.resume, **extra)
+
+
 def run(args, **extra) -> list:
     """Run the parsed flags (plus :func:`train_rank` keywords ``extra``) as
     a world of ``dp * pp * tp`` spawned processes; returns the per-rank
     results."""
     from repro_torch.kernels import bq
-    from repro_torch.models.params import resolve_device
 
-    dev = resolve_device(args.device)       # no card: raise before spawning
-    kwargs = dict(arch=args.arch, reduced=args.reduced, layers=args.layers,
-                  dp=args.dp, tp=args.tp, pp=args.pp,
-                  microbatches=args.microbatches, vpp=args.vpp,
-                  remat_policy=args.remat_policy, steps=args.steps,
-                  seq=args.seq,
-                  global_batch=args.global_batch, scheme=args.scheme,
-                  codec_for=list(args.codec_for),
-                  no_compress_below=args.no_compress_below,
-                  ring_bidir=args.ring_bidir, ring_chunks=args.ring_chunks,
-                  grad_buckets=args.grad_buckets, lr=args.lr,
-                  opt_state_bits=args.opt_state_bits, seed=args.seed,
-                  device=dev.type, **extra)
+    kwargs = rank_kwargs(args, **extra)      # no card: raise before spawning
     world = args.dp * args.pp * args.tp
-    if dev.type == "cuda":
+    if kwargs["device"] == "cuda":
         bq.build()                           # once, before the ranks start
         # ranks share one card: growable segments keep each rank's
         # reserved-but-free memory from fragmenting the card
@@ -475,16 +619,25 @@ def run(args, **extra) -> list:
 
 def _report(res: list, args) -> None:
     r0 = res[0]
-    for step, (loss, gn, dt) in enumerate(zip(r0["losses"], r0["grad_norms"],
-                                              r0["step_s"])):
-        print(f"step {step:5d} loss={loss:.4f} gnorm={gn:.3f} dt={dt:.2f}s")
+    for step, (loss, gn, dt, slow) in enumerate(
+            zip(r0["losses"], r0["grad_norms"], r0["step_s"],
+                r0["straggler"]), start=r0["start"]):
+        print(f"step {step:5d} loss={loss:.4f} gnorm={gn:.3f} dt={dt:.2f}s"
+              + (" STRAGGLER" if slow else ""))
     tail = r0["step_s"][1:] or r0["step_s"]
     tok = args.global_batch * args.seq
     peak = max(r["peak_bytes"] for r in res) / 2**30
     print(f"done: final loss {r0['losses'][-1]:.4f}, teacher floor "
-          f"{r0['teacher_floor']:.4f}; {statistics.median(tail) * 1e3:.1f} "
+          f"{r0['teacher_floor']:.4f}, stragglers {r0['stragglers']}/"
+          f"{len(r0['losses'])}; {statistics.median(tail) * 1e3:.1f} "
           f"ms/step ({tok / statistics.median(tail):.0f} tok/s) on "
           f"{r0['device']}, {len(res)} ranks, peak {peak:.2f} GiB per rank")
+    if args.ckpt_dir:
+        ck = r0["ckpt"]
+        print(f"checkpoints: steps {ck['steps']}, {ck['bytes'] / 1e9:.3f} GB "
+              f"on disk (the last); {ck['save_s']:.2f}s in save calls, "
+              f"{ck['thread_s']:.2f}s in saving threads, {ck['wait_s']:.2f}s "
+              f"waiting for them, {ck['restore_s']:.2f}s restoring (rank 0)")
     if args.pp > 1 or args.microbatches > 1:
         print(f"pipeline: pp {args.pp} x vpp {args.vpp}, "
               f"{args.microbatches} microbatches, {r0['ticks']} ticks, "
@@ -522,7 +675,8 @@ def main(argv=None):
                 ring_bidir=args.ring_bidir,
                 ring_chunks=args.ring_chunks, grad_buckets=args.grad_buckets,
                 lr=args.lr, opt_state_bits=args.opt_state_bits,
-                seed=args.seed, device=args.device)
+                seed=args.seed, device=args.device, ckpt_dir=args.ckpt_dir,
+                ckpt_every=args.ckpt_every, resume=args.resume)
         finally:
             dist.destroy_process_group()
         if rank == 0:

@@ -178,6 +178,18 @@ def leaves(plan, tree) -> list:
     return out
 
 
+def map_leaves(fn, plan, tree=None):
+    """A tree of the plan's layout holding ``fn(ParamDef, leaf)`` for each
+    leaf, ``leaf`` taken from ``tree`` (``None`` without one)."""
+    vals = {}
+    for path, d in _leaves(plan):
+        t = tree
+        for k in path if tree is not None else ():
+            t = t[k]
+        vals[path] = fn(d, t)
+    return _fill(plan, vals)
+
+
 def _ways(mi: MeshInfo) -> dict:
     return {"model": mi.tp, "data": mi.dp, "stage": mi.pp}
 
@@ -188,16 +200,27 @@ def local_shape(d: ParamDef, mi: MeshInfo) -> tuple:
     return tuple(s // ways.get(sp, 1) for s, sp in zip(d.shape, d.spec))
 
 
+def local_index(shape: tuple, spec: tuple, mi: MeshInfo) -> tuple:
+    """Where this rank's shard lies in a global leaf of ``shape`` sharded
+    by ``spec``: one slice per dim."""
+    ways, coords = _ways(mi), mi.coords
+    idx = []
+    for s, sp in zip(shape, spec):
+        n = s // ways.get(sp, 1)
+        c = coords[sp] if sp in ways else 0
+        idx.append(slice(c * n, (c + 1) * n))
+    return tuple(idx)
+
+
+def writes_replica(spec: tuple, mi: MeshInfo) -> bool:
+    """Whether this rank holds the first replica of a leaf sharded by
+    ``spec``: index 0 along every mesh axis the spec does not shard."""
+    return all(i == 0 for ax, i in mi.coords.items() if ax not in spec)
+
+
 def local_slice(t, d: ParamDef, mi: MeshInfo):
     """This rank's shard of a global tensor (or numpy array) ``t``."""
-    ways, coords = _ways(mi), mi.coords
-    for dim, (s, sp) in enumerate(zip(d.shape, d.spec)):
-        if sp in ways:
-            n = s // ways[sp]
-            idx = [slice(None)] * len(d.shape)
-            idx[dim] = slice(coords[sp] * n, (coords[sp] + 1) * n)
-            t = t[tuple(idx)]
-    return t
+    return t[local_index(d.shape, d.spec, mi)]
 
 
 def init_params(plan, gen: torch.Generator, device,

@@ -36,13 +36,15 @@ saves a full copy of the rank's parameters or gradient.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
 from repro_torch.core import comms
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import BLOCK
-from repro_torch.models.params import MeshInfo, defs, leaves
+from repro_torch.models.params import MeshInfo, defs, leaves, local_shape
+from repro_torch.train.checkpoint import Shard, whole
 
 _F32 = torch.float32
 
@@ -166,6 +168,51 @@ class Adam:
         v = self._state_encode(zc.clone())
         return {"master": master, "m": m, "v": v, "step": 0}
 
+    def state_shards(self, state=None, device="cpu") -> dict:
+        """The state as the reference's global leaves, each a
+        :class:`~repro_torch.train.checkpoint.Shard` holding this rank's
+        part (of ``state``, when given).  As the reference lays out its
+        state (``Trainer.opt_state_specs``), a flat chunk differs on every
+        rank and shards over the joint (stage, model, data) axes, data
+        minor, so this rank's is chunk ``(s * tp + t) * dp + d`` of the
+        global vector (bq8 m and v likewise by rows, ``q_lo`` none); the
+        ``step`` is one replicated int32.  (The reference's ``fsdp`` list
+        holds only ``None`` without ZeRO-3 leaves: no leaf.)"""
+        mi = self.mi
+        n = sum(math.prod(local_shape(d, mi)) for d in defs(self.plan))
+        cl = sum(self._chunk_len(hi - lo) for lo, hi in self._bucket_bounds(n))
+        world = mi.dp * mi.pp * mi.tp
+        c = mi.coords
+        g = (c["stage"] * mi.tp + c["model"]) * mi.dp + c["data"]
+
+        def chunk(rows, tail, dtype, value):
+            return Shard((world * rows, *tail),
+                         (slice(g * rows, (g + 1) * rows), *whole(tail)),
+                         dtype, value, True, device)
+
+        def moment(k):
+            v = None if state is None else state[k]
+            if self.cfg.state_bits != 8:
+                return chunk(cl, (), _F32, v)
+            v = v or {}
+            return {"q_hi": chunk(cl // BLOCK, (BLOCK,), torch.int8,
+                                  v.get("q_hi")),
+                    "q_lo": None,
+                    "scale": chunk(cl // BLOCK, (1,), _F32, v.get("scale"))}
+        step = None if state is None else torch.tensor(state["step"],
+                                                       dtype=torch.int32)
+        return {"master": chunk(cl, (), _F32,
+                                None if state is None else state["master"]),
+                "m": moment("m"), "v": moment("v"),
+                "step": Shard((), (), torch.int32, step,
+                              mi.all_axes.index == 0, device)}
+
+    @staticmethod
+    def state_from_shards(tree: dict) -> dict:
+        """The state from :meth:`state_shards`' leaves, restored (the step
+        a Python int again)."""
+        return {**tree, "step": int(tree["step"])}
+
     # ------------------------------------------------------------------
     def _adam_update(self, g, m, v, master, step: int):
         c = self.cfg
@@ -191,6 +238,32 @@ class Adam:
         return x
 
     # ------------------------------------------------------------------
+    @torch.no_grad()
+    def gather_params(self, params, master: torch.Tensor) -> None:
+        """Write the parameters in place from the data group's master
+        chunks: the ZeRO-1 all-gather (under the *ZeRO* codec, per
+        grad-sync bucket) that ends :meth:`apply`."""
+        ts, _ = self._split(params)
+        total = sum(t.numel() for t in ts)
+        if self.cfg.grad_buckets <= 1:
+            flat_new = comms.all_gather_flat(
+                master, self.mi.dp_axes, total,
+                comms.Site("zero", "zero1_param"))
+        else:
+            segs, at = [], 0
+            for b, (lo, hi) in enumerate(self._bucket_bounds(total)):
+                cl = self._chunk_len(hi - lo)
+                segs.append(comms.all_gather_flat(
+                    master[at:at + cl], self.mi.dp_axes, hi - lo,
+                    comms.Site("zero", f"zero1_param{b}")))
+                at += cl
+            flat_new = torch.cat(segs)
+        off = 0
+        for t in ts:
+            n = t.numel()
+            t.copy_(flat_new[off:off + n].reshape(t.shape))
+            off += n
+
     @torch.no_grad()
     def apply(self, params, grads: list, state: dict):
         """One update.  ``grads`` are in the plan's leaf order; the list is
@@ -252,24 +325,7 @@ class Adam:
         v = self._state_decode(state["v"])
         master, m, v = self._adam_update(gchunk, m, v, state["master"], step)
         del gchunk
-        total = sum(t.numel() for t in ts)
-        if not bucketed:
-            flat_new = comms.all_gather_flat(
-                master, mi.dp_axes, total, comms.Site("zero", "zero1_param"))
-        else:
-            segs, at = [], 0
-            for b, (lo, hi) in enumerate(self._bucket_bounds(total)):
-                cl = self._chunk_len(hi - lo)
-                segs.append(comms.all_gather_flat(
-                    master[at:at + cl], mi.dp_axes, hi - lo,
-                    comms.Site("zero", f"zero1_param{b}")))
-                at += cl
-            flat_new = torch.cat(segs)
-        off = 0
-        for t in ts:
-            n = t.numel()
-            t.copy_(flat_new[off:off + n].reshape(t.shape))
-            off += n
+        self.gather_params(params, master)
         new_state = {"master": master, "m": self._state_encode(m),
                      "v": self._state_encode(v), "step": step + 1}
         return new_state, {"grad_norm": gnorm,

@@ -65,6 +65,11 @@ stage traffic.
 
 The gradients of the stage-replicated embedding and final norm are folded
 over the stage axis by :meth:`repro_torch.train.optimizer.Adam.apply`.
+A checkpoint holds the pipeline trainer's state in the flat trainer's
+global layouts (:meth:`Trainer.param_shards`, ``opt_state_shards``,
+``codec_state_shards``) with the stage axis in them: a stage-stacked
+group leaf ``[pp, n, ...]`` (``[vpp, pp, n, ...]`` interleaved) splits
+over the stage ranks, the ZeRO-1 chunks over (stage, model, data).
 ``pp == 1`` is plain gradient accumulation over ``n_micro`` microbatches.
 """
 

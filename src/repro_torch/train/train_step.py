@@ -19,8 +19,26 @@ import torch
 from repro_torch.core import comms
 from repro_torch.core import policy as policy_lib
 from repro_torch.models.model import Model
-from repro_torch.models.params import defs, leaves, local_shape
+from repro_torch.models.params import (defs, leaves, local_index,
+                                       local_shape, map_leaves, torch_dtype,
+                                       writes_replica)
+from repro_torch.train.checkpoint import Pv, Shard, take, whole
 from repro_torch.train.optimizer import Adam, AdamConfig, _leaf_class
+
+
+def _parts(tree, shards):
+    """This rank's parts of the global numpy leaves of ``tree`` (the
+    reference's layout), as the :class:`Shard` leaves of ``shards`` name
+    them; ``None`` in ``shards`` is no leaf."""
+    if shards is None:
+        return None
+    if isinstance(shards, dict):
+        return {k: _parts(tree[k], v) for k, v in shards.items()}
+    a = np.asarray(tree)
+    if tuple(a.shape) != tuple(shards.shape):
+        raise ValueError(f"global leaf of shape {a.shape}, this layout "
+                         f"wants {tuple(shards.shape)}")
+    return take(a, shards)
 
 
 class Trainer:
@@ -87,35 +105,80 @@ class Trainer:
                 for key, (c, shape, dtype) in
                 self.plan.stateful_sites(self.codec_sites()).items()}
 
-    def codec_state_from_jax(self, tree: dict) -> dict:
-        """This rank's codec state from the reference's (numpy leaves): the
-        reference stacks every rank's slot along dim 0 in the order of
-        ``MeshInfo.all_axes`` (data major, then stage, then model), which
-        is the global rank here."""
+    def codec_state_shards(self, state=None) -> dict:
+        """The codec state as the reference's global leaves (its
+        ``codec_structs``): every slot stacks each rank's along dim 0 in
+        the order of ``MeshInfo.all_axes`` (data major, then stage, then
+        model), which is the global rank here.  Each leaf is a
+        :class:`~repro_torch.train.checkpoint.Shard` holding this rank's
+        part (of ``state``, when given)."""
         mi = self.model.mi
         world, r = mi.all_axes.size, mi.all_axes.index
-        tmpl = self.codec_state_template()
-        if sorted(tree) != sorted(tmpl):
-            raise KeyError(f"codec-state slots {sorted(tree)} do not match "
-                           f"this trainer's {sorted(tmpl)}")
-
-        def take(leaf, want):
-            shape, dtype = want
-            a = np.asarray(leaf)
-            per = a.shape[0] // world
-            out = torch.from_numpy(np.ascontiguousarray(
-                a[r * per:(r + 1) * per])).to(dtype)
-            if tuple(out.shape) != shape:
-                raise ValueError(f"codec-state leaf of global shape "
-                                 f"{a.shape} gives {tuple(out.shape)} per "
-                                 f"rank, template {shape}")
-            return out.to(self.model.device)
 
         def walk(t, w):
             if isinstance(w, dict):
-                return {k: walk(t[k], w[k]) for k in w}
-            return take(t, w)
-        return {k: walk(tree[k], tmpl[k]) for k in tmpl}
+                return {k: walk(None if t is None else t[k], w[k])
+                        for k in w}
+            (n, *tail), dtype = w
+            return Shard((world * n, *tail),
+                         (slice(r * n, (r + 1) * n), *whole(tail)), dtype, t,
+                         True, self.model.device)
+        tmpl = self.codec_state_template()
+        return {k: walk(None if state is None else state[k], tmpl[k])
+                for k in tmpl}
+
+    def codec_state_from_jax(self, tree: dict) -> dict:
+        """This rank's codec state from the reference's (numpy leaves, the
+        global layout of :meth:`codec_state_shards`)."""
+        shards = self.codec_state_shards()
+        if sorted(tree) != sorted(shards):
+            raise KeyError(f"codec-state slots {sorted(tree)} do not match "
+                           f"this trainer's {sorted(shards)}")
+        return _parts(tree, shards)
+
+    # ------------------------------------------------------------------
+    # the global layouts a checkpoint holds
+    # ------------------------------------------------------------------
+    def param_shards(self, params=None) -> dict:
+        """The parameters as the reference's global ``Pv`` leaves: each a
+        :class:`~repro_torch.train.checkpoint.Shard` of the plan's shape
+        holding this rank's shard (of ``params``, when given), written by
+        the first replica, with the leaf's logical spec."""
+        mi, dev = self.model.mi, self.model.device
+        return map_leaves(
+            lambda d, t: Pv(Shard(d.shape, local_index(d.shape, d.spec, mi),
+                                  torch_dtype(d.dtype), t,
+                                  writes_replica(d.spec, mi), dev), d.spec),
+            self.model.plan, params)
+
+    def opt_state_shards(self, state=None) -> dict:
+        """The optimizer state as the reference's global leaves
+        (:meth:`Adam.state_shards`)."""
+        return self.opt.state_shards(state, self.model.device)
+
+    def params_from_master(self, params, opt_state) -> bool:
+        """Re-derive ``params`` in place from a restored optimizer state's
+        master chunks, as the last step derived them, and say whether it
+        did.  A replicated leaf's replicas need not agree bit for bit
+        (class-C leaves sum their gradient through a lossy all-reduce on
+        each tp rank), and a checkpoint keeps one, so this is what makes
+        a resume on the same layout continue bit for bit.  Untouched when
+        the state has taken no step (the params never came out of the
+        gather) or the gather carries codec state (``ef:*`` at a ZeRO
+        site: its residual has moved on)."""
+        stateful = self.plan.stateful_sites(self.codec_sites())
+        if not opt_state["step"] or any(k.startswith("zero@")
+                                        for k in stateful):
+            return False
+        with policy_lib.use_plan(self.plan), \
+                comms.ring_options(self.ring_bidir, self.ring_chunks):
+            self.opt.gather_params(params, opt_state["master"])
+        return True
+
+    def opt_state_from_jax(self, tree: dict) -> dict:
+        """This rank's optimizer state from the reference's (numpy
+        leaves): its slice of each flat chunk and the step."""
+        return Adam.state_from_shards(_parts(tree, self.opt_state_shards()))
 
     # ------------------------------------------------------------------
     def init_all(self, seed: int):

@@ -1,6 +1,8 @@
-"""The port stands alone: no module of ``repro_torch``, and not
-``chip_smoke.py``, imports ``jax`` or the reference package ``repro``, and
-neither does a rank that ``launch/train.py`` spawns (a fresh interpreter);
+"""The port stands alone: no module of ``repro_torch`` (the checkpoint and
+fault modules included), and not ``chip_smoke.py``, imports ``jax`` or the
+reference package ``repro``, and neither does a rank that
+``launch/train.py`` spawns (a fresh interpreter), also when it saves and
+resumes a checkpoint;
 entry points asked for the card raise without one instead of running on
 the CPU; ``chip_smoke.py`` fails without a card and outside the repo."""
 
@@ -89,6 +91,21 @@ def test_spawned_ranks_import_no_reference():
                            steps=1, seq=8, global_batch=2, device="cpu"),
                       timeout=300)
     assert [r["foreign_modules"] for r in res] == [[], []]
+
+
+def test_checkpoint_modules_are_covered(tmp_path):
+    """The checkpoint and fault modules are in the scan above, and ranks
+    that save and then resume import neither jax nor repro."""
+    names = {p.relative_to(PKG).as_posix() for p in FILES if PKG in p.parents}
+    assert {"train/checkpoint.py", "train/fault.py"} <= names
+    from repro_torch.launch.train import spawn_world
+    kw = dict(arch="gemma3-1b", reduced=True, dp=2, tp=1, steps=1, seq=8,
+              global_batch=2, device="cpu", ckpt_dir=str(tmp_path))
+    for resume in (False, True):
+        res = spawn_world("repro_torch.launch.train:train_rank", 2,
+                          dict(kw, resume=resume), timeout=300)
+        assert [r["foreign_modules"] for r in res] == [[], []]
+        assert res[0]["start"] == (1 if resume else 0)
 
 
 def _run_smoke(cwd: Path):

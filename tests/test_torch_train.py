@@ -33,7 +33,8 @@ Contract asserted here, with the tolerances and their reasons:
     shard of the gradient) hold the same factor Q, bit for bit;
   * the first step's ledger, priced per dimension, equals the reference's
     under every case, byte for byte;
-  * the launcher refuses unported flags, accepts the pipeline's and
+  * the launcher refuses unported flags, accepts the checkpoints' (and
+    checkpoints and resumes on the CPU), accepts the pipeline's and
     refuses a schedule it cannot run, trains pp 2 (and pp 2 x vpp 2) on
     the CPU when asked, builds ``--codec-for`` policies, runs on the CPU
     only when asked, refuses a stateful codec at an
@@ -427,11 +428,15 @@ def test_launcher_refuses_unported_flags():
                         "--scheme", "zhybrid_16_8", "--ring-bidir"])
     assert tlaunch.unported(ok) == []
     for extra in (["--pp-nodes", "2"], ["--cp", "2"], ["--nodes", "2"],
-                  ["--tune"], ["--resume"], ["--ckpt-dir", "x"],
-                  ["--ckpt-every", "5"]):
+                  ["--tune"], ["--policy-from", "x"], ["--tune-interval", "5"]):
         args = ap.parse_args(["--arch", "gemma3-1b", *extra])
         msgs = tlaunch.unported(args)
         assert len(msgs) == 1 and "not yet ported" in msgs[0], extra
+    # checkpoints are ported: their flags are accepted
+    ck = ap.parse_args(["--arch", "gemma3-1b", "--ckpt-dir", "x",
+                        "--ckpt-every", "5", "--resume"])
+    assert tlaunch.unported(ck) == []
+    assert (ck.ckpt_dir, ck.ckpt_every, ck.resume) == ("x", 5, True)
     with pytest.raises(SystemExit):
         tlaunch.main(["--arch", "gemma3-1b", "--pp-nodes", "2", "--device",
                       "cpu"])
@@ -514,6 +519,23 @@ def test_launcher_trains_pipeline_on_cpu(extra, capsys):
     out = capsys.readouterr().out
     assert "done: final loss" in out and "bubble fraction" in out
     assert ("5 ticks" if extra else "3 ticks") in out
+
+
+def test_launcher_checkpoints_and_resumes_on_cpu(tmp_path, capsys):
+    from repro_torch.launch import train as tlaunch
+    base = ["--arch", "gemma3-1b", "--reduced", "--seq", "16",
+            "--global-batch", "2", "--device", "cpu", "--ckpt-dir",
+            str(tmp_path)]
+    tlaunch.main([*base, "--steps", "2", "--ckpt-every", "1"])
+    out = capsys.readouterr().out
+    assert "checkpointed at step 2" in out and "steps [1, 2]" in out
+    tlaunch.main([*base, "--steps", "1", "--resume"])
+    out = capsys.readouterr().out
+    assert "restored optimizer state at step 2" in out
+    assert "resumed from step 2 (elastic onto dp=1 tp=1 pp=1)" in out
+    assert "step     2 loss=" in out and "checkpointed at step 3" in out
+    assert "stragglers 0/1" in out or "stragglers 1/1" in out
+    assert (tmp_path / "heartbeat.json").exists()
 
 
 def test_launcher_trains_on_cpu(capsys):
