@@ -5,6 +5,7 @@
     python3 chip_smoke.py --bq-only  # phase 1 and the bq timings alone
     python3 chip_smoke.py --pp-only  # phase 1, phase 4's step, phase 7
     python3 chip_smoke.py --ckpt-only  # phase 1, phase 6's plr8 run, phase 8
+    python3 chip_smoke.py --hier-only  # phase 1 and phase 9
 
 ``--bq-only`` prints the bq kernels' timings and those of the fused TP
 all-gather, TP reduce-scatter and KV-read ops beside the compositions
@@ -125,6 +126,26 @@ the seconds in save calls, in the saving threads, waiting for them and
 restoring, the bytes written and each step's seconds beside phase 6's,
 and deletes the checkpoints.
 
+Phase 9 drives the node-factored meshes (the paper's hierarchical
+collectives): gemma3-1b at full published width, sequence 1024, global
+batch 4, in one world of four ranks on the card: 9a ``--dp 4 --nodes 2``
+(node 2 x data 2) under hier_zpp_8_16, ``--layers 13`` (at 26 the four
+ranks' model copies and half-size ZeRO-1 state outgrow the card), 2
+steps (the DP gradient a bq16 reduce-scatter inside the node, then a bq8
+all-reduce of its half across, the param gather bq16 inside); 9b ``--tp
+4 --tp-nodes 2`` (tpnode 2 x model 2) under hier_tpp_8_16, all 26 layers,
+2 steps (every TP all-gather, reduce-scatter and f/g two-level, the
+class-C fold a two-level all-reduce, attention in ring mode); each
+through the kernels and the plain versions; and 9c ``--pp 4 --pp-nodes 2 --layers 8``, 4
+microbatches, 1F1B under hier_tpp_8_16, 2 steps, through the kernels
+(the middle handoff crosses a node, the other two stay inside one; the
+stage fold two-level).  It requires equal losses, grad norms and ledger
+between each kernel run and its plain run, finite 9c losses, and a
+launch at each link level of every kernel the decomposition implies
+there; it prints each run's ms/step, tokens/s, peak memory and staging
+share (as phase 4), the priced wire bytes per ``dim/level``, the fast and
+slow link bytes, and the launches per kernel and level.
+
 After phase 8, a fresh process (this script with ``--reckon FILE``, which
 the script starts itself) times each (kernel, rows, rate) that phase 4's
 kernel run launched, at its shape, and reckons launches x (time - bound)
@@ -190,6 +211,40 @@ HANDOFF_ROWS = (GLOBAL_BATCH // PP_MICRO) * (SEQ // TP) * 1152 // 128
 # the stage-replicated leaves' fold: the tied embedding's vocab shard and
 # the final norm
 STAGE_FOLD_ELEMS = 262144 // TP * 1152 + 1152
+# phase 9: node-factored meshes, four ranks; (name, scheme, steps, flags,
+# with a plain run) of its runs.  9a holds the whole model on each of four
+# ranks and half the ZeRO-1 state: at 26 layers the four need more than
+# the card's 80 GB (the Adam update ran out at 18.7 GiB per rank), so its
+# depth is cut to 13 (uniform global attention), its width kept
+HIER_RUNS = (
+    ("9a", "hier_zpp_8_16", 2, ("--dp", "4", "--tp", "1", "--nodes", "2",
+                                "--layers", "13"), True),
+    ("9b", "hier_tpp_8_16", 2, ("--dp", "1", "--tp", "4", "--tp-nodes", "2"),
+     True),
+    ("9c", "hier_tpp_8_16", 2, ("--dp", "1", "--tp", "1", "--pp", "4",
+                                "--pp-nodes", "2", "--layers", "8",
+                                "--microbatches", "4"), False))
+# the kernels each run's decomposition launches at each link level: the
+# rings of two ranks encode on their first hop and decode-add on their
+# last (a reduce-scatter's block or view form; an all-reduce's with the
+# sum, whose compressed chunk is then gathered and decoded); the
+# all-gathers and handoffs encode and decode a bf16 activation (the flat
+# forms)
+_DP_AR = {"outer": {"bq_encode", "bq_decode_add_encode", "bq_decode"}}
+_BLOCK_RS_AG = {"bq_encode", "bq_decode_add", "bq_decode"}
+HIER_LEVELS = {
+    # DP: RS(data, bq16) -> AR(node, bq8) -> hpZ AG(data, bq16)
+    "9a": {"inner": _BLOCK_RS_AG, **_DP_AR},
+    # TP: gathers and reduce-scatters of activations at both levels, the
+    # class-C fold's RS -> AR -> AG on blocks
+    "9b": {"inner": {"bq_encode_flat", "bq_decode_flat", "bq_encode_view",
+                     "bq_decode_add_flat"} | _BLOCK_RS_AG,
+           "outer": {"bq_encode_flat", "bq_decode_flat", "bq_encode_view",
+                     "bq_decode_add_flat"} | _DP_AR["outer"]},
+    # PP: handoffs inside and across nodes, the stage fold's RS -> AR -> AG
+    "9c": {"inner": {"bq_encode_flat", "bq_decode_flat"} | _BLOCK_RS_AG,
+           "outer": {"bq_encode_flat", "bq_decode_flat"} | _DP_AR["outer"]},
+}
 
 
 def fail(msg: str):
@@ -1267,9 +1322,17 @@ def reckon_shapes(torch, card, shapes: dict, rank_steps: int) -> dict:
 
 def rank_runs(*, rank: int, world: int, runs: list) -> list:
     """Body of one rank of :func:`train_runs`' world: ``train_rank`` for
-    each keyword set of ``runs``, in turn."""
+    each keyword set of ``runs``, in turn, each run's cached device memory
+    given back before the next (the ranks share the card, and a run's
+    largest rank may be another than the last run's)."""
+    import torch
+
     from repro_torch.launch.train import train_rank
-    return [train_rank(rank=rank, world=world, **kw) for kw in runs]
+    out = []
+    for kw in runs:
+        out.append(train_rank(rank=rank, world=world, **kw))
+        torch.cuda.empty_cache()
+    return out
 
 
 def run(label, scheme, backend=None, steps=STEPS, extra=(), dp=DP, tp=TP,
@@ -1330,6 +1393,76 @@ def train_runs(card, runs: list) -> list:
 def train_run(card, *args, **kw) -> list:
     """One :func:`run` in a world of its own."""
     return train_runs(card, [run(*args, **kw)])[0]
+
+
+def level_sums(res) -> dict:
+    """Launches per ``kernel/level``, all ranks."""
+    out = {}
+    for r in res:
+        for k, v in r["launch_levels"].items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def drive_hier(torch, card) -> dict:
+    """Phase 9: the node-factored meshes (9a ``--nodes``, 9b
+    ``--tp-nodes``, 9c ``--pp-nodes``) in one world of four ranks, through
+    the kernels and (9a, 9b) the plain versions; returns each run's
+    launches per kernel and level (all ranks) and its numbers."""
+    runs, names = [], []
+    for name, scheme, steps, flags, plain in HIER_RUNS:
+        for backend in (None, "torch") if plain else (None,):
+            runs.append(run(f"{name} {'plain' if backend else 'kernels'}",
+                            scheme, backend, steps, flags, dp=1, tp=1))
+            names.append((name, backend))
+    res = dict(zip(names, train_runs(card, runs)))
+    out = {}
+    for name, scheme, steps, flags, plain in HIER_RUNS:
+        k = res[(name, None)]
+        for rk in k:
+            if not np.isfinite(rk["losses"]).all():
+                fail(f"phase {name} rank {rk['rank']}: losses "
+                     f"{rk['losses']}")
+        if plain:
+            p = res[(name, "torch")]
+            for rk, rp in zip(k, p):
+                for key in ("losses", "grad_norms", "wire_per_dim",
+                            "priced_per_dim_level", "link_bytes"):
+                    if rk[key] != rp[key]:
+                        fail(f"phase {name} rank {rk['rank']}: {key} differ "
+                             f"between the kernel run ({rk[key]}) and the "
+                             f"plain run ({rp[key]})")
+            if any(v for r in p for v in r["launches"].values()):
+                fail(f"phase {name}: the plain run launched kernels: "
+                     f"{[r['launches'] for r in p]}")
+        levels = level_sums(k)
+        missing = sorted(f"{kern}/{lvl}"
+                         for lvl, kerns in HIER_LEVELS[name].items()
+                         for kern in kerns if not levels.get(f"{kern}/{lvl}"))
+        if missing:
+            fail(f"phase {name}: no launch of {missing}; launches by level "
+                 f"{levels}")
+        step = max(float(np.median(r["step_s"][1:])) for r in k)
+        share = [sum(r["staging_s"][1:]) / sum(r["step_s"][1:]) for r in k]
+        peak = [round(r["peak_bytes"] / 2**30, 2) for r in k]
+        r0 = k[0]
+        same = ("kernel run == plain run (losses, grad norms, ledger per dim "
+                "and dim/level, link bytes) on every rank; ") if plain else ""
+        print(f"phase {name} ({scheme}, {' '.join(flags)}): {same}"
+              f"losses {r0['losses']}; {step * 1e3:.1f} ms/step, "
+              f"{GLOBAL_BATCH * SEQ / step:.0f} tokens/s, peak {peak} GiB per "
+              f"rank, staging+exchange {min(share) * 100:.0f}-"
+              f"{max(share) * 100:.0f} %; priced wire per rank per step by "
+              f"dim/level {r0['priced_per_dim_level']}, link bytes "
+              f"{r0['link_bytes']}; launches (all ranks) by kernel/level "
+              f"{levels} [{card}]")
+        out[name] = {"launches": launch_sums(k), "levels": levels,
+                     "step_ms": step * 1e3, "tokens_per_s":
+                     GLOBAL_BATCH * SEQ / step, "peak_gib": peak,
+                     "staging_share": [min(share), max(share)],
+                     "per_dim_level": r0["priced_per_dim_level"],
+                     "link_bytes": r0["link_bytes"]}
+    return out
 
 
 def drive_pipeline(torch, card) -> dict:
@@ -1827,6 +1960,15 @@ def main():
         print(f"card: {card}")
         return
 
+    if sys.argv[1:] == ["--hier-only"]:
+        # phase 9 alone
+        os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                              "expandable_segments:True")
+        hier = drive_hier(torch, card)
+        print(json.dumps({"phase9": hier}))
+        print(f"card: {card}")
+        return
+
     if sys.argv[1:] == ["--pp-only"]:
         # phase 7 alone, beside phase 4's zhybrid_16_8 step
         os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
@@ -2039,6 +2181,14 @@ def main():
           f"8c resume at dp {DP * TP} x tp 1, 1 step) [{card}]")
     ckpt = drive_checkpoint(torch, card, stateful["plr_run"], cfg, n_flat)
 
+    # ---------------------------------------------------------- phase 9
+    print(f"phase 9: node-factored meshes, gemma3-1b full width, four ranks "
+          f"on this card, seq {SEQ}, global batch {GLOBAL_BATCH}: 9a --dp 4 "
+          f"--nodes 2 --layers 13 (hier_zpp_8_16), 9b --tp 4 --tp-nodes 2 "
+          f"(hier_tpp_8_16), 9c --pp 4 --pp-nodes 2 --layers 8 "
+          f"(hier_tpp_8_16, 1F1B) [{card}]")
+    hier = drive_hier(torch, card)
+
     # launches x (time - bound) per shape of phase 4's kernel run, timed in
     # a fresh process (this one's profiler reports nothing after phases
     # 3-6 have run)
@@ -2071,6 +2221,25 @@ def main():
                                    if k == kernel]}
                 for run, r in pipe.items()}
 
+    def p9_launches(kernel: str) -> int:
+        return sum(run["launches"][kernel] for run in hier.values())
+
+    def p9_entry(kernel: str) -> dict:
+        """Phase 9's launches of a kernel (all ranks, the kernel runs) per
+        run, by link level; a bq kernel's flat and view forms count with
+        it."""
+        forms = {"bq_encode": ("bq_encode", "bq_encode_flat",
+                               "bq_encode_view"),
+                 "bq_decode": ("bq_decode", "bq_decode_flat"),
+                 "bq_decode_add_encode": ("bq_decode_add_encode",
+                                          "bq_decode_add_encode_wire",
+                                          "bq_decode_add_encode_view"),
+                 "bq_decode_add": ("bq_decode_add", "bq_decode_add_flat")
+                 }.get(kernel, (kernel,))
+        return {run: {key: v for key, v in r["levels"].items()
+                      if key.split("/")[0] in forms}
+                for run, r in hier.items()}
+
     for name, line, launches in (
             ("bq_encode", 173, t_launch["bq_encode"]),
             ("bq_decode", 205, t_launch["bq_decode"]),
@@ -2097,9 +2266,11 @@ def main():
                 "plain_ms": owps, "warm_l2_ms": owws, "bound_ms": wbms,
                 "launches": r_launch["bq_decode_add_encode_wire"]}
         entry["launches_ef_zhybrid_16_4"] = stateful["ef"][name]
-        entry["launches"] += p7_launches(name) + ckpt["launches"][name]
+        entry["launches"] += p7_launches(name) + ckpt["launches"][name] \
+            + p9_launches(name)
         entry["phase7"] = p7_entry(name)
         entry["phase8"] = ckpt["launches"][name]        # after the restore
+        entry["phase9"] = p9_entry(name)
         if name in ("bq_encode", "bq_decode"):
             # the block form's kernel alone, and the flat form the TP
             # all-gather calls (the same kernel, fused with its layout)
@@ -2119,7 +2290,7 @@ def main():
                 "bound_ms": op["bound_ms"], "bound_by": "bytes",
                 "stream_kernel_ms": op["stream_kernel_ms"],
                 "launches": t_launch[f"{name}_flat"]
-                + p7_launches(f"{name}_flat"),
+                + p7_launches(f"{name}_flat") + p9_launches(f"{name}_flat"),
                 "phase7": p7_entry(f"{name}_flat"),
                 "max_abs_err": err[f"{name}_flat"],
                 "by_shape": by_shape.get(f"{name}_flat", [])}
@@ -2142,7 +2313,8 @@ def main():
             entry["view" if op == "encode" else "flat"] = {
                 "path": f"TP reduce-scatter, bf16 {[list(sh) for sh in RS_SHAPES]}"
                         f" along axis 1 over {TP} ranks", "rate": 16,
-                "launches": t_launch[fname] + p7_launches(fname),
+                "launches": t_launch[fname] + p7_launches(fname)
+                + p9_launches(fname),
                 "phase7": p7_entry(fname), "max_abs_err": err[fname],
                 "bound_by": "bytes",
                 "by_rows": {rows: {**ops_[op], "end": ops_["end"]}
@@ -2192,6 +2364,9 @@ def main():
         "source": "src/repro_torch/kernels/csrc/lowrank.cu",
         "replaces": "src/repro/kernels/lowrank.py:103",
         "launches": sum(f["launches"] for f in forms.values()),
+        "phase9": {run: {k: v for k, v in r["launches"].items()
+                         if k.startswith("matmul_")}
+                   for run, r in hier.items()},
         "max_abs_err": max(f["max_abs_err"] for f in forms.values()),
         **total, "bound_by": "bytes" if all(
             f["bound_by"] == "bytes" for f in forms.values()) else

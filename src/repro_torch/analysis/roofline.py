@@ -4,9 +4,13 @@ of ``repro.analysis.roofline``).
 :func:`ledger_summary` prices the analytic events of
 :class:`repro_torch.core.comms.record_traffic` exactly as the reference
 prices its own ledger: per-device link bytes of each collective, its
-backward twin included, from the ring schedule the event recorded.  The
-device-time terms of the reference's roofline were for a TPU and are not
-carried over.
+backward twin included, from the ring schedule the event recorded, and
+splits them by link level (:func:`link_bytes`: a hierarchical collective's
+inner stages ride the fast intra-node links, its outer stages the slow
+inter-node ones).  The device-time terms of the reference's roofline, and
+its link rates, were a TPU's and are not carried over: the callers of
+:func:`collective_seconds` and :func:`stage_handoff_seconds` name the
+rates of their own links.
 """
 
 from __future__ import annotations
@@ -72,6 +76,10 @@ def _coll_bytes(op: str, codec_name: str, elems: int, dtype: str, n: int,
     if op == "all_gather":
         hop = _ring_hop_bytes(c, ops.padded_rows(int(elems)))
         return (n - 1) * hop * (0.5 if bidir else 1.0)
+    if ring is None:        # an event built by hand: re-derive the ring
+        from repro_torch.core import comms
+        ring = comms._ring_schedule(ops.padded_rows(-(-int(elems) // n)),
+                                    bidir=bool(bidir), chunks=1)._asdict()
     rows, ring_bidir, parts = ring["rows"], ring["bidir"], ring["parts"]
     hop = _ring_hop_bytes(c, rows, parts)
     out = (n - 1) * hop * (0.5 if ring_bidir else 1.0)
@@ -98,31 +106,101 @@ def event_bytes(ev: dict, train: bool) -> dict:
         else:
             e_b = ev["elems"]
         ring_b = ev.get("ring") if op_b == ev["op"] else None
-        if ring_b is None and op_b in ("all_reduce", "reduce_scatter"):
-            from repro_torch.core import comms
-            s = comms._ring_schedule(ops.padded_rows(-(-int(e_b) // n)),
-                                     bidir=bool(ev.get("bidir")), chunks=1)
-            ring_b = dict(rows=s.rows, bidir=s.bidir, parts=s.parts)
         bwd = _coll_bytes(op_b, ev["codec_bwd"], e_b, ev["dtype"],
                           n, bool(ev.get("bidir")), ring_b)
     return {"fwd": fwd * ev["mult"], "bwd": bwd * ev["mult"]}
 
 
 def tag_dim(tag: str) -> str:
-    """Communication tag -> parallelism dimension (tp_fwd@x -> tp)."""
+    """Communication tag -> parallelism dimension (tp_fwd_inner@x -> tp)."""
     return tag.split("@")[0].split("_")[0]
 
 
 def ledger_summary(events, train: bool) -> dict:
-    """Per-device bytes per dimension and in total."""
-    per_dim, total = {}, 0.0
+    """Per-device bytes per tag (without its ``@name``), per axis, per link
+    level ("flat", "inner" the intra-node stage of a hierarchical
+    collective, "outer" its inter-node stage), per dimension, per
+    ``<dim>/<level>``, per site (``<dim>@<name>``) and in total, as the
+    reference's ledger summary."""
+    per_tag, per_axis, per_level = {}, {}, {}
+    per_dim, per_dim_level, per_site = {}, {}, {}
+    total = 0.0
     for ev in events:
         b = event_bytes(ev, train)
         tot = b["fwd"] + b["bwd"]
-        dim = tag_dim(ev["tag"])
+        tag = ev["tag"].split("@")[0]
+        dim = tag_dim(tag)
+        lvl = ev.get("level", "flat")
+        per_tag[tag] = per_tag.get(tag, 0.0) + tot
+        per_axis[ev["axis"]] = per_axis.get(ev["axis"], 0.0) + tot
+        per_level[lvl] = per_level.get(lvl, 0.0) + tot
         per_dim[dim] = per_dim.get(dim, 0.0) + tot
+        key = f"{dim}/{lvl}"
+        per_dim_level[key] = per_dim_level.get(key, 0.0) + tot
+        _, _, name = ev["tag"].partition("@")
+        skey = f"{dim}@{name}" if name else dim
+        per_site[skey] = per_site.get(skey, 0.0) + tot
         total += tot
-    return {"total_bytes": total, "per_dim": per_dim}
+    return {"total_bytes": total, "per_tag": per_tag, "per_axis": per_axis,
+            "per_level": per_level, "per_dim": per_dim,
+            "per_dim_level": per_dim_level, "per_site": per_site}
+
+
+def link_bytes(events, train: bool, slow_axes=()) -> dict:
+    """Per-device bytes on the fast and the slow link class: a
+    hierarchical stage's level says its class ("outer" slow), and a flat
+    event is slow iff its axis is in ``slow_axes`` (a flat ring over an
+    axis that spans nodes runs at its inter-node links' pace)."""
+    fast = slow = 0.0
+    for ev in events:
+        b = event_bytes(ev, train)
+        tot = b["fwd"] + b["bwd"]
+        lvl = ev.get("level", "flat")
+        if lvl == "outer" or (lvl == "flat" and ev["axis"] in slow_axes):
+            slow += tot
+        else:
+            fast += tot
+    return {"fast": fast, "slow": slow}
+
+
+def collective_seconds(events, train: bool, fast_bytes_per_s: float,
+                       slow_bytes_per_s: float, slow_axes=()) -> float:
+    """Link time of the collectives, the stages sequential (the fast and
+    slow byte pools add, no overlap credit), at the two link rates the
+    caller names: there is no default, since the reference's are a TPU's
+    interconnect's."""
+    lb = link_bytes(events, train, slow_axes)
+    return lb["fast"] / fast_bytes_per_s + lb["slow"] / slow_bytes_per_s
+
+
+def dim_level_bytes(events, dim: str, level: str, train: bool = True) -> float:
+    """Per-device bytes of one ``dim/level`` cell, e.g. ``("dp", "outer")``
+    for the inter-node DP gradient traffic."""
+    return ledger_summary(events, train=train)["per_dim_level"] \
+        .get(f"{dim}/{level}", 0.0)
+
+
+def _two_level_ar_events(scheme_name: str, elems: int, n_inner: int,
+                         n_outer: int) -> list:
+    """The ledger of one hierarchical DP all-reduce of ``elems`` f32 values
+    under ``scheme_name`` (the stage shapes ``comms.hier_all_reduce``
+    records), without a mesh."""
+    from repro_torch.core import policy
+    plan = policy.compile_plan(scheme_name)
+
+    def c(level):
+        return plan.codec("dp", None, level).name
+    chunk = -(-elems // n_inner)
+    mk = dict(tag="dp", dtype="float32", mult=1, remat=False, bidir=False,
+              bwd_op=None)
+    return [
+        dict(mk, op="reduce_scatter", axis="data", n=n_inner, elems=elems,
+             codec_fwd=c("inner"), codec_bwd=c("inner"), level="inner"),
+        dict(mk, op="all_reduce", axis="node", n=n_outer, elems=chunk,
+             codec_fwd=c("outer"), codec_bwd=c("outer"), level="outer"),
+        dict(mk, op="all_gather", axis="data", n=n_inner, elems=chunk,
+             codec_fwd=c("inner"), codec_bwd=c("inner"), level="inner"),
+    ]
 
 
 def ledger_per_tag(events, plain: bool = False) -> dict:

@@ -20,6 +20,16 @@ Autodiff: each collective is a ``torch.autograd.Function`` whose backward
 runs the transpose collective under the backward-direction codec, as the
 reference's ``custom_vjp`` pairs do.
 
+Hierarchical collectives: an :class:`AxisPair` (a node-factored axis, its
+outer node axis, its inner axis and the joint axis over both) routes every
+entry point through the two-level decomposition with per-level codecs,
+as the reference's ``hier_*`` family does: all-reduce = RS(inner) ->
+AR(outer) -> AG(inner), reduce-scatter = RS(inner) -> RS(outer),
+all-gather = AG(outer) -> AG(inner), and the permutation sends its edges
+inside a node under the inner codec and those that cross a node under the
+outer one.  Each stage's kernel launches count under its level
+(``bq.LAUNCH_LEVELS``).
+
 An :class:`Axis` is one mesh axis seen from this rank: its size, this
 rank's index along it, its process group and the global ranks it holds.
 Ranks exchange through small private helpers.  Gloo, the backend used
@@ -39,8 +49,7 @@ carries them.
 The ledger (:class:`record_traffic`), the ring options, the wire-site tag
 and the codec-state region are process-wide rather than thread-local:
 autograd runs the backward of CUDA tensors on its own thread, which must
-see the same bindings.  Hierarchical (``AxisPair``), tuned and all-to-all
-paths are not yet ported and raise.
+see the same bindings.  The tuned and all-to-all paths are not yet ported.
 """
 
 from __future__ import annotations
@@ -53,7 +62,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core import codecs, policy
-from repro_torch.kernels import lowrank, ops
+from repro_torch.kernels import bq, lowrank, ops
 from repro_torch.kernels.ref import BLOCK
 
 Site = policy.Site
@@ -74,6 +83,39 @@ class Axis:
     ranks: tuple = ()
 
 
+@dataclasses.dataclass(frozen=True)
+class AxisPair:
+    """A node-factored mesh axis (the port of the reference's
+    ``compat.AxisPair``): ``outer`` enumerates nodes (slow links),
+    ``inner`` the ranks inside one node (fast links), and ``joint`` is the
+    flat axis over both, linearized outer-major (joint index ``o * n_inner
+    + i``), named ``(outer, inner)``.  The collectives dispatch on it to
+    the hierarchical two-level forms; uncompressed sums (:func:`raw_psum`,
+    :func:`pmax`) and ``size`` / ``index`` see the joint axis."""
+
+    outer: Axis
+    inner: Axis
+    joint: Axis
+
+    @property
+    def size(self) -> int:
+        return self.joint.size
+
+    @property
+    def index(self) -> int:
+        return self.joint.index
+
+
+def _is_pair(axis) -> bool:
+    return isinstance(axis, AxisPair)
+
+
+def _flat(axis) -> Axis:
+    """The flat axis a collective that has no two-level form runs over:
+    the joint axis of a pair."""
+    return axis.joint if _is_pair(axis) else axis
+
+
 # --------------------------------------------------------------------------
 # process-wide state: the ledger, the ring options, the wire-site tag
 # --------------------------------------------------------------------------
@@ -85,6 +127,7 @@ class _State:
     bidir = False
     chunks = 1
     wire_tag = "-"
+    level = "flat"
     time_staging = False
     state_io = None
 
@@ -228,30 +271,45 @@ def _log(op, tag, codec, payload_bytes, hops, **facts):
 
 
 class _bind:
-    """Bind the wire-site tag and ring options (``None`` keeps the current
-    value) for the duration of a block."""
+    """Bind the wire-site tag, the ring options and the link level the
+    kernel launches count under (``None`` keeps the current value) for the
+    duration of a block."""
 
-    def __init__(self, tag=None, bidir=None, chunks=None):
-        self.new = (tag, bidir, chunks)
+    def __init__(self, tag=None, bidir=None, chunks=None, level=None):
+        self.new = (tag, bidir, chunks, level)
 
     def __enter__(self):
-        self.prev = (_rec.wire_tag, _rec.bidir, _rec.chunks)
-        tag, bidir, chunks = self.new
+        self.prev = (_rec.wire_tag, _rec.bidir, _rec.chunks, _rec.level)
+        tag, bidir, chunks, level = self.new
         if tag is not None:
             _rec.wire_tag = tag
         if bidir is not None:
             _rec.bidir = bool(bidir)
         if chunks is not None:
             _rec.chunks = int(chunks)
+        if level is not None:
+            _rec.level = level
+            bq.set_launch_level(level)
         return self
 
     def __exit__(self, *exc):
-        _rec.wire_tag, _rec.bidir, _rec.chunks = self.prev
+        _rec.wire_tag, _rec.bidir, _rec.chunks, level = self.prev
+        if self.new[3] is not None:
+            _rec.level = level
+            bq.set_launch_level(level)
         return False
 
 
-def _wire_site(tag: str):
-    return _bind(tag=tag)
+def _wire_site(s):
+    """Bind a site's wire tag and its link level (a level-pinned site's,
+    else "flat")."""
+    return _bind(tag=s.ledger_tag, level=s.level or "flat")
+
+
+def _stage(level: str):
+    """One stage of a hierarchical collective: its launches count under
+    ``level``."""
+    return _bind(level=level)
 
 
 class ring_options(_bind):
@@ -360,13 +418,6 @@ def _stateful_ok() -> bool:
     """True inside a ``codec_state_io`` region, the optimizer's sync
     scope; autodiff traffic runs outside it."""
     return _rec.state_io is not None
-
-
-def _require_flat(axis):
-    if not isinstance(axis, Axis):
-        raise NotImplementedError(
-            f"collectives over {axis!r}: only a flat Axis is ported "
-            f"(hierarchical AxisPair collectives are not yet ported)")
 
 
 # --------------------------------------------------------------------------
@@ -553,6 +604,7 @@ def raw_psum(x: torch.Tensor, axis: Axis, mean: bool = False,
     a replicated loss), so that all-reduce is a local multiply by the axis
     size: no collective in the backward, and a rank whose ``x`` carries
     no gradient need not join it."""
+    axis = _flat(axis)
     if axis.size == 1:
         return x
     return _RawPsumFn.apply(x, axis, mean, local_bwd)
@@ -575,8 +627,9 @@ class _RawPsumFn(torch.autograd.Function):
 def pmax(x, axis: Axis):
     """Max all-reduce over ``axis`` (never compressed: tiny softmax-stat
     payloads).  No gradient flows through it, as in the reference, whose
-    VJP is zero; callers pass detached values."""
-    _require_flat(axis)
+    VJP is zero; callers pass detached values.  A pair reduces as its
+    joint axis: max has no two-level codec treatment."""
+    axis = _flat(axis)
     if axis.size == 1:
         return x
     with torch.no_grad():
@@ -813,7 +866,7 @@ def _ppermute_impl(x, axis: Axis, perm, codec):
 
 def _opts():
     """The bindings a backward must re-establish on autograd's thread."""
-    return _rec.wire_tag, _rec.bidir, _rec.chunks
+    return _rec.wire_tag, _rec.bidir, _rec.chunks, _rec.level
 
 
 class _PsumFn(torch.autograd.Function):
@@ -910,95 +963,138 @@ class _PpermuteFn(torch.autograd.Function):
 
 # --------------------------------------------------------------------------
 # public, site-resolving entry points
+#
+# ``axis`` is a flat :class:`Axis`, or an :class:`AxisPair`, which routes
+# through the two-level hierarchical decomposition with per-level codecs
+# (the hier_* family below).
 # --------------------------------------------------------------------------
 
-def psum(x, axis: Axis, tag):
+def psum(x, axis, tag):
     """All-reduce-sum over ``axis`` under the active plan's codec for
-    ``tag`` (backward: all-reduce under the bwd codec).  A stateful codec
-    routes through the carried-state sum (no backward), valid only inside
-    a ``codec_state_io`` region, never under autodiff."""
+    ``tag`` (backward: all-reduce under the bwd codec).  A pair routes to
+    :func:`hier_all_reduce`.  A stateful codec routes through the
+    carried-state sum (no backward), valid only inside a
+    ``codec_state_io`` region, never under autodiff."""
     s = policy.as_site(tag)
-    _require_flat(axis)
+    if _is_pair(axis):
+        return hier_all_reduce(x, axis, s)
     c_fwd, c_bwd = _codec_pair(s, _payload_nbytes(x))
     if c_fwd.stateful or c_bwd.stateful:
         if s.dim in policy.DIRECTED_DIMS and not _stateful_ok():
             _require_stateless(s, c_fwd, c_bwd)  # raises: autodiff traffic
-        with _wire_site(s.ledger_tag):
+        with _wire_site(s):
             return _stateful_psum(x, axis, s, c_fwd)
     _account("all_reduce", s.ledger_tag, x, axis, c_fwd, c_bwd,
              bwd_op="all_reduce", level=s.level or "flat")
-    with _wire_site(s.ledger_tag):
+    with _wire_site(s):
         if axis.size == 1:
             return _psum_impl(x, axis, c_fwd)
         return _PsumFn.apply(x, axis, c_fwd, c_bwd)
 
 
-def all_gather(x, axis: Axis, axis_dim: int, tag):
+def all_gather(x, axis, axis_dim: int, tag):
     """All-gather dim ``axis_dim`` over ``axis`` (backward: reduce-scatter
-    under the bwd codec)."""
+    under the bwd codec).  A pair routes to :func:`hier_all_gather`."""
     s = policy.as_site(tag)
-    _require_flat(axis)
+    if _is_pair(axis):
+        return hier_all_gather(x, axis, axis_dim, s)
     c_fwd, c_bwd = _codec_pair(s, _payload_nbytes(x))
     _require_stateless(s, c_fwd, c_bwd)
     _account("all_gather", s.ledger_tag, x, axis, c_fwd, c_bwd,
              bwd_op="reduce_scatter", level=s.level or "flat")
     if axis.size == 1:
         return x
-    with _wire_site(s.ledger_tag):
+    with _wire_site(s):
         return _AgFn.apply(x, axis, axis_dim, c_fwd, c_bwd)
 
 
-def reduce_scatter(x, axis: Axis, axis_dim: int, tag):
+def reduce_scatter(x, axis, axis_dim: int, tag):
     """Sum-reduce-scatter dim ``axis_dim`` over ``axis`` (backward:
-    all-gather under the bwd codec)."""
+    all-gather under the bwd codec).  A pair routes to
+    :func:`hier_reduce_scatter`."""
     s = policy.as_site(tag)
-    _require_flat(axis)
+    if _is_pair(axis):
+        return hier_reduce_scatter(x, axis, axis_dim, s)
     c_fwd, c_bwd = _codec_pair(s, _payload_nbytes(x))
     _require_stateless(s, c_fwd, c_bwd)
     _account("reduce_scatter", s.ledger_tag, x, axis, c_fwd, c_bwd,
              bwd_op="all_gather", level=s.level or "flat")
     if axis.size == 1:
         return x
-    with _wire_site(s.ledger_tag):
+    with _wire_site(s):
         return _RsFn.apply(x, axis, axis_dim, c_fwd, c_bwd)
 
 
-def copy_fwd_psum_bwd(x, axis: Axis, tag):
-    """Megatron 'g': identity forward, (compressed) all-reduce backward."""
+def copy_fwd_psum_bwd(x, axis, tag):
+    """Megatron 'g': identity forward, (compressed) all-reduce backward; on
+    a pair a two-level all-reduce under the ``<tag>_bwd_inner`` /
+    ``<tag>_bwd_outer`` codecs."""
     s = policy.as_site(tag)
-    _require_flat(axis)
-    _, c_bwd = _codec_pair(s, _payload_nbytes(x))
+    nbytes = _payload_nbytes(x)
+    if _is_pair(axis):
+        chunk = -(-x.numel() // axis.inner.size)
+        (ci_f, ci_b), (co_f, co_b) = _hier_codec_pairs(
+            s, nbytes, chunk * x.element_size())
+        _account_hier(
+            [("none", axis.inner, "inner", x.numel(), "all_reduce"),
+             ("none", axis.outer, "outer", chunk, "all_reduce")],
+            s.ledger_tag, x, [(ci_f, ci_b), (co_f, co_b)],
+            {"inner": nbytes, "outer": chunk * x.element_size()})
+        if axis.size == 1:
+            return x
+        with _wire_site(s):
+            return _HierGFn.apply(x, axis, (ci_b, co_b))
+    _, c_bwd = _codec_pair(s, nbytes)
     _require_stateless(s, c_bwd)
     _account("none", s.ledger_tag, x, axis, c_bwd, c_bwd,
              bwd_op="all_reduce", level=s.level or "flat")
     if axis.size == 1:
         return x
-    with _wire_site(s.ledger_tag):
+    with _wire_site(s):
         return _GFn.apply(x, axis, c_bwd)
 
 
-def psum_fwd_copy_bwd(x, axis: Axis, tag):
-    """Megatron 'f': (compressed) all-reduce forward, identity backward."""
+def psum_fwd_copy_bwd(x, axis, tag):
+    """Megatron 'f': (compressed) all-reduce forward, identity backward; on
+    a pair a two-level all-reduce under the ``<tag>_fwd_inner`` /
+    ``<tag>_fwd_outer`` codecs."""
     s = policy.as_site(tag)
-    _require_flat(axis)
-    c_fwd, _ = _codec_pair(s, _payload_nbytes(x))
+    nbytes = _payload_nbytes(x)
+    if _is_pair(axis):
+        chunk = -(-x.numel() // axis.inner.size)
+        (ci_f, ci_b), (co_f, co_b) = _hier_codec_pairs(
+            s, nbytes, chunk * x.element_size())
+        _account_hier(
+            [("reduce_scatter", axis.inner, "inner", x.numel(), None),
+             ("all_reduce", axis.outer, "outer", chunk, None),
+             ("all_gather", axis.inner, "inner", chunk, None)],
+            s.ledger_tag, x, [(ci_f, ci_b), (co_f, co_b), (ci_f, ci_b)],
+            {"inner": nbytes, "outer": chunk * x.element_size()})
+        with _wire_site(s):
+            if axis.size == 1:
+                return x
+            return _HierFFn.apply(x, axis, (ci_f, co_f))
+    c_fwd, _ = _codec_pair(s, nbytes)
     _require_stateless(s, c_fwd)
     _account("all_reduce", s.ledger_tag, x, axis, c_fwd, c_fwd,
              bwd_op=None, level=s.level or "flat")
-    with _wire_site(s.ledger_tag):
+    with _wire_site(s):
         if axis.size == 1:
             return _psum_impl(x, axis, c_fwd)
         return _FFn.apply(x, axis, c_fwd)
 
 
-def ppermute(x, axis: Axis, perm, tag):
+def ppermute(x, axis, perm, tag):
     """Point-to-point permutation over ``axis``: each ``(src, dst)`` pair of
     axis indices sends ``src``'s ``x`` to ``dst``; a rank that receives
     nothing gets zeros (backward: the inverse permutation under the bwd
     codec).  A partial permutation is pro-rated in the ledger, as in the
-    reference: only ``len(perm) / n`` of the ranks send."""
+    reference: only ``len(perm) / n`` of the ranks send.  On a pair,
+    ``perm`` indexes the joint (outer-major) axis and routes to
+    :func:`hier_ppermute`."""
     s = policy.as_site(tag)
-    _require_flat(axis)
+    if _is_pair(axis):
+        return hier_ppermute(x, axis, perm, s)
     nbytes = _payload_nbytes(x)
     c_fwd, c_bwd = _codec_pair(s, nbytes)
     _require_stateless(s, c_fwd, c_bwd)
@@ -1007,22 +1103,24 @@ def ppermute(x, axis: Axis, perm, tag):
     _account("ppermute", s.ledger_tag, x, axis, c_fwd, c_bwd,
              bwd_op="ppermute", elems=x.numel() * len(perm) // n,
              level=s.level or "flat", nbytes=nbytes)
-    with _wire_site(s.ledger_tag):
+    with _wire_site(s):
         return _PpermuteFn.apply(x, axis, perm, c_fwd, c_bwd)
 
 
-def stage_send(x, axis: Axis, tag="pp"):
+def stage_send(x, axis, tag="pp"):
     """Pipeline stage handoff: stage ``s`` sends ``x`` to stage ``s + 1``
     (no wraparound: the first stage receives zeros, the last sends
     nothing).  Under the scheme's ``pp_fwd`` codec; the backward returns
-    the activation gradient upstream under ``pp_bwd``."""
+    the activation gradient upstream under ``pp_bwd``.  On a pair the
+    handoffs inside a node ride ``pp_*_inner``, those that cross a node
+    ``pp_*_outer`` (:func:`hier_ppermute`)."""
     n = int(axis.size)
     if n == 1:
         return torch.zeros_like(x)
     return ppermute(x, axis, [(s, s + 1) for s in range(n - 1)], tag)
 
 
-def stage_ring_send(x, axis: Axis, tag="pp"):
+def stage_ring_send(x, axis, tag="pp"):
     """Wraparound stage handoff of the interleaved (vpp > 1) schedule:
     stage ``s`` sends ``x`` to stage ``(s + 1) % pp``, since the chunk after
     the last rank's slice ``v`` is the first rank's slice ``v + 1``.  Same
@@ -1033,7 +1131,7 @@ def stage_ring_send(x, axis: Axis, tag="pp"):
     return ppermute(x, axis, [(s, (s + 1) % n) for s in range(n)], tag)
 
 
-def stage_recv(x, axis: Axis, tag="pp"):
+def stage_recv(x, axis, tag="pp"):
     """Reverse stage shift: stage ``s`` sends ``x`` to stage ``s - 1`` (the
     backward-edge twin of :func:`stage_send`; its own backward is the
     forward shift)."""
@@ -1044,10 +1142,361 @@ def stage_recv(x, axis: Axis, tag="pp"):
 
 
 # --------------------------------------------------------------------------
+# hierarchical two-level collectives (ZeRO++-style, arXiv:2306.10209; the
+# reference's hier_* family)
+#
+#   all-reduce      = RS(inner, mild) -> AR(outer, aggressive) -> AG(inner)
+#   reduce-scatter  = RS(inner, mild) -> RS(outer, aggressive)
+#   all-gather      = AG(outer, aggressive) -> AG(inner, mild)
+#
+# The outer stage moves only a 1/n_inner chunk over the slow links.  Chunks
+# are assigned outer-major, so with identity codecs each op equals the
+# flat collective over the joint axis.
+# --------------------------------------------------------------------------
+
+def _hier_codec_pairs(tag, nbytes_inner: int | None = None,
+                      nbytes_outer: int | None = None,
+                      allow_stateful: bool = False):
+    """``((inner_fwd, inner_bwd), (outer_fwd, outer_bwd))`` for ``tag``,
+    from the active plan; ``nbytes_*`` are each stage's payload (the outer
+    stage moves a 1/n_inner chunk).  ``allow_stateful`` (all-reduce only)
+    admits carried-state codecs inside a ``codec_state_io`` region, whose
+    slots are per level (``<dim>_inner@name``)."""
+    s = policy.as_site(tag)
+    pairs = policy.current_plan().hier_codec_pairs(s, nbytes_inner,
+                                                   nbytes_outer)
+    if not (allow_stateful and _stateful_ok()):
+        _require_stateless(s, *pairs[0], *pairs[1])
+    return pairs
+
+
+def _account_hier(stages, tag, x, c_pairs, nbytes_by_level=None):
+    """Ledger the per-stage events of one hierarchical op: ``stages`` is a
+    list of ``(op, axis, level, elems, bwd_op)``, ``c_pairs`` each stage's
+    ``(fwd, bwd)`` codecs, ``nbytes_by_level`` the payload each level's
+    codec resolution saw."""
+    nbl = nbytes_by_level or {}
+    for (op, axis, level, elems, bwd_op), (cf, cb) in zip(stages, c_pairs):
+        _account(op, tag, x, axis, cf, cb, bwd_op=bwd_op, level=level,
+                 elems=elems, nbytes=nbl.get(level))
+
+
+def _hier_psum_impl(x, pair: AxisPair, c_in, c_out):
+    """RS(inner) -> AR(outer) -> AG(inner) on the flattened payload."""
+    inner, outer = pair.inner, pair.outer
+    n_i, n_o = inner.size, outer.size
+    if n_i == 1 and n_o == 1:
+        return x
+    if n_i == 1:
+        with _stage("outer"):
+            return _psum_impl(x, outer, c_out)
+    total = x.numel()
+    xb = _chunked_blocks(x.reshape(-1), n_i)            # [n_i, M, BLOCK] f32
+    # stage 1: intra-node reduce-scatter, rank i owns sum-chunk i.  With
+    # one node the ring's final fused re-encode is the stage-3 wire;
+    # otherwise stage 2 changes the chunk and the re-encode would be dead
+    wire = None
+    with _stage("inner"):
+        if c_in.is_identity:
+            chunk = _psum_scatter_raw(xb, inner, 0)[0]
+        else:
+            chunk, wire = _ring_reduce_scatter(xb, inner, c_in,
+                                               want_wire=n_o == 1)
+    del xb
+    # stage 2: inter-node all-reduce of the 1/n_i chunk
+    if n_o > 1:
+        with _stage("outer"):
+            chunk = _psum_impl(chunk, outer, c_out)
+        wire = None
+    # stage 3: intra-node all-gather of the fully reduced chunks
+    with _stage("inner"):
+        if c_in.is_identity:
+            full = _all_gather_raw(chunk, inner)
+        else:
+            if wire is None:
+                wire = c_in.encode_blocks(chunk)
+            _log("ar_allgather", "-", c_in, ops.wire_nbytes(wire), n_i - 1)
+            full = c_in.decode_blocks(_all_gather_wire(wire, inner))
+    return full.reshape(-1)[:total].reshape(x.shape).to(x.dtype)
+
+
+def _hier_reduce_scatter_impl(x, pair: AxisPair, axis_dim: int, c_in,
+                              c_out):
+    """Scatter dim ``axis_dim`` over the joint axis, outer-major chunks: the
+    payload viewed as ``(pre, n_o, n_i, s / n, post)`` is scattered over
+    the inner axis along ``axis_dim + 1``, then over the outer axis along
+    ``axis_dim``."""
+    n_i, n_o = pair.inner.size, pair.outer.size
+    n = n_i * n_o
+    if n == 1:
+        return x
+    s = x.shape[axis_dim]
+    if s % n:
+        raise ValueError(f"dim {axis_dim} of size {s} not divisible by {n}")
+    pre, post = tuple(x.shape[:axis_dim]), tuple(x.shape[axis_dim + 1:])
+    xr = x.reshape(pre + (n_o, n_i, s // n) + post)
+    with _stage("inner"):
+        y = _reduce_scatter_impl(xr, pair.inner, axis_dim + 1, c_in)
+    del xr
+    with _stage("outer"):
+        z = _reduce_scatter_impl(y, pair.outer, axis_dim, c_out)
+    return z.reshape(pre + (s // n,) + post)
+
+
+def _hier_all_gather_impl(x, pair: AxisPair, axis_dim: int, c_in, c_out):
+    """The transpose of :func:`_hier_reduce_scatter_impl`: gather over the
+    outer axis along ``axis_dim``, then over the inner axis along
+    ``axis_dim + 1`` of ``(pre, n_o, 1, s, post)``."""
+    n_i, n_o = pair.inner.size, pair.outer.size
+    if n_i * n_o == 1:
+        return x
+    s = x.shape[axis_dim]
+    pre, post = tuple(x.shape[:axis_dim]), tuple(x.shape[axis_dim + 1:])
+    with _stage("outer"):
+        y = _all_gather_impl(x, pair.outer, axis_dim, c_out)
+    yr = y.reshape(pre + (n_o, 1, s) + post)
+    with _stage("inner"):
+        z = _all_gather_impl(yr, pair.inner, axis_dim + 1, c_in)
+    return z.reshape(pre + (n_o * n_i * s,) + post)
+
+
+def _hier_ppermute_impl(x, pair: AxisPair, perm, c_in, c_out):
+    """Edge-classified permutation over the joint axis: edges inside a node
+    ride ``c_in``, edges that cross a node ``c_out``.  A rank receives
+    along at most one edge, so the two classes merge by a per-rank
+    choice."""
+    n_i, n_o = pair.inner.size, pair.outer.size
+    if n_i * n_o == 1:
+        return x
+    if n_o == 1:
+        with _stage("inner"):
+            return _ppermute_impl(x, pair.inner, perm, c_in)
+    if n_i == 1:
+        with _stage("outer"):
+            return _ppermute_impl(x, pair.outer, perm, c_out)
+    intra = tuple((s, d) for s, d in perm if s // n_i == d // n_i)
+    inter = tuple((s, d) for s, d in perm if s // n_i != d // n_i)
+    if not inter:
+        with _stage("inner"):
+            return _ppermute_impl(x, pair.joint, intra, c_in)
+    if not intra:
+        with _stage("outer"):
+            return _ppermute_impl(x, pair.joint, inter, c_out)
+    with _stage("inner"):
+        y_in = _ppermute_impl(x, pair.joint, intra, c_in)
+    with _stage("outer"):
+        y_out = _ppermute_impl(x, pair.joint, inter, c_out)
+    return y_in if any(d == pair.index for _, d in intra) else y_out
+
+
+class _HierPsumFn(torch.autograd.Function):
+    """Two-level all-reduce forward, the same decomposition of the
+    cotangent under the ``_bwd`` codecs backward."""
+
+    @staticmethod
+    def forward(ctx, x, pair, cs_in, cs_out):
+        ctx.saved = (pair, cs_in, cs_out, _opts())
+        return _hier_psum_impl(x, pair, cs_in[0], cs_out[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        pair, cs_in, cs_out, opts = ctx.saved
+        with _bind(*opts):
+            return (_hier_psum_impl(g, pair, cs_in[1], cs_out[1]), None,
+                    None, None)
+
+
+class _HierRsFn(torch.autograd.Function):
+    """Two-level reduce-scatter forward, two-level all-gather backward."""
+
+    @staticmethod
+    def forward(ctx, x, pair, axis_dim, cs_in, cs_out):
+        ctx.saved = (pair, axis_dim, cs_in, cs_out, _opts())
+        return _hier_reduce_scatter_impl(x, pair, axis_dim, cs_in[0],
+                                         cs_out[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        pair, axis_dim, cs_in, cs_out, opts = ctx.saved
+        with _bind(*opts):
+            return (_hier_all_gather_impl(g.contiguous(), pair, axis_dim,
+                                          cs_in[1], cs_out[1]),
+                    None, None, None, None)
+
+
+class _HierAgFn(torch.autograd.Function):
+    """Two-level all-gather forward, two-level reduce-scatter backward."""
+
+    @staticmethod
+    def forward(ctx, x, pair, axis_dim, cs_in, cs_out):
+        ctx.saved = (pair, axis_dim, cs_in, cs_out, _opts())
+        return _hier_all_gather_impl(x, pair, axis_dim, cs_in[0], cs_out[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        pair, axis_dim, cs_in, cs_out, opts = ctx.saved
+        with _bind(*opts):
+            return (_hier_reduce_scatter_impl(g.contiguous(), pair, axis_dim,
+                                              cs_in[1], cs_out[1]),
+                    None, None, None, None)
+
+
+class _HierPpermuteFn(torch.autograd.Function):
+    """Edge-classified permutation forward, the inverse permutation under
+    the ``_bwd`` codecs backward (inversion keeps an edge's class)."""
+
+    @staticmethod
+    def forward(ctx, x, pair, perm, cs_in, cs_out):
+        ctx.saved = (pair, tuple((d, s) for s, d in perm), cs_in, cs_out,
+                     _opts())
+        return _hier_ppermute_impl(x, pair, perm, cs_in[0], cs_out[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        pair, inv, cs_in, cs_out, opts = ctx.saved
+        with _bind(*opts):
+            return (_hier_ppermute_impl(g.contiguous(), pair, inv, cs_in[1],
+                                        cs_out[1]), None, None, None, None)
+
+
+class _HierGFn(torch.autograd.Function):
+    """Hierarchical Megatron 'g': identity forward, two-level all-reduce
+    backward."""
+
+    @staticmethod
+    def forward(ctx, x, pair, c_bwds):
+        ctx.saved = (pair, c_bwds, _opts())
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        pair, c_bwds, opts = ctx.saved
+        with _bind(*opts):
+            return _hier_psum_impl(g, pair, *c_bwds), None, None
+
+
+class _HierFFn(torch.autograd.Function):
+    """Hierarchical Megatron 'f': two-level all-reduce forward, identity
+    backward."""
+
+    @staticmethod
+    def forward(ctx, x, pair, c_fwds):
+        return _hier_psum_impl(x, pair, *c_fwds)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def hier_all_reduce(x, pair: AxisPair, tag):
+    """Two-level all-reduce-sum over ``pair``: ``RS(inner)`` of the
+    flattened payload under the ``<tag>_inner`` codec (directed tags:
+    ``<tag>_fwd_inner``), ``AR(outer)`` of the ``1/n_inner`` chunk under
+    ``<tag>_outer``, ``AG(inner)`` of the reduced chunks.  Backward: the
+    same decomposition of the cotangent under the ``_bwd`` codecs.  Inside
+    a ``codec_state_io`` region a carried-state codec at either level
+    routes to :func:`_stateful_hier_psum`.  Ledger: an inner RS, an outer
+    AR and an inner AG event."""
+    s = policy.as_site(tag)
+    n_i = pair.inner.size
+    chunk = -(-x.numel() // n_i)
+    nbytes = _payload_nbytes(x)
+    (ci_f, ci_b), (co_f, co_b) = _hier_codec_pairs(
+        s, nbytes, chunk * x.element_size(), allow_stateful=True)
+    if any(c.stateful for c in (ci_f, ci_b, co_f, co_b)):
+        # optimizer-side (inside codec_state_io, or _hier_codec_pairs
+        # raised): per-level carried state, no backward
+        return _stateful_hier_psum(x, pair, s, ci_f, co_f)
+    _account_hier(
+        [("reduce_scatter", pair.inner, "inner", x.numel(), "all_gather"),
+         ("all_reduce", pair.outer, "outer", chunk, "all_reduce"),
+         ("all_gather", pair.inner, "inner", chunk, "reduce_scatter")],
+        s.ledger_tag, x, [(ci_f, ci_b), (co_f, co_b), (ci_f, ci_b)],
+        {"inner": nbytes, "outer": chunk * x.element_size()})
+    with _wire_site(s):
+        if pair.size == 1:
+            return x
+        return _HierPsumFn.apply(x, pair, (ci_f, ci_b), (co_f, co_b))
+
+
+hier_psum = hier_all_reduce     # the ZeRO++ name, as in the reference
+
+
+def hier_reduce_scatter(x, pair: AxisPair, axis_dim: int, tag):
+    """Two-level reduce-scatter of dim ``axis_dim`` (outer-major chunks):
+    ``RS(inner)`` of the whole payload under ``<tag>_inner``, then
+    ``RS(outer)`` of the surviving ``1/n_inner`` under ``<tag>_outer``.
+    Backward: :func:`hier_all_gather` under the ``_bwd`` codecs."""
+    s = policy.as_site(tag)
+    n_i = pair.inner.size
+    nbytes = _payload_nbytes(x)
+    part = x.numel() // n_i
+    (ci_f, ci_b), (co_f, co_b) = _hier_codec_pairs(
+        s, nbytes, part * x.element_size())
+    _account_hier(
+        [("reduce_scatter", pair.inner, "inner", x.numel(), "all_gather"),
+         ("reduce_scatter", pair.outer, "outer", part, "all_gather")],
+        s.ledger_tag, x, [(ci_f, ci_b), (co_f, co_b)],
+        {"inner": nbytes, "outer": part * x.element_size()})
+    if pair.size == 1:
+        return x
+    with _wire_site(s):
+        return _HierRsFn.apply(x, pair, axis_dim, (ci_f, ci_b),
+                               (co_f, co_b))
+
+
+def hier_all_gather(x, pair: AxisPair, axis_dim: int, tag):
+    """Two-level all-gather of dim ``axis_dim``: ``AG(outer)`` of the local
+    shard under ``<tag>_outer``, then ``AG(inner)`` of the node-gathered
+    block under ``<tag>_inner``.  Backward: :func:`hier_reduce_scatter`
+    under the ``_bwd`` codecs."""
+    s = policy.as_site(tag)
+    n_o = pair.outer.size
+    nbytes = _payload_nbytes(x)
+    (ci_f, ci_b), (co_f, co_b) = _hier_codec_pairs(s, nbytes * n_o, nbytes)
+    _account_hier(
+        [("all_gather", pair.outer, "outer", x.numel(), "reduce_scatter"),
+         ("all_gather", pair.inner, "inner", x.numel() * n_o,
+          "reduce_scatter")],
+        s.ledger_tag, x, [(co_f, co_b), (ci_f, ci_b)],
+        {"inner": nbytes * n_o, "outer": nbytes})
+    if pair.size == 1:
+        return x
+    with _wire_site(s):
+        return _HierAgFn.apply(x, pair, axis_dim, (ci_f, ci_b), (co_f, co_b))
+
+
+def hier_ppermute(x, pair: AxisPair, perm, tag):
+    """Edge-classified permutation over ``pair``; ``perm`` indexes the joint
+    (outer-major) axis, as a flat permutation over it would.  Edges inside
+    a node ride ``<tag>_fwd_inner``, edges that cross a node
+    ``<tag>_fwd_outer``; the backward is the inverse permutation under the
+    ``_bwd`` codecs.  Ledger: an inner event scaled by the intra-node edge
+    fraction and an outer event by the node-crossing one."""
+    st = policy.as_site(tag)
+    nbytes = _payload_nbytes(x)
+    (ci_f, ci_b), (co_f, co_b) = _hier_codec_pairs(st, nbytes, nbytes)
+    n_i, n = pair.inner.size, pair.size
+    perm = tuple((int(s), int(d)) for s, d in perm)
+    k_in = sum(1 for s, d in perm if s // n_i == d // n_i)
+    k_out = len(perm) - k_in
+    _account_hier(
+        [("ppermute", pair.inner, "inner", x.numel() * k_in // n,
+          "ppermute"),
+         ("ppermute", pair.outer, "outer", x.numel() * k_out // n,
+          "ppermute")],
+        st.ledger_tag, x, [(ci_f, ci_b), (co_f, co_b)],
+        {"inner": nbytes, "outer": nbytes})
+    with _wire_site(st):
+        return _HierPpermuteFn.apply(x, pair, perm, (ci_f, ci_b),
+                                     (co_f, co_b))
+
+
+# --------------------------------------------------------------------------
 # flat-vector paths for the optimizer (outside autodiff)
 # --------------------------------------------------------------------------
 
-def reduce_scatter_flat(flat: torch.Tensor, axis: Axis, tag="dp",
+def reduce_scatter_flat(flat: torch.Tensor, axis, tag="dp",
                         mean: bool = False,
                         donate: bool = False) -> torch.Tensor:
     """1-D sum-reduce-scatter: rank i returns padded chunk i (length
@@ -1057,19 +1506,20 @@ def reduce_scatter_flat(flat: torch.Tensor, axis: Axis, tag="dp",
     the inner codec's ring on the compensated vector and stashes the new
     local error; ``plr*`` runs the two-factor low-rank all-reduce and
     reconstructs this rank's chunk only.  ``donate`` says the caller gives
-    ``flat`` up: ``ef:*`` then compensates into it in place."""
+    ``flat`` up: ``ef:*`` then compensates into it in place.  A pair runs
+    as its joint axis (the optimizer stages the node level itself)."""
     s = policy.as_site(tag)
-    _require_flat(axis)
+    axis = _flat(axis)
     c, _ = _codec_pair(s, _payload_nbytes(flat))
     if c.stateful and axis.size > 1:
-        with _wire_site(s.ledger_tag):
+        with _wire_site(s):
             return _stateful_reduce_scatter_flat(flat, axis, s, c, mean,
                                                  donate)
     if c.stateful:          # trivial axis: nothing crosses the wire
         c = codecs.NONE
     _account("reduce_scatter", s.ledger_tag, flat, axis, c, c, bwd_op=None,
              level=s.level or "flat")
-    with _wire_site(s.ledger_tag):
+    with _wire_site(s):
         return _reduce_scatter_flat_impl(flat, axis, c, mean)
 
 
@@ -1091,7 +1541,7 @@ def _reduce_scatter_flat_impl(flat, axis: Axis, c, mean):
     return chunk / n if mean else chunk
 
 
-def all_gather_flat(chunk: torch.Tensor, axis: Axis, total: int,
+def all_gather_flat(chunk: torch.Tensor, axis, total: int,
                     tag="zero") -> torch.Tensor:
     """Inverse of :func:`reduce_scatter_flat`: gather the padded chunks,
     trim to ``total``.
@@ -1100,7 +1550,7 @@ def all_gather_flat(chunk: torch.Tensor, axis: Axis, total: int,
     feedback on the lossy param broadcast); low-rank codecs ride sum
     collectives only and raise here."""
     s = policy.as_site(tag)
-    _require_flat(axis)
+    axis = _flat(axis)
     c, _ = _codec_pair(s, _payload_nbytes(chunk))
     if c.stateful and axis.size > 1:
         if c.kind != "ef" or c.inner.stateful:
@@ -1127,7 +1577,7 @@ def all_gather_flat(chunk: torch.Tensor, axis: Axis, total: int,
         c = codecs.NONE
     _account("all_gather", s.ledger_tag, chunk, axis, c, c, bwd_op=None,
              level=s.level or "flat")
-    with _wire_site(s.ledger_tag):
+    with _wire_site(s):
         return _all_gather_flat_impl(chunk, axis, total, c)
 
 
@@ -1276,3 +1726,62 @@ def _stateful_reduce_scatter_flat(flat, axis: Axis, s, c, mean: bool,
              level=s.level or "flat")
     io.write(key, c.next_state(xc, out=st["residual"]))
     return _reduce_scatter_flat_impl(xc, axis, c.inner, mean)
+
+
+def _stateful_hier_psum(x, pair: AxisPair, s, c_in, c_out):
+    """Two-level all-reduce with per-level carried-state codecs, the
+    optimizer-side twin of :func:`_hier_psum_impl` (no backward).  Each
+    level's codec keeps its state in its own level-pinned slot
+    (``<dim>_inner@name`` / ``<dim>_outer@name``; the trainer enumerates
+    them).  The stage-3 gather rides the inner *transport* codec (an
+    ``ef:*`` inner's wire codec): error feedback compensated stage 1, and
+    compensating the reduced chunks again would count the residual twice.
+    ``plr*`` at the inner level has no scatter/gather form and raises, as
+    in the reference: low-rank codecs belong on the outer level."""
+    inner, outer = pair.inner, pair.outer
+    n_i, n_o = inner.size, outer.size
+    total = x.numel()
+    flat = x.reshape(-1)
+    s_in = policy.Site(s.dim, name=s.name, direction=s.direction,
+                       level="inner")
+    s_out = policy.Site(s.dim, name=s.name, direction=s.direction,
+                        level="outer")
+    # stage 1: intra-node reduce-scatter under the inner codec
+    if n_i == 1:
+        m = ops.padded_rows(total)
+        chunk = torch.nn.functional.pad(flat, (0, m * BLOCK - total))
+    elif c_in.stateful:
+        if c_in.kind == "lowrank" or (c_in.kind == "ef"
+                                      and c_in.inner.stateful):
+            raise NotImplementedError(
+                f"codec {c_in.name!r} at the inner level of hier site "
+                f"{s.ledger_tag!r}: low-rank codecs ride flat sum "
+                "collectives only — route plr* to the outer level")
+        with _wire_site(s_in):
+            chunk = _stateful_reduce_scatter_flat(flat, inner, s_in, c_in,
+                                                  False, False)
+    else:
+        _account("reduce_scatter", s_in.ledger_tag, flat, inner, c_in,
+                 c_in, bwd_op=None, level="inner")
+        with _wire_site(s_in):
+            chunk = _reduce_scatter_flat_impl(flat, inner, c_in, False)
+    # stage 2: inter-node all-reduce of the 1/n_i chunk
+    if n_o > 1:
+        if c_out.stateful:
+            with _wire_site(s_out):
+                chunk = _stateful_psum(chunk, outer, s_out, c_out)
+        else:
+            _account("all_reduce", s_out.ledger_tag, chunk, outer, c_out,
+                     c_out, bwd_op=None, level="outer")
+            with _wire_site(s_out):
+                chunk = _psum_impl(chunk, outer, c_out)
+    # stage 3: intra-node all-gather of the fully reduced chunks
+    if n_i == 1:
+        out = chunk[:total]
+    else:
+        c_t = c_in.inner if c_in.stateful else c_in
+        _account("all_gather", s_in.ledger_tag, chunk, inner, c_t, c_t,
+                 bwd_op=None, level="inner")
+        with _wire_site(s_in):
+            out = _all_gather_flat_impl(chunk, inner, total, c_t)
+    return out.reshape(x.shape).to(x.dtype)

@@ -268,14 +268,19 @@ class CommPolicy:
 
 
 def _resolve_axes(mesh_info) -> dict:
-    """Logical dim -> comms :class:`~repro_torch.core.comms.Axis`, resolved
-    once: ``dp`` and ``zero`` ride the data axis, ``tp`` and ``ep`` the
-    model axis, ``pp`` the stage axis (``None`` without one); the port's
-    meshes have no cp or pool axes (and no node-factored pairs) yet."""
+    """Logical dim -> comms axis (an :class:`~repro_torch.core.comms.Axis`
+    or a node-factored :class:`~repro_torch.core.comms.AxisPair`), resolved
+    once: ``dp`` rides the ``(node, data)`` pair of a ``--nodes`` mesh, else
+    the data axis; ``zero`` stays on the inner data axis (hpZ: the master
+    chunks are replicated per node, so the param gather never leaves the
+    node); ``tp`` and ``ep`` ride the (possibly ``(tpnode, model)``) model
+    axes, ``pp`` the (possibly ``(ppnode, stage)``) stage axes, ``None``
+    without a stage axis.  The port's meshes have no cp or pool axes
+    yet."""
     if mesh_info is None:
         return {}
     mi = mesh_info
-    return {"dp": mi.dp_axes, "zero": mi.dp_axes, "tp": mi.tp_axes,
+    return {"dp": mi.data_pair, "zero": mi.dp_axes, "tp": mi.tp_axes,
             "ep": mi.tp_axes, "pp": mi.stage_axes, "cp": None, "kv": None}
 
 

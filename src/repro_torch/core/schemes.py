@@ -7,9 +7,12 @@ a scheme maps each communication tag ``<dimension>[_<direction>][_<level>]``
 dims, level inner/outer for hierarchical stages) to a codec.  Each scheme is
 sugar over an ordered :class:`~repro_torch.core.policy.Rule` list
 (:meth:`Scheme.as_policy`).  Schemes that name a carried-state codec
-(``ef:*``, ``plr*``) run on the flat mesh: ``ef_zhybrid_16_4`` puts
-``ef:bq4`` on the DP gradient sync.  The ``hier_zpp_*`` schemes compile but
-need the node-factored mesh, which is not yet ported.
+(``ef:*``, ``plr*``) put it on the optimizer's sync sites:
+``ef_zhybrid_16_4`` puts ``ef:bq4`` on the DP gradient sync,
+``hier_zpp_plr8_16`` ``plr8`` on its inter-node level.  The ``hier_*`` schemes set per-level
+codecs, which the node-factored meshes (``--nodes``, ``--tp-nodes``,
+``--pp-nodes``) read: ``hier_zpp_*`` on the DP sync's two levels,
+``hier_tpp_*`` on every dimension's.
 """
 
 from __future__ import annotations

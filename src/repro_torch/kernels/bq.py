@@ -52,7 +52,9 @@ file's kernels and those of :mod:`repro_torch.kernels.lowrank`), into
 
 ``LAUNCHES`` counts kernel launches per wrapper; it is incremented right
 where the kernel launches and nowhere else, beside ``LAUNCH_SHAPES``, the
-launches of each (wrapper, rows, rate).
+launches of each (wrapper, rows, rate), and ``LAUNCH_LEVELS``, those of
+each (wrapper, link level): the level a hierarchical collective's stage
+sets with :func:`set_launch_level` ("flat" outside one).
 """
 
 from __future__ import annotations
@@ -87,8 +89,10 @@ LAUNCHES = {"bq_encode": 0, "bq_encode_flat": 0, "bq_encode_view": 0,
             "bq_decode_add_encode": 0,
             "bq_decode_add_encode_wire": 0, "bq_decode_add_encode_view": 0,
             "bq_decode_add": 0, "bq_decode_add_flat": 0}
-# launches by (wrapper, wire rows, rate)
+# launches by (wrapper, wire rows, rate) and by (wrapper, link level)
 LAUNCH_SHAPES: collections.Counter = collections.Counter()
+LAUNCH_LEVELS: collections.Counter = collections.Counter()
+_level = "flat"     # process-wide, like the comms ledger
 
 # value types the encode and decode kernels read and write themselves
 # (codes of csrc/bq.cu's bq_encode / bq_decode)
@@ -107,6 +111,15 @@ def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
     LAUNCH_SHAPES.clear()
+    LAUNCH_LEVELS.clear()
+
+
+def set_launch_level(level: str) -> str:
+    """Count the launches that follow under ``level`` ("flat", "inner" or
+    "outer"); returns the level it replaces."""
+    global _level
+    prev, _level = _level, level
+    return prev
 
 
 def launch_shapes() -> list:
@@ -378,6 +391,7 @@ def _launch(name: str, rows: int, bits: int, t: torch.Tensor, fn,
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
     LAUNCHES[name] += 1
     LAUNCH_SHAPES[(name, rows, bits)] += 1
+    LAUNCH_LEVELS[(name, _level)] += 1
 
 
 def _ptr(t) -> int | None:

@@ -1,55 +1,76 @@
-"""Mesh definitions over ``torch.distributed`` (port of the flat
-``make_mesh`` and ``comm_axes`` of ``repro.launch.mesh``).
+"""Mesh definitions over ``torch.distributed`` (port of ``make_mesh``,
+``make_hier_mesh``, ``comm_axes`` and ``parse_nodes_spec`` of
+``repro.launch.mesh``).
 
-The mesh is ``(data, stage, model)``: ``model`` carries TP/SP, ``stage``
-the pipeline stages, ``data`` DP and the ZeRO-1 shards.  Ranks are laid
-out as the reference lays out devices, row-major over ``(data, stage,
-model)``: global rank ``r = (d * pp + s) * tp + t`` sits at data index
-``d``, stage index ``s`` and model index ``t``, so "rank i owns chunk i"
-names the same shard in both packages.  Hierarchical (node-factored) and
-context-parallel axes are not yet ported.
+The mesh is ``(node, data, ppnode, stage, tpnode, model)``: ``model``
+carries TP/SP, ``stage`` the pipeline stages, ``data`` DP and the ZeRO-1
+shards.  ``--nodes``, ``--pp-nodes`` and ``--tp-nodes`` factor the data,
+stage and model axes into an outer node axis and an inner one, so that
+the two-level collectives of :mod:`repro_torch.core.comms` stage their
+intra-node (fast links) and inter-node (slow links) hops apart.  Ranks are
+laid out as the reference lays out devices, row-major over those six axes
+(an axis of one rank is left out): on the flat mesh global rank ``r = (d
+* pp + s) * tp + t`` sits at data index ``d``, stage ``s`` and model
+``t``, and a factored axis is the flat one linearized node-major, so
+"rank i owns chunk i" names the same shard in both packages and on flat
+and factored meshes alike.  Context-parallel axes are not yet ported.
 """
 
 from __future__ import annotations
 
 import itertools
+import math
 
 import torch.distributed as dist
 
-from repro_torch.core.comms import Axis
+from repro_torch.core.comms import Axis, AxisPair
 from repro_torch.models.params import MeshInfo
 
-LOCAL_AXIS = "data"
-STAGE_AXIS = "stage"
-MODEL_AXIS = "model"
+NODE_AXIS = "node"       # outer (inter-node, slow-link) data sub-axis
+LOCAL_AXIS = "data"      # inner data sub-axis / flat data axis
+PP_NODE_AXIS = "ppnode"  # outer stage sub-axis
+STAGE_AXIS = "stage"     # inner stage sub-axis / flat stage axis
+TP_NODE_AXIS = "tpnode"  # outer model sub-axis
+MODEL_AXIS = "model"     # inner model sub-axis / flat model axis
 
 
-def _axis_groups(shape: tuple, k: int) -> dict:
-    """Process groups along mesh dim ``k`` of a row-major rank grid of
-    ``shape``: ``{other coords: (ranks along dim k, group)}``.  Every rank
-    creates every group, in the same order, as ``new_group`` requires; a
-    dim of size 1 needs none."""
-    others = [range(n) if i != k else range(1) for i, n in enumerate(shape)]
+def _axis_groups(shape: tuple, dims: tuple) -> dict:
+    """Process groups along the mesh dims ``dims`` (adjacent, joined
+    row-major) of a row-major rank grid of ``shape``: ``{other coords:
+    (ranks along the dims, group)}``.  Every rank creates every group, in
+    the same order, as ``new_group`` requires; an axis of one rank needs
+    none."""
+    size = math.prod(shape[k] for k in dims)
+    others = [range(1) if i in dims else range(n)
+              for i, n in enumerate(shape)]
     out = {}
     for c in itertools.product(*others):
         ranks = []
-        for j in range(shape[k]):
+        for j in itertools.product(*(range(shape[k]) for k in dims)):
             idx = list(c)
-            idx[k] = j
+            for k, v in zip(dims, j):
+                idx[k] = v
             r = 0
             for i, n in zip(idx, shape):
                 r = r * n + i
             ranks.append(r)
-        key = tuple(v for i, v in enumerate(c) if i != k)
-        out[key] = (tuple(ranks),
-                    dist.new_group(ranks) if shape[k] > 1 else None)
+        key = tuple(v for i, v in enumerate(c) if i not in dims)
+        out[key] = (tuple(ranks), dist.new_group(ranks) if size > 1 else None)
     return out
 
 
-def make_mesh(dp: int, tp: int, pp: int = 1) -> MeshInfo:
-    """This rank's view of a ``dp x pp x tp`` mesh, its axes bound to
-    process groups of the initialized default group (which must hold
-    ``dp * pp * tp`` ranks).  A one-rank mesh needs no process group."""
+def make_mesh(dp: int, tp: int, pp: int = 1, nodes: int = 1,
+              tp_nodes: int = 1, pp_nodes: int = 1) -> MeshInfo:
+    """This rank's view of a ``dp x pp x tp`` mesh whose data, stage and
+    model axes split over ``nodes``, ``pp_nodes`` and ``tp_nodes`` nodes
+    (``dp``, ``pp`` and ``tp`` are the whole degrees, as the reference's
+    ``make_mesh`` takes them), its axes bound to process groups of the
+    initialized default group (which must hold ``dp * pp * tp`` ranks).
+    A one-rank mesh needs no process group."""
+    for ways, n, flag in ((dp, nodes, "--nodes"), (tp, tp_nodes, "--tp-nodes"),
+                          (pp, pp_nodes, "--pp-nodes")):
+        if n < 1 or ways % n:
+            raise ValueError(f"{flag} {n} must divide {ways}")
     world = dp * pp * tp
     if world == 1:
         return MeshInfo()
@@ -58,33 +79,88 @@ def make_mesh(dp: int, tp: int, pp: int = 1) -> MeshInfo:
             f"a {dp} x {pp} x {tp} (data x stage x model) mesh needs "
             f"torch.distributed initialized with {world} ranks")
     r = dist.get_rank()
-    shape = (dp, pp, tp)
-    d, s, t = r // (pp * tp), (r // tp) % pp, r % tp
-    data, stage, model = (_axis_groups(shape, k) for k in range(3))
+    shape = (nodes, dp // nodes, pp_nodes, pp // pp_nodes, tp_nodes,
+             tp // tp_nodes)
+    coord, rest = [], r
+    for n in reversed(shape):
+        coord.append(rest % n)
+        rest //= n
+    coord = coord[::-1]
 
-    def axis(name, groups, key, index, size):
+    def axis(name, dims):
+        """The axis over ``dims`` through this rank, named ``name``."""
+        groups = _axis_groups(shape, dims)
+        key = tuple(v for i, v in enumerate(coord) if i not in dims)
+        index = 0
+        for k in dims:
+            index = index * shape[k] + coord[k]
         ranks, group = groups[key]
-        return Axis(name, size, index, group, ranks)
+        return Axis(name, len(ranks), index, group, ranks)
+
+    def factored(outer, inner, k):
+        """The flat axis of mesh dims ``(k, k + 1)``, or their pair."""
+        if shape[k] == 1:
+            return axis(inner, (k + 1,))
+        return AxisPair(axis(outer, (k,)), axis(inner, (k + 1,)),
+                        axis((outer, inner), (k, k + 1)))
+
+    data = factored(NODE_AXIS, LOCAL_AXIS, 0)
+    stage = factored(PP_NODE_AXIS, STAGE_AXIS, 2) if pp > 1 else None
+    model = factored(TP_NODE_AXIS, MODEL_AXIS, 4)
+    pair = isinstance(data, AxisPair)
     return MeshInfo(
-        tp=tp, dp=dp, pp=pp,
-        model=axis(MODEL_AXIS, model, (d, s), t, tp),
-        data=axis(LOCAL_AXIS, data, (s, t), d, dp),
-        stage=axis(STAGE_AXIS, stage, (d, t), s, pp) if pp > 1 else None,
+        tp=tp, dp=dp // nodes, pp=pp, node=nodes, tp_node=tp_nodes,
+        pp_node=pp_nodes, model=model,
+        data=data.inner if pair else data, stage=stage,
+        nodes=data.outer if pair else None,
+        batch=data.joint if pair else None,
         world=Axis("world", world, r, None, tuple(range(world))))
 
 
-def comm_axes(mi: MeshInfo, logical: str) -> Axis:
+def make_hier_mesh(dp: int, tp: int, nodes: int = 1, tp_nodes: int = 1,
+                   pp: int = 1, pp_nodes: int = 1) -> MeshInfo:
+    """The node-factored mesh (the reference's entry point of that name):
+    :func:`make_mesh` with its node counts.  A factored axis is the flat
+    one linearized node-major, so flat and two-level collectives over it
+    are interchangeable rank for rank."""
+    return make_mesh(dp, tp, pp, nodes=nodes, tp_nodes=tp_nodes,
+                     pp_nodes=pp_nodes)
+
+
+def comm_axes(mi: MeshInfo, logical: str):
     """Logical parallelism axis (``"data"``, ``"stage"`` or ``"model"``)
-    -> the comms axis this rank passes to the collectives."""
+    -> the comms axis this rank passes to the collectives: the flat axis,
+    or the :class:`~repro_torch.core.comms.AxisPair` of a node-factored
+    one, which routes the collectives through their two-level forms."""
     if logical == MODEL_AXIS:
         return mi.tp_axes
     if logical == LOCAL_AXIS:
-        return mi.dp_axes
+        return mi.data_pair
     if logical == STAGE_AXIS:
         if mi.stage_axes is None:
             raise ValueError("mesh has no stage axis")
         return mi.stage_axes
     raise NotImplementedError(f"mesh axis {logical!r} is not yet ported")
+
+
+def parse_nodes_spec(spec, ways: int, flag: str = "--nodes") -> int:
+    """``--nodes`` / ``--tp-nodes`` / ``--pp-nodes`` -> node count: an int,
+    or ``NxD`` (nodes x ranks per node), for the ``ways`` ranks of the
+    axis it factors (the reference's rules; ``ValueError`` here where the
+    reference asserts)."""
+    if isinstance(spec, int):
+        nodes = spec
+    elif "x" in str(spec).lower():
+        n, d = str(spec).lower().split("x")
+        nodes = int(n)
+        if nodes * int(d) != ways:
+            raise ValueError(f"{flag} {spec} inconsistent with degree "
+                             f"{ways}")
+    else:
+        nodes = int(spec)
+    if nodes < 1 or ways % nodes:
+        raise ValueError(f"{flag} {nodes} must divide {ways}")
+    return nodes
 
 
 def validate_vpp(vpp: int, pp: int, n_micro: int) -> int:

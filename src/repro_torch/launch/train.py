@@ -20,6 +20,12 @@
     ... --dp 2 --tp 2 --steps 2 --ckpt-dir /tmp/ck --ckpt-every 2
     ... --dp 4 --tp 1 --steps 2 --ckpt-dir /tmp/ck --resume
 
+    # node-factored meshes: two-level DP sync (hpZ), two-level TP
+    # collectives, stage handoffs that cross a node on the outer codec
+    ... --reduced --dp 4 --nodes 2 --scheme hier_zpp_8_16 --device cpu
+    ... --reduced --dp 2 --tp 4 --tp-nodes 2 --scheme hier_tpp_8_16
+    ... --reduced --pp 4 --pp-nodes 2 --layers 4 --microbatches 4
+
     # pipeline stages: 1F1B over 2 stages, or interleaved with remat;
     # gemma3-1b's 5:1 local:global pattern does not tile into stages, so
     # --layers makes the stack uniform (global attention in every layer)
@@ -37,9 +43,11 @@ wire planes cross between ranks through host memory.
 
 The flags are those of ``repro.launch.train`` for this path, plus
 ``--device``; ``--codec-for`` and ``--no-compress-below`` prepend policy
-rules as in the reference (:func:`comm_policy`).  The flags of unported
-features (context parallelism, node-factored meshes, tuning) are accepted
-and refused as not yet ported, never ignored.
+rules as in the reference (:func:`comm_policy`).  ``--nodes``,
+``--tp-nodes`` and ``--pp-nodes`` (an int, or ``NxD``: N nodes of D ranks)
+factor the data, model and stage axes over nodes, as the reference's do.
+The flags of unported features (context parallelism and ``--cp-nodes``,
+pods, tuning) are accepted and refused as not yet ported, never ignored.
 
 Checkpoints are the reference's (:mod:`repro_torch.train.checkpoint`):
 each rank writes its own shards of the global leaves, every
@@ -70,8 +78,7 @@ import torch.distributed as dist
 
 # flags of the reference this package refuses at a non-default value:
 # (attribute, default)
-_UNPORTED = (("cp", 1), ("pod", 1), ("nodes", "1"),
-             ("tp_nodes", "1"), ("pp_nodes", "1"), ("cp_nodes", "1"),
+_UNPORTED = (("cp", 1), ("pod", 1), ("cp_nodes", "1"),
              ("host_devices", 0), ("tune", False), ("tune_interval", 50),
              ("tune_guard", 0.05), ("policy_from", ""))
 
@@ -86,6 +93,17 @@ def parser() -> argparse.ArgumentParser:
                          "heterogeneous layer groups to uniform)")
     ap.add_argument("--dp", type=int, default=1)
     ap.add_argument("--tp", type=int, default=1)
+    ap.add_argument("--nodes", default="1",
+                    help="factor dp into (node, data) sub-axes: the DP "
+                         "sync runs two levels (hpZ); an int or 'NxD' (N "
+                         "nodes x D dp ranks per node)")
+    ap.add_argument("--tp-nodes", default="1",
+                    help="factor tp into (tpnode, model) sub-axes: the TP "
+                         "collectives run two levels; an int or 'NxD'")
+    ap.add_argument("--pp-nodes", default="1",
+                    help="factor pp into (ppnode, stage) sub-axes: stage "
+                         "handoffs that cross a node ride the outer codec; "
+                         "an int or 'NxD'")
     ap.add_argument("--pp", type=int, default=1,
                     help="pipeline stages (a stage axis of processes; the "
                          "layer stack splits into identical contiguous "
@@ -133,9 +151,6 @@ def parser() -> argparse.ArgumentParser:
     # refused: not yet ported
     for flag, kw in (("--cp", dict(type=int, default=1)),
                      ("--pod", dict(type=int, default=1)),
-                     ("--nodes", dict(default="1")),
-                     ("--tp-nodes", dict(default="1")),
-                     ("--pp-nodes", dict(default="1")),
                      ("--cp-nodes", dict(default="1")),
                      ("--host-devices", dict(type=int, default=0)),
                      ("--tune", dict(action="store_true")),
@@ -202,14 +217,29 @@ def model_config(arch: str, reduced: bool = False, layers: int = 0):
     return cfg
 
 
+def node_counts(args) -> dict:
+    """``--nodes``, ``--tp-nodes`` and ``--pp-nodes`` as node counts
+    (``nodes``, ``tp_nodes``, ``pp_nodes``); ``ValueError`` for a spec
+    that does not divide its axis."""
+    from repro_torch.launch.mesh import parse_nodes_spec
+
+    return dict(nodes=parse_nodes_spec(args.nodes, args.dp),
+                tp_nodes=parse_nodes_spec(args.tp_nodes, args.tp,
+                                          flag="--tp-nodes"),
+                pp_nodes=parse_nodes_spec(args.pp_nodes, args.pp,
+                                          flag="--pp-nodes"))
+
+
 def check_schedule(args) -> None:
-    """Raise ``ValueError`` for a pipeline the flags cannot run: a bad
-    ``--vpp`` or ``--remat-policy``, or a layer stack that does not split
-    into ``pp * vpp`` identical chunks (the reference's messages)."""
+    """Raise ``ValueError`` for a mesh or pipeline the flags cannot run: a
+    node spec that does not divide its axis, a bad ``--vpp`` or
+    ``--remat-policy``, or a layer stack that does not split into ``pp *
+    vpp`` identical chunks (the reference's messages)."""
     from repro_torch.launch.mesh import validate_vpp
     from repro_torch.models.transformer import stage_partition
     from repro_torch.train.pipeline import parse_remat_policy
 
+    node_counts(args)
     validate_vpp(args.vpp, args.pp, args.microbatches)
     parse_remat_policy(args.remat_policy, args.vpp)
     if args.pp > 1:
@@ -363,7 +393,8 @@ def rank_device(device, rank: int) -> torch.device:
 
 def train_rank(*, rank: int = 0, world: int = 1, arch: str,
                reduced: bool = False, layers: int = 0, dp: int = 1,
-               tp: int = 1, pp: int = 1, microbatches: int = 1,
+               tp: int = 1, pp: int = 1, nodes: int = 1, tp_nodes: int = 1,
+               pp_nodes: int = 1, microbatches: int = 1,
                vpp: int = 1, remat_policy: str = "none",
                steps: int = 20, seq: int = 64,
                global_batch: int = 8, scheme: str = "baseline",
@@ -378,6 +409,8 @@ def train_rank(*, rank: int = 0, world: int = 1, arch: str,
                resume: bool = False) -> dict:
     """Train ``steps`` steps as rank ``rank`` of a ``dp x pp x tp`` world
     whose process group is initialized (or alone, for a one-rank world);
+    ``nodes``, ``tp_nodes`` and ``pp_nodes`` factor the data, model and
+    stage axes over nodes (:func:`~repro_torch.launch.mesh.make_mesh`);
     ``pp``, ``microbatches``, ``vpp`` and ``remat_policy`` select the
     pipeline trainer as the reference's ``make_trainer`` does.
 
@@ -401,7 +434,10 @@ def train_rank(*, rank: int = 0, world: int = 1, arch: str,
     (``comms.SPANS``), peak device memory, kernel launches (also
     by bq kernel, wire rows and rate), the
     first step's ledger per dimension (measured wire bytes and the priced
-    analytic events) and per site (priced, and priced as if uncompressed),
+    analytic events, and priced per ``dim/level`` and per link class,
+    ``link_bytes`` with every outer level slow) and per site (priced, and
+    priced as if uncompressed), the kernel launches per bq kernel and link
+    level,
     the schedule's ticks and bubble fraction, per codec-state slot its
     residual energy and factor rank after the last step, the first step,
     what the resume printed, the straggler flags, and the checkpoints'
@@ -430,7 +466,8 @@ def train_rank(*, rank: int = 0, world: int = 1, arch: str,
     ops.set_default_backend(backend)
     comms.time_staging(time_staging)
     cfg = model_config(arch, reduced, layers)
-    mi = make_mesh(dp, tp, pp)
+    mi = make_mesh(dp, tp, pp, nodes=nodes, tp_nodes=tp_nodes,
+                   pp_nodes=pp_nodes)
     model = Model(cfg, mi, device=dev, vpp=vpp)
     trainer = make_trainer(
         model, scheme=comm_policy(scheme, codec_for, no_compress_below),
@@ -481,7 +518,8 @@ def train_rank(*, rank: int = 0, world: int = 1, arch: str,
     if global_batch % dp:
         raise ValueError(f"--global-batch {global_batch} not divisible by "
                          f"--dp {dp}")
-    b_loc, d = global_batch // dp, mi.dp_axes.index
+    # the batch shards over the joint (node, data) axis, node-major
+    b_loc, d = global_batch // dp, mi.batch_axes.index
 
     def sync():
         if dev.type == "cuda":
@@ -537,8 +575,10 @@ def train_rank(*, rank: int = 0, world: int = 1, arch: str,
         out["grad_norms"].append(float(metrics["grad_norm"]))
         if step == start:
             out["wire_per_dim"] = roofline.wire_per_dim(events.wire)
-            out["priced_per_dim"] = roofline.ledger_summary(
-                events, train=True)["per_dim"]
+            summary = roofline.ledger_summary(events, train=True)
+            out["priced_per_dim"] = summary["per_dim"]
+            out["priced_per_dim_level"] = summary["per_dim_level"]
+            out["link_bytes"] = roofline.link_bytes(events, train=True)
             out["priced_per_tag"] = roofline.ledger_per_tag(events)
             out["payload_per_tag"] = roofline.ledger_per_tag(events,
                                                              plain=True)
@@ -562,6 +602,8 @@ def train_rank(*, rank: int = 0, world: int = 1, arch: str,
         trainer.opt.last_flat_grad = None
     out["launches"] = {**bq.LAUNCHES, **lowrank.LAUNCHES}
     out["launch_shapes"] = bq.launch_shapes()
+    out["launch_levels"] = {f"{k}/{lvl}": v for (k, lvl), v
+                            in sorted(bq.LAUNCH_LEVELS.items())}
     out["codec_state"] = {
         k: {"residual_sq": float(codecs.state_residual_sq(st)),
             "rank": codecs.state_rank(st)} for k, st in cstate.items()}
@@ -583,7 +625,7 @@ def rank_kwargs(args, **extra) -> dict:
 
     dev = resolve_device(args.device)
     return dict(arch=args.arch, reduced=args.reduced, layers=args.layers,
-                dp=args.dp, tp=args.tp, pp=args.pp,
+                dp=args.dp, tp=args.tp, pp=args.pp, **node_counts(args),
                 microbatches=args.microbatches, vpp=args.vpp,
                 remat_policy=args.remat_policy, steps=args.steps,
                 seq=args.seq, global_batch=args.global_batch,
@@ -644,6 +686,17 @@ def _report(res: list, args) -> None:
               f"bubble fraction {r0['bubble']:.4f}")
     launches = {k: sum(r["launches"][k] for r in res) for k in r0["launches"]}
     print(f"kernel launches (all ranks): {launches}")
+    by = {}
+    for r in res:
+        for k, v in r["launch_levels"].items():
+            by[k] = by.get(k, 0) + v
+    if any(not k.endswith("/flat") for k in by):
+        print(f"kernel launches by link level (all ranks): {by}")
+    if any(k.endswith(("/inner", "/outer")) for k in
+           r0["priced_per_dim_level"]):
+        print(f"wire per rank, first step, priced per dim/level: "
+              f"{r0['priced_per_dim_level']}; link bytes fast/slow "
+              f"{r0['link_bytes']}")
     for k, st in r0["codec_state"].items():
         print(f"codec state {k} (rank 0): residual^2 {st['residual_sq']:.4g}"
               + (f", factor rank {st['rank']}" if st["rank"] else ""))
@@ -667,6 +720,7 @@ def main(argv=None):
             res = train_rank(
                 rank=rank, world=world, arch=args.arch, reduced=args.reduced,
                 layers=args.layers, dp=args.dp, tp=args.tp, pp=args.pp,
+                **node_counts(args),
                 microbatches=args.microbatches, vpp=args.vpp,
                 remat_policy=args.remat_policy, steps=args.steps,
                 seq=args.seq, global_batch=args.global_batch,

@@ -97,8 +97,8 @@ class Model:
         logits = self.forward(params, batch)
         ltok, w = layers.vocab_parallel_xent(logits, batch["labels"], cfg, mi)
         del logits
-        num = comms.raw_psum(ltok.sum(), mi.dp_axes)
-        den = comms.raw_psum(w.sum(), mi.dp_axes)
+        num = comms.raw_psum(ltok.sum(), mi.batch_axes)
+        den = comms.raw_psum(w.sum(), mi.batch_axes)
         # every model shard holds the full-sequence loss: the mean over the
         # model axis folds the replication into one scalar
         num = comms.raw_psum(num, mi.tp_axes, mean=True)

@@ -21,7 +21,7 @@ import math
 import numpy as np
 import torch
 
-from repro_torch.core.comms import Axis
+from repro_torch.core.comms import Axis, AxisPair
 
 
 def resolve_device(device=None) -> torch.device:
@@ -38,72 +38,147 @@ def resolve_device(device=None) -> torch.device:
 
 @dataclasses.dataclass(frozen=True)
 class MeshInfo:
-    """Logical view of the ``(data, stage, model)`` mesh from this rank.
+    """Logical view of the ``(node, data, ppnode, stage, tpnode, model)``
+    mesh from this rank.
 
-    ``model`` / ``data`` / ``stage`` / ``world`` are the bound comms axes
+    As in the reference, ``tp`` and ``pp`` are the *joint* tensor-parallel
+    and stage counts, while ``dp`` is the *inner* data size: on a mesh
+    factored with ``--nodes`` the batch splits ``node * dp`` ways
+    (:attr:`batch_ways`), and the ZeRO-1 state shards over the inner data
+    axis only, replicated per node.  ``tp_node`` and ``pp_node`` factor the
+    model and stage axes into ``(tpnode, model)`` and ``(ppnode, stage)``;
+    :attr:`tp_axes` and :attr:`stage_axes` are then
+    :class:`~repro_torch.core.comms.AxisPair` s, which the collectives
+    route through their two-level forms.
+
+    ``model`` / ``stage`` (an ``Axis`` or a pair), ``data``, ``nodes``
+    (the node axis), ``batch`` (the joint ``(node, data)`` axis) and
+    ``world`` are the bound comms axes
     (:func:`repro_torch.launch.mesh.make_mesh` builds them over process
     groups); left ``None`` they are one-rank axes of the right name and
     size, which is all a one-process run, or a plan that only needs
-    shapes, asks for.  ``pp`` is the pipeline-stage count; a mesh with
-    ``pp == 1`` has no stage axis (``stage_axes`` is ``None``)."""
+    shapes, asks for.  A mesh with ``pp == 1`` has no stage axis
+    (``stage_axes`` is ``None``)."""
 
     tp: int = 1
     dp: int = 1
     pp: int = 1
+    node: int = 1
+    tp_node: int = 1
+    pp_node: int = 1
     model_axis: str = "model"
     data_axis: str = "data"
     stage_axis: str = "stage"
-    model: Axis | None = None
+    node_axis: str = "node"
+    tp_node_axis: str = "tpnode"
+    pp_node_axis: str = "ppnode"
+    model: Axis | AxisPair | None = None
     data: Axis | None = None
-    stage: Axis | None = None
+    stage: Axis | AxisPair | None = None
+    nodes: Axis | None = None
+    batch: Axis | None = None
     world: Axis | None = None
 
     def __post_init__(self):
+        for n, f in ((self.tp, self.tp_node), (self.pp, self.pp_node)):
+            if n % f:
+                raise ValueError(f"{n} ways do not split over {f} nodes")
         for ax, n in ((self.model, self.tp), (self.data, self.dp),
-                      (self.stage, self.pp),
-                      (self.world, self.tp * self.dp * self.pp)):
+                      (self.stage, self.pp), (self.nodes, self.node),
+                      (self.batch, self.dp * self.node),
+                      (self.world, self.world_size)):
             if ax is not None and ax.size != n:
-                raise ValueError(f"axis {ax.name!r} has size {ax.size}, "
-                                 f"mesh wants {n}")
+                raise ValueError(f"axis {ax!r} has size {ax.size}, mesh "
+                                 f"wants {n}")
 
     @property
-    def tp_axes(self) -> Axis:
-        return self.model or Axis(self.model_axis, self.tp)
+    def world_size(self) -> int:
+        return self.tp * self.dp * self.pp * self.node
+
+    @staticmethod
+    def _pair(outer: str, inner: str, n_o: int, n: int) -> AxisPair:
+        """A one-rank view of a factored axis (sizes only)."""
+        return AxisPair(Axis(outer, n_o), Axis(inner, n // n_o),
+                        Axis((outer, inner), n))
+
+    @property
+    def tp_axes(self) -> Axis | AxisPair:
+        """The axis model code passes to the collectives for TP traffic:
+        the model axis, or the ``(tpnode, model)`` pair."""
+        if self.model is not None:
+            return self.model
+        if self.tp_node > 1:
+            return self._pair(self.tp_node_axis, self.model_axis,
+                              self.tp_node, self.tp)
+        return Axis(self.model_axis, self.tp)
 
     @property
     def dp_axes(self) -> Axis:
+        """The (inner) data axis: the ZeRO-1 shards and their sync."""
         return self.data or Axis(self.data_axis, self.dp)
 
     @property
-    def stage_axes(self) -> Axis | None:
-        """The axis the pipeline passes to comms for stage handoffs, or
-        ``None`` on a mesh without a stage axis."""
-        if self.pp == 1:
+    def node_axes(self) -> Axis | None:
+        """The node axis of a ``--nodes`` mesh (``None`` without one)."""
+        if self.node == 1:
             return None
-        return self.stage or Axis(self.stage_axis, self.pp)
+        return self.nodes or Axis(self.node_axis, self.node)
 
     @property
-    def sp_axes(self) -> Axis | None:
-        """The physical axis implementing pipeline stages: the stage axis
-        itself (``--pp-nodes``, which would factor it, is not yet
-        ported)."""
+    def data_pair(self) -> Axis | AxisPair:
+        """The logical data axis: the ``(node, data)`` pair of a ``--nodes``
+        mesh, else the data axis."""
+        if self.node == 1:
+            return self.dp_axes
+        return AxisPair(self.node_axes, self.dp_axes, self.batch_axes)
+
+    @property
+    def batch_axes(self) -> Axis:
+        """The joint axis the global batch is sharded over: ``(node,
+        data)``, node-major, or the data axis."""
+        if self.node == 1:
+            return self.dp_axes
+        return self.batch or Axis((self.node_axis, self.data_axis),
+                                  self.dp * self.node)
+
+    @property
+    def stage_axes(self) -> Axis | AxisPair | None:
+        """The axis the pipeline passes to comms for stage handoffs (the
+        stage axis, or the ``(ppnode, stage)`` pair), or ``None`` on a mesh
+        without a stage axis."""
+        if self.pp == 1:
+            return None
+        if self.stage is not None:
+            return self.stage
+        if self.pp_node > 1:
+            return self._pair(self.pp_node_axis, self.stage_axis,
+                              self.pp_node, self.pp)
+        return Axis(self.stage_axis, self.pp)
+
+    @property
+    def sp_axes(self) -> Axis | AxisPair | None:
+        """The physical axes implementing pipeline stages (uncompressed
+        sums over them run on the joint axis)."""
         return self.stage_axes
 
     @property
     def all_axes(self) -> Axis:
-        """Every rank, ordered data, stage, model: global rank
-        ``(d * pp + s) * tp + t``."""
-        return self.world or Axis("world", self.tp * self.dp * self.pp)
+        """Every rank, ordered node, data, stage, model: global rank
+        ``((n * dp + d) * pp + s) * tp + t`` (stage and model joint)."""
+        return self.world or Axis("world", self.world_size)
 
     @property
     def batch_ways(self) -> int:
-        return self.dp
+        return self.dp * self.node
 
     @property
     def coords(self) -> dict:
-        """This rank's index along each sharded spec tag."""
+        """This rank's index along each sharded spec tag (the joint index
+        of a factored axis), and along the node axis, over which every
+        leaf is replicated."""
         return {"model": self.tp_axes.index, "data": self.dp_axes.index,
-                "stage": self.stage_axes.index if self.pp > 1 else 0}
+                "stage": self.stage_axes.index if self.pp > 1 else 0,
+                "node": self.node_axes.index if self.node > 1 else 0}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -15,9 +15,16 @@ plan):
 On a pipeline mesh the stage-replicated leaves (embedding, final norm)
 hold one partial gradient per stage, folded over the stage axis under the
 *pp_bwd* codec (site ``pp@grad_stage_rep``); ZeRO-1 shards each stage
-rank's own flat vector over data only.  The global grad-norm clip sums
-each class's squares divided by its replication factor over the whole
-world, uncompressed, as the reference does.  ``state_bits=8`` keeps m
+rank's own flat vector over data only.  On a ``--nodes`` mesh the DP
+sync has two levels, as the reference's (ZeRO++ hpZ): a reduce-scatter
+over the inner data axis (site ``dp_inner@zero1_grad``), an all-reduce of
+that chunk over the node axis (``dp_outer@zero1_grad``), the update, and
+the param gather over the inner data axis (``zero_inner@zero1_param``):
+the master chunks are replicated per node.  On a ``--tp-nodes`` or
+``--pp-nodes`` mesh the tp and stage folds are two-level all-reduces over
+their pairs.  The global grad-norm clip sums each class's squares divided
+by its replication factor over the whole world, uncompressed, as the
+reference does.  ``state_bits=8`` keeps m
 and v as bq8 wire planes (encode/decode on the bq kernels).  ``grad_buckets > 1`` splits the flat sync into that many
 reduce-scatter / all-gather chains and applies the clip after the sync.
 
@@ -175,20 +182,23 @@ class Adam:
         state (``Trainer.opt_state_specs``), a flat chunk differs on every
         rank and shards over the joint (stage, model, data) axes, data
         minor, so this rank's is chunk ``(s * tp + t) * dp + d`` of the
-        global vector (bq8 m and v likewise by rows, ``q_lo`` none); the
+        global vector, stage and model joint, data inner (bq8 m and v
+        likewise by rows, ``q_lo`` none); a ``--nodes`` mesh replicates
+        the chunks per node, and its first node writes them; the
         ``step`` is one replicated int32.  (The reference's ``fsdp`` list
         holds only ``None`` without ZeRO-3 leaves: no leaf.)"""
         mi = self.mi
         n = sum(math.prod(local_shape(d, mi)) for d in defs(self.plan))
         cl = sum(self._chunk_len(hi - lo) for lo, hi in self._bucket_bounds(n))
-        world = mi.dp * mi.pp * mi.tp
+        world = mi.dp * mi.pp * mi.tp       # the state's shards: no node
         c = mi.coords
         g = (c["stage"] * mi.tp + c["model"]) * mi.dp + c["data"]
 
         def chunk(rows, tail, dtype, value):
+            # replicated over nodes (hpZ): the first node's ranks write
             return Shard((world * rows, *tail),
                          (slice(g * rows, (g + 1) * rows), *whole(tail)),
-                         dtype, value, True, device)
+                         dtype, value, c["node"] == 0, device)
 
         def moment(k):
             v = None if state is None else state[k]
@@ -245,17 +255,18 @@ class Adam:
         grad-sync bucket) that ends :meth:`apply`."""
         ts, _ = self._split(params)
         total = sum(t.numel() for t in ts)
+        lvl = "inner" if self.mi.node > 1 else None
         if self.cfg.grad_buckets <= 1:
             flat_new = comms.all_gather_flat(
                 master, self.mi.dp_axes, total,
-                comms.Site("zero", "zero1_param"))
+                comms.Site("zero", "zero1_param", level=lvl))
         else:
             segs, at = [], 0
             for b, (lo, hi) in enumerate(self._bucket_bounds(total)):
                 cl = self._chunk_len(hi - lo)
                 segs.append(comms.all_gather_flat(
                     master[at:at + cl], self.mi.dp_axes, hi - lo,
-                    comms.Site("zero", f"zero1_param{b}")))
+                    comms.Site("zero", f"zero1_param{b}", level=lvl)))
                 at += cl
             flat_new = torch.cat(segs)
         off = 0
@@ -291,7 +302,7 @@ class Adam:
         # -- global grad-norm clip: each class's squares over its
         # replication factor (stage-replicated leaves also over pp),
         # summed over the whole world
-        rep = {"B": mi.dp, "C": mi.dp * mi.tp}
+        rep = {"B": mi.dp * mi.node, "C": mi.dp * mi.tp * mi.node}
         sq = torch.zeros((), dtype=_F32, device=ts[0].device)
         for g, c, r in zip(grads, classes, srep):
             sq = sq + torch.sum(g.to(_F32) ** 2) / (rep[c] * (mi.pp if r
@@ -308,14 +319,24 @@ class Adam:
         grads.clear()
         if self.keep_flat_grad:
             self.last_flat_grad = gflat
+        # two levels on a (node, data) mesh: the intra-node reduce-scatter,
+        # then the inter-node all-reduce of its 1/dp chunk
+        hier = mi.node > 1
         chunks = []
         for b, (lo, hi) in enumerate(self._bucket_bounds(gflat.shape[0])):
             sfx = str(b) if bucketed else ""
             # the sync consumes the flat gradient (error feedback may
             # compensate into it), unless it is kept for the caller
-            chunks.append(comms.reduce_scatter_flat(
-                gflat[lo:hi], mi.dp_axes, comms.Site("dp", f"zero1_grad{sfx}"),
-                donate=not self.keep_flat_grad))
+            gc = comms.reduce_scatter_flat(
+                gflat[lo:hi], mi.dp_axes,
+                comms.Site("dp", f"zero1_grad{sfx}",
+                           level="inner" if hier else None),
+                donate=not self.keep_flat_grad)
+            if hier:
+                gc = comms.psum(gc, mi.node_axes,
+                                comms.Site("dp", f"zero1_grad{sfx}",
+                                           level="outer"))
+            chunks.append(gc)
         del gflat
         gchunk = chunks[0] if len(chunks) == 1 else torch.cat(chunks)
         del chunks

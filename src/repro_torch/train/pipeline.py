@@ -17,6 +17,10 @@ codec; its backward returns the activation gradient upstream under
 of what it received, every stage runs its layer chunk, and the last stage
 drains: final norm, head and vocab-parallel cross-entropy, summed into the
 global token mean.
+On a ``--pp-nodes`` mesh the stage axis is the ``(ppnode, stage)`` pair,
+and the handoff is :func:`~repro_torch.core.comms.hier_ppermute`: a
+boundary inside a node rides the ``pp_*_inner`` codec, one that crosses a
+node the ``pp_*_outer`` codec.
 
 Interleaved virtual stages (``model.vpp = V > 1``): rank ``s`` holds ``V``
 round-robin chunks (chunk ``c = v * pp + s`` is its slice ``v``), the step
@@ -267,8 +271,8 @@ def pipeline_loss_fn(model: Model, n_micro: int, remat_policy=None):
         if pp > 1:
             num = comms.raw_psum(num, mi.sp_axes, local_bwd=True)
             den = comms.raw_psum(den, mi.sp_axes, local_bwd=True)
-        num = comms.raw_psum(num, mi.dp_axes)
-        den = comms.raw_psum(den, mi.dp_axes)
+        num = comms.raw_psum(num, mi.batch_axes)
+        den = comms.raw_psum(den, mi.batch_axes)
         num = comms.raw_psum(num, mi.tp_axes, mean=True)
         den = comms.raw_psum(den, mi.tp_axes, mean=True)
         loss = num / torch.clamp(den, min=1.0)

@@ -18,6 +18,8 @@ import torch
 
 from repro_torch.core import comms
 from repro_torch.core import policy as policy_lib
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import BLOCK
 from repro_torch.models.model import Model
 from repro_torch.models.params import (defs, leaves, local_index,
                                        local_shape, map_leaves, torch_dtype,
@@ -63,32 +65,53 @@ class Trainer:
         """The carried-state-capable comm sites of the step, with their
         per-rank payload shapes: the tp class-C gradient fold, the pp fold
         of the stage-replicated leaves and the flat ZeRO-1 dp/zero sync,
-        one chain per grad-sync bucket.  Mirrors
-        :meth:`Adam.apply` (site names and payload sizes), as the
-        reference's ``Trainer.codec_sites`` does without its class-A, node
-        and pod sites."""
+        one chain per grad-sync bucket.  A fold over a node-factored pair
+        has a slot per level (the whole payload inner, its padded
+        ``1/n_inner`` chunk outer, as :func:`comms._stateful_hier_psum`
+        reads them), and so has the DP sync of a ``--nodes`` mesh (the
+        reduce-scatter inner, the chunk's all-reduce outer, the param
+        gather inner).  Mirrors :meth:`Adam.apply` (site names, levels and
+        payload sizes), as the reference's ``Trainer.codec_sites`` does
+        without its class-A and pod sites."""
         mi = self.model.mi
         local = [(math.prod(local_shape(d, mi)), _leaf_class(d.spec))
                  for d in defs(self.model.plan)]
         f32 = torch.float32
         sites = []
+        folds = []
         n_c = sum(n for n, c in local if c == "C")
-        if mi.tp > 1 and n_c:
-            sites.append((comms.Site("tp", "grad_rep", "bwd"), (n_c,), f32))
+        if mi.tp > 1:
+            folds.append(("tp", "grad_rep", mi.tp_axes, n_c))
         # the stage-replicated leaves' fold over the stage axis
         n_s = sum(math.prod(local_shape(d, mi)) for d in defs(self.model.plan)
                   if "stage" not in d.spec)
-        if mi.pp > 1 and n_s:
-            sites.append((comms.Site("pp", "grad_stage_rep", "bwd"), (n_s,),
-                          f32))
+        if mi.pp > 1:
+            folds.append(("pp", "grad_stage_rep", mi.stage_axes, n_s))
+        for dim, name, axes, elems in folds:
+            if not elems:
+                continue
+            if isinstance(axes, comms.AxisPair):
+                cl = ops.padded_rows(-(-elems // axes.inner.size)) * BLOCK
+                sites.append((comms.Site(dim, name, "bwd", level="inner"),
+                              (elems,), f32))
+                sites.append((comms.Site(dim, name, "bwd", level="outer"),
+                              (cl,), f32))
+            else:
+                sites.append((comms.Site(dim, name, "bwd"), (elems,), f32))
+        hier = mi.node > 1
+        lvl = "inner" if hier else None
         bucketed = self.opt.cfg.grad_buckets > 1
         for b, (lo, hi) in enumerate(
                 self.opt._bucket_bounds(sum(n for n, _ in local))):
             sfx = str(b) if bucketed else ""
-            sites.append((comms.Site("dp", f"zero1_grad{sfx}"), (hi - lo,),
-                          f32))
-            sites.append((comms.Site("zero", f"zero1_param{sfx}"),
-                          (self.opt._chunk_len(hi - lo),), f32))
+            cl = self.opt._chunk_len(hi - lo)
+            sites.append((comms.Site("dp", f"zero1_grad{sfx}", level=lvl),
+                          (hi - lo,), f32))
+            if hier:
+                sites.append((comms.Site("dp", f"zero1_grad{sfx}",
+                                         level="outer"), (cl,), f32))
+            sites.append((comms.Site("zero", f"zero1_param{sfx}", level=lvl),
+                          (cl,), f32))
         return sites
 
     def codec_state_template(self) -> dict:
@@ -108,8 +131,8 @@ class Trainer:
     def codec_state_shards(self, state=None) -> dict:
         """The codec state as the reference's global leaves (its
         ``codec_structs``): every slot stacks each rank's along dim 0 in
-        the order of ``MeshInfo.all_axes`` (data major, then stage, then
-        model), which is the global rank here.  Each leaf is a
+        the order of ``MeshInfo.all_axes`` (node, data, stage, model, the
+        factored ones joint), which is the global rank here.  Each leaf is a
         :class:`~repro_torch.train.checkpoint.Shard` holding this rank's
         part (of ``state``, when given)."""
         mi = self.model.mi
@@ -162,12 +185,14 @@ class Trainer:
         did.  A replicated leaf's replicas need not agree bit for bit
         (class-C leaves sum their gradient through a lossy all-reduce on
         each tp rank), and a checkpoint keeps one, so this is what makes
-        a resume on the same layout continue bit for bit.  Untouched when
-        the state has taken no step (the params never came out of the
+        a resume on the same layout continue bit for bit.  On a
+        ``--nodes`` mesh the gather runs over the inner data axis from the
+        node's replica of the chunks (hpZ), as the step's does.  Untouched
+        when the state has taken no step (the params never came out of the
         gather) or the gather carries codec state (``ef:*`` at a ZeRO
         site: its residual has moved on)."""
         stateful = self.plan.stateful_sites(self.codec_sites())
-        if not opt_state["step"] or any(k.startswith("zero@")
+        if not opt_state["step"] or any(k.startswith(("zero@", "zero_"))
                                         for k in stateful):
             return False
         with policy_lib.use_plan(self.plan), \

@@ -134,15 +134,15 @@ def _inputs(n: int, shape) -> np.ndarray:
 # the reference, in a subprocess with 4 host devices
 # --------------------------------------------------------------------------
 
-def _reference(out_path: str) -> None:
+def round_first_oracles() -> None:
+    """Patch the reference's jnp hop and decode oracles to round the
+    decode's multiply before the add (an opaque integer no-op after it),
+    as the port's kernels and plain versions do (ROADMAP C.3, C.10)."""
     import jax
     import jax.numpy as jnp
     from jax import lax
-    from jax.sharding import PartitionSpec as P
 
-    from repro.core import codecs, comms, compat, policy
     from repro.kernels import ops, ref
-    from repro.kernels.ref import BLOCK
 
     def sep_add(a, b):
         m = (b != b).astype(jnp.uint32)
@@ -169,6 +169,18 @@ def _reference(out_path: str) -> None:
     ops._da_ref = jax.jit(lambda q_hi, q_lo, scale, local, *, bits: sep_add(
         ref.bq_decode_ref(q_hi, q_lo, scale, bits),
         local.astype(jnp.float32)), static_argnames=st)
+
+
+def _reference(out_path: str) -> None:
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import PartitionSpec as P
+
+    from repro.core import codecs, comms, compat, policy
+    from repro.kernels import ops
+    from repro.kernels.ref import BLOCK
+
+    round_first_oracles()
 
     def body(op, n, codec_name, axis_dim=0):
         def f(xl):

@@ -427,7 +427,7 @@ def test_launcher_refuses_unported_flags():
     ok = ap.parse_args(["--arch", "gemma3-1b", "--dp", "2", "--tp", "2",
                         "--scheme", "zhybrid_16_8", "--ring-bidir"])
     assert tlaunch.unported(ok) == []
-    for extra in (["--pp-nodes", "2"], ["--cp", "2"], ["--nodes", "2"],
+    for extra in (["--cp-nodes", "2"], ["--cp", "2"], ["--pod", "2"],
                   ["--tune"], ["--policy-from", "x"], ["--tune-interval", "5"]):
         args = ap.parse_args(["--arch", "gemma3-1b", *extra])
         msgs = tlaunch.unported(args)
@@ -437,9 +437,19 @@ def test_launcher_refuses_unported_flags():
                         "--ckpt-every", "5", "--resume"])
     assert tlaunch.unported(ck) == []
     assert (ck.ckpt_dir, ck.ckpt_every, ck.resume) == ("x", 5, True)
+    # so are the node-factored meshes, as an int or NxD
+    hier = ap.parse_args(["--arch", "gemma3-1b", "--dp", "4", "--nodes",
+                          "2x2", "--tp", "4", "--tp-nodes", "2", "--pp", "2",
+                          "--pp-nodes", "2"])
+    assert tlaunch.unported(hier) == []
+    assert tlaunch.node_counts(hier) == dict(nodes=2, tp_nodes=2, pp_nodes=2)
     with pytest.raises(SystemExit):
-        tlaunch.main(["--arch", "gemma3-1b", "--pp-nodes", "2", "--device",
+        tlaunch.main(["--arch", "gemma3-1b", "--cp-nodes", "2", "--device",
                       "cpu"])
+    for bad in (["--nodes", "3", "--dp", "4"], ["--pp-nodes", "2"],
+                ["--dp", "4", "--nodes", "2x3"]):
+        with pytest.raises(SystemExit):
+            tlaunch.main(["--arch", "gemma3-1b", *bad, "--device", "cpu"])
 
 
 def test_launcher_builds_codec_for_policies():
