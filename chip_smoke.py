@@ -5,7 +5,7 @@
     python3 chip_smoke.py --bq-only  # phase 1 and the bq timings alone
     python3 chip_smoke.py --pp-only  # phase 1, phase 4's step, phase 7
     python3 chip_smoke.py --ckpt-only  # phase 1, phase 6's plr8 run, phase 8
-    python3 chip_smoke.py --hier-only  # phase 1 and phase 9
+    python3 chip_smoke.py --hier-only  # phase 1, phases 9 and 10
 
 ``--bq-only`` prints the bq kernels' timings and those of the fused TP
 all-gather, TP reduce-scatter and KV-read ops beside the compositions
@@ -47,11 +47,12 @@ times every kernel and its plain version beside its bound: device time
 with the L2 flushed before each call (the time the kernel line reports),
 device time by CUDA-graph replay on warm L2, and the time per eager call;
 the matmul forms also beside torch.matmul with TF32 off, and at_b's two
-passes apart (torch.profiler's kernel times, L2 flushed).  It times the
-TP all-gather's encode and gathered decode of the bf16 [2, 512, 1152]
-activation as the path calls them (the fused ops), as it called them
-before (cast, padded copy and block encode; block decode, strip, cast
-and movedim copy) and through the plain versions, with the kernels' own
+passes apart (torch.profiler's kernel times, L2 flushed; where a card's
+profiler reports no device time, CUDA events around the whole call, and
+the output says so).  It times the TP all-gather's encode and gathered
+decode of the bf16 [2, 512, 1152] activation as the path calls them
+(the fused ops), as it called them before (cast, padded copy and block
+encode; block decode, strip, cast and movedim copy) and through the plain versions, with the kernels' own
 times, a copy of the same bytes as the floor, and the host's time per
 step of each; the same for the TP reduce-scatter's end at tp 2 (bf16
 [2, 1024, 1152] and [2, 1024, 256] along axis 1: the view encode and the
@@ -95,9 +96,10 @@ bq4's priced ratios to phase 4's baseline.
 Phase 7 drives the pipeline (the paper's PP dimension): gemma3-1b at full
 published width, dp 1 x pp 2 x tp 2 (four ranks on the card), 4
 microbatches of 1 x 1024 tokens, zhybrid_16_8 (bq16 on the stage
-handoffs and the stage fold), deterministic: 7a 1F1B at ``--layers 26``, 2
-steps, and 7b interleaved (vpp 2, remat per_stage:0) at ``--layers 16``, 2
-steps (cut from 3 steps and 24 layers when phase 8 came in; gemma3-1b's
+handoffs and the stage fold), deterministic: 7a 1F1B at ``--layers 16``, 2
+steps (cut from 26 layers when phase 10 came in), and 7b interleaved (vpp
+2, remat per_stage:0) at ``--layers 16``, 2 steps (cut from 3 steps and 24
+layers when phase 8 came in; gemma3-1b's
 5:1 local:global stack does not split into identical stages, so
 ``--layers`` makes it uniform), each through the kernels and
 through the plain versions.  It requires equal losses, grad norms and
@@ -146,6 +148,26 @@ there; it prints each run's ms/step, tokens/s, peak memory and staging
 share (as phase 4), the priced wire bytes per ``dim/level``, the fast and
 slow link bytes, and the launches per kernel and level.
 
+Phase 10 drives the self-tuning controller (repro_torch.tune) in phase
+9's world of four ranks: gemma3-1b at full published width, ``--dp 4
+--nodes 2 --layers 6`` (the tuned sites' union codec state, the dp_inner
+residual of the whole flat gradient and the dp_outer one of its half,
+does not fit four ranks at 9a's 13 layers), sequence 1024, global batch
+4, from hier_zpp_16_16 with ``--tune --tune-interval 2``, 8 steps (4
+decision rounds), through the kernels and through the plain versions.
+It requires equal decisions and rung indices on every rank and between
+the two runs, losses and grad norms bit-equal before the first live plr
+rung and within PLR_RTOL after, equal measured wire per ``dim/level`` at
+every step, a codec changed, the last step's measured dp/outer bytes
+below the first's, ``roofline.savings_report`` of the start plan against
+the final one saving slow-link bytes, each rung taken launching its
+kernels (rate-4 encode, fused hop and decode for ef:bq4; matmul_tall and
+matmul_at_b for ef:bq4 and plr; matmul_small_k for plr), none in the
+plain run, no rank importing jax or repro, and the largest rank within
+18 GiB.  It prints each round's decisions, each step's rungs, time and
+measured dp/inner and dp/outer bytes, ms/step, tokens/s, peak memory,
+the staging share and the launches per kernel, rate and level.
+
 After phase 8, a fresh process (this script with ``--reckon FILE``, which
 the script starts itself) times each (kernel, rows, rate) that phase 4's
 kernel run launched, at its shape, and reckons launches x (time - bound)
@@ -157,7 +179,8 @@ path, cold-L2 device time at the path's shape, bound, plain time, and the
 library call's time where one exists; the encode and decode also with
 their flat form, the encode and decode-add with the TP reduce-scatter's
 view forms, the gather-decode's times those of the fused KV read, and
-the bq kernels with the per-shape reckoning) and the card line; the last
+the bq kernels with the per-shape reckoning, and phase 10's launches by
+rate and level) and the card line; the last
 line is the result JSON.  Any failure exits non-zero;
 without a card, or outside a checkout, it fails before printing a result.
 """
@@ -204,7 +227,7 @@ CKPT_STEPS = 2                # phase 8: save after 8a's 2 steps
 # phase 7: the pipeline, dp 1 x pp 2 x tp 2, 4 microbatches of 1 x SEQ;
 # (name, layers, steps, flags) of its two runs
 PP, PP_MICRO = 2, 4
-PP_RUNS = (("7a", 26, 2, ()),
+PP_RUNS = (("7a", 16, 2, ()),
            ("7b", 16, 2, ("--vpp", "2", "--remat-policy", "per_stage:0")))
 # wire rows of one handoff: a microbatch's bf16 [1, SEQ / TP, 1152]
 HANDOFF_ROWS = (GLOBAL_BATCH // PP_MICRO) * (SEQ // TP) * 1152 // 128
@@ -245,6 +268,24 @@ HIER_LEVELS = {
     "9c": {"inner": {"bq_encode_flat", "bq_decode_flat"} | _BLOCK_RS_AG,
            "outer": {"bq_encode_flat", "bq_decode_flat"} | _DP_AR["outer"]},
 }
+# phase 10: the self-tuning controller on 9a's mesh (--dp 4 --nodes 2, in
+# phase 9's world), from hier_zpp_16_16 with a decision round every 2
+# steps, 8 steps (4 rounds), through the kernels and the plain versions.
+# Its depth: the tuned sites' union slots add the dp_inner residual (the
+# rank's whole f32 flat gradient) and the dp_outer residual (its half) to
+# 9a's state; at 9a's 13 layers (14.8 GiB per rank) that is about 18.4 GiB
+# per rank before any transient, which four ranks sharing the card do not
+# fit, so 6 layers (463M parameters per rank), the width kept
+TUNE_SCHEME, TUNE_LAYERS, TUNE_STEPS, TUNE_INTERVAL = \
+    "hier_zpp_16_16", 6, 8, 2
+TUNE_FLAGS = ("--dp", "4", "--tp", "1", "--nodes", "2", "--layers",
+              str(TUNE_LAYERS), "--tune", "--tune-interval",
+              str(TUNE_INTERVAL))
+TUNE_PEAK_GIB = 18.0          # the largest rank's allowance
+# link rates the slow-link saving's seconds are priced at (nominal: one
+# direction of H100 NVLink 4, one 400 Gb/s InfiniBand port; assumed, not
+# measured: the check itself is on bytes)
+FAST_LINK_BYTES_PER_S, SLOW_LINK_BYTES_PER_S = 450e9, 50e9
 
 
 def fail(msg: str):
@@ -377,42 +418,69 @@ def _profiled_us(torch, fn, iters: int) -> dict:
     return out
 
 
+# what times a kernel alone: torch.profiler's CUDA activity, or, once a
+# profiler session has reported no device time three times running (a card
+# whose profiler is closed to this process), CUDA events around the call
+# for the rest of the process
+KERNEL_TIMER = {"by": "torch.profiler"}
+
+
 def kernel_ms(torch, fn, match: str | None = None, iters: int = 10) -> dict:
     """Device ms per call of each kernel that ``fn`` launches, with the L2
     flushed before each call: the kernels' own durations from
     torch.profiler's CUDA activity, by name.  With ``match``, only the
     kernels whose name holds it, under their short names; without, every
-    kernel but the flush's, under its full name."""
+    kernel but the flush's, under its full name.  Where the profiler
+    reports no device time (``KERNEL_TIMER``), the cold-L2 event time of
+    the whole call, under ``match`` or ``"all kernels"``."""
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     fn()
     torch.cuda.synchronize()
 
-    def profiled(f, n):
+    def by_events() -> dict:
+        if KERNEL_TIMER["by"] != "CUDA events":
+            KERNEL_TIMER["by"] = "CUDA events"
+            print("kernel_ms: the profiler reported no device time for a "
+                  "call three sessions running; kernels alone are timed by CUDA events "
+                  "around the whole call (L2 flushed) from here on "
+                  f"[{card_line()}]", flush=True)
+        return {match or "all kernels": cold_ms(torch, fn, iters)}
+
+    def profiled(f, n) -> dict:
         # a profiler session now and then reports nothing: retry
         for _ in range(3):
             got = _profiled_us(torch, f, n)
             if got:
                 return got
-        fail("the profiler saw no device time")
+        return {}
+    if KERNEL_TIMER["by"] != "torch.profiler":
+        return by_events()
     flush_keys = set(profiled(flush.zero_, 2))
+    if not flush_keys:
+        return by_events()
 
     def call():
         flush.zero_()
         fn()
+    seen = set()
     for _ in range(3):      # a session may also report the flush's alone
         out = {}
         for key, us in profiled(call, iters).items():
+            if key in flush_keys:
+                continue
+            seen.add(key)
             if match is None:
-                if key not in flush_keys:
-                    out[key] = us / 1e3 / iters
+                out[key] = us / 1e3 / iters
                 continue
             name = re.search(rf"\w*{match}\w*(<[^>]*>)?", key)
             if name:
                 out[name.group(0)] = us / 1e3 / iters
         if out:
             return out
-    fail(f"the profiler saw no device time for kernels named "
-         f"*{match or ''}*")
+    if seen:
+        fail(f"the profiler saw no kernel named *{match}*, only "
+             f"{sorted(seen)}")
+    return by_events()
 
 
 def timings(torch, kernel, plain, iters: int = 50):
@@ -767,7 +835,8 @@ def time_bq(torch, card, rows, serve):
     del x, w
     for name, (where, bits, shape, t, b) in path.items():
         extra = "" if name not in block_kms else (
-            f"; the kernel alone (profiler) {block_kms[name] * 1e3:.2f} us")
+            f"; the kernel alone ({KERNEL_TIMER['by']}) "
+            f"{block_kms[name] * 1e3:.2f} us")
         show(card, f"{name} [{where}]", bits, shape, t, b, extra)
         torch.cuda.empty_cache()
     show(card, "bq_decode_add [tp@mlp_out reduce-scatter, last hop]", 16,
@@ -1145,7 +1214,7 @@ def time_ops(torch, card, label: str, calls: dict) -> dict:
         del src, dst
         head = label.format(op=op)
         kernels = kernel_ms(torch, unfused)
-        print(f"  {head}, unfused: kernels alone (profiler) "
+        print(f"  {head}, unfused: kernels alone ({KERNEL_TIMER['by']}) "
               + "; ".join(f"{k.removeprefix('void ')[:72]} {v * 1e3:.2f}"
                           f" us" for k, v in kernels.items())
               + f" [{card}]")
@@ -1302,7 +1371,8 @@ def reckon_shapes(torch, card, shapes: dict, rank_steps: int) -> dict:
         bms = bound(nbytes, nops)[0]
         per = count / rank_steps
         e = {"rows": rows, "rate": bits, "launches_per_rank_step": per,
-             "ms": ms, "kernel_ms": kms, "bound_ms": bms,
+             "ms": ms, "kernel_ms": kms, "kernel_ms_by": KERNEL_TIMER["by"],
+             "bound_ms": bms,
              "gap_ms": per * (ms - bms), "kernel_gap_ms": per * (kms - bms)}
         out.setdefault(name, []).append(e)
         print(f"  {name} M={rows} rate {bits}: {per:g} launches per rank "
@@ -1404,17 +1474,24 @@ def level_sums(res) -> dict:
     return out
 
 
-def drive_hier(torch, card) -> dict:
+def drive_hier(torch, card) -> tuple:
     """Phase 9: the node-factored meshes (9a ``--nodes``, 9b
     ``--tp-nodes``, 9c ``--pp-nodes``) in one world of four ranks, through
-    the kernels and (9a, 9b) the plain versions; returns each run's
-    launches per kernel and level (all ranks) and its numbers."""
+    the kernels and (9a, 9b) the plain versions, then phase 10, the tuned
+    step, in the same world (:func:`check_tune`); returns each phase 9
+    run's launches per kernel and level (all ranks) and its numbers, and
+    phase 10's."""
     runs, names = [], []
     for name, scheme, steps, flags, plain in HIER_RUNS:
         for backend in (None, "torch") if plain else (None,):
             runs.append(run(f"{name} {'plain' if backend else 'kernels'}",
                             scheme, backend, steps, flags, dp=1, tp=1))
             names.append((name, backend))
+    for backend in (None, "torch"):
+        runs.append(run(f"10 {'plain' if backend else 'kernels'}",
+                        TUNE_SCHEME, backend, TUNE_STEPS, TUNE_FLAGS, dp=1,
+                        tp=1))
+        names.append(("10", backend))
     res = dict(zip(names, train_runs(card, runs)))
     out = {}
     for name, scheme, steps, flags, plain in HIER_RUNS:
@@ -1462,7 +1539,149 @@ def drive_hier(torch, card) -> dict:
                      "staging_share": [min(share), max(share)],
                      "per_dim_level": r0["priced_per_dim_level"],
                      "link_bytes": r0["link_bytes"]}
-    return out
+    return out, check_tune(card, res[("10", None)], res[("10", "torch")])
+
+
+def _rounds(tune: dict) -> list:
+    """A decision history as (site, step, action, from, to)."""
+    return [(h["site"], h["step"], h["action"], h["from_codec"],
+             h["to_codec"]) for h in tune["history"]]
+
+
+def check_tune(card, k, p) -> dict:
+    """Phase 10: the tuned ``--dp 4 --nodes 2`` runs through the kernels
+    (``k``) and the plain versions (``p``): equal decisions on every rank,
+    losses and grad norms bit-equal before the first live plr rung and
+    within PLR_RTOL after, equal measured wire per ``dim/level`` at every
+    step, a codec changed, the measured ``dp/outer`` bytes fallen, the
+    start plan against the final one saving slow-link bytes
+    (``roofline.savings_report``), each rung taken launching its kernels,
+    none in the plain run, no rank importing jax or repro, and the largest
+    rank within TUNE_PEAK_GIB; prints each round's decisions and the
+    numbers, and returns them."""
+    from repro_torch.analysis import roofline
+    from repro_torch.core import policy
+    from repro_torch.tune import ladder
+
+    for label, res in (("kernel", k), ("plain", p)):
+        for r in res:
+            if r["foreign_modules"]:
+                fail(f"phase 10 {label} rank {r['rank']} imported "
+                     f"{r['foreign_modules']}")
+            if r["tune"]["history"] != res[0]["tune"]["history"] or \
+                    r["tune"]["select_per_step"] != \
+                    res[0]["tune"]["select_per_step"]:
+                fail(f"phase 10 {label} run: rank {r['rank']} decided "
+                     f"otherwise than rank 0: {_rounds(r['tune'])} vs "
+                     f"{_rounds(res[0]['tune'])}")
+    t0 = k[0]["tune"]
+    sel = t0["select_per_step"]
+    first_plr = next((i for i, s in enumerate(sel)
+                      if any(v >= 3 for v in s.values())), len(sel))
+    for rk, rp in zip(k, p):
+        tk, tp_ = rk["tune"], rp["tune"]
+        if _rounds(tk) != _rounds(tp_) or \
+                tk["select_per_step"] != tp_["select_per_step"]:
+            fail(f"phase 10 rank {rk['rank']}: the kernel run decided "
+                 f"{_rounds(tk)}, the plain run {_rounds(tp_)}")
+        for key in ("losses", "grad_norms"):
+            a, b = rk[key], rp[key]
+            if a[:first_plr] != b[:first_plr] or not np.allclose(
+                    a[first_plr:], b[first_plr:], rtol=PLR_RTOL, atol=0):
+                fail(f"phase 10 rank {rk['rank']}: {key} {a} (kernels) vs "
+                     f"{b} (plain); bit-equal before step {first_plr}, "
+                     f"within {PLR_RTOL} after")
+        if tk["wire_per_step"] != tp_["wire_per_step"]:
+            fail(f"phase 10 rank {rk['rank']}: measured wire per dim/level "
+                 f"{tk['wire_per_step']} (kernels) vs {tp_['wire_per_step']}"
+                 f" (plain)")
+    changed = [h for h in t0["history"] if h["to_codec"] != h["from_codec"]]
+    if not changed:
+        fail(f"phase 10: no codec changed: {_rounds(t0)}")
+    wire = t0["wire_per_step"]
+    if not wire[-1]["dp/outer"] < wire[0]["dp/outer"]:
+        fail(f"phase 10: measured dp/outer bytes did not fall: first step "
+             f"{wire[0]['dp/outer']}, last {wire[-1]['dp/outer']}")
+    start = policy.as_policy(TUNE_SCHEME)
+    final = start.with_rules(*[policy.Rule(**r) for r in t0["rules"]])
+    sav = roofline.savings_report(
+        t0["events0"], start, final,
+        fast_bytes_per_s=FAST_LINK_BYTES_PER_S,
+        slow_bytes_per_s=SLOW_LINK_BYTES_PER_S)
+    if not sav["after"]["slow_bytes"] < sav["before"]["slow_bytes"]:
+        fail(f"phase 10: the final plan saves no slow-link bytes: {sav}")
+    # each rung taken launched its kernels (all ranks, whole run)
+    taken = {ladder.RUNGS[v] for s in sel for v in s.values()}
+    by_rate = {}
+    for r in k:
+        for kern, rows, bits, n in r["launch_shapes"]:
+            by_rate[(kern, bits)] = by_rate.get((kern, bits), 0) + n
+    kl = launch_sums(k)
+    need = []
+    if "ef:bq4" in taken:
+        need += [(f"{kern} rate 4", by_rate.get((kern, 4), 0))
+                 for kern in ("bq_encode", "bq_decode")]
+        need.append(("bq_decode_add_encode or bq_decode_add rate 4",
+                     by_rate.get(("bq_decode_add_encode", 4), 0)
+                     + by_rate.get(("bq_decode_add", 4), 0)))
+    if taken & {"ef:bq4", "plr2", "plr4", "plr8"}:
+        need += [(n, kl[n]) for n in ("matmul_tall", "matmul_at_b")]
+    if taken & {"plr2", "plr4", "plr8"}:
+        need.append(("matmul_small_k", kl["matmul_small_k"]))
+    missing = [n for n, v in need if not v]
+    if missing:
+        fail(f"phase 10: rungs {sorted(taken)} taken, but no launch of "
+             f"{missing}; by (kernel, rate) {by_rate}, lowrank {kl}")
+    if any(v for r in p for v in r["launches"].values()):
+        fail(f"phase 10: the plain run launched kernels: "
+             f"{[r['launches'] for r in p]}")
+    peak = [r["peak_bytes"] / 2**30 for r in k + p]
+    if max(peak) > TUNE_PEAK_GIB:
+        fail(f"phase 10: a rank peaked at {max(peak):.2f} GiB, above "
+             f"{TUNE_PEAK_GIB} GiB: {[round(g, 2) for g in peak]}")
+    # the numbers: per round, per step, per kernel and rate and level
+    for h in t0["history"]:
+        print(f"  phase 10 round at step {h['step']}: {h['site']} "
+              f"{h['action']} {h['from_codec']} -> {h['to_codec']} "
+              f"(err_ratio {h['err_ratio']:.6f}; {h['reason']}) [{card}]")
+    step_ms = [max(r["step_s"][i] for r in k) * 1e3 for i in range(len(sel))]
+    for i, (s_, w) in enumerate(zip(sel, wire)):
+        print(f"  phase 10 step {i}: rungs "
+              f"{ {key: ladder.RUNGS[v] for key, v in s_.items()} }, "
+              f"{step_ms[i]:.1f} ms (slowest rank), measured wire per rank "
+              f"dp/inner {w.get('dp/inner', 0)} B, dp/outer "
+              f"{w.get('dp/outer', 0)} B [{card}]")
+    levels = level_sums(k)
+    tail = [max(r["step_s"][i] for r in k) for i in range(1, len(sel))]
+    share = [sum(r["staging_s"][1:]) / sum(r["step_s"][1:]) for r in k]
+    print(f"phase 10 ({TUNE_SCHEME}, {' '.join(TUNE_FLAGS)}): kernel run == "
+          f"plain run (decisions, selects, measured wire per dim/level; "
+          f"losses and grad norms bit-equal before step {first_plr}, within "
+          f"{PLR_RTOL} after) on every rank; codecs "
+          f"{t0['codecs']}; losses {k[0]['losses']}; median "
+          f"{float(np.median(tail)) * 1e3:.1f} ms/step, "
+          f"{GLOBAL_BATCH * SEQ / float(np.median(tail)):.0f} tokens/s, "
+          f"peak {[round(g, 2) for g in peak[:len(k)]]} GiB per rank, "
+          f"staging+exchange {min(share) * 100:.0f}-{max(share) * 100:.0f} "
+          f"%; measured dp/outer {wire[0]['dp/outer']} -> "
+          f"{wire[-1]['dp/outer']} B per rank per step; slow-link bytes "
+          f"start plan {sav['before']['slow_bytes']:.0f} -> final "
+          f"{sav['after']['slow_bytes']:.0f} per rank per step "
+          f"({sav['slow_saved_frac'] * 100:.1f} % saved); launches (all "
+          f"ranks) by kernel/rate "
+          f"{ {f'{a}/{b}': v for (a, b), v in sorted(by_rate.items())} }, "
+          f"by kernel/level {levels}, lowrank "
+          f"{ {n: v for n, v in kl.items() if n.startswith('matmul')} } "
+          f"[{card}]")
+    return {"history": t0["history"], "codecs": t0["codecs"],
+            "select_per_step": sel, "wire_per_step": wire,
+            "step_ms": step_ms, "median_step_ms":
+            float(np.median(tail)) * 1e3, "peak_gib": peak[:len(k)],
+            "staging_share": [min(share), max(share)],
+            "first_plr_step": first_plr, "losses": k[0]["losses"],
+            "savings": sav, "launches": kl,
+            "by_rate": {f"{a}/{b}": v for (a, b), v in by_rate.items()},
+            "levels": levels}
 
 
 def drive_pipeline(torch, card) -> dict:
@@ -1940,6 +2159,7 @@ def main():
           f"device {torch.cuda.get_device_name(0)} [{card}]")
 
     # ---------------------------------------------------------- phase 1
+    starts = {"1": time.perf_counter()}    # wall clock at each phase
     t0 = time.perf_counter()
     bq._load()
     lowrank._load()
@@ -1964,8 +2184,8 @@ def main():
         # phase 9 alone
         os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
                               "expandable_segments:True")
-        hier = drive_hier(torch, card)
-        print(json.dumps({"phase9": hier}))
+        hier, tune = drive_hier(torch, card)
+        print(json.dumps({"phase9": hier, "phase10": tune}))
         print(f"card: {card}")
         return
 
@@ -1979,6 +2199,7 @@ def main():
         return
 
     # ---------------------------------------------------------- phase 2
+    starts["2"] = time.perf_counter()
     nb = SLOTS * paged_kv.blocks_needed(PROMPT + GEN, BLOCK_TOKENS)
     cfg = configs.get("gemma3-1b")
     r = paged_kv.token_rows(cfg.n_kv_heads, cfg.head_dim_)
@@ -2134,6 +2355,7 @@ def main():
           f"({mm_width} x 8) = {gs['step']:.3f} ms per plr8 step [{card}]")
 
     # ---------------------------------------------------------- phase 3
+    starts["3"] = time.perf_counter()
     model = Model(cfg)                                    # on the card
     t0 = time.perf_counter()
     params = model.init(SEED)
@@ -2146,6 +2368,7 @@ def main():
     torch.cuda.empty_cache()
 
     # ---------------------------------------------------------- phase 4
+    starts["4"] = time.perf_counter()
     # the ranks (fresh processes) share the card: growable segments keep
     # their reserved-but-free memory from fragmenting it
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
@@ -2158,16 +2381,19 @@ def main():
     train = drive_training(torch, card)
 
     # ---------------------------------------------------------- phase 5
+    starts["5"] = time.perf_counter()
     rings = drive_rings(torch, card, train["grad_path"])
     train["grad_path"].unlink()
 
     # ---------------------------------------------------------- phase 6
+    starts["6"] = time.perf_counter()
     print(f"phase 6: carried-state codecs on phase 4's step, "
           f"{STATEFUL_STEPS} steps: plr8 on the DP sync (kernels, plain), "
           f"ef_zhybrid_16_4 (kernels) [{card}]")
     stateful = drive_stateful(torch, card, train, n_flat)
 
     # ---------------------------------------------------------- phase 7
+    starts["7"] = time.perf_counter()
     print(f"phase 7: the pipeline, gemma3-1b full width, dp 1 x pp {PP} x "
           f"tp {TP} ranks on this card, {PP_MICRO} microbatches, seq {SEQ}, "
           f"global batch {GLOBAL_BATCH}, zhybrid_16_8: 7a --layers "
@@ -2176,19 +2402,24 @@ def main():
     pipe = drive_pipeline(torch, card)
 
     # ---------------------------------------------------------- phase 8
+    starts["8"] = time.perf_counter()
     print(f"phase 8: checkpoint and resume phase 6's plr8 kernel run "
           f"(8a {CKPT_STEPS} steps and a save, 8b resume {CKPT_STEPS} steps, "
           f"8c resume at dp {DP * TP} x tp 1, 1 step) [{card}]")
     ckpt = drive_checkpoint(torch, card, stateful["plr_run"], cfg, n_flat)
 
     # ---------------------------------------------------------- phase 9
+    starts["9 and 10"] = time.perf_counter()
     print(f"phase 9: node-factored meshes, gemma3-1b full width, four ranks "
           f"on this card, seq {SEQ}, global batch {GLOBAL_BATCH}: 9a --dp 4 "
           f"--nodes 2 --layers 13 (hier_zpp_8_16), 9b --tp 4 --tp-nodes 2 "
           f"(hier_tpp_8_16), 9c --pp 4 --pp-nodes 2 --layers 8 "
-          f"(hier_tpp_8_16, 1F1B) [{card}]")
-    hier = drive_hier(torch, card)
+          f"(hier_tpp_8_16, 1F1B); then phase 10 in the same world, the "
+          f"tuned step: {' '.join(TUNE_FLAGS)} from {TUNE_SCHEME}, "
+          f"{TUNE_STEPS} steps (kernels, plain) [{card}]")
+    hier, tune = drive_hier(torch, card)
 
+    starts["reckoning"] = time.perf_counter()
     # launches x (time - bound) per shape of phase 4's kernel run, timed in
     # a fresh process (this one's profiler reports nothing after phases
     # 3-6 have run)
@@ -2203,6 +2434,7 @@ def main():
         fail(f"timing the path's shapes failed ({proc.returncode})")
     by_shape = json.loads(shapes_path.with_suffix(".out.json").read_text())
 
+    starts["end"] = time.perf_counter()
     # kernel line: launches on each kernel's path (phase 4 the training
     # step, phase 3 serving, phase 5 the rings, phase 7 the pipeline, phase 8
     # the resumed step), times at the path's shape
@@ -2240,6 +2472,18 @@ def main():
                       if key.split("/")[0] in forms}
                 for run, r in hier.items()}
 
+    def p10_entry(kernel: str) -> dict:
+        """Phase 10's launches of a kernel (all ranks, the kernel run) by
+        rate and by link level; a bq kernel's flat and view forms count
+        with it."""
+        forms = {"bq_decode_add_encode": ("bq_decode_add_encode",
+                                          "bq_decode_add_encode_wire")
+                 }.get(kernel, (kernel,))
+        return {"by_rate": {k: v for k, v in tune["by_rate"].items()
+                            if k.split("/")[0] in forms},
+                "by_level": {k: v for k, v in tune["levels"].items()
+                             if k.split("/")[0] in forms}}
+
     for name, line, launches in (
             ("bq_encode", 173, t_launch["bq_encode"]),
             ("bq_decode", 205, t_launch["bq_decode"]),
@@ -2267,10 +2511,11 @@ def main():
                 "launches": r_launch["bq_decode_add_encode_wire"]}
         entry["launches_ef_zhybrid_16_4"] = stateful["ef"][name]
         entry["launches"] += p7_launches(name) + ckpt["launches"][name] \
-            + p9_launches(name)
+            + p9_launches(name) + tune["launches"][name]
         entry["phase7"] = p7_entry(name)
         entry["phase8"] = ckpt["launches"][name]        # after the restore
         entry["phase9"] = p9_entry(name)
+        entry["phase10"] = p10_entry(name)
         if name in ("bq_encode", "bq_decode"):
             # the block form's kernel alone, and the flat form the TP
             # all-gather calls (the same kernel, fused with its layout)
@@ -2341,8 +2586,10 @@ def main():
             mm[(kind, 8)]
         forms[kind] = {
             "launches": stateful["plr"][f"matmul_{kind}"]
-            + ckpt["launches"][f"matmul_{kind}"],
+            + ckpt["launches"][f"matmul_{kind}"]
+            + tune["launches"][f"matmul_{kind}"],
             "phase8": ckpt["launches"][f"matmul_{kind}"],
+            "phase10": tune["launches"][f"matmul_{kind}"],
             "max_abs_err": e_abs, "share_of_order_bound": share, "ms": ms,
             "plain_ms": pms, "bound_ms": bms, "bound_by": by,
             "library_ms": lib, "warm_l2_ms": wms}
@@ -2367,6 +2614,8 @@ def main():
         "phase9": {run: {k: v for k, v in r["launches"].items()
                          if k.startswith("matmul_")}
                    for run, r in hier.items()},
+        "phase10": {k: v for k, v in tune["launches"].items()
+                    if k.startswith("matmul_")},
         "max_abs_err": max(f["max_abs_err"] for f in forms.values()),
         **total, "bound_by": "bytes" if all(
             f["bound_by"] == "bytes" for f in forms.values()) else
@@ -2375,6 +2624,13 @@ def main():
         "path": "dp@zero1_grad plr8 exchange (one of each form)", "rate": 8,
         "shape": f"{mm_rows}x{mm_width}, r=8", "forms": forms,
         "orthonormalize_eager_ms": gs})
+    names = list(starts)
+    print("wall seconds per phase: " + ", ".join(
+        f"{a} {starts[b] - starts[a]:.1f}" for a, b in zip(names, names[1:]))
+        + f" [{card}]")
+    for entry in kernels:
+        # the timer of the "kernel alone" times (kernel_ms)
+        entry["kernel_alone_by"] = KERNEL_TIMER["by"]
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

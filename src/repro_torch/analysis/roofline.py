@@ -7,10 +7,14 @@ prices its own ledger: per-device link bytes of each collective, its
 backward twin included, from the ring schedule the event recorded, and
 splits them by link level (:func:`link_bytes`: a hierarchical collective's
 inner stages ride the fast intra-node links, its outer stages the slow
-inter-node ones).  The device-time terms of the reference's roofline, and
-its link rates, were a TPU's and are not carried over: the callers of
-:func:`collective_seconds` and :func:`stage_handoff_seconds` name the
-rates of their own links.
+inter-node ones).  :func:`recost_events`, :func:`suggest_scheme` and
+:func:`savings_report` re-price a recorded ledger under another policy:
+the codec-ladder walk over the fast/slow link ratio, and the byte and time
+effect of a plan swap the self-tuning controller records.  The device-time
+terms of the reference's roofline, and its link rates, were a TPU's and
+are not carried over: the callers of :func:`collective_seconds`,
+:func:`stage_handoff_seconds`, :func:`suggest_scheme` and
+:func:`savings_report` name the rates of their own links.
 """
 
 from __future__ import annotations
@@ -203,6 +207,95 @@ def _two_level_ar_events(scheme_name: str, elems: int, n_inner: int,
     ]
 
 
+# --------------------------------------------------------------------------
+# per-level codec autotune: re-price a recorded ledger under candidate
+# policies, walking the codec ladder over the fast/slow link ratio
+# --------------------------------------------------------------------------
+
+def recost_events(events, policy_like) -> list:
+    """Re-price a recorded ledger under a candidate scheme or policy.
+
+    Each event keeps its traffic shape (op, axis, elems, level, ring);
+    only the codecs are re-resolved through the candidate's compiled plan,
+    from the event's dimension, direction, level, payload size and site
+    name, as the reference's."""
+    from repro_torch.core import policy
+    plan = policy.compile_plan(policy_like)
+    out = []
+    for ev in events:
+        st = policy.as_site(ev["tag"])
+        lvl = ev.get("level", "flat")
+        # the payload size the live call resolved codecs with (it can
+        # exceed elems * itemsize: pro-rated ppermutes, hier AG stages)
+        nbytes = ev.get("nbytes",
+                        ev["elems"] * _ITEMSIZE.get(ev["dtype"], 4))
+        if st.dim in policy.DIRECTED_DIMS and st.direction is None:
+            cf = plan.codec(st.dim, "fwd", lvl, nbytes, st.name).name
+            cb = plan.codec(st.dim, "bwd", lvl, nbytes, st.name).name
+        else:
+            cf = cb = plan.codec(st.dim, st.direction, lvl, nbytes,
+                                 st.name).name
+        out.append(dict(ev, codec_fwd=cf, codec_bwd=cb))
+    return out
+
+
+def suggest_scheme(fast_bytes_per_s: float, slow_bytes_per_s: float, *,
+                   elems: int = 1 << 24, n_inner: int = 8, n_outer: int = 4,
+                   events=None, train: bool = True) -> dict:
+    """Pick per-level codecs from the fast/slow link ratio: walk the
+    outer-codec ladder (``tune.ladder.SUGGEST_LADDER``) mild ->
+    aggressive and stop at the first candidate whose slow-link seconds no
+    longer exceed its fast-link seconds at the two rates the caller names;
+    the most aggressive when none gets there.  ``events`` re-prices a
+    recorded ledger (:func:`recost_events`); without them, a synthetic
+    two-level DP all-reduce of ``elems`` floats.  Returns ``{"scheme",
+    "outer_codec", "ratio", "candidates": {name: {"fast_s", "slow_s",
+    "total_s", "outer_codec"}}}``, as the reference's."""
+    from repro_torch.tune.ladder import SUGGEST_LADDER
+    assert fast_bytes_per_s > 0 and slow_bytes_per_s > 0
+    cands = {}
+    pick = None
+    for name, outer in SUGGEST_LADDER:
+        if events is not None:
+            lb = link_bytes(recost_events(events, name), train=train)
+        else:
+            lb = link_bytes(_two_level_ar_events(name, elems, n_inner,
+                                                 n_outer), train=False)
+        fast_s = lb["fast"] / fast_bytes_per_s
+        slow_s = lb["slow"] / slow_bytes_per_s
+        cands[name] = {"fast_s": fast_s, "slow_s": slow_s,
+                       "total_s": fast_s + slow_s, "outer_codec": outer}
+        if pick is None and slow_s <= fast_s:
+            pick = name
+    if pick is None:
+        pick = SUGGEST_LADDER[-1][0]
+    return {"scheme": pick, "outer_codec": cands[pick]["outer_codec"],
+            "ratio": fast_bytes_per_s / slow_bytes_per_s,
+            "candidates": cands}
+
+
+def savings_report(events, before, after, train: bool = True, *,
+                   fast_bytes_per_s: float,
+                   slow_bytes_per_s: float) -> dict:
+    """Predicted wire and time effect of swapping plan ``before`` ->
+    ``after``: both re-price the same recorded ledger
+    (:func:`recost_events`), so the delta isolates the policy change.
+    Returns per-candidate fast/slow link bytes and seconds at the two
+    rates the caller names, the slow-link byte saving fraction and the
+    seconds saved, as the reference's."""
+    out = {}
+    for key, cand in (("before", before), ("after", after)):
+        lb = link_bytes(recost_events(events, cand), train=train)
+        out[key] = {"fast_bytes": lb["fast"], "slow_bytes": lb["slow"],
+                    "seconds": lb["fast"] / fast_bytes_per_s
+                    + lb["slow"] / slow_bytes_per_s}
+    slow0 = out["before"]["slow_bytes"]
+    out["slow_saved_frac"] = \
+        (slow0 - out["after"]["slow_bytes"]) / slow0 if slow0 else 0.0
+    out["seconds_saved"] = out["before"]["seconds"] - out["after"]["seconds"]
+    return out
+
+
 def ledger_per_tag(events, plain: bool = False) -> dict:
     """Per-device training bytes (backward twins included) per site tag;
     ``plain`` prices every event as if its codecs were ``none``: the
@@ -223,6 +316,20 @@ def wire_per_dim(wire_events) -> dict:
     for w in wire_events:
         dim = tag_dim(w["tag"])
         out[dim] = out.get(dim, 0) + w["payload_bytes"] * w["hops"] * w["mult"]
+    return out
+
+
+def wire_per_dim_level(wire_events) -> dict:
+    """Measured wire bytes (payload x hops) per ``<dim>/<level>``, the
+    level read from the site tag (``dp_outer@zero1_grad`` -> ``dp/outer``;
+    an unpinned site is ``flat``)."""
+    out = {}
+    for w in wire_events:
+        tag = w["tag"].split("@")[0]
+        lvl = tag.rsplit("_", 1)[1] if tag.endswith(("_inner", "_outer")) \
+            else "flat"
+        key = f"{tag_dim(tag)}/{lvl}"
+        out[key] = out.get(key, 0) + w["payload_bytes"] * w["hops"] * w["mult"]
     return out
 
 

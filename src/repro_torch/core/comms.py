@@ -46,10 +46,18 @@ the kernels of :mod:`repro_torch.kernels.lowrank`, its factors summed
 uncompressed as the reference's ``lax.psum`` does.  Autodiff traffic never
 carries them.
 
-The ledger (:class:`record_traffic`), the ring options, the wire-site tag
-and the codec-state region are process-wide rather than thread-local:
-autograd runs the backward of CUDA tensors on its own thread, which must
-see the same bindings.  The tuned and all-to-all paths are not yet ported.
+Runtime-tunable sites (the self-tuning controller's swap point,
+:mod:`repro_torch.tune`): inside a :class:`tune_io` region, a registered
+sum site (the optimizer's DP gradient sync) dispatches on a host rung
+index over the ladder's executable rungs (:func:`_tuned_collective`)
+instead of its plan-static codec, and accumulates the controller's
+signals.
+
+The ledger (:class:`record_traffic`), the ring options, the wire-site tag,
+the codec-state region and the tune region are process-wide rather than
+thread-local: autograd runs the backward of CUDA tensors on its own
+thread, which must see the same bindings.  The all-to-all paths are not
+yet ported.
 """
 
 from __future__ import annotations
@@ -130,6 +138,7 @@ class _State:
     level = "flat"
     time_staging = False
     state_io = None
+    tune_io = None
 
 
 _rec = _State()
@@ -418,6 +427,62 @@ def _stateful_ok() -> bool:
     """True inside a ``codec_state_io`` region, the optimizer's sync
     scope; autodiff traffic runs outside it."""
     return _rec.state_io is not None
+
+
+# --------------------------------------------------------------------------
+# tune io: runtime-tunable sites (the self-tuning controller's swap point)
+# --------------------------------------------------------------------------
+
+class tune_io:
+    """Bind the runtime-tunable site table for one step.
+
+    ``select`` maps a tunable site's ledger tag to a host ``int`` rung
+    index over :data:`repro_torch.tune.ladder.RUNGS`; a registered site
+    dispatches on it (:func:`_tuned_collective`) instead of its
+    plan-static codec, so the host-side controller changes a site's codec
+    by passing another integer to the next step: nothing is rebuilt.
+    ``sig`` carries each site's signal accumulator (the
+    :mod:`repro_torch.tune.tracker` layout); the tuned sites add their
+    step's increment, summed over ``axis`` (the whole world) and divided
+    by its size, so every rank holds the same accumulator.  Process-wide,
+    like :class:`codec_state_io`; sites not in ``select`` are untouched."""
+
+    def __init__(self, select: dict, sig: dict, axis=None):
+        self.select = {k: int(v) for k, v in (select or {}).items()}
+        self.sig = dict(sig or {})
+        self.axis = axis
+
+    def __enter__(self):
+        self.prev = _rec.tune_io
+        _rec.tune_io = self
+        return self
+
+    def __exit__(self, *exc):
+        _rec.tune_io = self.prev
+        return False
+
+    def add_sig(self, key: str, inc: torch.Tensor) -> None:
+        axis = self.axis
+        if axis is not None and axis.size > 1:
+            # mean over the world, as the reference's psum / n: ``count``
+            # stays a true step count and the payload and error sums
+            # become per-rank means (their ratios, all the controller
+            # reads, are unchanged).  48 bytes, uncompressed
+            inc = raw_psum(inc, axis) / axis.size
+        acc = torch.as_tensor(self.sig[key], dtype=torch.float32,
+                              device=inc.device)
+        self.sig[key] = acc + inc
+
+    def collect(self) -> dict:
+        return dict(self.sig)
+
+
+def _tuned_site(s):
+    """The active tune_io region iff ``s`` is registered as tunable."""
+    tio = _rec.tune_io
+    if tio is not None and s.ledger_tag in tio.select:
+        return tio
+    return None
 
 
 # --------------------------------------------------------------------------
@@ -974,11 +1039,15 @@ def psum(x, axis, tag):
     ``tag`` (backward: all-reduce under the bwd codec).  A pair routes to
     :func:`hier_all_reduce`.  A stateful codec routes through the
     carried-state sum (no backward), valid only inside a
-    ``codec_state_io`` region, never under autodiff."""
+    ``codec_state_io`` region, never under autodiff; a site registered in
+    the active :class:`tune_io` region dispatches on its rung instead."""
     s = policy.as_site(tag)
     if _is_pair(axis):
         return hier_all_reduce(x, axis, s)
     c_fwd, c_bwd = _codec_pair(s, _payload_nbytes(x))
+    if _tuned_site(s) is not None and axis.size > 1:
+        with _wire_site(s):
+            return _tuned_psum(x, axis, s, c_fwd)
     if c_fwd.stateful or c_bwd.stateful:
         if s.dim in policy.DIRECTED_DIMS and not _stateful_ok():
             _require_stateless(s, c_fwd, c_bwd)  # raises: autodiff traffic
@@ -1506,11 +1575,16 @@ def reduce_scatter_flat(flat: torch.Tensor, axis, tag="dp",
     the inner codec's ring on the compensated vector and stashes the new
     local error; ``plr*`` runs the two-factor low-rank all-reduce and
     reconstructs this rank's chunk only.  ``donate`` says the caller gives
-    ``flat`` up: ``ef:*`` then compensates into it in place.  A pair runs
-    as its joint axis (the optimizer stages the node level itself)."""
+    ``flat`` up: ``ef:*`` then compensates into it in place.  A site
+    registered in the active :class:`tune_io` region dispatches on its
+    rung instead.  A pair runs as its joint axis (the optimizer stages the
+    node level itself)."""
     s = policy.as_site(tag)
     axis = _flat(axis)
     c, _ = _codec_pair(s, _payload_nbytes(flat))
+    if _tuned_site(s) is not None and axis.size > 1:
+        with _wire_site(s):
+            return _tuned_reduce_scatter_flat(flat, axis, s, c, mean, donate)
     if c.stateful and axis.size > 1:
         with _wire_site(s):
             return _stateful_reduce_scatter_flat(flat, axis, s, c, mean,
@@ -1785,3 +1859,225 @@ def _stateful_hier_psum(x, pair: AxisPair, s, c_in, c_out):
         with _wire_site(s_in):
             out = _all_gather_flat_impl(chunk, inner, total, c_t)
     return out.reshape(x.shape).to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# runtime-tunable sites: a host index over the executable rungs of the codec
+# ladder.  The self-tuning controller (repro_torch.tune) changes a site's
+# codec by passing another rung index to the next step; every rung's state
+# stays live in the site's union slot, so nothing is rebuilt.
+# --------------------------------------------------------------------------
+
+# rows of the 128-wide block view a probe or error-feedback roundtrip
+# encodes at once (64 MB of f32): the full-width payload is never decoded
+# whole
+_ROUNDTRIP_ROWS = 1 << 17
+
+
+def _block_chunks(v: torch.Tensor):
+    """``(lo, x2d)`` over the zero-padded ``(padded_rows(len), BLOCK)``
+    block view of the flat f32 ``v``, in row chunks: ``x2d`` holds elements
+    ``[lo, lo + x2d.numel())`` (past ``len(v)``, zeros).  Whole-row chunks
+    are views of ``v``; only the last, padded one is a copy."""
+    n = v.shape[0]
+    rows = ops.padded_rows(n)
+    step = _ROUNDTRIP_ROWS
+    for r0 in range(0, rows, step):
+        r1 = min(r0 + step, rows)
+        lo, hi = r0 * BLOCK, r1 * BLOCK
+        if hi <= n:
+            yield lo, v[lo:hi].view(r1 - r0, BLOCK)
+        else:
+            x2d = torch.zeros((r1 - r0) * BLOCK, dtype=torch.float32,
+                              device=v.device)
+            x2d[:n - lo] = v[lo:n]
+            yield lo, x2d.view(r1 - r0, BLOCK)
+
+
+def _sq_sum(v: torch.Tensor) -> torch.Tensor:
+    """``sum(v * v)`` in f32, a row chunk at a time."""
+    acc = torch.zeros((), dtype=torch.float32, device=v.device)
+    for _, x2d in _block_chunks(v):
+        acc = acc + torch.sum(x2d * x2d)
+    return acc
+
+
+def _probe_err(v: torch.Tensor, probe) -> torch.Tensor:
+    """``||x - D(E(x))||^2`` of ``v``'s block view under ``probe``: the
+    next rung's local roundtrip, a row chunk at a time (bq scales are per
+    row, so each row's roundtrip is the whole view's)."""
+    acc = torch.zeros((), dtype=torch.float32, device=v.device)
+    for _, x2d in _block_chunks(v):
+        d = probe.decode_blocks(probe.encode_blocks(x2d)).sub_(x2d)
+        acc = acc + torch.sum(d * d)
+    return acc
+
+
+def _ef_residual(xc: torch.Tensor, codec, out: torch.Tensor) -> torch.Tensor:
+    """Write ``xc - D(E(xc))`` (error feedback's new residual, the
+    inner codec's local roundtrip error) into ``out``, a row chunk at a
+    time; returns its squared norm."""
+    n = xc.shape[0]
+    acc = torch.zeros((), dtype=torch.float32, device=xc.device)
+    for lo, x2d in _block_chunks(xc):
+        r = torch.sub(x2d, codec.decode_blocks(codec.encode_blocks(x2d)))
+        r = r.reshape(-1)[:n - lo]
+        out[lo:lo + r.shape[0]] = r
+        acc = acc + torch.sum(r * r)
+    return acc
+
+
+def _factor_psum(t: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """Uncompressed all-reduce of a low-rank factor (the reference's
+    ``lax.psum``), logged as measured wire like an identity all-reduce."""
+    _log("all_reduce", "-", codecs.NONE, 2 * _payload_nbytes(t), 1)
+    return raw_psum(t, axis)
+
+
+def _tuned_psum(x, axis: Axis, s, c_plan):
+    return _tuned_collective(x, axis, s, c_plan, "ar")
+
+
+def _tuned_reduce_scatter_flat(flat, axis: Axis, s, c_plan, mean: bool,
+                               donate: bool = False):
+    return _tuned_collective(flat, axis, s, c_plan, "rs", mean, donate)
+
+
+def _tuned_collective(x, axis: Axis, s, c_plan, kind: str,
+                      mean: bool = False, donate: bool = False):
+    """Sum collective (``kind`` "rs": :func:`reduce_scatter_flat`, "ar":
+    :func:`psum`) dispatched on the site's rung in the active
+    :class:`tune_io` region.
+
+    Branch order is :data:`repro_torch.tune.ladder.RUNGS` — ``(bq16, bq8,
+    ef:bq4, plr2, plr4, plr8)``; the rung is a Python index into the six
+    branch functions (the reference's ``lax.switch``).  Every branch
+    returns ``(out, residual', q', sig)`` over the site's union codec
+    state (an error-feedback residual AND a warm low-rank factor, in its
+    ``codec_state_io`` slot): the residual is written by ``ef:bq4`` only,
+    the factor by ``ef:bq4`` and ``plr*``, and the other branches pass
+    them through.
+
+    Signals (:mod:`repro_torch.tune.tracker` layout): every rung measures
+    the payload energy and a squared compression error — its own realized
+    error for ``ef``/``plr`` rungs, a local next-rung roundtrip probe for
+    the ``bq`` rungs (bq16 probes bq8, bq8 probes bq4), so the
+    controller's promote test reads the error the next rung would take.
+    The ``ef:bq4`` and ``plr`` rungs also run one power iteration of the
+    warm factor at its full width ``R = lowrank.rank_for(elems,
+    PLR_MAX_RANK)``: ``lowrank.orthonormalize`` is column-sequential (its
+    second projection too), so the leading ``r`` columns of that
+    iteration are exactly the ``plr<r>`` iteration, and one probe prices
+    every registered rank.
+
+    Ledger: one analytic event at the plan's static codec ``c_plan`` (the
+    startup codec) with the fact ``tunable=1``, the branch's own analytic
+    events muted, as the reference records it.  The measured wire events
+    are the bytes of the rung actually taken (the factor all-reduces
+    included), so after a swap the priced and measured bytes part on
+    purpose.
+
+    Memory, at a full-width rank's 2 GB flat gradient: the probe and the
+    error-feedback roundtrip run a row chunk at a time; ``ef:bq4``
+    compensates into a donated ``x``; the ``rs`` form of a ``plr`` rung
+    reconstructs this rank's rows only.  Against the reference only the
+    summation order of the signal sums changes."""
+    from repro_torch.tune import ladder as _ladder
+    from repro_torch.tune import tracker as _tracker
+    tio = _rec.tune_io
+    key = s.ledger_tag
+    cio = _rec.state_io
+    if cio is None:
+        raise RuntimeError(
+            f"tunable site {key!r} called outside a codec_state_io region "
+            "— tunable sites carry a union codec-state slot; wrap the "
+            "optimizer sync in comms.codec_state_io(...)")
+    st = cio.read(key)
+    n = axis.size
+    f32 = x.reshape(-1)
+    if f32.dtype != torch.float32:
+        f32, donate = f32.to(torch.float32), True
+    total = f32.shape[0]
+    payload_sq = _sq_sum(f32)
+    q0 = st["q"]
+    R = q0.shape[-1]
+    chunk_len = ops.padded_rows(-(-total // n)) * BLOCK
+
+    def power_iter(mat, q):
+        p = lowrank.matmul(mat, q)
+        if n > 1:
+            p = _factor_psum(p, axis)
+        phat = lowrank.orthonormalize(p)
+        q_loc = lowrank.matmul(mat.T, phat)
+        q_new = _factor_psum(q_loc, axis) if n > 1 else q_loc
+        spec = torch.nn.functional.pad(torch.sum(p * p, dim=0),
+                                       (0, _ladder.PLR_MAX_RANK - R))
+        return phat, q_loc, q_new, spec
+
+    def ride(v, c):
+        if kind == "rs":
+            return _reduce_scatter_flat_impl(v, axis, c, mean)
+        return _psum_impl(v, axis, c)
+
+    bq16, bq8, bq4 = codecs.get("bq16"), codecs.get("bq8"), codecs.get("bq4")
+
+    def bq_rung(c, probe):
+        def branch(v, residual, q):
+            sig = _tracker.pack(1.0, payload_sq, _probe_err(v, probe))
+            return ride(v, c), residual, q, sig
+        return branch
+
+    def ef4_rung(v, residual, q):
+        # xc = v + residual, into v when donated; the new residual
+        # replaces the old one, spent once xc is formed
+        xc = v.add_(residual) if donate else v + residual
+        err = _ef_residual(xc, bq4, residual)
+        mat = lowrank.to_mat(xc)
+        _, _, q_new, spec = power_iter(mat, q)
+        del mat
+        sig = _tracker.pack(1.0, payload_sq, err, spec)
+        return ride(xc, bq4), residual, lowrank.orthonormalize(q_new), sig
+
+    def plr_rung(r):
+        r_eff = min(r, R)
+
+        def branch(v, residual, q):
+            mat = lowrank.to_mat(v)
+            phat, q_loc, q_new, spec = power_iter(mat, q)
+            ph = phat[:, :r_eff].contiguous()
+            qn = q_new[:, :r_eff].contiguous()
+            ql = q_loc[:, :r_eff].contiguous()
+            # ||M_i - P^ (M_i^T P^)^T||^2: this rank's own transmitted
+            # reconstruction's error, a row chunk at a time
+            err = torch.zeros((), dtype=torch.float32, device=v.device)
+            for r0 in range(0, mat.shape[0], _ROUNDTRIP_ROWS):
+                r1 = min(r0 + _ROUNDTRIP_ROWS, mat.shape[0])
+                d = lowrank.matmul(ph[r0:r1], ql.T).sub_(mat[r0:r1])
+                err = err + torch.sum(d * d)
+            del mat
+            if kind == "rs":
+                out = _lowrank_rows(ph, qn, axis.index * chunk_len,
+                                    chunk_len, total)
+                if mean:
+                    out.div_(n)
+            else:
+                out = lowrank.from_mat(lowrank.matmul(ph, qn.T), total)
+            sig = _tracker.pack(1.0, payload_sq, err, spec)
+            return out, residual, lowrank.orthonormalize(q_new), sig
+        return branch
+
+    branches = [bq_rung(bq16, bq8), bq_rung(bq8, bq4), ef4_rung,
+                plr_rung(2), plr_rung(4), plr_rung(8)]
+    assert len(branches) == len(_ladder.RUNGS)
+    op = "reduce_scatter" if kind == "rs" else "all_reduce"
+    with scope_facts(tunable=1):
+        _account(op, key, x, axis, c_plan, c_plan, bwd_op=None,
+                 level=s.level or "flat")
+    with mute_ledger():
+        out, new_res, new_q, sig = branches[tio.select[key]](
+            f32, st["residual"], q0)
+    cio.write(key, {"residual": new_res, "q": new_q})
+    tio.add_sig(key, sig)
+    if kind == "ar":
+        out = out.reshape(x.shape)
+    return out.to(x.dtype)

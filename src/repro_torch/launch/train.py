@@ -26,6 +26,14 @@
     ... --reduced --dp 2 --tp 4 --tp-nodes 2 --scheme hier_tpp_8_16
     ... --reduced --pp 4 --pp-nodes 2 --layers 4 --microbatches 4
 
+    # self-tuning compression: the DP sync sites walk the codec ladder
+    # every 2 steps from hier_zpp_16_16 (<ckpt>/tune_policy.json holds the
+    # accepted plan), then a static replay of that plan
+    ... --reduced --dp 4 --nodes 2 --scheme hier_zpp_16_16 --tune \\
+        --tune-interval 2 --steps 8 --ckpt-dir /tmp/ck --device cpu
+    ... --reduced --dp 4 --nodes 2 --scheme hier_zpp_16_16 \\
+        --policy-from /tmp/ck/tune_policy.json --device cpu
+
     # pipeline stages: 1F1B over 2 stages, or interleaved with remat;
     # gemma3-1b's 5:1 local:global pattern does not tile into stages, so
     # --layers makes the stack uniform (global attention in every layer)
@@ -46,8 +54,12 @@ The flags are those of ``repro.launch.train`` for this path, plus
 rules as in the reference (:func:`comm_policy`).  ``--nodes``,
 ``--tp-nodes`` and ``--pp-nodes`` (an int, or ``NxD``: N nodes of D ranks)
 factor the data, model and stage axes over nodes, as the reference's do.
-The flags of unported features (context parallelism and ``--cp-nodes``,
-pods, tuning) are accepted and refused as not yet ported, never ignored.
+``--tune`` runs the self-tuning controller (:mod:`repro_torch.tune`) every
+``--tune-interval`` steps, with ``--tune-guard`` its loss guard;
+``--policy-from`` replays a ``tune_policy.json`` as static rules ahead of
+the scheme's.  The flags of unported features (context parallelism and
+``--cp-nodes``, pods) are accepted and refused as not yet ported, never
+ignored.
 
 Checkpoints are the reference's (:mod:`repro_torch.train.checkpoint`):
 each rank writes its own shards of the global leaves, every
@@ -56,14 +68,19 @@ the last step has none.  ``--resume`` continues from the latest step
 (the data stream continues from it too); the optimizer and codec state
 restore where their global layout did not change, and otherwise
 re-initialize with the reference's ``WARNING:`` lines.  Rank 0 keeps
-``<ckpt>/heartbeat.json`` (:class:`~repro_torch.train.fault.StepMonitor`).
+``<ckpt>/heartbeat.json`` (:class:`~repro_torch.train.fault.StepMonitor`;
+a tuned run stamps its plan hash there).  A tuned run also saves
+``<ckpt>/tune/``: the tune state's arrays and the controller's
+``controller.json``.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import datetime
 import importlib
+import json
 import os
 import pickle
 import queue
@@ -79,8 +96,7 @@ import torch.distributed as dist
 # flags of the reference this package refuses at a non-default value:
 # (attribute, default)
 _UNPORTED = (("cp", 1), ("pod", 1), ("cp_nodes", "1"),
-             ("host_devices", 0), ("tune", False), ("tune_interval", 50),
-             ("tune_guard", 0.05), ("policy_from", ""))
+             ("host_devices", 0))
 
 
 def parser() -> argparse.ArgumentParser:
@@ -148,15 +164,23 @@ def parser() -> argparse.ArgumentParser:
                     help="prepend a policy rule, e.g. "
                          "'dp@zero1_grad*=plr8', 'dp=ef:bq4', 'embed*=bq16' "
                          "(repeatable; first match wins)")
+    ap.add_argument("--tune", action="store_true",
+                    help="self-tuning compression: the DP gradient sync "
+                         "sites walk the codec ladder (bq16 -> bq8 -> "
+                         "ef:bq4 -> plr<r>) from measured signals")
+    ap.add_argument("--tune-interval", type=int, default=50,
+                    help="steps between the controller's decision rounds")
+    ap.add_argument("--tune-guard", type=float, default=0.05,
+                    help="relative loss-EMA regression that vetoes "
+                         "promotions and rolls back the last one")
+    ap.add_argument("--policy-from", default="",
+                    help="replay a tune_policy.json: its site rules ahead "
+                         "of the scheme's (first match wins)")
     # refused: not yet ported
     for flag, kw in (("--cp", dict(type=int, default=1)),
                      ("--pod", dict(type=int, default=1)),
                      ("--cp-nodes", dict(default="1")),
-                     ("--host-devices", dict(type=int, default=0)),
-                     ("--tune", dict(action="store_true")),
-                     ("--tune-interval", dict(type=int, default=50)),
-                     ("--tune-guard", dict(type=float, default=0.05)),
-                     ("--policy-from", dict(default=""))):
+                     ("--host-devices", dict(type=int, default=0))):
         ap.add_argument(flag, help="not yet ported", **kw)
     return ap
 
@@ -298,6 +322,57 @@ def _restore_codec(trainer, codec_dir, step, checkpoint, say=print):
         return trainer.init_codec_state()
 
 
+def _restore_tune(trainer, tune_dir, step, checkpoint, say=print):
+    """Resume the self-tuning signal accumulators saved under
+    ``<ckpt>/tune/``, with the reference's loud fallbacks: a pre-tune
+    checkpoint or a topology change that renames the tunable sites starts
+    the controller interval fresh (zeroed accumulators) with a warning.
+    Returns ``None`` on fallback — the caller takes the rung selections
+    from the restored controller state (or the plan)."""
+    if not tune_dir or checkpoint.latest_step(tune_dir) != step:
+        say("WARNING: no tune-state checkpoint for this step — "
+            "starting the controller interval fresh (zeroed signal "
+            "accumulators)")
+        return None
+    try:
+        tstate, _ = checkpoint.restore(tune_dir, trainer.tune_state_shards(),
+                                       step=step)
+        say(f"restored tune state at step {step}")
+        return trainer.tune_state_from_shards(tstate)
+    except (ValueError, AssertionError) as e:
+        say(f"WARNING: tune state not portable to this topology ({e}) — "
+            "starting the controller interval fresh")
+        return None
+
+
+def _restore_controller(ctrl, tune_dir, say=print) -> None:
+    """Resume the controller's ladder position from
+    ``<ckpt>/tune/controller.json``, with the reference's fallbacks."""
+    path = os.path.join(tune_dir, "controller.json") if tune_dir else ""
+    if not (path and os.path.exists(path)):
+        say("WARNING: no tune controller state in checkpoint — "
+            "restarting the ladder walk from the base scheme")
+        return
+    try:
+        with open(path) as f:
+            ctrl.load_state_dict(json.load(f))
+        say(f"restored tune controller (last decision step "
+            f"{ctrl.last_decision_step})")
+    except (ValueError, KeyError) as e:
+        say(f"WARNING: tune controller state not portable ({e}) — "
+            "restarting the ladder walk from the base scheme")
+
+
+def _save_controller(ctrl, tune_dir) -> None:
+    """The controller's host state as ``<tune_dir>/controller.json``
+    (atomic write + rename, like the heartbeat)."""
+    os.makedirs(tune_dir, exist_ok=True)
+    tmp = os.path.join(tune_dir, "controller.json.tmp")
+    with open(tmp, "w") as f:
+        json.dump(ctrl.state_dict(), f)
+    os.replace(tmp, os.path.join(tune_dir, "controller.json"))
+
+
 # --------------------------------------------------------------------------
 # a world of processes
 # --------------------------------------------------------------------------
@@ -406,7 +481,9 @@ def train_rank(*, rank: int = 0, world: int = 1, arch: str,
                time_staging: bool = False, flat_grad_out: str = "",
                init_from: str = "", codec_state_from: str = "",
                ckpt_dir: str = "", ckpt_every: int = 50,
-               resume: bool = False) -> dict:
+               resume: bool = False, tune: bool = False,
+               tune_interval: int = 50, tune_guard: float = 0.05,
+               policy_from: str = "") -> dict:
     """Train ``steps`` steps as rank ``rank`` of a ``dp x pp x tp`` world
     whose process group is initialized (or alone, for a one-rank world);
     ``nodes``, ``tp_nodes`` and ``pp_nodes`` factor the data, model and
@@ -428,7 +505,14 @@ def train_rank(*, rank: int = 0, world: int = 1, arch: str,
     from instead of this package's own init.  ``ckpt_dir``, ``ckpt_every``
     and ``resume`` checkpoint and resume as the reference's launcher does
     (a resumed run starts at the checkpoint's step and ignores
-    ``init_from`` and ``codec_state_from``).  Returns this rank's metrics:
+    ``init_from`` and ``codec_state_from``).  ``tune``, ``tune_interval``
+    and ``tune_guard`` run the self-tuning controller as the reference's
+    launcher does (every rank runs its own on the world-summed signals,
+    so all decide alike; rank 0 writes ``<ckpt>/tune_policy.json`` after
+    each round and ``<ckpt>/tune/controller.json`` with each checkpoint);
+    ``policy_from`` replays a ``tune_policy.json`` ahead of the scheme,
+    its ``tune_restart_warnings`` said as ``WARNING:`` lines.  Returns
+    this rank's metrics:
     losses, grad norms, step seconds, the staged bytes and (under
     ``time_staging``) seconds and the seconds of the timed spans
     (``comms.SPANS``), peak device memory, kernel launches (also
@@ -440,9 +524,13 @@ def train_rank(*, rank: int = 0, world: int = 1, arch: str,
     level,
     the schedule's ticks and bubble fraction, per codec-state slot its
     residual energy and factor rank after the last step, the first step,
-    what the resume printed, the straggler flags, and the checkpoints'
+    what the resume printed, the straggler flags, the checkpoints'
     seconds (``ckpt``: in ``save`` calls, in the saving threads, waiting
-    for them at the end, restoring) and bytes on disk."""
+    for them at the end, restoring) and bytes on disk, and under ``tune``
+    the controller's record (``tune``: the decision history, the final
+    codecs and their rules, the ``select`` and the drained signals of each
+    round, the ``select`` of each step, the measured wire bytes per
+    ``dim/level`` at every step, and the first step's analytic ledger)."""
     from repro_torch.analysis import roofline
     from repro_torch.core import codecs, comms
     from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
@@ -452,6 +540,9 @@ def train_rank(*, rank: int = 0, world: int = 1, arch: str,
     from repro_torch.train import checkpoint, fault
     from repro_torch.train.optimizer import AdamConfig
     from repro_torch.train.train_step import make_trainer
+    from repro_torch.tune import policy_artifact, tracker
+    from repro_torch.tune.controller import (CompressionController,
+                                             ControllerConfig)
 
     if dp * pp * tp != world:
         raise ValueError(f"dp {dp} x pp {pp} x tp {tp} != world {world}")
@@ -469,12 +560,6 @@ def train_rank(*, rank: int = 0, world: int = 1, arch: str,
     mi = make_mesh(dp, tp, pp, nodes=nodes, tp_nodes=tp_nodes,
                    pp_nodes=pp_nodes)
     model = Model(cfg, mi, device=dev, vpp=vpp)
-    trainer = make_trainer(
-        model, scheme=comm_policy(scheme, codec_for, no_compress_below),
-        opt_cfg=AdamConfig(lr=lr, state_bits=opt_state_bits,
-                           grad_buckets=grad_buckets),
-        n_micro=microbatches, ring_bidir=ring_bidir,
-        ring_chunks=ring_chunks, remat_policy=remat_policy)
     log = []
 
     def say(msg):
@@ -482,15 +567,35 @@ def train_rank(*, rank: int = 0, world: int = 1, arch: str,
         if rank == 0:
             print(msg, flush=True)
 
+    pol = comm_policy(scheme, codec_for, no_compress_below)
+    if policy_from:
+        art = policy_artifact.load(policy_from)
+        for w in fault.tune_restart_warnings(
+                art, mi, heartbeat_path=os.path.join(
+                    ckpt_dir, "heartbeat.json") if ckpt_dir else None):
+            say(f"WARNING: {w}")
+        pol = policy_artifact.as_policy(art, base=pol)
+        say(f"applied tuned policy {policy_from}: {len(art['rules'])} site "
+            f"rules from step {art['step']} (plan {art['plan_hash']})")
+    trainer = make_trainer(
+        model, scheme=pol,
+        opt_cfg=AdamConfig(lr=lr, state_bits=opt_state_bits,
+                           grad_buckets=grad_buckets),
+        n_micro=microbatches, ring_bidir=ring_bidir,
+        ring_chunks=ring_chunks, remat_policy=remat_policy, tune=tune)
+
     opt_dir = os.path.join(ckpt_dir, "opt") if ckpt_dir else ""
     codec_dir = os.path.join(ckpt_dir, "codec") if ckpt_dir else ""
+    tune_dir = os.path.join(ckpt_dir, "tune") if ckpt_dir else ""
     # seconds: in save() (host copies, file creation; a blocking save
     # whole), in the saving threads, waiting for them after the last step,
     # restoring; bytes of the last checkpoint
     ck = {"save_s": 0.0, "thread_s": 0.0, "wait_s": 0.0, "restore_s": 0.0,
           "bytes": 0, "steps": []}
     start = 0
-    if resume and ckpt_dir and checkpoint.latest_step(ckpt_dir) is not None:
+    resumed = resume and bool(ckpt_dir) and \
+        checkpoint.latest_step(ckpt_dir) is not None
+    if resumed:
         t0 = time.perf_counter()
         tree, man = checkpoint.restore(ckpt_dir, trainer.param_shards())
         params = checkpoint.unwrap(tree)
@@ -525,16 +630,39 @@ def train_rank(*, rank: int = 0, world: int = 1, arch: str,
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
+    # the self-tuning controller: every rank runs its own on the
+    # world-summed signals, so every rank makes the same decisions
+    tstate = ctrl = None
+    if tune:
+        ctrl = CompressionController(
+            trainer.policy, trainer.tune_sites(), mesh_info=mi,
+            cfg=ControllerConfig(interval=tune_interval, guard=tune_guard),
+            start_step=start)
+        trk = tracker.SignalTracker()
+        if resumed:
+            _restore_controller(ctrl, tune_dir, say)
+            tstate = _restore_tune(trainer, tune_dir, start, checkpoint, say)
+        if tstate is None:
+            tstate = trainer.init_tune_state()
+        # the rung selections always come from the controller (which just
+        # restored its ladder position, or starts at the base scheme's)
+        tstate = {"select": ctrl.select_indices(), "sig": tstate["sig"]}
+
     pending = []
 
     def save_all(at: int, blocking: bool) -> None:
         t0 = time.perf_counter()
-        for where, tree in ((ckpt_dir, trainer.param_shards(params)),
-                            (opt_dir, trainer.opt_state_shards(ostate)),
-                            (codec_dir, trainer.codec_state_shards(cstate))):
+        trees = [(ckpt_dir, trainer.param_shards(params)),
+                 (opt_dir, trainer.opt_state_shards(ostate)),
+                 (codec_dir, trainer.codec_state_shards(cstate))]
+        if tune:
+            trees.append((tune_dir, trainer.tune_state_shards(tstate)))
+        for where, tree in trees:
             p = checkpoint.save(where, at, tree, blocking=blocking)
             if p is not None:
                 pending.append(p)
+        if tune and rank == 0:
+            _save_controller(ctrl, tune_dir)
         ck["save_s"] += time.perf_counter() - t0
         ck["steps"].append(at)
 
@@ -542,6 +670,10 @@ def train_rank(*, rank: int = 0, world: int = 1, arch: str,
         os.makedirs(ckpt_dir, exist_ok=True)
     mon = fault.StepMonitor(heartbeat_path=os.path.join(
         ckpt_dir, "heartbeat.json") if ckpt_dir and rank == 0 else None)
+    tuned = {"rounds": [], "select_per_step": [], "wire_per_step": []}
+    if tune:
+        mon.tune_plan_hash = ctrl.plan().table_hash()
+        mon.tune_decision_step = ctrl.last_decision_step
     out = {"rank": rank, "coords": [d, mi.coords["stage"], mi.tp_axes.index],
            "start": start, "restore_log": log, "straggler": [],
            "losses": [], "grad_norms": [], "step_s": [], "staging_s": [],
@@ -563,8 +695,12 @@ def train_rank(*, rank: int = 0, world: int = 1, arch: str,
         sync()
         t0 = time.perf_counter()
         with comms.record_traffic() as events:
-            params, ostate, cstate, metrics = trainer.step(params, ostate,
-                                                           cstate, batch)
+            if tune:
+                params, ostate, cstate, tstate, metrics = \
+                    trainer.step_tuned(params, ostate, cstate, tstate, batch)
+            else:
+                params, ostate, cstate, metrics = trainer.step(
+                    params, ostate, cstate, batch)
             sync()
         out["step_s"].append(time.perf_counter() - t0)
         out["straggler"].append(mon.end(step)["straggler"])
@@ -582,6 +718,32 @@ def train_rank(*, rank: int = 0, world: int = 1, arch: str,
             out["priced_per_tag"] = roofline.ledger_per_tag(events)
             out["payload_per_tag"] = roofline.ledger_per_tag(events,
                                                              plain=True)
+        if tune:
+            if step == start:
+                tuned["events0"] = list(events)
+            tuned["select_per_step"].append(dict(tstate["select"]))
+            tuned["wire_per_step"].append(
+                roofline.wire_per_dim_level(events.wire))
+            ctrl.observe_loss(step, out["losses"][-1])
+            if (step + 1 - start) % tune_interval == 0:
+                sigs, zeroed = trk.drain(tstate["sig"])
+                for dec in ctrl.decide(step, sigs):
+                    if dec.changed:
+                        say(f"tune[{dec.site}] step {step}: {dec.action} "
+                            f"{dec.from_codec} -> {dec.to_codec} "
+                            f"({dec.reason})")
+                tstate = {"select": ctrl.select_indices(),
+                          "sig": {k: torch.from_numpy(z).to(dev)
+                                  for k, z in zeroed.items()}}
+                tuned["rounds"].append(dict(
+                    step=step, select=dict(tstate["select"]),
+                    signals={k: dataclasses.asdict(v)
+                             for k, v in sigs.items()}))
+                mon.tune_plan_hash = ctrl.plan().table_hash()
+                mon.tune_decision_step = step
+                if ckpt_dir and rank == 0:
+                    policy_artifact.emit(
+                        os.path.join(ckpt_dir, "tune_policy.json"), ctrl)
         if ckpt_dir and (step + 1) % ckpt_every == 0:
             save_all(step + 1, blocking=False)
     if ckpt_dir:
@@ -593,10 +755,27 @@ def train_rank(*, rank: int = 0, world: int = 1, arch: str,
         if checkpoint.latest_step(ckpt_dir) != last:
             save_all(last, blocking=True)
         ck["bytes"] = sum(checkpoint.nbytes(where, last)
-                          for where in (ckpt_dir, opt_dir, codec_dir))
+                          for where in (ckpt_dir, opt_dir, codec_dir)
+                          + ((tune_dir,) if tune else ()))
         say(f"checkpointed at step {last}")
+    if tune:
+        if ckpt_dir and rank == 0:
+            art = policy_artifact.emit(
+                os.path.join(ckpt_dir, "tune_policy.json"), ctrl)
+            say(f"tune_policy.json: plan {art['plan_hash']} "
+                f"({len(art['rules'])} site rules)")
+        say("tuned codecs: " + ", ".join(
+            f"{k}={v}" for k, v in sorted(ctrl.codec.items())))
+        out["tune"] = dict(tuned, history=list(ctrl.history),
+                           codecs=dict(ctrl.codec),
+                           plan_hash=ctrl.plan().table_hash(),
+                           sites={k: [s.dim, s.name, s.level, e] for k, (s, e)
+                                  in trainer.tune_sites().items()},
+                           rules=[policy_artifact._rule_dict(r)
+                                  for r in ctrl.rules()])
     out["stragglers"] = mon.stragglers
     out["ckpt"] = ck
+    out["plan_hash"] = trainer.plan.table_hash()
     if trainer.opt.last_flat_grad is not None:
         torch.save(trainer.opt.last_flat_grad.cpu(), flat_grad_out)
         trainer.opt.last_flat_grad = None
@@ -635,7 +814,10 @@ def rank_kwargs(args, **extra) -> dict:
                 grad_buckets=args.grad_buckets, lr=args.lr,
                 opt_state_bits=args.opt_state_bits, seed=args.seed,
                 device=dev.type, ckpt_dir=args.ckpt_dir,
-                ckpt_every=args.ckpt_every, resume=args.resume, **extra)
+                ckpt_every=args.ckpt_every, resume=args.resume,
+                tune=args.tune, tune_interval=args.tune_interval,
+                tune_guard=args.tune_guard, policy_from=args.policy_from,
+                **extra)
 
 
 def run(args, **extra) -> list:
@@ -700,6 +882,14 @@ def _report(res: list, args) -> None:
     for k, st in r0["codec_state"].items():
         print(f"codec state {k} (rank 0): residual^2 {st['residual_sq']:.4g}"
               + (f", factor rank {st['rank']}" if st["rank"] else ""))
+    if "tune" in r0:
+        tu = r0["tune"]
+        for step, (sel, wire) in enumerate(
+                zip(tu["select_per_step"], tu["wire_per_step"]),
+                start=r0["start"]):
+            print(f"tune step {step}: rungs {sel}, measured wire per "
+                  f"dim/level {wire}")
+        print(f"tuned codecs: {tu['codecs']} (plan {tu['plan_hash']})")
 
 
 def main(argv=None):
@@ -730,7 +920,9 @@ def main(argv=None):
                 ring_chunks=args.ring_chunks, grad_buckets=args.grad_buckets,
                 lr=args.lr, opt_state_bits=args.opt_state_bits,
                 seed=args.seed, device=args.device, ckpt_dir=args.ckpt_dir,
-                ckpt_every=args.ckpt_every, resume=args.resume)
+                ckpt_every=args.ckpt_every, resume=args.resume,
+                tune=args.tune, tune_interval=args.tune_interval,
+                tune_guard=args.tune_guard, policy_from=args.policy_from)
         finally:
             dist.destroy_process_group()
         if rank == 0:

@@ -9,9 +9,11 @@
   elastically onto another ``--dp`` / ``--tp`` / ``--pp`` through
   :mod:`repro_torch.train.checkpoint`.
 
-The reference's ``tune_restart_warnings`` checks a tuned-policy artifact,
-which this package has not ported yet; the monitor's two ``tune_*``
-fields are plain fields that the heartbeat carries when set.
+* tune_restart_warnings — the loud pre-flight of a resume with a tuned
+  policy artifact (``--policy-from``): its topology against the live mesh,
+  its plan hash against the one the run's last heartbeat stamped (the
+  monitor's ``tune_*`` fields, which a self-tuning run sets after each
+  decision round).
 """
 
 from __future__ import annotations
@@ -74,6 +76,40 @@ def heartbeat_stale(path, timeout_s: float) -> bool:
     except (ValueError, OSError):
         return True
     return (time.time() - hb["t"]) > timeout_s
+
+
+def tune_restart_warnings(artifact: dict, mesh_info,
+                          heartbeat_path=None) -> list:
+    """Loud pre-flight for resuming with a tuned-policy artifact.
+
+    Returns human-readable warning lines (empty = clean).  Two checks:
+    the artifact's recorded topology against the live mesh (an elastic
+    restart onto a different dp/node split invalidates the byte
+    arithmetic the rules were derived from), and — when the dead run's
+    heartbeat survives — the artifact's ``plan_hash`` against the plan
+    hash the run was actually executing, which catches replaying a stale
+    artifact from an earlier decision round.  The reference's lines, word
+    for word."""
+    from repro_torch.tune import policy_artifact
+    warnings = []
+    for diff in policy_artifact.topology_mismatch(artifact, mesh_info):
+        warnings.append(f"tune_policy topology mismatch — {diff}")
+    if heartbeat_path:
+        p = pathlib.Path(heartbeat_path)
+        if p.exists():
+            try:
+                hb = json.loads(p.read_text())
+            except (ValueError, OSError):
+                hb = {}
+            run_hash = hb.get("tune_plan_hash")
+            art_hash = artifact.get("plan_hash")
+            if run_hash and art_hash and run_hash != art_hash:
+                warnings.append(
+                    f"tune_policy plan_hash {art_hash} != last heartbeat "
+                    f"plan {run_hash} (decision step "
+                    f"{hb.get('tune_decision_step')}) — the artifact is "
+                    "stale relative to the run it came from")
+    return warnings
 
 
 @dataclasses.dataclass

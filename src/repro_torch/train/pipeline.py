@@ -290,9 +290,11 @@ class PipelineTrainer(Trainer):
 
     def __init__(self, model: Model, scheme="baseline", opt_cfg=None,
                  n_micro: int = 1, ring_bidir: bool = False,
-                 ring_chunks: int = 1, remat_policy=None):
+                 ring_chunks: int = 1, remat_policy=None,
+                 tune: bool = False):
         super().__init__(model, scheme=scheme, opt_cfg=opt_cfg,
-                         ring_bidir=ring_bidir, ring_chunks=ring_chunks)
+                         ring_bidir=ring_bidir, ring_chunks=ring_chunks,
+                         tune=tune)
         # fails here on a bad spec or schedule
         self.loss_fn = pipeline_loss_fn(model, n_micro, remat_policy)
 

@@ -1,4 +1,4 @@
-"""The training step (port of ``repro.train.train_step`` without tuning).
+"""The training step (port of ``repro.train.train_step``).
 
 One step = forward -> backward under the compiled plan and the ring
 options -> the optimizer's compressed ZeRO-1 sync and update, inside a
@@ -7,6 +7,12 @@ codecs (``ef:*``, ``plr*``).  PyTorch runs it eagerly, so the reference's
 ``jit``, ``shard_map`` and buffer donation have no counterpart: each rank
 runs the step on its own shards, and the optimizer updates the parameter
 tensors in place.
+
+A trainer built with ``tune`` also runs :meth:`Trainer.step_tuned`: the
+optimizer's DP gradient sync sites (:meth:`Trainer.tune_sites`) dispatch
+on the host rung indices of a ``tune_state`` (``comms.tune_io``) and
+accumulate the self-tuning controller's signals
+(:mod:`repro_torch.tune`).
 """
 
 from __future__ import annotations
@@ -50,12 +56,13 @@ class Trainer:
 
     def __init__(self, model: Model, scheme="baseline",
                  opt_cfg: AdamConfig | None = None, ring_bidir: bool = False,
-                 ring_chunks: int = 1):
+                 ring_chunks: int = 1, tune: bool = False):
         self.model = model
         self.policy = policy_lib.as_policy(scheme)
         self.plan = self.policy.compile(model.mi)
         self.ring_bidir = ring_bidir
         self.ring_chunks = ring_chunks
+        self.tune = bool(tune)
         self.opt = Adam(opt_cfg or AdamConfig(), model.mi, model.plan)
 
     # ------------------------------------------------------------------
@@ -116,17 +123,117 @@ class Trainer:
 
     def codec_state_template(self) -> dict:
         """``{ledger_tag: state}`` with each leaf as ``(shape, dtype)``;
-        empty for stateless policies."""
-        return self.plan.codec_state_template(self.codec_sites())
+        empty for stateless policies.  A tuned trainer adds (or widens) a
+        union slot per tunable site: the error-feedback residual AND the
+        warm low-rank factor, so every rung's state is live whichever rung
+        the controller selects."""
+        tmpl = self.plan.codec_state_template(self.codec_sites())
+        if self.tune:
+            tmpl = {**tmpl, **self._tune_union_template()}
+        return tmpl
 
     def init_codec_state(self) -> dict:
         """This rank's initial codec state on the model's device: zero
         residuals for error feedback, the deterministic warm factor for
         plr (identical on every rank).  Its slots come from the same
-        ``plan.stateful_sites`` resolution as the template."""
-        return {key: c.init_state(shape, dtype, self.model.device)
-                for key, (c, shape, dtype) in
-                self.plan.stateful_sites(self.codec_sites()).items()}
+        ``plan.stateful_sites`` resolution as the template, and a tuned
+        trainer's union slots from :meth:`tune_sites`."""
+        dev = self.model.device
+        out = {key: c.init_state(shape, dtype, dev)
+               for key, (c, shape, dtype) in
+               self.plan.stateful_sites(self.codec_sites()).items()}
+        if self.tune:
+            from repro_torch.kernels import lowrank
+            from repro_torch.tune import ladder
+            for key, (s, elems) in self.tune_sites().items():
+                _, ncols = lowrank.mat_shape(elems)
+                out[key] = {
+                    "residual": torch.zeros((elems,), dtype=torch.float32,
+                                            device=dev),
+                    "q": lowrank.init_factor(
+                        ncols, lowrank.rank_for(elems, ladder.PLR_MAX_RANK),
+                        dev)}
+        return out
+
+    # ------------------------------------------------------------------
+    # runtime-tunable sites (the self-tuning controller's swap surface)
+    # ------------------------------------------------------------------
+    def tune_sites(self) -> dict:
+        """``{ledger_tag: (Site, per_rank_elems)}`` of the runtime-tunable
+        sites: the flat ZeRO-1 DP gradient sync chain (``dp@zero1_grad{b}``,
+        or ``dp_inner@`` and ``dp_outer@`` on a ``--nodes`` mesh), the
+        paper's aggressive-DP compression target.  Only sum collectives
+        over axes larger than 1 qualify; the param gather stays on its
+        plan-static codec.  As the reference's."""
+        mi = self.model.mi
+        n = sum(math.prod(local_shape(d, mi)) for d in defs(self.model.plan))
+        hier = mi.node > 1
+        bucketed = self.opt.cfg.grad_buckets > 1
+        out = {}
+        for b, (lo, hi) in enumerate(self.opt._bucket_bounds(n)):
+            sfx = str(b) if bucketed else ""
+            if mi.dp > 1:
+                s = comms.Site("dp", f"zero1_grad{sfx}",
+                               level="inner" if hier else None)
+                out[s.ledger_tag] = (s, hi - lo)
+            if hier:
+                s = comms.Site("dp", f"zero1_grad{sfx}", level="outer")
+                out[s.ledger_tag] = (s, self.opt._chunk_len(hi - lo))
+        return out
+
+    def _tune_union_template(self) -> dict:
+        from repro_torch.kernels import lowrank
+        from repro_torch.tune import ladder
+        out = {}
+        for key, (s, elems) in self.tune_sites().items():
+            _, ncols = lowrank.mat_shape(elems)
+            r = lowrank.rank_for(elems, ladder.PLR_MAX_RANK)
+            out[key] = {"residual": ((elems,), torch.float32),
+                        "q": ((ncols, r), torch.float32)}
+        return out
+
+    def init_tune_state(self) -> dict:
+        """``{"select", "sig"}``: each site's rung index (a host ``int``)
+        seeded from the compiled plan's own resolution at the site (a
+        tuned run starts where its static scheme stands), and its zeroed
+        signal accumulator on the model's device."""
+        from repro_torch.tune import ladder, tracker
+        sel, sig = {}, {}
+        for key, (s, elems) in self.tune_sites().items():
+            c = self.plan.codec_pair(s, elems * 4)[0].name
+            sel[key] = ladder.rung_or_default(c)
+            sig[key] = torch.zeros((tracker.SIG_LEN,), dtype=torch.float32,
+                                   device=self.model.device)
+        return {"select": sel, "sig": sig}
+
+    def tune_state_shards(self, state=None) -> dict:
+        """The tune state as the reference's global leaves (its
+        ``tune_structs``): replicated, so each leaf is whole on every rank
+        and rank 0 writes it; ``select`` an int32 scalar, ``sig`` f32
+        ``[SIG_LEN]``.  :meth:`tune_state_from_shards` reads them back."""
+        from repro_torch.tune import tracker
+        lead = self.model.mi.all_axes.index == 0
+        dev = self.model.device
+
+        def leaf(shape, dtype, v):
+            return Shard(shape, whole(shape), dtype, v, lead, dev)
+        out = {"select": {}, "sig": {}}
+        for key in self.tune_sites():
+            sel = None if state is None else torch.tensor(
+                state["select"][key], dtype=torch.int32)
+            out["select"][key] = leaf((), torch.int32, sel)
+            out["sig"][key] = leaf((tracker.SIG_LEN,), torch.float32,
+                                   None if state is None else
+                                   torch.as_tensor(state["sig"][key],
+                                                   dtype=torch.float32))
+        return out
+
+    @staticmethod
+    def tune_state_from_shards(tree: dict) -> dict:
+        """The tune state from :meth:`tune_state_shards`' restored leaves
+        (each ``select`` a Python int again)."""
+        return {"select": {k: int(v) for k, v in tree["select"].items()},
+                "sig": dict(tree["sig"])}
 
     def codec_state_shards(self, state=None) -> dict:
         """The codec state as the reference's global leaves (its
@@ -221,6 +328,20 @@ class Trainer:
         """One training step; ``params`` are updated in place, and so are
         the codec state's residual buffers.  Returns ``(params, opt_state,
         codec_state, metrics)``."""
+        out = self._step(params, opt_state, codec_state, batch, None)
+        return out[:3] + out[4:]
+
+    def step_tuned(self, params, opt_state, codec_state, tune_state, batch):
+        """One step of a ``tune`` trainer: :meth:`step` with the DP sync
+        sites dispatching on ``tune_state["select"]`` and adding to its
+        signal accumulators (``comms.tune_io`` inside the codec-state
+        region).  Returns ``(params, opt_state, codec_state, tune_state,
+        metrics)``; the new ``tune_state`` keeps the same ``select``."""
+        if not self.tune:
+            raise RuntimeError("step_tuned needs a trainer built with tune")
+        return self._step(params, opt_state, codec_state, batch, tune_state)
+
+    def _step(self, params, opt_state, codec_state, batch, tune_state):
         ts = [t for _, t in leaves(self.model.plan, params)]
         with policy_lib.use_plan(self.plan), \
                 comms.ring_options(self.ring_bidir, self.ring_chunks):
@@ -235,25 +356,37 @@ class Trainer:
             # slots in this region; everything the model emits under
             # autodiff stays stateless (guarded in comms)
             with comms.codec_state_io(codec_state) as cio:
-                opt_state, stats = self.opt.apply(params, grads, opt_state)
+                if tune_state is None:
+                    opt_state, stats = self.opt.apply(params, grads,
+                                                      opt_state)
+                else:
+                    with comms.tune_io(tune_state["select"],
+                                       tune_state["sig"],
+                                       axis=self.model.mi.all_axes) as tio:
+                        opt_state, stats = self.opt.apply(params, grads,
+                                                          opt_state)
+                    tune_state = {"select": dict(tune_state["select"]),
+                                  "sig": tio.collect()}
             codec_state = cio.collect()
-        return params, opt_state, codec_state, \
+        return params, opt_state, codec_state, tune_state, \
             {"loss": loss.detach(), **metrics, **stats}
 
 
 def make_trainer(model: Model, scheme="baseline",
                  opt_cfg: AdamConfig | None = None, n_micro: int = 1,
                  ring_bidir: bool = False, ring_chunks: int = 1,
-                 remat_policy: str | None = None) -> Trainer:
+                 remat_policy: str | None = None,
+                 tune: bool = False) -> Trainer:
     """The flat step, or the microbatched 1F1B pipeline trainer when the
     mesh has a stage axis, the batch splits into microbatches or a remat
     policy is set (a model built with ``vpp > 1`` runs the interleaved
-    schedule)."""
+    schedule).  ``tune`` adds :meth:`Trainer.step_tuned`, the step whose
+    DP sync sites dispatch on the rung indices of a ``tune_state``."""
     if model.mi.pp > 1 or n_micro > 1 or remat_policy not in (None, "none"):
         from repro_torch.train.pipeline import PipelineTrainer
         return PipelineTrainer(model, scheme=scheme, opt_cfg=opt_cfg,
                                n_micro=n_micro, ring_bidir=ring_bidir,
                                ring_chunks=ring_chunks,
-                               remat_policy=remat_policy)
+                               remat_policy=remat_policy, tune=tune)
     return Trainer(model, scheme=scheme, opt_cfg=opt_cfg,
-                   ring_bidir=ring_bidir, ring_chunks=ring_chunks)
+                   ring_bidir=ring_bidir, ring_chunks=ring_chunks, tune=tune)

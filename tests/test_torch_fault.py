@@ -1,7 +1,8 @@
 """The port's fault tolerance (repro_torch.train.fault) against the
 reference's: ``StepMonitor``'s straggler flags, EMA and heartbeat file
-(the same keys, written atomically), ``heartbeat_stale`` and
-``RestartPolicy``, on the same scripted clocks and files.  Each fault
+(the same keys, written atomically), ``heartbeat_stale``,
+``RestartPolicy`` and ``tune_restart_warnings``, on the same scripted
+clocks and files.  Each fault
 module's ``time`` is replaced by a scripted clock (the process's own
 clock is untouched), so the comparisons are exact."""
 
@@ -123,6 +124,53 @@ def test_restart_policy_reads_either_package(writer, tmp_path):
         assert pol.on_failure() == 9
         assert not pol.should_restart()          # budget exhausted
         assert pol.restarts == 2
+
+
+@pytest.mark.parametrize("writer", ["reference", "port"])
+@pytest.mark.parametrize("beat", ["none", "same", "stale"])
+def test_tune_restart_warnings_match_reference(writer, beat, tmp_path,
+                                               monkeypatch):
+    """The pre-flight of a ``--policy-from`` resume says the reference's
+    lines word for word, against a heartbeat either package's monitor
+    stamped with the run's plan hash."""
+    from repro.models.params import MeshInfo as JMeshInfo
+    from repro.train import fault as jfault
+    from repro_torch.models.params import MeshInfo as TMeshInfo
+    from repro_torch.train import fault as tfault
+    art = {"version": 1, "plan_hash": "89ab89ab89ab89ab", "step": 9,
+           "topology": {"dp": 2, "tp": 1, "pp": 1, "cp": 1, "nodes": 2,
+                        "pods": 1}}
+    hb = tmp_path / "heartbeat.json"
+    if beat != "none":
+        mod = jfault if writer == "reference" else tfault
+        monkeypatch.setattr(mod, "time", Clock([0.01]))
+        mon = mod.StepMonitor(
+            heartbeat_path=str(hb), tune_decision_step=9,
+            tune_plan_hash=art["plan_hash"] if beat == "same"
+            else "0000111122223333")
+        mon.begin()
+        mon.end(9)
+        monkeypatch.undo()
+    meshes = ((TMeshInfo(dp=2, node=2), JMeshInfo(dp=2, node=2,
+                                                  node_axis="node")),
+              (TMeshInfo(dp=4, tp=2), JMeshInfo(dp=4, tp=2)))
+    for mt, mj in meshes:
+        for path in (None, str(hb)):
+            want = jfault.tune_restart_warnings(art, mj, path)
+            assert tfault.tune_restart_warnings(art, mt, path) == want
+    lines = tfault.tune_restart_warnings(art, meshes[1][0], str(hb))
+    assert lines[:3] == ["tune_policy topology mismatch — dp: artifact=2 "
+                         "mesh=4",
+                         "tune_policy topology mismatch — nodes: artifact=2 "
+                         "mesh=1",
+                         "tune_policy topology mismatch — tp: artifact=1 "
+                         "mesh=2"]
+    assert len(lines) == (4 if beat == "stale" else 3)
+    if beat == "stale":
+        assert lines[3] == ("tune_policy plan_hash 89ab89ab89ab89ab != last "
+                            "heartbeat plan 0000111122223333 (decision step "
+                            "9) — the artifact is stale relative to the run "
+                            "it came from")
 
 
 def test_ema_is_the_reference_recurrence(monkeypatch):

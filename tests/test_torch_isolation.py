@@ -1,8 +1,8 @@
-"""The port stands alone: no module of ``repro_torch`` (the checkpoint and
-fault modules included), and not ``chip_smoke.py``, imports ``jax`` or the
-reference package ``repro``, and neither does a rank that
+"""The port stands alone: no module of ``repro_torch`` (the checkpoint,
+fault and ``tune/`` modules included), and not ``chip_smoke.py``, imports
+``jax`` or the reference package ``repro``, and neither does a rank that
 ``launch/train.py`` spawns (a fresh interpreter), also when it saves and
-resumes a checkpoint;
+resumes a checkpoint or runs the self-tuning controller;
 entry points asked for the card raise without one instead of running on
 the CPU; ``chip_smoke.py`` fails without a card and outside the repo."""
 
@@ -106,6 +106,27 @@ def test_checkpoint_modules_are_covered(tmp_path):
                           dict(kw, resume=resume), timeout=300)
         assert [r["foreign_modules"] for r in res] == [[], []]
         assert res[0]["start"] == (1 if resume else 0)
+
+
+def test_tune_modules_are_covered(tmp_path):
+    """The tune package is in the scan above, and tuned ranks (the tunable
+    sites, the controller, the artifact, the tune state's checkpoint and a
+    ``--policy-from`` replay) import neither jax nor repro."""
+    names = {p.relative_to(PKG).as_posix() for p in FILES if PKG in p.parents}
+    assert {"tune/__init__.py", "tune/ladder.py", "tune/tracker.py",
+            "tune/controller.py", "tune/policy_artifact.py"} <= names
+    from repro_torch.launch.train import spawn_world
+    kw = dict(arch="gemma3-1b", reduced=True, dp=2, tp=1, steps=2, seq=8,
+              global_batch=2, device="cpu", ckpt_dir=str(tmp_path),
+              scheme="zhybrid_16_8")
+    res = spawn_world("repro_torch.launch.train:train_rank", 2,
+                      dict(kw, tune=True, tune_interval=1), timeout=300)
+    assert [r["foreign_modules"] for r in res] == [[], []]
+    assert [len(r["tune"]["rounds"]) for r in res] == [2, 2]
+    res = spawn_world("repro_torch.launch.train:train_rank", 2,
+                      dict(kw, steps=1, ckpt_dir="", policy_from=str(
+                          tmp_path / "tune_policy.json")), timeout=300)
+    assert [r["foreign_modules"] for r in res] == [[], []]
 
 
 def _run_smoke(cwd: Path):

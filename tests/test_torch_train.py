@@ -427,11 +427,21 @@ def test_launcher_refuses_unported_flags():
     ok = ap.parse_args(["--arch", "gemma3-1b", "--dp", "2", "--tp", "2",
                         "--scheme", "zhybrid_16_8", "--ring-bidir"])
     assert tlaunch.unported(ok) == []
-    for extra in (["--cp-nodes", "2"], ["--cp", "2"], ["--pod", "2"],
-                  ["--tune"], ["--policy-from", "x"], ["--tune-interval", "5"]):
+    for extra in (["--cp-nodes", "2"], ["--cp", "2"], ["--pod", "2"]):
         args = ap.parse_args(["--arch", "gemma3-1b", *extra])
         msgs = tlaunch.unported(args)
         assert len(msgs) == 1 and "not yet ported" in msgs[0], extra
+    # self-tuning is ported: its flags parse and are accepted
+    tune = ap.parse_args(["--arch", "gemma3-1b", "--tune", "--tune-interval",
+                          "5", "--tune-guard", "0.1", "--policy-from", "x"])
+    assert tlaunch.unported(tune) == []
+    assert (tune.tune, tune.tune_interval, tune.tune_guard,
+            tune.policy_from) == (True, 5, 0.1, "x")
+    kw = tlaunch.rank_kwargs(ap.parse_args(
+        ["--arch", "gemma3-1b", "--tune", "--tune-interval", "5",
+         "--device", "cpu"]))
+    assert (kw["tune"], kw["tune_interval"], kw["tune_guard"],
+            kw["policy_from"]) == (True, 5, 0.05, "")
     # checkpoints are ported: their flags are accepted
     ck = ap.parse_args(["--arch", "gemma3-1b", "--ckpt-dir", "x",
                         "--ckpt-every", "5", "--resume"])
