@@ -5,7 +5,8 @@
     python3 chip_smoke.py --bq-only  # phase 1 and the bq timings alone
     python3 chip_smoke.py --pp-only  # phase 1, phase 4's step, phase 7
     python3 chip_smoke.py --ckpt-only  # phase 1, phase 6's plr8 run, phase 8
-    python3 chip_smoke.py --hier-only  # phase 1, phases 9 and 10
+    python3 chip_smoke.py --hier-only  # phase 1, phases 9, 10 and 11
+    python3 chip_smoke.py --cp-only    # phase 1 and phase 11
 
 ``--bq-only`` prints the bq kernels' timings and those of the fused TP
 all-gather, TP reduce-scatter and KV-read ops beside the compositions
@@ -60,8 +61,9 @@ fused decode-add, alone and together, against ``_split_for_scatter``,
 block encode, block decode-add and ``from_blocks``) and for the paged KV
 read at the serving table (the fused read against gather-decode and
 cast).
-Phase 3 serves gemma3-1b (full published width and depth) by continuous
-batching over a bq8 paged KV pool, 8 requests of
+Phase 3 serves gemma3-1b (full published width, its first 13 layers with
+the 5:1 local:global pattern kept; 26 until phase 11 came in) by
+continuous batching over a bq8 paged KV pool, 8 requests of
 560 + 24 tokens on 8 slots, through the kernels, through their plain
 versions and with a dense pool, and requires identical tokens and pool
 planes between the first two and the bq8 error bound against the third,
@@ -168,6 +170,27 @@ plain run, no rank importing jax or repro, and the largest rank within
 measured dp/inner and dp/outer bytes, ms/step, tokens/s, peak memory,
 the staging share and the launches per kernel, rate and level.
 
+Phase 11 drives context parallelism in phase 9's world of four ranks:
+gemma3-1b at full published width, its first 6 layers in 11a (one 5:1
+local:global block, window 512; four ranks holding the whole model and
+the cp fold's flat f32 copies do not fit the card at 13) and 4 in 11b
+(which holds the whole Adam state), sequence 1024, global batch 4, 2
+steps each: 11a ``--dp 2 --cp 2`` under zhybrid_16_8
+(each rank attends over its zigzag 2 x 256 tokens, the K/V blocks ride
+the cp ring in bf16 at rate 16, the cp fold and the DP sync on the block
+forms) through the kernels and the plain versions, and 11b ``--cp 4
+--cp-nodes 2`` under hier_tpp_8_16 (two hops inside a node at bq16, two
+across at bq8, the cp fold RS(inner) -> AR(outer) -> AG(inner)) through
+the kernels.  It requires 11a's kernel run equal to its plain run
+(losses, grad norms, ledger per dim and ``dim/level``, link bytes),
+finite losses, priced cp bytes and no pp bytes, 11b's ``cp/outer`` bytes
+below what ``baseline`` prices for the same events, a launch at each
+link level of every kernel its decomposition implies there (CP_LEVELS),
+none in the plain run; it prints each run's ms/step, tokens/s, peak
+memory, staging share, the cp fold's seconds (``comms.span``), the
+priced and measured wire per ``dim/level``, and ``cp_ring_seconds`` at
+the assumed link rates of phase 10.
+
 After phase 8, a fresh process (this script with ``--reckon FILE``, which
 the script starts itself) times each (kernel, rows, rate) that phase 4's
 kernel run launched, at its shape, and reckons launches x (time - bound)
@@ -205,8 +228,11 @@ SPIN_CYCLES = 2_000_000       # about 1 ms of the card's clock
 BITS = (4, 8, 16, 24)
 MAIN_BITS = 8                 # the serving pool is bq8
 
-# serving: gemma3-1b at full depth, 8 slots, 16-token blocks, 560 + 24
+# serving: gemma3-1b, 8 slots, 16-token blocks, 560 + 24; its first 13
+# layers (two 5:1 blocks and a local layer, the pattern kept: cut from 26
+# to pay for phase 11's runs, about half of phase 3's 199 s)
 SLOTS, BLOCK_TOKENS, PROMPT, GEN, SEED = 8, 16, 560, 24, 0
+SERVE_LAYERS = 13
 # main path: the training step at full width and depth
 DP, TP, STEPS, SEQ, GLOBAL_BATCH = 2, 2, 5, 1024, 4
 RING_WORLD = 4                # phase 5's data axis
@@ -282,6 +308,38 @@ TUNE_FLAGS = ("--dp", "4", "--tp", "1", "--nodes", "2", "--layers",
               str(TUNE_LAYERS), "--tune", "--tune-interval",
               str(TUNE_INTERVAL))
 TUNE_PEAK_GIB = 18.0          # the largest rank's allowance
+# phase 11: context parallelism in phase 9's world of four ranks, gemma3-1b
+# at full width with its 5:1 local:global pattern (window 512) kept, seq
+# 1024, global batch 4: 11a --dp 2 --cp 2 under zhybrid_16_8 (each rank
+# attends over its zigzag 2 x 256 tokens, K/V ride the cp ring in bf16 at
+# rate 16) through the kernels and the plain versions, 11b --cp 4
+# --cp-nodes 2 under hier_tpp_8_16 (hops and the cp fold inside and across
+# nodes) through the kernels.  Depth: 11a holds the whole model per rank
+# and half the ZeRO-1 state, as 9a, which peaked at 14.8 GiB per rank at
+# 13 layers; the cp fold adds a flat f32 copy of every gradient and its
+# sum (about 2.6 GB each at 13 layers), about 20 GiB per rank, which four
+# ranks sharing the card do not fit, so 11a keeps the first 6 layers (one
+# 5:1 block, 463M parameters; ``depth``, the pattern kept): 11.73 GiB per
+# rank.  11b (dp 1) holds the whole Adam state: at 6 layers a rank ran out
+# of memory in the Adam update (16.45 GiB allocated and 1.73 GiB more
+# asked, with the update's temporaries then all alive), so it keeps the
+# first 4 (local) layers, 409M parameters: 14.55 GiB per rank with the
+# temporaries freed as used (NVIDIA H100 80GB HBM3, 700.00 W).  (name,
+# scheme, steps, flags, with a plain run, depth), 2 steps each
+CP_RUNS = (
+    ("11a", "zhybrid_16_8", 2, ("--dp", "2", "--tp", "1", "--cp", "2"),
+     True, 6),
+    ("11b", "hier_tpp_8_16", 2, ("--dp", "1", "--tp", "1", "--cp", "4",
+                                 "--cp-nodes", "2"), False, 4))
+# the kernels each cp run launches at each link level: the K/V hops encode
+# and decode bf16 blocks on the flat forms; the cp fold is an all-reduce
+# (11a: over two ranks, its hop with the sum; 11b: RS(inner) -> AR(outer)
+# -> AG(inner)), and 11a's DP sync a reduce-scatter and a gather
+CP_LEVELS = {
+    "11a": {"flat": {"bq_encode_flat", "bq_decode_flat", "bq_encode",
+                     "bq_decode_add_encode", "bq_decode_add", "bq_decode"}},
+    "11b": HIER_LEVELS["9c"],
+}
 # link rates the slow-link saving's seconds are priced at (nominal: one
 # direction of H100 NVLink 4, one 400 Gb/s InfiniBand port; assumed, not
 # measured: the check itself is on bytes)
@@ -1414,8 +1472,8 @@ def run(label, scheme, backend=None, steps=STEPS, extra=(), dp=DP, tp=TP,
 
 
 def train_runs(card, runs: list) -> list:
-    """Runs of the launcher's training step in one world of ``dp x pp x
-    tp`` processes on this card (:func:`run`; the ranks start once and
+    """Runs of the launcher's training step in one world of ``dp x cp x pp
+    x tp`` processes on this card (:func:`run`; the ranks start once and
     train the runs in turn, each deterministic with its exchanges timed);
     prints each run's numbers and the world's wall, and returns each run's
     per-rank results."""
@@ -1431,7 +1489,7 @@ def train_runs(card, runs: list) -> list:
         kws.append(train.rank_kwargs(args, backend=r["backend"],
                                      deterministic=True, time_staging=True,
                                      **r["kw"]))
-        worlds.add(args.dp * args.pp * args.tp)
+        worlds.add(args.dp * args.cp * args.pp * args.tp)
     if len(worlds) != 1:
         fail(f"runs of one world need one world size, got {worlds}")
     t0 = time.perf_counter()
@@ -1474,25 +1532,33 @@ def level_sums(res) -> dict:
     return out
 
 
-def drive_hier(torch, card) -> tuple:
+def drive_hier(torch, card, cp_only: bool = False) -> tuple:
     """Phase 9: the node-factored meshes (9a ``--nodes``, 9b
     ``--tp-nodes``, 9c ``--pp-nodes``) in one world of four ranks, through
     the kernels and (9a, 9b) the plain versions, then phase 10, the tuned
-    step, in the same world (:func:`check_tune`); returns each phase 9
-    run's launches per kernel and level (all ranks) and its numbers, and
-    phase 10's."""
+    step, and phase 11, context parallelism, in the same world
+    (:func:`check_tune`, :func:`check_cp`); returns each phase 9 run's
+    launches per kernel and level (all ranks) and its numbers, phase 10's
+    and phase 11's.  ``cp_only`` runs phase 11 alone."""
     runs, names = [], []
-    for name, scheme, steps, flags, plain in HIER_RUNS:
+    for name, scheme, steps, flags, plain, depth in \
+            tuple(r + (0,) for r in (() if cp_only else HIER_RUNS)) \
+            + CP_RUNS:
         for backend in (None, "torch") if plain else (None,):
             runs.append(run(f"{name} {'plain' if backend else 'kernels'}",
-                            scheme, backend, steps, flags, dp=1, tp=1))
+                            scheme, backend, steps, flags, dp=1, tp=1,
+                            **({"depth": depth} if depth else {})))
             names.append((name, backend))
-    for backend in (None, "torch"):
-        runs.append(run(f"10 {'plain' if backend else 'kernels'}",
-                        TUNE_SCHEME, backend, TUNE_STEPS, TUNE_FLAGS, dp=1,
-                        tp=1))
-        names.append(("10", backend))
+    if not cp_only:
+        for backend in (None, "torch"):
+            runs.append(run(f"10 {'plain' if backend else 'kernels'}",
+                            TUNE_SCHEME, backend, TUNE_STEPS, TUNE_FLAGS,
+                            dp=1, tp=1))
+            names.append(("10", backend))
     res = dict(zip(names, train_runs(card, runs)))
+    cp = check_cp(card, res)
+    if cp_only:
+        return {}, {}, cp
     out = {}
     for name, scheme, steps, flags, plain in HIER_RUNS:
         k = res[(name, None)]
@@ -1539,7 +1605,101 @@ def drive_hier(torch, card) -> tuple:
                      "staging_share": [min(share), max(share)],
                      "per_dim_level": r0["priced_per_dim_level"],
                      "link_bytes": r0["link_bytes"]}
-    return out, check_tune(card, res[("10", None)], res[("10", "torch")])
+    return out, check_tune(card, res[("10", None)], res[("10", "torch")]), cp
+
+
+def check_cp(card, res: dict) -> dict:
+    """Phase 11: the cp runs (``res[(name, backend)]``): 11a's kernel run
+    equal to its plain run (losses, grad norms, ledger per dim and
+    dim/level, link bytes), finite losses, priced ``cp`` bytes and no
+    ``pp`` bytes, 11b's ``cp/outer`` bytes below what ``baseline`` prices
+    for the same events, a launch at each link level of every kernel
+    CP_LEVELS names, none in the plain run, no rank importing jax or
+    repro; prints each run's numbers and returns them."""
+    from repro_torch.analysis import roofline
+
+    out = {}
+    for name, scheme, steps, flags, plain, depth in CP_RUNS:
+        k = res[(name, None)]
+        for rk in k:
+            if not np.isfinite(rk["losses"]).all():
+                fail(f"phase {name} rank {rk['rank']}: losses "
+                     f"{rk['losses']}")
+            if rk["foreign_modules"]:
+                fail(f"phase {name} rank {rk['rank']} imported "
+                     f"{rk['foreign_modules']}")
+        if plain:
+            p = res[(name, "torch")]
+            for rk, rp in zip(k, p):
+                for key in ("losses", "grad_norms", "wire_per_dim",
+                            "priced_per_dim_level", "link_bytes"):
+                    if rk[key] != rp[key]:
+                        fail(f"phase {name} rank {rk['rank']}: {key} differ "
+                             f"between the kernel run ({rk[key]}) and the "
+                             f"plain run ({rp[key]})")
+            if any(v for r in p for v in r["launches"].values()):
+                fail(f"phase {name}: the plain run launched kernels: "
+                     f"{[r['launches'] for r in p]}")
+        r0 = k[0]
+        priced = r0["priced_per_dim_level"]
+        cp_b = sum(v for key, v in priced.items() if key.startswith("cp/"))
+        pp_b = sum(v for key, v in priced.items() if key.startswith("pp/"))
+        if not cp_b > 0 or pp_b:
+            fail(f"phase {name}: priced cp bytes {cp_b}, pp bytes {pp_b}: "
+                 f"{priced}")
+        base = roofline.ledger_summary(
+            roofline.recost_events(r0["events0"], "baseline"),
+            train=True)["per_dim_level"]
+        if name == "11b" and not priced["cp/outer"] < base["cp/outer"]:
+            fail(f"phase 11b: cp/outer {priced['cp/outer']} bytes, not "
+                 f"below baseline's {base['cp/outer']}")
+        levels = level_sums(k)
+        missing = sorted(f"{kern}/{lvl}"
+                         for lvl, kerns in CP_LEVELS[name].items()
+                         for kern in kerns if not levels.get(f"{kern}/{lvl}"))
+        if missing:
+            fail(f"phase {name}: no launch of {missing}; launches by level "
+                 f"{levels}")
+        step = max(float(np.median(r["step_s"][1:])) for r in k)
+        share = [sum(r["staging_s"][1:]) / sum(r["step_s"][1:]) for r in k]
+        fold = max(float(np.median([s.get("cp_bwd@grad_seq_rep", 0.0)
+                                    for s in r["span_s"][1:]])) for r in k)
+        ring_s = roofline.cp_ring_seconds(r0["events0"], True,
+                                          FAST_LINK_BYTES_PER_S,
+                                          SLOW_LINK_BYTES_PER_S)
+        peak = [round(r["peak_bytes"] / 2**30, 2) for r in k]
+        mb = {key: round(v / 1e6, 2) for key, v in priced.items() if v}
+        meas = {key: round(v / 1e6, 2)
+                for key, v in r0["wire_per_dim_level"].items() if v}
+        same = ("kernel run == plain run (losses, grad norms, ledger per dim "
+                "and dim/level, link bytes) on every rank; ") if plain else ""
+        print(f"phase {name} ({scheme}, {' '.join(flags)}, first {depth} "
+              f"layers): {same}losses {r0['losses']}; {step * 1e3:.1f} "
+              f"ms/step, {GLOBAL_BATCH * SEQ / step:.0f} tokens/s, peak "
+              f"{peak} GiB per rank, staging+exchange "
+              f"{min(share) * 100:.0f}-{max(share) * 100:.0f} %, "
+              f"{r0['staging_bytes'][-1] / 1e9:.2f} GB staged per step "
+              f"(rank 0); cp fold {fold * 1e3:.1f} ms per step (slowest "
+              f"rank); wire per rank per step, MB priced {mb}, measured "
+              f"(a two-level collective's under its dim's flat key) {meas}; "
+              f"cp/outer priced under baseline "
+              f"{base.get('cp/outer', 0) / 1e6:.2f} MB; cp_ring_seconds "
+              f"{ring_s * 1e3:.3f} ms at assumed link rates "
+              f"{FAST_LINK_BYTES_PER_S / 1e9:.0f} / "
+              f"{SLOW_LINK_BYTES_PER_S / 1e9:.0f} GB/s (fast / slow); "
+              f"launches (all ranks) by kernel/level {levels} [{card}]")
+        out[name] = {"launches": launch_sums(k), "levels": levels,
+                     "step_ms": step * 1e3, "tokens_per_s":
+                     GLOBAL_BATCH * SEQ / step, "peak_gib": peak,
+                     "staging_share": [min(share), max(share)],
+                     "staged_gb": r0["staging_bytes"][-1] / 1e9,
+                     "cp_fold_ms": fold * 1e3,
+                     "per_dim_level": priced,
+                     "measured_per_dim_level": r0["wire_per_dim_level"],
+                     "baseline_per_dim_level": base,
+                     "cp_ring_s_assumed_rates": ring_s,
+                     "losses": r0["losses"], "layers": depth}
+    return out
 
 
 def _rounds(tune: dict) -> list:
@@ -2184,8 +2344,17 @@ def main():
         # phase 9 alone
         os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
                               "expandable_segments:True")
-        hier, tune = drive_hier(torch, card)
-        print(json.dumps({"phase9": hier, "phase10": tune}))
+        hier, tune, cp = drive_hier(torch, card)
+        print(json.dumps({"phase9": hier, "phase10": tune, "phase11": cp}))
+        print(f"card: {card}")
+        return
+
+    if sys.argv[1:] == ["--cp-only"]:
+        # phase 11 alone
+        os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                              "expandable_segments:True")
+        _, _, cp = drive_hier(torch, card, cp_only=True)
+        print(json.dumps({"phase11": cp}))
         print(f"card: {card}")
         return
 
@@ -2356,11 +2525,11 @@ def main():
 
     # ---------------------------------------------------------- phase 3
     starts["3"] = time.perf_counter()
-    model = Model(cfg)                                    # on the card
+    model = Model(cfg.truncated(SERVE_LAYERS))            # on the card
     t0 = time.perf_counter()
     params = model.init(SEED)
     torch.cuda.synchronize()
-    print(f"phase 3: gemma3-1b, {cfg.n_layers} layers, "
+    print(f"phase 3: gemma3-1b, the first {model.cfg.n_layers} layers, "
           f"{model.n_params() / 1e9:.3f}B params bf16, init "
           f"{time.perf_counter() - t0:.2f}s [{card}]")
     s_launch = drive_serving(torch, model, params, card)
@@ -2409,15 +2578,18 @@ def main():
     ckpt = drive_checkpoint(torch, card, stateful["plr_run"], cfg, n_flat)
 
     # ---------------------------------------------------------- phase 9
-    starts["9 and 10"] = time.perf_counter()
+    starts["9 to 11"] = time.perf_counter()
     print(f"phase 9: node-factored meshes, gemma3-1b full width, four ranks "
           f"on this card, seq {SEQ}, global batch {GLOBAL_BATCH}: 9a --dp 4 "
           f"--nodes 2 --layers 13 (hier_zpp_8_16), 9b --tp 4 --tp-nodes 2 "
           f"(hier_tpp_8_16), 9c --pp 4 --pp-nodes 2 --layers 8 "
           f"(hier_tpp_8_16, 1F1B); then phase 10 in the same world, the "
           f"tuned step: {' '.join(TUNE_FLAGS)} from {TUNE_SCHEME}, "
-          f"{TUNE_STEPS} steps (kernels, plain) [{card}]")
-    hier, tune = drive_hier(torch, card)
+          f"{TUNE_STEPS} steps (kernels, plain); then phase 11, context "
+          f"parallelism: 11a --dp 2 --cp 2, the first {CP_RUNS[0][5]} "
+          f"layers (zhybrid_16_8; kernels, plain), 11b --cp 4 --cp-nodes 2, "
+          f"the first {CP_RUNS[1][5]} (hier_tpp_8_16; kernels) [{card}]")
+    hier, tune, cp = drive_hier(torch, card)
 
     starts["reckoning"] = time.perf_counter()
     # launches x (time - bound) per shape of phase 4's kernel run, timed in
@@ -2472,6 +2644,25 @@ def main():
                       if key.split("/")[0] in forms}
                 for run, r in hier.items()}
 
+    def p11_entry(kernel: str) -> dict:
+        """Phase 11's launches of a kernel (all ranks, the kernel runs) per
+        run, by link level; a bq kernel's flat and view forms count with
+        it."""
+        forms = {"bq_encode": ("bq_encode", "bq_encode_flat",
+                               "bq_encode_view"),
+                 "bq_decode": ("bq_decode", "bq_decode_flat"),
+                 "bq_decode_add_encode": ("bq_decode_add_encode",
+                                          "bq_decode_add_encode_wire",
+                                          "bq_decode_add_encode_view"),
+                 "bq_decode_add": ("bq_decode_add", "bq_decode_add_flat")
+                 }.get(kernel, (kernel,))
+        return {run: {key: v for key, v in r["levels"].items()
+                      if key.split("/")[0] in forms}
+                for run, r in cp.items()}
+
+    def p11_launches(kernel: str) -> int:
+        return sum(run["launches"][kernel] for run in cp.values())
+
     def p10_entry(kernel: str) -> dict:
         """Phase 10's launches of a kernel (all ranks, the kernel run) by
         rate and by link level; a bq kernel's flat and view forms count
@@ -2511,11 +2702,13 @@ def main():
                 "launches": r_launch["bq_decode_add_encode_wire"]}
         entry["launches_ef_zhybrid_16_4"] = stateful["ef"][name]
         entry["launches"] += p7_launches(name) + ckpt["launches"][name] \
-            + p9_launches(name) + tune["launches"][name]
+            + p9_launches(name) + tune["launches"][name] \
+            + p11_launches(name)
         entry["phase7"] = p7_entry(name)
         entry["phase8"] = ckpt["launches"][name]        # after the restore
         entry["phase9"] = p9_entry(name)
         entry["phase10"] = p10_entry(name)
+        entry["phase11"] = p11_entry(name)
         if name in ("bq_encode", "bq_decode"):
             # the block form's kernel alone, and the flat form the TP
             # all-gather calls (the same kernel, fused with its layout)
@@ -2535,7 +2728,8 @@ def main():
                 "bound_ms": op["bound_ms"], "bound_by": "bytes",
                 "stream_kernel_ms": op["stream_kernel_ms"],
                 "launches": t_launch[f"{name}_flat"]
-                + p7_launches(f"{name}_flat") + p9_launches(f"{name}_flat"),
+                + p7_launches(f"{name}_flat") + p9_launches(f"{name}_flat")
+                + p11_launches(f"{name}_flat"),
                 "phase7": p7_entry(f"{name}_flat"),
                 "max_abs_err": err[f"{name}_flat"],
                 "by_shape": by_shape.get(f"{name}_flat", [])}
@@ -2616,6 +2810,9 @@ def main():
                    for run, r in hier.items()},
         "phase10": {k: v for k, v in tune["launches"].items()
                     if k.startswith("matmul_")},
+        "phase11": {run: {k: v for k, v in r["launches"].items()
+                          if k.startswith("matmul_")}
+                    for run, r in cp.items()},
         "max_abs_err": max(f["max_abs_err"] for f in forms.values()),
         **total, "bound_by": "bytes" if all(
             f["bound_by"] == "bytes" for f in forms.values()) else

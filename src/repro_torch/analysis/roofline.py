@@ -13,8 +13,9 @@ the codec-ladder walk over the fast/slow link ratio, and the byte and time
 effect of a plan swap the self-tuning controller records.  The device-time
 terms of the reference's roofline, and its link rates, were a TPU's and
 are not carried over: the callers of :func:`collective_seconds`,
-:func:`stage_handoff_seconds`, :func:`suggest_scheme` and
-:func:`savings_report` name the rates of their own links.
+:func:`stage_handoff_seconds`, :func:`cp_ring_seconds`,
+:func:`suggest_scheme` and :func:`savings_report` name the rates of their
+own links.
 """
 
 from __future__ import annotations
@@ -365,6 +366,19 @@ def stage_handoff_seconds(events, train: bool,
     rate of its own link."""
     pp_ev = [ev for ev in events if tag_dim(ev["tag"]) == "pp"]
     return ledger_summary(pp_ev, train)["total_bytes"] / link_bytes_per_s
+
+
+def cp_ring_seconds(events, train: bool, fast_bytes_per_s: float,
+                    slow_bytes_per_s: float, slow_axes=()) -> float:
+    """Link time of the ``cp`` events alone: the ring attention's K/V
+    hops (one ppermute event per hop, each carrying its codec's wire
+    bytes) and the cp gradient fold, through :func:`collective_seconds`
+    (a two-level ring's node-crossing hops on the slow link, a flat ring
+    over an axis of ``slow_axes`` on it end to end), at the two link rates
+    the caller names."""
+    cp_ev = [ev for ev in events if tag_dim(ev["tag"]) == "cp"]
+    return collective_seconds(cp_ev, train, fast_bytes_per_s,
+                              slow_bytes_per_s, slow_axes)
 
 
 def pipelined_step_time(base_step_s: float, pp: int, n_micro: int,

@@ -701,6 +701,21 @@ def pmax(x, axis: Axis):
         return _all_reduce_raw(x.detach(), axis, op=dist.ReduceOp.MAX)
 
 
+def raw_ppermute(x, axis, perm):
+    """Uncompressed permutation over ``axis`` (a pair permutes on its joint
+    axis), outside the ledger and without a gradient, as the reference's
+    ``lax.ppermute`` of the ring attention's integer positions and
+    validity masks: no codec touches them (compare ``tp@attn_pos``, which
+    does).  A bool payload rides as bytes."""
+    axis = _flat(axis)
+    if axis.size == 1:
+        return x
+    with torch.no_grad():
+        if x.dtype == torch.bool:
+            return _exchange(x.to(torch.uint8), axis, perm).bool()
+        return _exchange(x.contiguous(), axis, perm)
+
+
 # --------------------------------------------------------------------------
 # block-layout helpers
 # --------------------------------------------------------------------------

@@ -274,14 +274,16 @@ def _resolve_axes(mesh_info) -> dict:
     the data axis; ``zero`` stays on the inner data axis (hpZ: the master
     chunks are replicated per node, so the param gather never leaves the
     node); ``tp`` and ``ep`` ride the (possibly ``(tpnode, model)``) model
-    axes, ``pp`` the (possibly ``(ppnode, stage)``) stage axes, ``None``
-    without a stage axis.  The port's meshes have no cp or pool axes
-    yet."""
+    axes, ``pp`` the (possibly ``(ppnode, stage)``) stage axes and ``cp``
+    the (possibly ``(cpnode, cp)``) context-parallel axes, each ``None``
+    on a mesh without that axis.  The port's meshes have no pool axis
+    (``kv``) yet."""
     if mesh_info is None:
         return {}
     mi = mesh_info
     return {"dp": mi.data_pair, "zero": mi.dp_axes, "tp": mi.tp_axes,
-            "ep": mi.tp_axes, "pp": mi.stage_axes, "cp": None, "kv": None}
+            "ep": mi.tp_axes, "pp": mi.stage_axes, "cp": mi.cp_axes,
+            "kv": None}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -2,18 +2,20 @@
 ``make_hier_mesh``, ``comm_axes`` and ``parse_nodes_spec`` of
 ``repro.launch.mesh``).
 
-The mesh is ``(node, data, ppnode, stage, tpnode, model)``: ``model``
-carries TP/SP, ``stage`` the pipeline stages, ``data`` DP and the ZeRO-1
-shards.  ``--nodes``, ``--pp-nodes`` and ``--tp-nodes`` factor the data,
+The mesh is ``(node, data, cpnode, cp, ppnode, stage, tpnode, model)``:
+``model`` carries TP/SP, ``stage`` the pipeline stages, ``cp`` the
+context-parallel ring (each cp rank holds one zigzag slice of the
+sequence), ``data`` DP and the ZeRO-1 shards.  ``--nodes``,
+``--cp-nodes``, ``--pp-nodes`` and ``--tp-nodes`` factor the data, cp,
 stage and model axes into an outer node axis and an inner one, so that
 the two-level collectives of :mod:`repro_torch.core.comms` stage their
 intra-node (fast links) and inter-node (slow links) hops apart.  Ranks are
-laid out as the reference lays out devices, row-major over those six axes
-(an axis of one rank is left out): on the flat mesh global rank ``r = (d
-* pp + s) * tp + t`` sits at data index ``d``, stage ``s`` and model
-``t``, and a factored axis is the flat one linearized node-major, so
-"rank i owns chunk i" names the same shard in both packages and on flat
-and factored meshes alike.  Context-parallel axes are not yet ported.
+laid out as the reference lays out devices, row-major over those eight
+axes (an axis of one rank is left out): on the flat mesh global rank ``r
+= ((d * cp + c) * pp + s) * tp + t`` sits at data index ``d``, cp index
+``c``, stage ``s`` and model ``t``, and a factored axis is the flat one
+linearized node-major, so "rank i owns chunk i" names the same shard in
+both packages and on flat and factored meshes alike.
 """
 
 from __future__ import annotations
@@ -28,6 +30,8 @@ from repro_torch.models.params import MeshInfo
 
 NODE_AXIS = "node"       # outer (inter-node, slow-link) data sub-axis
 LOCAL_AXIS = "data"      # inner data sub-axis / flat data axis
+CP_NODE_AXIS = "cpnode"  # outer cp sub-axis
+CP_AXIS = "cp"           # inner cp sub-axis / flat context-parallel axis
 PP_NODE_AXIS = "ppnode"  # outer stage sub-axis
 STAGE_AXIS = "stage"     # inner stage sub-axis / flat stage axis
 TP_NODE_AXIS = "tpnode"  # outer model sub-axis
@@ -60,27 +64,30 @@ def _axis_groups(shape: tuple, dims: tuple) -> dict:
 
 
 def make_mesh(dp: int, tp: int, pp: int = 1, nodes: int = 1,
-              tp_nodes: int = 1, pp_nodes: int = 1) -> MeshInfo:
-    """This rank's view of a ``dp x pp x tp`` mesh whose data, stage and
-    model axes split over ``nodes``, ``pp_nodes`` and ``tp_nodes`` nodes
-    (``dp``, ``pp`` and ``tp`` are the whole degrees, as the reference's
-    ``make_mesh`` takes them), its axes bound to process groups of the
-    initialized default group (which must hold ``dp * pp * tp`` ranks).
-    A one-rank mesh needs no process group."""
+              tp_nodes: int = 1, pp_nodes: int = 1, cp: int = 1,
+              cp_nodes: int = 1) -> MeshInfo:
+    """This rank's view of a ``dp x cp x pp x tp`` mesh whose data, cp,
+    stage and model axes split over ``nodes``, ``cp_nodes``, ``pp_nodes``
+    and ``tp_nodes`` nodes (``dp``, ``cp``, ``pp`` and ``tp`` are the whole
+    degrees, as the reference's ``make_mesh`` takes them), its axes bound
+    to process groups of the initialized default group (which must hold
+    ``dp * cp * pp * tp`` ranks).  A one-rank mesh needs no process
+    group."""
     for ways, n, flag in ((dp, nodes, "--nodes"), (tp, tp_nodes, "--tp-nodes"),
-                          (pp, pp_nodes, "--pp-nodes")):
+                          (pp, pp_nodes, "--pp-nodes"),
+                          (cp, cp_nodes, "--cp-nodes")):
         if n < 1 or ways % n:
             raise ValueError(f"{flag} {n} must divide {ways}")
-    world = dp * pp * tp
+    world = dp * cp * pp * tp
     if world == 1:
         return MeshInfo()
     if not dist.is_initialized() or dist.get_world_size() != world:
         raise RuntimeError(
-            f"a {dp} x {pp} x {tp} (data x stage x model) mesh needs "
-            f"torch.distributed initialized with {world} ranks")
+            f"a {dp} x {cp} x {pp} x {tp} (data x cp x stage x model) mesh "
+            f"needs torch.distributed initialized with {world} ranks")
     r = dist.get_rank()
-    shape = (nodes, dp // nodes, pp_nodes, pp // pp_nodes, tp_nodes,
-             tp // tp_nodes)
+    shape = (nodes, dp // nodes, cp_nodes, cp // cp_nodes, pp_nodes,
+             pp // pp_nodes, tp_nodes, tp // tp_nodes)
     coord, rest = [], r
     for n in reversed(shape):
         coord.append(rest % n)
@@ -105,33 +112,44 @@ def make_mesh(dp: int, tp: int, pp: int = 1, nodes: int = 1,
                         axis((outer, inner), (k, k + 1)))
 
     data = factored(NODE_AXIS, LOCAL_AXIS, 0)
-    stage = factored(PP_NODE_AXIS, STAGE_AXIS, 2) if pp > 1 else None
-    model = factored(TP_NODE_AXIS, MODEL_AXIS, 4)
+    context = factored(CP_NODE_AXIS, CP_AXIS, 2) if cp > 1 else None
+    stage = factored(PP_NODE_AXIS, STAGE_AXIS, 4) if pp > 1 else None
+    model = factored(TP_NODE_AXIS, MODEL_AXIS, 6)
     pair = isinstance(data, AxisPair)
+    # the loss's token sums: the batch and cp axes are adjacent in the
+    # rank order, so one group covers them
+    batch_cp = None
+    if cp > 1:
+        names = tuple(n for n, k in zip(
+            (NODE_AXIS, LOCAL_AXIS, CP_NODE_AXIS, CP_AXIS), shape) if k > 1)
+        batch_cp = axis(names, (0, 1, 2, 3))
     return MeshInfo(
         tp=tp, dp=dp // nodes, pp=pp, node=nodes, tp_node=tp_nodes,
-        pp_node=pp_nodes, model=model,
+        pp_node=pp_nodes, cp=cp, cp_node=cp_nodes, model=model,
         data=data.inner if pair else data, stage=stage,
         nodes=data.outer if pair else None,
-        batch=data.joint if pair else None,
+        batch=data.joint if pair else None, context=context,
+        batch_cp=batch_cp,
         world=Axis("world", world, r, None, tuple(range(world))))
 
 
 def make_hier_mesh(dp: int, tp: int, nodes: int = 1, tp_nodes: int = 1,
-                   pp: int = 1, pp_nodes: int = 1) -> MeshInfo:
+                   pp: int = 1, pp_nodes: int = 1, cp: int = 1,
+                   cp_nodes: int = 1) -> MeshInfo:
     """The node-factored mesh (the reference's entry point of that name):
     :func:`make_mesh` with its node counts.  A factored axis is the flat
     one linearized node-major, so flat and two-level collectives over it
     are interchangeable rank for rank."""
     return make_mesh(dp, tp, pp, nodes=nodes, tp_nodes=tp_nodes,
-                     pp_nodes=pp_nodes)
+                     pp_nodes=pp_nodes, cp=cp, cp_nodes=cp_nodes)
 
 
 def comm_axes(mi: MeshInfo, logical: str):
-    """Logical parallelism axis (``"data"``, ``"stage"`` or ``"model"``)
-    -> the comms axis this rank passes to the collectives: the flat axis,
-    or the :class:`~repro_torch.core.comms.AxisPair` of a node-factored
-    one, which routes the collectives through their two-level forms."""
+    """Logical parallelism axis (``"data"``, ``"cp"``, ``"stage"`` or
+    ``"model"``) -> the comms axis this rank passes to the collectives: the
+    flat axis, or the :class:`~repro_torch.core.comms.AxisPair` of a
+    node-factored one, which routes the collectives through their
+    two-level forms."""
     if logical == MODEL_AXIS:
         return mi.tp_axes
     if logical == LOCAL_AXIS:
@@ -140,14 +158,18 @@ def comm_axes(mi: MeshInfo, logical: str):
         if mi.stage_axes is None:
             raise ValueError("mesh has no stage axis")
         return mi.stage_axes
+    if logical == CP_AXIS:
+        if mi.cp_axes is None:
+            raise ValueError("mesh has no cp axis")
+        return mi.cp_axes
     raise NotImplementedError(f"mesh axis {logical!r} is not yet ported")
 
 
 def parse_nodes_spec(spec, ways: int, flag: str = "--nodes") -> int:
-    """``--nodes`` / ``--tp-nodes`` / ``--pp-nodes`` -> node count: an int,
-    or ``NxD`` (nodes x ranks per node), for the ``ways`` ranks of the
-    axis it factors (the reference's rules; ``ValueError`` here where the
-    reference asserts)."""
+    """``--nodes`` / ``--tp-nodes`` / ``--pp-nodes`` / ``--cp-nodes`` ->
+    node count: an int, or ``NxD`` (nodes x ranks per node), for the
+    ``ways`` ranks of the axis it factors (the reference's rules;
+    ``ValueError`` here where the reference asserts)."""
     if isinstance(spec, int):
         nodes = spec
     elif "x" in str(spec).lower():

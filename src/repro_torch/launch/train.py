@@ -1,5 +1,5 @@
 """Training entry point: the compressed ZeRO-1, Megatron-SP step over a
-``dp x pp x tp`` world of processes.
+``dp x cp x pp x tp`` world of processes.
 
     # on the card: gemma3-1b at full width, 4 ranks sharing it
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-1b \\
@@ -26,6 +26,11 @@
     ... --reduced --dp 2 --tp 4 --tp-nodes 2 --scheme hier_tpp_8_16
     ... --reduced --pp 4 --pp-nodes 2 --layers 4 --microbatches 4
 
+    # context parallelism: each cp rank holds a zigzag slice of the
+    # sequence, K/V ride the cp ring (cp codecs); --cp-nodes factors it
+    ... --reduced --dp 2 --cp 2 --scheme zhybrid_16_8 --device cpu
+    ... --reduced --cp 4 --cp-nodes 2 --scheme hier_tpp_8_16 --device cpu
+
     # self-tuning compression: the DP sync sites walk the codec ladder
     # every 2 steps from hier_zpp_16_16 (<ckpt>/tune_policy.json holds the
     # accepted plan), then a static replay of that plan
@@ -43,7 +48,7 @@
         --remat-policy per_stage:0
 
 Under ``torchrun`` (``RANK`` / ``WORLD_SIZE`` set) each process joins that
-group as one rank.  Otherwise the command spawns ``dp * pp * tp``
+group as one rank.  Otherwise the command spawns ``dp * cp * pp * tp``
 processes itself, so one command runs the step as in the reference.
 Ranks exchange through ``torch.distributed``'s gloo backend: on the card,
 every encode, fused ring hop and decode runs as a kernel, and only the
@@ -51,15 +56,19 @@ wire planes cross between ranks through host memory.
 
 The flags are those of ``repro.launch.train`` for this path, plus
 ``--device``; ``--codec-for`` and ``--no-compress-below`` prepend policy
-rules as in the reference (:func:`comm_policy`).  ``--nodes``,
-``--tp-nodes`` and ``--pp-nodes`` (an int, or ``NxD``: N nodes of D ranks)
-factor the data, model and stage axes over nodes, as the reference's do.
+rules as in the reference (:func:`comm_policy`).  ``--cp`` shards the
+sequence over a context-parallel axis (the host permutes each batch into
+zigzag order, :func:`~repro_torch.train.train_step.zigzag_shard_seq`, and
+each rank takes its contiguous ``S / cp`` slice of it).  ``--nodes``,
+``--cp-nodes``, ``--tp-nodes`` and ``--pp-nodes`` (an int, or ``NxD``: N
+nodes of D ranks) factor the data, cp, model and stage axes over nodes, as
+the reference's do.
 ``--tune`` runs the self-tuning controller (:mod:`repro_torch.tune`) every
 ``--tune-interval`` steps, with ``--tune-guard`` its loss guard;
 ``--policy-from`` replays a ``tune_policy.json`` as static rules ahead of
-the scheme's.  The flags of unported features (context parallelism and
-``--cp-nodes``, pods) are accepted and refused as not yet ported, never
-ignored.
+the scheme's.  The flags of unported features (``--pod``, and
+``--host-devices``, an XLA host-device count with no counterpart here) are
+accepted and refused as not yet ported, never ignored.
 
 Checkpoints are the reference's (:mod:`repro_torch.train.checkpoint`):
 each rank writes its own shards of the global leaves, every
@@ -95,8 +104,7 @@ import torch.distributed as dist
 
 # flags of the reference this package refuses at a non-default value:
 # (attribute, default)
-_UNPORTED = (("cp", 1), ("pod", 1), ("cp_nodes", "1"),
-             ("host_devices", 0))
+_UNPORTED = (("pod", 1), ("host_devices", 0))
 
 
 def parser() -> argparse.ArgumentParser:
@@ -116,6 +124,15 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--tp-nodes", default="1",
                     help="factor tp into (tpnode, model) sub-axes: the TP "
                          "collectives run two levels; an int or 'NxD'")
+    ap.add_argument("--cp", type=int, default=1,
+                    help="context-parallel degree (a cp axis of processes: "
+                         "each holds a zigzag slice of the sequence, ring "
+                         "attention rotates the K/V blocks under the "
+                         "scheme's cp codecs)")
+    ap.add_argument("--cp-nodes", default="1",
+                    help="factor cp into (cpnode, cp) sub-axes: ring hops "
+                         "and the cp gradient fold that cross a node ride "
+                         "the cp_*_outer codec; an int or 'NxD'")
     ap.add_argument("--pp-nodes", default="1",
                     help="factor pp into (ppnode, stage) sub-axes: stage "
                          "handoffs that cross a node ride the outer codec; "
@@ -177,9 +194,7 @@ def parser() -> argparse.ArgumentParser:
                     help="replay a tune_policy.json: its site rules ahead "
                          "of the scheme's (first match wins)")
     # refused: not yet ported
-    for flag, kw in (("--cp", dict(type=int, default=1)),
-                     ("--pod", dict(type=int, default=1)),
-                     ("--cp-nodes", dict(default="1")),
+    for flag, kw in (("--pod", dict(type=int, default=1)),
                      ("--host-devices", dict(type=int, default=0))):
         ap.add_argument(flag, help="not yet ported", **kw)
     return ap
@@ -193,7 +208,7 @@ def unported(args) -> list[str]:
         if val != default:
             flag = "--" + attr.replace("_", "-")
             out.append(f"{flag} {val!r} is not yet ported (this package "
-                       f"runs the dp x pp x tp step)")
+                       f"runs the dp x cp x pp x tp step)")
     return out
 
 
@@ -227,10 +242,12 @@ def comm_policy(scheme: str, codec_for=(), no_compress_below: int = 0):
     return pol
 
 
-def model_config(arch: str, reduced: bool = False, layers: int = 0):
+def model_config(arch: str, reduced: bool = False, layers: int = 0,
+                 depth: int = 0):
     """The architecture's config, at smoke size under ``reduced``;
     ``layers`` resets the layer stack to that many uniform layers, as the
-    reference's ``--layers`` does."""
+    reference's ``--layers`` does, and ``depth`` keeps the stack's first
+    ``depth`` layers, its layer pattern kept (``ArchConfig.truncated``)."""
     from repro_torch import configs
 
     cfg = configs.get(arch)
@@ -238,25 +255,30 @@ def model_config(arch: str, reduced: bool = False, layers: int = 0):
         cfg = cfg.reduced()
     if layers:
         cfg = cfg.replace(n_layers=layers, groups=())
+    if depth:
+        cfg = cfg.truncated(depth)
     return cfg
 
 
 def node_counts(args) -> dict:
-    """``--nodes``, ``--tp-nodes`` and ``--pp-nodes`` as node counts
-    (``nodes``, ``tp_nodes``, ``pp_nodes``); ``ValueError`` for a spec
-    that does not divide its axis."""
+    """``--nodes``, ``--tp-nodes``, ``--pp-nodes`` and ``--cp-nodes`` as
+    node counts (``nodes``, ``tp_nodes``, ``pp_nodes``, ``cp_nodes``);
+    ``ValueError`` for a spec that does not divide its axis."""
     from repro_torch.launch.mesh import parse_nodes_spec
 
     return dict(nodes=parse_nodes_spec(args.nodes, args.dp),
                 tp_nodes=parse_nodes_spec(args.tp_nodes, args.tp,
                                           flag="--tp-nodes"),
                 pp_nodes=parse_nodes_spec(args.pp_nodes, args.pp,
-                                          flag="--pp-nodes"))
+                                          flag="--pp-nodes"),
+                cp_nodes=parse_nodes_spec(args.cp_nodes, args.cp,
+                                          flag="--cp-nodes"))
 
 
 def check_schedule(args) -> None:
     """Raise ``ValueError`` for a mesh or pipeline the flags cannot run: a
-    node spec that does not divide its axis, a bad ``--vpp`` or
+    node spec that does not divide its axis, a sequence the zigzag cp
+    sharding or the tp sequence split cannot cut, a bad ``--vpp`` or
     ``--remat-policy``, or a layer stack that does not split into ``pp *
     vpp`` identical chunks (the reference's messages)."""
     from repro_torch.launch.mesh import validate_vpp
@@ -264,6 +286,14 @@ def check_schedule(args) -> None:
     from repro_torch.train.pipeline import parse_remat_policy
 
     node_counts(args)
+    if args.cp < 1:
+        raise ValueError(f"--cp {args.cp} must be >= 1")
+    if args.cp > 1 and args.seq % (2 * args.cp):
+        raise ValueError(f"seq len {args.seq} must divide 2*cp="
+                         f"{2 * args.cp} for zigzag cp sharding")
+    if (args.seq // args.cp) % args.tp:
+        raise ValueError(f"dim 1 of size {args.seq // args.cp} not "
+                         f"divisible by axis size {args.tp}")
     validate_vpp(args.vpp, args.pp, args.microbatches)
     parse_remat_policy(args.remat_policy, args.vpp)
     if args.pp > 1:
@@ -467,9 +497,10 @@ def rank_device(device, rank: int) -> torch.device:
 # --------------------------------------------------------------------------
 
 def train_rank(*, rank: int = 0, world: int = 1, arch: str,
-               reduced: bool = False, layers: int = 0, dp: int = 1,
-               tp: int = 1, pp: int = 1, nodes: int = 1, tp_nodes: int = 1,
-               pp_nodes: int = 1, microbatches: int = 1,
+               reduced: bool = False, layers: int = 0, depth: int = 0,
+               dp: int = 1, tp: int = 1, pp: int = 1, cp: int = 1,
+               nodes: int = 1, tp_nodes: int = 1, pp_nodes: int = 1,
+               cp_nodes: int = 1, microbatches: int = 1,
                vpp: int = 1, remat_policy: str = "none",
                steps: int = 20, seq: int = 64,
                global_batch: int = 8, scheme: str = "baseline",
@@ -484,12 +515,16 @@ def train_rank(*, rank: int = 0, world: int = 1, arch: str,
                resume: bool = False, tune: bool = False,
                tune_interval: int = 50, tune_guard: float = 0.05,
                policy_from: str = "") -> dict:
-    """Train ``steps`` steps as rank ``rank`` of a ``dp x pp x tp`` world
-    whose process group is initialized (or alone, for a one-rank world);
-    ``nodes``, ``tp_nodes`` and ``pp_nodes`` factor the data, model and
-    stage axes over nodes (:func:`~repro_torch.launch.mesh.make_mesh`);
-    ``pp``, ``microbatches``, ``vpp`` and ``remat_policy`` select the
-    pipeline trainer as the reference's ``make_trainer`` does.
+    """Train ``steps`` steps as rank ``rank`` of a ``dp x cp x pp x tp``
+    world whose process group is initialized (or alone, for a one-rank
+    world); ``nodes``, ``cp_nodes``, ``tp_nodes`` and ``pp_nodes`` factor
+    the data, cp, model and stage axes over nodes
+    (:func:`~repro_torch.launch.mesh.make_mesh`); each batch is permuted
+    into zigzag order on the host and this rank takes its rows and its
+    contiguous ``seq / cp`` slice of it; ``depth`` cuts the stack to its
+    first layers, the pattern kept (:func:`model_config`); ``pp``,
+    ``microbatches``, ``vpp`` and ``remat_policy`` select the pipeline
+    trainer as the reference's ``make_trainer`` does.
 
     ``codec_for`` and ``no_compress_below`` prepend policy rules to
     ``scheme`` (:func:`comm_policy`); ``backend="torch"`` runs every bq and
@@ -517,8 +552,9 @@ def train_rank(*, rank: int = 0, world: int = 1, arch: str,
     ``time_staging``) seconds and the seconds of the timed spans
     (``comms.SPANS``), peak device memory, kernel launches (also
     by bq kernel, wire rows and rate), the
-    first step's ledger per dimension (measured wire bytes and the priced
-    analytic events, and priced per ``dim/level`` and per link class,
+    first step's ledger (its analytic events; per dimension, measured wire
+    bytes and the priced events, and priced and measured per
+    ``dim/level`` and priced per link class,
     ``link_bytes`` with every outer level slow) and per site (priced, and
     priced as if uncompressed), the kernel launches per bq kernel and link
     level,
@@ -531,6 +567,8 @@ def train_rank(*, rank: int = 0, world: int = 1, arch: str,
     codecs and their rules, the ``select`` and the drained signals of each
     round, the ``select`` of each step, the measured wire bytes per
     ``dim/level`` at every step, and the first step's analytic ledger)."""
+    import numpy as np
+
     from repro_torch.analysis import roofline
     from repro_torch.core import codecs, comms
     from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
@@ -539,13 +577,14 @@ def train_rank(*, rank: int = 0, world: int = 1, arch: str,
     from repro_torch.models.model import Model
     from repro_torch.train import checkpoint, fault
     from repro_torch.train.optimizer import AdamConfig
-    from repro_torch.train.train_step import make_trainer
+    from repro_torch.train.train_step import make_trainer, zigzag_shard_seq
     from repro_torch.tune import policy_artifact, tracker
     from repro_torch.tune.controller import (CompressionController,
                                              ControllerConfig)
 
-    if dp * pp * tp != world:
-        raise ValueError(f"dp {dp} x pp {pp} x tp {tp} != world {world}")
+    if dp * cp * pp * tp != world:
+        raise ValueError(f"dp {dp} x cp {cp} x pp {pp} x tp {tp} != world "
+                         f"{world}")
     validate_vpp(vpp, pp, microbatches)
     dev = rank_device(device, rank)
     if dev.type == "cpu":
@@ -556,9 +595,9 @@ def train_rank(*, rank: int = 0, world: int = 1, arch: str,
         torch.backends.cudnn.allow_tf32 = False
     ops.set_default_backend(backend)
     comms.time_staging(time_staging)
-    cfg = model_config(arch, reduced, layers)
+    cfg = model_config(arch, reduced, layers, depth)
     mi = make_mesh(dp, tp, pp, nodes=nodes, tp_nodes=tp_nodes,
-                   pp_nodes=pp_nodes)
+                   pp_nodes=pp_nodes, cp=cp, cp_nodes=cp_nodes)
     model = Model(cfg, mi, device=dev, vpp=vpp)
     log = []
 
@@ -623,8 +662,10 @@ def train_rank(*, rank: int = 0, world: int = 1, arch: str,
     if global_batch % dp:
         raise ValueError(f"--global-batch {global_batch} not divisible by "
                          f"--dp {dp}")
-    # the batch shards over the joint (node, data) axis, node-major
+    # the batch shards over the joint (node, data) axis, node-major, and
+    # the zigzag-permuted sequence contiguously over the cp axis
     b_loc, d = global_batch // dp, mi.batch_axes.index
+    s_loc, c = seq // cp, mi.coords["cp"]
 
     def sync():
         if dev.type == "cuda":
@@ -686,9 +727,10 @@ def train_rank(*, rank: int = 0, world: int = 1, arch: str,
         torch.cuda.reset_peak_memory_stats(dev)
     for step in range(start, start + steps):
         mon.begin()
-        nb = data.batch(step)
-        batch = {k: torch.from_numpy(v[d * b_loc:(d + 1) * b_loc]).to(dev)
-                 for k, v in nb.items()}
+        nb = zigzag_shard_seq(data.batch(step), cp)
+        batch = {k: torch.from_numpy(np.ascontiguousarray(
+                     v[d * b_loc:(d + 1) * b_loc, c * s_loc:(c + 1) * s_loc]))
+                 .to(dev) for k, v in nb.items()}
         trainer.opt.keep_flat_grad = bool(flat_grad_out) and rank == 0 \
             and step == start + steps - 1
         comms.reset_staging()
@@ -710,7 +752,10 @@ def train_rank(*, rank: int = 0, world: int = 1, arch: str,
         out["losses"].append(float(metrics["loss"]))
         out["grad_norms"].append(float(metrics["grad_norm"]))
         if step == start:
+            out["events0"] = list(events)
             out["wire_per_dim"] = roofline.wire_per_dim(events.wire)
+            out["wire_per_dim_level"] = roofline.wire_per_dim_level(
+                events.wire)
             summary = roofline.ledger_summary(events, train=True)
             out["priced_per_dim"] = summary["per_dim"]
             out["priced_per_dim_level"] = summary["per_dim_level"]
@@ -719,8 +764,6 @@ def train_rank(*, rank: int = 0, world: int = 1, arch: str,
             out["payload_per_tag"] = roofline.ledger_per_tag(events,
                                                              plain=True)
         if tune:
-            if step == start:
-                tuned["events0"] = list(events)
             tuned["select_per_step"].append(dict(tstate["select"]))
             tuned["wire_per_step"].append(
                 roofline.wire_per_dim_level(events.wire))
@@ -766,7 +809,8 @@ def train_rank(*, rank: int = 0, world: int = 1, arch: str,
                 f"({len(art['rules'])} site rules)")
         say("tuned codecs: " + ", ".join(
             f"{k}={v}" for k, v in sorted(ctrl.codec.items())))
-        out["tune"] = dict(tuned, history=list(ctrl.history),
+        out["tune"] = dict(tuned, events0=out["events0"],
+                           history=list(ctrl.history),
                            codecs=dict(ctrl.codec),
                            plan_hash=ctrl.plan().table_hash(),
                            sites={k: [s.dim, s.name, s.level, e] for k, (s, e)
@@ -804,7 +848,8 @@ def rank_kwargs(args, **extra) -> dict:
 
     dev = resolve_device(args.device)
     return dict(arch=args.arch, reduced=args.reduced, layers=args.layers,
-                dp=args.dp, tp=args.tp, pp=args.pp, **node_counts(args),
+                dp=args.dp, tp=args.tp, pp=args.pp, cp=args.cp,
+                **node_counts(args),
                 microbatches=args.microbatches, vpp=args.vpp,
                 remat_policy=args.remat_policy, steps=args.steps,
                 seq=args.seq, global_batch=args.global_batch,
@@ -822,12 +867,12 @@ def rank_kwargs(args, **extra) -> dict:
 
 def run(args, **extra) -> list:
     """Run the parsed flags (plus :func:`train_rank` keywords ``extra``) as
-    a world of ``dp * pp * tp`` spawned processes; returns the per-rank
-    results."""
+    a world of ``dp * cp * pp * tp`` spawned processes; returns the
+    per-rank results."""
     from repro_torch.kernels import bq
 
     kwargs = rank_kwargs(args, **extra)      # no card: raise before spawning
-    world = args.dp * args.pp * args.tp
+    world = args.dp * args.cp * args.pp * args.tp
     if kwargs["device"] == "cuda":
         bq.build()                           # once, before the ranks start
         # ranks share one card: growable segments keep each rank's
@@ -874,11 +919,10 @@ def _report(res: list, args) -> None:
             by[k] = by.get(k, 0) + v
     if any(not k.endswith("/flat") for k in by):
         print(f"kernel launches by link level (all ranks): {by}")
-    if any(k.endswith(("/inner", "/outer")) for k in
-           r0["priced_per_dim_level"]):
-        print(f"wire per rank, first step, priced per dim/level: "
-              f"{r0['priced_per_dim_level']}; link bytes fast/slow "
-              f"{r0['link_bytes']}")
+    print(f"wire per rank, first step, per dim/level: priced "
+          f"{r0['priced_per_dim_level']}, measured "
+          f"{r0['wire_per_dim_level']}; link bytes fast/slow "
+          f"{r0['link_bytes']}")
     for k, st in r0["codec_state"].items():
         print(f"codec state {k} (rank 0): residual^2 {st['residual_sq']:.4g}"
               + (f", factor rank {st['rank']}" if st["rank"] else ""))
@@ -910,7 +954,7 @@ def main(argv=None):
             res = train_rank(
                 rank=rank, world=world, arch=args.arch, reduced=args.reduced,
                 layers=args.layers, dp=args.dp, tp=args.tp, pp=args.pp,
-                **node_counts(args),
+                cp=args.cp, **node_counts(args),
                 microbatches=args.microbatches, vpp=args.vpp,
                 remat_policy=args.remat_policy, steps=args.steps,
                 seq=args.seq, global_batch=args.global_batch,

@@ -11,9 +11,16 @@ Mode selection (``cfg.attn_mode_for(tp)``):
   are all-gathered over tp once, so the weights stay replicated for any
   head count (gemma3-1b's single kv-head at tp 2).
 
+Context parallelism (the ``cp`` mesh axis) composes with both modes:
+each cp rank holds one zigzag (causal load-balanced) slice of the
+sequence, and :func:`ring_attention` rotates the K/V blocks around
+``mi.cp_axes`` through compressed ppermute hops (the ``cp`` ledger
+dimension, ``cp_fwd`` / ``cp_bwd`` codecs, two-level when the ring
+crosses nodes), merged by the online-softmax log-sum-exp.  Masking is
+position-based throughout, so the zigzag slices need no special case.
+
 All softmax statistics are f32; GQA is grouped natively (no KV
-duplication).  Masking is position-based.  Context parallelism (the cp
-ring) is not yet ported.
+duplication).
 """
 
 from __future__ import annotations
@@ -142,12 +149,40 @@ def full_attention(q, k, v, q_pos, k_pos, causal, window, k_valid=None,
 
 def ring_attention(q, k, v, q_pos, k_pos, mi: MeshInfo, causal, window,
                    k_valid=None):
-    """Attention of the local queries over the given K/V block.  Without a
-    context-parallel axis (the only mesh ported) the ring has one block."""
+    """K/V blocks rotate around the context-parallel ring; compressed hops.
+
+    q [B, Sq_loc, H, hd] attends to its local K/V block first, then to the
+    cp - 1 blocks arriving around ``mi.cp_axes``: the (GQA-small) K/V
+    move, the queries stay, and the online-softmax merge makes the result
+    independent of the arrival order up to rounding.  The hops ride
+    :func:`comms.ppermute` at ``cp@ring_kv`` (``cp_fwd`` forward; the
+    backward sends the gradients by the inverse permutation under
+    ``cp_bwd``); on a ``(cpnode, cp)`` pair the hops inside a node ride
+    the inner codecs and the node-crossing hop the outer ones.
+    ``q_pos`` / ``k_pos`` are GLOBAL positions, so the zigzag slices need
+    no mask special case; they and ``k_valid`` rotate uncompressed, as in
+    the reference.  Without a cp axis the ring has one block."""
+    cp = mi.cp
     scale = q.shape[-1] ** -0.5
-    bias = _mask_bias(q_pos, k_pos, causal, window, k_valid)
-    o, m, l = _attn_part(q, k, v, bias, scale)
-    return _finish(o, m, l, q.dtype)
+    if cp == 1:
+        bias = _mask_bias(q_pos, k_pos, causal, window, k_valid)
+        o, m, l = _attn_part(q, k, v, bias, scale)
+        return _finish(o, m, l, q.dtype)
+    perm = [(j, (j + 1) % cp) for j in range(cp)]
+    acc = _empty_acc(q)
+    kb, vb, pb, vlb = k, v, k_pos, k_valid
+    for t in range(cp):
+        bias = _mask_bias(q_pos, pb, causal, window, vlb)
+        acc = _combine(acc, _attn_part(q, kb, vb, bias, scale))
+        if t < cp - 1:
+            kb = comms.ppermute(kb, mi.cp_axes, perm,
+                                comms.site("cp", "ring_kv"))
+            vb = comms.ppermute(vb, mi.cp_axes, perm,
+                                comms.site("cp", "ring_kv"))
+            pb = comms.raw_ppermute(pb, mi.cp_phys_axes, perm)
+            if vlb is not None:
+                vlb = comms.raw_ppermute(vlb, mi.cp_phys_axes, perm)
+    return _finish(*acc, q.dtype)
 
 
 # --------------------------------------------------------------------------
@@ -197,7 +232,10 @@ def attn_train(p, x, pos, cfg, mi: MeshInfo, mode: str, causal=True,
         xg = comms.all_gather(x, mi.tp_axes, 1, comms.site("tp", "attn_in"))
         pos_g = _gather_pos(pos, mi)
         q, k, v = _project_qkv(p, xg, xg, pos_g, pos_g, cfg, mi, theta)
-        o = full_attention(q, k, v, pos_g, pos_g, causal, window)
+        if mi.cp > 1:   # q/k/v cover this rank's cp slice: ring over cp
+            o = ring_attention(q, k, v, pos_g, pos_g, mi, causal, window)
+        else:
+            o = full_attention(q, k, v, pos_g, pos_g, causal, window)
         y = o.reshape(*o.shape[:2], -1) @ p["wo"]
         return comms.reduce_scatter(y, mi.tp_axes, 1,
                                     comms.site("tp", "attn_out"))
@@ -205,8 +243,9 @@ def attn_train(p, x, pos, cfg, mi: MeshInfo, mode: str, causal=True,
     q, k, v = _project_qkv(p, x, x, pos, pos, cfg, mi, theta)
     kb, vb, pkv = k, v, pos
     if mi.tp > 1:
-        # K/V are GQA-small: gather the tp sub-slices once, so queries
-        # never move
+        # K/V are GQA-small: gather the tp sub-slices of this rank's cp
+        # slice once, so the cp ring rotates whole slices and queries never
+        # move
         kb = comms.all_gather(kb, mi.tp_axes, 1, comms.site("tp", "attn_kv"))
         vb = comms.all_gather(vb, mi.tp_axes, 1, comms.site("tp", "attn_kv"))
         pkv = _gather_pos(pos, mi)

@@ -96,6 +96,21 @@ class ArchConfig:
     def replace(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)
 
+    def truncated(self, n_layers: int) -> "ArchConfig":
+        """The first ``n_layers`` layers of the stack, its layer groups
+        (gemma3's local:global pattern, their windows) kept: a cut of
+        depth for memory, where the launcher's ``layers`` resets the
+        stack to uniform layers."""
+        if not 0 < n_layers <= self.n_layers:
+            raise ValueError(f"cannot keep {n_layers} of {self.n_layers} "
+                             "layers")
+        out, left = [], n_layers
+        for g in self.layer_groups:
+            if left:
+                out.append(dataclasses.replace(g, n=min(g.n, left)))
+                left -= out[-1].n
+        return self.replace(n_layers=n_layers, groups=tuple(out))
+
     # ------------------------------------------------------------------
     def reduced(self) -> "ArchConfig":
         """Family-preserving smoke-test variant (same as the reference's)."""

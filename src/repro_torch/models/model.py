@@ -48,9 +48,18 @@ class Model:
     # -- training ----------------------------------------------------------
     def _positions(self, B: int, S_loc: int) -> torch.Tensor:
         """GLOBAL positions of this rank's tokens [B, S_loc]: tp slices the
-        sequence contiguously (the embedding's reduce-scatter)."""
-        j = self.mi.tp_axes.index * S_loc + torch.arange(
+        cp-local slice contiguously (the embedding's reduce-scatter); cp
+        shards the whole sequence in zigzag (causal load-balanced) order,
+        cp rank i owning the half-chunks i and 2cp-1-i of length S/(2cp),
+        so every rank sees the same causal mask volume."""
+        mi = self.mi
+        j = mi.tp_axes.index * S_loc + torch.arange(
             S_loc, dtype=torch.int32, device=self.device)
+        if mi.cp > 1:
+            c = (S_loc * mi.tp) // 2          # the half-chunk, S/(2cp)
+            i = mi.cp_axes.index
+            j = torch.where(j < c, i * c + j,
+                            (2 * mi.cp - 1 - i) * c + (j - c))
         return j[None].expand(B, S_loc)
 
     def _embed_input(self, params, batch) -> torch.Tensor:
@@ -97,8 +106,10 @@ class Model:
         logits = self.forward(params, batch)
         ltok, w = layers.vocab_parallel_xent(logits, batch["labels"], cfg, mi)
         del logits
-        num = comms.raw_psum(ltok.sum(), mi.batch_axes)
-        den = comms.raw_psum(w.sum(), mi.batch_axes)
+        # cp ranks hold disjoint token slices: their sums add like the
+        # batch axes'
+        num = comms.raw_psum(ltok.sum(), mi.batch_cp_axes)
+        den = comms.raw_psum(w.sum(), mi.batch_cp_axes)
         # every model shard holds the full-sequence loss: the mean over the
         # model axis folds the replication into one scalar
         num = comms.raw_psum(num, mi.tp_axes, mean=True)

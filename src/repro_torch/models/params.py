@@ -38,8 +38,8 @@ def resolve_device(device=None) -> torch.device:
 
 @dataclasses.dataclass(frozen=True)
 class MeshInfo:
-    """Logical view of the ``(node, data, ppnode, stage, tpnode, model)``
-    mesh from this rank.
+    """Logical view of the ``(node, data, cpnode, cp, ppnode, stage,
+    tpnode, model)`` mesh from this rank.
 
     As in the reference, ``tp`` and ``pp`` are the *joint* tensor-parallel
     and stage counts, while ``dp`` is the *inner* data size: on a mesh
@@ -49,16 +49,21 @@ class MeshInfo:
     model and stage axes into ``(tpnode, model)`` and ``(ppnode, stage)``;
     :attr:`tp_axes` and :attr:`stage_axes` are then
     :class:`~repro_torch.core.comms.AxisPair` s, which the collectives
-    route through their two-level forms.
+    route through their two-level forms.  ``cp`` is the joint
+    context-parallel count (each cp rank holds one zigzag slice of the
+    sequence), factored into ``(cpnode, cp)`` by ``cp_node``;
+    :attr:`cp_axes` carries the ring attention's K/V hops and the cp
+    gradient fold.
 
-    ``model`` / ``stage`` (an ``Axis`` or a pair), ``data``, ``nodes``
-    (the node axis), ``batch`` (the joint ``(node, data)`` axis) and
-    ``world`` are the bound comms axes
+    ``model`` / ``stage`` / ``context`` (an ``Axis`` or a pair),
+    ``data``, ``nodes`` (the node axis), ``batch`` (the joint ``(node,
+    data)`` axis), ``batch_cp`` (the joint ``(node, data, cpnode, cp)``
+    axis the loss sums over) and ``world`` are the bound comms axes
     (:func:`repro_torch.launch.mesh.make_mesh` builds them over process
     groups); left ``None`` they are one-rank axes of the right name and
     size, which is all a one-process run, or a plan that only needs
     shapes, asks for.  A mesh with ``pp == 1`` has no stage axis
-    (``stage_axes`` is ``None``)."""
+    (``stage_axes`` is ``None``), one with ``cp == 1`` no cp axis."""
 
     tp: int = 1
     dp: int = 1
@@ -66,26 +71,35 @@ class MeshInfo:
     node: int = 1
     tp_node: int = 1
     pp_node: int = 1
+    cp: int = 1
+    cp_node: int = 1
     model_axis: str = "model"
     data_axis: str = "data"
     stage_axis: str = "stage"
     node_axis: str = "node"
     tp_node_axis: str = "tpnode"
     pp_node_axis: str = "ppnode"
+    cp_axis: str = "cp"
+    cp_node_axis: str = "cpnode"
     model: Axis | AxisPair | None = None
     data: Axis | None = None
     stage: Axis | AxisPair | None = None
     nodes: Axis | None = None
     batch: Axis | None = None
+    context: Axis | AxisPair | None = None
+    batch_cp: Axis | None = None
     world: Axis | None = None
 
     def __post_init__(self):
-        for n, f in ((self.tp, self.tp_node), (self.pp, self.pp_node)):
+        for n, f in ((self.tp, self.tp_node), (self.pp, self.pp_node),
+                     (self.cp, self.cp_node)):
             if n % f:
                 raise ValueError(f"{n} ways do not split over {f} nodes")
         for ax, n in ((self.model, self.tp), (self.data, self.dp),
                       (self.stage, self.pp), (self.nodes, self.node),
                       (self.batch, self.dp * self.node),
+                      (self.context, self.cp),
+                      (self.batch_cp, self.dp * self.node * self.cp),
                       (self.world, self.world_size)):
             if ax is not None and ax.size != n:
                 raise ValueError(f"axis {ax!r} has size {ax.size}, mesh "
@@ -93,7 +107,7 @@ class MeshInfo:
 
     @property
     def world_size(self) -> int:
-        return self.tp * self.dp * self.pp * self.node
+        return self.tp * self.dp * self.pp * self.node * self.cp
 
     @staticmethod
     def _pair(outer: str, inner: str, n_o: int, n: int) -> AxisPair:
@@ -162,9 +176,50 @@ class MeshInfo:
         return self.stage_axes
 
     @property
+    def cp_axes(self) -> Axis | AxisPair | None:
+        """The axis the ring attention passes to comms for its K/V hops,
+        and the cp gradient fold's: the cp axis, or the ``(cpnode, cp)``
+        pair (whose node-crossing hops ride the ``cp_*_outer`` codecs), or
+        ``None`` on a mesh without a cp axis."""
+        if self.cp == 1:
+            return None
+        if self.context is not None:
+            return self.context
+        if self.cp_node > 1:
+            return self._pair(self.cp_node_axis, self.cp_axis,
+                              self.cp_node, self.cp)
+        return Axis(self.cp_axis, self.cp)
+
+    @property
+    def cp_phys_axes(self) -> Axis | None:
+        """The joint axis the sequence is sharded over (the flat cp axis,
+        or the pair's joint axis), which uncompressed exchanges such as the
+        ring's positions run on; ``None`` without a cp axis."""
+        ax = self.cp_axes
+        return ax.joint if isinstance(ax, AxisPair) else ax
+
+    @property
+    def batch_cp_axes(self) -> Axis:
+        """The joint ``(node, data, cpnode, cp)`` axis, node-major: cp
+        ranks hold disjoint token slices, so the loss's token sums run
+        over it as over the batch axes (the batch axes without a cp
+        axis)."""
+        if self.cp == 1:
+            return self.batch_axes
+        if self.batch_cp is not None:
+            return self.batch_cp
+        names = tuple(n for n, k in ((self.node_axis, self.node),
+                                     (self.data_axis, self.dp),
+                                     (self.cp_node_axis, self.cp_node),
+                                     (self.cp_axis, self.cp // self.cp_node))
+                      if k > 1)
+        return Axis(names, self.dp * self.node * self.cp)
+
+    @property
     def all_axes(self) -> Axis:
-        """Every rank, ordered node, data, stage, model: global rank
-        ``((n * dp + d) * pp + s) * tp + t`` (stage and model joint)."""
+        """Every rank, ordered node, data, cp, stage, model: global rank
+        ``(((n * dp + d) * cp + c) * pp + s) * tp + t`` (cp, stage and
+        model joint)."""
         return self.world or Axis("world", self.world_size)
 
     @property
@@ -174,11 +229,12 @@ class MeshInfo:
     @property
     def coords(self) -> dict:
         """This rank's index along each sharded spec tag (the joint index
-        of a factored axis), and along the node axis, over which every
-        leaf is replicated."""
+        of a factored axis), and along the node and cp axes, over which
+        every leaf is replicated."""
         return {"model": self.tp_axes.index, "data": self.dp_axes.index,
                 "stage": self.stage_axes.index if self.pp > 1 else 0,
-                "node": self.node_axes.index if self.node > 1 else 0}
+                "node": self.node_axes.index if self.node > 1 else 0,
+                "cp": self.cp_axes.index if self.cp > 1 else 0}
 
 
 @dataclasses.dataclass(frozen=True)

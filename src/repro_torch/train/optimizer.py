@@ -12,6 +12,10 @@ plan):
      over the model axis under the *tp_bwd* codec (paper §III-A: MP
      gradients take the MP codec), then class B's flat DP path.
 
+On a cp mesh every leaf's gradient is partial per cp rank (each holds a
+slice of the sequence), so the whole gradient folds over the cp axes
+first, as one flat f32 all-reduce under the *cp_bwd* codec (site
+``cp@grad_seq_rep``), and the ZeRO-1 state is replicated over cp.
 On a pipeline mesh the stage-replicated leaves (embedding, final norm)
 hold one partial gradient per stage, folded over the stage axis under the
 *pp_bwd* codec (site ``pp@grad_stage_rep``); ZeRO-1 shards each stage
@@ -184,7 +188,8 @@ class Adam:
         minor, so this rank's is chunk ``(s * tp + t) * dp + d`` of the
         global vector, stage and model joint, data inner (bq8 m and v
         likewise by rows, ``q_lo`` none); a ``--nodes`` mesh replicates
-        the chunks per node, and its first node writes them; the
+        the chunks per node, and its first node writes them, and a cp mesh
+        replicates them over cp, and cp index 0 writes them; the
         ``step`` is one replicated int32.  (The reference's ``fsdp`` list
         holds only ``None`` without ZeRO-3 leaves: no leaf.)"""
         mi = self.mi
@@ -195,10 +200,12 @@ class Adam:
         g = (c["stage"] * mi.tp + c["model"]) * mi.dp + c["data"]
 
         def chunk(rows, tail, dtype, value):
-            # replicated over nodes (hpZ): the first node's ranks write
+            # replicated over nodes (hpZ) and cp: the ranks of the first
+            # node and cp index 0 write
             return Shard((world * rows, *tail),
                          (slice(g * rows, (g + 1) * rows), *whole(tail)),
-                         dtype, value, c["node"] == 0, device)
+                         dtype, value, c["node"] == 0 and c["cp"] == 0,
+                         device)
 
         def moment(k):
             v = None if state is None else state[k]
@@ -230,12 +237,16 @@ class Adam:
         v = c.b2 * v + (1 - c.b2) * g * g
         t = torch.tensor(step + 1.0, dtype=_F32, device=g.device)
         one = torch.ones((), dtype=_F32, device=g.device)
-        mh = m / (1 - torch.pow(one * c.b1, t))
-        vh = v / (1 - torch.pow(one * c.b2, t))
-        upd = mh / (torch.sqrt(vh) + c.eps)
+        # the reference's expression, each temporary freed once used (the
+        # in-place steps round as their out-of-place forms): at dp 1 the
+        # f32 chunk is the whole model, and the update's peak is what a
+        # rank needs most
+        den = torch.sqrt(v / (1 - torch.pow(one * c.b2, t))).add_(c.eps)
+        upd = (m / (1 - torch.pow(one * c.b1, t))).div_(den)
+        del den
         if c.weight_decay:
             upd = upd + c.weight_decay * master
-        return master - _lr_at(c, step, g.device) * upd, m, v
+        return master - upd.mul_(_lr_at(c, step, g.device)), m, v
 
     def _state_decode(self, s):
         if self.cfg.state_bits == 8:
@@ -285,6 +296,16 @@ class Adam:
         ts, classes = self._split(params)
         step = state["step"]
 
+        # -- the cp fold: every leaf's gradient is partial per cp rank
+        # (each back-propagated only its zigzag slice of the sequence, and
+        # the params are replicated over cp), so the whole gradient set
+        # folds over the cp axes (cp_bwd codec, two-level on a pair)
+        # before any class routing
+        if mi.cp > 1:
+            site = comms.Site("cp", "grad_seq_rep", "bwd")
+            with comms.span(site.ledger_tag, ts[0]):
+                _fold(grads, list(range(len(grads))), mi.cp_axes, site)
+
         # -- class C: fold the model-axis partial grads (MP codec)
         if mi.tp > 1 and "C" in classes:
             _fold(grads, [i for i, c in enumerate(classes) if c == "C"],
@@ -300,9 +321,11 @@ class Adam:
                       mi.stage_axes, site)
 
         # -- global grad-norm clip: each class's squares over its
-        # replication factor (stage-replicated leaves also over pp),
-        # summed over the whole world
-        rep = {"B": mi.dp * mi.node, "C": mi.dp * mi.tp * mi.node}
+        # replication factor (after the cp fold every leaf is replicated
+        # over cp too; stage-replicated leaves also over pp), summed over
+        # the whole world
+        rep = {"B": mi.dp * mi.node * mi.cp,
+               "C": mi.dp * mi.tp * mi.node * mi.cp}
         sq = torch.zeros((), dtype=_F32, device=ts[0].device)
         for g, c, r in zip(grads, classes, srep):
             sq = sq + torch.sum(g.to(_F32) ** 2) / (rep[c] * (mi.pp if r

@@ -225,6 +225,8 @@ def pipeline_loss_fn(model: Model, n_micro: int, remat_policy=None):
                              "microbatches")
         mb = {k: v.reshape((M, B // M) + v.shape[1:])
               for k, v in batch.items()}
+        # S is the cp-local slice already; _positions maps the tp
+        # sub-slice to its global zigzag positions
         s_loc = S // mi.tp if mi.tp > 1 else S
         pos = model._positions(B // M, s_loc)
         dev = model.device
@@ -267,12 +269,12 @@ def pipeline_loss_fn(model: Model, n_micro: int, remat_policy=None):
                         num = num + ltok.sum()
                         den = den + w.sum()
         # fold the per-stage partials (the last stage holds them), then
-        # the batch and model axes as the flat loss does
+        # the batch and cp axes and the model axes as the flat loss does
         if pp > 1:
             num = comms.raw_psum(num, mi.sp_axes, local_bwd=True)
             den = comms.raw_psum(den, mi.sp_axes, local_bwd=True)
-        num = comms.raw_psum(num, mi.batch_axes)
-        den = comms.raw_psum(den, mi.batch_axes)
+        num = comms.raw_psum(num, mi.batch_cp_axes)
+        den = comms.raw_psum(den, mi.batch_cp_axes)
         num = comms.raw_psum(num, mi.tp_axes, mean=True)
         den = comms.raw_psum(den, mi.tp_axes, mean=True)
         loss = num / torch.clamp(den, min=1.0)

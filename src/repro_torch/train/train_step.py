@@ -34,6 +34,35 @@ from repro_torch.train.checkpoint import Pv, Shard, take, whole
 from repro_torch.train.optimizer import Adam, AdamConfig, _leaf_class
 
 
+def zigzag_seq_indices(cp: int, S: int):
+    """Global sequence order whose contiguous cp-sharding yields the
+    zigzag (causal load-balanced) chunks: rank i owns half-chunks i and
+    2cp-1-i of length S/(2cp).  Matches ``Model._positions`` exactly —
+    ``indices[r * S//cp + j]`` is the global position of cp rank r's
+    j-th local token."""
+    assert S % (2 * cp) == 0, \
+        f"seq len {S} must divide 2*cp={2 * cp} for zigzag cp sharding"
+    c = S // (2 * cp)
+    parts = []
+    for i in range(cp):
+        parts.append(np.arange(i * c, (i + 1) * c))
+        parts.append(np.arange((2 * cp - 1 - i) * c, (2 * cp - i) * c))
+    return np.concatenate(parts)
+
+
+def zigzag_shard_seq(batch: dict, cp: int) -> dict:
+    """Host-side seq permutation of tokens/labels for a cp mesh (identity
+    when cp == 1).  Labels ride the same permutation, so each position
+    keeps its own next-token target."""
+    if cp <= 1:
+        return batch
+    idx = zigzag_seq_indices(cp, batch["tokens"].shape[1])
+    out = dict(batch)
+    for key in ("tokens", "labels"):
+        out[key] = batch[key][:, idx]
+    return out
+
+
 def _parts(tree, shards):
     """This rank's parts of the global numpy leaves of ``tree`` (the
     reference's layout), as the :class:`Shard` leaves of ``shards`` name
@@ -70,9 +99,10 @@ class Trainer:
     # ------------------------------------------------------------------
     def codec_sites(self) -> list:
         """The carried-state-capable comm sites of the step, with their
-        per-rank payload shapes: the tp class-C gradient fold, the pp fold
-        of the stage-replicated leaves and the flat ZeRO-1 dp/zero sync,
-        one chain per grad-sync bucket.  A fold over a node-factored pair
+        per-rank payload shapes: the cp fold of the whole gradient, the tp
+        class-C gradient fold, the pp fold of the stage-replicated leaves
+        and the flat ZeRO-1 dp/zero sync, one chain per grad-sync bucket,
+        in the reference's order.  A fold over a node-factored pair
         has a slot per level (the whole payload inner, its padded
         ``1/n_inner`` chunk outer, as :func:`comms._stateful_hier_psum`
         reads them), and so has the DP sync of a ``--nodes`` mesh (the
@@ -86,6 +116,9 @@ class Trainer:
         f32 = torch.float32
         sites = []
         folds = []
+        if mi.cp > 1:
+            folds.append(("cp", "grad_seq_rep", mi.cp_axes,
+                          sum(n for n, _ in local)))
         n_c = sum(n for n, c in local if c == "C")
         if mi.tp > 1:
             folds.append(("tp", "grad_rep", mi.tp_axes, n_c))
@@ -238,10 +271,10 @@ class Trainer:
     def codec_state_shards(self, state=None) -> dict:
         """The codec state as the reference's global leaves (its
         ``codec_structs``): every slot stacks each rank's along dim 0 in
-        the order of ``MeshInfo.all_axes`` (node, data, stage, model, the
-        factored ones joint), which is the global rank here.  Each leaf is a
-        :class:`~repro_torch.train.checkpoint.Shard` holding this rank's
-        part (of ``state``, when given)."""
+        the order of ``MeshInfo.all_axes`` (node, data, cp, stage, model,
+        the factored ones joint), which is the global rank here.  Each leaf
+        is a :class:`~repro_torch.train.checkpoint.Shard` holding this
+        rank's part (of ``state``, when given)."""
         mi = self.model.mi
         world, r = mi.all_axes.size, mi.all_axes.index
 

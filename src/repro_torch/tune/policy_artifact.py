@@ -17,9 +17,8 @@ Top-level fields:
   changes; loaders reject unknown majors loudly);
 * ``base_scheme`` — the policy name the run started from;
 * ``topology`` — the mesh the rules were derived on
-  (dp/tp/pp/cp/nodes/pods; this package runs no context parallelism and
-  no pods, so its ``cp`` and ``pods`` are 1, as the reference writes them
-  on a mesh without those axes);
+  (dp/tp/pp/cp/nodes/pods; this package runs no pods, so its ``pods`` is
+  1, as the reference writes it on a mesh without that axis);
 * ``plan_hash`` — ``CommPlan.table_hash()`` of the emitted assignment;
 * ``step`` — the training step of the last accepted decision;
 * ``rules`` — ordered site-override rules (dim/direction/level/name/
@@ -48,7 +47,7 @@ def topology_of(mi) -> dict:
     """The mesh identity stamp (a MeshInfo, or None for mesh-free)."""
     if mi is None:
         return {}
-    return {"dp": mi.dp, "tp": mi.tp, "pp": mi.pp, "cp": 1,
+    return {"dp": mi.dp, "tp": mi.tp, "pp": mi.pp, "cp": mi.cp,
             "nodes": mi.node, "pods": 1}
 
 

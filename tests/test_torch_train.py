@@ -427,10 +427,17 @@ def test_launcher_refuses_unported_flags():
     ok = ap.parse_args(["--arch", "gemma3-1b", "--dp", "2", "--tp", "2",
                         "--scheme", "zhybrid_16_8", "--ring-bidir"])
     assert tlaunch.unported(ok) == []
-    for extra in (["--cp-nodes", "2"], ["--cp", "2"], ["--pod", "2"]):
+    for extra in (["--pod", "2"], ["--host-devices", "8"]):
         args = ap.parse_args(["--arch", "gemma3-1b", *extra])
         msgs = tlaunch.unported(args)
         assert len(msgs) == 1 and "not yet ported" in msgs[0], extra
+    # context parallelism is ported: --cp and --cp-nodes are accepted
+    cp = ap.parse_args(["--arch", "gemma3-1b", "--cp", "2"])
+    assert tlaunch.unported(cp) == [] and cp.cp == 2
+    cpn = ap.parse_args(["--arch", "gemma3-1b", "--cp", "4", "--cp-nodes",
+                         "2"])
+    assert tlaunch.unported(cpn) == []
+    assert tlaunch.node_counts(cpn)["cp_nodes"] == 2
     # self-tuning is ported: its flags parse and are accepted
     tune = ap.parse_args(["--arch", "gemma3-1b", "--tune", "--tune-interval",
                           "5", "--tune-guard", "0.1", "--policy-from", "x"])
@@ -452,7 +459,8 @@ def test_launcher_refuses_unported_flags():
                           "2x2", "--tp", "4", "--tp-nodes", "2", "--pp", "2",
                           "--pp-nodes", "2"])
     assert tlaunch.unported(hier) == []
-    assert tlaunch.node_counts(hier) == dict(nodes=2, tp_nodes=2, pp_nodes=2)
+    assert tlaunch.node_counts(hier) == dict(nodes=2, tp_nodes=2, pp_nodes=2,
+                                             cp_nodes=1)
     with pytest.raises(SystemExit):
         tlaunch.main(["--arch", "gemma3-1b", "--cp-nodes", "2", "--device",
                       "cpu"])
