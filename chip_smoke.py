@@ -5,8 +5,9 @@
     python3 chip_smoke.py --bq-only  # phase 1 and the bq timings alone
     python3 chip_smoke.py --pp-only  # phase 1, phase 4's step, phase 7
     python3 chip_smoke.py --ckpt-only  # phase 1, phase 6's plr8 run, phase 8
-    python3 chip_smoke.py --hier-only  # phase 1, phases 9, 10 and 11
+    python3 chip_smoke.py --hier-only  # phase 1, phases 9 to 12
     python3 chip_smoke.py --cp-only    # phase 1 and phase 11
+    python3 chip_smoke.py --serve-only # phase 1 and phase 12
 
 ``--bq-only`` prints the bq kernels' timings and those of the fused TP
 all-gather, TP reduce-scatter and KV-read ops beside the compositions
@@ -61,8 +62,9 @@ fused decode-add, alone and together, against ``_split_for_scatter``,
 block encode, block decode-add and ``from_blocks``) and for the paged KV
 read at the serving table (the fused read against gather-decode and
 cast).
-Phase 3 serves gemma3-1b (full published width, its first 13 layers with
-the 5:1 local:global pattern kept; 26 until phase 11 came in) by
+Phase 3 serves gemma3-1b (full published width, its first 6 layers with
+the 5:1 local:global pattern kept; 26 until phase 11 came in, 13 until
+phase 12) by
 continuous batching over a bq8 paged KV pool, 8 requests of
 560 + 24 tokens on 8 slots, through the kernels, through their plain
 versions and with a dense pool, and requires identical tokens and pool
@@ -89,8 +91,9 @@ wire-only fused hop.
 Phase 6 drives the carried-state codecs on phase 4's training step, 4
 steps each: zhybrid_16_8 with plr8 on the DP gradient sync
 (--codec-for 'dp@zero1_grad*=plr8') through the kernels and through their
-plain versions, and ef_zhybrid_16_4 (ef:bq4) through the kernels.  It
-requires equal ledger bytes and losses within PLR_RTOL between the two plr
+plain versions, and ef_zhybrid_16_4 (ef:bq4) through the kernels, and
+the plr8 kernel run again at its first 6 layers (phase 8's reference).
+It requires equal ledger bytes and losses within PLR_RTOL between the two plr
 runs, every lowrank form launched in the kernel run and nothing in the
 plain run, finite and falling losses, and the dp wire bytes at plr8's and
 bq4's priced ratios to phase 4's baseline.
@@ -98,10 +101,11 @@ bq4's priced ratios to phase 4's baseline.
 Phase 7 drives the pipeline (the paper's PP dimension): gemma3-1b at full
 published width, dp 1 x pp 2 x tp 2 (four ranks on the card), 4
 microbatches of 1 x 1024 tokens, zhybrid_16_8 (bq16 on the stage
-handoffs and the stage fold), deterministic: 7a 1F1B at ``--layers 16``, 2
-steps (cut from 26 layers when phase 10 came in), and 7b interleaved (vpp
-2, remat per_stage:0) at ``--layers 16``, 2 steps (cut from 3 steps and 24
-layers when phase 8 came in; gemma3-1b's
+handoffs and the stage fold), deterministic: 7a 1F1B at ``--layers 8``, 2
+steps (cut from 26 layers when phase 10 came in, from 16 when phase 12
+did), and 7b interleaved (vpp 2, remat per_stage:0) at ``--layers 8``, 2
+steps (cut from 3 steps and 24 layers when phase 8 came in, from 16 when
+phase 12 did; gemma3-1b's
 5:1 local:global stack does not split into identical stages, so
 ``--layers`` makes it uniform), each through the kernels and
 through the plain versions.  It requires equal losses, grad norms and
@@ -113,9 +117,11 @@ ratio to their payload (bf16 handoffs, the f32 fold); it prints the
 bubble fraction and the stage fold's share of the step.
 
 Phase 8 checkpoints and resumes phase 6's plr8 kernel run (gemma3-1b at
-full published width and depth, dp 2 x tp 2, deterministic): 8a trains 2
+full published width, its first 6 layers, the pattern kept: 26 until
+phase 12 came in; dp 2 x tp 2, deterministic; phase 6's world trains the
+uninterrupted 6-layer run beside its own): 8a trains 2
 steps with ``--ckpt-dir .smoke/ckpt --ckpt-every 2`` (a non-blocking save
-of params, optimizer state and codec state, 14.9 GB), 8b resumes and
+of params, optimizer state and codec state, 14.9 GB at 26 layers), 8b resumes and
 trains 2 steps, 8c resumes from step 2 at dp 4 x tp 1 and trains 1 step.
 It checks the free disk space first and fails with the numbers when it
 is short.  It requires 8a's losses and grad norms bit-equal to phase 6's
@@ -133,12 +139,13 @@ and deletes the checkpoints.
 Phase 9 drives the node-factored meshes (the paper's hierarchical
 collectives): gemma3-1b at full published width, sequence 1024, global
 batch 4, in one world of four ranks on the card: 9a ``--dp 4 --nodes 2``
-(node 2 x data 2) under hier_zpp_8_16, ``--layers 13`` (at 26 the four
-ranks' model copies and half-size ZeRO-1 state outgrow the card), 2
+(node 2 x data 2) under hier_zpp_8_16, ``--layers 6`` (at 26 the four
+ranks' model copies and half-size ZeRO-1 state outgrow the card; 13
+until phase 12 came in), 2
 steps (the DP gradient a bq16 reduce-scatter inside the node, then a bq8
 all-reduce of its half across, the param gather bq16 inside); 9b ``--tp
-4 --tp-nodes 2`` (tpnode 2 x model 2) under hier_tpp_8_16, all 26 layers,
-2 steps (every TP all-gather, reduce-scatter and f/g two-level, the
+4 --tp-nodes 2`` (tpnode 2 x model 2) under hier_tpp_8_16, ``--layers
+13`` (26 until phase 12 came in), 2 steps (every TP all-gather, reduce-scatter and f/g two-level, the
 class-C fold a two-level all-reduce, attention in ring mode); each
 through the kernels and the plain versions; and 9c ``--pp 4 --pp-nodes 2 --layers 8``, 4
 microbatches, 1F1B under hier_tpp_8_16, 2 steps, through the kernels
@@ -191,6 +198,26 @@ memory, staging share, the cp fold's seconds (``comms.span``), the
 priced and measured wire per ``dim/level``, and ``cp_ring_seconds`` at
 the assumed link rates of phase 10.
 
+Phase 12 drives the rest of serving in phase 9's world of four ranks
+after phase 11 (its training state freed): gemma3-1b at full published
+width, its first 6 layers (one 5:1 local:global block, window 512; all
+26 took 635.7 s), bf16, prompts of 512 tokens, 16 tokens generated: 12a ``--mode batched --dp 2 --tp 2``
+under zhybrid_16_8, batch 4 (ring attention, the flash-decoding combine
+at bq16), 12b ``--mode batched --tp 4 --tp-nodes 2`` under hier_tpp_8_16,
+12c ``--mode paged --dp 4 --kv-codec bq8``, 16 requests of 128-320
+tokens on 8 slots, 12d ``--mode disagg --dp 1 --tp 2 --kv-codec bq8``,
+batch 4; 12a, 12c and 12d through the kernels and the plain versions,
+12b through the kernels.  It requires the kernel run equal to the plain
+run bit for bit (tokens, every cache leaf and pool plane after the
+prefill, the handoff and the last step), a launch at each link level of
+every kernel SERVE_LEVELS names, none in the plain runs, 12d's handoff
+all ``kv`` and below the bytes the same scheme prices with a ``none`` kv
+codec; it prints each run's prefill seconds, decode ms/step, generated
+tokens/s, peak memory, staging share, priced MB per ``dim/level`` of the
+prefill and of one decode step, 12d's handoff MB and
+``kv_handoff_seconds`` at the assumed link rates of phase 10, and 12c's
+``kv_hbm_bytes`` beside the pool's allocated bytes.
+
 After phase 8, a fresh process (this script with ``--reckon FILE``, which
 the script starts itself) times each (kernel, rows, rate) that phase 4's
 kernel run launched, at its shape, and reckons launches x (time - bound)
@@ -228,11 +255,12 @@ SPIN_CYCLES = 2_000_000       # about 1 ms of the card's clock
 BITS = (4, 8, 16, 24)
 MAIN_BITS = 8                 # the serving pool is bq8
 
-# serving: gemma3-1b, 8 slots, 16-token blocks, 560 + 24; its first 13
-# layers (two 5:1 blocks and a local layer, the pattern kept: cut from 26
-# to pay for phase 11's runs, about half of phase 3's 199 s)
+# serving: gemma3-1b, 8 slots, 16-token blocks, 560 + 24; its first 6
+# layers (one 5:1 block, the pattern kept: cut from 26 to 13 to pay for
+# phase 11's runs, about half of phase 3's 199 s, and from 13 to 6 for
+# phase 12's)
 SLOTS, BLOCK_TOKENS, PROMPT, GEN, SEED = 8, 16, 560, 24, 0
-SERVE_LAYERS = 13
+SERVE_LAYERS = 6
 # main path: the training step at full width and depth
 DP, TP, STEPS, SEQ, GLOBAL_BATCH = 2, 2, 5, 1024, 4
 RING_WORLD = 4                # phase 5's data axis
@@ -250,11 +278,15 @@ MM_RANKS = {"tall": (2, 4, 8, 16, 32, 64), "at_b": (2, 4, 8, 64),
 SCRATCH = ROOT / ".smoke"     # git-ignored: phase 4's flat gradient
 CKPT_DIR = SCRATCH / "ckpt"   # phase 8's checkpoints
 CKPT_STEPS = 2                # phase 8: save after 8a's 2 steps
+# phase 8 checkpoints phase 6's plr8 step at its first 6 layers (one 5:1
+# block, the pattern kept; cut from 26 when phase 12 came in), against an
+# uninterrupted 6-layer run that phase 6's world trains beside its own
+CKPT_DEPTH = 6
 # phase 7: the pipeline, dp 1 x pp 2 x tp 2, 4 microbatches of 1 x SEQ;
 # (name, layers, steps, flags) of its two runs
 PP, PP_MICRO = 2, 4
-PP_RUNS = (("7a", 16, 2, ()),
-           ("7b", 16, 2, ("--vpp", "2", "--remat-policy", "per_stage:0")))
+PP_RUNS = (("7a", 8, 2, ()),
+           ("7b", 8, 2, ("--vpp", "2", "--remat-policy", "per_stage:0")))
 # wire rows of one handoff: a microbatch's bf16 [1, SEQ / TP, 1152]
 HANDOFF_ROWS = (GLOBAL_BATCH // PP_MICRO) * (SEQ // TP) * 1152 // 128
 # the stage-replicated leaves' fold: the tied embedding's vocab shard and
@@ -264,12 +296,13 @@ STAGE_FOLD_ELEMS = 262144 // TP * 1152 + 1152
 # with a plain run) of its runs.  9a holds the whole model on each of four
 # ranks and half the ZeRO-1 state: at 26 layers the four need more than
 # the card's 80 GB (the Adam update ran out at 18.7 GiB per rank), so its
-# depth is cut to 13 (uniform global attention), its width kept
+# depth is cut to 13 (uniform global attention), its width kept, and to
+# 6 when phase 12 came in (the script's time)
 HIER_RUNS = (
     ("9a", "hier_zpp_8_16", 2, ("--dp", "4", "--tp", "1", "--nodes", "2",
+                                "--layers", "6"), True),
+    ("9b", "hier_tpp_8_16", 2, ("--dp", "1", "--tp", "4", "--tp-nodes", "2",
                                 "--layers", "13"), True),
-    ("9b", "hier_tpp_8_16", 2, ("--dp", "1", "--tp", "4", "--tp-nodes", "2"),
-     True),
     ("9c", "hier_tpp_8_16", 2, ("--dp", "1", "--tp", "1", "--pp", "4",
                                 "--pp-nodes", "2", "--layers", "8",
                                 "--microbatches", "4"), False))
@@ -344,6 +377,47 @@ CP_LEVELS = {
 # direction of H100 NVLink 4, one 400 Gb/s InfiniBand port; assumed, not
 # measured: the check itself is on bytes)
 FAST_LINK_BYTES_PER_S, SLOW_LINK_BYTES_PER_S = 450e9, 50e9
+# phase 12: serving in phase 9's world of four ranks after phase 11,
+# gemma3-1b at full width, bf16, prompts of 512 tokens, 16 generated.  At
+# all 26 layers the phase took 635.7 s alone (NVIDIA H100 80GB HBM3,
+# 700.00 W): 12c's 1032 prompt-streaming steps at 257 ms (four ranks'
+# eager launches sharing the card) were 530 s of it, and a decode step of
+# 12a took 799 ms; the script has no such room, so every run keeps the
+# first 6 layers (one 5:1 local:global block, window 512; ``depth``, the
+# pattern kept), which memory never forced: at 26 layers a rank peaked at
+# 1.41-3.04 GiB.  Per rank, by reckoning at 26 layers: 12a's dense cache
+# is 26 x 2 x 264 x 256 x 2 B, about 7 MB for K and V (2 rows, s_max 528
+# over tp 2, 1 KV head of 256); its prefill logits 2 x 512 x 131072 x 4
+# B, 0.54 GB; a paged rank of 12c holds the whole model, about 2 GB.
+# (name, serve_rank keywords, with a plain run)
+SERVE_PROMPT, SERVE_GEN, SERVE_BATCH, SERVE_DEPTH = 512, 16, 4, 6
+# 12c's prompts: 16 requests on 8 slots (each slot serves two: slot and
+# block reuse over the data ranks); 128-320 tokens each (256-560 streamed
+# 1032 steps, 125 s of the script for the kernel and plain runs; phase 3
+# holds prompts past the 512 window on the paged read)
+PAGED_REQUESTS, PAGED_SLOTS, PAGED_LENS = 16, 8, (128, 320)
+SERVE_RUNS = (
+    ("12a", dict(mode="batched", dp=2, tp=2, scheme="zhybrid_16_8"), True),
+    ("12b", dict(mode="batched", tp=4, tp_nodes=2, scheme="hier_tpp_8_16"),
+     False),
+    ("12c", dict(mode="paged", dp=4, kv_codec="bq8", slots=PAGED_SLOTS),
+     True),
+    ("12d", dict(mode="disagg", tp=2, kv_codec="bq8"), True))
+# the kernels each serving run launches at each link level: 12a's
+# prefill gathers (flat forms) and reduce-scatters (view forms) at bq16,
+# its decode all-reduces (block encode, the hop with the sum, decode);
+# 12b's at both levels; 12c's pool writes and fused KV reads; 12d's
+# handoff (flat forms at bq8)
+SERVE_LEVELS = {
+    "12a": {"flat": {"bq_encode_flat", "bq_decode_flat", "bq_encode_view",
+                     "bq_decode_add_flat", "bq_encode",
+                     "bq_decode_add_encode", "bq_decode"}},
+    "12b": {"inner": {"bq_encode_flat", "bq_decode_flat"},
+            "outer": {"bq_encode_flat", "bq_decode_flat",
+                      "bq_decode_add_encode"}},
+    "12c": {"flat": {"bq_encode", "bq_gather_decode"}},
+    "12d": {"flat": {"bq_encode_flat", "bq_decode_flat"}},
+}
 
 
 def fail(msg: str):
@@ -1450,15 +1524,20 @@ def reckon_shapes(torch, card, shapes: dict, rank_steps: int) -> dict:
 
 def rank_runs(*, rank: int, world: int, runs: list) -> list:
     """Body of one rank of :func:`train_runs`' world: ``train_rank`` for
-    each keyword set of ``runs``, in turn, each run's cached device memory
-    given back before the next (the ranks share the card, and a run's
-    largest rank may be another than the last run's)."""
+    each keyword set of ``runs`` (``serve_rank`` for ``{"serve":
+    keywords}``), in turn, each run's cached device memory given back
+    before the next (the ranks share the card, and a run's largest rank
+    may be another than the last run's)."""
     import torch
 
+    from repro_torch.launch.serve import serve_rank
     from repro_torch.launch.train import train_rank
     out = []
     for kw in runs:
-        out.append(train_rank(rank=rank, world=world, **kw))
+        if "serve" in kw:
+            out.append(serve_rank(rank=rank, world=world, **kw["serve"]))
+        else:
+            out.append(train_rank(rank=rank, world=world, **kw))
         torch.cuda.empty_cache()
     return out
 
@@ -1471,16 +1550,34 @@ def run(label, scheme, backend=None, steps=STEPS, extra=(), dp=DP, tp=TP,
                 extra=tuple(extra), dp=dp, tp=tp, kw=kw)
 
 
+def serve_run(label: str, backend=None, **kw) -> dict:
+    """One serving run of :func:`train_runs`' world: ``serve_rank``'s
+    keywords for gemma3-1b at full width on the card, deterministic, its
+    exchanges timed, and ``kw``."""
+    return dict(label=label, serve=dict(
+        dict(arch="gemma3-1b", depth=SERVE_DEPTH, batch=SERVE_BATCH,
+             prompt_len=SERVE_PROMPT, gen=SERVE_GEN, seed=SEED,
+             device="cuda", backend=backend, deterministic=True,
+             time_staging=True), **kw))
+
+
 def train_runs(card, runs: list) -> list:
     """Runs of the launcher's training step in one world of ``dp x cp x pp
     x tp`` processes on this card (:func:`run`; the ranks start once and
-    train the runs in turn, each deterministic with its exchanges timed);
-    prints each run's numbers and the world's wall, and returns each run's
-    per-rank results."""
-    from repro_torch.launch import train
+    train the runs in turn, each deterministic with its exchanges timed),
+    and serving runs in the same world (:func:`serve_run`, whose numbers
+    their phase prints); prints each training run's numbers and the
+    world's wall, and returns each run's per-rank results."""
+    from repro_torch.launch import serve, train
 
     kws, worlds = [], set()
     for r in runs:
+        if "serve" in r:
+            kw = r["serve"]
+            kws.append({"serve": kw})
+            worlds.add(serve.world_size(kw["mode"], kw.get("dp", 1),
+                                        kw.get("tp", 1)))
+            continue
         args = train.parser().parse_args(
             ["--arch", "gemma3-1b", "--dp", str(r["dp"]), "--tp",
              str(r["tp"]), "--steps", str(r["steps"]), "--seq", str(SEQ),
@@ -1499,6 +1596,9 @@ def train_runs(card, runs: list) -> list:
     out = []
     for i, r in enumerate(runs):
         res = [ranks[i] for ranks in per_rank]
+        if "serve" in r:
+            out.append(res)
+            continue
         k = 1 if r["steps"] > 1 else 0         # the first step warms up
         step = [float(np.median(x["step_s"][k:])) for x in res]
         share = [sum(x["staging_s"][k:]) / sum(x["step_s"][k:]) for x in res]
@@ -1532,33 +1632,43 @@ def level_sums(res) -> dict:
     return out
 
 
-def drive_hier(torch, card, cp_only: bool = False) -> tuple:
+def drive_hier(torch, card, only: str | None = None) -> tuple:
     """Phase 9: the node-factored meshes (9a ``--nodes``, 9b
     ``--tp-nodes``, 9c ``--pp-nodes``) in one world of four ranks, through
     the kernels and (9a, 9b) the plain versions, then phase 10, the tuned
-    step, and phase 11, context parallelism, in the same world
-    (:func:`check_tune`, :func:`check_cp`); returns each phase 9 run's
-    launches per kernel and level (all ranks) and its numbers, phase 10's
-    and phase 11's.  ``cp_only`` runs phase 11 alone."""
+    step, phase 11, context parallelism, and phase 12, serving, in the
+    same world (:func:`check_tune`, :func:`check_cp`,
+    :func:`check_serve`); returns each phase 9 run's launches per kernel
+    and level (all ranks) and its numbers, phase 10's, phase 11's and
+    phase 12's.  ``only="cp"`` runs phase 11 alone, ``only="serve"``
+    phase 12 alone."""
     runs, names = [], []
     for name, scheme, steps, flags, plain, depth in \
-            tuple(r + (0,) for r in (() if cp_only else HIER_RUNS)) \
-            + CP_RUNS:
+            tuple(r + (0,) for r in (() if only else HIER_RUNS)) \
+            + (() if only == "serve" else CP_RUNS):
         for backend in (None, "torch") if plain else (None,):
             runs.append(run(f"{name} {'plain' if backend else 'kernels'}",
                             scheme, backend, steps, flags, dp=1, tp=1,
                             **({"depth": depth} if depth else {})))
             names.append((name, backend))
-    if not cp_only:
+    if not only:
         for backend in (None, "torch"):
             runs.append(run(f"10 {'plain' if backend else 'kernels'}",
                             TUNE_SCHEME, backend, TUNE_STEPS, TUNE_FLAGS,
                             dp=1, tp=1))
             names.append(("10", backend))
+    if only != "cp":
+        for name, kw, plain in SERVE_RUNS:
+            extra = {"prompts": paged_prompts()} if kw["mode"] == "paged" \
+                else {}
+            for backend in (None, "torch") if plain else (None,):
+                runs.append(serve_run(name, backend, **kw, **extra))
+                names.append((name, backend))
     res = dict(zip(names, train_runs(card, runs)))
-    cp = check_cp(card, res)
-    if cp_only:
-        return {}, {}, cp
+    cp = check_cp(card, res) if only != "serve" else {}
+    serve = check_serve(card, res) if only != "cp" else {}
+    if only:
+        return {}, {}, cp, serve
     out = {}
     for name, scheme, steps, flags, plain in HIER_RUNS:
         k = res[(name, None)]
@@ -1605,7 +1715,128 @@ def drive_hier(torch, card, cp_only: bool = False) -> tuple:
                      "staging_share": [min(share), max(share)],
                      "per_dim_level": r0["priced_per_dim_level"],
                      "link_bytes": r0["link_bytes"]}
-    return out, check_tune(card, res[("10", None)], res[("10", "torch")]), cp
+    return out, check_tune(card, res[("10", None)], res[("10", "torch")]), \
+        cp, serve
+
+
+def paged_prompts() -> list:
+    """12c's requests: PAGED_REQUESTS prompts of mixed lengths in
+    PAGED_LENS, from SEED."""
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(PAGED_LENS[0], PAGED_LENS[1] + 1, PAGED_REQUESTS)
+    return [rng.integers(0, 262144, int(n)).tolist() for n in lens]
+
+
+def check_serve(card, res: dict) -> dict:
+    """Phase 12: the serving runs (``res[(name, backend)]``): well-formed
+    tokens, the kernel run equal to the plain run bit for bit (tokens and
+    every cache leaf or pool plane after the prefill, the handoff and the
+    last step, by sha256), none launched in the plain run, a launch at
+    each link level of every kernel SERVE_LEVELS names, 12d's handoff all
+    ``kv`` and below what the same scheme with a ``none`` kv codec prices
+    for its events (``roofline.recost_events``), no rank importing jax or
+    repro; prints each run's numbers and returns them."""
+    from repro_torch.analysis import roofline
+    from repro_torch.serve import paged_kv
+
+    out = {}
+    for name, kw, plain in SERVE_RUNS:
+        k = res[(name, None)]
+        for rk in k:
+            if rk["foreign_modules"]:
+                fail(f"phase {name} rank {rk['rank']} imported "
+                     f"{rk['foreign_modules']}")
+        live = [r for r in k if r.get("meaningful", True)]
+        toks = live[0]["tokens"]
+        n_req = PAGED_REQUESTS if kw["mode"] == "paged" else SERVE_BATCH
+        if len(toks) != n_req or any(
+                len(t) != SERVE_GEN or min(t) < 0 or max(t) >= 262144
+                for t in toks) or any(r["tokens"] != toks for r in live):
+            fail(f"phase {name}: malformed or disagreeing tokens")
+        if plain:
+            p = res[(name, "torch")]
+            for rk, rp in zip(k, p):
+                if rk["tokens"] != rp["tokens"]:
+                    fail(f"phase {name} rank {rk['rank']}: tokens differ "
+                         f"between the kernel run and the plain run")
+                for when, dig in rk["digests"].items():
+                    bad = sorted(leaf for leaf, h in dig.items()
+                                 if rp["digests"][when][leaf] != h)
+                    if bad:
+                        fail(f"phase {name} rank {rk['rank']}: {when} "
+                             f"caches {bad} differ between the kernel run "
+                             f"and the plain run")
+            if any(v for r in p for v in r["launches"].values()):
+                fail(f"phase {name}: the plain run launched kernels: "
+                     f"{[r['launches'] for r in p]}")
+        levels = level_sums(k)
+        missing = sorted(f"{kern}/{lvl}"
+                         for lvl, kerns in SERVE_LEVELS[name].items()
+                         for kern in kerns if not levels.get(f"{kern}/{lvl}"))
+        if missing:
+            fail(f"phase {name}: no launch of {missing}; launches by level "
+                 f"{levels}")
+        r0 = live[0]
+        dec = [sum(r["decode_s"]) for r in k]
+        step_ms = max(float(np.median(r["decode_s"])) for r in k) * 1e3
+        n_gen = sum(len(t) for t in toks) if kw["mode"] == "paged" \
+            else SERVE_BATCH * (SERVE_GEN - 1)
+        share = [r["staging_s"] / r["wall_s"] for r in k]
+        peak = [round(r["peak_bytes"] / 2**30, 2) for r in k]
+        mb = {ph: {key: round(v / 1e6, 4) for key, v in led["priced"].items()
+                   if v} for ph, led in r0["ledger"].items()}
+        entry = {"launches": launch_sums(k), "levels": levels,
+                 "prefill_s": max(r["prefill_s"] for r in k),
+                 "decode_ms_per_step": step_ms, "steps": r0["steps"],
+                 "gen_tokens_per_s": n_gen / max(dec),
+                 "peak_gib": peak, "staging_share": [min(share), max(share)],
+                 "priced_mb": mb}
+        extra = ""
+        if kw["mode"] == "disagg":
+            evs = r0["ledger"]["handoff"]["events"]
+            dims = {roofline.tag_dim(e["tag"]) for e in evs}
+            kv_b = r0["ledger"]["handoff"]["priced"].get("kv/flat", 0.0)
+            none_b = roofline.ledger_summary(
+                roofline.recost_events(evs, "baseline"),
+                train=False)["per_dim_level"].get("kv/flat", 0.0)
+            if dims != {"kv"} or not 0 < kv_b < none_b:
+                fail(f"phase {name}: handoff dims {dims}, kv bytes {kv_b} "
+                     f"against {none_b} under a none kv codec")
+            secs = roofline.kv_handoff_seconds(
+                evs, FAST_LINK_BYTES_PER_S, SLOW_LINK_BYTES_PER_S)
+            entry.update(handoff_mb=kv_b / 1e6, handoff_none_mb=none_b / 1e6,
+                         handoff_s=max(r["handoff_s"] for r in k),
+                         kv_handoff_s_assumed_rates=secs)
+            extra = (f"; handoff {kv_b / 1e6:.4f} MB per rank priced "
+                     f"(under a none kv codec {none_b / 1e6:.4f} MB), "
+                     f"{entry['handoff_s'] * 1e3:.1f} ms (slowest rank), "
+                     f"kv_handoff_seconds {secs * 1e3:.4f} ms at assumed "
+                     f"link rates {FAST_LINK_BYTES_PER_S / 1e9:.0f} / "
+                     f"{SLOW_LINK_BYTES_PER_S / 1e9:.0f} GB/s")
+        if kw["mode"] == "paged":
+            mbk = paged_kv.blocks_needed(
+                max(map(len, paged_prompts())) + SERVE_GEN, BLOCK_TOKENS)
+            n_blocks = max(PAGED_SLOTS, kw["dp"]) * mbk
+            hbm = roofline.kv_hbm_bytes(n_blocks, BLOCK_TOKENS, SERVE_DEPTH,
+                                        1, 256, "bq8", "bfloat16")
+            alloc = sum(r["pool_bytes"] for r in k)
+            entry.update(kv_hbm_bytes=hbm, pool_bytes=alloc,
+                         n_blocks=n_blocks)
+            extra = (f"; pool {n_blocks} blocks: kv_hbm_bytes {hbm:.0f} B, "
+                     f"allocated {alloc} B (all ranks)")
+        same = ("kernel run == plain run (tokens, every cache leaf or pool "
+                "plane by sha256) on every rank; ") if plain else ""
+        print(f"phase {name} ({', '.join(f'{a} {b}' for a, b in kw.items())}"
+              f"): {same}first tokens {[t[0] for t in toks[:4]]}; prefill "
+              f"{entry['prefill_s']:.3f} s, {r0['steps']} decode steps at "
+              f"{step_ms:.2f} ms/step (median, slowest rank), "
+              f"{entry['gen_tokens_per_s']:.1f} generated tok/s, peak {peak} "
+              f"GiB per rank, staging+exchange {min(share) * 100:.0f}-"
+              f"{max(share) * 100:.0f} %; priced MB per rank per dim/level "
+              f"{mb}{extra}; launches (all ranks) by kernel/level {levels} "
+              f"[{card}]")
+        out[name] = entry
+    return out
 
 
 def check_cp(card, res: dict) -> dict:
@@ -1846,8 +2077,8 @@ def check_tune(card, k, p) -> dict:
 
 def drive_pipeline(torch, card) -> dict:
     """Phase 7: the pipeline at full width, dp 1 x pp 2 x tp 2 (four ranks
-    on the card), 1F1B at ``--layers 26`` and interleaved (vpp 2, remat
-    per_stage:0) at ``--layers 16``, through the kernels and the plain
+    on the card), 1F1B and interleaved (vpp 2, remat per_stage:0) at
+    PP_RUNS' ``--layers``, through the kernels and the plain
     versions; returns each run's launches (all ranks), by shape too."""
     out, runs = {}, []
     for name, layers, steps, extra in PP_RUNS:
@@ -2078,11 +2309,14 @@ def drive_stateful(torch, card, train, n_flat) -> dict:
     kernel runs' launches (all ranks)."""
     from repro_torch.core import codecs
 
-    k, p, e = train_runs(card, [
+    k, p, e, ref8 = train_runs(card, [
         run("plr8 kernels", "zhybrid_16_8", None, STATEFUL_STEPS, PLR),
         run("plr8 plain", "zhybrid_16_8", "torch", STATEFUL_STEPS, PLR),
         run("ef_zhybrid_16_4 kernels", "ef_zhybrid_16_4", None,
-            STATEFUL_STEPS)])
+            STATEFUL_STEPS),
+        run(f"plr8 kernels, first {CKPT_DEPTH} layers (phase 8's "
+            f"reference)", "zhybrid_16_8", None, STATEFUL_STEPS, PLR,
+            depth=CKPT_DEPTH)])
     for rk, rp in zip(k, p):
         for key in ("wire_per_dim", "priced_per_dim"):
             if rk[key] != rp[key]:
@@ -2106,7 +2340,8 @@ def drive_stateful(torch, card, train, n_flat) -> dict:
     for n in ("bq_encode", "bq_decode", "bq_decode_add"):
         if el[n] <= 0:
             fail(f"the ef_zhybrid_16_4 step never launched {n}: {el}")
-    for label, res in (("plr8", k), ("ef_zhybrid_16_4", e)):
+    for label, res in (("plr8", k), ("ef_zhybrid_16_4", e),
+                       (f"plr8 at {CKPT_DEPTH} layers", ref8)):
         for r in res:
             ls = r["losses"]
             if not (np.isfinite(ls).all() and ls[-1] < ls[0]):
@@ -2138,7 +2373,7 @@ def drive_stateful(torch, card, train, n_flat) -> dict:
           f"{e[0]['wire_per_dim']}; codec state rank 0: plr8 "
           f"{k[0]['codec_state']}, ef {e[0]['codec_state']}; launches (all "
           f"ranks) plr8 {kl}, ef {el} [{card}]")
-    return {"plr": kl, "ef": el, "plr_run": k}
+    return {"plr": kl, "ef": el, "plr_run": ref8}
 
 
 def ckpt_bytes(cfg, n_flat) -> int:
@@ -2186,8 +2421,9 @@ def point_latest(step: int) -> None:
 
 def drive_checkpoint(torch, card, plr, cfg, n_flat) -> dict:
     """Phase 8: save, resume and an elastic resume of phase 6's plr8
-    kernel run ``plr`` (its per-rank results); returns 8b's launches (all
-    ranks) and the checkpoints' numbers."""
+    kernel run at CKPT_DEPTH layers ``plr`` (its per-rank results; ``cfg``
+    that depth's config, ``n_flat`` its flat gradient); returns 8b's
+    launches (all ranks) and the checkpoints' numbers."""
     import shutil
 
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
@@ -2203,13 +2439,14 @@ def drive_checkpoint(torch, card, plr, cfg, n_flat) -> dict:
              str(CKPT_STEPS)]
     try:
         a = train_run(card, "8a plr8 kernels, save", "zhybrid_16_8", None,
-                      CKPT_STEPS, flags)
+                      CKPT_STEPS, flags, depth=CKPT_DEPTH)
         b = train_run(card, "8b resume", "zhybrid_16_8", None, CKPT_STEPS,
-                      [*flags, "--resume"])
+                      [*flags, "--resume"], depth=CKPT_DEPTH)
         hb = json.loads((CKPT_DIR / "heartbeat.json").read_text())
         point_latest(CKPT_STEPS)
         c = train_run(card, "8c resume at dp 4 x tp 1", "zhybrid_16_8", None,
-                      1, [*flags, "--resume"], dp=DP * TP, tp=1)
+                      1, [*flags, "--resume"], dp=DP * TP, tp=1,
+                      depth=CKPT_DEPTH)
     finally:
         shutil.rmtree(CKPT_DIR, ignore_errors=True)
     ck = {run: r[0]["ckpt"] for run, r in (("8a", a), ("8b", b), ("8c", c))}
@@ -2257,7 +2494,8 @@ def drive_checkpoint(torch, card, plr, cfg, n_flat) -> dict:
     l8b, l8c = b[0]["losses"][0], c[0]["losses"][0]
     if not (np.isfinite(l8c) and abs(l8c - l8b) <= 0.01 * abs(l8b)):
         fail(f"phase 8: 8c's first loss {l8c} not within 1 % of 8b's {l8b}")
-    print(f"phase 8: 8a + 8b == phase 6's plr8 kernel run bit for bit "
+    print(f"phase 8 (the first {CKPT_DEPTH} layers): 8a + 8b == phase "
+          f"6's {CKPT_DEPTH}-layer plr8 kernel run bit for bit "
           f"(losses, grad norms, every rank); 8b launched phase 6's kernels "
           f"per step {lb}; heartbeat at step {hb['step']}; 8c at dp "
           f"{DP * TP} x tp 1 (global layout unchanged: {same}): "
@@ -2333,28 +2571,34 @@ def main():
         # phase 6's plr8 kernel run and phase 8 alone
         os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
                               "expandable_segments:True")
-        cfg = configs.get("gemma3-1b")
+        cfg = configs.get("gemma3-1b").truncated(CKPT_DEPTH)
         plr = train_run(card, "phase 6 plr8 kernels", "zhybrid_16_8", None,
-                        STATEFUL_STEPS, PLR)
+                        STATEFUL_STEPS, PLR, depth=CKPT_DEPTH)
         drive_checkpoint(torch, card, plr, cfg, flat_elems(cfg))
         print(f"card: {card}")
         return
 
     if sys.argv[1:] == ["--hier-only"]:
-        # phase 9 alone
+        # phases 9 to 12 alone
         os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
                               "expandable_segments:True")
-        hier, tune, cp = drive_hier(torch, card)
-        print(json.dumps({"phase9": hier, "phase10": tune, "phase11": cp}))
+        hier, tune, cp, serve = drive_hier(torch, card)
+        print(json.dumps({"phase9": hier, "phase10": tune, "phase11": cp,
+                          "phase12": serve}))
         print(f"card: {card}")
         return
 
-    if sys.argv[1:] == ["--cp-only"]:
-        # phase 11 alone
+    if sys.argv[1:] in (["--cp-only"], ["--serve-only"]):
+        # phase 11 or phase 12 alone
         os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
                               "expandable_segments:True")
-        _, _, cp = drive_hier(torch, card, cp_only=True)
-        print(json.dumps({"phase11": cp}))
+        only = sys.argv[1][2:-5]
+        t0 = time.perf_counter()
+        _, _, cp, serve = drive_hier(torch, card, only=only)
+        print(json.dumps({"phase11": cp} if only == "cp"
+                         else {"phase12": serve}))
+        print(f"wall seconds of the phase {time.perf_counter() - t0:.1f} "
+              f"[{card}]")
         print(f"card: {card}")
         return
 
@@ -2572,24 +2816,36 @@ def main():
 
     # ---------------------------------------------------------- phase 8
     starts["8"] = time.perf_counter()
-    print(f"phase 8: checkpoint and resume phase 6's plr8 kernel run "
+    print(f"phase 8: checkpoint and resume phase 6's plr8 kernel run at "
+          f"its first {CKPT_DEPTH} layers "
           f"(8a {CKPT_STEPS} steps and a save, 8b resume {CKPT_STEPS} steps, "
           f"8c resume at dp {DP * TP} x tp 1, 1 step) [{card}]")
-    ckpt = drive_checkpoint(torch, card, stateful["plr_run"], cfg, n_flat)
+    cfg8 = cfg.truncated(CKPT_DEPTH)
+    ckpt = drive_checkpoint(torch, card, stateful["plr_run"], cfg8,
+                            flat_elems(cfg8))
 
     # ---------------------------------------------------------- phase 9
-    starts["9 to 11"] = time.perf_counter()
+    starts["9 to 12"] = time.perf_counter()
     print(f"phase 9: node-factored meshes, gemma3-1b full width, four ranks "
           f"on this card, seq {SEQ}, global batch {GLOBAL_BATCH}: 9a --dp 4 "
-          f"--nodes 2 --layers 13 (hier_zpp_8_16), 9b --tp 4 --tp-nodes 2 "
+          f"--nodes 2 --layers {HIER_RUNS[0][3][-1]} (hier_zpp_8_16), 9b "
+          f"--tp 4 --tp-nodes 2 --layers 13 "
           f"(hier_tpp_8_16), 9c --pp 4 --pp-nodes 2 --layers 8 "
           f"(hier_tpp_8_16, 1F1B); then phase 10 in the same world, the "
           f"tuned step: {' '.join(TUNE_FLAGS)} from {TUNE_SCHEME}, "
           f"{TUNE_STEPS} steps (kernels, plain); then phase 11, context "
           f"parallelism: 11a --dp 2 --cp 2, the first {CP_RUNS[0][5]} "
           f"layers (zhybrid_16_8; kernels, plain), 11b --cp 4 --cp-nodes 2, "
-          f"the first {CP_RUNS[1][5]} (hier_tpp_8_16; kernels) [{card}]")
-    hier, tune, cp = drive_hier(torch, card)
+          f"the first {CP_RUNS[1][5]} (hier_tpp_8_16; kernels); then "
+          f"phase 12, serving, the first {SERVE_DEPTH} layers, prompts of "
+          f"{SERVE_PROMPT}, "
+          f"{SERVE_GEN} generated: 12a batched --dp 2 --tp 2 "
+          f"(zhybrid_16_8; kernels, plain), 12b batched --tp 4 --tp-nodes "
+          f"2 (hier_tpp_8_16; kernels), 12c paged --dp 4 --kv-codec bq8, "
+          f"{PAGED_REQUESTS} requests on {PAGED_SLOTS} slots (kernels, "
+          f"plain), 12d disagg --tp 2 --kv-codec bq8 (kernels, plain) "
+          f"[{card}]")
+    hier, tune, cp, serve = drive_hier(torch, card)
 
     starts["reckoning"] = time.perf_counter()
     # launches x (time - bound) per shape of phase 4's kernel run, timed in
@@ -2663,6 +2919,25 @@ def main():
     def p11_launches(kernel: str) -> int:
         return sum(run["launches"][kernel] for run in cp.values())
 
+    def p12_entry(kernel: str) -> dict:
+        """Phase 12's launches of a kernel (all ranks, the kernel runs) per
+        run, by link level; a bq kernel's flat and view forms count with
+        it."""
+        forms = {"bq_encode": ("bq_encode", "bq_encode_flat",
+                               "bq_encode_view"),
+                 "bq_decode": ("bq_decode", "bq_decode_flat"),
+                 "bq_decode_add_encode": ("bq_decode_add_encode",
+                                          "bq_decode_add_encode_wire",
+                                          "bq_decode_add_encode_view"),
+                 "bq_decode_add": ("bq_decode_add", "bq_decode_add_flat")
+                 }.get(kernel, (kernel,))
+        return {run: {key: v for key, v in r["levels"].items()
+                      if key.split("/")[0] in forms}
+                for run, r in serve.items()}
+
+    def p12_launches(kernel: str) -> int:
+        return sum(run["launches"][kernel] for run in serve.values())
+
     def p10_entry(kernel: str) -> dict:
         """Phase 10's launches of a kernel (all ranks, the kernel run) by
         rate and by link level; a bq kernel's flat and view forms count
@@ -2703,12 +2978,13 @@ def main():
         entry["launches_ef_zhybrid_16_4"] = stateful["ef"][name]
         entry["launches"] += p7_launches(name) + ckpt["launches"][name] \
             + p9_launches(name) + tune["launches"][name] \
-            + p11_launches(name)
+            + p11_launches(name) + p12_launches(name)
         entry["phase7"] = p7_entry(name)
         entry["phase8"] = ckpt["launches"][name]        # after the restore
         entry["phase9"] = p9_entry(name)
         entry["phase10"] = p10_entry(name)
         entry["phase11"] = p11_entry(name)
+        entry["phase12"] = p12_entry(name)
         if name in ("bq_encode", "bq_decode"):
             # the block form's kernel alone, and the flat form the TP
             # all-gather calls (the same kernel, fused with its layout)
@@ -2729,7 +3005,8 @@ def main():
                 "stream_kernel_ms": op["stream_kernel_ms"],
                 "launches": t_launch[f"{name}_flat"]
                 + p7_launches(f"{name}_flat") + p9_launches(f"{name}_flat")
-                + p11_launches(f"{name}_flat"),
+                + p11_launches(f"{name}_flat")
+                + p12_launches(f"{name}_flat"),
                 "phase7": p7_entry(f"{name}_flat"),
                 "max_abs_err": err[f"{name}_flat"],
                 "by_shape": by_shape.get(f"{name}_flat", [])}
@@ -2753,7 +3030,8 @@ def main():
                 "path": f"TP reduce-scatter, bf16 {[list(sh) for sh in RS_SHAPES]}"
                         f" along axis 1 over {TP} ranks", "rate": 16,
                 "launches": t_launch[fname] + p7_launches(fname)
-                + p9_launches(fname),
+                + p9_launches(fname) + p11_launches(fname)
+                + p12_launches(fname),
                 "phase7": p7_entry(fname), "max_abs_err": err[fname],
                 "bound_by": "bytes",
                 "by_rows": {rows: {**ops_[op], "end": ops_["end"]}
@@ -2813,6 +3091,7 @@ def main():
         "phase11": {run: {k: v for k, v in r["launches"].items()
                           if k.startswith("matmul_")}
                     for run, r in cp.items()},
+        "phase12": {},            # plr rides no serving path
         "max_abs_err": max(f["max_abs_err"] for f in forms.values()),
         **total, "bound_by": "bytes" if all(
             f["bound_by"] == "bytes" for f in forms.values()) else

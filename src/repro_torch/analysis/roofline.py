@@ -14,8 +14,9 @@ effect of a plan swap the self-tuning controller records.  The device-time
 terms of the reference's roofline, and its link rates, were a TPU's and
 are not carried over: the callers of :func:`collective_seconds`,
 :func:`stage_handoff_seconds`, :func:`cp_ring_seconds`,
-:func:`suggest_scheme` and :func:`savings_report` name the rates of their
-own links.
+:func:`kv_handoff_seconds`, :func:`suggest_scheme` and
+:func:`savings_report` name the rates of their own links.
+:func:`kv_hbm_bytes` prices a paged KV pool's resident bytes.
 """
 
 from __future__ import annotations
@@ -379,6 +380,30 @@ def cp_ring_seconds(events, train: bool, fast_bytes_per_s: float,
     cp_ev = [ev for ev in events if tag_dim(ev["tag"]) == "cp"]
     return collective_seconds(cp_ev, train, fast_bytes_per_s,
                               slow_bytes_per_s, slow_axes)
+
+
+def kv_handoff_seconds(events, fast_bytes_per_s: float,
+                       slow_bytes_per_s: float, train: bool = False,
+                       slow_axes=()) -> float:
+    """Link time of the ``kv`` events alone: the disaggregated server's
+    prefill -> decode handoff (``comms.pool_handoff``, one ppermute per
+    cache leaf under the plan's ``kv`` codec), through
+    :func:`collective_seconds` at the two link rates the caller names.
+    Serving runs no backward, so ``train`` defaults False; a pool axis in
+    ``slow_axes`` rides the slow link."""
+    kv_ev = [ev for ev in events if tag_dim(ev["tag"]) == "kv"]
+    return collective_seconds(kv_ev, train, fast_bytes_per_s,
+                              slow_bytes_per_s, slow_axes)
+
+
+def kv_hbm_bytes(n_blocks: int, block_tokens: int, n_layers: int,
+                 kv_heads: int, head_dim: int, codec: str = "none",
+                 dtype: str = "bfloat16") -> float:
+    """Resident device bytes of a paged KV pool (K and V): under a bq
+    storage codec the pool holds wire planes, so the bytes shrink by the
+    codec's bits per value, the ledger's arithmetic applied to capacity."""
+    elems = 2 * n_layers * n_blocks * block_tokens * kv_heads * head_dim
+    return _wire_bytes(codec, elems, dtype)
 
 
 def pipelined_step_time(base_step_s: float, pp: int, n_micro: int,

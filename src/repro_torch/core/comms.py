@@ -58,6 +58,11 @@ the codec-state region and the tune region are process-wide rather than
 thread-local: autograd runs the backward of CUDA tensors on its own
 thread, which must see the same bindings.  The all-to-all paths are not
 yet ported.
+
+Serving adds :func:`pool_handoff` (the disaggregated prefill -> decode KV
+handoff over the pool axis, ledgered under ``kv``) and
+:func:`raw_all_gather` (the uncompressed, ledger-free gather that moves
+prefill caches into the decode layout).
 """
 
 from __future__ import annotations
@@ -716,6 +721,21 @@ def raw_ppermute(x, axis, perm):
         return _exchange(x.contiguous(), axis, perm)
 
 
+def raw_all_gather(x, axis, axis_dim: int):
+    """Uncompressed all-gather of dim ``axis_dim`` over ``axis`` (a pair
+    gathers on its joint axis), outside the ledger and without a gradient:
+    host-side data movement that the reference does outside its step (the
+    serving launcher's prefill-to-decode cache layout) and that no codec
+    or ledger event may see."""
+    axis = _flat(axis)
+    if axis.size == 1:
+        return x
+    with torch.no_grad():
+        g = _all_gather_raw(x.contiguous(), axis)
+        return torch.movedim(g, 0, axis_dim).reshape(
+            ops.gathered_shape(x.shape, axis.size, axis_dim))
+
+
 # --------------------------------------------------------------------------
 # block-layout helpers
 # --------------------------------------------------------------------------
@@ -1223,6 +1243,20 @@ def stage_recv(x, axis, tag="pp"):
     if n == 1:
         return torch.zeros_like(x)
     return ppermute(x, axis, [(s + 1, s) for s in range(n - 1)], tag)
+
+
+def pool_handoff(x, axis, tag="kv@prefill_handoff", src: int = 0,
+                 dst: int = 1):
+    """Serving prefill -> decode pool handoff: pool rank ``src`` sends ``x``
+    to pool rank ``dst``.  A one-edge :func:`ppermute` (the pool rank that
+    receives nothing gets zeros: the prefill pool drops its KV), so the
+    KV transfer rides the compression path and the ledger under the
+    serving ``kv`` dimension, its event pro-rated by the ``1/n`` edge
+    fraction; ``roofline.kv_handoff_seconds`` prices these events.  On an
+    axis of one rank (or none) it returns ``x``."""
+    if axis is None or int(axis.size) == 1:
+        return x
+    return ppermute(x, axis, [(src, dst)], tag)
 
 
 # --------------------------------------------------------------------------

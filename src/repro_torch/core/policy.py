@@ -275,15 +275,15 @@ def _resolve_axes(mesh_info) -> dict:
     chunks are replicated per node, so the param gather never leaves the
     node); ``tp`` and ``ep`` ride the (possibly ``(tpnode, model)``) model
     axes, ``pp`` the (possibly ``(ppnode, stage)``) stage axes and ``cp``
-    the (possibly ``(cpnode, cp)``) context-parallel axes, each ``None``
-    on a mesh without that axis.  The port's meshes have no pool axis
-    (``kv``) yet."""
+    the (possibly ``(cpnode, cp)``) context-parallel axes, and ``kv`` the
+    serving pool axis the prefill -> decode KV handoff crosses, each
+    ``None`` on a mesh without that axis."""
     if mesh_info is None:
         return {}
     mi = mesh_info
     return {"dp": mi.data_pair, "zero": mi.dp_axes, "tp": mi.tp_axes,
             "ep": mi.tp_axes, "pp": mi.stage_axes, "cp": mi.cp_axes,
-            "kv": None}
+            "kv": mi.pool_axis}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -16,6 +16,11 @@ axes (an axis of one rank is left out): on the flat mesh global rank ``r
 ``c``, stage ``s`` and model ``t``, and a factored axis is the flat one
 linearized node-major, so "rank i owns chunk i" names the same shard in
 both packages and on flat and factored meshes alike.
+
+Disaggregated serving adds a ``pool`` axis of two (prefill, decode)
+outermost (:func:`make_disagg_mesh`): each pool is a whole ``dp x tp``
+mesh, global rank ``(p * dp + d) * tp + t``, and only the kv handoff
+crosses it.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ PP_NODE_AXIS = "ppnode"  # outer stage sub-axis
 STAGE_AXIS = "stage"     # inner stage sub-axis / flat stage axis
 TP_NODE_AXIS = "tpnode"  # outer model sub-axis
 MODEL_AXIS = "model"     # inner model sub-axis / flat model axis
+POOL_AXIS = "pool"       # serving: prefill (0) / decode (1) pools
 
 
 def _axis_groups(shape: tuple, dims: tuple) -> dict:
@@ -65,28 +71,34 @@ def _axis_groups(shape: tuple, dims: tuple) -> dict:
 
 def make_mesh(dp: int, tp: int, pp: int = 1, nodes: int = 1,
               tp_nodes: int = 1, pp_nodes: int = 1, cp: int = 1,
-              cp_nodes: int = 1) -> MeshInfo:
+              cp_nodes: int = 1, pool: int = 1) -> MeshInfo:
     """This rank's view of a ``dp x cp x pp x tp`` mesh whose data, cp,
     stage and model axes split over ``nodes``, ``cp_nodes``, ``pp_nodes``
     and ``tp_nodes`` nodes (``dp``, ``cp``, ``pp`` and ``tp`` are the whole
     degrees, as the reference's ``make_mesh`` takes them), its axes bound
     to process groups of the initialized default group (which must hold
-    ``dp * cp * pp * tp`` ranks).  A one-rank mesh needs no process
-    group."""
+    ``pool * dp * cp * pp * tp`` ranks).  ``pool`` repeats that mesh
+    ``pool`` times over an outermost serving pool axis
+    (:func:`make_disagg_mesh`); every other axis, ``world`` included,
+    stays inside one pool.  A one-rank mesh needs no process group."""
     for ways, n, flag in ((dp, nodes, "--nodes"), (tp, tp_nodes, "--tp-nodes"),
                           (pp, pp_nodes, "--pp-nodes"),
                           (cp, cp_nodes, "--cp-nodes")):
         if n < 1 or ways % n:
             raise ValueError(f"{flag} {n} must divide {ways}")
+    if pool < 1:
+        raise ValueError(f"pool {pool} must be >= 1")
     world = dp * cp * pp * tp
-    if world == 1:
+    if world * pool == 1:
         return MeshInfo()
-    if not dist.is_initialized() or dist.get_world_size() != world:
+    if not dist.is_initialized() or dist.get_world_size() != world * pool:
         raise RuntimeError(
-            f"a {dp} x {cp} x {pp} x {tp} (data x cp x stage x model) mesh "
-            f"needs torch.distributed initialized with {world} ranks")
+            f"a {pool} x {dp} x {cp} x {pp} x {tp} (pool x data x cp x "
+            f"stage x model) mesh needs torch.distributed initialized with "
+            f"{world * pool} ranks")
     r = dist.get_rank()
-    shape = (nodes, dp // nodes, cp_nodes, cp // cp_nodes, pp_nodes,
+    # dim 0 is the pool; the mesh dims below count from 1
+    shape = (pool, nodes, dp // nodes, cp_nodes, cp // cp_nodes, pp_nodes,
              pp // pp_nodes, tp_nodes, tp // tp_nodes)
     coord, rest = [], r
     for n in reversed(shape):
@@ -111,26 +123,40 @@ def make_mesh(dp: int, tp: int, pp: int = 1, nodes: int = 1,
         return AxisPair(axis(outer, (k,)), axis(inner, (k + 1,)),
                         axis((outer, inner), (k, k + 1)))
 
-    data = factored(NODE_AXIS, LOCAL_AXIS, 0)
-    context = factored(CP_NODE_AXIS, CP_AXIS, 2) if cp > 1 else None
-    stage = factored(PP_NODE_AXIS, STAGE_AXIS, 4) if pp > 1 else None
-    model = factored(TP_NODE_AXIS, MODEL_AXIS, 6)
+    data = factored(NODE_AXIS, LOCAL_AXIS, 1)
+    context = factored(CP_NODE_AXIS, CP_AXIS, 3) if cp > 1 else None
+    stage = factored(PP_NODE_AXIS, STAGE_AXIS, 5) if pp > 1 else None
+    model = factored(TP_NODE_AXIS, MODEL_AXIS, 7)
     pair = isinstance(data, AxisPair)
     # the loss's token sums: the batch and cp axes are adjacent in the
     # rank order, so one group covers them
     batch_cp = None
     if cp > 1:
         names = tuple(n for n, k in zip(
-            (NODE_AXIS, LOCAL_AXIS, CP_NODE_AXIS, CP_AXIS), shape) if k > 1)
-        batch_cp = axis(names, (0, 1, 2, 3))
+            (NODE_AXIS, LOCAL_AXIS, CP_NODE_AXIS, CP_AXIS), shape[1:])
+            if k > 1)
+        batch_cp = axis(names, (1, 2, 3, 4))
+    if pool == 1:
+        whole = Axis("world", world, r, None, tuple(range(world)))
+    else:
+        whole = axis("world", tuple(range(1, len(shape))))
     return MeshInfo(
         tp=tp, dp=dp // nodes, pp=pp, node=nodes, tp_node=tp_nodes,
-        pp_node=pp_nodes, cp=cp, cp_node=cp_nodes, model=model,
+        pp_node=pp_nodes, cp=cp, cp_node=cp_nodes, pool=pool, model=model,
         data=data.inner if pair else data, stage=stage,
         nodes=data.outer if pair else None,
         batch=data.joint if pair else None, context=context,
-        batch_cp=batch_cp,
-        world=Axis("world", world, r, None, tuple(range(world))))
+        batch_cp=batch_cp, world=whole,
+        pools=axis(POOL_AXIS, (0,)) if pool > 1 else None)
+
+
+def make_disagg_mesh(dp: int, tp: int) -> MeshInfo:
+    """This rank's view of the disaggregated serving mesh (the reference's
+    ``serve.disagg.make_disagg_mesh``): ``(pool=2, data, model)``, the pool
+    outermost so that each pool is a whole ``dp x tp`` mesh and the
+    handoff one hop; ``2 * dp * tp`` ranks, global rank ``(p * dp + d) *
+    tp + t``."""
+    return make_mesh(dp, tp, pool=2)
 
 
 def make_hier_mesh(dp: int, tp: int, nodes: int = 1, tp_nodes: int = 1,

@@ -1,6 +1,8 @@
-"""Attention (port of ``repro.models.attention``): training attention in
-head and ring mode, and the head-sharded decode path against a paged KV
-pool, on the reference's online-softmax core.
+"""Attention (port of ``repro.models.attention``): training and prefill
+attention in head and ring mode, single-token decode against a dense KV
+cache in both modes (ring mode's shards merged by the flash-decoding
+combine), and the head-sharded decode path against a paged KV pool, on
+the reference's online-softmax core.
 
 Mode selection (``cfg.attn_mode_for(tp)``):
 
@@ -224,9 +226,12 @@ def _theta(cfg, window):
 # --------------------------------------------------------------------------
 
 def attn_train(p, x, pos, cfg, mi: MeshInfo, mode: str, causal=True,
-               window=0):
-    """Training attention sublayer: x [B, S_loc, D] sequence-sharded, pos
-    [B, S_loc] global positions -> [B, S_loc, D]."""
+               window=0, want_cache=False):
+    """Training (and prefill) attention sublayer: x [B, S_loc, D]
+    sequence-sharded, pos [B, S_loc] global positions -> [B, S_loc, D],
+    and with ``want_cache`` the prefill cache ``(k, v, k_pos)`` too: in
+    head mode the full (cp-local) sequence of this rank's KV heads, in
+    ring mode this rank's sequence slice of every head."""
     theta = _theta(cfg, window)
     if mode == "head":
         xg = comms.all_gather(x, mi.tp_axes, 1, comms.site("tp", "attn_in"))
@@ -237,10 +242,12 @@ def attn_train(p, x, pos, cfg, mi: MeshInfo, mode: str, causal=True,
         else:
             o = full_attention(q, k, v, pos_g, pos_g, causal, window)
         y = o.reshape(*o.shape[:2], -1) @ p["wo"]
-        return comms.reduce_scatter(y, mi.tp_axes, 1,
-                                    comms.site("tp", "attn_out"))
+        out = comms.reduce_scatter(y, mi.tp_axes, 1,
+                                   comms.site("tp", "attn_out"))
+        return (out, (k, v, pos_g)) if want_cache else out
     # ring: the sequence stays sharded, the weights are replicated
     q, k, v = _project_qkv(p, x, x, pos, pos, cfg, mi, theta)
+    cache = (k, v, pos)
     kb, vb, pkv = k, v, pos
     if mi.tp > 1:
         # K/V are GQA-small: gather the tp sub-slices of this rank's cp
@@ -250,13 +257,89 @@ def attn_train(p, x, pos, cfg, mi: MeshInfo, mode: str, causal=True,
         vb = comms.all_gather(vb, mi.tp_axes, 1, comms.site("tp", "attn_kv"))
         pkv = _gather_pos(pos, mi)
     o = ring_attention(q, kb, vb, pos, pkv, mi, causal, window)
-    return o.reshape(*o.shape[:2], -1) @ p["wo"]
+    out = o.reshape(*o.shape[:2], -1) @ p["wo"]
+    return (out, cache) if want_cache else out
 
 
 def _gather_pos(pos, mi):
     return comms.all_gather(pos, mi.tp_axes, 1,
                             comms.site("tp", "attn_pos")) \
         if mi.tp > 1 else pos
+
+
+# --------------------------------------------------------------------------
+# dense decode
+# --------------------------------------------------------------------------
+
+def attn_decode(p, x, cache, index: int, cfg, mi: MeshInfo, mode: str,
+                window=0, seq_axes=None):
+    """Single-token decode against one layer's dense KV cache.
+
+    x [B, 1, D] (replicated over model); ``cache`` {k, v} of this rank,
+    written IN PLACE: in head mode [B, S_max, KV_loc, hd] (the whole
+    sequence, this rank's heads), in ring mode [B, S_max / n, KV, hd],
+    the sequence sharded over ``seq_axes`` (entries are axes or pairs,
+    linearized in order, each pair outer-major; default the model axes).
+    ``index`` is the current position (the tokens already in the cache).
+    Ring mode writes the new token on the shard that owns ``index`` (and,
+    as the reference's scatter does, at the end of the next shard, where
+    it stays masked: fault C.17) and merges the shards'
+    partial softmax with the flash-decoding combine: a max, then two sums
+    at ``tp@attn_combine`` over each entry of ``seq_axes`` (a pair's sums
+    two-level).  Returns (out [B, 1, D], cache)."""
+    theta = _theta(cfg, window)
+    B = x.shape[0]
+    pos_q = torch.full((B, 1), index, dtype=torch.long, device=x.device)
+    # head mode: the weights are head-sharded, so q/k/v hold this rank's
+    # heads; ring mode: the weights are replicated, every head is local
+    q, k_new, v_new = _project_qkv(p, x, x, pos_q, pos_q, cfg, mi, theta)
+    k, v = cache["k"], cache["v"]
+    if mode == "head":
+        k[:, index] = k_new[:, 0].to(k.dtype)
+        v[:, index] = v_new[:, 0].to(v.dtype)
+        s_max = k.shape[1]
+        k_pos = torch.arange(s_max, dtype=torch.long,
+                             device=x.device)[None].expand(B, s_max)
+        o = full_attention(q, k, v, pos_q, k_pos, causal=False,
+                           window=window, k_valid=k_pos < index + 1)
+        y = o.reshape(B, 1, -1) @ p["wo"]
+        out = comms.psum(y, mi.tp_axes, comms.site("tp", "attn_out"))
+        return out, cache
+
+    seq_axes = (mi.tp_axes,) if seq_axes is None else tuple(seq_axes)
+    chunk = k.shape[1]
+    off = _shard_index(seq_axes) * chunk
+    # the reference's dropped scatter wraps a local index in [-chunk, 0)
+    # to the shard's end, as numpy indexing does (fault C.17): a masked
+    # position that the owner's own write reaches before any read
+    if -chunk <= index - off < chunk:
+        k[:, index - off] = k_new[:, 0].to(k.dtype)
+        v[:, index - off] = v_new[:, 0].to(v.dtype)
+    k_pos = off + torch.arange(chunk, dtype=torch.long,
+                               device=x.device)[None].expand(B, chunk)
+    o, m, l = _attn_part(q, k, v,
+                         _mask_bias(pos_q, k_pos, False, window,
+                                    k_pos < index + 1),
+                         cfg.head_dim_ ** -0.5)
+    # flash-decoding combine across the sequence shards
+    for ax in seq_axes:
+        mg = comms.pmax(m, ax)
+        w = torch.exp(m - mg)
+        o = comms.psum(o * w[..., None], ax, comms.site("tp", "attn_combine"))
+        l = comms.psum(l * w, ax, comms.site("tp", "attn_combine"))
+        m = mg
+    o = (o / torch.clamp(l, min=1e-30)[..., None]).to(x.dtype)
+    return o.reshape(B, 1, -1) @ p["wo"], cache
+
+
+def _shard_index(seq_axes) -> int:
+    """This rank's linear shard index over the sequence sharding
+    ``seq_axes`` (an entry may be a pair, whose joint index is
+    outer-major)."""
+    idx = 0
+    for ax in seq_axes:
+        idx = idx * ax.size + ax.index
+    return idx
 
 
 # --------------------------------------------------------------------------

@@ -1,5 +1,6 @@
-"""Top-level model: plan, parameter init, training forward and loss (port
-of ``repro.models.model`` for the dense decoder)."""
+"""Top-level model: plan, parameter init, the training and prefill
+forward, and the loss (port of ``repro.models.model`` for the dense
+decoder)."""
 
 from __future__ import annotations
 
@@ -67,12 +68,17 @@ class Model:
         return layers.embed(params["embed"], batch["tokens"], self.cfg,
                             self.mi)
 
-    def run_decoder(self, params, x, pos) -> torch.Tensor:
-        """Every layer group on ``x`` (a stage-free mesh)."""
+    def run_decoder(self, params, x, pos, phase="train"):
+        """Every layer group on ``x`` (a stage-free mesh); at
+        ``phase="prefill"`` -> (x, each group's stacked caches)."""
+        caches = []
         for gp, g in zip(params["groups"], self.cfg.layer_groups):
             x = transformer.run_group(gp, x, g, self.cfg, self.mi, self.mode,
-                                      pos)
-        return x
+                                      pos, phase)
+            if phase == "prefill":
+                x, c = x
+                caches.append(c)
+        return (x, caches) if phase == "prefill" else x
 
     def run_stage(self, params, x, pos, v=None) -> torch.Tensor:
         """This stage rank's layer chunk on ``x`` (a stage mesh only);
@@ -90,14 +96,19 @@ class Model:
         x = layers.norm(params["final_norm"], x, self.cfg, self.mi)
         return layers.lm_head_logits(params, x, self.cfg, self.mi)
 
-    def forward(self, params, batch) -> torch.Tensor:
-        """batch {tokens [B_loc, S]} -> logits [B_loc, S, V_loc] f32."""
+    def forward(self, params, batch, phase="train"):
+        """batch {tokens [B_loc, S]} -> logits [B_loc, S, V_loc] f32; at
+        ``phase="prefill"`` -> (logits, the caches of every layer group,
+        in the training layout: :mod:`repro_torch.serve.kv_cache`)."""
         if self.mi.pp > 1:
             raise ValueError("flat forward on a stage mesh: use "
                              "repro_torch.train.pipeline")
         x = self._embed_input(params, batch)
         pos = self._positions(x.shape[0], x.shape[1])
-        return self.head(params, self.run_decoder(params, x, pos))
+        if phase == "train":
+            return self.head(params, self.run_decoder(params, x, pos))
+        x, caches = self.run_decoder(params, x, pos, phase)
+        return self.head(params, x), caches
 
     def loss_fn(self, params, batch):
         """Global-mean token cross-entropy (a scalar, the same on every

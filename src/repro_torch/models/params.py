@@ -63,7 +63,15 @@ class MeshInfo:
     groups); left ``None`` they are one-rank axes of the right name and
     size, which is all a one-process run, or a plan that only needs
     shapes, asks for.  A mesh with ``pp == 1`` has no stage axis
-    (``stage_axes`` is ``None``), one with ``cp == 1`` no cp axis."""
+    (``stage_axes`` is ``None``), one with ``cp == 1`` no cp axis.
+
+    ``pool`` counts the disaggregated serving pools (prefill and decode,
+    :mod:`repro_torch.serve.disagg`), whose axis (``pools``, read through
+    :attr:`pool_axis`) the kv handoff crosses.  It is serving-only and
+    outermost, as in the reference: it is never part of :attr:`all_axes`,
+    :attr:`batch_axes` or :attr:`batch_ways` (no model collective touches
+    it; ``world`` and ``world_size`` are one pool's), and every leaf is
+    replicated over it."""
 
     tp: int = 1
     dp: int = 1
@@ -73,6 +81,7 @@ class MeshInfo:
     pp_node: int = 1
     cp: int = 1
     cp_node: int = 1
+    pool: int = 1
     model_axis: str = "model"
     data_axis: str = "data"
     stage_axis: str = "stage"
@@ -81,6 +90,7 @@ class MeshInfo:
     pp_node_axis: str = "ppnode"
     cp_axis: str = "cp"
     cp_node_axis: str = "cpnode"
+    pool_axis_name: str = "pool"
     model: Axis | AxisPair | None = None
     data: Axis | None = None
     stage: Axis | AxisPair | None = None
@@ -89,6 +99,7 @@ class MeshInfo:
     context: Axis | AxisPair | None = None
     batch_cp: Axis | None = None
     world: Axis | None = None
+    pools: Axis | None = None
 
     def __post_init__(self):
         for n, f in ((self.tp, self.tp_node), (self.pp, self.pp_node),
@@ -100,7 +111,7 @@ class MeshInfo:
                       (self.batch, self.dp * self.node),
                       (self.context, self.cp),
                       (self.batch_cp, self.dp * self.node * self.cp),
-                      (self.world, self.world_size)):
+                      (self.world, self.world_size), (self.pools, self.pool)):
             if ax is not None and ax.size != n:
                 raise ValueError(f"axis {ax!r} has size {ax.size}, mesh "
                                  f"wants {n}")
@@ -216,6 +227,14 @@ class MeshInfo:
         return Axis(names, self.dp * self.node * self.cp)
 
     @property
+    def pool_axis(self) -> Axis | None:
+        """The serving pool axis the kv handoff crosses, or ``None`` on a
+        mesh without one."""
+        if self.pool == 1:
+            return None
+        return self.pools or Axis(self.pool_axis_name, self.pool)
+
+    @property
     def all_axes(self) -> Axis:
         """Every rank, ordered node, data, cp, stage, model: global rank
         ``(((n * dp + d) * cp + c) * pp + s) * tp + t`` (cp, stage and
@@ -229,12 +248,13 @@ class MeshInfo:
     @property
     def coords(self) -> dict:
         """This rank's index along each sharded spec tag (the joint index
-        of a factored axis), and along the node and cp axes, over which
-        every leaf is replicated."""
+        of a factored axis), and along the node, cp and pool axes, over
+        which every leaf is replicated."""
         return {"model": self.tp_axes.index, "data": self.dp_axes.index,
                 "stage": self.stage_axes.index if self.pp > 1 else 0,
                 "node": self.node_axes.index if self.node > 1 else 0,
-                "cp": self.cp_axes.index if self.cp > 1 else 0}
+                "cp": self.cp_axes.index if self.cp > 1 else 0,
+                "pool": self.pool_axis.index if self.pool > 1 else 0}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,5 +1,6 @@
 """Block assembly (port of ``repro.models.transformer`` for attention
-groups): parameter plans, the training bodies and the paged decode bodies.
+groups): parameter plans, the training and prefill bodies, and the dense
+and paged decode bodies.
 
 Each group's ``n`` identical layers are stacked on a leading axis, as in
 the reference; where the reference runs ``lax.scan`` over that axis, a
@@ -13,6 +14,8 @@ pass; the pipeline's remat policy checkpoints whole stage bodies.
 from __future__ import annotations
 
 import dataclasses
+
+import torch
 
 from repro_torch.models import attention, layers
 from repro_torch.models.config import ArchConfig, BlockGroup
@@ -164,24 +167,73 @@ def _unstack(tree, n: int) -> list:
 # training bodies
 # --------------------------------------------------------------------------
 
-def run_block(kind, p, x, cfg, mi, mode, g: BlockGroup, pos):
-    """One training layer: x [B, S_loc, D] -> [B, S_loc, D]."""
+def run_block(kind, p, x, cfg, mi, mode, g: BlockGroup, pos,
+              phase="train"):
+    """One training layer: x [B, S_loc, D] -> [B, S_loc, D]; at
+    ``phase="prefill"`` -> (x, its cache {k, v})."""
     if kind != "attn":
         raise NotImplementedError(f"layer kind {kind!r} is not yet ported")
+    want_cache = phase == "prefill"
     h = layers.norm(p["ln1"], x, cfg, mi)
-    x = x + attention.attn_train(p["attn"], h, pos, cfg, mi, mode,
-                                 causal=cfg.causal, window=g.window)
+    r = attention.attn_train(p["attn"], h, pos, cfg, mi, mode,
+                             causal=cfg.causal, window=g.window,
+                             want_cache=want_cache)
+    if want_cache:
+        r, (k, v, _) = r
+    x = x + r
     if cfg.d_ff:
         h = layers.norm(p["ln2"], x, cfg, mi)
         x = x + layers.mlp(p["mlp"], h, cfg, mi, sp=True)
-    return x
+    return (x, {"k": k, "v": v}) if want_cache else x
 
 
-def run_group(gp, x, g: BlockGroup, cfg, mi, mode, pos):
-    """The group's ``n`` layers in order."""
+def run_group(gp, x, g: BlockGroup, cfg, mi, mode, pos, phase="train"):
+    """The group's ``n`` layers in order; at ``phase="prefill"`` -> (x,
+    the layers' caches stacked {k, v} [n, ...])."""
+    if phase == "train":
+        for p in _unstack(gp, g.n):
+            x = run_block(g.kind, p, x, cfg, mi, mode, g, pos)
+        return x
+    if phase != "prefill":
+        raise ValueError(f"unknown phase {phase!r}")
+    caches = []
     for p in _unstack(gp, g.n):
-        x = run_block(g.kind, p, x, cfg, mi, mode, g, pos)
-    return x
+        x, c = run_block(g.kind, p, x, cfg, mi, mode, g, pos, phase)
+        caches.append(c)
+    return x, {k: torch.stack([c[k] for c in caches]) for k in ("k", "v")}
+
+
+# --------------------------------------------------------------------------
+# dense decode bodies
+# --------------------------------------------------------------------------
+
+def decode_block(kind, p, x, cache, index: int, cfg, mi, mode,
+                 g: BlockGroup, seq_axes=None):
+    """One layer's single-token decode against its dense cache {k, v}
+    (written in place).  Returns (x, cache)."""
+    if kind != "attn":
+        raise NotImplementedError(
+            f"decode of layer kind {kind!r} is not yet ported")
+    h = layers.norm(p["ln1"], x, cfg, mi)
+    r, cache = attention.attn_decode(p["attn"], h, cache, index, cfg, mi,
+                                     mode, window=g.window,
+                                     seq_axes=seq_axes)
+    x = x + r
+    if cfg.d_ff:
+        h = layers.norm(p["ln2"], x, cfg, mi)
+        x = x + layers.mlp(p["mlp"], h, cfg, mi, sp=False)
+    return x, cache
+
+
+def decode_group(gp, x, caches, index: int, g: BlockGroup, cfg, mi, mode,
+                 seq_axes=None):
+    """The group's layers in order, each writing its own slice of the
+    group's stacked caches in place.  Returns (x, caches)."""
+    for i in range(g.n):
+        x, _ = decode_block(g.kind, layer_slice(gp, i), x,
+                            layer_slice(caches, i), index, cfg, mi, mode, g,
+                            seq_axes)
+    return x, caches
 
 
 # --------------------------------------------------------------------------

@@ -11,16 +11,19 @@ encoded per row, so
   * an attention read decodes only the blocks its table names, straight
     from the compressed planes (the gather-decode kernel).
 
-Pool layout (one device; head attention mode)::
+Pool layout of one rank (head attention mode; the reference's global
+pool has its blocks sharded over the data ways and its heads, or its
+token rows, over the model ways)::
 
-  none  k/v   [L, n_blocks, bt, KV, hd]
-  bq*   q_hi  [L, n_blocks, bt, R, hi_w]
-        q_lo  [L, n_blocks, bt, R, 128]      (rate 24 only)
-        scale [L, n_blocks, bt, R, 1]
+  none  k/v   [L, nb, bt, KV_loc, hd]
+  bq*   q_hi  [L, nb, bt, R, hi_w]
+        q_lo  [L, nb, bt, R, 128]      (rate 24 only)
+        scale [L, nb, bt, R, 1]
 
-with ``R = ceil(KV * hd / 128)``.  Unlike the reference, whose arrays are
-immutable, :func:`write_token` updates the pool in place: a step would
-otherwise copy every layer's pool.
+with ``nb = n_blocks / batch_ways`` this rank's blocks, ``KV_loc = KV /
+tp`` its KV heads and ``R = ceil(KV_loc * hd / 128)``.  Unlike the
+reference, whose arrays are immutable, :func:`write_token` updates the
+pool in place: a step would otherwise copy every layer's pool.
 """
 
 from __future__ import annotations
@@ -125,20 +128,27 @@ class Struct:
 
 def pool_group(cfg: ArchConfig, mi: MeshInfo, g: BlockGroup, n_blocks: int,
                block_tokens: int, codec: str = "none"):
-    """-> struct tree for one layer group's paged pool."""
+    """-> struct tree for this rank's share of one layer group's paged
+    pool (``n_blocks`` is the GLOBAL pool size, as in the reference)."""
     if g.kind != "attn":
         raise NotImplementedError(
             f"paged KV cache of group kind {g.kind!r} is not yet ported")
     dt = torch_dtype(cfg.dtype)
     hd, KV = cfg.head_dim_, cfg.n_kv_heads
+    if KV % mi.tp:
+        raise ValueError(f"paged head-mode cache needs n_kv_heads ({KV}) "
+                         f"divisible by tp ({mi.tp})")
+    if n_blocks % mi.batch_ways:
+        raise ValueError(f"n_blocks ({n_blocks}) must divide by the data "
+                         f"ways ({mi.batch_ways})")
     bits = storage_bits(codec)
-    L, bt = g.n, block_tokens
+    L, bt, nb, kv = g.n, block_tokens, n_blocks // mi.batch_ways, KV // mi.tp
     if bits is None:
-        return {"k": Struct((L, n_blocks, bt, KV, hd), dt),
-                "v": Struct((L, n_blocks, bt, KV, hd), dt)}
-    r = token_rows(KV, hd)
+        return {"k": Struct((L, nb, bt, kv, hd), dt),
+                "v": Struct((L, nb, bt, kv, hd), dt)}
+    r = token_rows(kv, hd)
     layout = codecs.get(codec).storage_row_layout()
-    plane = {pl: Struct((L, n_blocks, bt, r, w), d)
+    plane = {pl: Struct((L, nb, bt, r, w), d)
              for pl, (w, d) in layout.items()}
     plane.setdefault("q_lo", None)
     return {"k": dict(plane), "v": dict(plane)}
@@ -147,8 +157,8 @@ def pool_group(cfg: ArchConfig, mi: MeshInfo, g: BlockGroup, n_blocks: int,
 def pool_structs(cfg: ArchConfig, mi: MeshInfo, n_blocks: int,
                  block_tokens: int = DEFAULT_BLOCK_TOKENS,
                  codec: str = "none"):
-    """Full paged pool: a list of struct trees aligned with
-    ``cfg.layer_groups``."""
+    """This rank's paged pool: a list of struct trees aligned with
+    ``cfg.layer_groups`` (``n_blocks`` global)."""
     if cfg.attn_mode_for(mi.tp) != "head":
         raise NotImplementedError(
             "paged decode reads gather whole-sequence KV per slot, which "

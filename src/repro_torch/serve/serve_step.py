@@ -1,25 +1,39 @@
-"""Serving: the paged, continuous-batching decode step (port of
-``repro.serve.serve_step.PagedServer``), with greedy sampling."""
+"""Serving: the batched prefill and single-token decode steps (``Server``)
+and the paged, continuous-batching decode step (``PagedServer``), ports
+of ``repro.serve.serve_step``, with greedy sampling by a vocab-shard
+parallel argmax.
+
+Each rank runs its own share of the step: its batch rows (or decode
+slots) and its model shard.  Every collective inside goes through
+:mod:`repro_torch.core.comms` under the server's compiled plan, as in the
+reference; moving tokens and caches between the steps (the reference's
+host arrays) is uncompressed and outside the ledger.
+"""
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
 
 from repro_torch.core import comms
+from repro_torch.core import policy as policy_lib
 from repro_torch.models import layers, transformer
 from repro_torch.models.model import Model
 from repro_torch.models.params import MeshInfo
-from repro_torch.serve import paged_kv
+from repro_torch.serve import kv_cache, paged_kv
 
 _INT32_MAX = 2**31 - 1
 
 
 def greedy_token(logits, cfg, mi: MeshInfo):
-    """logits [B, 1, V_loc] -> [B] int32 argmax over the real vocab (the
-    reference's vocab-shard max/min-index combine, on one shard)."""
+    """logits [B, 1, V_loc] vocab-sharded over the (possibly
+    node-factored) model axes -> [B] int32 global argmax over the real
+    vocab: each shard's max and first index, then the max over shards and
+    the least index that reaches it."""
     v_loc = logits.shape[-1]
-    lo = 0                                               # one vocab shard
+    lo = mi.tp_axes.index * v_loc
     col = lo + torch.arange(v_loc, device=logits.device)
     logits = torch.where(col < cfg.vocab_size, logits[:, 0],
                          torch.full((), -torch.inf, device=logits.device))
@@ -31,48 +45,149 @@ def greedy_token(logits, cfg, mi: MeshInfo):
     return -comms.pmax(-cand, mi.tp_axes)                # pmin of candidates
 
 
+class Server:
+    """Batched serving: one prefill of the whole prompt batch, then greedy
+    decode one token per step against a dense KV cache
+    (:mod:`repro_torch.serve.kv_cache`).
+
+    ``scheme`` (a name or a policy) is compiled against the model's mesh
+    once and bound around both steps, with the ring options.  A ring-mode
+    cache's sequence shards over the model axes (their joint, its
+    combine two-level on a ``--tp-nodes`` mesh), as in the reference's
+    batched decode (``seq_axes=("model",)``; the reference's other
+    sequence shardings are not yet ported)."""
+
+    def __init__(self, model: Model, scheme="baseline",
+                 ring_bidir: bool = False, ring_chunks: int = 1):
+        self.model = model
+        self.plan = policy_lib.compile_plan(scheme, model.mi)
+        self.seq_axes = (model.mi.tp_axes,)
+        self.ring_bidir = ring_bidir
+        self.ring_chunks = ring_chunks
+
+    def prefill(self, params, batch):
+        """batch {tokens [B_loc, S]} -> (first tokens [B_loc] int32, the
+        caches in the prefill layout)."""
+        model = self.model
+        with _bound(self.plan, self.ring_bidir, self.ring_chunks):
+            logits, caches = model.forward(params, batch, phase="prefill")
+            tok = greedy_token(logits[:, -1:], model.cfg, model.mi)
+        return tok, caches
+
+    def decode(self, params, token, caches, index: int):
+        """(token [B_loc, 1], decode-layout caches, position ``index``) ->
+        (next tokens [B_loc] int32, the caches updated in place)."""
+        model, cfg, mi = self.model, self.model.cfg, self.model.mi
+        with _bound(self.plan, self.ring_bidir, self.ring_chunks):
+            x = layers.embed(params["embed"], token, cfg, mi, sp=False)
+            for i, g in enumerate(cfg.layer_groups):
+                x, caches[i] = transformer.decode_group(
+                    params["groups"][i], x, caches[i], index, g, cfg, mi,
+                    model.mode, self.seq_axes)
+            x = layers.norm(params["final_norm"], x, cfg, mi)
+            logits = layers.lm_head_logits(params, x, cfg, mi, sp=False)
+            tok = greedy_token(logits, cfg, mi)
+        return tok, caches
+
+    def cache_structs(self, B: int, s_max: int):
+        return kv_cache.cache_structs(self.model.cfg, self.model.mi, B,
+                                      s_max)
+
+    def pad_prefill_caches(self, caches, B: int, s_max: int):
+        """Prefill caches -> zero-padded decode-layout caches (new tensors).
+
+        Head mode: the prefill cache already holds the whole sequence of
+        this rank's heads; it is padded to ``s_max``.  Ring mode: the
+        decode shard of model rank ``t`` covers ``[t, t + 1) * s_max /
+        tp``, not its prefill slice ``[t, t + 1) * S / tp``, so the
+        slices are gathered over the model axes first, uncompressed and
+        outside the ledger (the reference pads on the host)."""
+        cfg, mi = self.model.cfg, self.model.mi
+        structs, specs = self.cache_structs(B, s_max)
+        pre_specs = kv_cache.prefill_cache_specs(cfg, mi, B)
+        out = []
+        for st, sp, psp, pc in zip(structs, specs, pre_specs, caches):
+            new = {}
+            for k, s in st.items():
+                a = pc[k]
+                if psp[k][2] == "model":          # the prefill's slice
+                    a = comms.raw_all_gather(a, mi.tp_axes, 2)
+                full = torch.zeros(a.shape[:2] + (s_max,) + a.shape[3:],
+                                   dtype=s.dtype, device=a.device)
+                full[:, :, :a.shape[2]] = a
+                if sp[k][2] == "model":           # the decode shard
+                    lo = mi.tp_axes.index * s.shape[2]
+                    full = full[:, :, lo:lo + s.shape[2]].clone()
+                new[k] = full
+            out.append(new)
+        return out
+
+
+@contextlib.contextmanager
+def _bound(plan, bidir: bool, chunks: int):
+    """The compiled plan, the ring options and ``torch.no_grad`` for the
+    duration of a serving step."""
+    with torch.no_grad(), policy_lib.use_plan(plan), \
+            comms.ring_options(bidir, chunks):
+        yield
+
+
 class PagedServer:
     """Continuous-batching decode over a paged (optionally quantized at
     rest) KV pool.
 
     One step advances a fixed set of decode slots: per-slot token,
     position, block table and active mask come from the host scheduler
-    (:mod:`repro_torch.serve.scheduler`).  With ``kv_codec="bq8"`` etc. the
-    pool stores bq wire planes: every new token is encoded by the bq
-    encode kernel and every attention read goes through the gather-decode
-    kernel.  ``backend="torch"`` runs their plain versions instead (for
-    the tests and ``chip_smoke.py``).
+    (:mod:`repro_torch.serve.scheduler`).  The slots and the pool's blocks
+    split over the data ways (slot ``s`` on data rank ``s // (n_slots /
+    batch_ways)``, its table holding that rank's local block ids), the
+    KV heads over the model ways.  With ``kv_codec="bq8"`` etc. the pool
+    stores bq wire planes: every new token is encoded by the bq encode
+    kernel and every attention read goes through the gather-decode kernel.
+    ``backend="torch"`` runs their plain versions instead (for the tests
+    and ``chip_smoke.py``).
     """
 
-    def __init__(self, model: Model, kv_codec: str = "none",
+    def __init__(self, model: Model, scheme="baseline",
+                 kv_codec: str = "none",
                  block_tokens: int = paged_kv.DEFAULT_BLOCK_TOKENS,
+                 ring_bidir: bool = False, ring_chunks: int = 1,
                  backend=None):
         self.model = model
+        self.plan = policy_lib.compile_plan(scheme, model.mi)
         self.kv_codec = kv_codec
         self.bits = paged_kv.storage_bits(kv_codec)
         self.block_tokens = block_tokens
+        self.ring_bidir = ring_bidir
+        self.ring_chunks = ring_chunks
         self.backend = backend
 
     def decode(self, params, token, pool, tables, pos, active):
         """(token [N,1], pool, tables [N,mb] int32, pos [N], active [N]
-        bool) -> (next_token [N] int32, pool updated in place)."""
+        bool), this rank's slots -> (next_token [N] int32, pool updated in
+        place)."""
         model, cfg, mi = self.model, self.model.cfg, self.model.mi
-        x = layers.embed(params["embed"], token, cfg, mi, sp=False)
-        for i, g in enumerate(cfg.layer_groups):
-            x, pool[i] = transformer.decode_group_paged(
-                params["groups"][i], x, pool[i], tables, pos, active, g, cfg,
-                mi, bits=self.bits, block_tokens=self.block_tokens,
-                backend=self.backend)
-        x = layers.norm(params["final_norm"], x, cfg, mi)
-        logits = layers.lm_head_logits(params, x, cfg, mi, sp=False)
-        return greedy_token(logits, cfg, mi), pool
+        with _bound(self.plan, self.ring_bidir, self.ring_chunks):
+            x = layers.embed(params["embed"], token, cfg, mi, sp=False)
+            for i, g in enumerate(cfg.layer_groups):
+                x, pool[i] = transformer.decode_group_paged(
+                    params["groups"][i], x, pool[i], tables, pos, active, g,
+                    cfg, mi, bits=self.bits, block_tokens=self.block_tokens,
+                    backend=self.backend)
+            x = layers.norm(params["final_norm"], x, cfg, mi)
+            logits = layers.lm_head_logits(params, x, cfg, mi, sp=False)
+            return greedy_token(logits, cfg, mi), pool
 
     def decode_step(self, n_slots: int, n_blocks: int, max_blocks: int):
-        """-> (step, structs).  ``step(params, token, pool, tables, pos,
-        active)`` takes the scheduler's numpy arrays (tables
-        [n_slots, max_blocks]; ``max_blocks`` bounds a request's context at
-        ``max_blocks * block_tokens`` tokens) and returns (next_token [N]
-        numpy int32, pool)."""
+        """-> (step, structs).  ``n_blocks`` is the GLOBAL pool size (each
+        data rank owns ``n_blocks / batch_ways`` of them); ``step(params,
+        token, pool, tables, pos, active)`` takes the scheduler's numpy
+        arrays for all ``n_slots`` slots (tables [n_slots, max_blocks];
+        ``max_blocks`` bounds a request's context at ``max_blocks *
+        block_tokens`` tokens), runs this rank's slots and returns
+        (next_token [n_slots] numpy int32, pool): the data ranks' tokens
+        are gathered uncompressed, outside the ledger, as the reference's
+        host reads them."""
         model, cfg, mi = self.model, self.model.cfg, self.model.mi
         if n_slots % mi.batch_ways or n_blocks % mi.batch_ways:
             raise ValueError(
@@ -81,16 +196,19 @@ class PagedServer:
         structs = paged_kv.pool_structs(cfg, mi, n_blocks, self.block_tokens,
                                         self.kv_codec)
         dev = model.device
+        n_loc = n_slots // mi.batch_ways
+        rows = slice(mi.batch_axes.index * n_loc,
+                     (mi.batch_axes.index + 1) * n_loc)
 
         def to_dev(a, dtype):
-            return torch.as_tensor(np.asarray(a), dtype=dtype).to(dev)
+            return torch.as_tensor(np.asarray(a)[rows], dtype=dtype).to(dev)
 
         def step(params, token, pool, tables, pos, active):
-            with torch.no_grad():
-                nxt, pool = self.decode(
-                    params, to_dev(token, torch.int64), pool,
-                    to_dev(tables, torch.int32), to_dev(pos, torch.int64),
-                    to_dev(active, torch.bool))
+            nxt, pool = self.decode(
+                params, to_dev(token, torch.int64), pool,
+                to_dev(tables, torch.int32), to_dev(pos, torch.int64),
+                to_dev(active, torch.bool))
+            nxt = comms.raw_all_gather(nxt, mi.batch_axes, 0)
             return nxt.cpu().numpy(), pool
 
         return step, structs

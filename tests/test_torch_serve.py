@@ -13,7 +13,11 @@ Contract asserted here:
     tip a value across a rounding boundary.  The pools are the real check:
     with random weights the greedy output tends to echo the last prompt
     token, so equal tokens alone prove little about the KV path;
-  * the launcher refuses unported flags and serves on the CPU when asked.
+  * the launcher accepts the serving flags, defaults to ``--mode
+    batched``, refuses a flag its mode would not use and ``--mode disagg
+    --tp-nodes`` (C.16), raises the reference's ``NotImplementedError``
+    for paged serving under ring attention before any spawn, and serves
+    on the CPU when asked (paged on one rank, batched on four).
 """
 
 import jax
@@ -207,24 +211,65 @@ def test_paged_server_matches_reference(models, codec):
     assert leaf.abs().sum() > 0
 
 
-def test_launcher_refuses_unported_flags():
+def test_launcher_refuses_unported_flags(monkeypatch):
+    """The flags of the batched and disaggregated modes, of sharded meshes
+    and of the compression policy are accepted; ``--mode`` defaults to
+    ``batched`` as in the reference; ``--tp-nodes`` with ``--mode
+    disagg`` (which the reference ignores there) is refused, never
+    ignored (fault C.16), as is a flag the mode would not use; paged
+    serving where gemma3-1b runs ring attention (tp 2) raises the
+    reference's ``NotImplementedError`` before any rank is spawned."""
+    import repro_torch.launch.train as ttrain
+
     ap = tlaunch.parser()
-    ok = ap.parse_args(["--arch", "gemma3-1b", "--mode", "paged"])
-    assert tlaunch.unported(ok) == []
-    for extra in (["--mode", "batched"], ["--mode", "disagg"], ["--dp", "2"],
-                  ["--tp", "2"], ["--scheme", "zhybrid_16_8"],
-                  ["--codec-for", "kv=bq16"], ["--ring-bidir"],
-                  ["--ring-chunks", "2"], ["--no-compress-below", "64"]):
+    assert ap.parse_args(["--arch", "gemma3-1b"]).mode == "batched"
+    for extra in (["--mode", "batched"], ["--mode", "disagg"],
+                  ["--mode", "paged"], ["--dp", "2"], ["--tp", "2"],
+                  ["--tp", "4", "--tp-nodes", "2"], ["--max-len", "64"],
+                  ["--scheme", "zhybrid_16_8"], ["--codec-for", "kv=bq16"],
+                  ["--ring-bidir"], ["--ring-chunks", "2"],
+                  ["--no-compress-below", "64"],
+                  ["--mode", "disagg", "--kv-codec", "bq8"]):
         args = ap.parse_args(["--arch", "gemma3-1b", *extra])
-        msgs = tlaunch.unported(args)
-        assert len(msgs) == 1 and "not yet ported" in msgs[0], extra
-    with pytest.raises(SystemExit):
-        tlaunch.main(["--arch", "gemma3-1b", "--tp", "2", "--device", "cpu"])
+        assert tlaunch.unported(args) == [], extra
+    for extra, what in ((["--mode", "disagg", "--tp-nodes", "2"],
+                         "--tp-nodes 2 is refused"),
+                        (["--mode", "batched", "--kv-codec", "bq8"],
+                         "--kv-codec 'bq8' has no effect")):
+        msgs = tlaunch.unported(ap.parse_args(["--arch", "gemma3-1b",
+                                               *extra]))
+        assert len(msgs) == 1 and what in msgs[0], (extra, msgs)
+        with pytest.raises(SystemExit):
+            tlaunch.main(["--arch", "gemma3-1b", "--reduced", *extra,
+                          "--device", "cpu"])
+
+    def no_spawn(*a, **k):
+        raise AssertionError("spawned ranks")
+    monkeypatch.setattr(ttrain, "spawn_world", no_spawn)
+    with pytest.raises(NotImplementedError) as want:
+        jpkv.pool_structs(jconfigs.get("gemma3-1b"),
+                          JMeshInfo(tp=2, model_axis="model"), 1, BT)
+    with pytest.raises(NotImplementedError) as got:
+        tlaunch.main(["--arch", "gemma3-1b", "--mode", "paged", "--tp", "2",
+                      "--device", "cpu"])
+    assert str(got.value) == str(want.value)
 
 
 def test_launcher_serves_on_cpu(capsys):
-    tlaunch.main(["--arch", "gemma3-1b", "--reduced", "--kv-codec", "bq8",
-                  "--device", "cpu", "--batch", "3", "--slots", "2",
-                  "--prompt-len", "10", "--gen", "3"])
+    tlaunch.main(["--arch", "gemma3-1b", "--reduced", "--mode", "paged",
+                  "--kv-codec", "bq8", "--device", "cpu", "--batch", "3",
+                  "--slots", "2", "--prompt-len", "10", "--gen", "3"])
     out = capsys.readouterr().out
     assert "paged[bq8] gemma3-1b on cpu: 3 requests" in out
+
+
+def test_launcher_serves_batched_on_a_mesh_on_cpu(capsys):
+    """``--mode batched --dp 2 --tp 2`` serves on 4 ranks and prints the
+    reference's lines and the priced wire per dim/level."""
+    tlaunch.main(["--arch", "gemma3-1b", "--reduced", "--mode", "batched",
+                  "--dp", "2", "--tp", "2", "--scheme", "zhybrid_16_8",
+                  "--gen", "3", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "prefill[4x16]" in out and "-> first tokens" in out
+    assert "decoded 2 steps in" in out and "on cpu, 4 ranks" in out
+    assert "'tp/flat'" in out
