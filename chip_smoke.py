@@ -8,6 +8,7 @@
     python3 chip_smoke.py --hier-only  # phase 1, phases 9 to 12
     python3 chip_smoke.py --cp-only    # phase 1 and phase 11
     python3 chip_smoke.py --serve-only # phase 1 and phase 12
+    python3 chip_smoke.py --zero3-only # phase 1 and phase 13
 
 ``--bq-only`` prints the bq kernels' timings and those of the fused TP
 all-gather, TP reduce-scatter and KV-read ops beside the compositions
@@ -31,7 +32,7 @@ size, misaligned and strided inputs included, and the gathered decode of
 two shards along every axis.  It holds the lowrank matmul's three
 forms (tall M @ Q, M.T @ P as a view, the small-k reconstruction P @ Q.T)
 at the training step's shape (gemma3-1b's per-rank gradient at dp 2 x tp
-2, 1051352 x 512) at the plr ladder's ranks 2, 4 and 8 and at 64, and the
+2 at phase 4's depth; 1051352 x 512 at 26 layers) at the plr ladder's ranks 2, 4 and 8 and at 64, and the
 register-tiled tall and small_k also at 16 and 32 (each form's wide
 instance below 64): equal to their plain versions on
 integer operands in [-2, 2] (exact in any sum order), within
@@ -71,8 +72,9 @@ versions and with a dense pool, and requires identical tokens and pool
 planes between the first two and the bq8 error bound against the third,
 and the KV read through the fused form only.
 Phase 4 drives the main path: the compressed ZeRO-1, Megatron-SP training
-step of gemma3-1b at full published width and depth (bf16 weights from a
-seed), 5 steps at dp 2 x tp 2 (four ranks sharing the card, exchanging
+step of gemma3-1b at full published width, its first 13 layers (the
+5:1 local:global pattern kept; all 26 until phase 13 came in; bf16
+weights from a seed), 5 steps at dp 2 x tp 2 (four ranks sharing the card, exchanging
 through gloo), sequence 1024, global batch 4, under zhybrid_16_8 through
 the kernels, through their plain versions, and under baseline, with
 deterministic algorithms and TF32 off and the exchanges timed (a device
@@ -218,6 +220,26 @@ prefill and of one decode step, 12d's handoff MB and
 ``kv_handoff_seconds`` at the assumed link rates of phase 10, and 12c's
 ``kv_hbm_bytes`` beside the pool's allocated bytes.
 
+Phase 13 drives another dense decoder and ZeRO-3 in phase 9's world of
+four ranks after phase 12: gemma3-4b at full published width (head
+attention at tp 2), its first 6 layers (one 5:1 local:global block,
+window 1024), bf16, sequence 1024, global batch 4: 13a ``--dp 2 --tp 2``
+under zhybrid_16_8 with ZeRO-3 on (``fsdp_params=True``, a train_rank
+override; every class-A leaf re-gathered at the zero site under bq16 and
+its gradient reduce-scattered back), 3 steps, through the kernels, 13b
+the same through the plain versions, and 13c paged serving ``--dp 2 --tp
+2 --kv-codec bq8``, 4 requests of 64-128 tokens plus 8 generated on 4
+slots, kernels and plain.  It requires 13a equal to 13b (losses, grad
+norms, ledger per dim and ``dim/level``), finite losses, priced zero
+bytes, the flat encode and decode and the view encode and fused
+decode-add launched at the class-A shards' rows at rate 16, 13c's kernel
+run equal to its plain run bit for bit (tokens, every pool plane by
+sha256) with the pool write and KV read launched, and nothing launched
+in the plain runs; it prints ms/step, tokens/s, peak memory, staging
+share, the priced MB per ``dim/level`` beside what ZeRO-1 would price for
+the dp and zero dims of the same step, the zero site's launches, and
+13c's decode numbers.
+
 After phase 8, a fresh process (this script with ``--reckon FILE``, which
 the script starts itself) times each (kernel, rows, rate) that phase 4's
 kernel run launched, at its shape, and reckons launches x (time - bound)
@@ -229,8 +251,8 @@ path, cold-L2 device time at the path's shape, bound, plain time, and the
 library call's time where one exists; the encode and decode also with
 their flat form, the encode and decode-add with the TP reduce-scatter's
 view forms, the gather-decode's times those of the fused KV read, and
-the bq kernels with the per-shape reckoning, and phase 10's launches by
-rate and level) and the card line; the last
+the bq kernels with the per-shape reckoning, phase 10's launches by
+rate and level and phase 13's at the zero site) and the card line; the last
 line is the result JSON.  Any failure exits non-zero;
 without a card, or outside a checkout, it fails before printing a result.
 """
@@ -261,8 +283,12 @@ MAIN_BITS = 8                 # the serving pool is bq8
 # phase 12's)
 SLOTS, BLOCK_TOKENS, PROMPT, GEN, SEED = 8, 16, 560, 24, 0
 SERVE_LAYERS = 6
-# main path: the training step at full width and depth
+# main path: the training step at full width, its first 13 layers (two
+# 5:1 local:global blocks and a local layer, the pattern kept; all 26 until
+# phase 13 came in: at 26 phase 4 took 151.3 s and phase 6, on the same
+# step, 102.7 s of the script's 1047.1 s)
 DP, TP, STEPS, SEQ, GLOBAL_BATCH = 2, 2, 5, 1024, 4
+MAIN_DEPTH = 13
 RING_WORLD = 4                # phase 5's data axis
 STATEFUL_STEPS = 4            # phase 6
 PLR = ["--codec-for", "dp@zero1_grad*=plr8"]
@@ -418,6 +444,39 @@ SERVE_LEVELS = {
     "12c": {"flat": {"bq_encode", "bq_gather_decode"}},
     "12d": {"flat": {"bq_encode_flat", "bq_decode_flat"}},
 }
+# phase 13: another dense decoder and ZeRO-3 in phase 9's world of four
+# ranks after phase 12: gemma3-4b at full published width (d 2560, 8 q and
+# 4 kv heads of 256, so head attention at tp 2; d_ff 10240 geglu, vocab
+# 262144), its first 6 layers (one 5:1 local:global block, window 1024;
+# ``depth``, the pattern kept), bf16, seq 1024, global batch 4.  13a ``--dp
+# 2 --tp 2`` under zhybrid_16_8 with ZeRO-3 on (``fsdp_params=True``, a
+# train_rank override, as the reference's tests turn it on for a config
+# that ships without it: every class-A leaf is re-gathered at the zero
+# site under bq16, its gradient reduce-scattered back), 3 steps, through
+# the kernels; 13b the same through the plain versions; 13c paged serving,
+# bq8 pool, 4 requests of 64-128 tokens plus 8 generated on 4 slots, at
+# ``--dp 2 --tp 2`` (the world's four ranks: a dp 1 x tp 2 run would need
+# a world of its own), kernels and plain: the first paged run at tp > 1.
+Z3_ARCH, Z3_DEPTH, Z3_STEPS, Z3_SCHEME = "gemma3-4b", 6, 3, "zhybrid_16_8"
+Z3_FLAGS = ("--dp", "2", "--tp", "2")
+Z3_REQUESTS, Z3_SLOTS, Z3_LENS, Z3_GEN = 4, 4, (64, 128), 8
+Z3_SERVE = dict(mode="paged", dp=2, tp=2, kv_codec="bq8", slots=Z3_SLOTS)
+# the kernels 13a launches at the zero site (each leaf's shard encoded and
+# its gathered shards decoded on the flat forms, the backward's
+# reduce-scatter on the view forms), and 13c's at tp 2
+Z3_ZERO_KERNELS = ("bq_encode_flat", "bq_decode_flat", "bq_encode_view",
+                   "bq_decode_add_flat")
+Z3_SERVE_LEVELS = {"flat": {"bq_encode", "bq_gather_decode"}}
+
+
+# a bq kernel's wrappers: its block form and the flat and view forms that
+# launch the same kernel (the kernel line counts them together)
+KERNEL_FORMS = {"bq_encode": ("bq_encode", "bq_encode_flat", "bq_encode_view"),
+                "bq_decode": ("bq_decode", "bq_decode_flat"),
+                "bq_decode_add_encode": ("bq_decode_add_encode",
+                                         "bq_decode_add_encode_wire",
+                                         "bq_decode_add_encode_view"),
+                "bq_decode_add": ("bq_decode_add", "bq_decode_add_flat")}
 
 
 def fail(msg: str):
@@ -926,7 +985,7 @@ def show(card, name, bits, shape, t, b, extra=""):
 def time_bq(torch, card, rows, serve):
     """Each bq kernel at the shape and rate its path gives it (the kernel
     line), the block encode and decode also at the ZeRO-1 parameter
-    gather's rows, then every kernel at 65536 rows at every rate.  Returns
+    gather's rows, then every kernel at 65536 rows at rate 8.  Returns
     ``{kernel: (where, rate, shape, timings, bound)}`` at the path and the
     block encode's and decode's own device ms at the path (torch.profiler,
     L2 flushed)."""
@@ -980,7 +1039,9 @@ def time_bq(torch, card, rows, serve):
     show(card, "bq_decode [zero param all-gather]", 16, f"M={DP * zm}",
          *time_decode(torch, DP * zm, 16, **big))
     torch.cuda.empty_cache()
-    for bits in BITS:
+    # at 65536 rows, the pool's rate (every rate in BITS until phase 13
+    # came in; the script's time)
+    for bits in (MAIN_BITS,):
         show(card, "bq_encode", bits, "65536 rows",
              *time_encode(torch, 65536, bits))
         show(card, "bq_decode", bits, "65536 rows",
@@ -1543,11 +1604,12 @@ def rank_runs(*, rank: int, world: int, runs: list) -> list:
 
 
 def run(label, scheme, backend=None, steps=STEPS, extra=(), dp=DP, tp=TP,
-        **kw) -> dict:
-    """One run of :func:`train_runs`: the launcher's flags for the main
-    path's model, ``extra`` after them, and ``train_rank`` keywords."""
+        arch="gemma3-1b", **kw) -> dict:
+    """One run of :func:`train_runs`: the launcher's flags for ``arch``
+    (the main path's model by default), ``extra`` after them, and
+    ``train_rank`` keywords."""
     return dict(label=label, scheme=scheme, backend=backend, steps=steps,
-                extra=tuple(extra), dp=dp, tp=tp, kw=kw)
+                extra=tuple(extra), dp=dp, tp=tp, arch=arch, kw=kw)
 
 
 def serve_run(label: str, backend=None, **kw) -> dict:
@@ -1579,7 +1641,7 @@ def train_runs(card, runs: list) -> list:
                                         kw.get("tp", 1)))
             continue
         args = train.parser().parse_args(
-            ["--arch", "gemma3-1b", "--dp", str(r["dp"]), "--tp",
+            ["--arch", r["arch"], "--dp", str(r["dp"]), "--tp",
              str(r["tp"]), "--steps", str(r["steps"]), "--seq", str(SEQ),
              "--global-batch", str(GLOBAL_BATCH), "--seed", str(SEED),
              "--scheme", r["scheme"], *r["extra"]])
@@ -1636,16 +1698,17 @@ def drive_hier(torch, card, only: str | None = None) -> tuple:
     """Phase 9: the node-factored meshes (9a ``--nodes``, 9b
     ``--tp-nodes``, 9c ``--pp-nodes``) in one world of four ranks, through
     the kernels and (9a, 9b) the plain versions, then phase 10, the tuned
-    step, phase 11, context parallelism, and phase 12, serving, in the
-    same world (:func:`check_tune`, :func:`check_cp`,
-    :func:`check_serve`); returns each phase 9 run's launches per kernel
-    and level (all ranks) and its numbers, phase 10's, phase 11's and
-    phase 12's.  ``only="cp"`` runs phase 11 alone, ``only="serve"``
-    phase 12 alone."""
+    step, phase 11, context parallelism, phase 12, serving, and phase 13,
+    gemma3-4b with ZeRO-3, in the same world (:func:`check_tune`,
+    :func:`check_cp`, :func:`check_serve`, :func:`check_zero3`); returns
+    each phase 9 run's launches per kernel and level (all ranks) and its
+    numbers, phase 10's, phase 11's, phase 12's and phase 13's.
+    ``only="cp"`` runs phase 11 alone, ``only="serve"`` phase 12 alone,
+    ``only="zero3"`` phase 13 alone."""
     runs, names = [], []
     for name, scheme, steps, flags, plain, depth in \
             tuple(r + (0,) for r in (() if only else HIER_RUNS)) \
-            + (() if only == "serve" else CP_RUNS):
+            + (CP_RUNS if only in (None, "cp") else ()):
         for backend in (None, "torch") if plain else (None,):
             runs.append(run(f"{name} {'plain' if backend else 'kernels'}",
                             scheme, backend, steps, flags, dp=1, tp=1,
@@ -1657,18 +1720,31 @@ def drive_hier(torch, card, only: str | None = None) -> tuple:
                             TUNE_SCHEME, backend, TUNE_STEPS, TUNE_FLAGS,
                             dp=1, tp=1))
             names.append(("10", backend))
-    if only != "cp":
+    if only in (None, "serve"):
         for name, kw, plain in SERVE_RUNS:
             extra = {"prompts": paged_prompts()} if kw["mode"] == "paged" \
                 else {}
             for backend in (None, "torch") if plain else (None,):
                 runs.append(serve_run(name, backend, **kw, **extra))
                 names.append((name, backend))
+    if only in (None, "zero3"):
+        for backend in (None, "torch"):
+            label = "13a kernels" if backend is None else "13b plain"
+            runs.append(run(label, Z3_SCHEME, backend, Z3_STEPS, Z3_FLAGS,
+                            dp=1, tp=1, arch=Z3_ARCH, depth=Z3_DEPTH,
+                            overrides={"fsdp_params": True}))
+            names.append(("13", backend))
+        for backend in (None, "torch"):
+            runs.append(serve_run("13c", backend, arch=Z3_ARCH,
+                                  depth=Z3_DEPTH, gen=Z3_GEN,
+                                  prompts=z3_prompts(), **Z3_SERVE))
+            names.append(("13c", backend))
     res = dict(zip(names, train_runs(card, runs)))
-    cp = check_cp(card, res) if only != "serve" else {}
-    serve = check_serve(card, res) if only != "cp" else {}
+    cp = check_cp(card, res) if only in (None, "cp") else {}
+    serve = check_serve(card, res) if only in (None, "serve") else {}
+    z3 = check_zero3(card, res) if only in (None, "zero3") else {}
     if only:
-        return {}, {}, cp, serve
+        return {}, {}, cp, serve, z3
     out = {}
     for name, scheme, steps, flags, plain in HIER_RUNS:
         k = res[(name, None)]
@@ -1716,7 +1792,7 @@ def drive_hier(torch, card, only: str | None = None) -> tuple:
                      "per_dim_level": r0["priced_per_dim_level"],
                      "link_bytes": r0["link_bytes"]}
     return out, check_tune(card, res[("10", None)], res[("10", "torch")]), \
-        cp, serve
+        cp, serve, z3
 
 
 def paged_prompts() -> list:
@@ -1836,6 +1912,179 @@ def check_serve(card, res: dict) -> dict:
               f"{mb}{extra}; launches (all ranks) by kernel/level {levels} "
               f"[{card}]")
         out[name] = entry
+    return out
+
+
+def z3_prompts() -> list:
+    """13c's requests: Z3_REQUESTS prompts of lengths in Z3_LENS, from
+    SEED."""
+    rng = np.random.default_rng(SEED + 13)
+    lens = rng.integers(Z3_LENS[0], Z3_LENS[1] + 1, Z3_REQUESTS)
+    return [rng.integers(0, 262144, int(n)).tolist() for n in lens]
+
+
+def z3_zero_rows() -> dict:
+    """Per class-A leaf of 13a's plan (one layer's shard on a rank), its
+    wire rows: ``{leaf: rows}``, the rows the zero site's flat encode,
+    view encode and fused decode-add run at (the flat decode at twice
+    them: the two data ranks' shards)."""
+    from repro_torch import configs
+    from repro_torch.kernels.bq import padded_rows
+    from repro_torch.models.params import MeshInfo, _leaves, local_shape
+    from repro_torch.models.transformer import model_plan
+
+    mi = MeshInfo(tp=2, dp=2)
+    cfg = configs.get(Z3_ARCH).truncated(Z3_DEPTH).replace(fsdp_params=True)
+    return {"/".join(map(str, path[1:])): padded_rows(
+                int(np.prod(local_shape(d, mi)[1:])))
+            for path, d in _leaves(model_plan(cfg, mi)) if "data" in d.spec}
+
+
+def zero1_priced(events, n_all: int, n_flat: int) -> dict:
+    """What ZeRO-1 would price, per ``dim/level``, for the dp and zero
+    dims of a ZeRO-3 step: its ``dp@zero1_grad`` reduce-scatter and
+    ``zero@zero1_param`` gather scaled from the step's flat vector of
+    ``n_flat`` elements (classes B and C) to every leaf's ``n_all`` (the
+    padding of the scaled vector not re-derived)."""
+    from repro_torch.analysis import roofline
+    evs = [{**{k: v for k, v in e.items() if k != "ring"},
+            "elems": int(e["elems"] * n_all / n_flat),
+            "nbytes": int(e["nbytes"] * n_all / n_flat)}
+           for e in events if e["tag"] in ("dp@zero1_grad",
+                                           "zero@zero1_param")]
+    return roofline.ledger_summary(evs, train=True)["per_dim_level"]
+
+
+def check_zero3(card, res: dict) -> dict:
+    """Phase 13: 13a (ZeRO-3 through the kernels) equal to 13b (the plain
+    versions) in losses, grad norms and ledger (measured per dim, priced
+    per dim and per ``dim/level``), finite losses, priced ``zero`` bytes,
+    the four zero-site kernels launched at the class-A shards' rows at
+    rate 16 and nothing launched in 13b; 13c's kernel run equal to its
+    plain run bit for bit (tokens and every pool plane by sha256) with
+    the pool write and the KV read launched, none in the plain run; no
+    rank importing jax or repro.  Prints the numbers and returns them."""
+    from repro_torch.models.params import MeshInfo, defs, local_shape
+    from repro_torch.models.transformer import model_plan
+    from repro_torch import configs
+
+    k, p = res[("13", None)], res[("13", "torch")]
+    for rk, rp in zip(k, p):
+        if rk["foreign_modules"] or rp["foreign_modules"]:
+            fail(f"phase 13 rank {rk['rank']} imported "
+                 f"{rk['foreign_modules'] or rp['foreign_modules']}")
+        if not np.isfinite(rk["losses"]).all():
+            fail(f"phase 13a rank {rk['rank']}: losses {rk['losses']}")
+        for key in ("losses", "grad_norms", "wire_per_dim", "priced_per_dim",
+                    "priced_per_dim_level"):
+            if rk[key] != rp[key]:
+                fail(f"phase 13 rank {rk['rank']}: {key} differ between the "
+                     f"kernel run ({rk[key]}) and the plain run ({rp[key]})")
+    if any(v for r in p for v in r["launches"].values()):
+        fail(f"phase 13b: the plain run launched kernels: "
+             f"{[r['launches'] for r in p]}")
+    zrows = z3_zero_rows()
+    shapes = {}
+    for r in k:
+        for name, rows, bits, c in r["launch_shapes"]:
+            shapes[(name, rows, bits)] = shapes.get((name, rows, bits), 0) + c
+    at_zero = {}
+    for kern in Z3_ZERO_KERNELS:
+        want = {2 * m if kern == "bq_decode_flat" else m
+                for m in zrows.values()}
+        at_zero[kern] = {rows: c for (n, rows, bits), c in shapes.items()
+                         if n == kern and bits == 16 and rows in want}
+        if not at_zero[kern]:
+            fail(f"phase 13a: {kern} never launched at the zero site's rows "
+                 f"{sorted(want)} (rate 16); launches by shape "
+                 f"{sorted(key for key in shapes if key[0] == kern)}")
+    r0 = k[0]
+    priced = {key: v for key, v in r0["priced_per_dim_level"].items() if v}
+    if not priced.get("zero/flat"):
+        fail(f"phase 13a: no zero bytes priced: {priced}")
+    cfg = configs.get(Z3_ARCH).truncated(Z3_DEPTH).replace(fsdp_params=True)
+    mi = MeshInfo(tp=2, dp=2)
+    ds = defs(model_plan(cfg, mi))
+    n_all = sum(int(np.prod(local_shape(d, mi))) for d in ds)
+    n_flat = sum(int(np.prod(local_shape(d, mi))) for d in ds
+                 if "data" not in d.spec)
+    z1 = zero1_priced(r0["events0"], n_all, n_flat)
+    step = max(float(np.median(r["step_s"][1:])) for r in k)
+    share = [sum(r["staging_s"][1:]) / sum(r["step_s"][1:]) for r in k]
+    peak = [round(r["peak_bytes"] / 2**30, 2) for r in k]
+    mb = {key: round(v / 1e6, 3) for key, v in priced.items()}
+    z1mb = {key: round(v / 1e6, 3) for key, v in z1.items() if v}
+    out = {"step_ms": step * 1e3, "tokens_per_s": GLOBAL_BATCH * SEQ / step,
+           "peak_gib": peak, "staging_share": [min(share), max(share)],
+           "priced_mb": mb, "zero1_priced_mb": z1mb,
+           "zero_site_launches": {kk: {str(rows): c for rows, c in v.items()}
+                                  for kk, v in at_zero.items()},
+           "launches": launch_sums(k), "levels": level_sums(k),
+           "class_a_rows": zrows, "losses": r0["losses"]}
+    print(f"phase 13a/13b ({Z3_ARCH} full width, the first {Z3_DEPTH} "
+          f"layers, {' '.join(Z3_FLAGS)}, {Z3_SCHEME}, ZeRO-3): kernel run "
+          f"== plain run (losses, grad norms, ledger per dim and dim/level) "
+          f"on every rank; losses {r0['losses']}, grad norms "
+          f"{[round(g, 6) for g in r0['grad_norms']]}; {step * 1e3:.1f} "
+          f"ms/step (median of steps 2-{Z3_STEPS}, slowest rank), "
+          f"{out['tokens_per_s']:.0f} tokens/s, peak {peak} GiB per rank, "
+          f"staging+exchange {min(share) * 100:.0f}-{max(share) * 100:.0f} "
+          f"% [{card}]")
+    print(f"phase 13a priced MB per rank per step by dim/level {mb}; "
+          f"ZeRO-1 would price for the same step dp and zero (its flat "
+          f"sync scaled to every leaf) {z1mb}; {len(zrows)} class-A group "
+          f"leaves, a layer's shard at rows {sorted(set(zrows.values()))}; "
+          f"zero-site "
+          f"launches (all ranks) by kernel {{rows: launches}} {at_zero}; "
+          f"launches (all ranks) {out['launches']} [{card}]")
+    # 13c: paged serving at tp 2
+    k, p = res[("13c", None)], res[("13c", "torch")]
+    toks = k[0]["tokens"]
+    if len(toks) != Z3_REQUESTS or any(
+            len(t) != Z3_GEN or min(t) < 0 or max(t) >= 262144
+            for t in toks) or any(r["tokens"] != toks for r in k):
+        fail("phase 13c: malformed or disagreeing tokens")
+    for rk, rp in zip(k, p):
+        if rk["foreign_modules"]:
+            fail(f"phase 13c rank {rk['rank']} imported "
+                 f"{rk['foreign_modules']}")
+        if rk["tokens"] != rp["tokens"]:
+            fail(f"phase 13c rank {rk['rank']}: tokens differ between the "
+                 f"kernel run and the plain run")
+        for when, dig in rk["digests"].items():
+            bad = sorted(leaf for leaf, h in dig.items()
+                         if rp["digests"][when][leaf] != h)
+            if bad:
+                fail(f"phase 13c rank {rk['rank']}: {when} pool planes "
+                     f"{bad} differ between the kernel run and the plain run")
+    if any(v for r in p for v in r["launches"].values()):
+        fail(f"phase 13c: the plain run launched kernels: "
+             f"{[r['launches'] for r in p]}")
+    levels = level_sums(k)
+    missing = sorted(f"{kern}/{lvl}" for lvl, kerns in Z3_SERVE_LEVELS.items()
+                     for kern in kerns if not levels.get(f"{kern}/{lvl}"))
+    if missing:
+        fail(f"phase 13c: no launch of {missing}; launches by level {levels}")
+    dec = [sum(r["decode_s"]) for r in k]
+    step_ms = max(float(np.median(r["decode_s"])) for r in k) * 1e3
+    n_gen = sum(len(t) for t in toks)
+    sshare = [r["staging_s"] / r["wall_s"] for r in k]
+    speak = [round(r["peak_bytes"] / 2**30, 2) for r in k]
+    out["13c"] = {"launches": launch_sums(k), "levels": levels,
+                  "decode_ms_per_step": step_ms, "steps": k[0]["steps"],
+                  "gen_tokens_per_s": n_gen / max(dec), "peak_gib": speak,
+                  "staging_share": [min(sshare), max(sshare)],
+                  "pool_bytes": sum(r["pool_bytes"] for r in k)}
+    print(f"phase 13c ({Z3_ARCH}, the first {Z3_DEPTH} layers, "
+          f"{', '.join(f'{a} {b}' for a, b in Z3_SERVE.items())}, "
+          f"{Z3_REQUESTS} requests of {Z3_LENS[0]}-{Z3_LENS[1]} tokens + "
+          f"{Z3_GEN}): kernel run == plain run (tokens, every pool plane by "
+          f"sha256) on every rank; first tokens {[t[0] for t in toks]}; "
+          f"{k[0]['steps']} decode steps at {step_ms:.2f} ms/step (median, "
+          f"slowest rank), {out['13c']['gen_tokens_per_s']:.1f} generated "
+          f"tok/s, peak {speak} GiB per rank, staging+exchange "
+          f"{min(sshare) * 100:.0f}-{max(sshare) * 100:.0f} %; launches (all "
+          f"ranks) by kernel/level {levels} [{card}]")
     return out
 
 
@@ -2240,9 +2489,9 @@ def drive_training(torch, card) -> dict:
     grad_path = SCRATCH / "flat_grad.pt"
     k, p, b = train_runs(card, [
         run("zhybrid_16_8 kernels", "zhybrid_16_8",
-            flat_grad_out=str(grad_path)),
-        run("zhybrid_16_8 plain", "zhybrid_16_8", "torch"),
-        run("baseline", "baseline")])
+            flat_grad_out=str(grad_path), depth=MAIN_DEPTH),
+        run("zhybrid_16_8 plain", "zhybrid_16_8", "torch", depth=MAIN_DEPTH),
+        run("baseline", "baseline", depth=MAIN_DEPTH)])
     for rk, rp in zip(k, p):
         for key in ("losses", "grad_norms", "wire_per_dim", "priced_per_dim"):
             if rk[key] != rp[key]:
@@ -2310,10 +2559,12 @@ def drive_stateful(torch, card, train, n_flat) -> dict:
     from repro_torch.core import codecs
 
     k, p, e, ref8 = train_runs(card, [
-        run("plr8 kernels", "zhybrid_16_8", None, STATEFUL_STEPS, PLR),
-        run("plr8 plain", "zhybrid_16_8", "torch", STATEFUL_STEPS, PLR),
+        run("plr8 kernels", "zhybrid_16_8", None, STATEFUL_STEPS, PLR,
+            depth=MAIN_DEPTH),
+        run("plr8 plain", "zhybrid_16_8", "torch", STATEFUL_STEPS, PLR,
+            depth=MAIN_DEPTH),
         run("ef_zhybrid_16_4 kernels", "ef_zhybrid_16_4", None,
-            STATEFUL_STEPS),
+            STATEFUL_STEPS, depth=MAIN_DEPTH),
         run(f"plr8 kernels, first {CKPT_DEPTH} layers (phase 8's "
             f"reference)", "zhybrid_16_8", None, STATEFUL_STEPS, PLR,
             depth=CKPT_DEPTH)])
@@ -2582,21 +2833,21 @@ def main():
         # phases 9 to 12 alone
         os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
                               "expandable_segments:True")
-        hier, tune, cp, serve = drive_hier(torch, card)
+        hier, tune, cp, serve, z3 = drive_hier(torch, card)
         print(json.dumps({"phase9": hier, "phase10": tune, "phase11": cp,
-                          "phase12": serve}))
+                          "phase12": serve, "phase13": z3}))
         print(f"card: {card}")
         return
 
-    if sys.argv[1:] in (["--cp-only"], ["--serve-only"]):
-        # phase 11 or phase 12 alone
+    if sys.argv[1:] in (["--cp-only"], ["--serve-only"], ["--zero3-only"]):
+        # phase 11, phase 12 or phase 13 alone
         os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
                               "expandable_segments:True")
         only = sys.argv[1][2:-5]
         t0 = time.perf_counter()
-        _, _, cp, serve = drive_hier(torch, card, only=only)
-        print(json.dumps({"phase11": cp} if only == "cp"
-                         else {"phase12": serve}))
+        _, _, cp, serve, z3 = drive_hier(torch, card, only=only)
+        print(json.dumps({"cp": {"phase11": cp}, "serve": {"phase12": serve},
+                          "zero3": {"phase13": z3}}[only]))
         print(f"wall seconds of the phase {time.perf_counter() - t0:.1f} "
               f"[{card}]")
         print(f"card: {card}")
@@ -2606,7 +2857,8 @@ def main():
         # phase 7 alone, beside phase 4's zhybrid_16_8 step
         os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
                               "expandable_segments:True")
-        train_run(card, "phase 4 zhybrid_16_8 kernels", "zhybrid_16_8")
+        train_run(card, "phase 4 zhybrid_16_8 kernels", "zhybrid_16_8",
+                  depth=MAIN_DEPTH)
         drive_pipeline(torch, card)
         print(f"card: {card}")
         return
@@ -2618,7 +2870,7 @@ def main():
     r = paged_kv.token_rows(cfg.n_kv_heads, cfg.head_dim_)
     rpb = BLOCK_TOKENS * r                       # rows per pool block
     mb = nb // SLOTS
-    rows = ring_rows(cfg)
+    rows = ring_rows(cfg.truncated(MAIN_DEPTH))
     if sys.argv[1:] == ["--bq-only"]:
         # the bq timings alone, so that two trees can be compared in one
         # call (this file copied into each)
@@ -2703,7 +2955,9 @@ def main():
           f"{SLOTS}x{mb} table over {nb} blocks x {BLOCK_TOKENS} tokens x "
           f"{r} rows) [{card}]")
 
+    parts = {"block forms checked": time.perf_counter()}
     check_flat(torch, err)
+    parts["flat forms checked"] = time.perf_counter()
     print(f"phase 2: flat encode and decode == plain versions bit for bit "
           f"(NaN positions equal) at rates {list(BITS)}, in "
           f"{list(FLAT_DTYPES)} (encode also int32) at n = {list(FLAT_N)} "
@@ -2712,6 +2966,7 @@ def main():
           f"{TP} shards of {list(GATHER_SHAPES)} and the TP activation "
           f"along axes 0, 1 and 2 [{card}]")
     check_views(torch, err, (r, rpb, nb))
+    parts["view forms checked"] = time.perf_counter()
     print(f"phase 2: TP reduce-scatter view forms (encode, wire-only hop, "
           f"fused decode-add) == plain versions bit for bit (NaN positions "
           f"equal) at rates {list(BITS)} in {list(FLAT_DTYPES)}, every chunk "
@@ -2721,13 +2976,15 @@ def main():
           f"gather-decode, slice and cast at the serving table in "
           f"{list(FLAT_DTYPES)}, out-of-range ids NaN [{card}]")
     path, block_kms = time_bq(torch, card, rows, (r, rpb, nb))
+    parts["bq timed"] = time.perf_counter()
     tp_ops = time_tp_ops(torch, card, tp_shape(cfg))
     rs_ops = time_rs_ops(torch, card)
     kv_ops = time_kv_ops(torch, card, (r, rpb, nb))
     host_breakdown(torch, card, tp_shape(cfg))
+    parts["fused ops timed"] = time.perf_counter()
 
     # the lowrank matmul's three forms at the training step's matrix view
-    n_flat = flat_elems(cfg)
+    n_flat = flat_elems(cfg.truncated(MAIN_DEPTH))
     mm_rows, mm_width = lowrank.mat_shape(n_flat)
     mm = {}
     for r_mm in sorted({r for rs in MM_RANKS.values() for r in rs}):
@@ -2768,6 +3025,11 @@ def main():
           f"({mm_width} x 8) = {gs['step']:.3f} ms per plr8 step [{card}]")
 
     # ---------------------------------------------------------- phase 3
+    parts["lowrank checked and timed"] = time.perf_counter()
+    prev = [starts["2"], *parts.values()]
+    print("phase 2 seconds by part: " + ", ".join(
+        f"{k} {t - p:.1f}" for (k, t), p in zip(parts.items(), prev))
+        + f" [{card}]")
     starts["3"] = time.perf_counter()
     model = Model(cfg.truncated(SERVE_LAYERS))            # on the card
     t0 = time.perf_counter()
@@ -2786,7 +3048,8 @@ def main():
     # their reserved-but-free memory from fragmenting it
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
                           "expandable_segments:True")
-    print(f"phase 4: gemma3-1b full width and depth, dp {DP} x tp {TP} "
+    print(f"phase 4: gemma3-1b full width, the first {MAIN_DEPTH} layers, "
+          f"dp {DP} x tp {TP} "
           f"ranks on this card, {STEPS} steps, seq {SEQ}, global batch "
           f"{GLOBAL_BATCH}; this process keeps "
           f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved "
@@ -2825,7 +3088,7 @@ def main():
                             flat_elems(cfg8))
 
     # ---------------------------------------------------------- phase 9
-    starts["9 to 12"] = time.perf_counter()
+    starts["9 to 13"] = time.perf_counter()
     print(f"phase 9: node-factored meshes, gemma3-1b full width, four ranks "
           f"on this card, seq {SEQ}, global batch {GLOBAL_BATCH}: 9a --dp 4 "
           f"--nodes 2 --layers {HIER_RUNS[0][3][-1]} (hier_zpp_8_16), 9b "
@@ -2843,9 +3106,13 @@ def main():
           f"(zhybrid_16_8; kernels, plain), 12b batched --tp 4 --tp-nodes "
           f"2 (hier_tpp_8_16; kernels), 12c paged --dp 4 --kv-codec bq8, "
           f"{PAGED_REQUESTS} requests on {PAGED_SLOTS} slots (kernels, "
-          f"plain), 12d disagg --tp 2 --kv-codec bq8 (kernels, plain) "
-          f"[{card}]")
-    hier, tune, cp, serve = drive_hier(torch, card)
+          f"plain), 12d disagg --tp 2 --kv-codec bq8 (kernels, plain); "
+          f"then phase 13, {Z3_ARCH} at full width, the first {Z3_DEPTH} "
+          f"layers: 13a {' '.join(Z3_FLAGS)} with ZeRO-3 ({Z3_SCHEME}, "
+          f"{Z3_STEPS} steps; kernels), 13b the same (plain), 13c paged "
+          f"--dp 2 --tp 2 --kv-codec bq8, {Z3_REQUESTS} requests on "
+          f"{Z3_SLOTS} slots (kernels, plain) [{card}]")
+    hier, tune, cp, serve, z3 = drive_hier(torch, card)
 
     starts["reckoning"] = time.perf_counter()
     # launches x (time - bound) per shape of phase 4's kernel run, timed in
@@ -2888,14 +3155,7 @@ def main():
         """Phase 9's launches of a kernel (all ranks, the kernel runs) per
         run, by link level; a bq kernel's flat and view forms count with
         it."""
-        forms = {"bq_encode": ("bq_encode", "bq_encode_flat",
-                               "bq_encode_view"),
-                 "bq_decode": ("bq_decode", "bq_decode_flat"),
-                 "bq_decode_add_encode": ("bq_decode_add_encode",
-                                          "bq_decode_add_encode_wire",
-                                          "bq_decode_add_encode_view"),
-                 "bq_decode_add": ("bq_decode_add", "bq_decode_add_flat")
-                 }.get(kernel, (kernel,))
+        forms = KERNEL_FORMS.get(kernel, (kernel,))
         return {run: {key: v for key, v in r["levels"].items()
                       if key.split("/")[0] in forms}
                 for run, r in hier.items()}
@@ -2904,14 +3164,7 @@ def main():
         """Phase 11's launches of a kernel (all ranks, the kernel runs) per
         run, by link level; a bq kernel's flat and view forms count with
         it."""
-        forms = {"bq_encode": ("bq_encode", "bq_encode_flat",
-                               "bq_encode_view"),
-                 "bq_decode": ("bq_decode", "bq_decode_flat"),
-                 "bq_decode_add_encode": ("bq_decode_add_encode",
-                                          "bq_decode_add_encode_wire",
-                                          "bq_decode_add_encode_view"),
-                 "bq_decode_add": ("bq_decode_add", "bq_decode_add_flat")
-                 }.get(kernel, (kernel,))
+        forms = KERNEL_FORMS.get(kernel, (kernel,))
         return {run: {key: v for key, v in r["levels"].items()
                       if key.split("/")[0] in forms}
                 for run, r in cp.items()}
@@ -2923,20 +3176,29 @@ def main():
         """Phase 12's launches of a kernel (all ranks, the kernel runs) per
         run, by link level; a bq kernel's flat and view forms count with
         it."""
-        forms = {"bq_encode": ("bq_encode", "bq_encode_flat",
-                               "bq_encode_view"),
-                 "bq_decode": ("bq_decode", "bq_decode_flat"),
-                 "bq_decode_add_encode": ("bq_decode_add_encode",
-                                          "bq_decode_add_encode_wire",
-                                          "bq_decode_add_encode_view"),
-                 "bq_decode_add": ("bq_decode_add", "bq_decode_add_flat")
-                 }.get(kernel, (kernel,))
+        forms = KERNEL_FORMS.get(kernel, (kernel,))
         return {run: {key: v for key, v in r["levels"].items()
                       if key.split("/")[0] in forms}
                 for run, r in serve.items()}
 
     def p12_launches(kernel: str) -> int:
         return sum(run["launches"][kernel] for run in serve.values())
+
+    def p13_launches(kernel: str) -> int:
+        return z3["launches"][kernel] + z3["13c"]["launches"][kernel]
+
+    def p13_entry(kernel: str) -> dict:
+        """Phase 13's launches of a kernel (all ranks, the kernel runs) per
+        run by link level, and 13a's at the zero site's rows; a bq
+        kernel's flat and view forms count with it."""
+        forms = KERNEL_FORMS.get(kernel, (kernel,))
+        return {"13a": {key: v for key, v in z3["levels"].items()
+                        if key.split("/")[0] in forms},
+                "13a_zero_site": {f: z3["zero_site_launches"][f]
+                                  for f in forms
+                                  if f in z3["zero_site_launches"]},
+                "13c": {key: v for key, v in z3["13c"]["levels"].items()
+                        if key.split("/")[0] in forms}}
 
     def p10_entry(kernel: str) -> dict:
         """Phase 10's launches of a kernel (all ranks, the kernel run) by
@@ -2978,13 +3240,14 @@ def main():
         entry["launches_ef_zhybrid_16_4"] = stateful["ef"][name]
         entry["launches"] += p7_launches(name) + ckpt["launches"][name] \
             + p9_launches(name) + tune["launches"][name] \
-            + p11_launches(name) + p12_launches(name)
+            + p11_launches(name) + p12_launches(name) + p13_launches(name)
         entry["phase7"] = p7_entry(name)
         entry["phase8"] = ckpt["launches"][name]        # after the restore
         entry["phase9"] = p9_entry(name)
         entry["phase10"] = p10_entry(name)
         entry["phase11"] = p11_entry(name)
         entry["phase12"] = p12_entry(name)
+        entry["phase13"] = p13_entry(name)
         if name in ("bq_encode", "bq_decode"):
             # the block form's kernel alone, and the flat form the TP
             # all-gather calls (the same kernel, fused with its layout)
@@ -3006,7 +3269,8 @@ def main():
                 "launches": t_launch[f"{name}_flat"]
                 + p7_launches(f"{name}_flat") + p9_launches(f"{name}_flat")
                 + p11_launches(f"{name}_flat")
-                + p12_launches(f"{name}_flat"),
+                + p12_launches(f"{name}_flat")
+                + p13_launches(f"{name}_flat"),
                 "phase7": p7_entry(f"{name}_flat"),
                 "max_abs_err": err[f"{name}_flat"],
                 "by_shape": by_shape.get(f"{name}_flat", [])}
@@ -3031,7 +3295,7 @@ def main():
                         f" along axis 1 over {TP} ranks", "rate": 16,
                 "launches": t_launch[fname] + p7_launches(fname)
                 + p9_launches(fname) + p11_launches(fname)
-                + p12_launches(fname),
+                + p12_launches(fname) + p13_launches(fname),
                 "phase7": p7_entry(fname), "max_abs_err": err[fname],
                 "bound_by": "bytes",
                 "by_rows": {rows: {**ops_[op], "end": ops_["end"]}
@@ -3092,6 +3356,7 @@ def main():
                           if k.startswith("matmul_")}
                     for run, r in cp.items()},
         "phase12": {},            # plr rides no serving path
+        "phase13": {},            # nor the ZeRO-3 step (zhybrid_16_8)
         "max_abs_err": max(f["max_abs_err"] for f in forms.values()),
         **total, "bound_by": "bytes" if all(
             f["bound_by"] == "bytes" for f in forms.values()) else

@@ -1,25 +1,28 @@
 """Architecture registry: ``get("<arch-id>")`` -> ArchConfig.
 
-Only gemma3-1b is ported so far; the reference's other architectures are
-named as not yet ported.
+The dense decoders (gemma3-1b, gemma3-4b, minitron-4b, qwen2-72b) and
+qwen2-vl-72b's backbone are ported; the reference's other architectures
+are named as not yet ported.
 """
 
 from __future__ import annotations
 
 import importlib
 
-ARCH_IDS = ("gemma3-1b",)
-
-_NOT_YET = (
+ARCH_IDS = (
+    "gemma3-1b",
     "qwen2-72b",
     "gemma3-4b",
     "minitron-4b",
+    "qwen2-vl-72b",
+)
+
+_NOT_YET = (
     "whisper-base",
     "xlstm-1.3b",
     "zamba2-1.2b",
     "kimi-k2-1t-a32b",
     "qwen3-moe-235b-a22b",
-    "qwen2-vl-72b",
 )
 
 

@@ -498,7 +498,7 @@ def rank_device(device, rank: int) -> torch.device:
 
 def train_rank(*, rank: int = 0, world: int = 1, arch: str,
                reduced: bool = False, layers: int = 0, depth: int = 0,
-               dp: int = 1, tp: int = 1, pp: int = 1, cp: int = 1,
+               overrides: dict | None = None, dp: int = 1, tp: int = 1, pp: int = 1, cp: int = 1,
                nodes: int = 1, tp_nodes: int = 1, pp_nodes: int = 1,
                cp_nodes: int = 1, microbatches: int = 1,
                vpp: int = 1, remat_policy: str = "none",
@@ -522,7 +522,10 @@ def train_rank(*, rank: int = 0, world: int = 1, arch: str,
     (:func:`~repro_torch.launch.mesh.make_mesh`); each batch is permuted
     into zigzag order on the host and this rank takes its rows and its
     contiguous ``seq / cp`` slice of it; ``depth`` cuts the stack to its
-    first layers, the pattern kept (:func:`model_config`); ``pp``,
+    first layers, the pattern kept (:func:`model_config`); ``overrides``
+    replaces config fields afterwards (``{"fsdp_params": True}`` turns
+    ZeRO-3 on, as the reference's tests do on a config that ships
+    without it; no flag sets it); ``pp``,
     ``microbatches``, ``vpp`` and ``remat_policy`` select the pipeline
     trainer as the reference's ``make_trainer`` does.
 
@@ -555,8 +558,8 @@ def train_rank(*, rank: int = 0, world: int = 1, arch: str,
     first step's ledger (its analytic events; per dimension, measured wire
     bytes and the priced events, and priced and measured per
     ``dim/level`` and priced per link class,
-    ``link_bytes`` with every outer level slow) and per site (priced, and
-    priced as if uncompressed), the kernel launches per bq kernel and link
+    ``link_bytes`` with every outer level slow), per site tag (priced, and
+    priced as if uncompressed) and per named site (priced), the kernel launches per bq kernel and link
     level,
     the schedule's ticks and bubble fraction, per codec-state slot its
     residual energy and factor rank after the last step, the first step,
@@ -596,6 +599,8 @@ def train_rank(*, rank: int = 0, world: int = 1, arch: str,
     ops.set_default_backend(backend)
     comms.time_staging(time_staging)
     cfg = model_config(arch, reduced, layers, depth)
+    if overrides:
+        cfg = cfg.replace(**overrides)
     mi = make_mesh(dp, tp, pp, nodes=nodes, tp_nodes=tp_nodes,
                    pp_nodes=pp_nodes, cp=cp, cp_nodes=cp_nodes)
     model = Model(cfg, mi, device=dev, vpp=vpp)
@@ -759,6 +764,7 @@ def train_rank(*, rank: int = 0, world: int = 1, arch: str,
             summary = roofline.ledger_summary(events, train=True)
             out["priced_per_dim"] = summary["per_dim"]
             out["priced_per_dim_level"] = summary["per_dim_level"]
+            out["priced_per_site"] = summary["per_site"]
             out["link_bytes"] = roofline.link_bytes(events, train=True)
             out["priced_per_tag"] = roofline.ledger_per_tag(events)
             out["payload_per_tag"] = roofline.ledger_per_tag(events,

@@ -30,7 +30,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import comms
-from repro_torch.models.layers import apply_rope, rms_norm
+from repro_torch.models.layers import apply_mrope, apply_rope, rms_norm, use
 from repro_torch.models.params import D as Dd, MeshInfo
 from repro_torch.serve import paged_kv
 
@@ -191,24 +191,29 @@ def ring_attention(q, k, v, q_pos, k_pos, mi: MeshInfo, causal, window,
 # projections (+ rope/qk-norm)
 # --------------------------------------------------------------------------
 
-def _project_qkv(p, xq, xkv, pos_q, pos_kv, cfg, mi, theta):
+def _project_qkv(p, xq, xkv, pos_q, pos_kv, cfg, mi, theta, pos3_q=None):
+    """q, k, v [B, S, heads, hd], with qkv bias, qk-norm and rope; M-RoPE
+    (qwen2-vl) where the config asks for it and ``pos3_q`` [B, S, 3] is
+    given, the plain rope on ``pos_q`` / ``pos_kv`` otherwise."""
     hd = cfg.head_dim_
-    q = xq @ p["wq"]
-    k = xkv @ p["wk"]
-    v = xkv @ p["wv"]
+    wq, wk, wv = use(p["wq"], mi), use(p["wk"], mi), use(p["wv"], mi)
+    q = xq @ wq
+    k = xkv @ wk
+    v = xkv @ wv
     if cfg.qkv_bias:
-        q = q + p["bq"]
-        k = k + p["bk"]
-        v = v + p["bv"]
+        q = q + use(p["bq"], mi)
+        k = k + use(p["bk"], mi)
+        v = v + use(p["bv"], mi)
     q = q.reshape(*q.shape[:2], -1, hd)
     k = k.reshape(*k.shape[:2], -1, hd)
     v = v.reshape(*v.shape[:2], -1, hd)
     if cfg.qk_norm:
-        q = rms_norm(q, p["qn"], cfg.norm_eps)
-        k = rms_norm(k, p["kn"], cfg.norm_eps)
-    if cfg.mrope:
-        raise NotImplementedError("M-RoPE is not yet ported")
-    if theta:
+        q = rms_norm(q, use(p["qn"], mi), cfg.norm_eps)
+        k = rms_norm(k, use(p["kn"], mi), cfg.norm_eps)
+    if cfg.mrope and pos3_q is not None:
+        q = apply_mrope(q, pos3_q, theta)
+        k = apply_mrope(k, pos3_q, theta)
+    elif theta:
         q = apply_rope(q, pos_q, theta)
         k = apply_rope(k, pos_kv, theta)
     return q, k, v
@@ -226,27 +231,30 @@ def _theta(cfg, window):
 # --------------------------------------------------------------------------
 
 def attn_train(p, x, pos, cfg, mi: MeshInfo, mode: str, causal=True,
-               window=0, want_cache=False):
+               window=0, want_cache=False, pos3=None):
     """Training (and prefill) attention sublayer: x [B, S_loc, D]
     sequence-sharded, pos [B, S_loc] global positions -> [B, S_loc, D],
     and with ``want_cache`` the prefill cache ``(k, v, k_pos)`` too: in
     head mode the full (cp-local) sequence of this rank's KV heads, in
-    ring mode this rank's sequence slice of every head."""
+    ring mode this rank's sequence slice of every head.  ``pos3`` [B,
+    S_loc, 3] are qwen2-vl's M-RoPE position ids, applied as the reference
+    applies them (to the projections of this rank's tokens as given)."""
     theta = _theta(cfg, window)
     if mode == "head":
         xg = comms.all_gather(x, mi.tp_axes, 1, comms.site("tp", "attn_in"))
         pos_g = _gather_pos(pos, mi)
-        q, k, v = _project_qkv(p, xg, xg, pos_g, pos_g, cfg, mi, theta)
+        q, k, v = _project_qkv(p, xg, xg, pos_g, pos_g, cfg, mi, theta,
+                               pos3)
         if mi.cp > 1:   # q/k/v cover this rank's cp slice: ring over cp
             o = ring_attention(q, k, v, pos_g, pos_g, mi, causal, window)
         else:
             o = full_attention(q, k, v, pos_g, pos_g, causal, window)
-        y = o.reshape(*o.shape[:2], -1) @ p["wo"]
+        y = o.reshape(*o.shape[:2], -1) @ use(p["wo"], mi)
         out = comms.reduce_scatter(y, mi.tp_axes, 1,
                                    comms.site("tp", "attn_out"))
         return (out, (k, v, pos_g)) if want_cache else out
     # ring: the sequence stays sharded, the weights are replicated
-    q, k, v = _project_qkv(p, x, x, pos, pos, cfg, mi, theta)
+    q, k, v = _project_qkv(p, x, x, pos, pos, cfg, mi, theta, pos3)
     cache = (k, v, pos)
     kb, vb, pkv = k, v, pos
     if mi.tp > 1:
@@ -257,7 +265,7 @@ def attn_train(p, x, pos, cfg, mi: MeshInfo, mode: str, causal=True,
         vb = comms.all_gather(vb, mi.tp_axes, 1, comms.site("tp", "attn_kv"))
         pkv = _gather_pos(pos, mi)
     o = ring_attention(q, kb, vb, pos, pkv, mi, causal, window)
-    out = o.reshape(*o.shape[:2], -1) @ p["wo"]
+    out = o.reshape(*o.shape[:2], -1) @ use(p["wo"], mi)
     return (out, cache) if want_cache else out
 
 
@@ -272,7 +280,7 @@ def _gather_pos(pos, mi):
 # --------------------------------------------------------------------------
 
 def attn_decode(p, x, cache, index: int, cfg, mi: MeshInfo, mode: str,
-                window=0, seq_axes=None):
+                window=0, seq_axes=None, pos3=None):
     """Single-token decode against one layer's dense KV cache.
 
     x [B, 1, D] (replicated over model); ``cache`` {k, v} of this rank,
@@ -286,13 +294,15 @@ def attn_decode(p, x, cache, index: int, cfg, mi: MeshInfo, mode: str,
     it stays masked: fault C.17) and merges the shards'
     partial softmax with the flash-decoding combine: a max, then two sums
     at ``tp@attn_combine`` over each entry of ``seq_axes`` (a pair's sums
-    two-level).  Returns (out [B, 1, D], cache)."""
+    two-level).  ``pos3`` [B, 1, 3] are M-RoPE position ids (qwen2-vl).
+    Returns (out [B, 1, D], cache)."""
     theta = _theta(cfg, window)
     B = x.shape[0]
     pos_q = torch.full((B, 1), index, dtype=torch.long, device=x.device)
     # head mode: the weights are head-sharded, so q/k/v hold this rank's
     # heads; ring mode: the weights are replicated, every head is local
-    q, k_new, v_new = _project_qkv(p, x, x, pos_q, pos_q, cfg, mi, theta)
+    q, k_new, v_new = _project_qkv(p, x, x, pos_q, pos_q, cfg, mi, theta,
+                                   pos3)
     k, v = cache["k"], cache["v"]
     if mode == "head":
         k[:, index] = k_new[:, 0].to(k.dtype)
@@ -302,7 +312,7 @@ def attn_decode(p, x, cache, index: int, cfg, mi: MeshInfo, mode: str,
                              device=x.device)[None].expand(B, s_max)
         o = full_attention(q, k, v, pos_q, k_pos, causal=False,
                            window=window, k_valid=k_pos < index + 1)
-        y = o.reshape(B, 1, -1) @ p["wo"]
+        y = o.reshape(B, 1, -1) @ use(p["wo"], mi)
         out = comms.psum(y, mi.tp_axes, comms.site("tp", "attn_out"))
         return out, cache
 
@@ -329,7 +339,7 @@ def attn_decode(p, x, cache, index: int, cfg, mi: MeshInfo, mode: str,
         l = comms.psum(l * w, ax, comms.site("tp", "attn_combine"))
         m = mg
     o = (o / torch.clamp(l, min=1e-30)[..., None]).to(x.dtype)
-    return o.reshape(B, 1, -1) @ p["wo"], cache
+    return o.reshape(B, 1, -1) @ use(p["wo"], mi), cache
 
 
 def _shard_index(seq_axes) -> int:
@@ -347,7 +357,8 @@ def _shard_index(seq_axes) -> int:
 # --------------------------------------------------------------------------
 
 def attn_decode_paged(p, x, pool, tables, pos, active, cfg, mi: MeshInfo,
-                      *, bits, block_tokens, window=0, backend=None):
+                      *, bits, block_tokens, window=0, backend=None,
+                      pos3=None):
     """Single-token decode against one layer's paged KV pool (head mode).
 
     x [N, 1, D], one row per decode slot; ``pool`` is this layer's pool
@@ -355,13 +366,15 @@ def attn_decode_paged(p, x, pool, tables, pos, active, cfg, mi: MeshInfo,
     [N, max_blocks] int32 block ids; pos [N] per-slot positions; active [N]
     bool slot mask.  Inactive slots write nowhere (their block id is set
     out of range, and the write drops it) and attend over a fully masked
-    sequence.  Returns (out [N, 1, D], pool).
+    sequence.  ``pos3`` [N, 1, 3] are M-RoPE position ids (qwen2-vl).
+    Returns (out [N, 1, D], pool).
     """
     theta = _theta(cfg, window)
     N = x.shape[0]
     pos = pos.long()
     pos_q = pos[:, None]
-    q, k_new, v_new = _project_qkv(p, x, x, pos_q, pos_q, cfg, mi, theta)
+    q, k_new, v_new = _project_qkv(p, x, x, pos_q, pos_q, cfg, mi, theta,
+                                   pos3)
     kv_loc, hd = k_new.shape[2], cfg.head_dim_
 
     nb_loc = (pool["k"] if bits is None else pool["k"]["q_hi"]).shape[0]
@@ -378,6 +391,6 @@ def attn_decode_paged(p, x, pool, tables, pos, active, cfg, mi: MeshInfo,
     valid = (k_pos <= pos[:, None]) & active[:, None]
     o = full_attention(q, k, v, pos_q, k_pos,
                        causal=False, window=window, k_valid=valid)
-    y = o.reshape(N, 1, -1) @ p["wo"]
+    y = o.reshape(N, 1, -1) @ use(p["wo"], mi)
     out = comms.psum(y, mi.tp_axes, comms.site("tp", "attn_out"))
     return out, pool

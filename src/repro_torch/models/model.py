@@ -1,6 +1,7 @@
 """Top-level model: plan, parameter init, the training and prefill
 forward, and the loss (port of ``repro.models.model`` for the dense
-decoder)."""
+decoders and qwen2-vl's backbone: its precomputed ``vision`` embeddings
+merged under ``vis_mask``, its M-RoPE ids ``pos3``)."""
 
 from __future__ import annotations
 
@@ -9,8 +10,8 @@ import torch
 from repro_torch.core import comms
 from repro_torch.models import layers, transformer
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.params import (MeshInfo, count_params, init_params,
-                                       resolve_device)
+from repro_torch.models.params import (MeshInfo, bind_fsdp, count_params,
+                                       init_params, resolve_device)
 
 
 class Model:
@@ -46,6 +47,12 @@ class Model:
     def n_params(self) -> int:
         return count_params(self.plan)
 
+    def group_params(self, params, i: int):
+        """Layer group ``i``'s tree as the bodies read it: its ZeRO-3
+        leaves wrapped with their specs (``bind_fsdp``), so each layer
+        re-gathers them where it reads them."""
+        return bind_fsdp(self.plan["groups"][i], params["groups"][i])
+
     # -- training ----------------------------------------------------------
     def _positions(self, B: int, S_loc: int) -> torch.Tensor:
         """GLOBAL positions of this rank's tokens [B, S_loc]: tp slices the
@@ -64,17 +71,25 @@ class Model:
         return j[None].expand(B, S_loc)
 
     def _embed_input(self, params, batch) -> torch.Tensor:
-        """tokens [B_loc, S] -> this rank's embedded sequence slice."""
-        return layers.embed(params["embed"], batch["tokens"], self.cfg,
-                            self.mi)
+        """tokens [B_loc, S] -> this rank's embedded sequence slice; an
+        M-RoPE model given ``vision`` [B_loc, S_loc, D] takes it where
+        ``vis_mask`` [B_loc, S_loc] is set (the stubbed vision frontend's
+        patch embeddings, merged into the token stream)."""
+        cfg = self.cfg
+        x = layers.embed(params["embed"], batch["tokens"], cfg, self.mi)
+        if cfg.mrope and "vision" in batch:
+            mask = batch["vis_mask"][..., None]
+            x = torch.where(mask, batch["vision"].to(x.dtype), x)
+        return x
 
-    def run_decoder(self, params, x, pos, phase="train"):
+    def run_decoder(self, params, x, pos, phase="train", pos3=None):
         """Every layer group on ``x`` (a stage-free mesh); at
         ``phase="prefill"`` -> (x, each group's stacked caches)."""
         caches = []
-        for gp, g in zip(params["groups"], self.cfg.layer_groups):
-            x = transformer.run_group(gp, x, g, self.cfg, self.mi, self.mode,
-                                      pos, phase)
+        for i, g in enumerate(self.cfg.layer_groups):
+            x = transformer.run_group(self.group_params(params, i), x, g,
+                                      self.cfg, self.mi, self.mode, pos,
+                                      phase, pos3)
             if phase == "prefill":
                 x, c = x
                 caches.append(c)
@@ -85,29 +100,33 @@ class Model:
         ``v`` selects which of the rank's ``vpp`` round-robin chunks runs
         (interleaved layout).  Embedding and head stay with the caller."""
         for i, g in enumerate(self.stage_groups):
-            gp = transformer.take_stage(params["groups"][i], v)
+            gp = transformer.take_stage(self.group_params(params, i), v)
             x = transformer.run_group(gp, x, g, self.cfg, self.mi, self.mode,
                                       pos)
         return x
 
     def head(self, params, x) -> torch.Tensor:
-        """Final norm and the tied head: [B, S_loc, D] -> logits [B, S,
-        V_loc] f32."""
+        """Final norm and the head (tied or not): [B, S_loc, D] -> logits
+        [B, S, V_loc] f32."""
         x = layers.norm(params["final_norm"], x, self.cfg, self.mi)
         return layers.lm_head_logits(params, x, self.cfg, self.mi)
 
     def forward(self, params, batch, phase="train"):
-        """batch {tokens [B_loc, S]} -> logits [B_loc, S, V_loc] f32; at
-        ``phase="prefill"`` -> (logits, the caches of every layer group,
-        in the training layout: :mod:`repro_torch.serve.kv_cache`)."""
+        """batch {tokens [B_loc, S]} (an M-RoPE model's also ``vision``,
+        ``vis_mask`` and ``pos3`` [B_loc, S_loc, 3], each optional) ->
+        logits [B_loc, S, V_loc] f32; at ``phase="prefill"`` -> (logits,
+        the caches of every layer group, in the training layout:
+        :mod:`repro_torch.serve.kv_cache`)."""
         if self.mi.pp > 1:
             raise ValueError("flat forward on a stage mesh: use "
                              "repro_torch.train.pipeline")
         x = self._embed_input(params, batch)
         pos = self._positions(x.shape[0], x.shape[1])
+        pos3 = batch.get("pos3") if self.cfg.mrope else None
         if phase == "train":
-            return self.head(params, self.run_decoder(params, x, pos))
-        x, caches = self.run_decoder(params, x, pos, phase)
+            return self.head(params, self.run_decoder(params, x, pos,
+                                                      pos3=pos3))
+        x, caches = self.run_decoder(params, x, pos, phase, pos3)
         return self.head(params, x), caches
 
     def loss_fn(self, params, batch):

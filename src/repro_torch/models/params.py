@@ -7,10 +7,14 @@ tree instead, so both packages can compute with the same weights.
 
 A leaf's ``spec`` tags each dim as in the reference: ``"model"`` dims are
 sharded over the tensor-parallel axis, ``"stage"`` dims (the pipeline's
-stage-stacked layer groups) over the stage axis, ``"data"`` dims (ZeRO-3,
-not yet ported) over the data axis, ``None`` dims are replicated.  Parameters are
-plain tensors holding this rank's shard; the optimizer reads each leaf's
-spec from the plan.
+stage-stacked layer groups) over the stage axis, ``"data"`` dims (ZeRO-3:
+:func:`apply_fsdp` gives the largest free, divisible dim of each big leaf
+of a ``fsdp_params`` model to the inner data axis) over the data axis,
+``None`` dims are replicated.  Parameters are plain tensors holding this
+rank's shard; the optimizer reads each leaf's spec from the plan, and the
+model bodies see a ZeRO-3 leaf wrapped with its spec (:class:`Pv`,
+:func:`bind_fsdp`), which ``layers.use`` re-gathers over data where it is
+read.
 """
 
 from __future__ import annotations
@@ -264,6 +268,7 @@ class ParamDef:
     init: str = "normal"  # normal | zeros | ones
     scale: float = 0.02
     dtype: str = "bfloat16"
+    fsdp_ok: bool = True  # eligible for ZeRO-3 sharding over data
 
     def size(self) -> int:
         return math.prod(self.shape)
@@ -271,12 +276,10 @@ class ParamDef:
 
 def D(shape, spec=None, init="normal", scale=0.02, dtype="bfloat16",
       fsdp_ok=True) -> ParamDef:
-    """Declare a parameter (``fsdp_ok`` is accepted for plan parity with the
-    reference; ZeRO-3 sharding is not yet ported)."""
     spec = spec if spec is not None else (None,) * len(shape)
     if len(spec) != len(shape):
         raise ValueError(f"spec {spec} does not match shape {shape}")
-    return ParamDef(tuple(shape), tuple(spec), init, scale, dtype)
+    return ParamDef(tuple(shape), tuple(spec), init, scale, dtype, fsdp_ok)
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -292,6 +295,70 @@ def tree_map_defs(fn, plan):
     if isinstance(plan, (list, tuple)):
         return [tree_map_defs(fn, v) for v in plan]
     raise TypeError(f"unexpected plan node {type(plan)}")
+
+
+# --------------------------------------------------------------------------
+# ZeRO-3 (FSDP) annotation over the data axis
+# --------------------------------------------------------------------------
+
+_FSDP_MIN_SIZE = 1 << 20  # leaves below 1M elements stay replicated
+
+
+def apply_fsdp(plan, dp: int):
+    """Shard the largest free (``None``), divisible dim of each leaf of at
+    least ``_FSDP_MIN_SIZE`` elements over ``"data"`` (the first such dim
+    on a tie), as the reference does."""
+
+    def annotate(d: ParamDef) -> ParamDef:
+        if not d.fsdp_ok or d.size() < _FSDP_MIN_SIZE or dp <= 1:
+            return d
+        best = None
+        for i, (s, sp) in enumerate(zip(d.shape, d.spec)):
+            if sp is None and s % dp == 0:
+                if best is None or s > d.shape[best]:
+                    best = i
+        if best is None:
+            return d
+        spec = list(d.spec)
+        spec[best] = "data"
+        return dataclasses.replace(d, spec=tuple(spec))
+
+    return tree_map_defs(annotate, plan)
+
+
+def fsdp_dim(spec: tuple) -> int | None:
+    """Which dim (if any) of a leaf must be re-gathered over data."""
+    for i, s in enumerate(spec):
+        if s == "data":
+            return i
+    return None
+
+
+@dataclasses.dataclass(frozen=True)
+class Pv:
+    """A ZeRO-3 leaf as the model bodies see it: this rank's shard ``v``
+    and its spec, whose ``"data"`` entry names the dim ``layers.use``
+    re-gathers (the reference's ``Pv``; the slicing helpers of
+    :mod:`repro_torch.models.transformer` drop the leading entries as they
+    drop the stacked dims)."""
+
+    v: torch.Tensor
+    spec: tuple
+
+
+def bind_fsdp(plan, tree):
+    """``tree`` with every leaf whose spec shards over ``"data"`` wrapped
+    as :class:`Pv`; ``tree`` itself when the plan has no such leaf."""
+    if not any("data" in d.spec for _, d in _leaves(plan)):
+        return tree
+
+    def wrap(p, t):
+        if isinstance(p, ParamDef):
+            return Pv(t, p.spec) if "data" in p.spec else t
+        if isinstance(p, dict):
+            return {k: wrap(v, t[k]) for k, v in p.items()}
+        return [wrap(v, tv) for v, tv in zip(p, t)]
+    return wrap(plan, tree)
 
 
 def _leaves(plan, path=()):
@@ -412,12 +479,13 @@ def from_jax_params(tree, cfg, device=None, mi: MeshInfo | None = None,
                     vpp: int = 1) -> dict:
     """The reference's GLOBAL parameter tree, with each ``Pv`` leaf
     unwrapped to a numpy array, -> this rank's shards on ``device`` (the
-    slice of each leaf that ``mi``'s coordinates name; the whole tree on a
-    one-rank mesh).
+    slice of each leaf that ``mi``'s coordinates name, a ZeRO-3 leaf's
+    data shard included; the whole tree on a one-rank mesh).
 
     The tree must have exactly the layout of this package's plan for
-    ``cfg`` on ``mi`` with ``vpp`` virtual stages (dicts by key, layer
-    groups as a list of stacked leaves; on a stage mesh each group leaf
+    ``cfg`` on ``mi`` with ``vpp`` virtual stages (dicts by key, an
+    untied head under ``lm_head``, layer groups as a list of stacked
+    leaves; on a stage mesh each group leaf
     stage-stacked ``[pp, n, ...]``, or ``[vpp, pp, n, ...]``); each leaf's
     global shape is checked and its dtype set to the plan's."""
     from repro_torch.models.transformer import model_plan

@@ -9,6 +9,14 @@ stage's chunk and carry a leading stage dim (``[pp, n, ...]``, or ``[vpp,
 pp, n, ...]`` under interleaved virtual stages), as in the reference.
 Within a stage body every layer's activations stay alive for the backward
 pass; the pipeline's remat policy checkpoints whole stage bodies.
+
+A ``fsdp_params`` model annotates its layer-group plans (never the
+embedding or head) with :func:`~repro_torch.models.params.apply_fsdp`;
+the group trees the bodies walk then hold those leaves as
+:class:`~repro_torch.models.params.Pv` (``Model.group_params``), which
+the slicing helpers here keep wrapped, dropping the spec entries of the
+dims they take, so each layer's ``layers.use`` re-gathers one layer's
+shard at a time, as the reference's scan body does.
 """
 
 from __future__ import annotations
@@ -19,7 +27,7 @@ import torch
 
 from repro_torch.models import attention, layers
 from repro_torch.models.config import ArchConfig, BlockGroup
-from repro_torch.models.params import MeshInfo, tree_map_defs
+from repro_torch.models.params import MeshInfo, Pv, apply_fsdp, tree_map_defs
 
 # kinds the stage-stacked pipeline plan cannot express (the reference's
 # list): encoder context and cross-stage weight sharing both couple layers
@@ -69,6 +77,8 @@ def take_stage(tree, v=None):
     ``[vpp, 1, n, ...]``) the rank's ``v``-th round-robin slice."""
     if isinstance(tree, dict):
         return {k: take_stage(t, v) for k, t in tree.items()}
+    if isinstance(tree, Pv):
+        return Pv(take_stage(tree.v, v), tree.spec[1 if v is None else 2:])
     return tree[0] if v is None else tree[v, 0]
 
 
@@ -125,9 +135,11 @@ def chunk_layer_ranges(n_layers: int, pp: int, vpp: int = 1) -> dict:
 
 def model_plan(cfg: ArchConfig, mi: MeshInfo, vpp: int = 1):
     """The parameter plan.  On a stage mesh (``mi.pp > 1``) the groups
-    describe one stage chunk, stage-stacked; the embedding (tied head) and
-    the final norm stay stage-replicated: consumed on the first and last
-    stage, their gradients folded over the stage axis by the optimizer."""
+    describe one stage chunk, stage-stacked; the embedding, the untied
+    head and the final norm stay stage-replicated: consumed on the first
+    and last stage, their gradients folded over the stage axis by the
+    optimizer.  ``cfg.fsdp_params`` shards the big leaves of each layer's
+    plan over data (ZeRO-3, before the layers are stacked)."""
     mode = cfg.attn_mode_for(mi.tp)
     plan = {"embed": layers.embed_plan(cfg)}
     plan.update(layers.lm_head_plan(cfg))
@@ -136,7 +148,10 @@ def model_plan(cfg: ArchConfig, mi: MeshInfo, vpp: int = 1):
         else cfg.layer_groups
     groups = []
     for g in stage_groups:
-        gp = _stack(block_plan(cfg, g.kind, mode), g.n)
+        gp = block_plan(cfg, g.kind, mode)
+        if cfg.fsdp_params:
+            gp = apply_fsdp(gp, mi.dp)
+        gp = _stack(gp, g.n)
         if mi.pp > 1:
             gp = _stage_stack(gp, mi.pp, vpp)
         groups.append(gp)
@@ -150,6 +165,8 @@ def layer_slice(tree, i: int):
         return None
     if isinstance(tree, dict):
         return {k: layer_slice(v, i) for k, v in tree.items()}
+    if isinstance(tree, Pv):
+        return Pv(tree.v[i], tree.spec[1:])
     return tree[i]
 
 
@@ -160,6 +177,8 @@ def _unstack(tree, n: int) -> list:
     if isinstance(tree, dict):
         per = {k: _unstack(v, n) for k, v in tree.items()}
         return [{k: per[k][i] for k in tree} for i in range(n)]
+    if isinstance(tree, Pv):
+        return [Pv(t, tree.spec[1:]) for t in tree.v.unbind(0)]
     return list(tree.unbind(0))
 
 
@@ -168,16 +187,17 @@ def _unstack(tree, n: int) -> list:
 # --------------------------------------------------------------------------
 
 def run_block(kind, p, x, cfg, mi, mode, g: BlockGroup, pos,
-              phase="train"):
+              phase="train", pos3=None):
     """One training layer: x [B, S_loc, D] -> [B, S_loc, D]; at
-    ``phase="prefill"`` -> (x, its cache {k, v})."""
+    ``phase="prefill"`` -> (x, its cache {k, v}).  ``pos3`` are M-RoPE
+    position ids (qwen2-vl)."""
     if kind != "attn":
         raise NotImplementedError(f"layer kind {kind!r} is not yet ported")
     want_cache = phase == "prefill"
     h = layers.norm(p["ln1"], x, cfg, mi)
     r = attention.attn_train(p["attn"], h, pos, cfg, mi, mode,
                              causal=cfg.causal, window=g.window,
-                             want_cache=want_cache)
+                             want_cache=want_cache, pos3=pos3)
     if want_cache:
         r, (k, v, _) = r
     x = x + r
@@ -187,18 +207,19 @@ def run_block(kind, p, x, cfg, mi, mode, g: BlockGroup, pos,
     return (x, {"k": k, "v": v}) if want_cache else x
 
 
-def run_group(gp, x, g: BlockGroup, cfg, mi, mode, pos, phase="train"):
+def run_group(gp, x, g: BlockGroup, cfg, mi, mode, pos, phase="train",
+              pos3=None):
     """The group's ``n`` layers in order; at ``phase="prefill"`` -> (x,
     the layers' caches stacked {k, v} [n, ...])."""
     if phase == "train":
         for p in _unstack(gp, g.n):
-            x = run_block(g.kind, p, x, cfg, mi, mode, g, pos)
+            x = run_block(g.kind, p, x, cfg, mi, mode, g, pos, pos3=pos3)
         return x
     if phase != "prefill":
         raise ValueError(f"unknown phase {phase!r}")
     caches = []
     for p in _unstack(gp, g.n):
-        x, c = run_block(g.kind, p, x, cfg, mi, mode, g, pos, phase)
+        x, c = run_block(g.kind, p, x, cfg, mi, mode, g, pos, phase, pos3)
         caches.append(c)
     return x, {k: torch.stack([c[k] for c in caches]) for k in ("k", "v")}
 
@@ -208,7 +229,7 @@ def run_group(gp, x, g: BlockGroup, cfg, mi, mode, pos, phase="train"):
 # --------------------------------------------------------------------------
 
 def decode_block(kind, p, x, cache, index: int, cfg, mi, mode,
-                 g: BlockGroup, seq_axes=None):
+                 g: BlockGroup, seq_axes=None, pos3=None):
     """One layer's single-token decode against its dense cache {k, v}
     (written in place).  Returns (x, cache)."""
     if kind != "attn":
@@ -217,7 +238,7 @@ def decode_block(kind, p, x, cache, index: int, cfg, mi, mode,
     h = layers.norm(p["ln1"], x, cfg, mi)
     r, cache = attention.attn_decode(p["attn"], h, cache, index, cfg, mi,
                                      mode, window=g.window,
-                                     seq_axes=seq_axes)
+                                     seq_axes=seq_axes, pos3=pos3)
     x = x + r
     if cfg.d_ff:
         h = layers.norm(p["ln2"], x, cfg, mi)
@@ -226,13 +247,13 @@ def decode_block(kind, p, x, cache, index: int, cfg, mi, mode,
 
 
 def decode_group(gp, x, caches, index: int, g: BlockGroup, cfg, mi, mode,
-                 seq_axes=None):
+                 seq_axes=None, pos3=None):
     """The group's layers in order, each writing its own slice of the
     group's stacked caches in place.  Returns (x, caches)."""
     for i in range(g.n):
         x, _ = decode_block(g.kind, layer_slice(gp, i), x,
                             layer_slice(caches, i), index, cfg, mi, mode, g,
-                            seq_axes)
+                            seq_axes, pos3)
     return x, caches
 
 
@@ -241,7 +262,8 @@ def decode_group(gp, x, caches, index: int, g: BlockGroup, cfg, mi, mode,
 # --------------------------------------------------------------------------
 
 def decode_block_paged(kind, p, x, pool, tables, pos, active, cfg, mi,
-                       g: BlockGroup, *, bits, block_tokens, backend=None):
+                       g: BlockGroup, *, bits, block_tokens, backend=None,
+                       pos3=None):
     """Per-slot decode body against one layer's paged KV pool."""
     if kind != "attn":
         raise NotImplementedError(
@@ -249,7 +271,8 @@ def decode_block_paged(kind, p, x, pool, tables, pos, active, cfg, mi,
     h = layers.norm(p["ln1"], x, cfg, mi)
     r, pool = attention.attn_decode_paged(
         p["attn"], h, pool, tables, pos, active, cfg, mi, bits=bits,
-        block_tokens=block_tokens, window=g.window, backend=backend)
+        block_tokens=block_tokens, window=g.window, backend=backend,
+        pos3=pos3)
     x = x + r
     if cfg.d_ff:
         h = layers.norm(p["ln2"], x, cfg, mi)
@@ -258,12 +281,13 @@ def decode_block_paged(kind, p, x, pool, tables, pos, active, cfg, mi,
 
 
 def decode_group_paged(gp, x, pool, tables, pos, active, g: BlockGroup, cfg,
-                       mi, *, bits, block_tokens, backend=None):
+                       mi, *, bits, block_tokens, backend=None, pos3=None):
     """Run the group's layers in order; each writes its own slice of the
     group's stacked pool in place.  Returns (x, pool)."""
     for i in range(g.n):
         x, _ = decode_block_paged(g.kind, layer_slice(gp, i), x,
                                   layer_slice(pool, i), tables, pos, active,
                                   cfg, mi, g, bits=bits,
-                                  block_tokens=block_tokens, backend=backend)
+                                  block_tokens=block_tokens, backend=backend,
+                                  pos3=pos3)
     return x, pool

@@ -80,10 +80,15 @@ class Server:
         model, cfg, mi = self.model, self.model.cfg, self.model.mi
         with _bound(self.plan, self.ring_bidir, self.ring_chunks):
             x = layers.embed(params["embed"], token, cfg, mi, sp=False)
+            # M-RoPE (qwen2-vl): every section of a decoded token sits at
+            # its index, as the reference's decode builds pos3
+            pos3 = torch.full((token.shape[0], 1, 3), index,
+                              dtype=torch.int32, device=token.device) \
+                if cfg.mrope else None
             for i, g in enumerate(cfg.layer_groups):
                 x, caches[i] = transformer.decode_group(
-                    params["groups"][i], x, caches[i], index, g, cfg, mi,
-                    model.mode, self.seq_axes)
+                    model.group_params(params, i), x, caches[i], index, g,
+                    cfg, mi, model.mode, self.seq_axes, pos3)
             x = layers.norm(params["final_norm"], x, cfg, mi)
             logits = layers.lm_head_logits(params, x, cfg, mi, sp=False)
             tok = greedy_token(logits, cfg, mi)
@@ -169,11 +174,15 @@ class PagedServer:
         model, cfg, mi = self.model, self.model.cfg, self.model.mi
         with _bound(self.plan, self.ring_bidir, self.ring_chunks):
             x = layers.embed(params["embed"], token, cfg, mi, sp=False)
+            # M-RoPE (qwen2-vl): each slot's sections at its position
+            pos3 = pos.to(torch.int32)[:, None, None].expand(
+                token.shape[0], 1, 3) if cfg.mrope else None
             for i, g in enumerate(cfg.layer_groups):
                 x, pool[i] = transformer.decode_group_paged(
-                    params["groups"][i], x, pool[i], tables, pos, active, g,
-                    cfg, mi, bits=self.bits, block_tokens=self.block_tokens,
-                    backend=self.backend)
+                    model.group_params(params, i), x, pool[i], tables, pos,
+                    active, g, cfg, mi, bits=self.bits,
+                    block_tokens=self.block_tokens, backend=self.backend,
+                    pos3=pos3)
             x = layers.norm(params["final_norm"], x, cfg, mi)
             logits = layers.lm_head_logits(params, x, cfg, mi, sp=False)
             return greedy_token(logits, cfg, mi), pool

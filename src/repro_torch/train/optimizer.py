@@ -1,10 +1,19 @@
 """Adam with ZeRO-1 sharded optimizer state and compressed gradient sync
-(port of ``repro.train.optimizer`` for gradient classes B and C).
+(port of ``repro.train.optimizer``).
 
 Gradient classes, routed by each leaf's sharding spec (read from the
 plan):
 
-  A. fsdp ("data" in spec, ZeRO-3 leaves) — not yet ported; raises.
+  A. fsdp ("data" in spec, ZeRO-3 leaves): the backward of the leaf's
+     all-gather (``layers.use``) already reduce-scattered its gradient
+     over data under the *ZeRO* codec, so the local shard updates
+     directly: an all-reduce over the model axis under the *tp_bwd*
+     codec for a leaf that is not model-sharded (``tp_bwd@grad_fsdp``),
+     on a ``--nodes`` mesh one over the node axis per leaf
+     (``dp_outer@grad_fsdp{i}``, ``i`` the leaf's index, so a stateful
+     dp codec keeps one slot per leaf), then Adam on f32 ``{master, m,
+     v}`` held at the leaf's own sharding (never bq8, never bucketed),
+     scaled by the shared clip.
   B. model-sharded (TP/vocab): per-data-shard partial grads -> one flat
      reduce-scatter over data under the *DP* codec, a ZeRO-1 chunk update,
      an all-gather of the params back under the *ZeRO* codec.
@@ -54,7 +63,8 @@ import torch
 from repro_torch.core import comms
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import BLOCK
-from repro_torch.models.params import MeshInfo, defs, leaves, local_shape
+from repro_torch.models.params import (MeshInfo, defs, leaves, local_index,
+                                       local_shape, writes_replica)
 from repro_torch.train.checkpoint import Shard, whole
 
 _F32 = torch.float32
@@ -126,17 +136,19 @@ class Adam:
 
     def _split(self, tree):
         ls = leaves(self.plan, tree)
-        classes = [_leaf_class(d.spec) for d, _ in ls]
-        if "A" in classes:
-            raise NotImplementedError(
-                "ZeRO-3 (fsdp_params) leaves are not yet ported")
-        return [t for _, t in ls], classes
+        return [t for _, t in ls], [_leaf_class(d.spec) for d, _ in ls]
+
+    def _flat_leaves(self, tree) -> list:
+        """The leaves of the flat ZeRO-1 vector: classes B and C."""
+        ts, classes = self._split(tree)
+        return [t for t, c in zip(ts, classes) if c != "A"]
 
     def _stage_rep(self) -> list:
         """Whether each leaf is stage-replicated (on a stage mesh, every
-        leaf but the stage-stacked layer groups)."""
+        leaf but the stage-stacked layer groups; class A shards only
+        group leaves, which are stage-stacked)."""
         return [self.mi.pp > 1 and "stage" not in d.spec
-                for d in defs(self.plan)]
+                and _leaf_class(d.spec) != "A" for d in defs(self.plan)]
 
     # ------------------------------------------------------------------
     def _chunk_len(self, n: int) -> int:
@@ -156,8 +168,15 @@ class Adam:
 
     def init(self, params) -> dict:
         """This data shard's slice of the flat params (per grad-sync
-        bucket), zero moments and the step."""
-        ts, _ = self._split(params)
+        bucket), zero moments and the step; each class-A leaf's f32
+        ``{master, m, v}`` at its own sharding under ``fsdp`` (``None``
+        for the other leaves)."""
+        all_ts, classes = self._split(params)
+        fsdp = [{"master": t.to(_F32, copy=True),
+                 "m": torch.zeros(t.shape, dtype=_F32, device=t.device),
+                 "v": torch.zeros(t.shape, dtype=_F32, device=t.device)}
+                if c == "A" else None for t, c in zip(all_ts, classes)]
+        ts = [t for t, c in zip(all_ts, classes) if c != "A"]
         n = sum(t.numel() for t in ts)
         idx = self.mi.dp_axes.index
         dev = ts[0].device
@@ -177,7 +196,7 @@ class Adam:
         zc = torch.zeros_like(master)
         m = self._state_encode(zc)
         v = self._state_encode(zc.clone())
-        return {"master": master, "m": m, "v": v, "step": 0}
+        return {"fsdp": fsdp, "master": master, "m": m, "v": v, "step": 0}
 
     def state_shards(self, state=None, device="cpu") -> dict:
         """The state as the reference's global leaves, each a
@@ -190,10 +209,14 @@ class Adam:
         likewise by rows, ``q_lo`` none); a ``--nodes`` mesh replicates
         the chunks per node, and its first node writes them, and a cp mesh
         replicates them over cp, and cp index 0 writes them; the
-        ``step`` is one replicated int32.  (The reference's ``fsdp`` list
-        holds only ``None`` without ZeRO-3 leaves: no leaf.)"""
+        ``step`` is one replicated int32.  The ``fsdp`` list holds, for
+        each class-A leaf, its f32 ``{master, m, v}`` as global leaves of
+        the parameter's shape sharded as the parameter is (written by the
+        parameter's first replica), and ``None`` (no leaf) for the
+        others."""
         mi = self.mi
-        n = sum(math.prod(local_shape(d, mi)) for d in defs(self.plan))
+        n = sum(math.prod(local_shape(d, mi)) for d in defs(self.plan)
+                if _leaf_class(d.spec) != "A")
         cl = sum(self._chunk_len(hi - lo) for lo, hi in self._bucket_bounds(n))
         world = mi.dp * mi.pp * mi.tp       # the state's shards: no node
         c = mi.coords
@@ -218,7 +241,17 @@ class Adam:
                     "scale": chunk(cl // BLOCK, (1,), _F32, v.get("scale"))}
         step = None if state is None else torch.tensor(state["step"],
                                                        dtype=torch.int32)
-        return {"master": chunk(cl, (), _F32,
+        fsdp = []
+        for i, d in enumerate(defs(self.plan)):
+            if _leaf_class(d.spec) != "A":
+                fsdp.append(None)
+                continue
+            st = None if state is None else state["fsdp"][i]
+            fsdp.append({k: Shard(d.shape, local_index(d.shape, d.spec, mi),
+                                  _F32, None if st is None else st[k],
+                                  writes_replica(d.spec, mi), device)
+                         for k in ("master", "m", "v")})
+        return {"fsdp": fsdp, "master": chunk(cl, (), _F32,
                                 None if state is None else state["master"]),
                 "m": moment("m"), "v": moment("v"),
                 "step": Shard((), (), torch.int32, step,
@@ -264,7 +297,7 @@ class Adam:
         """Write the parameters in place from the data group's master
         chunks: the ZeRO-1 all-gather (under the *ZeRO* codec, per
         grad-sync bucket) that ends :meth:`apply`."""
-        ts, _ = self._split(params)
+        ts = self._flat_leaves(params)
         total = sum(t.numel() for t in ts)
         lvl = "inner" if self.mi.node > 1 else None
         if self.cfg.grad_buckets <= 1:
@@ -324,7 +357,7 @@ class Adam:
         # replication factor (after the cp fold every leaf is replicated
         # over cp too; stage-replicated leaves also over pp), summed over
         # the whole world
-        rep = {"B": mi.dp * mi.node * mi.cp,
+        rep = {"A": mi.node * mi.cp, "B": mi.dp * mi.node * mi.cp,
                "C": mi.dp * mi.tp * mi.node * mi.cp}
         sq = torch.zeros((), dtype=_F32, device=ts[0].device)
         for g, c, r in zip(grads, classes, srep):
@@ -335,10 +368,33 @@ class Adam:
         scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12),
                             max=1.0)
 
+        # -- class A (ZeRO-3): the local update.  The norm above read
+        # these gradients before their model and node folds, as the
+        # reference's does (a class-A leaf that is not model-sharded
+        # counts each tp rank's partial gradient).
+        new_fsdp = [None] * len(ts)
+        for i, (t, c) in enumerate(zip(ts, classes)):
+            if c != "A":
+                continue
+            gv = grads[i].to(_F32)
+            if "model" not in defs(self.plan)[i].spec:
+                gv = comms.psum(gv, mi.tp_axes,
+                                comms.Site("tp", "grad_fsdp", "bwd"))
+            if mi.node > 1:
+                gv = comms.psum(gv, mi.node_axes,
+                                comms.Site("dp", f"grad_fsdp{i}",
+                                           level="outer"))
+            st = state["fsdp"][i]
+            master, m, v = self._adam_update(gv * scale, st["m"], st["v"],
+                                             st["master"], step)
+            new_fsdp[i] = {"master": master, "m": m, "v": v}
+            t.copy_(master)
+
         # -- classes B + C: flat compressed DP reduce-scatter (ZeRO-1);
         # bucketed mode defers the clip until after the sync
         bucketed = cfg.grad_buckets > 1
-        gflat = _flat_concat(grads, None if bucketed else scale)
+        gflat = _flat_concat([g for g, c in zip(grads, classes) if c != "A"],
+                             None if bucketed else scale)
         grads.clear()
         if self.keep_flat_grad:
             self.last_flat_grad = gflat
@@ -370,7 +426,8 @@ class Adam:
         master, m, v = self._adam_update(gchunk, m, v, state["master"], step)
         del gchunk
         self.gather_params(params, master)
-        new_state = {"master": master, "m": self._state_encode(m),
+        new_state = {"fsdp": new_fsdp, "master": master,
+                     "m": self._state_encode(m),
                      "v": self._state_encode(v), "step": step + 1}
         return new_state, {"grad_norm": gnorm,
                            "lr": _lr_at(cfg, step, gnorm.device)}

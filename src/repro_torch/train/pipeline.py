@@ -160,12 +160,13 @@ def _remat_wrap(fn, offload: bool):
     return checkpointed
 
 
-def _stage_body(model: Model, params, x, pos, v=None):
+def _stage_body(model: Model, params, x, pos, v=None, pos3=None):
     """One tick's layers: the rank's chunk on a stage mesh, the whole
-    decoder on a flat one (``pp == 1`` gradient accumulation)."""
+    decoder on a flat one (``pp == 1`` gradient accumulation, which alone
+    takes M-RoPE ids ``pos3``)."""
     if model.mi.pp > 1:
         return model.run_stage(params, x, pos, v)
-    return model.run_decoder(params, x, pos)
+    return model.run_decoder(params, x, pos, pos3=pos3)
 
 
 def pipeline_loss_fn(model: Model, n_micro: int, remat_policy=None):
@@ -177,6 +178,10 @@ def pipeline_loss_fn(model: Model, n_micro: int, remat_policy=None):
     ``remat_policy`` is a :func:`parse_remat_policy` spec."""
     cfg, mi = model.cfg, model.mi
     pp, M, V = mi.pp, n_micro, model.vpp
+    if pp > 1 and (cfg.encoder_layers or cfg.mrope):
+        raise ValueError(
+            "encoder / vision inputs are not pipelineable (cross-stage "
+            "context) — pp=1 gradient accumulation supports them")
     if V > 1:
         if pp == 1:
             raise ValueError("vpp > 1 (interleaved virtual stages) needs "
@@ -192,8 +197,8 @@ def pipeline_loss_fn(model: Model, n_micro: int, remat_policy=None):
     sidx = stage_ax.index if pp > 1 else 0
     handoff = comms.site("pp", "stage_handoff")
 
-    def run(p, x, pos, v=None):
-        return _stage_body(model, p, x, pos, v)
+    def run(p, x, pos, v=None, pos3=None):
+        return _stage_body(model, p, x, pos, v, pos3)
     ckpt = _remat_wrap(run, roffload)
 
     def clip(i, hi):
@@ -256,7 +261,8 @@ def pipeline_loss_fn(model: Model, n_micro: int, remat_policy=None):
                 x_in = torch.where(first[takes_embed], e, recv) \
                     if pp > 1 else e
                 # 3. this tick's layers, under the remat policy
-                y = (ckpt if remat else run)(params, x_in, pos, v)
+                pos3 = mb["pos3"][m] if cfg.mrope and "pos3" in mb else None
+                y = (ckpt if remat else run)(params, x_in, pos, v, pos3)
                 # 4. drain: head and cross-entropy; the ticks that do not
                 #    drain run them for their collectives alone
                 with torch.set_grad_enabled(drains and

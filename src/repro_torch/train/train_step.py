@@ -71,6 +71,8 @@ def _parts(tree, shards):
         return None
     if isinstance(shards, dict):
         return {k: _parts(tree[k], v) for k, v in shards.items()}
+    if isinstance(shards, list):
+        return [_parts(t, v) for t, v in zip(tree, shards)]
     a = np.asarray(tree)
     if tuple(a.shape) != tuple(shards.shape):
         raise ValueError(f"global leaf of shape {a.shape}, this layout "
@@ -99,7 +101,9 @@ class Trainer:
     # ------------------------------------------------------------------
     def codec_sites(self) -> list:
         """The carried-state-capable comm sites of the step, with their
-        per-rank payload shapes: the cp fold of the whole gradient, the tp
+        per-rank payload shapes: on a ``--nodes`` mesh the node fold of
+        each class-A (ZeRO-3) leaf's gradient (``dp_outer@grad_fsdp{i}``,
+        the leaf's local shape), the cp fold of the whole gradient, the tp
         class-C gradient fold, the pp fold of the stage-replicated leaves
         and the flat ZeRO-1 dp/zero sync, one chain per grad-sync bucket,
         in the reference's order.  A fold over a node-factored pair
@@ -109,12 +113,18 @@ class Trainer:
         reduce-scatter inner, the chunk's all-reduce outer, the param
         gather inner).  Mirrors :meth:`Adam.apply` (site names, levels and
         payload sizes), as the reference's ``Trainer.codec_sites`` does
-        without its class-A and pod sites."""
+        without its pod sites."""
         mi = self.model.mi
         local = [(math.prod(local_shape(d, mi)), _leaf_class(d.spec))
                  for d in defs(self.model.plan)]
         f32 = torch.float32
         sites = []
+        if mi.node > 1:
+            for i, d in enumerate(defs(self.model.plan)):
+                if _leaf_class(d.spec) == "A":
+                    sites.append((comms.Site("dp", f"grad_fsdp{i}",
+                                             level="outer"),
+                                  local_shape(d, mi), f32))
         folds = []
         if mi.cp > 1:
             folds.append(("cp", "grad_seq_rep", mi.cp_axes,
@@ -123,8 +133,8 @@ class Trainer:
         if mi.tp > 1:
             folds.append(("tp", "grad_rep", mi.tp_axes, n_c))
         # the stage-replicated leaves' fold over the stage axis
-        n_s = sum(math.prod(local_shape(d, mi)) for d in defs(self.model.plan)
-                  if "stage" not in d.spec)
+        n_s = sum(n for (n, c), d in zip(local, defs(self.model.plan))
+                  if c != "A" and "stage" not in d.spec)
         if mi.pp > 1:
             folds.append(("pp", "grad_stage_rep", mi.stage_axes, n_s))
         for dim, name, axes, elems in folds:
@@ -141,8 +151,8 @@ class Trainer:
         hier = mi.node > 1
         lvl = "inner" if hier else None
         bucketed = self.opt.cfg.grad_buckets > 1
-        for b, (lo, hi) in enumerate(
-                self.opt._bucket_bounds(sum(n for n, _ in local))):
+        for b, (lo, hi) in enumerate(self.opt._bucket_bounds(
+                sum(n for n, c in local if c != "A"))):
             sfx = str(b) if bucketed else ""
             cl = self.opt._chunk_len(hi - lo)
             sites.append((comms.Site("dp", f"zero1_grad{sfx}", level=lvl),
@@ -199,7 +209,8 @@ class Trainer:
         over axes larger than 1 qualify; the param gather stays on its
         plan-static codec.  As the reference's."""
         mi = self.model.mi
-        n = sum(math.prod(local_shape(d, mi)) for d in defs(self.model.plan))
+        n = sum(math.prod(local_shape(d, mi)) for d in defs(self.model.plan)
+                if _leaf_class(d.spec) != "A")
         hier = mi.node > 1
         bucketed = self.opt.cfg.grad_buckets > 1
         out = {}

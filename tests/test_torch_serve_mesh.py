@@ -33,6 +33,16 @@ Contract asserted here, with the tolerances and their reasons:
     ``n_kv_heads=2`` variant under ``none`` the same; paged under
     ``none`` token-exact against the dense ``Server`` streamed token by
     token (port only, ``serve_page_check.py``'s part 1);
+  * ``serve_page_check.py``'s own case, paged ``qwen2-72b --reduced`` at
+    dp 2 x tp 2 (head attention: 2 kv heads) under ``none``: tokens and
+    every pool plane as the reference's (the same tolerances), and the
+    tokens exact against the dense ``Server`` streamed token by token on
+    the same dp 2 x tp 2 world (the prompt on every one of 4 rows, whose
+    tokens agree);
+  * batched ``qwen2-vl-72b --reduced`` at dp 2 x tp 2 (head attention)
+    under ``baseline``, whose decode builds M-RoPE ids from the index
+    (the untied head, qkv bias): tokens, caches and ledger as the
+    batched cases above;
   * disaggregated ``--dp 1 --tp 2`` (4 ranks) under ``--kv-codec none``
     and ``bq8``: equal decode-pool tokens; the handoff's events all in the
     ``kv`` dimension with no ``tp`` or ``pp`` bytes in its scope; its
@@ -75,11 +85,13 @@ BATCHED = {
     "dp_tp_z": dict(dp=2, tp=2, scheme="zhybrid_16_8"),
     "head": dict(tp=2, scheme="baseline", kv2=True),
     "tp_nodes": dict(tp=4, tp_nodes=2, scheme="hier_tpp_8_16"),
+    "vl": dict(dp=2, tp=2, scheme="baseline", arch="qwen2-vl-72b"),
 }
 PAGED = {
     "paged_none": dict(dp=2, codec="none"),
     "paged_bq8": dict(dp=2, codec="bq8"),
     "paged_tp": dict(tp=2, codec="none", kv2=True),
+    "paged_qwen2": dict(dp=2, tp=2, codec="none", arch="qwen2-72b"),
 }
 DISAGG = {"disagg_none": dict(tp=2, codec="none"),
           "disagg_bq8": dict(tp=2, codec="bq8")}
@@ -87,7 +99,7 @@ DISAGG = {"disagg_none": dict(tp=2, codec="none"),
 
 def _c(c: dict) -> dict:
     return dict(dict(dp=1, tp=1, tp_nodes=1, scheme="baseline", kv2=False,
-                     codec="none"), **c)
+                     codec="none", arch="gemma3-1b"), **c)
 
 
 def _prompts():
@@ -112,9 +124,9 @@ def _mb() -> int:
 # the reference (subprocesses)
 # --------------------------------------------------------------------------
 
-def _jcfg(kv2: bool):
+def _jcfg(kv2: bool, arch: str = "gemma3-1b"):
     from repro import configs
-    cfg = configs.get("gemma3-1b").reduced()
+    cfg = configs.get(arch).reduced()
     return cfg.replace(n_kv_heads=2) if kv2 else cfg
 
 
@@ -172,7 +184,7 @@ def _reference(out_path: str, group: str) -> None:
     if group == "batched":
         for case, c in BATCHED.items():
             c = _c(c)
-            cfg = _jcfg(c["kv2"])
+            cfg = _jcfg(c["kv2"], c["arch"])
             mesh = make_mesh(c["dp"], c["tp"], tp_nodes=c["tp_nodes"])
             mi = MeshInfo.from_mesh(mesh)
             model = Model(cfg, mi)
@@ -211,7 +223,7 @@ def _reference(out_path: str, group: str) -> None:
             c = _c(c)
             mesh = make_mesh(c["dp"], c["tp"])
             mi = MeshInfo.from_mesh(mesh)
-            model = Model(_jcfg(c["kv2"]), mi)
+            model = Model(_jcfg(c["kv2"], c["arch"]), mi)
             params = model.init(key)
             psrv = PagedServer(model, mesh, kv_codec=c["codec"],
                                block_tokens=BT)
@@ -281,21 +293,68 @@ def _ref_env():
 # --------------------------------------------------------------------------
 
 def run_jobs(*, rank: int, world: int, jobs: dict) -> dict:
-    """``serve_rank`` for every job of ``jobs`` in turn, in this world."""
+    """``serve_rank`` (or, for a ``stream`` job, :func:`dense_stream`) for
+    every job of ``jobs`` in turn, in this world."""
     from repro_torch.launch.serve import serve_rank
-    return {k: serve_rank(rank=rank, world=world, **kw)
-            for k, kw in jobs.items()}
+    return {k: (dense_stream if kw.pop("stream", False) else serve_rank)(
+        rank=rank, world=world, **kw) for k, kw in jobs.items()}
 
 
-def _tcfg(kv2: bool):
+def dense_stream(*, rank: int, world: int, cfg, dp: int, tp: int,
+                 prompts, init_from: str, **_) -> dict:
+    """``serve_page_check.py``'s dense reference on this rank: each prompt
+    on all ``N_SLOTS`` rows of the dense ``Server`` (rows split over
+    data), fed token by token, keeping the predictions once the prompt is
+    exhausted (the paged path's write-then-read order)."""
+    import torch
+
+    from repro_torch.core import comms
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import from_jax_params
+    from repro_torch.serve import kv_cache
+    from repro_torch.serve.serve_step import Server
+
+    mi = make_mesh(dp, tp)
+    model = Model(cfg, mi, device="cpu")
+    with open(init_from, "rb") as f:
+        params = from_jax_params(pickle.load(f), cfg, "cpu", mi)
+    srv = Server(model)
+    s_max = -(-max(PLENS + (GEN,)) // BT) * BT + GEN
+    b_loc = kv_cache.batch_local(N_SLOTS, mi)
+    out = {}
+    for rid, prompt in enumerate(prompts):
+        caches = kv_cache.zero_caches(srv.cache_structs(N_SLOTS, s_max)[0],
+                                      "cpu")
+        toks, cur = [], prompt[0]
+        for i in range(len(prompt) + GEN - 1):
+            tok, caches = srv.decode(params, torch.full((b_loc, 1), cur),
+                                     caches, i)
+            tok = comms.raw_all_gather(tok, mi.batch_axes, 0)
+            assert bool((tok == tok[0]).all())    # the rows agree
+            if i >= len(prompt) - 1:
+                toks.append(int(tok[0]))
+            cur = prompt[i + 1] if i + 1 < len(prompt) else int(tok[0])
+        out[rid] = toks
+    return {"tokens": out}
+
+
+def _tcfg(kv2: bool, arch: str = "gemma3-1b"):
     from repro_torch import configs
-    cfg = configs.get("gemma3-1b").reduced()
+    cfg = configs.get(arch).reduced()
     return cfg.replace(n_kv_heads=2) if kv2 else cfg
+
+
+def _head(c: dict) -> bool:
+    """Whether the case runs head-mode attention (its caches shard the
+    kv heads over model, not the sequence)."""
+    return _tcfg(c["kv2"], c["arch"]).attn_mode_for(c["tp"]) == "head"
 
 
 def _kwargs(c: dict, mode: str, tree: str) -> dict:
     c = _c(c)
-    kw = dict(cfg=_tcfg(c["kv2"]), mode=mode, dp=c["dp"], tp=c["tp"],
+    kw = dict(cfg=_tcfg(c["kv2"], c["arch"]), mode=mode, dp=c["dp"],
+              tp=c["tp"],
               tp_nodes=c["tp_nodes"], gen=GEN, scheme=c["scheme"],
               kv_codec=c["codec"], device="cpu", init_from=tree,
               keep_state=True)
@@ -336,10 +395,12 @@ def results(tmp_path_factory):
         # draws each global leaf from its key)
         mi = MeshInfo.from_mesh(compat.make_mesh((1, 1), ("data", "model")))
         trees = {}
-        for kv2 in (False, True):
-            params = Model(_jcfg(kv2), mi).init(jax.random.key(SEED))
-            trees[kv2] = str(base / f"tree_{kv2}.pkl")
-            with open(trees[kv2], "wb") as f:
+        for key in {(_c(c)["arch"], _c(c)["kv2"])
+                    for c in (*BATCHED.values(), *PAGED.values())}:
+            params = Model(_jcfg(key[1], key[0]), mi).init(
+                jax.random.key(SEED))
+            trees[key] = str(base / f"tree_{key[0]}_{key[1]}.pkl")
+            with open(trees[key], "wb") as f:
                 pickle.dump(jax.tree.map(lambda pv: np.asarray(pv.v), params,
                                          is_leaf=lambda x: isinstance(x, Pv)),
                             f)
@@ -348,7 +409,11 @@ def results(tmp_path_factory):
                             (DISAGG, "disagg")):
             for case, c in cases.items():
                 groups.setdefault(_world(c, mode), {})[case] = _kwargs(
-                    c, mode, trees[_c(c)["kv2"]])
+                    c, mode, trees[(_c(c)["arch"], _c(c)["kv2"])])
+        # serve_page_check.py's dense reference on the paged case's world
+        c = _c(PAGED["paged_qwen2"])
+        groups[_world(c, "paged")]["stream_qwen2"] = dict(
+            _kwargs(c, "paged", trees[(c["arch"], False)]), stream=True)
         with ThreadPoolExecutor(len(groups)) as pool:
             futs = {w: pool.submit(spawn_world, f"{__name__}:run_jobs", w,
                                    dict(jobs=jobs), 900)
@@ -420,8 +485,8 @@ def test_batched_matches_reference(case, results):
         assert res["foreign_modules"] == []
         np.testing.assert_array_equal(np.asarray(res["tokens"]),
                                       want["tokens"])
-    _check_caches(got, want["prefill"], "prefill", c, c["kv2"], bq_tol)
-    _check_caches(got, want["final"], "final", c, c["kv2"], bq_tol)
+    _check_caches(got, want["prefill"], "prefill", c, _head(c), bq_tol)
+    _check_caches(got, want["final"], "final", c, _head(c), bq_tol)
     for phase in ("prefill", "decode"):
         led, wled = got[0]["ledger"][phase], want[f"ledger_{phase}"]
         priced = {k: v for k, v in led["priced"].items() if v}
@@ -486,7 +551,7 @@ def test_paged_matches_dense_server_streamed(results):
     _, _, trees = results
     cfg = _tcfg(False)
     model = Model(cfg, device="cpu")
-    with open(trees[False], "rb") as f:
+    with open(trees[("gemma3-1b", False)], "rb") as f:
         params = from_jax_params(pickle.load(f), cfg, "cpu")
     prompts = _paged_prompts()
     fin, _, _, _ = serve_requests(model, params, prompts, GEN, kv_codec="none",
@@ -502,6 +567,18 @@ def test_paged_matches_dense_server_streamed(results):
                 out.append(int(tok[0]))
             cur = prompt[i + 1] if i + 1 < len(prompt) else int(tok[0])
         assert fin[rid] == out, rid
+
+
+def test_paged_qwen2_exact_against_dense_server(results):
+    """serve_page_check.py's part 1 on its own case: paged serving of
+    ``qwen2-72b --reduced`` at dp 2 x tp 2 (head attention at tp 2) is
+    token-exact against the dense Server streamed on the same world."""
+    _, port, _ = results
+    dense = port["stream_qwen2"]
+    for r, res in enumerate(port["paged_qwen2"]):
+        assert dense[r]["tokens"] == dense[0]["tokens"]
+        assert res["tokens"] == [dense[0]["tokens"][i]
+                                 for i in range(len(PLENS))], r
 
 
 @pytest.mark.parametrize("case", list(DISAGG))
