@@ -9,6 +9,7 @@
     python3 chip_smoke.py --cp-only    # phase 1 and phase 11
     python3 chip_smoke.py --serve-only # phase 1 and phase 12
     python3 chip_smoke.py --zero3-only # phase 1 and phase 13
+    python3 chip_smoke.py --moe-only   # phase 1 and phase 14
 
 ``--bq-only`` prints the bq kernels' timings and those of the fused TP
 all-gather, TP reduce-scatter and KV-read ops beside the compositions
@@ -66,8 +67,9 @@ cast).
 Phase 3 serves gemma3-1b (full published width, its first 6 layers with
 the 5:1 local:global pattern kept; 26 until phase 11 came in, 13 until
 phase 12) by
-continuous batching over a bq8 paged KV pool, 8 requests of
-560 + 24 tokens on 8 slots, through the kernels, through their plain
+continuous batching over a bq8 paged KV pool, 4 requests of
+560 + 8 tokens on 4 slots (8 of 560 + 24 on 8 until phase 14 came in),
+through the kernels, through their plain
 versions and with a dense pool, and requires identical tokens and pool
 planes between the first two and the bq8 error bound against the third,
 and the KV read through the fused form only.
@@ -121,14 +123,16 @@ bubble fraction and the stage fold's share of the step.
 Phase 8 checkpoints and resumes phase 6's plr8 kernel run (gemma3-1b at
 full published width, its first 6 layers, the pattern kept: 26 until
 phase 12 came in; dp 2 x tp 2, deterministic; phase 6's world trains the
-uninterrupted 6-layer run beside its own): 8a trains 2
-steps with ``--ckpt-dir .smoke/ckpt --ckpt-every 2`` (a non-blocking save
-of params, optimizer state and codec state, 14.9 GB at 26 layers), 8b resumes and
-trains 2 steps, 8c resumes from step 2 at dp 4 x tp 1 and trains 1 step.
+uninterrupted 6-layer run of 2 steps beside its own): 8a trains 1
+step with ``--ckpt-dir .smoke/ckpt --ckpt-every 1`` (a non-blocking save
+of params, optimizer state and codec state, 14.9 GB at 26 layers), 8b
+resumes and trains 1 step, 8c resumes from step 1 at dp 4 x tp 1 and
+trains 1 step (8a and 8b trained 2 steps each until phase 14 came in).
 It checks the free disk space first and fails with the numbers when it
-is short.  It requires 8a's losses and grad norms bit-equal to phase 6's
-first two and 8b's to its last two, 8b's kernel launches per step those
-of phase 6 (every lowrank form, the bq kernels), the heartbeat at step 3,
+is short.  It requires 8a's losses and grad norms bit-equal to that
+run's first step and 8b's to its second, 8b's kernel launches per step
+those of that run (every lowrank form, the bq kernels), the heartbeat at
+step 1,
 8b's state restored, and 8c's optimizer and codec state each restored
 where its global layout at dp 4 x tp 1 is the one saved and otherwise
 re-initialized with the reference's ``WARNING:`` line (at full width the
@@ -240,6 +244,29 @@ share, the priced MB per ``dim/level`` beside what ZeRO-1 would price for
 the dp and zero dims of the same step, the zero site's launches, and
 13c's decode numbers.
 
+Phase 14 drives Mixture-of-Experts in phase 9's world of four ranks
+after phase 13: qwen3-moe-235b-a22b at full published width (d 4096, 64
+q and 4 kv heads of 128, qk-norm; experts of d_ff 1536, top-8, capacity
+factor 1.25; vocab 151936, untied), bf16, seed 0: 14a ``--dp 2 --tp 2``
+under zhybrid_16_8 (the ep all-to-alls on bq16 both ways) with the
+config's own ZeRO-3 (the expert leaves sharded over data), its first 2
+layers and its expert count cut from 128 to 16 (8 a rank; 128 do not
+fit training), sequence 1024, global batch 4, 3 steps, through the
+kernels; 14b the same through the plain versions; 14c the batched dense
+Server at ``--tp 4`` with all 128 experts (32 a rank), its first 2
+layers, two prompts of 512 tokens plus 16 generated, kernels and plain.  It requires 14a equal to 14b
+(losses, grad norms, the load-balance loss and drop fraction per step,
+ledger per dim and ``dim/level``), finite losses, the priced ``ep`` bytes
+equal to their reckoning (four bq16 all-to-alls a layer of the [E * C,
+D] dispatch buffer, half of each crossing), priced zero bytes, the block
+encode and decode launched at the ep sites' rows exactly four times a
+layer per rank per step, 14c's kernel run equal to its plain run (tokens,
+every cache leaf after the prefill and at the end by sha256), and nothing
+launched in the plain runs; it prints ms/step, tokens/s, peak memory,
+staging share, the priced MB per ``dim/level`` beside the ep reckoning,
+``lb_loss`` and ``drop_frac`` per step, the ep sites' launches and 14c's
+prefill and decode numbers.
+
 After phase 8, a fresh process (this script with ``--reckon FILE``, which
 the script starts itself) times each (kernel, rows, rate) that phase 4's
 kernel run launched, at its shape, and reckons launches x (time - bound)
@@ -252,7 +279,8 @@ library call's time where one exists; the encode and decode also with
 their flat form, the encode and decode-add with the TP reduce-scatter's
 view forms, the gather-decode's times those of the fused KV read, and
 the bq kernels with the per-shape reckoning, phase 10's launches by
-rate and level and phase 13's at the zero site) and the card line; the last
+rate and level, phase 13's at the zero site and phase 14's at the ep
+sites) and the card line; the last
 line is the result JSON.  Any failure exits non-zero;
 without a card, or outside a checkout, it fails before printing a result.
 """
@@ -277,11 +305,12 @@ SPIN_CYCLES = 2_000_000       # about 1 ms of the card's clock
 BITS = (4, 8, 16, 24)
 MAIN_BITS = 8                 # the serving pool is bq8
 
-# serving: gemma3-1b, 8 slots, 16-token blocks, 560 + 24; its first 6
-# layers (one 5:1 block, the pattern kept: cut from 26 to 13 to pay for
-# phase 11's runs, about half of phase 3's 199 s, and from 13 to 6 for
-# phase 12's)
-SLOTS, BLOCK_TOKENS, PROMPT, GEN, SEED = 8, 16, 560, 24, 0
+# serving: gemma3-1b, 4 slots, 16-token blocks, 560 + 8 (prompts past the
+# 512 window); its first 6 layers (one 5:1 block, the pattern kept: cut
+# from 26 to 13 to pay for phase 11's runs, about half of phase 3's 199 s,
+# and from 13 to 6 for phase 12's); 8 slots and 560 + 24 until phase 14
+# came in
+SLOTS, BLOCK_TOKENS, PROMPT, GEN, SEED = 4, 16, 560, 8, 0
 SERVE_LAYERS = 6
 # main path: the training step at full width, its first 13 layers (two
 # 5:1 local:global blocks and a local layer, the pattern kept; all 26 until
@@ -303,10 +332,12 @@ MM_RANKS = {"tall": (2, 4, 8, 16, 32, 64), "at_b": (2, 4, 8, 64),
             "small_k": (2, 4, 8, 16, 32, 64)}
 SCRATCH = ROOT / ".smoke"     # git-ignored: phase 4's flat gradient
 CKPT_DIR = SCRATCH / "ckpt"   # phase 8's checkpoints
-CKPT_STEPS = 2                # phase 8: save after 8a's 2 steps
+CKPT_STEPS = 1                # phase 8: save after 8a's step (2 until
+#                               phase 14 came in)
 # phase 8 checkpoints phase 6's plr8 step at its first 6 layers (one 5:1
 # block, the pattern kept; cut from 26 when phase 12 came in), against an
-# uninterrupted 6-layer run that phase 6's world trains beside its own
+# uninterrupted 6-layer run of 2 * CKPT_STEPS steps that phase 6's world
+# trains beside its own
 CKPT_DEPTH = 6
 # phase 7: the pipeline, dp 1 x pp 2 x tp 2, 4 microbatches of 1 x SEQ;
 # (name, layers, steps, flags) of its two runs
@@ -467,6 +498,36 @@ Z3_SERVE = dict(mode="paged", dp=2, tp=2, kv_codec="bq8", slots=Z3_SLOTS)
 Z3_ZERO_KERNELS = ("bq_encode_flat", "bq_decode_flat", "bq_encode_view",
                    "bq_decode_add_flat")
 Z3_SERVE_LEVELS = {"flat": {"bq_encode", "bq_gather_decode"}}
+# phase 14: Mixture-of-Experts in phase 9's world of four ranks after phase
+# 13: qwen3-moe-235b-a22b at full published width (d 4096, 64 q and 4 kv
+# heads of 128 with qk-norm, so head attention at tp 2 and tp 4; experts
+# of d_ff 1536, top-8, capacity factor 1.25; vocab 151936, untied), bf16,
+# seed 0.  14a ``--dp 2 --tp 2`` under zhybrid_16_8 (the ep all-to-alls at
+# bq16 both ways), the config's own ZeRO-3 (``fsdp_params``: the expert
+# leaves sharded over data), seq 1024, global batch 4, 3 steps, through
+# the kernels; its expert count cut from 128 to 16 (8 a rank at ep 2, the
+# config's own 8 experts a chip): one full-width layer of 128 experts
+# holds 2.42 B expert parameters, over 100 GB of training state at
+# phase 13's 38 B a parameter.  Its first 2 layers (``depth``): a rank
+# ran out of memory in the ZeRO-1 gather of the first step at 2 layers
+# (16.39 GiB
+# allocated and 2.32 GiB more asked, the four ranks holding 77.77 GiB) and
+# at 1 (14.04 GiB and 2.32 more, 77.19 GiB; NVIDIA H100 80GB HBM3, 700.00
+# W) while the Adam update kept the old f32 master and moments of the
+# untied table and head (622 M parameters a rank) beside the new ones; it
+# writes them in place since.  14b the same through the plain versions.
+# 14c the batched dense Server at ``--tp 4`` (ep 4, 32 experts a rank)
+# with all 128 experts, its first 2 layers, two prompts of 512 tokens plus
+# 16 generated, kernels and plain.
+MOE_ARCH, MOE_DEPTH, MOE_EXPERTS, MOE_STEPS, MOE_SCHEME = \
+    "qwen3-moe-235b-a22b", 2, 16, 3, "zhybrid_16_8"
+MOE_SERVE_DEPTH = 2
+MOE_FLAGS = ("--dp", "2", "--tp", "2")
+MOE_SERVE = dict(mode="batched", tp=4, scheme="zhybrid_16_8", batch=2)
+# the ep sites' block encode and decode: the [E * C, D] dispatch buffer of
+# one rank (C = 640 for 2 x 512 tokens), split over ep = 2 ranks, launched
+# whole (both chunks, 163840 rows each) at rate 16
+MOE_EP_ROWS = 2 * (MOE_EXPERTS * 640 * 4096 // 2) // 128
 
 
 # a bq kernel's wrappers: its block form and the flat and view forms that
@@ -1698,13 +1759,14 @@ def drive_hier(torch, card, only: str | None = None) -> tuple:
     """Phase 9: the node-factored meshes (9a ``--nodes``, 9b
     ``--tp-nodes``, 9c ``--pp-nodes``) in one world of four ranks, through
     the kernels and (9a, 9b) the plain versions, then phase 10, the tuned
-    step, phase 11, context parallelism, phase 12, serving, and phase 13,
-    gemma3-4b with ZeRO-3, in the same world (:func:`check_tune`,
-    :func:`check_cp`, :func:`check_serve`, :func:`check_zero3`); returns
-    each phase 9 run's launches per kernel and level (all ranks) and its
-    numbers, phase 10's, phase 11's, phase 12's and phase 13's.
+    step, phase 11, context parallelism, phase 12, serving, phase 13,
+    gemma3-4b with ZeRO-3, and phase 14, qwen3-moe, in the same world
+    (:func:`check_tune`, :func:`check_cp`, :func:`check_serve`,
+    :func:`check_zero3`, :func:`check_moe`); returns each phase 9 run's
+    launches per kernel and level (all ranks) and its numbers, phase
+    10's, phase 11's, phase 12's, phase 13's and phase 14's.
     ``only="cp"`` runs phase 11 alone, ``only="serve"`` phase 12 alone,
-    ``only="zero3"`` phase 13 alone."""
+    ``only="zero3"`` phase 13 alone, ``only="moe"`` phase 14 alone."""
     runs, names = [], []
     for name, scheme, steps, flags, plain, depth in \
             tuple(r + (0,) for r in (() if only else HIER_RUNS)) \
@@ -1739,12 +1801,24 @@ def drive_hier(torch, card, only: str | None = None) -> tuple:
                                   depth=Z3_DEPTH, gen=Z3_GEN,
                                   prompts=z3_prompts(), **Z3_SERVE))
             names.append(("13c", backend))
+    if only in (None, "moe"):
+        for backend in (None, "torch"):
+            label = "14a kernels" if backend is None else "14b plain"
+            runs.append(run(label, MOE_SCHEME, backend, MOE_STEPS, MOE_FLAGS,
+                            dp=1, tp=1, arch=MOE_ARCH, depth=MOE_DEPTH,
+                            overrides={"n_experts": MOE_EXPERTS}))
+            names.append(("14", backend))
+        for backend in (None, "torch"):
+            runs.append(serve_run("14c", backend, arch=MOE_ARCH,
+                                  depth=MOE_SERVE_DEPTH, **MOE_SERVE))
+            names.append(("14c", backend))
     res = dict(zip(names, train_runs(card, runs)))
     cp = check_cp(card, res) if only in (None, "cp") else {}
     serve = check_serve(card, res) if only in (None, "serve") else {}
     z3 = check_zero3(card, res) if only in (None, "zero3") else {}
+    moe = check_moe(card, res) if only in (None, "moe") else {}
     if only:
-        return {}, {}, cp, serve, z3
+        return {}, {}, cp, serve, z3, moe
     out = {}
     for name, scheme, steps, flags, plain in HIER_RUNS:
         k = res[(name, None)]
@@ -1792,7 +1866,7 @@ def drive_hier(torch, card, only: str | None = None) -> tuple:
                      "per_dim_level": r0["priced_per_dim_level"],
                      "link_bytes": r0["link_bytes"]}
     return out, check_tune(card, res[("10", None)], res[("10", "torch")]), \
-        cp, serve, z3
+        cp, serve, z3, moe
 
 
 def paged_prompts() -> list:
@@ -2085,6 +2159,145 @@ def check_zero3(card, res: dict) -> dict:
           f"tok/s, peak {speak} GiB per rank, staging+exchange "
           f"{min(sshare) * 100:.0f}-{max(sshare) * 100:.0f} %; launches (all "
           f"ranks) by kernel/level {levels} [{card}]")
+    return out
+
+
+def moe_ep_reckoned() -> float:
+    """14a's priced ep bytes per rank per step, reckoned: four
+    all-to-alls a layer (dispatch and combine, each forward and back) of
+    the [E * C, D] buffer at bq16, (ep - 1) / ep of it crossing."""
+    from repro_torch.core import codecs
+    elems = MOE_EXPERTS * 640 * 4096
+    return MOE_DEPTH * 4 * codecs.get("bq16").wire_nbytes_for(elems) / 2
+
+
+def check_moe(card, res: dict) -> dict:
+    """Phase 14: 14a (qwen3-moe through the kernels) equal to 14b (the
+    plain versions) in losses, grad norms, the load-balance loss, the drop
+    fraction and the ledger (measured per dim, priced per dim and per
+    ``dim/level``), finite losses, the ep bytes priced at their reckoning,
+    the block encode and decode launched at the ep sites' rows at rate 16
+    and nothing launched in 14b; 14c's kernel run equal to its plain run
+    (tokens, every cache leaf after the prefill and at the end by sha256),
+    its ep all-to-alls launched; no rank importing jax or repro.  Prints
+    the numbers and returns them."""
+    k, p = res[("14", None)], res[("14", "torch")]
+    for rk, rp in zip(k, p):
+        if rk["foreign_modules"] or rp["foreign_modules"]:
+            fail(f"phase 14 rank {rk['rank']} imported "
+                 f"{rk['foreign_modules'] or rp['foreign_modules']}")
+        if not np.isfinite(rk["losses"]).all():
+            fail(f"phase 14a rank {rk['rank']}: losses {rk['losses']}")
+        for key in ("losses", "grad_norms", "lb_loss", "drop_frac",
+                    "wire_per_dim", "priced_per_dim",
+                    "priced_per_dim_level"):
+            if rk[key] != rp[key]:
+                fail(f"phase 14 rank {rk['rank']}: {key} differ between the "
+                     f"kernel run ({rk[key]}) and the plain run ({rp[key]})")
+    if any(v for r in p for v in r["launches"].values()):
+        fail(f"phase 14b: the plain run launched kernels: "
+             f"{[r['launches'] for r in p]}")
+    r0 = k[0]
+    priced = {key: v for key, v in r0["priced_per_dim_level"].items() if v}
+    want_ep = moe_ep_reckoned()
+    if abs(priced.get("ep/flat", 0) / want_ep - 1) > 1e-9:
+        fail(f"phase 14a: ep priced {priced.get('ep/flat')} B per rank per "
+             f"step, reckoned {want_ep}")
+    if not priced.get("zero/flat"):
+        fail(f"phase 14a: no zero bytes priced (ZeRO-3): {priced}")
+    shapes = {}
+    for r in k:
+        for name, rows, bits, c in r["launch_shapes"]:
+            shapes[(name, rows, bits)] = shapes.get((name, rows, bits), 0) + c
+    # per rank per step: 2 layers x 2 sites x (forward, backward)
+    want_n = MOE_DEPTH * 4 * len(k) * MOE_STEPS
+    at_ep = {kern: shapes.get((kern, MOE_EP_ROWS, 16), 0)
+             for kern in ("bq_encode", "bq_decode")}
+    if any(v != want_n for v in at_ep.values()):
+        fail(f"phase 14a: the ep sites' block launches at {MOE_EP_ROWS} "
+             f"rows (rate 16) {at_ep}, want {want_n} each")
+    step = max(float(np.median(r["step_s"][1:])) for r in k)
+    share = [sum(r["staging_s"][1:]) / sum(r["step_s"][1:]) for r in k]
+    peak = [round(r["peak_bytes"] / 2**30, 2) for r in k]
+    mb = {key: round(v / 1e6, 3) for key, v in priced.items()}
+    out = {"step_ms": step * 1e3, "tokens_per_s": GLOBAL_BATCH * SEQ / step,
+           "peak_gib": peak, "staging_share": [min(share), max(share)],
+           "priced_mb": mb, "ep_reckoned_mb": want_ep / 1e6,
+           "lb_loss": r0["lb_loss"], "drop_frac": r0["drop_frac"],
+           "ep_site_launches": at_ep, "ep_rows": MOE_EP_ROWS,
+           "launches": launch_sums(k), "levels": level_sums(k),
+           "losses": r0["losses"]}
+    print(f"phase 14a/14b ({MOE_ARCH} full width but {MOE_EXPERTS} experts, "
+          f"the first {MOE_DEPTH} layer(s), {' '.join(MOE_FLAGS)}, "
+          f"{MOE_SCHEME}, ZeRO-3): kernel run == plain run (losses, grad "
+          f"norms, lb_loss, drop_frac, ledger per dim and dim/level) on "
+          f"every rank; losses {r0['losses']}, grad norms "
+          f"{[round(g, 6) for g in r0['grad_norms']]}, lb_loss per step "
+          f"{r0['lb_loss']}, drop_frac per step {r0['drop_frac']}; "
+          f"{step * 1e3:.1f} ms/step (median of steps 2-{MOE_STEPS}, "
+          f"slowest rank), {out['tokens_per_s']:.0f} tokens/s, peak {peak} "
+          f"GiB per rank, staging+exchange {min(share) * 100:.0f}-"
+          f"{max(share) * 100:.0f} % [{card}]")
+    print(f"phase 14a priced MB per rank per step by dim/level {mb}; ep/flat "
+          f"reckoned {want_ep / 1e6:.3f} MB; the ep sites' block launches "
+          f"(all ranks) at {MOE_EP_ROWS} rows, rate 16: {at_ep}; launches "
+          f"(all ranks) {out['launches']} [{card}]")
+    # 14c: serving all 128 experts at tp 4
+    k, p = res[("14c", None)], res[("14c", "torch")]
+    toks = k[0]["tokens"]
+    vocab = 151936
+    if len(toks) != MOE_SERVE["batch"] or any(
+            len(t) != SERVE_GEN or min(t) < 0 or max(t) >= vocab
+            for t in toks) or any(r["tokens"] != toks for r in k):
+        fail("phase 14c: malformed or disagreeing tokens")
+    for rk, rp in zip(k, p):
+        if rk["foreign_modules"]:
+            fail(f"phase 14c rank {rk['rank']} imported "
+                 f"{rk['foreign_modules']}")
+        if rk["tokens"] != rp["tokens"]:
+            fail(f"phase 14c rank {rk['rank']}: tokens differ between the "
+                 f"kernel run and the plain run")
+        for when, dig in rk["digests"].items():
+            bad = sorted(leaf for leaf, h in dig.items()
+                         if rp["digests"][when][leaf] != h)
+            if bad:
+                fail(f"phase 14c rank {rk['rank']}: {when} caches {bad} "
+                     f"differ between the kernel run and the plain run")
+    if any(v for r in p for v in r["launches"].values()):
+        fail(f"phase 14c: the plain run launched kernels: "
+             f"{[r['launches'] for r in p]}")
+    levels = level_sums(k)
+    if not (levels.get("bq_encode/flat") and levels.get("bq_decode/flat")):
+        fail(f"phase 14c: no block encode or decode (the ep all-to-alls); "
+             f"launches by level {levels}")
+    sprice = {ph: {key: round(v / 1e6, 3)
+                   for key, v in k[0]["ledger"][ph]["priced"].items() if v}
+              for ph in ("prefill", "decode")}
+    if not all(sprice[ph].get("ep/flat") for ph in sprice):
+        fail(f"phase 14c: no ep bytes priced: {sprice}")
+    dec = [sum(r["decode_s"]) for r in k]
+    step_ms = max(float(np.median(r["decode_s"])) for r in k) * 1e3
+    sshare = [r["staging_s"] / r["wall_s"] for r in k]
+    speak = [round(r["peak_bytes"] / 2**30, 2) for r in k]
+    out["14c"] = {"launches": launch_sums(k), "levels": levels,
+                  "prefill_s": max(r["prefill_s"] for r in k),
+                  "decode_ms_per_step": step_ms,
+                  "gen_tokens_per_s": MOE_SERVE["batch"] * (SERVE_GEN - 1)
+                  / max(dec), "peak_gib": speak,
+                  "staging_share": [min(sshare), max(sshare)],
+                  "priced_mb": sprice}
+    print(f"phase 14c ({MOE_ARCH} full width, all 128 experts, the first "
+          f"{MOE_SERVE_DEPTH} layers, batched --tp {MOE_SERVE['tp']}, "
+          f"{MOE_SERVE['scheme']}, {MOE_SERVE['batch']} prompts of "
+          f"{SERVE_PROMPT} + {SERVE_GEN}): kernel run == plain run (tokens, "
+          f"every cache leaf after the prefill and at the end by sha256) on "
+          f"every rank; tokens {toks}; prefill {out['14c']['prefill_s']:.2f}"
+          f" s, {step_ms:.2f} ms/decode step (median, slowest rank), "
+          f"{out['14c']['gen_tokens_per_s']:.1f} generated tok/s, peak "
+          f"{speak} GiB per rank, staging+exchange {min(sshare) * 100:.0f}-"
+          f"{max(sshare) * 100:.0f} %; priced MB per rank by dim/level "
+          f"{sprice}; launches (all ranks) by kernel/level {levels} "
+          f"[{card}]")
     return out
 
 
@@ -2566,7 +2779,7 @@ def drive_stateful(torch, card, train, n_flat) -> dict:
         run("ef_zhybrid_16_4 kernels", "ef_zhybrid_16_4", None,
             STATEFUL_STEPS, depth=MAIN_DEPTH),
         run(f"plr8 kernels, first {CKPT_DEPTH} layers (phase 8's "
-            f"reference)", "zhybrid_16_8", None, STATEFUL_STEPS, PLR,
+            f"reference)", "zhybrid_16_8", None, 2 * CKPT_STEPS, PLR,
             depth=CKPT_DEPTH)])
     for rk, rp in zip(k, p):
         for key in ("wire_per_dim", "priced_per_dim"):
@@ -2723,10 +2936,10 @@ def drive_checkpoint(torch, card, plr, cfg, n_flat) -> dict:
              f"{2 * CKPT_STEPS - 1}")
     # 8b runs phase 6's step: the same launches per step
     lb, lp = launch_sums(b), launch_sums(plr)
-    if any(lb[n] * STATEFUL_STEPS != lp[n] * CKPT_STEPS for n in lp) or \
+    if any(lb[n] * 2 != lp[n] for n in lp) or \
             not all(lb[f"matmul_{n}"] for n in MM_FORMS):
         fail(f"phase 8: 8b's launches {lb} in {CKPT_STEPS} steps are not "
-             f"phase 6's {lp} in {STATEFUL_STEPS}")
+             f"phase 6's {lp} in {2 * CKPT_STEPS}")
     # the state restores where its global layout is the same at dp 4 x tp
     # 1, and falls back loudly where it is not (the reference's rule)
     same = {k: v == layout_shapes(cfg, DP * TP, 1)[k]
@@ -2824,7 +3037,7 @@ def main():
                               "expandable_segments:True")
         cfg = configs.get("gemma3-1b").truncated(CKPT_DEPTH)
         plr = train_run(card, "phase 6 plr8 kernels", "zhybrid_16_8", None,
-                        STATEFUL_STEPS, PLR, depth=CKPT_DEPTH)
+                        2 * CKPT_STEPS, PLR, depth=CKPT_DEPTH)
         drive_checkpoint(torch, card, plr, cfg, flat_elems(cfg))
         print(f"card: {card}")
         return
@@ -2833,21 +3046,23 @@ def main():
         # phases 9 to 12 alone
         os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
                               "expandable_segments:True")
-        hier, tune, cp, serve, z3 = drive_hier(torch, card)
+        hier, tune, cp, serve, z3, moe = drive_hier(torch, card)
         print(json.dumps({"phase9": hier, "phase10": tune, "phase11": cp,
-                          "phase12": serve, "phase13": z3}))
+                          "phase12": serve, "phase13": z3, "phase14": moe}))
         print(f"card: {card}")
         return
 
-    if sys.argv[1:] in (["--cp-only"], ["--serve-only"], ["--zero3-only"]):
-        # phase 11, phase 12 or phase 13 alone
+    if sys.argv[1:] in (["--cp-only"], ["--serve-only"], ["--zero3-only"],
+                        ["--moe-only"]):
+        # phase 11, 12, 13 or 14 alone
         os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
                               "expandable_segments:True")
         only = sys.argv[1][2:-5]
         t0 = time.perf_counter()
-        _, _, cp, serve, z3 = drive_hier(torch, card, only=only)
+        _, _, cp, serve, z3, moe = drive_hier(torch, card, only=only)
         print(json.dumps({"cp": {"phase11": cp}, "serve": {"phase12": serve},
-                          "zero3": {"phase13": z3}}[only]))
+                          "zero3": {"phase13": z3},
+                          "moe": {"phase14": moe}}[only]))
         print(f"wall seconds of the phase {time.perf_counter() - t0:.1f} "
               f"[{card}]")
         print(f"card: {card}")
@@ -3088,7 +3303,7 @@ def main():
                             flat_elems(cfg8))
 
     # ---------------------------------------------------------- phase 9
-    starts["9 to 13"] = time.perf_counter()
+    starts["9 to 14"] = time.perf_counter()
     print(f"phase 9: node-factored meshes, gemma3-1b full width, four ranks "
           f"on this card, seq {SEQ}, global batch {GLOBAL_BATCH}: 9a --dp 4 "
           f"--nodes 2 --layers {HIER_RUNS[0][3][-1]} (hier_zpp_8_16), 9b "
@@ -3111,8 +3326,15 @@ def main():
           f"layers: 13a {' '.join(Z3_FLAGS)} with ZeRO-3 ({Z3_SCHEME}, "
           f"{Z3_STEPS} steps; kernels), 13b the same (plain), 13c paged "
           f"--dp 2 --tp 2 --kv-codec bq8, {Z3_REQUESTS} requests on "
-          f"{Z3_SLOTS} slots (kernels, plain) [{card}]")
-    hier, tune, cp, serve, z3 = drive_hier(torch, card)
+          f"{Z3_SLOTS} slots (kernels, plain); then phase 14, {MOE_ARCH} at "
+          f"full width: 14a the first {MOE_DEPTH} layer(s), "
+          f"{' '.join(MOE_FLAGS)} with {MOE_EXPERTS} experts and ZeRO-3 "
+          f"({MOE_SCHEME}, {MOE_STEPS} steps; kernels), 14b the same "
+          f"(plain), 14c the first {MOE_SERVE_DEPTH} layers, batched --tp "
+          f"{MOE_SERVE['tp']} with all 128 "
+          f"experts, {MOE_SERVE['batch']} prompts of {SERVE_PROMPT} + "
+          f"{SERVE_GEN} (kernels, plain) [{card}]")
+    hier, tune, cp, serve, z3, moe = drive_hier(torch, card)
 
     starts["reckoning"] = time.perf_counter()
     # launches x (time - bound) per shape of phase 4's kernel run, timed in
@@ -3187,6 +3409,22 @@ def main():
     def p13_launches(kernel: str) -> int:
         return z3["launches"][kernel] + z3["13c"]["launches"][kernel]
 
+    def p14_launches(kernel: str) -> int:
+        return moe["launches"][kernel] + moe["14c"]["launches"][kernel]
+
+    def p14_entry(kernel: str) -> dict:
+        """Phase 14's launches of a kernel (all ranks, the kernel runs) per
+        run by link level, and 14a's at the ep sites' rows; a bq kernel's
+        flat and view forms count with it."""
+        forms = KERNEL_FORMS.get(kernel, (kernel,))
+        return {"14a": {key: v for key, v in moe["levels"].items()
+                        if key.split("/")[0] in forms},
+                "14a_ep_sites": {f"{kernel}/{moe['ep_rows']}":
+                                 moe["ep_site_launches"][kernel]}
+                if kernel in moe["ep_site_launches"] else {},
+                "14c": {key: v for key, v in moe["14c"]["levels"].items()
+                        if key.split("/")[0] in forms}}
+
     def p13_entry(kernel: str) -> dict:
         """Phase 13's launches of a kernel (all ranks, the kernel runs) per
         run by link level, and 13a's at the zero site's rows; a bq
@@ -3240,7 +3478,8 @@ def main():
         entry["launches_ef_zhybrid_16_4"] = stateful["ef"][name]
         entry["launches"] += p7_launches(name) + ckpt["launches"][name] \
             + p9_launches(name) + tune["launches"][name] \
-            + p11_launches(name) + p12_launches(name) + p13_launches(name)
+            + p11_launches(name) + p12_launches(name) + p13_launches(name) \
+            + p14_launches(name)
         entry["phase7"] = p7_entry(name)
         entry["phase8"] = ckpt["launches"][name]        # after the restore
         entry["phase9"] = p9_entry(name)
@@ -3248,6 +3487,7 @@ def main():
         entry["phase11"] = p11_entry(name)
         entry["phase12"] = p12_entry(name)
         entry["phase13"] = p13_entry(name)
+        entry["phase14"] = p14_entry(name)
         if name in ("bq_encode", "bq_decode"):
             # the block form's kernel alone, and the flat form the TP
             # all-gather calls (the same kernel, fused with its layout)
@@ -3270,7 +3510,8 @@ def main():
                 + p7_launches(f"{name}_flat") + p9_launches(f"{name}_flat")
                 + p11_launches(f"{name}_flat")
                 + p12_launches(f"{name}_flat")
-                + p13_launches(f"{name}_flat"),
+                + p13_launches(f"{name}_flat")
+                + p14_launches(f"{name}_flat"),
                 "phase7": p7_entry(f"{name}_flat"),
                 "max_abs_err": err[f"{name}_flat"],
                 "by_shape": by_shape.get(f"{name}_flat", [])}
@@ -3295,7 +3536,8 @@ def main():
                         f" along axis 1 over {TP} ranks", "rate": 16,
                 "launches": t_launch[fname] + p7_launches(fname)
                 + p9_launches(fname) + p11_launches(fname)
-                + p12_launches(fname) + p13_launches(fname),
+                + p12_launches(fname) + p13_launches(fname)
+                + p14_launches(fname),
                 "phase7": p7_entry(fname), "max_abs_err": err[fname],
                 "bound_by": "bytes",
                 "by_rows": {rows: {**ops_[op], "end": ops_["end"]}
@@ -3357,6 +3599,7 @@ def main():
                     for run, r in cp.items()},
         "phase12": {},            # plr rides no serving path
         "phase13": {},            # nor the ZeRO-3 step (zhybrid_16_8)
+        "phase14": {},            # nor the MoE runs (zhybrid_16_8)
         "max_abs_err": max(f["max_abs_err"] for f in forms.values()),
         **total, "bound_by": "bytes" if all(
             f["bound_by"] == "bytes" for f in forms.values()) else

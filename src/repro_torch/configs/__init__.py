@@ -1,8 +1,9 @@
 """Architecture registry: ``get("<arch-id>")`` -> ArchConfig.
 
-The dense decoders (gemma3-1b, gemma3-4b, minitron-4b, qwen2-72b) and
-qwen2-vl-72b's backbone are ported; the reference's other architectures
-are named as not yet ported.
+The dense decoders (gemma3-1b, gemma3-4b, minitron-4b, qwen2-72b),
+qwen2-vl-72b's backbone and the two Mixture-of-Experts decoders
+(qwen3-moe-235b-a22b, kimi-k2-1t-a32b) are ported; the reference's other
+architectures are named as not yet ported.
 """
 
 from __future__ import annotations
@@ -15,14 +16,14 @@ ARCH_IDS = (
     "gemma3-4b",
     "minitron-4b",
     "qwen2-vl-72b",
+    "qwen3-moe-235b-a22b",
+    "kimi-k2-1t-a32b",
 )
 
 _NOT_YET = (
     "whisper-base",
     "xlstm-1.3b",
     "zamba2-1.2b",
-    "kimi-k2-1t-a32b",
-    "qwen3-moe-235b-a22b",
 )
 
 

@@ -56,8 +56,14 @@ signals.
 The ledger (:class:`record_traffic`), the ring options, the wire-site tag,
 the codec-state region and the tune region are process-wide rather than
 thread-local: autograd runs the backward of CUDA tensors on its own
-thread, which must see the same bindings.  The all-to-all paths are not
-yet ported.
+thread, which must see the same bindings.
+
+The all-to-all (:func:`all_to_all`, the expert-parallel ``ep`` token
+routing) splits its payload into one slice per rank; under a ``bq*``
+codec each slice is encoded in block form, the wire planes are exchanged
+and decoded.  On a pair it is :func:`hier_all_to_all`: the intra-node
+exchange under the inner codec, then the inter-node one under the outer
+codec, chunks in the joint outer-major order.
 
 Serving adds :func:`pool_handoff` (the disaggregated prefill -> decode KV
 handoff over the pool axis, ledgered under ``kv``) and
@@ -664,6 +670,37 @@ def _psum_scatter_raw(x: torch.Tensor, axis: Axis, axis_dim: int):
         return _device(out.sum(dim=0), x).to(x.dtype)
 
 
+def _all_to_all_raw(xs: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """``[n, ...]`` -> ``[n, ...]``: row ``j`` goes to axis index ``j``, and
+    row ``j`` of the result came from axis index ``j``.  The rows travel as
+    bytes, so any dtype crosses unchanged."""
+    n = _bound(axis).size
+    with _staged(xs):
+        h = _host(xs).reshape(n, -1).view(torch.uint8)
+        out = _pinned_empty(h.shape, torch.uint8, xs)
+        dist.all_to_all_single(out, h, group=axis.group)
+        return _device(out.view(xs.dtype).reshape(xs.shape), xs)
+
+
+def _all_to_all_wire(wire: dict, axis: Axis) -> dict:
+    """Wire dict of ``[n, ...]`` planes -> the planes' rows exchanged as by
+    :func:`_all_to_all_raw`, all planes in one message."""
+    n = axis.size
+    rows = {k: v.contiguous().reshape(n, -1).view(torch.uint8)
+            for k, v in wire.items() if v is not None}
+    got = _all_to_all_raw(torch.cat(list(rows.values()), 1), axis)
+    out, at = {}, 0
+    for k, v in wire.items():
+        if v is None:
+            out[k] = None
+            continue
+        nb = rows[k].shape[1]
+        out[k] = got[:, at:at + nb].contiguous().view(v.dtype).reshape(
+            v.shape)
+        at += nb
+    return out
+
+
 def raw_psum(x: torch.Tensor, axis: Axis, mean: bool = False,
              local_bwd: bool = False):
     """Uncompressed all-reduce (``lax.psum``/``pmean``), outside the
@@ -960,6 +997,36 @@ def _ppermute_impl(x, axis: Axis, perm, codec):
                         x.shape, x.dtype)
 
 
+def _all_to_all_impl(x, axis: Axis, split_axis: int, concat_axis: int,
+                     codec):
+    """Tiled all-to-all: slice ``j`` of ``x`` along ``split_axis`` goes to
+    axis index ``j``; the received slices join along ``concat_axis`` in
+    source order.  A compressed codec encodes the ``n`` slices in block
+    form, exchanges the wire planes and decodes them."""
+    n = axis.size
+    if n == 1:
+        return x
+    chunk_shape = _chunk_shape(x, split_axis, n)
+    if codec.is_identity:
+        _log("all_to_all", "-", codec,
+             _payload_nbytes(x) * (n - 1) // n, 1)
+        xs = x.unflatten(split_axis, (n, -1)).movedim(split_axis, 0)
+        parts = _all_to_all_raw(xs, axis)
+    else:
+        xb, _ = _split_for_scatter(x, split_axis, n)          # [n, M, BLOCK]
+        wire = codec.encode_blocks(xb)
+        del xb
+        _log("all_to_all", "-", codec,
+             ops.wire_nbytes(wire) * (n - 1) // n, 1)
+        blocks = codec.decode_blocks(_all_to_all_wire(wire, axis))
+        # each slice's tile padding is stripped before the slices join
+        parts = blocks.reshape(n, -1)[:, :x.numel() // n].reshape(
+            (n,) + chunk_shape).to(x.dtype)
+    shape = list(chunk_shape)
+    shape[concat_axis] *= n
+    return torch.movedim(parts, 0, concat_axis).reshape(shape)
+
+
 # --------------------------------------------------------------------------
 # autodiff-aware pairs (the reference's custom_vjp pairs)
 # --------------------------------------------------------------------------
@@ -1059,6 +1126,24 @@ class _PpermuteFn(torch.autograd.Function):
         with _bind(*opts):
             return (_ppermute_impl(g.contiguous(), axis, inv, c_bwd), None,
                     None, None, None)
+
+
+class _A2aFn(torch.autograd.Function):
+    """All-to-all forward, the transpose all-to-all (split and concat
+    swapped) of the cotangent backward."""
+
+    @staticmethod
+    def forward(ctx, x, axis, split_axis, concat_axis, c_fwd, c_bwd):
+        ctx.saved = (axis, split_axis, concat_axis, c_bwd, _opts())
+        return _all_to_all_impl(x, axis, split_axis, concat_axis, c_fwd)
+
+    @staticmethod
+    def backward(ctx, g):
+        axis, split_axis, concat_axis, c_bwd, opts = ctx.saved
+        with _bind(*opts):
+            return (_all_to_all_impl(g.contiguous(), axis, concat_axis,
+                                     split_axis, c_bwd),
+                    None, None, None, None, None)
 
 
 # --------------------------------------------------------------------------
@@ -1209,6 +1294,23 @@ def ppermute(x, axis, perm, tag):
              level=s.level or "flat", nbytes=nbytes)
     with _wire_site(s):
         return _PpermuteFn.apply(x, axis, perm, c_fwd, c_bwd)
+
+
+def all_to_all(x, axis, split_axis: int, concat_axis: int, tag):
+    """All-to-all over ``axis`` (backward: the all-to-all with split and
+    concat swapped, under the bwd codec).  A pair routes to
+    :func:`hier_all_to_all`."""
+    s = policy.as_site(tag)
+    if _is_pair(axis):
+        return hier_all_to_all(x, axis, split_axis, concat_axis, s)
+    c_fwd, c_bwd = _codec_pair(s, _payload_nbytes(x))
+    _require_stateless(s, c_fwd, c_bwd)
+    _account("all_to_all", s.ledger_tag, x, axis, c_fwd, c_bwd,
+             bwd_op="all_to_all", level=s.level or "flat")
+    if axis.size == 1:
+        return x
+    with _wire_site(s):
+        return _A2aFn.apply(x, axis, split_axis, concat_axis, c_fwd, c_bwd)
 
 
 def stage_send(x, axis, tag="pp"):
@@ -1405,6 +1507,62 @@ def _hier_ppermute_impl(x, pair: AxisPair, perm, c_in, c_out):
     with _stage("outer"):
         y_out = _ppermute_impl(x, pair.joint, inter, c_out)
     return y_in if any(d == pair.index for _, d in intra) else y_out
+
+
+def _hier_all_to_all_impl(x, pair: AxisPair, split_axis: int,
+                          concat_axis: int, c_in, c_out):
+    """Two-stage decomposition of the joint tiled all-to-all: the chunk
+    index along ``split_axis`` splits outer-major into ``(co, ci)``; the
+    inner stage exchanges ``ci`` inside a node, the outer stage ``co``
+    across nodes, and the result holds the chunks in joint source order,
+    as the flat all-to-all over the joint axis does."""
+    n_i, n_o = pair.inner.size, pair.outer.size
+    n = n_i * n_o
+    if n == 1:
+        return x
+    if n_o == 1:
+        with _stage("inner"):
+            return _all_to_all_impl(x, pair.inner, split_axis, concat_axis,
+                                    c_in)
+    if n_i == 1:
+        with _stage("outer"):
+            return _all_to_all_impl(x, pair.outer, split_axis, concat_axis,
+                                    c_out)
+    sa, s = split_axis, x.shape[split_axis]
+    if s % n:
+        raise ValueError(f"dim {sa} of size {s} not divisible by {n}")
+    pre, post = tuple(x.shape[:sa]), tuple(x.shape[sa + 1:])
+    xr = x.reshape(pre + (n_o, n_i, s // n) + post)
+    with _stage("inner"):
+        y = _all_to_all_impl(xr, pair.inner, sa + 1, sa + 1, c_in)
+    with _stage("outer"):
+        z = _all_to_all_impl(y, pair.outer, sa, sa, c_out)
+    z = z.reshape(pre + (n, s // n) + post)            # joint source order
+    if concat_axis == split_axis:
+        return z.reshape(pre + (s,) + post)
+    shape = list(pre + (s // n,) + post)
+    shape[concat_axis] *= n
+    return torch.movedim(torch.movedim(z, sa, 0), 0, concat_axis).reshape(
+        shape)
+
+
+class _HierA2aFn(torch.autograd.Function):
+    """Two-stage all-to-all forward, the transpose two-stage all-to-all
+    under the ``_bwd`` codecs backward."""
+
+    @staticmethod
+    def forward(ctx, x, pair, split_axis, concat_axis, cs_in, cs_out):
+        ctx.saved = (pair, split_axis, concat_axis, cs_in, cs_out, _opts())
+        return _hier_all_to_all_impl(x, pair, split_axis, concat_axis,
+                                     cs_in[0], cs_out[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        pair, split_axis, concat_axis, cs_in, cs_out, opts = ctx.saved
+        with _bind(*opts):
+            return (_hier_all_to_all_impl(g.contiguous(), pair, concat_axis,
+                                          split_axis, cs_in[1], cs_out[1]),
+                    None, None, None, None, None)
 
 
 class _HierPsumFn(torch.autograd.Function):
@@ -1608,6 +1766,29 @@ def hier_ppermute(x, pair: AxisPair, perm, tag):
     with _wire_site(st):
         return _HierPpermuteFn.apply(x, pair, perm, (ci_f, ci_b),
                                      (co_f, co_b))
+
+
+def hier_all_to_all(x, pair: AxisPair, split_axis: int, concat_axis: int,
+                    tag):
+    """Two-stage all-to-all over ``pair`` (DeepSpeed-TED style): the intra-
+    node exchange under ``<tag>_fwd_inner``, then the inter-node one under
+    ``<tag>_fwd_outer``; with identity codecs it equals the flat all-to-all
+    over the joint axis.  Backward: the transpose all-to-all under the
+    ``_bwd`` codecs.  Ledger: one inner and one outer event, each of the
+    whole local payload."""
+    s = policy.as_site(tag)
+    nbytes = _payload_nbytes(x)
+    (ci_f, ci_b), (co_f, co_b) = _hier_codec_pairs(s, nbytes, nbytes)
+    _account_hier(
+        [("all_to_all", pair.inner, "inner", x.numel(), "all_to_all"),
+         ("all_to_all", pair.outer, "outer", x.numel(), "all_to_all")],
+        s.ledger_tag, x, [(ci_f, ci_b), (co_f, co_b)],
+        {"inner": nbytes, "outer": nbytes})
+    if pair.size == 1:
+        return x
+    with _wire_site(s):
+        return _HierA2aFn.apply(x, pair, split_axis, concat_axis,
+                                (ci_f, ci_b), (co_f, co_b))
 
 
 # --------------------------------------------------------------------------

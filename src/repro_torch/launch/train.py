@@ -551,7 +551,8 @@ def train_rank(*, rank: int = 0, world: int = 1, arch: str,
     ``policy_from`` replays a ``tune_policy.json`` ahead of the scheme,
     its ``tune_restart_warnings`` said as ``WARNING:`` lines.  Returns
     this rank's metrics:
-    losses, grad norms, step seconds, the staged bytes and (under
+    losses, grad norms (an expert model's ``lb_loss`` and ``drop_frac``
+    too), step seconds, the staged bytes and (under
     ``time_staging``) seconds and the seconds of the timed spans
     (``comms.SPANS``), peak device memory, kernel launches (also
     by bq kernel, wire rows and rate), the
@@ -756,6 +757,10 @@ def train_rank(*, rank: int = 0, world: int = 1, arch: str,
         out["staging_bytes"].append(comms.STAGING["bytes"])
         out["losses"].append(float(metrics["loss"]))
         out["grad_norms"].append(float(metrics["grad_norm"]))
+        if "lb_loss" in metrics:
+            out.setdefault("lb_loss", []).append(float(metrics["lb_loss"]))
+            out.setdefault("drop_frac", []).append(
+                float(metrics["drop_frac"]))
         if step == start:
             out["events0"] = list(events)
             out["wire_per_dim"] = roofline.wire_per_dim(events.wire)

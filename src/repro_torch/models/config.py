@@ -49,10 +49,14 @@ class ArchConfig:
     scale_embed: bool = False        # gemma3: x *= sqrt(d_model)
     vocab_round_to: int = 128
 
-    # MoE / SSM / xLSTM / enc-dec fields the reduced plan inspects
+    # MoE
     n_experts: int = 0
     top_k: int = 0
-    moe_d_ff: int = 0
+    capacity_factor: float = 1.25
+    shared_expert: bool = False
+    moe_d_ff: int = 0                # per-expert hidden (kimi/qwen3 style)
+
+    # SSM / xLSTM / enc-dec fields the reduced plan inspects
     ssm_state: int = 0
     ssm_head_dim: int = 64
     encoder_layers: int = 0
@@ -66,6 +70,9 @@ class ArchConfig:
 
     # distribution
     fsdp_params: bool = False
+    moe_ws: bool = False             # weight-stationary experts: expert F
+    #                                  sharded over 'data'; decode moves
+    #                                  tokens (AG/RS), not expert weights
     long_context_ok: bool = False
     notes: str = ""
 
@@ -166,4 +173,13 @@ def local_global_groups(n_layers: int, pattern: int, window: int) -> tuple:
         out.append(BlockGroup("attn", 1, window=0))
     if rem:
         out.append(BlockGroup("attn", rem, window=window))
+    return tuple(out)
+
+
+def moe_groups(n_layers: int, first_dense: int = 0) -> tuple:
+    """``first_dense`` dense attention layers, then MoE layers."""
+    out = []
+    if first_dense:
+        out.append(BlockGroup("attn", first_dense))
+    out.append(BlockGroup("moe", n_layers - first_dense))
     return tuple(out)

@@ -1,7 +1,8 @@
 """Top-level model: plan, parameter init, the training and prefill
 forward, and the loss (port of ``repro.models.model`` for the dense
-decoders and qwen2-vl's backbone: its precomputed ``vision`` embeddings
-merged under ``vis_mask``, its M-RoPE ids ``pos3``)."""
+decoders, qwen2-vl's backbone (its precomputed ``vision`` embeddings
+merged under ``vis_mask``, its M-RoPE ids ``pos3``) and the
+Mixture-of-Experts decoders, whose load-balance aux term the loss adds)."""
 
 from __future__ import annotations
 
@@ -12,6 +13,20 @@ from repro_torch.models import layers, transformer
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.params import (MeshInfo, bind_fsdp, count_params,
                                        init_params, resolve_device)
+
+_LB_COEF = 0.01  # MoE load-balance aux weight
+
+
+def lb_term(aux, mi: MeshInfo, micro: int = 1):
+    """The MoE aux of this rank (summed over its layers) -> ``(lb_loss,
+    drop_frac)``: each averaged over the model, batch and cp axes, as the
+    reference's ``pmean``, and divided by ``micro`` (per-microbatch sums
+    add up to ``micro`` times the whole batch's mean).  ``lb_loss`` keeps
+    its gradient; ``drop_frac`` is a detached metric."""
+    v = torch.stack([aux["lb_loss"], aux["drop_frac"].detach()])
+    v = comms.raw_psum(v, mi.tp_axes, mean=True)
+    v = comms.raw_psum(v, mi.batch_cp_axes, mean=True) / micro
+    return v[0], v[1].detach()
 
 
 class Model:
@@ -83,27 +98,30 @@ class Model:
         return x
 
     def run_decoder(self, params, x, pos, phase="train", pos3=None):
-        """Every layer group on ``x`` (a stage-free mesh); at
-        ``phase="prefill"`` -> (x, each group's stacked caches)."""
-        caches = []
+        """Every layer group on ``x`` (a stage-free mesh) -> (x, each
+        group's stacked caches at ``phase="prefill"`` (else ``None`` s),
+        the MoE aux summed over the layers or ``None``)."""
+        caches, aux = [], None
         for i, g in enumerate(self.cfg.layer_groups):
-            x = transformer.run_group(self.group_params(params, i), x, g,
-                                      self.cfg, self.mi, self.mode, pos,
-                                      phase, pos3)
-            if phase == "prefill":
-                x, c = x
-                caches.append(c)
-        return (x, caches) if phase == "prefill" else x
+            x, c, a = transformer.run_group(self.group_params(params, i), x,
+                                            g, self.cfg, self.mi, self.mode,
+                                            pos, phase, pos3)
+            caches.append(c)
+            aux = transformer.add_aux(aux, a)
+        return x, caches, aux
 
-    def run_stage(self, params, x, pos, v=None) -> torch.Tensor:
-        """This stage rank's layer chunk on ``x`` (a stage mesh only);
-        ``v`` selects which of the rank's ``vpp`` round-robin chunks runs
-        (interleaved layout).  Embedding and head stay with the caller."""
+    def run_stage(self, params, x, pos, v=None):
+        """This stage rank's layer chunk on ``x`` (a stage mesh only) ->
+        (x, its MoE aux or ``None``); ``v`` selects which of the rank's
+        ``vpp`` round-robin chunks runs (interleaved layout).  Embedding
+        and head stay with the caller."""
+        aux = None
         for i, g in enumerate(self.stage_groups):
             gp = transformer.take_stage(self.group_params(params, i), v)
-            x = transformer.run_group(gp, x, g, self.cfg, self.mi, self.mode,
-                                      pos)
-        return x
+            x, _, a = transformer.run_group(gp, x, g, self.cfg, self.mi,
+                                            self.mode, pos)
+            aux = transformer.add_aux(aux, a)
+        return x, aux
 
     def head(self, params, x) -> torch.Tensor:
         """Final norm and the head (tied or not): [B, S_loc, D] -> logits
@@ -111,29 +129,33 @@ class Model:
         x = layers.norm(params["final_norm"], x, self.cfg, self.mi)
         return layers.lm_head_logits(params, x, self.cfg, self.mi)
 
-    def forward(self, params, batch, phase="train"):
-        """batch {tokens [B_loc, S]} (an M-RoPE model's also ``vision``,
-        ``vis_mask`` and ``pos3`` [B_loc, S_loc, 3], each optional) ->
-        logits [B_loc, S, V_loc] f32; at ``phase="prefill"`` -> (logits,
-        the caches of every layer group, in the training layout:
-        :mod:`repro_torch.serve.kv_cache`)."""
+    def _forward(self, params, batch, phase):
+        """-> (logits, caches, MoE aux) of :meth:`forward`."""
         if self.mi.pp > 1:
             raise ValueError("flat forward on a stage mesh: use "
                              "repro_torch.train.pipeline")
         x = self._embed_input(params, batch)
         pos = self._positions(x.shape[0], x.shape[1])
         pos3 = batch.get("pos3") if self.cfg.mrope else None
-        if phase == "train":
-            return self.head(params, self.run_decoder(params, x, pos,
-                                                      pos3=pos3))
-        x, caches = self.run_decoder(params, x, pos, phase, pos3)
-        return self.head(params, x), caches
+        x, caches, aux = self.run_decoder(params, x, pos, phase, pos3)
+        return self.head(params, x), caches, aux
+
+    def forward(self, params, batch, phase="train"):
+        """batch {tokens [B_loc, S]} (an M-RoPE model's also ``vision``,
+        ``vis_mask`` and ``pos3`` [B_loc, S_loc, 3], each optional) ->
+        logits [B_loc, S, V_loc] f32; at ``phase="prefill"`` -> (logits,
+        the caches of every layer group, in the training layout:
+        :mod:`repro_torch.serve.kv_cache`)."""
+        logits, caches, _ = self._forward(params, batch, phase)
+        return logits if phase == "train" else (logits, caches)
 
     def loss_fn(self, params, batch):
-        """Global-mean token cross-entropy (a scalar, the same on every
-        rank) and its metrics."""
+        """Global-mean token cross-entropy, plus the MoE load-balance term
+        of an expert model (a scalar, the same on every rank), and its
+        metrics (an expert model's also ``lb_loss`` and ``drop_frac``,
+        summed over its layers)."""
         cfg, mi = self.cfg, self.mi
-        logits = self.forward(params, batch)
+        logits, _, aux = self._forward(params, batch, "train")
         ltok, w = layers.vocab_parallel_xent(logits, batch["labels"], cfg, mi)
         del logits
         # cp ranks hold disjoint token slices: their sums add like the
@@ -145,4 +167,10 @@ class Model:
         num = comms.raw_psum(num, mi.tp_axes, mean=True)
         den = comms.raw_psum(den, mi.tp_axes, mean=True)
         loss = num / torch.clamp(den, min=1.0)
-        return loss, {"xent": loss.detach(), "tokens": den.detach()}
+        metrics = {"xent": loss.detach(), "tokens": den.detach()}
+        if cfg.n_experts:
+            lb, drop = lb_term(aux if aux is not None else
+                               transformer.zero_aux(loss.device), mi)
+            loss = loss + _LB_COEF * lb
+            metrics.update(lb_loss=lb.detach(), drop_frac=drop)
+        return loss, metrics

@@ -1,6 +1,6 @@
-"""Block assembly (port of ``repro.models.transformer`` for attention
-groups): parameter plans, the training and prefill bodies, and the dense
-and paged decode bodies.
+"""Block assembly (port of ``repro.models.transformer`` for the attention
+and Mixture-of-Experts groups): parameter plans, the training and prefill
+bodies, and the dense and paged decode bodies.
 
 Each group's ``n`` identical layers are stacked on a leading axis, as in
 the reference; where the reference runs ``lax.scan`` over that axis, a
@@ -25,7 +25,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, layers, moe
 from repro_torch.models.config import ArchConfig, BlockGroup
 from repro_torch.models.params import MeshInfo, Pv, apply_fsdp, tree_map_defs
 
@@ -39,12 +39,22 @@ _PP_UNSUPPORTED = ("enc_attn", "dec_attn", "shared_attn")
 # plans
 # --------------------------------------------------------------------------
 
+_PORTED_KINDS = ("attn", "moe")
+
+
+def _check_kind(kind: str, what: str = "layer kind") -> None:
+    if kind not in _PORTED_KINDS:
+        raise NotImplementedError(f"{what} {kind!r} is not yet ported")
+
+
 def block_plan(cfg: ArchConfig, kind: str, mode: str):
-    if kind != "attn":
-        raise NotImplementedError(f"layer kind {kind!r} is not yet ported")
+    _check_kind(kind)
     p = {"ln1": layers.norm_plan(cfg, cfg.d_model),
          "attn": attention.attn_plan(cfg, mode)}
-    if cfg.d_ff:
+    if kind == "moe":
+        p.update(ln2=layers.norm_plan(cfg, cfg.d_model),
+                 moe=moe.moe_plan(cfg))
+    elif cfg.d_ff:
         p.update(ln2=layers.norm_plan(cfg, cfg.d_model),
                  mlp=layers.mlp_plan(cfg))
     return p
@@ -186,42 +196,66 @@ def _unstack(tree, n: int) -> list:
 # training bodies
 # --------------------------------------------------------------------------
 
+def zero_aux(device) -> dict:
+    """The aux of a stack without experts (the reference's ``_zero_aux``)."""
+    z = torch.zeros((), dtype=torch.float32, device=device)
+    return {"lb_loss": z, "drop_frac": z}
+
+
+def add_aux(acc, aux):
+    """Sum two MoE aux dicts ``{lb_loss, drop_frac}``; ``None`` is the
+    zero aux of a layer without experts (the reference adds its
+    ``_zero_aux``, which changes no bit of the sum)."""
+    if aux is None:
+        return acc
+    if acc is None:
+        return aux
+    return {k: acc[k] + aux[k] for k in acc}
+
+
 def run_block(kind, p, x, cfg, mi, mode, g: BlockGroup, pos,
               phase="train", pos3=None):
-    """One training layer: x [B, S_loc, D] -> [B, S_loc, D]; at
-    ``phase="prefill"`` -> (x, its cache {k, v}).  ``pos3`` are M-RoPE
-    position ids (qwen2-vl)."""
-    if kind != "attn":
-        raise NotImplementedError(f"layer kind {kind!r} is not yet ported")
+    """One training layer: x [B, S_loc, D] -> (x, its cache {k, v} at
+    ``phase="prefill"`` else ``None``, its MoE aux or ``None``).
+    ``pos3`` are M-RoPE position ids (qwen2-vl)."""
+    _check_kind(kind)
     want_cache = phase == "prefill"
+    cache = aux = None
     h = layers.norm(p["ln1"], x, cfg, mi)
     r = attention.attn_train(p["attn"], h, pos, cfg, mi, mode,
                              causal=cfg.causal, window=g.window,
                              want_cache=want_cache, pos3=pos3)
     if want_cache:
         r, (k, v, _) = r
+        cache = {"k": k, "v": v}
     x = x + r
-    if cfg.d_ff:
+    if kind == "moe":
+        h = layers.norm(p["ln2"], x, cfg, mi)
+        r, aux = moe.moe_block(p["moe"], h, cfg, mi, sp=True)
+        x = x + r
+    elif cfg.d_ff:
         h = layers.norm(p["ln2"], x, cfg, mi)
         x = x + layers.mlp(p["mlp"], h, cfg, mi, sp=True)
-    return (x, {"k": k, "v": v}) if want_cache else x
+    return x, cache, aux
 
 
 def run_group(gp, x, g: BlockGroup, cfg, mi, mode, pos, phase="train",
               pos3=None):
-    """The group's ``n`` layers in order; at ``phase="prefill"`` -> (x,
-    the layers' caches stacked {k, v} [n, ...])."""
-    if phase == "train":
-        for p in _unstack(gp, g.n):
-            x = run_block(g.kind, p, x, cfg, mi, mode, g, pos, pos3=pos3)
-        return x
-    if phase != "prefill":
+    """The group's ``n`` layers in order -> (x, the layers' caches stacked
+    {k, v} [n, ...] at ``phase="prefill"`` else ``None``, the layers' MoE
+    aux summed or ``None``)."""
+    if phase not in ("train", "prefill"):
         raise ValueError(f"unknown phase {phase!r}")
-    caches = []
+    caches, aux = [], None
     for p in _unstack(gp, g.n):
-        x, c = run_block(g.kind, p, x, cfg, mi, mode, g, pos, phase, pos3)
+        x, c, a = run_block(g.kind, p, x, cfg, mi, mode, g, pos, phase,
+                            pos3)
         caches.append(c)
-    return x, {k: torch.stack([c[k] for c in caches]) for k in ("k", "v")}
+        aux = add_aux(aux, a)
+    if phase == "train":
+        return x, None, aux
+    return x, {k: torch.stack([c[k] for c in caches]) for k in ("k", "v")}, \
+        aux
 
 
 # --------------------------------------------------------------------------
@@ -232,15 +266,16 @@ def decode_block(kind, p, x, cache, index: int, cfg, mi, mode,
                  g: BlockGroup, seq_axes=None, pos3=None):
     """One layer's single-token decode against its dense cache {k, v}
     (written in place).  Returns (x, cache)."""
-    if kind != "attn":
-        raise NotImplementedError(
-            f"decode of layer kind {kind!r} is not yet ported")
+    _check_kind(kind, "decode of layer kind")
     h = layers.norm(p["ln1"], x, cfg, mi)
     r, cache = attention.attn_decode(p["attn"], h, cache, index, cfg, mi,
                                      mode, window=g.window,
                                      seq_axes=seq_axes, pos3=pos3)
     x = x + r
-    if cfg.d_ff:
+    if kind == "moe":
+        h = layers.norm(p["ln2"], x, cfg, mi)
+        x = x + moe.moe_block(p["moe"], h, cfg, mi, sp=False)[0]
+    elif cfg.d_ff:
         h = layers.norm(p["ln2"], x, cfg, mi)
         x = x + layers.mlp(p["mlp"], h, cfg, mi, sp=False)
     return x, cache
@@ -265,16 +300,17 @@ def decode_block_paged(kind, p, x, pool, tables, pos, active, cfg, mi,
                        g: BlockGroup, *, bits, block_tokens, backend=None,
                        pos3=None):
     """Per-slot decode body against one layer's paged KV pool."""
-    if kind != "attn":
-        raise NotImplementedError(
-            f"paged decode of layer kind {kind!r} is not yet ported")
+    _check_kind(kind, "paged decode of layer kind")
     h = layers.norm(p["ln1"], x, cfg, mi)
     r, pool = attention.attn_decode_paged(
         p["attn"], h, pool, tables, pos, active, cfg, mi, bits=bits,
         block_tokens=block_tokens, window=g.window, backend=backend,
         pos3=pos3)
     x = x + r
-    if cfg.d_ff:
+    if kind == "moe":
+        h = layers.norm(p["ln2"], x, cfg, mi)
+        x = x + moe.moe_block(p["moe"], h, cfg, mi, sp=False)[0]
+    elif cfg.d_ff:
         h = layers.norm(p["ln2"], x, cfg, mi)
         x = x + layers.mlp(p["mlp"], h, cfg, mi, sp=False)
     return x, pool

@@ -1,5 +1,6 @@
 """Dense KV cache layouts for the batched server (port of
-``repro.serve.kv_cache`` for the ``attn`` kind).
+``repro.serve.kv_cache`` for the ``attn`` and ``moe`` kinds, whose
+attention caches are alike).
 
 Every shape here is this rank's LOCAL shape; the spec beside it tags each
 dim as the reference's ``PartitionSpec`` does (``"data"`` for the batch
@@ -29,7 +30,7 @@ from repro_torch.serve.paged_kv import Struct, zero_pool
 
 
 def _check_kind(g: BlockGroup) -> None:
-    if g.kind != "attn":
+    if g.kind not in ("attn", "moe"):
         raise NotImplementedError(
             f"dense KV cache of group kind {g.kind!r} is not yet ported")
 

@@ -130,7 +130,7 @@ def pool_group(cfg: ArchConfig, mi: MeshInfo, g: BlockGroup, n_blocks: int,
                block_tokens: int, codec: str = "none"):
     """-> struct tree for this rank's share of one layer group's paged
     pool (``n_blocks`` is the GLOBAL pool size, as in the reference)."""
-    if g.kind != "attn":
+    if g.kind not in ("attn", "moe"):
         raise NotImplementedError(
             f"paged KV cache of group kind {g.kind!r} is not yet ported")
     dt = torch_dtype(cfg.dtype)

@@ -265,9 +265,14 @@ class Adam:
 
     # ------------------------------------------------------------------
     def _adam_update(self, g, m, v, master, step: int):
+        """The Adam update of ``master`` from ``g``, writing ``m``, ``v``
+        and ``master`` in place (the reference donates its state buffers
+        to the step; the old and new state together would double the f32
+        state a rank holds through the update), each in-place step
+        rounding as the reference's out-of-place expression."""
         c = self.cfg
-        m = c.b1 * m + (1 - c.b1) * g
-        v = c.b2 * v + (1 - c.b2) * g * g
+        m.mul_(c.b1).add_((1 - c.b1) * g)
+        v.mul_(c.b2).add_((1 - c.b2) * g * g)
         t = torch.tensor(step + 1.0, dtype=_F32, device=g.device)
         one = torch.ones((), dtype=_F32, device=g.device)
         # the reference's expression, each temporary freed once used (the
@@ -279,7 +284,7 @@ class Adam:
         del den
         if c.weight_decay:
             upd = upd + c.weight_decay * master
-        return master - upd.mul_(_lr_at(c, step, g.device)), m, v
+        return master.sub_(upd.mul_(_lr_at(c, step, g.device))), m, v
 
     def _state_decode(self, s):
         if self.cfg.state_bits == 8:
@@ -323,8 +328,9 @@ class Adam:
     def apply(self, params, grads: list, state: dict):
         """One update.  ``grads`` are in the plan's leaf order; the list is
         consumed (emptied once the flat gradient is built, to free it).
-        Writes the new parameters into ``params`` in place; returns (new
-        state, stats)."""
+        Writes the new parameters into ``params`` and the new master and
+        moments into ``state``'s tensors in place; returns (new state,
+        stats)."""
         mi, cfg = self.mi, self.cfg
         ts, classes = self._split(params)
         step = state["step"]

@@ -52,7 +52,11 @@ How the SPMD schedule runs as processes:
 * the stage fold of the loss's numerator and denominator is an all-reduce
   whose cotangent is the same on every stage rank (the loss is
   replicated), so its backward multiplies by ``pp`` locally and the first
-  stage, whose partial sums carry no gradient, need not join it.
+  stage, whose partial sums carry no gradient, need not join it;
+* an expert model's MoE aux is summed over the ticks on which this stage
+  holds a real microbatch, folded over the stage axis the same way, and
+  its load-balance mean divided by ``n_micro`` (the microbatches' means
+  add up to ``n_micro`` times the whole batch's), as in the reference.
 
 Activation memory (``--remat-policy``): without remat every tick's
 activations live until the backward, as in the reference.  ``full``
@@ -86,8 +90,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.analysis.roofline import pipeline_ticks
 from repro_torch.core import comms, policy
-from repro_torch.models import layers
-from repro_torch.models.model import Model
+from repro_torch.models import layers, transformer
+from repro_torch.models.model import _LB_COEF, Model, lb_term
 from repro_torch.models.params import torch_dtype
 from repro_torch.train.train_step import Trainer
 
@@ -161,12 +165,13 @@ def _remat_wrap(fn, offload: bool):
 
 
 def _stage_body(model: Model, params, x, pos, v=None, pos3=None):
-    """One tick's layers: the rank's chunk on a stage mesh, the whole
-    decoder on a flat one (``pp == 1`` gradient accumulation, which alone
-    takes M-RoPE ids ``pos3``)."""
+    """One tick's layers -> (y, MoE aux or ``None``): the rank's chunk on a
+    stage mesh, the whole decoder on a flat one (``pp == 1`` gradient
+    accumulation, which alone takes M-RoPE ids ``pos3``)."""
     if model.mi.pp > 1:
         return model.run_stage(params, x, pos, v)
-    return model.run_decoder(params, x, pos, pos3=pos3)
+    x, _, aux = model.run_decoder(params, x, pos, pos3=pos3)
+    return x, aux
 
 
 def pipeline_loss_fn(model: Model, n_micro: int, remat_policy=None):
@@ -207,11 +212,12 @@ def pipeline_loss_fn(model: Model, n_micro: int, remat_policy=None):
     def decode(t):
         """(microbatch embedded, microbatch whose labels drain, virtual
         slice, takes the embedding, drains into the loss, checkpoints its
-        body) of this rank at tick ``t``."""
+        body, holds a real microbatch) of this rank at tick ``t``."""
         if V == 1:
             # stage 0 embeds microbatch t; the last stage drains t - (pp-1)
             return (clip(t, M), clip(t - (pp - 1), M), None, sidx == 0,
-                    t >= pp - 1 and sidx == pp - 1, rflags[0])
+                    t >= pp - 1 and sidx == pp - 1, rflags[0],
+                    sidx <= t < sidx + M)
         u = t - sidx
         live = 0 <= u < M * V
         uc = clip(u, M * V)
@@ -221,7 +227,8 @@ def pipeline_loss_fn(model: Model, n_micro: int, remat_policy=None):
         vtick = (clip(t, M * V) % (pp * V)) // pp
         return (m, m, v, sidx == 0 and v == 0,
                 live and v == V - 1 and sidx == pp - 1,
-                rmode == "full" or (rmode == "per_stage" and rflags[vtick]))
+                rmode == "full" or (rmode == "per_stage" and rflags[vtick]),
+                live)
 
     def loss_fn(params, batch):
         B, S = batch["tokens"].shape
@@ -239,13 +246,14 @@ def pipeline_loss_fn(model: Model, n_micro: int, remat_policy=None):
                         dtype=torch_dtype(cfg.dtype), device=dev)
         num = torch.zeros((), dtype=_F32, device=dev)
         den = torch.zeros((), dtype=_F32, device=dev)
+        aux = transformer.zero_aux(dev)
         handoffs = []
         first = {b: torch.tensor(b, device=dev) for b in (False, True)}
         facts = comms.scope_facts(vpp=V) if pp > 1 \
             else contextlib.nullcontext()
         with facts:
             for t in range(T):
-                m, m_lab, v, takes_embed, drains, remat = decode(t)
+                m, m_lab, v, takes_embed, drains, remat, live = decode(t)
                 # 1. handoff: the previous tick's output moves one stage on
                 if pp > 1:
                     send = comms.stage_send if V == 1 \
@@ -262,7 +270,11 @@ def pipeline_loss_fn(model: Model, n_micro: int, remat_policy=None):
                     if pp > 1 else e
                 # 3. this tick's layers, under the remat policy
                 pos3 = mb["pos3"][m] if cfg.mrope and "pos3" in mb else None
-                y = (ckpt if remat else run)(params, x_in, pos, v, pos3)
+                y, aux_t = (ckpt if remat else run)(params, x_in, pos, v,
+                                                    pos3)
+                # the aux counts the ticks that hold a real microbatch
+                if live:
+                    aux = transformer.add_aux(aux, aux_t)
                 # 4. drain: head and cross-entropy; the ticks that do not
                 #    drain run them for their collectives alone
                 with torch.set_grad_enabled(drains and
@@ -279,13 +291,20 @@ def pipeline_loss_fn(model: Model, n_micro: int, remat_policy=None):
         if pp > 1:
             num = comms.raw_psum(num, mi.sp_axes, local_bwd=True)
             den = comms.raw_psum(den, mi.sp_axes, local_bwd=True)
+            if cfg.n_experts:
+                aux = {k: comms.raw_psum(a, mi.sp_axes, local_bwd=True)
+                       for k, a in aux.items()}
         num = comms.raw_psum(num, mi.batch_cp_axes)
         den = comms.raw_psum(den, mi.batch_cp_axes)
         num = comms.raw_psum(num, mi.tp_axes, mean=True)
         den = comms.raw_psum(den, mi.tp_axes, mean=True)
         loss = num / torch.clamp(den, min=1.0)
-        return loss, {"xent": loss.detach(), "tokens": den.detach()}, \
-            handoffs
+        metrics = {"xent": loss.detach(), "tokens": den.detach()}
+        if cfg.n_experts:
+            lb, drop = lb_term(aux, mi, M)
+            loss = loss + _LB_COEF * lb
+            metrics.update(lb_loss=lb.detach(), drop_frac=drop)
+        return loss, metrics, handoffs
 
     return loss_fn
 

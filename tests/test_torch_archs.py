@@ -1,6 +1,7 @@
 """The port's other dense decoders (qwen2-72b, gemma3-4b, minitron-4b,
-qwen2-vl-72b) beside gemma3-1b, against the reference, at ``--reduced``
-on one device.
+qwen2-vl-72b) and its Mixture-of-Experts decoders (qwen3-moe-235b-a22b,
+kimi-k2-1t-a32b) beside gemma3-1b, against the reference, at
+``--reduced`` on one device.
 
 Contract asserted here, with the tolerances and their reasons:
   * for each ported architecture, on the reference's weights
@@ -10,7 +11,8 @@ Contract asserted here, with the tolerances and their reasons:
     and the M-RoPE ids ``pos3``), the loss within rtol 1e-5 and every
     parameter's gradient within 1e-4 of its largest entry (f32 throughout;
     the frameworks order the matmul and softmax sums differently, an ulp
-    or so per op; the untied head, qkv bias, relu2 and M-RoPE included);
+    or so per op; the untied head, qkv bias, relu2, M-RoPE and the MoE
+    load-balance term included);
   * ``apply_mrope`` within 1e-6 of the reference's (f32 cos and sin of
     the same angles) and ``mrope_sections`` equal;
   * the full configs carry the reference's dims, and their plans (built
@@ -29,9 +31,8 @@ import pytest
 from repro_torch import configs as tconfigs
 
 PORTED = ("gemma3-1b", "qwen2-72b", "gemma3-4b", "minitron-4b",
-          "qwen2-vl-72b")
-NOT_YET = ("whisper-base", "xlstm-1.3b", "zamba2-1.2b", "kimi-k2-1t-a32b",
-           "qwen3-moe-235b-a22b")
+          "qwen2-vl-72b", "qwen3-moe-235b-a22b", "kimi-k2-1t-a32b")
+NOT_YET = ("whisper-base", "xlstm-1.3b", "zamba2-1.2b")
 
 
 def test_registry_splits_ported_and_not_yet():
@@ -74,6 +75,8 @@ def test_full_config_dims(arch):
         "gemma3-4b": (34, 2560, 8, 4, 10240, 262144),
         "minitron-4b": (32, 3072, 24, 8, 9216, 256000),
         "qwen2-vl-72b": (80, 8192, 64, 8, 29568, 152064),
+        "qwen3-moe-235b-a22b": (94, 4096, 64, 4, 0, 151936),
+        "kimi-k2-1t-a32b": (61, 7168, 64, 8, 18432, 163840),
     }[arch]
     assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
             cfg.d_ff, cfg.vocab_size) == brief
@@ -91,7 +94,9 @@ def test_param_counts_plausible():
 
     bounds = {"gemma3-1b": (0.7e9, 2.1e9), "qwen2-72b": (60e9, 85e9),
               "gemma3-4b": (3e9, 5.5e9), "minitron-4b": (3e9, 5.5e9),
-              "qwen2-vl-72b": (60e9, 85e9)}
+              "qwen2-vl-72b": (60e9, 85e9),
+              "qwen3-moe-235b-a22b": (220e9, 250e9),
+              "kimi-k2-1t-a32b": (0.9e12, 1.1e12)}
     for arch, (lo, hi) in bounds.items():
         n = sum(d.size() for d in defs(transformer.model_plan(
             tconfigs.get(arch), MeshInfo())))
