@@ -10,6 +10,7 @@
     python3 chip_smoke.py --serve-only # phase 1 and phase 12
     python3 chip_smoke.py --zero3-only # phase 1 and phase 13
     python3 chip_smoke.py --moe-only   # phase 1 and phase 14
+    python3 chip_smoke.py --recurrent-only  # phase 1 and phase 15
 
 ``--bq-only`` prints the bq kernels' timings and those of the fused TP
 all-gather, TP reduce-scatter and KV-read ops beside the compositions
@@ -127,7 +128,10 @@ uninterrupted 6-layer run of 2 steps beside its own): 8a trains 1
 step with ``--ckpt-dir .smoke/ckpt --ckpt-every 1`` (a non-blocking save
 of params, optimizer state and codec state, 14.9 GB at 26 layers), 8b
 resumes and trains 1 step, 8c resumes from step 1 at dp 4 x tp 1 and
-trains 1 step (8a and 8b trained 2 steps each until phase 14 came in).
+trains 1 step (8a and 8b trained 2 steps each until phase 14 came in);
+8c runs in 8b's world of processes, after rank 0 has read the heartbeat
+and pointed the checkpoints back at step 1 (a third world until phase 15
+came in).
 It checks the free disk space first and fails with the numbers when it
 is short.  It requires 8a's losses and grad norms bit-equal to that
 run's first step and 8b's to its second, 8b's kernel launches per step
@@ -267,6 +271,32 @@ staging share, the priced MB per ``dim/level`` beside the ep reckoning,
 ``lb_loss`` and ``drop_frac`` per step, the ep sites' launches and 14c's
 prefill and decode numbers.
 
+Phase 15 drives the recurrent families in phase 9's world of four
+ranks after phase 14, bf16 random weights from seed 0, sequence 1024,
+global batch 4, ``--dp 2 --tp 2`` under zhybrid_16_8, 2 steps: 15a
+zamba2-1.2b at full published width (d 2048, d_inner 4096, 64 SSM heads
+of 64, state 64, conv kernel 4; the shared block's 32 q and kv heads of
+64 and swiglu MLP of 8192; vocab 32000, tied), its first two ``[6 x
+mamba, shared_attn]`` blocks (12 mamba layers, the shared block applied
+twice; ``depth``: ``ArchConfig.truncated`` keeps whole hybrid blocks),
+through the kernels; 15b the same through the plain versions; 15c and
+15d xlstm-1.3b at full published width (d 2048, 4 heads of 512, value
+width 4096, LayerNorm; vocab 50304, tied), its first 8 layers (7 mLSTM,
+1 sLSTM), kernels and plain (``B_loc`` 2 at tp 2: the sLSTM's all-to-all
+path); 15e both models in the batched dense Server at ``--dp 2 --tp 2``,
+4 prompts of 512 tokens plus 16 generated, kernels and plain.  It
+requires the kernel runs equal to the plain runs (losses, grad norms,
+ledger per dim and ``dim/level``; tokens and every cache leaf after the
+prefill and at the end by sha256), finite losses, the priced bytes of the
+state prefix (``pp@ssm_scan``), the conv halo (``pp@conv_halo``) and the
+sLSTM transpose (``ep@slstm_transpose``) equal to their reckoning
+(``rec_reckoned``), the flat encode and decode launched at the prefix's
+and the halo's rows and the block encode and decode at the transpose's,
+and nothing launched in the plain runs; it prints ms/step, tokens/s, peak
+memory, staging share, the priced and measured MB per ``dim/level``
+beside the reckoning, the sites' launches, the prefill seconds and
+decode ms per step, and the phase's seconds.
+
 After phase 8, a fresh process (this script with ``--reckon FILE``, which
 the script starts itself) times each (kernel, rows, rate) that phase 4's
 kernel run launched, at its shape, and reckons launches x (time - bound)
@@ -279,8 +309,8 @@ library call's time where one exists; the encode and decode also with
 their flat form, the encode and decode-add with the TP reduce-scatter's
 view forms, the gather-decode's times those of the fused KV read, and
 the bq kernels with the per-shape reckoning, phase 10's launches by
-rate and level, phase 13's at the zero site and phase 14's at the ep
-sites) and the card line; the last
+rate and level, phase 13's at the zero site, phase 14's at the ep
+sites and phase 15's at the recurrent sites) and the card line; the last
 line is the result JSON.  Any failure exits non-zero;
 without a card, or outside a checkout, it fails before printing a result.
 """
@@ -528,6 +558,24 @@ MOE_SERVE = dict(mode="batched", tp=4, scheme="zhybrid_16_8", batch=2)
 # one rank (C = 640 for 2 x 512 tokens), split over ep = 2 ranks, launched
 # whole (both chunks, 163840 rows each) at rate 16
 MOE_EP_ROWS = 2 * (MOE_EXPERTS * 640 * 4096 // 2) // 128
+
+
+# phase 15: the recurrent families in phase 9's world of four ranks after
+# phase 14, bf16, seed 0, seq 1024, global batch 4, --dp 2 --tp 2 under
+# zhybrid_16_8 (the state prefix, the conv halo and the sLSTM transpose on
+# bq16 both ways), 2 steps, kernels and plain.  Width is the published
+# one; depth is the only cut, for the script's time (about 265 s were
+# left of its 1200): zamba2's first two [6 x mamba, shared_attn] blocks
+# (12 of its 38 mamba layers, the shared block applied twice) and
+# xLSTM's first 8 layers (7 mLSTM, 1 sLSTM: one of its six blocks).
+# (train label, plain label, arch, depth); 15e serves each at its depth
+REC_RUNS = (("15a", "15b", "zamba2-1.2b", 12),
+            ("15c", "15d", "xlstm-1.3b", 8))
+REC_SCHEME, REC_STEPS = "zhybrid_16_8", 2
+REC_DP, REC_TP = 2, 2
+REC_FLAGS = ("--dp", str(REC_DP), "--tp", str(REC_TP))
+REC_SERVE = dict(mode="batched", dp=REC_DP, tp=REC_TP, scheme=REC_SCHEME,
+                 batch=4)
 
 
 # a bq kernel's wrappers: its block form and the flat and view forms that
@@ -1647,10 +1695,12 @@ def reckon_shapes(torch, card, shapes: dict, rank_steps: int) -> dict:
 def rank_runs(*, rank: int, world: int, runs: list) -> list:
     """Body of one rank of :func:`train_runs`' world: ``train_rank`` for
     each keyword set of ``runs`` (``serve_rank`` for ``{"serve":
-    keywords}``), in turn, each run's cached device memory given back
-    before the next (the ranks share the card, and a run's largest rank
-    may be another than the last run's)."""
+    keywords}``; for ``{"between": name}`` rank 0 calls this module's
+    function ``name`` and every rank waits for it), in turn, each run's
+    cached device memory given back before the next (the ranks share the
+    card, and a run's largest rank may be another than the last run's)."""
     import torch
+    import torch.distributed as dist
 
     from repro_torch.launch.serve import serve_rank
     from repro_torch.launch.train import train_rank
@@ -1658,6 +1708,10 @@ def rank_runs(*, rank: int, world: int, runs: list) -> list:
     for kw in runs:
         if "serve" in kw:
             out.append(serve_rank(rank=rank, world=world, **kw["serve"]))
+        elif "between" in kw:
+            out.append(globals()[kw["between"]]() if rank == 0 else None)
+            if world > 1:
+                dist.barrier()
         else:
             out.append(train_rank(rank=rank, world=world, **kw))
         torch.cuda.empty_cache()
@@ -1695,6 +1749,9 @@ def train_runs(card, runs: list) -> list:
 
     kws, worlds = [], set()
     for r in runs:
+        if "between" in r:
+            kws.append(r)
+            continue
         if "serve" in r:
             kw = r["serve"]
             kws.append({"serve": kw})
@@ -1719,6 +1776,9 @@ def train_runs(card, runs: list) -> list:
     out = []
     for i, r in enumerate(runs):
         res = [ranks[i] for ranks in per_rank]
+        if "between" in r:
+            out.append(res[0])
+            continue
         if "serve" in r:
             out.append(res)
             continue
@@ -1736,7 +1796,8 @@ def train_runs(card, runs: list) -> list:
               f"{res[0]['staging_bytes'][-1] / 1e9:.2f} GB staged per step "
               f"(rank 0) [{card}]")
         out.append(res)
-    print(f"  wall {wall:.0f}s for {len(runs)} run(s) in one world of "
+    n_runs = sum("between" not in r for r in runs)
+    print(f"  wall {wall:.0f}s for {n_runs} run(s) in one world of "
           f"processes [{card}]")
     return out
 
@@ -1760,13 +1821,15 @@ def drive_hier(torch, card, only: str | None = None) -> tuple:
     ``--tp-nodes``, 9c ``--pp-nodes``) in one world of four ranks, through
     the kernels and (9a, 9b) the plain versions, then phase 10, the tuned
     step, phase 11, context parallelism, phase 12, serving, phase 13,
-    gemma3-4b with ZeRO-3, and phase 14, qwen3-moe, in the same world
-    (:func:`check_tune`, :func:`check_cp`, :func:`check_serve`,
-    :func:`check_zero3`, :func:`check_moe`); returns each phase 9 run's
-    launches per kernel and level (all ranks) and its numbers, phase
-    10's, phase 11's, phase 12's, phase 13's and phase 14's.
-    ``only="cp"`` runs phase 11 alone, ``only="serve"`` phase 12 alone,
-    ``only="zero3"`` phase 13 alone, ``only="moe"`` phase 14 alone."""
+    gemma3-4b with ZeRO-3, phase 14, qwen3-moe, and phase 15, the
+    recurrent families, in the same world (:func:`check_tune`,
+    :func:`check_cp`, :func:`check_serve`, :func:`check_zero3`,
+    :func:`check_moe`, :func:`check_recurrent`); returns each phase 9
+    run's launches per kernel and level (all ranks) and its numbers, phase
+    10's, 11's, 12's, 13's, 14's and 15's.  ``only="cp"`` runs phase 11
+    alone, ``only="serve"`` phase 12 alone, ``only="zero3"`` phase 13
+    alone, ``only="moe"`` phase 14 alone, ``only="recurrent"`` phase 15
+    alone."""
     runs, names = [], []
     for name, scheme, steps, flags, plain, depth in \
             tuple(r + (0,) for r in (() if only else HIER_RUNS)) \
@@ -1812,13 +1875,39 @@ def drive_hier(torch, card, only: str | None = None) -> tuple:
             runs.append(serve_run("14c", backend, arch=MOE_ARCH,
                                   depth=MOE_SERVE_DEPTH, **MOE_SERVE))
             names.append(("14c", backend))
+    if only in (None, "recurrent"):
+        for name, pname, arch, depth in REC_RUNS:
+            for backend in (None, "torch"):
+                label = f"{name} kernels" if backend is None \
+                    else f"{pname} plain"
+                runs.append(run(label, REC_SCHEME, backend, REC_STEPS,
+                                REC_FLAGS, dp=1, tp=1, arch=arch,
+                                depth=depth))
+                names.append((name, backend))
+        for _, _, arch, depth in REC_RUNS:
+            for backend in (None, "torch"):
+                runs.append(serve_run(f"15e {arch}", backend, arch=arch,
+                                      depth=depth, **REC_SERVE))
+                names.append((f"15e {arch}", backend))
+    t0 = time.perf_counter()
     res = dict(zip(names, train_runs(card, runs)))
+    wall = time.perf_counter() - t0
     cp = check_cp(card, res) if only in (None, "cp") else {}
     serve = check_serve(card, res) if only in (None, "serve") else {}
     z3 = check_zero3(card, res) if only in (None, "zero3") else {}
     moe = check_moe(card, res) if only in (None, "moe") else {}
+    rec = check_recurrent(card, res) if only in (None, "recurrent") else {}
+    if rec:
+        # phase 15's runs' own seconds in the world (its share of the wall)
+        rec["seconds"] = sum(sum(r["step_s"]) for r in (
+            res[(n, b)][0] for n, _, _, _ in REC_RUNS
+            for b in (None, "torch"))) + sum(
+            res[(f"15e {a}", b)][0]["wall_s"] for _, _, a, _ in REC_RUNS
+            for b in (None, "torch"))
+        print(f"phase 15: {rec['seconds']:.1f} s of steps and serving "
+              f"(rank 0) of the world's {wall:.1f} s [{card}]")
     if only:
-        return {}, {}, cp, serve, z3, moe
+        return {}, {}, cp, serve, z3, moe, rec
     out = {}
     for name, scheme, steps, flags, plain in HIER_RUNS:
         k = res[(name, None)]
@@ -1866,7 +1955,7 @@ def drive_hier(torch, card, only: str | None = None) -> tuple:
                      "per_dim_level": r0["priced_per_dim_level"],
                      "link_bytes": r0["link_bytes"]}
     return out, check_tune(card, res[("10", None)], res[("10", "torch")]), \
-        cp, serve, z3, moe
+        cp, serve, z3, moe, rec
 
 
 def paged_prompts() -> list:
@@ -2298,6 +2387,223 @@ def check_moe(card, res: dict) -> dict:
           f"{max(sshare) * 100:.0f} %; priced MB per rank by dim/level "
           f"{sprice}; launches (all ranks) by kernel/level {levels} "
           f"[{card}]")
+    return out
+
+
+def rec_reckoned(cfg, b_loc: int, s_loc: int, tp: int, wire) -> dict:
+    """The recurrent sites' priced bytes per rank per training step of
+    ``cfg`` (a zamba2 or xLSTM stack) at ``b_loc`` rows and ``s_loc``
+    tokens a rank over ``tp`` model ranks, reckoned by hand; ``wire(n)``
+    is the codec's wire bytes for n values.  Each state prefix sends the
+    decay [B, H] and the state [B, H, P, N] at each doubling hop and the
+    state once more in the final shift (``pp@ssm_scan``; a hop's payload
+    counted for the ranks that send, ``(tp - step) / tp`` of them); a
+    mamba layer runs one prefix and sends its conv halo [B, K - 1,
+    d_inner] (``pp@conv_halo``, all but the last rank), an mLSTM layer
+    runs two prefixes (the numerator's state, P the value width per head,
+    N the q/k width; the denominator's, P = 1), and an sLSTM layer two
+    all-to-alls of [B, S, D] (``ep@slstm_transpose``, ``(tp - 1) / tp``
+    crossing) where ``b_loc`` divides by tp; every one forward and
+    backward."""
+    out = {"pp@ssm_scan": 0.0, "pp@conv_halo": 0.0,
+           "ep@slstm_transpose": 0.0}
+    if tp == 1:
+        return out
+
+    def prefix(H: int, P: int, N: int) -> int:
+        n, step = 0, 1
+        while step < tp:
+            n += b_loc * H * (tp - step) // tp \
+                + b_loc * H * P * N * (tp - step) // tp
+            step *= 2
+        return n + b_loc * H * P * N * (tp - 1) // tp
+
+    pv = int(cfg.proj_factor * cfg.d_model) // cfg.n_heads
+    for g in cfg.layer_groups:
+        for _ in range(g.n):
+            if g.kind == "mamba":
+                out["pp@ssm_scan"] += 2 * wire(prefix(
+                    cfg.d_inner // cfg.ssm_head_dim, cfg.ssm_head_dim,
+                    cfg.ssm_state))
+                out["pp@conv_halo"] += 2 * wire(
+                    b_loc * (cfg.conv_kernel - 1) * cfg.d_inner
+                    * (tp - 1) // tp)
+            elif g.kind == "mlstm":
+                for p in (pv, 1):
+                    out["pp@ssm_scan"] += 2 * wire(prefix(
+                        cfg.n_heads, p, cfg.head_dim_))
+            elif g.kind == "slstm" and b_loc % tp == 0:
+                out["ep@slstm_transpose"] += \
+                    4 * wire(b_loc * s_loc * cfg.d_model) * (tp - 1) / tp
+    return out
+
+
+def rec_site_rows(cfg, b_loc: int, s_loc: int, tp: int) -> dict:
+    """Wire rows of the recurrent sites' encodes and decodes: the state
+    prefix's state payload and the conv halo on the flat forms (one
+    ``padded_rows`` of the payload), the sLSTM transpose on the block forms
+    (``tp`` tile-padded slices of [B, S, D])."""
+    from repro_torch.kernels.ops import padded_rows
+
+    out = {}
+    kinds = {g.kind for g in cfg.layer_groups}
+    if "mamba" in kinds:
+        H = cfg.d_inner // cfg.ssm_head_dim
+        out["pp@ssm_scan"] = ("flat", padded_rows(
+            b_loc * H * cfg.ssm_head_dim * cfg.ssm_state))
+        out["pp@conv_halo"] = ("flat", padded_rows(
+            b_loc * (cfg.conv_kernel - 1) * cfg.d_inner))
+    if "mlstm" in kinds:
+        pv = int(cfg.proj_factor * cfg.d_model) // cfg.n_heads
+        out["pp@ssm_scan"] = ("flat", padded_rows(
+            b_loc * cfg.n_heads * pv * cfg.head_dim_))
+    if "slstm" in kinds:
+        out["ep@slstm_transpose"] = ("block", tp * padded_rows(
+            b_loc * s_loc * cfg.d_model // tp))
+    return out
+
+
+def check_recurrent(card, res: dict) -> dict:
+    """Phase 15: each recurrent training run through the kernels (15a
+    zamba2, 15c xLSTM) equal to its plain run (15b, 15d) in losses, grad
+    norms and the ledger (measured per dim, priced per dim and per
+    ``dim/level``), finite losses, the recurrent sites' priced bytes equal
+    to :func:`rec_reckoned`, their encodes and decodes launched at their
+    rows (:func:`rec_site_rows`), nothing launched in the plain runs; 15e's
+    kernel run equal to its plain run for each model (tokens, every cache
+    leaf after the prefill and at the end by sha256); no rank importing
+    jax or repro.  Prints the numbers and returns them."""
+    from repro_torch.core import codecs
+    from repro_torch.launch.train import model_config
+
+    wire = codecs.get("bq16").wire_nbytes_for
+    out = {}
+    b_loc, s_loc = GLOBAL_BATCH // REC_DP, SEQ // REC_TP
+    for name, pname, arch, depth in REC_RUNS:
+        k, p = res[(name, None)], res[(name, "torch")]
+        for rk, rp in zip(k, p):
+            if rk["foreign_modules"] or rp["foreign_modules"]:
+                fail(f"phase {name} rank {rk['rank']} imported "
+                     f"{rk['foreign_modules'] or rp['foreign_modules']}")
+            if not np.isfinite(rk["losses"]).all():
+                fail(f"phase {name} rank {rk['rank']}: losses "
+                     f"{rk['losses']}")
+            for key in ("losses", "grad_norms", "wire_per_dim",
+                        "priced_per_dim", "priced_per_dim_level"):
+                if rk[key] != rp[key]:
+                    fail(f"phase {name}/{pname} rank {rk['rank']}: {key} "
+                         f"differ between the kernel run ({rk[key]}) and "
+                         f"the plain run ({rp[key]})")
+        if any(v for r in p for v in r["launches"].values()):
+            fail(f"phase {pname}: the plain run launched kernels: "
+                 f"{[r['launches'] for r in p]}")
+        cfg = model_config(arch, depth=depth)
+        want = rec_reckoned(cfg, b_loc, s_loc, REC_TP, wire)
+        sites = k[0]["priced_per_site"]
+        for site, v in want.items():
+            if abs(sites.get(site, 0.0) - v) > 1e-9 * max(v, 1.0):
+                fail(f"phase {name}: {site} priced {sites.get(site, 0.0)} B "
+                     f"per rank per step, reckoned {v}")
+        shapes = {}
+        for r in k:
+            for kern, rows, bits, c in r["launch_shapes"]:
+                shapes[(kern, rows, bits)] = \
+                    shapes.get((kern, rows, bits), 0) + c
+        at_site = {}
+        for site, (form, rows) in rec_site_rows(cfg, b_loc, s_loc,
+                                                REC_TP).items():
+            kerns = ("bq_encode_flat", "bq_decode_flat") if form == "flat" \
+                else ("bq_encode", "bq_decode")
+            at_site[site] = {f"{kern}/{rows}": shapes.get((kern, rows, 16), 0)
+                             for kern in kerns}
+            if not all(at_site[site].values()):
+                fail(f"phase {name}: no launch at {site}'s rows: "
+                     f"{at_site[site]}")
+        step = max(float(np.median(r["step_s"][1:])) for r in k)
+        share = [sum(r["staging_s"][1:]) / sum(r["step_s"][1:]) for r in k]
+        peak = [round(r["peak_bytes"] / 2**30, 2) for r in k]
+        r0 = k[0]
+        priced = {key: round(v / 1e6, 3)
+                  for key, v in r0["priced_per_dim_level"].items() if v}
+        measured = {key: round(v / 1e6, 3)
+                    for key, v in r0["wire_per_dim_level"].items() if v}
+        reck = {key: round(v / 1e6, 3) for key, v in want.items() if v}
+        out[arch] = {"depth": depth, "step_ms": step * 1e3,
+                     "tokens_per_s": GLOBAL_BATCH * SEQ / step,
+                     "peak_gib": peak,
+                     "staging_share": [min(share), max(share)],
+                     "priced_mb": priced, "measured_mb": measured,
+                     "reckoned_mb": reck, "site_launches": at_site,
+                     "launches": launch_sums(k), "levels": level_sums(k),
+                     "losses": r0["losses"]}
+        print(f"phase {name}/{pname} ({arch} full width, the first {depth} "
+              f"layers, {' '.join(REC_FLAGS)}, {REC_SCHEME}): kernel run == "
+              f"plain run (losses, grad norms, ledger per dim and "
+              f"dim/level) on every rank; losses {r0['losses']}, grad norms "
+              f"{[round(g, 6) for g in r0['grad_norms']]}; {step * 1e3:.1f} "
+              f"ms/step (step {REC_STEPS}, slowest rank), "
+              f"{out[arch]['tokens_per_s']:.0f} tokens/s, peak {peak} GiB "
+              f"per rank, staging+exchange {min(share) * 100:.0f}-"
+              f"{max(share) * 100:.0f} % [{card}]")
+        print(f"phase {name} MB per rank per step by dim/level: priced "
+              f"{priced}, measured {measured}; recurrent sites priced "
+              f"{ {key: round(sites.get(key, 0) / 1e6, 3) for key in want} }"
+              f" == reckoned {reck}; their launches (all ranks) {at_site}; "
+              f"launches (all ranks) {out[arch]['launches']} [{card}]")
+        # 15e: serving
+        k, p = res[(f"15e {arch}", None)], res[(f"15e {arch}", "torch")]
+        toks = k[0]["tokens"]
+        if len(toks) != REC_SERVE["batch"] or any(
+                len(t) != SERVE_GEN or min(t) < 0 or max(t) >=
+                cfg.vocab_size for t in toks) or any(
+                r["tokens"] != toks for r in k):
+            fail(f"phase 15e {arch}: malformed or disagreeing tokens")
+        for rk, rp in zip(k, p):
+            if rk["foreign_modules"]:
+                fail(f"phase 15e rank {rk['rank']} imported "
+                     f"{rk['foreign_modules']}")
+            if rk["tokens"] != rp["tokens"]:
+                fail(f"phase 15e {arch} rank {rk['rank']}: tokens differ "
+                     f"between the kernel run and the plain run")
+            for when, dig in rk["digests"].items():
+                bad = sorted(leaf for leaf, h in dig.items()
+                             if rp["digests"][when][leaf] != h)
+                if bad:
+                    fail(f"phase 15e {arch} rank {rk['rank']}: {when} "
+                         f"caches {bad} differ between the kernel run and "
+                         f"the plain run")
+        if any(v for r in p for v in r["launches"].values()):
+            fail(f"phase 15e {arch}: the plain run launched kernels: "
+                 f"{[r['launches'] for r in p]}")
+        levels = level_sums(k)
+        sprice = {ph: {key: round(v / 1e6, 3)
+                       for key, v in k[0]["ledger"][ph]["priced"].items()
+                       if v} for ph in ("prefill", "decode")}
+        dec = [sum(r["decode_s"]) for r in k]
+        step_ms = max(float(np.median(r["decode_s"])) for r in k) * 1e3
+        sshare = [r["staging_s"] / r["wall_s"] for r in k]
+        speak = [round(r["peak_bytes"] / 2**30, 2) for r in k]
+        out[arch]["15e"] = {
+            "launches": launch_sums(k), "levels": levels,
+            "prefill_s": max(r["prefill_s"] for r in k),
+            "decode_ms_per_step": step_ms,
+            "gen_tokens_per_s": REC_SERVE["batch"] * (SERVE_GEN - 1)
+            / max(dec), "peak_gib": speak,
+            "staging_share": [min(sshare), max(sshare)],
+            "priced_mb": sprice}
+        print(f"phase 15e ({arch} full width, the first {depth} layers, "
+              f"batched --dp {REC_DP} --tp {REC_TP}, {REC_SCHEME}, "
+              f"{REC_SERVE['batch']} prompts of {SERVE_PROMPT} + "
+              f"{SERVE_GEN}): kernel run == plain run (tokens, every cache "
+              f"leaf after the prefill and at the end by sha256) on every "
+              f"rank; tokens {toks}; prefill "
+              f"{out[arch]['15e']['prefill_s']:.2f} s, {step_ms:.2f} "
+              f"ms/decode step (median, slowest rank), "
+              f"{out[arch]['15e']['gen_tokens_per_s']:.1f} generated tok/s, "
+              f"peak {speak} GiB per rank, staging+exchange "
+              f"{min(sshare) * 100:.0f}-{max(sshare) * 100:.0f} %; priced MB "
+              f"per rank by dim/level {sprice}; launches (all ranks) by "
+              f"kernel/level {levels} [{card}]")
     return out
 
 
@@ -2883,6 +3189,14 @@ def point_latest(step: int) -> None:
         os.replace(tmp, d / "latest")
 
 
+def restart_point() -> dict:
+    """Between 8b and 8c: 8b's heartbeat, then the checkpoints pointed back
+    at step CKPT_STEPS (:func:`point_latest`)."""
+    hb = json.loads((CKPT_DIR / "heartbeat.json").read_text())
+    point_latest(CKPT_STEPS)
+    return hb
+
+
 def drive_checkpoint(torch, card, plr, cfg, n_flat) -> dict:
     """Phase 8: save, resume and an elastic resume of phase 6's plr8
     kernel run at CKPT_DEPTH layers ``plr`` (its per-rank results; ``cfg``
@@ -2904,26 +3218,30 @@ def drive_checkpoint(torch, card, plr, cfg, n_flat) -> dict:
     try:
         a = train_run(card, "8a plr8 kernels, save", "zhybrid_16_8", None,
                       CKPT_STEPS, flags, depth=CKPT_DEPTH)
-        b = train_run(card, "8b resume", "zhybrid_16_8", None, CKPT_STEPS,
-                      [*flags, "--resume"], depth=CKPT_DEPTH)
-        hb = json.loads((CKPT_DIR / "heartbeat.json").read_text())
-        point_latest(CKPT_STEPS)
-        c = train_run(card, "8c resume at dp 4 x tp 1", "zhybrid_16_8", None,
-                      1, [*flags, "--resume"], dp=DP * TP, tp=1,
-                      depth=CKPT_DEPTH)
+        # a resume is a restart: 8b in a world of its own; 8c then restarts
+        # from 8b's restore point in the same world (rank 0 reads 8b's
+        # heartbeat and points the checkpoints back between the two)
+        b, hb, c = train_runs(card, [
+            run("8b resume", "zhybrid_16_8", None, CKPT_STEPS,
+                [*flags, "--resume"], depth=CKPT_DEPTH),
+            {"between": "restart_point"},
+            run("8c resume at dp 4 x tp 1", "zhybrid_16_8", None, 1,
+                [*flags, "--resume"], dp=DP * TP, tp=1, depth=CKPT_DEPTH)])
     finally:
         shutil.rmtree(CKPT_DIR, ignore_errors=True)
-    ck = {run: r[0]["ckpt"] for run, r in (("8a", a), ("8b", b), ("8c", c))}
-    for run, x in ck.items():
-        print(f"  {run}: saved steps {x['steps']}, {x['bytes'] / 1e9:.3f} GB "
+    ck = {label: r[0]["ckpt"] for label, r in (("8a", a), ("8b", b),
+                                               ("8c", c))}
+    for label, x in ck.items():
+        print(f"  {label}: saved steps {x['steps']}, {x['bytes'] / 1e9:.3f} GB "
               f"on disk; {x['save_s']:.2f}s in save calls (a blocking save "
               f"whole), {x['thread_s']:.2f}s in saving threads, "
               f"{x['wait_s']:.2f}s waiting for them after the last step, "
               f"{x['restore_s']:.2f}s restoring (rank 0) [{card}]")
     # the steps around the checkpoints beside phase 6's (slowest rank)
-    secs = {run: [round(max(s), 4) for s in zip(*(r["step_s"] for r in res))]
-            for run, res in (("phase 6", plr), ("8a", a), ("8b", b),
-                             ("8c", c))}
+    secs = {label: [round(max(s), 4)
+                    for s in zip(*(r["step_s"] for r in res))]
+            for label, res in (("phase 6", plr), ("8a", a), ("8b", b),
+                               ("8c", c))}
     print(f"  step seconds, slowest rank: {secs} [{card}]")
     for ra, rb, rp in zip(a, b, plr):
         for key in ("losses", "grad_norms"):
@@ -2951,10 +3269,10 @@ def drive_checkpoint(torch, card, plr, cfg, n_flat) -> dict:
                    if same[k] else f"WARNING: {name[k]} state not portable "
                    f"to this topology" for k in name]}
     logs = {"8b": b[0]["restore_log"], "8c": c[0]["restore_log"]}
-    for run, lines in want.items():
-        for got, line in zip(logs[run], lines):
+    for label, lines in want.items():
+        for got, line in zip(logs[label], lines):
             if not got.startswith(line):
-                fail(f"phase 8: {run} printed {got!r}, want {line!r}...")
+                fail(f"phase 8: {label} printed {got!r}, want {line!r}...")
     l8b, l8c = b[0]["losses"][0], c[0]["losses"][0]
     if not (np.isfinite(l8c) and abs(l8c - l8b) <= 0.01 * abs(l8b)):
         fail(f"phase 8: 8c's first loss {l8c} not within 1 % of 8b's {l8b}")
@@ -3046,23 +3364,25 @@ def main():
         # phases 9 to 12 alone
         os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
                               "expandable_segments:True")
-        hier, tune, cp, serve, z3, moe = drive_hier(torch, card)
+        hier, tune, cp, serve, z3, moe, rec = drive_hier(torch, card)
         print(json.dumps({"phase9": hier, "phase10": tune, "phase11": cp,
-                          "phase12": serve, "phase13": z3, "phase14": moe}))
+                          "phase12": serve, "phase13": z3, "phase14": moe,
+                          "phase15": rec}))
         print(f"card: {card}")
         return
 
     if sys.argv[1:] in (["--cp-only"], ["--serve-only"], ["--zero3-only"],
-                        ["--moe-only"]):
-        # phase 11, 12, 13 or 14 alone
+                        ["--moe-only"], ["--recurrent-only"]):
+        # phase 11, 12, 13, 14 or 15 alone
         os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
                               "expandable_segments:True")
         only = sys.argv[1][2:-5]
         t0 = time.perf_counter()
-        _, _, cp, serve, z3, moe = drive_hier(torch, card, only=only)
+        _, _, cp, serve, z3, moe, rec = drive_hier(torch, card, only=only)
         print(json.dumps({"cp": {"phase11": cp}, "serve": {"phase12": serve},
                           "zero3": {"phase13": z3},
-                          "moe": {"phase14": moe}}[only]))
+                          "moe": {"phase14": moe},
+                          "recurrent": {"phase15": rec}}[only]))
         print(f"wall seconds of the phase {time.perf_counter() - t0:.1f} "
               f"[{card}]")
         print(f"card: {card}")
@@ -3303,7 +3623,7 @@ def main():
                             flat_elems(cfg8))
 
     # ---------------------------------------------------------- phase 9
-    starts["9 to 14"] = time.perf_counter()
+    starts["9 to 15"] = time.perf_counter()
     print(f"phase 9: node-factored meshes, gemma3-1b full width, four ranks "
           f"on this card, seq {SEQ}, global batch {GLOBAL_BATCH}: 9a --dp 4 "
           f"--nodes 2 --layers {HIER_RUNS[0][3][-1]} (hier_zpp_8_16), 9b "
@@ -3333,8 +3653,15 @@ def main():
           f"(plain), 14c the first {MOE_SERVE_DEPTH} layers, batched --tp "
           f"{MOE_SERVE['tp']} with all 128 "
           f"experts, {MOE_SERVE['batch']} prompts of {SERVE_PROMPT} + "
-          f"{SERVE_GEN} (kernels, plain) [{card}]")
-    hier, tune, cp, serve, z3, moe = drive_hier(torch, card)
+          f"{SERVE_GEN} (kernels, plain); then phase 15, the recurrent "
+          f"families at full width, {' '.join(REC_FLAGS)} ({REC_SCHEME}, "
+          f"{REC_STEPS} steps): 15a/15b {REC_RUNS[0][2]}, the first "
+          f"{REC_RUNS[0][3]} mamba layers with the shared block twice, "
+          f"15c/15d {REC_RUNS[1][2]}, the first {REC_RUNS[1][3]} layers "
+          f"(kernels, plain), 15e both served batched, "
+          f"{REC_SERVE['batch']} prompts of {SERVE_PROMPT} + {SERVE_GEN} "
+          f"(kernels, plain) [{card}]")
+    hier, tune, cp, serve, z3, moe, rec = drive_hier(torch, card)
 
     starts["reckoning"] = time.perf_counter()
     # launches x (time - bound) per shape of phase 4's kernel run, timed in
@@ -3425,6 +3752,24 @@ def main():
                 "14c": {key: v for key, v in moe["14c"]["levels"].items()
                         if key.split("/")[0] in forms}}
 
+    def p15_launches(kernel: str) -> int:
+        return sum(m["launches"][kernel] + m["15e"]["launches"][kernel]
+                   for m in rec.values() if isinstance(m, dict))
+
+    def p15_entry(kernel: str) -> dict:
+        """Phase 15's launches of a kernel (all ranks, the kernel runs) per
+        model and run by link level, and at the recurrent sites' rows; a bq
+        kernel's flat and view forms count with it."""
+        forms = KERNEL_FORMS.get(kernel, (kernel,))
+        return {arch: {"train": {key: v for key, v in m["levels"].items()
+                                 if key.split("/")[0] in forms},
+                       "sites": {site: {key: v for key, v in at.items()
+                                        if key.split("/")[0] in forms}
+                                 for site, at in m["site_launches"].items()},
+                       "15e": {key: v for key, v in m["15e"]["levels"].items()
+                               if key.split("/")[0] in forms}}
+                for arch, m in rec.items() if isinstance(m, dict)}
+
     def p13_entry(kernel: str) -> dict:
         """Phase 13's launches of a kernel (all ranks, the kernel runs) per
         run by link level, and 13a's at the zero site's rows; a bq
@@ -3479,7 +3824,7 @@ def main():
         entry["launches"] += p7_launches(name) + ckpt["launches"][name] \
             + p9_launches(name) + tune["launches"][name] \
             + p11_launches(name) + p12_launches(name) + p13_launches(name) \
-            + p14_launches(name)
+            + p14_launches(name) + p15_launches(name)
         entry["phase7"] = p7_entry(name)
         entry["phase8"] = ckpt["launches"][name]        # after the restore
         entry["phase9"] = p9_entry(name)
@@ -3488,6 +3833,7 @@ def main():
         entry["phase12"] = p12_entry(name)
         entry["phase13"] = p13_entry(name)
         entry["phase14"] = p14_entry(name)
+        entry["phase15"] = p15_entry(name)
         if name in ("bq_encode", "bq_decode"):
             # the block form's kernel alone, and the flat form the TP
             # all-gather calls (the same kernel, fused with its layout)
@@ -3511,7 +3857,8 @@ def main():
                 + p11_launches(f"{name}_flat")
                 + p12_launches(f"{name}_flat")
                 + p13_launches(f"{name}_flat")
-                + p14_launches(f"{name}_flat"),
+                + p14_launches(f"{name}_flat")
+                + p15_launches(f"{name}_flat"),
                 "phase7": p7_entry(f"{name}_flat"),
                 "max_abs_err": err[f"{name}_flat"],
                 "by_shape": by_shape.get(f"{name}_flat", [])}
@@ -3537,7 +3884,7 @@ def main():
                 "launches": t_launch[fname] + p7_launches(fname)
                 + p9_launches(fname) + p11_launches(fname)
                 + p12_launches(fname) + p13_launches(fname)
-                + p14_launches(fname),
+                + p14_launches(fname) + p15_launches(fname),
                 "phase7": p7_entry(fname), "max_abs_err": err[fname],
                 "bound_by": "bytes",
                 "by_rows": {rows: {**ops_[op], "end": ops_["end"]}
@@ -3600,6 +3947,7 @@ def main():
         "phase12": {},            # plr rides no serving path
         "phase13": {},            # nor the ZeRO-3 step (zhybrid_16_8)
         "phase14": {},            # nor the MoE runs (zhybrid_16_8)
+        "phase15": {},            # nor the recurrent runs (zhybrid_16_8)
         "max_abs_err": max(f["max_abs_err"] for f in forms.values()),
         **total, "bound_by": "bytes" if all(
             f["bound_by"] == "bytes" for f in forms.values()) else

@@ -1,9 +1,10 @@
 """Architecture registry: ``get("<arch-id>")`` -> ArchConfig.
 
 The dense decoders (gemma3-1b, gemma3-4b, minitron-4b, qwen2-72b),
-qwen2-vl-72b's backbone and the two Mixture-of-Experts decoders
-(qwen3-moe-235b-a22b, kimi-k2-1t-a32b) are ported; the reference's other
-architectures are named as not yet ported.
+qwen2-vl-72b's backbone, the two Mixture-of-Experts decoders
+(qwen3-moe-235b-a22b, kimi-k2-1t-a32b) and the recurrent families
+(zamba2-1.2b, xlstm-1.3b) are ported; the reference's other architecture
+is named as not yet ported.
 """
 
 from __future__ import annotations
@@ -18,12 +19,12 @@ ARCH_IDS = (
     "qwen2-vl-72b",
     "qwen3-moe-235b-a22b",
     "kimi-k2-1t-a32b",
+    "zamba2-1.2b",
+    "xlstm-1.3b",
 )
 
 _NOT_YET = (
     "whisper-base",
-    "xlstm-1.3b",
-    "zamba2-1.2b",
 )
 
 

@@ -260,6 +260,23 @@ def model_config(arch: str, reduced: bool = False, layers: int = 0,
     return cfg
 
 
+def check_cp(cfg, cp: int) -> None:
+    """Refuse context parallelism on a stack with recurrent layers: their
+    state crosses sequence shards over the model axes only
+    (``cross_shard_prefix``), so each cp rank would start its recurrence
+    from a zero state on its zigzag slice.  The reference's launcher runs
+    that silently and trains another model (fault C.20)."""
+    kinds = sorted({g.kind for g in cfg.layer_groups
+                    if g.kind in ("mamba", "mlstm", "slstm")})
+    if cp > 1 and kinds:
+        raise ValueError(
+            f"--cp {cp} is refused for {cfg.name}: its recurrent layers "
+            f"{kinds} carry their state across sequence shards over the "
+            f"model axes only, so a cp rank would start each recurrence "
+            f"from zero on its zigzag slice (the reference computes that "
+            f"silently)")
+
+
 def node_counts(args) -> dict:
     """``--nodes``, ``--tp-nodes``, ``--pp-nodes`` and ``--cp-nodes`` as
     node counts (``nodes``, ``tp_nodes``, ``pp_nodes``, ``cp_nodes``);
@@ -288,6 +305,7 @@ def check_schedule(args) -> None:
     node_counts(args)
     if args.cp < 1:
         raise ValueError(f"--cp {args.cp} must be >= 1")
+    check_cp(model_config(args.arch, args.reduced, args.layers), args.cp)
     if args.cp > 1 and args.seq % (2 * args.cp):
         raise ValueError(f"seq len {args.seq} must divide 2*cp="
                          f"{2 * args.cp} for zigzag cp sharding")
@@ -602,6 +620,7 @@ def train_rank(*, rank: int = 0, world: int = 1, arch: str,
     cfg = model_config(arch, reduced, layers, depth)
     if overrides:
         cfg = cfg.replace(**overrides)
+    check_cp(cfg, cp)
     mi = make_mesh(dp, tp, pp, nodes=nodes, tp_nodes=tp_nodes,
                    pp_nodes=pp_nodes, cp=cp, cp_nodes=cp_nodes)
     model = Model(cfg, mi, device=dev, vpp=vpp)

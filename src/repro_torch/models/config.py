@@ -56,9 +56,18 @@ class ArchConfig:
     shared_expert: bool = False
     moe_d_ff: int = 0                # per-expert hidden (kimi/qwen3 style)
 
-    # SSM / xLSTM / enc-dec fields the reduced plan inspects
+    # SSM (mamba2) / hybrid
     ssm_state: int = 0
     ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    conv_kernel: int = 4
+    attn_every: int = 0              # zamba2: shared attn after every k mamba layers
+
+    # xLSTM
+    slstm_every: int = 0             # 1 sLSTM per k blocks (rest mLSTM)
+    proj_factor: float = 2.0
+
+    # enc-dec field the reduced plan inspects
     encoder_layers: int = 0
 
     # norm / numerics
@@ -92,6 +101,11 @@ class ArchConfig:
             return self.groups
         return (BlockGroup("attn", self.n_layers),)
 
+    @property
+    def d_inner(self) -> int:
+        """SSM / xLSTM inner width."""
+        return self.ssm_expand * self.d_model
+
     def attn_mode_for(self, tp: int) -> str:
         """head-sharded TP needs q and kv heads divisible by tp; else ring/SP."""
         if self.attn_mode != "auto":
@@ -107,12 +121,20 @@ class ArchConfig:
         """The first ``n_layers`` layers of the stack, its layer groups
         (gemma3's local:global pattern, their windows) kept: a cut of
         depth for memory, where the launcher's ``layers`` resets the
-        stack to uniform layers."""
+        stack to uniform layers.  A ``shared_attn`` insertion is not a
+        layer of ``n_layers`` (zamba2 counts its mamba layers): it is kept
+        where the group before it is kept whole, so zamba2's first 12
+        layers are two whole ``[6 x mamba, shared_attn]`` blocks."""
         if not 0 < n_layers <= self.n_layers:
             raise ValueError(f"cannot keep {n_layers} of {self.n_layers} "
                              "layers")
-        out, left = [], n_layers
+        out, left, whole = [], n_layers, True
         for g in self.layer_groups:
+            if g.kind == "shared_attn":
+                if whole and out:
+                    out.append(g)
+                continue
+            whole = left >= g.n
             if left:
                 out.append(dataclasses.replace(g, n=min(g.n, left)))
                 left -= out[-1].n
@@ -173,6 +195,30 @@ def local_global_groups(n_layers: int, pattern: int, window: int) -> tuple:
         out.append(BlockGroup("attn", 1, window=0))
     if rem:
         out.append(BlockGroup("attn", rem, window=window))
+    return tuple(out)
+
+
+def hybrid_groups(n_mamba: int, attn_every: int) -> tuple:
+    """zamba2-style [attn_every x mamba, shared attn] plan."""
+    out = []
+    full_blocks, rem = divmod(n_mamba, attn_every)
+    for _ in range(full_blocks):
+        out.append(BlockGroup("mamba", attn_every))
+        out.append(BlockGroup("shared_attn", 1))
+    if rem:
+        out.append(BlockGroup("mamba", rem))
+    return tuple(out)
+
+
+def xlstm_groups(n_layers: int, slstm_every: int) -> tuple:
+    """xLSTM's repeating [slstm_every - 1 x mLSTM, 1 x sLSTM] plan."""
+    out = []
+    full_blocks, rem = divmod(n_layers, slstm_every)
+    for _ in range(full_blocks):
+        out.append(BlockGroup("mlstm", slstm_every - 1))
+        out.append(BlockGroup("slstm", 1))
+    if rem:
+        out.append(BlockGroup("mlstm", rem))
     return tuple(out)
 
 

@@ -48,15 +48,25 @@ def rms_norm(x, gain, eps):
     return (xf * torch.rsqrt(var + eps) * (1.0 + gain.to(_F32))).to(x.dtype)
 
 
+def layer_norm(x, gain, bias, eps):
+    """LayerNorm (xLSTM's ``ln``) in f32, returned in the input dtype."""
+    xf = x.to(_F32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * gain.to(_F32) + bias.to(_F32)).to(x.dtype)
+
+
 def norm(p, x, cfg, mi):
-    if cfg.norm != "rms":
-        raise NotImplementedError(f"norm {cfg.norm!r} is not yet ported")
+    if cfg.norm == "ln":
+        return layer_norm(x, use(p["g"], mi), use(p["b"], mi), cfg.norm_eps)
     return rms_norm(x, use(p["g"], mi), cfg.norm_eps)
 
 
 def norm_plan(cfg, D_):
-    if cfg.norm != "rms":
-        raise NotImplementedError(f"norm {cfg.norm!r} is not yet ported")
+    if cfg.norm == "ln":
+        return {"g": Dd((D_,), init="ones", dtype="float32", fsdp_ok=False),
+                "b": Dd((D_,), init="zeros", dtype="float32", fsdp_ok=False)}
     return {"g": Dd((D_,), init="zeros", dtype="float32", fsdp_ok=False)}
 
 

@@ -1,8 +1,10 @@
 """Top-level model: plan, parameter init, the training and prefill
 forward, and the loss (port of ``repro.models.model`` for the dense
 decoders, qwen2-vl's backbone (its precomputed ``vision`` embeddings
-merged under ``vis_mask``, its M-RoPE ids ``pos3``) and the
-Mixture-of-Experts decoders, whose load-balance aux term the loss adds)."""
+merged under ``vis_mask``, its M-RoPE ids ``pos3``), the
+Mixture-of-Experts decoders, whose load-balance aux term the loss adds,
+and the recurrent families: zamba2's mamba stack with its shared
+attention block, ``params["shared"]``, and xLSTM)."""
 
 from __future__ import annotations
 
@@ -68,6 +70,13 @@ class Model:
         re-gathers them where it reads them."""
         return bind_fsdp(self.plan["groups"][i], params["groups"][i])
 
+    def shared_params(self, params):
+        """The shared attention block's tree (``None`` without one), its
+        ZeRO-3 leaves wrapped as in :meth:`group_params`."""
+        if "shared" not in self.plan:
+            return None
+        return bind_fsdp(self.plan["shared"], params["shared"])
+
     # -- training ----------------------------------------------------------
     def _positions(self, B: int, S_loc: int) -> torch.Tensor:
         """GLOBAL positions of this rank's tokens [B, S_loc]: tp slices the
@@ -102,10 +111,11 @@ class Model:
         group's stacked caches at ``phase="prefill"`` (else ``None`` s),
         the MoE aux summed over the layers or ``None``)."""
         caches, aux = [], None
+        shared = self.shared_params(params)
         for i, g in enumerate(self.cfg.layer_groups):
             x, c, a = transformer.run_group(self.group_params(params, i), x,
                                             g, self.cfg, self.mi, self.mode,
-                                            pos, phase, pos3)
+                                            pos, phase, pos3, shared)
             caches.append(c)
             aux = transformer.add_aux(aux, a)
         return x, caches, aux

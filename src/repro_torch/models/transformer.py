@@ -1,6 +1,7 @@
-"""Block assembly (port of ``repro.models.transformer`` for the attention
-and Mixture-of-Experts groups): parameter plans, the training and prefill
-bodies, and the dense and paged decode bodies.
+"""Block assembly (port of ``repro.models.transformer``): parameter
+plans, the training and prefill bodies, and the dense and paged decode
+bodies of the attention, Mixture-of-Experts, Mamba2, mLSTM and sLSTM
+groups, and zamba2's shared attention block.
 
 Each group's ``n`` identical layers are stacked on a leading axis, as in
 the reference; where the reference runs ``lax.scan`` over that axis, a
@@ -9,6 +10,11 @@ stage's chunk and carry a leading stage dim (``[pp, n, ...]``, or ``[vpp,
 pp, n, ...]`` under interleaved virtual stages), as in the reference.
 Within a stage body every layer's activations stay alive for the backward
 pass; the pipeline's remat policy checkpoints whole stage bodies.
+
+A ``shared_attn`` group holds no weights of its own: it applies the
+top-level ``shared`` attention block (one set of weights) at each of its
+insertion points, each with one unstacked cache, so the shared block's
+gradient sums over its insertions.
 
 A ``fsdp_params`` model annotates its layer-group plans (never the
 embedding or head) with :func:`~repro_torch.models.params.apply_fsdp`;
@@ -25,7 +31,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.models import attention, layers, moe
+from repro_torch.models import attention, layers, moe, ssm, xlstm
 from repro_torch.models.config import ArchConfig, BlockGroup
 from repro_torch.models.params import MeshInfo, Pv, apply_fsdp, tree_map_defs
 
@@ -39,7 +45,14 @@ _PP_UNSUPPORTED = ("enc_attn", "dec_attn", "shared_attn")
 # plans
 # --------------------------------------------------------------------------
 
-_PORTED_KINDS = ("attn", "moe")
+_PORTED_KINDS = ("attn", "moe", "mamba", "mlstm", "slstm", "shared_attn")
+
+# the recurrent kinds: (plan, train/prefill body, decode body)
+_RECURRENT = {
+    "mamba": (ssm.mamba_plan, ssm.mamba_block, ssm.mamba_decode),
+    "mlstm": (xlstm.mlstm_plan, xlstm.mlstm_block, xlstm.mlstm_decode),
+    "slstm": (xlstm.slstm_plan, xlstm.slstm_block, xlstm.slstm_decode),
+}
 
 
 def _check_kind(kind: str, what: str = "layer kind") -> None:
@@ -49,8 +62,13 @@ def _check_kind(kind: str, what: str = "layer kind") -> None:
 
 def block_plan(cfg: ArchConfig, kind: str, mode: str):
     _check_kind(kind)
-    p = {"ln1": layers.norm_plan(cfg, cfg.d_model),
-         "attn": attention.attn_plan(cfg, mode)}
+    if kind == "shared_attn":
+        return {}                   # its weights live at the top level
+    p = {"ln1": layers.norm_plan(cfg, cfg.d_model)}
+    if kind in _RECURRENT:
+        p[kind] = _RECURRENT[kind][0](cfg)
+        return p
+    p["attn"] = attention.attn_plan(cfg, mode)
     if kind == "moe":
         p.update(ln2=layers.norm_plan(cfg, cfg.d_model),
                  moe=moe.moe_plan(cfg))
@@ -166,6 +184,9 @@ def model_plan(cfg: ArchConfig, mi: MeshInfo, vpp: int = 1):
             gp = _stage_stack(gp, mi.pp, vpp)
         groups.append(gp)
     plan["groups"] = groups
+    if any(g.kind == "shared_attn" for g in cfg.layer_groups):
+        sp = block_plan(cfg, "attn", mode)
+        plan["shared"] = apply_fsdp(sp, mi.dp) if cfg.fsdp_params else sp
     return plan
 
 
@@ -215,12 +236,20 @@ def add_aux(acc, aux):
 
 def run_block(kind, p, x, cfg, mi, mode, g: BlockGroup, pos,
               phase="train", pos3=None):
-    """One training layer: x [B, S_loc, D] -> (x, its cache {k, v} at
-    ``phase="prefill"`` else ``None``, its MoE aux or ``None``).
-    ``pos3`` are M-RoPE position ids (qwen2-vl)."""
+    """One training layer: x [B, S_loc, D] -> (x, its cache at
+    ``phase="prefill"`` ({k, v}, or a recurrent kind's decode-layout
+    state) else ``None``, its MoE aux or ``None``).  ``pos3`` are M-RoPE
+    position ids (qwen2-vl)."""
     _check_kind(kind)
     want_cache = phase == "prefill"
     cache = aux = None
+    if kind in _RECURRENT:
+        h = layers.norm(p["ln1"], x, cfg, mi)
+        r = _RECURRENT[kind][1](p[kind], h, cfg, mi, sp=True,
+                                want_cache=want_cache)
+        if want_cache:
+            r, cache = r
+        return x + r.to(x.dtype), cache, None
     h = layers.norm(p["ln1"], x, cfg, mi)
     r = attention.attn_train(p["attn"], h, pos, cfg, mi, mode,
                              causal=cfg.causal, window=g.window,
@@ -240,13 +269,21 @@ def run_block(kind, p, x, cfg, mi, mode, g: BlockGroup, pos,
 
 
 def run_group(gp, x, g: BlockGroup, cfg, mi, mode, pos, phase="train",
-              pos3=None):
+              pos3=None, shared=None):
     """The group's ``n`` layers in order -> (x, the layers' caches stacked
-    {k, v} [n, ...] at ``phase="prefill"`` else ``None``, the layers' MoE
-    aux summed or ``None``)."""
+    [n, ...] at ``phase="prefill"`` else ``None``, the layers' MoE aux
+    summed or ``None``).  A ``shared_attn`` group applies ``shared`` (the
+    top-level block) at each insertion; its cache is the first one's,
+    unstacked, as the reference's."""
     if phase not in ("train", "prefill"):
         raise ValueError(f"unknown phase {phase!r}")
     caches, aux = [], None
+    if g.kind == "shared_attn":
+        for _ in range(g.n):
+            x, c, _ = run_block("attn", shared, x, cfg, mi, mode, g, pos,
+                                phase, pos3)
+            caches.append(c)
+        return x, caches[0] if phase == "prefill" else None, None
     for p in _unstack(gp, g.n):
         x, c, a = run_block(g.kind, p, x, cfg, mi, mode, g, pos, phase,
                             pos3)
@@ -254,7 +291,7 @@ def run_group(gp, x, g: BlockGroup, cfg, mi, mode, pos, phase="train",
         aux = add_aux(aux, a)
     if phase == "train":
         return x, None, aux
-    return x, {k: torch.stack([c[k] for c in caches]) for k in ("k", "v")}, \
+    return x, {k: torch.stack([c[k] for c in caches]) for k in caches[0]}, \
         aux
 
 
@@ -264,9 +301,16 @@ def run_group(gp, x, g: BlockGroup, cfg, mi, mode, pos, phase="train",
 
 def decode_block(kind, p, x, cache, index: int, cfg, mi, mode,
                  g: BlockGroup, seq_axes=None, pos3=None):
-    """One layer's single-token decode against its dense cache {k, v}
-    (written in place).  Returns (x, cache)."""
+    """One layer's single-token decode against its dense cache ({k, v},
+    or a recurrent kind's state), written in place.  Returns (x,
+    cache)."""
     _check_kind(kind, "decode of layer kind")
+    if kind in _RECURRENT:
+        h = layers.norm(p["ln1"], x, cfg, mi)
+        r, new = _RECURRENT[kind][2](p[kind], h, cache, cfg, mi)
+        for k, v in new.items():
+            cache[k].copy_(v)
+        return x + r.to(x.dtype), cache
     h = layers.norm(p["ln1"], x, cfg, mi)
     r, cache = attention.attn_decode(p["attn"], h, cache, index, cfg, mi,
                                      mode, window=g.window,
@@ -282,9 +326,16 @@ def decode_block(kind, p, x, cache, index: int, cfg, mi, mode,
 
 
 def decode_group(gp, x, caches, index: int, g: BlockGroup, cfg, mi, mode,
-                 seq_axes=None, pos3=None):
+                 seq_axes=None, pos3=None, shared=None):
     """The group's layers in order, each writing its own slice of the
-    group's stacked caches in place.  Returns (x, caches)."""
+    group's stacked caches in place; a ``shared_attn`` group applies
+    ``shared`` at each insertion against its one unstacked cache.
+    Returns (x, caches)."""
+    if g.kind == "shared_attn":
+        for _ in range(g.n):
+            x, _ = decode_block("attn", shared, x, caches, index, cfg, mi,
+                                mode, g, seq_axes, pos3)
+        return x, caches
     for i in range(g.n):
         x, _ = decode_block(g.kind, layer_slice(gp, i), x,
                             layer_slice(caches, i), index, cfg, mi, mode, g,
@@ -299,8 +350,13 @@ def decode_group(gp, x, caches, index: int, g: BlockGroup, cfg, mi, mode,
 def decode_block_paged(kind, p, x, pool, tables, pos, active, cfg, mi,
                        g: BlockGroup, *, bits, block_tokens, backend=None,
                        pos3=None):
-    """Per-slot decode body against one layer's paged KV pool."""
-    _check_kind(kind, "paged decode of layer kind")
+    """Per-slot decode body against one layer's paged KV pool.  Only the
+    attention-style kinds page (a recurrent state has no KV cache to page:
+    those keep the dense Server)."""
+    if kind not in ("attn", "moe"):
+        raise NotImplementedError(
+            f"paged decode supports attn/moe/shared_attn groups; got "
+            f"{kind!r}")
     h = layers.norm(p["ln1"], x, cfg, mi)
     r, pool = attention.attn_decode_paged(
         p["attn"], h, pool, tables, pos, active, cfg, mi, bits=bits,
@@ -317,9 +373,19 @@ def decode_block_paged(kind, p, x, pool, tables, pos, active, cfg, mi,
 
 
 def decode_group_paged(gp, x, pool, tables, pos, active, g: BlockGroup, cfg,
-                       mi, *, bits, block_tokens, backend=None, pos3=None):
+                       mi, *, bits, block_tokens, backend=None, pos3=None,
+                       shared=None):
     """Run the group's layers in order; each writes its own slice of the
-    group's stacked pool in place.  Returns (x, pool)."""
+    group's stacked pool in place (a ``shared_attn`` group: ``shared``
+    at each insertion against its one unstacked pool).  Returns (x,
+    pool)."""
+    if g.kind == "shared_attn":
+        for _ in range(g.n):
+            x, _ = decode_block_paged("attn", shared, x, pool, tables, pos,
+                                      active, cfg, mi, g, bits=bits,
+                                      block_tokens=block_tokens,
+                                      backend=backend, pos3=pos3)
+        return x, pool
     for i in range(g.n):
         x, _ = decode_block_paged(g.kind, layer_slice(gp, i), x,
                                   layer_slice(pool, i), tables, pos, active,

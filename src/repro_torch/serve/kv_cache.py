@@ -1,6 +1,6 @@
-"""Dense KV cache layouts for the batched server (port of
-``repro.serve.kv_cache`` for the ``attn`` and ``moe`` kinds, whose
-attention caches are alike).
+"""Dense cache layouts for the batched server (port of
+``repro.serve.kv_cache`` for the ``attn``, ``moe`` and ``shared_attn``
+kinds, whose attention caches are alike, and the recurrent kinds).
 
 Every shape here is this rank's LOCAL shape; the spec beside it tags each
 dim as the reference's ``PartitionSpec`` does (``"data"`` for the batch
@@ -13,24 +13,38 @@ can find the counterpart.  The reference's global layouts:
   decode, attn(head)  k/v [L, B, S_max, KV, hd]  P(None, bs, None, model, None)
                       the KV heads sharded over the model axes
 
+  shared_attn         k/v [B, S_max, KV, hd]     one insertion point, unstacked
+  mamba               conv [L, B, K-1, d_inner]   P(None, bs, None, model)
+                      state [L, B, H, P, N] f32  P(None, bs, model, None, None)
+  mlstm               C [L, B, H, Pv, hd] f32    P(None, bs, None, model, None)
+                      n [L, B, H, hd] f32        replicated over model
+  slstm               h/c/n/m [L, B, H, hd] f32  replicated over model
+
 with ``bs`` the batch axes, or ``None`` for a batch of one (replicated).
-Prefill emits its caches in the TRAINING layout (``prefill_cache_specs``):
-ring mode this rank's sequence slice of every head, head mode the whole
-sequence of this rank's heads;
+Prefill emits its attention caches in the TRAINING layout
+(``prefill_cache_specs``): ring mode this rank's sequence slice of every
+head, head mode the whole sequence of this rank's heads;
 :meth:`~repro_torch.serve.serve_step.Server.pad_prefill_caches` moves them
-into the decode layout.  Recurrent, cross-attention and shared-attention
-caches are not yet ported.
+into the decode layout.  A recurrent block's prefill hands over its final
+state already in the decode layout.  Cross-attention caches are not yet
+ported.
 """
 
 from __future__ import annotations
+
+import torch
 
 from repro_torch.models.config import ArchConfig, BlockGroup
 from repro_torch.models.params import MeshInfo, torch_dtype
 from repro_torch.serve.paged_kv import Struct, zero_pool
 
 
+_STATE_KINDS = ("mamba", "mlstm", "slstm")
+_KINDS = ("attn", "moe", "shared_attn") + _STATE_KINDS
+
+
 def _check_kind(g: BlockGroup) -> None:
-    if g.kind not in ("attn", "moe"):
+    if g.kind not in _KINDS:
         raise NotImplementedError(
             f"dense KV cache of group kind {g.kind!r} is not yet ported")
 
@@ -50,25 +64,66 @@ def _bs(B: int):
     return None if B == 1 else "data"
 
 
+def _value_width(cfg) -> int:
+    """An mLSTM head's value width ``Pv``."""
+    return int(cfg.proj_factor * cfg.d_model) // cfg.n_heads
+
+
+def _state_specs(cfg, kind: str, bs, tp: int) -> dict:
+    """Specs of a recurrent kind's state, which the prefill hands over in
+    the decode layout: a mamba layer's conv tail and state sharded on
+    their channels and heads, an mLSTM's ``C`` on its value dim where that
+    divides by tp (``n`` replicated), an sLSTM's state replicated."""
+    if kind == "mamba":
+        return {"conv": (None, bs, None, "model"),
+                "state": (None, bs, "model", None, None)}
+    if kind == "mlstm":
+        c = "model" if _value_width(cfg) % tp == 0 and tp > 1 else None
+        return {"C": (None, bs, None, c, None), "n": (None, bs, None, None)}
+    return {k: (None, bs, None, None) for k in "hcnm"}
+
+
 def group_cache(cfg: ArchConfig, mi: MeshInfo, g: BlockGroup, B: int,
                 s_max: int, mode: str, dtype=None):
     """-> (struct tree, spec tree) of one group's stacked decode caches."""
     _check_kind(g)
     dt = torch_dtype(dtype or cfg.dtype)
-    hd, KV, L = cfg.head_dim_, cfg.n_kv_heads, g.n
+    f32 = torch.float32
+    hd, KV, L, tp = cfg.head_dim_, cfg.n_kv_heads, g.n, mi.tp
     b = batch_local(B, mi)
+    bs = _bs(B)
+    if g.kind in _STATE_KINDS:
+        spec = _state_specs(cfg, g.kind, bs, tp)
+        if g.kind == "mamba":
+            di, P = cfg.d_inner, cfg.ssm_head_dim
+            shapes = {"conv": ((L, b, cfg.conv_kernel - 1, di // tp), dt),
+                      "state": ((L, b, di // P // tp, P, cfg.ssm_state),
+                                f32)}
+        elif g.kind == "mlstm":
+            Pv = _value_width(cfg)
+            if Pv % tp:
+                raise ValueError(f"mlstm cache needs its value width per "
+                                 f"head ({Pv}) divisible by tp ({tp})")
+            shapes = {"C": ((L, b, cfg.n_heads, Pv // tp, hd), f32),
+                      "n": ((L, b, cfg.n_heads, hd), f32)}
+        else:
+            shapes = {k: ((L, b, cfg.n_heads, cfg.d_model // cfg.n_heads),
+                          f32) for k in "hcnm"}
+        return {k: Struct(*v) for k, v in shapes.items()}, spec
     if mode == "head":
         if KV % mi.tp:
             raise ValueError(f"head-mode cache needs n_kv_heads ({KV}) "
                              f"divisible by tp ({mi.tp})")
         shape = (L, b, s_max, KV // mi.tp, hd)
-        spec = (None, _bs(B), None, "model", None)
+        spec = (None, bs, None, "model", None)
     else:
         if s_max % mi.tp:
             raise ValueError(f"ring-mode cache needs s_max ({s_max}) "
                              f"divisible by tp ({mi.tp})")
         shape = (L, b, s_max // mi.tp, KV, hd)
-        spec = (None, _bs(B), "model", None, None)
+        spec = (None, bs, "model", None, None)
+    if g.kind == "shared_attn":         # one insertion point, unstacked
+        shape, spec = shape[1:], spec[1:]
     return ({"k": Struct(shape, dt), "v": Struct(shape, dt)},
             {"k": spec, "v": spec})
 
@@ -91,14 +146,21 @@ def zero_caches(structs, device):
 
 
 def prefill_cache_specs(cfg: ArchConfig, mi: MeshInfo, B: int):
-    """Specs of ``Model.forward(phase="prefill")``'s caches (the training
-    layout): ring mode the sequence dim over the model axes (this rank's
-    slice), head mode the heads dim."""
+    """Specs of ``Model.forward(phase="prefill")``'s caches: an attention
+    cache in the training layout (ring mode the sequence dim over the
+    model axes, this rank's slice; head mode the heads dim), a recurrent
+    state in the decode layout (:func:`_state_specs`)."""
     mode = cfg.attn_mode_for(mi.tp)
-    kv = (None, _bs(B), None, "model", None) if mode == "head" else \
-        (None, _bs(B), "model", None, None)
+    bs = _bs(B)
+    kv = (None, bs, None, "model", None) if mode == "head" else \
+        (None, bs, "model", None, None)
     out = []
     for g in cfg.layer_groups:
         _check_kind(g)
-        out.append({"k": kv, "v": kv})
+        if g.kind in _STATE_KINDS:
+            out.append(_state_specs(cfg, g.kind, bs, mi.tp))
+        elif g.kind == "shared_attn":
+            out.append({"k": kv[1:], "v": kv[1:]})
+        else:
+            out.append({"k": kv, "v": kv})
     return out

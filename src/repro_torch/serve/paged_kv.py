@@ -41,6 +41,10 @@ from repro_torch.models.params import MeshInfo, torch_dtype
 
 DEFAULT_BLOCK_TOKENS = 16
 
+# the kinds whose caches page (the reference's list): a recurrent state
+# has no KV cache to page, so those stacks keep the dense Server
+_PAGED_KINDS = ("attn", "moe", "shared_attn")
+
 
 def storage_bits(codec: str) -> int | None:
     """KV storage codec -> bq mantissa bits (None = dense, bit-exact).
@@ -129,10 +133,13 @@ class Struct:
 def pool_group(cfg: ArchConfig, mi: MeshInfo, g: BlockGroup, n_blocks: int,
                block_tokens: int, codec: str = "none"):
     """-> struct tree for this rank's share of one layer group's paged
-    pool (``n_blocks`` is the GLOBAL pool size, as in the reference)."""
-    if g.kind not in ("attn", "moe"):
+    pool (``n_blocks`` is the GLOBAL pool size, as in the reference); a
+    ``shared_attn`` group's pool is unstacked (one insertion point)."""
+    if g.kind not in _PAGED_KINDS:
         raise NotImplementedError(
-            f"paged KV cache of group kind {g.kind!r} is not yet ported")
+            f"paged KV cache supports attention-style groups "
+            f"{_PAGED_KINDS}; group kind {g.kind!r} needs the dense-cache "
+            f"Server")
     dt = torch_dtype(cfg.dtype)
     hd, KV = cfg.head_dim_, cfg.n_kv_heads
     if KV % mi.tp:
@@ -142,13 +149,14 @@ def pool_group(cfg: ArchConfig, mi: MeshInfo, g: BlockGroup, n_blocks: int,
         raise ValueError(f"n_blocks ({n_blocks}) must divide by the data "
                          f"ways ({mi.batch_ways})")
     bits = storage_bits(codec)
-    L, bt, nb, kv = g.n, block_tokens, n_blocks // mi.batch_ways, KV // mi.tp
+    bt, nb, kv = block_tokens, n_blocks // mi.batch_ways, KV // mi.tp
+    L = () if g.kind == "shared_attn" else (g.n,)
     if bits is None:
-        return {"k": Struct((L, nb, bt, kv, hd), dt),
-                "v": Struct((L, nb, bt, kv, hd), dt)}
+        return {"k": Struct(L + (nb, bt, kv, hd), dt),
+                "v": Struct(L + (nb, bt, kv, hd), dt)}
     r = token_rows(kv, hd)
     layout = codecs.get(codec).storage_row_layout()
-    plane = {pl: Struct((L, nb, bt, r, w), d)
+    plane = {pl: Struct(L + (nb, bt, r, w), d)
              for pl, (w, d) in layout.items()}
     plane.setdefault("q_lo", None)
     return {"k": dict(plane), "v": dict(plane)}

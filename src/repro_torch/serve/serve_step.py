@@ -85,10 +85,11 @@ class Server:
             pos3 = torch.full((token.shape[0], 1, 3), index,
                               dtype=torch.int32, device=token.device) \
                 if cfg.mrope else None
+            shared = model.shared_params(params)
             for i, g in enumerate(cfg.layer_groups):
                 x, caches[i] = transformer.decode_group(
                     model.group_params(params, i), x, caches[i], index, g,
-                    cfg, mi, model.mode, self.seq_axes, pos3)
+                    cfg, mi, model.mode, self.seq_axes, pos3, shared)
             x = layers.norm(params["final_norm"], x, cfg, mi)
             logits = layers.lm_head_logits(params, x, cfg, mi, sp=False)
             tok = greedy_token(logits, cfg, mi)
@@ -101,12 +102,16 @@ class Server:
     def pad_prefill_caches(self, caches, B: int, s_max: int):
         """Prefill caches -> zero-padded decode-layout caches (new tensors).
 
-        Head mode: the prefill cache already holds the whole sequence of
-        this rank's heads; it is padded to ``s_max``.  Ring mode: the
-        decode shard of model rank ``t`` covers ``[t, t + 1) * s_max /
-        tp``, not its prefill slice ``[t, t + 1) * S / tp``, so the
-        slices are gathered over the model axes first, uncompressed and
-        outside the ledger (the reference pads on the host)."""
+        An attention cache's ``k`` and ``v`` ([L, B, S, KV, hd], or [B, S,
+        KV, hd] unstacked for a shared block) are padded on their sequence
+        dim.  Head mode: the prefill cache already holds the whole
+        sequence of this rank's heads; it is padded to ``s_max``.  Ring
+        mode: the decode shard of model rank ``t`` covers ``[t, t + 1) *
+        s_max / tp``, not its prefill slice ``[t, t + 1) * S / tp``, so
+        the slices are gathered over the model axes first, uncompressed
+        and outside the ledger (the reference pads on the host).  A
+        recurrent state has no sequence dim: prefill emits it in the
+        decode layout, and it is copied as it is."""
         cfg, mi = self.model.cfg, self.model.mi
         structs, specs = self.cache_structs(B, s_max)
         pre_specs = kv_cache.prefill_cache_specs(cfg, mi, B)
@@ -115,14 +120,22 @@ class Server:
             new = {}
             for k, s in st.items():
                 a = pc[k]
-                if psp[k][2] == "model":          # the prefill's slice
-                    a = comms.raw_all_gather(a, mi.tp_axes, 2)
-                full = torch.zeros(a.shape[:2] + (s_max,) + a.shape[3:],
+                if k not in ("k", "v"):           # recurrent state
+                    if tuple(a.shape) != tuple(s.shape):
+                        raise ValueError(f"prefill state {k} of shape "
+                                         f"{tuple(a.shape)}, decode wants "
+                                         f"{tuple(s.shape)}")
+                    new[k] = a.to(s.dtype).clone()
+                    continue
+                d = a.dim() - 3                   # the sequence dim
+                if psp[k][d] == "model":          # the prefill's slice
+                    a = comms.raw_all_gather(a, mi.tp_axes, d)
+                full = torch.zeros(a.shape[:d] + (s_max,) + a.shape[d + 1:],
                                    dtype=s.dtype, device=a.device)
-                full[:, :, :a.shape[2]] = a
-                if sp[k][2] == "model":           # the decode shard
-                    lo = mi.tp_axes.index * s.shape[2]
-                    full = full[:, :, lo:lo + s.shape[2]].clone()
+                full.narrow(d, 0, a.shape[d]).copy_(a)
+                if sp[k][d] == "model":           # the decode shard
+                    lo = mi.tp_axes.index * s.shape[d]
+                    full = full.narrow(d, lo, s.shape[d]).clone()
                 new[k] = full
             out.append(new)
         return out
@@ -177,12 +190,13 @@ class PagedServer:
             # M-RoPE (qwen2-vl): each slot's sections at its position
             pos3 = pos.to(torch.int32)[:, None, None].expand(
                 token.shape[0], 1, 3) if cfg.mrope else None
+            shared = model.shared_params(params)
             for i, g in enumerate(cfg.layer_groups):
                 x, pool[i] = transformer.decode_group_paged(
                     model.group_params(params, i), x, pool[i], tables, pos,
                     active, g, cfg, mi, bits=self.bits,
                     block_tokens=self.block_tokens, backend=self.backend,
-                    pos3=pos3)
+                    pos3=pos3, shared=shared)
             x = layers.norm(params["final_norm"], x, cfg, mi)
             logits = layers.lm_head_logits(params, x, cfg, mi, sp=False)
             return greedy_token(logits, cfg, mi), pool

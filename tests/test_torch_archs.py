@@ -1,7 +1,8 @@
 """The port's other dense decoders (qwen2-72b, gemma3-4b, minitron-4b,
-qwen2-vl-72b) and its Mixture-of-Experts decoders (qwen3-moe-235b-a22b,
-kimi-k2-1t-a32b) beside gemma3-1b, against the reference, at
-``--reduced`` on one device.
+qwen2-vl-72b), its Mixture-of-Experts decoders (qwen3-moe-235b-a22b,
+kimi-k2-1t-a32b) and its recurrent families (zamba2-1.2b, xlstm-1.3b)
+beside gemma3-1b, against the reference, at ``--reduced`` on one
+device.
 
 Contract asserted here, with the tolerances and their reasons:
   * for each ported architecture, on the reference's weights
@@ -31,8 +32,9 @@ import pytest
 from repro_torch import configs as tconfigs
 
 PORTED = ("gemma3-1b", "qwen2-72b", "gemma3-4b", "minitron-4b",
-          "qwen2-vl-72b", "qwen3-moe-235b-a22b", "kimi-k2-1t-a32b")
-NOT_YET = ("whisper-base", "xlstm-1.3b", "zamba2-1.2b")
+          "qwen2-vl-72b", "qwen3-moe-235b-a22b", "kimi-k2-1t-a32b",
+          "zamba2-1.2b", "xlstm-1.3b")
+NOT_YET = ("whisper-base",)
 
 
 def test_registry_splits_ported_and_not_yet():
@@ -77,10 +79,15 @@ def test_full_config_dims(arch):
         "qwen2-vl-72b": (80, 8192, 64, 8, 29568, 152064),
         "qwen3-moe-235b-a22b": (94, 4096, 64, 4, 0, 151936),
         "kimi-k2-1t-a32b": (61, 7168, 64, 8, 18432, 163840),
+        "zamba2-1.2b": (38, 2048, 32, 32, 8192, 32000),
+        "xlstm-1.3b": (48, 2048, 4, 4, 0, 50304),
     }[arch]
     assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
             cfg.d_ff, cfg.vocab_size) == brief
-    assert sum(g.n for g in cfg.layer_groups) == cfg.n_layers
+    # zamba2's shared-attention insertions are groups, not layers (as the
+    # reference's test_full_config_dims counts them)
+    shared = sum(1 for g in cfg.layer_groups if g.kind == "shared_attn")
+    assert sum(g.n for g in cfg.layer_groups) == cfg.n_layers + shared
 
 
 def test_param_counts_plausible():
@@ -96,7 +103,8 @@ def test_param_counts_plausible():
               "gemma3-4b": (3e9, 5.5e9), "minitron-4b": (3e9, 5.5e9),
               "qwen2-vl-72b": (60e9, 85e9),
               "qwen3-moe-235b-a22b": (220e9, 250e9),
-              "kimi-k2-1t-a32b": (0.9e12, 1.1e12)}
+              "kimi-k2-1t-a32b": (0.9e12, 1.1e12),
+              "zamba2-1.2b": (0.8e9, 2.0e9), "xlstm-1.3b": (0.8e9, 2.0e9)}
     for arch, (lo, hi) in bounds.items():
         n = sum(d.size() for d in defs(transformer.model_plan(
             tconfigs.get(arch), MeshInfo())))
