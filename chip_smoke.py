@@ -11,6 +11,7 @@
     python3 chip_smoke.py --zero3-only # phase 1 and phase 13
     python3 chip_smoke.py --moe-only   # phase 1 and phase 14
     python3 chip_smoke.py --recurrent-only  # phase 1 and phase 15
+    python3 chip_smoke.py --encdec-only     # phase 1 and phase 16
 
 ``--bq-only`` prints the bq kernels' timings and those of the fused TP
 all-gather, TP reduce-scatter and KV-read ops beside the compositions
@@ -75,9 +76,9 @@ versions and with a dense pool, and requires identical tokens and pool
 planes between the first two and the bq8 error bound against the third,
 and the KV read through the fused form only.
 Phase 4 drives the main path: the compressed ZeRO-1, Megatron-SP training
-step of gemma3-1b at full published width, its first 13 layers (the
-5:1 local:global pattern kept; all 26 until phase 13 came in; bf16
-weights from a seed), 5 steps at dp 2 x tp 2 (four ranks sharing the card, exchanging
+step of gemma3-1b at full published width, its first 6 layers (one
+5:1 local:global block; all 26 until phase 13 came in, 13 until phase 16
+did; bf16 weights from a seed), 5 steps at dp 2 x tp 2 (four ranks sharing the card, exchanging
 through gloo), sequence 1024, global batch 4, under zhybrid_16_8 through
 the kernels, through their plain versions, and under baseline, with
 deterministic algorithms and TF32 off and the exchanges timed (a device
@@ -276,10 +277,11 @@ ranks after phase 14, bf16 random weights from seed 0, sequence 1024,
 global batch 4, ``--dp 2 --tp 2`` under zhybrid_16_8, 2 steps: 15a
 zamba2-1.2b at full published width (d 2048, d_inner 4096, 64 SSM heads
 of 64, state 64, conv kernel 4; the shared block's 32 q and kv heads of
-64 and swiglu MLP of 8192; vocab 32000, tied), its first two ``[6 x
-mamba, shared_attn]`` blocks (12 mamba layers, the shared block applied
-twice; ``depth``: ``ArchConfig.truncated`` keeps whole hybrid blocks),
-through the kernels; 15b the same through the plain versions; 15c and
+64 and swiglu MLP of 8192; vocab 32000, tied), its first ``[6 x
+mamba, shared_attn]`` block (6 mamba layers, the shared block applied
+once; 12 and twice until phase 16 came in; ``depth``:
+``ArchConfig.truncated`` keeps whole hybrid blocks), through the
+kernels; 15b the same through the plain versions; 15c and
 15d xlstm-1.3b at full published width (d 2048, 4 heads of 512, value
 width 4096, LayerNorm; vocab 50304, tied), its first 8 layers (7 mLSTM,
 1 sLSTM), kernels and plain (``B_loc`` 2 at tp 2: the sLSTM's all-to-all
@@ -297,6 +299,29 @@ memory, staging share, the priced and measured MB per ``dim/level``
 beside the reckoning, the sites' launches, the prefill seconds and
 decode ms per step, and the phase's seconds.
 
+Phase 16 drives the encoder-decoder family in phase 9's world of four
+ranks after phase 15: whisper-base at its full published width and
+depth (6 encoder and 6 decoder layers, d 512, 8 q and 8 kv heads of 64,
+so head attention at tp 2; d_ff 2048 gelu, LayerNorm; vocab 51865 padded
+to 51968, tied), bf16 random weights from seed 0, sequence 448 (the
+decoder's context) with stub frames of the same length (the reference
+ties them: the one cut), global batch 4, ``--dp 2 --tp 2`` under
+zhybrid_16_8: 16a 2 steps through the kernels, 16b the same through the
+plain versions, 16c the batched dense Server, 4 prompts of 432 tokens
+plus 16 generated (s_max 448), the frames from the seed, kernels and
+plain.  It requires 16a equal to 16b (losses, grad norms, ledger per dim
+and ``dim/level``), finite losses, ``tp@attn_cross_kv``'s priced bytes
+equal to their reckoning (``encdec_reckoned``: each decoder layer
+gathers the encoder's [2, 224, 512] slice, ``tp - 1`` hops forward and
+back), the flat encode and decode launched at that gather's rows, 16c's
+kernel run equal to its plain run (tokens, every cache leaf after the
+prefill and at the end by sha256, the cross-attention's ``xk``, ``xv``
+and ``xlen`` among them), nothing launched in the plain runs and no
+rank importing jax or repro; it prints ms/step, tokens/s, peak memory,
+staging share, the priced and measured MB per ``dim/level`` beside the
+reckoning, the launches at the cross gather's rows, the prefill seconds,
+decode ms per step and generated tokens/s, and the phase's seconds.
+
 After phase 8, a fresh process (this script with ``--reckon FILE``, which
 the script starts itself) times each (kernel, rows, rate) that phase 4's
 kernel run launched, at its shape, and reckons launches x (time - bound)
@@ -310,7 +335,8 @@ their flat form, the encode and decode-add with the TP reduce-scatter's
 view forms, the gather-decode's times those of the fused KV read, and
 the bq kernels with the per-shape reckoning, phase 10's launches by
 rate and level, phase 13's at the zero site, phase 14's at the ep
-sites and phase 15's at the recurrent sites) and the card line; the last
+sites, phase 15's at the recurrent sites and phase 16's at the cross
+gather's rows) and the card line; the last
 line is the result JSON.  Any failure exits non-zero;
 without a card, or outside a checkout, it fails before printing a result.
 """
@@ -342,12 +368,14 @@ MAIN_BITS = 8                 # the serving pool is bq8
 # came in
 SLOTS, BLOCK_TOKENS, PROMPT, GEN, SEED = 4, 16, 560, 8, 0
 SERVE_LAYERS = 6
-# main path: the training step at full width, its first 13 layers (two
-# 5:1 local:global blocks and a local layer, the pattern kept; all 26 until
-# phase 13 came in: at 26 phase 4 took 151.3 s and phase 6, on the same
-# step, 102.7 s of the script's 1047.1 s)
+# main path: the training step at full width, its first 6 layers (one
+# 5:1 local:global block, the pattern kept; all 26 until phase 13 came in:
+# at 26 phase 4 took 151.3 s and phase 6, on the same step, 102.7 s of the
+# script's 1047.1 s; 13 until phase 16 came in: at 13 phase 4 took 128.3
+# s, phase 6 91.0 s and phase 2's block-form checks, at phase 4's ring
+# rows, 75.5 s of 1199.7 on a slow host)
 DP, TP, STEPS, SEQ, GLOBAL_BATCH = 2, 2, 5, 1024, 4
-MAIN_DEPTH = 13
+MAIN_DEPTH = 6
 RING_WORLD = 4                # phase 5's data axis
 STATEFUL_STEPS = 4            # phase 6
 PLR = ["--codec-for", "dp@zero1_grad*=plr8"]
@@ -568,14 +596,38 @@ MOE_EP_ROWS = 2 * (MOE_EXPERTS * 640 * 4096 // 2) // 128
 # left of its 1200): zamba2's first two [6 x mamba, shared_attn] blocks
 # (12 of its 38 mamba layers, the shared block applied twice) and
 # xLSTM's first 8 layers (7 mLSTM, 1 sLSTM: one of its six blocks).
+# zamba2's depth was cut to its first whole [6 x mamba, shared_attn] block
+# (6 mamba layers, the shared block once) when phase 16 came in.
 # (train label, plain label, arch, depth); 15e serves each at its depth
-REC_RUNS = (("15a", "15b", "zamba2-1.2b", 12),
+REC_RUNS = (("15a", "15b", "zamba2-1.2b", 6),
             ("15c", "15d", "xlstm-1.3b", 8))
 REC_SCHEME, REC_STEPS = "zhybrid_16_8", 2
 REC_DP, REC_TP = 2, 2
 REC_FLAGS = ("--dp", str(REC_DP), "--tp", str(REC_TP))
 REC_SERVE = dict(mode="batched", dp=REC_DP, tp=REC_TP, scheme=REC_SCHEME,
                  batch=4)
+
+
+# phase 16: the encoder-decoder family in phase 9's world of four ranks
+# after phase 15: whisper-base at its full published width and depth (6
+# encoder and 6 decoder layers, d 512, 8 q and 8 kv heads of 64, so head
+# attention at tp 2; d_ff 2048 gelu, LayerNorm; vocab 51865 padded to
+# 51968, tied; 70.7 M parameters), bf16, seed 0.  The sequence is
+# whisper's decoder context, 448 tokens (n_text_ctx); the stub frames have
+# the same length, since the reference's backbone ties the encoder's
+# length to the decoder's (``encoder_seq`` 0): the one cut (whisper's
+# encoder takes 1500 frames).  16a ``--dp 2 --tp 2`` under zhybrid_16_8,
+# global batch 4, 2 steps, through the kernels; 16b the same through the
+# plain versions; 16c the batched Server at ``--dp 2 --tp 2``, 4 prompts
+# of 432 tokens plus 16 generated (s_max 448), the frames from the seed,
+# kernels and plain.
+ENC_ARCH, ENC_SEQ, ENC_STEPS, ENC_SCHEME = "whisper-base", 448, 2, \
+    "zhybrid_16_8"
+ENC_DP, ENC_TP = 2, 2
+ENC_FLAGS = ("--dp", str(ENC_DP), "--tp", str(ENC_TP), "--seq",
+             str(ENC_SEQ))
+ENC_SERVE = dict(mode="batched", dp=ENC_DP, tp=ENC_TP, scheme=ENC_SCHEME,
+                 batch=4, prompt_len=432, gen=16, depth=0)
 
 
 # a bq kernel's wrappers: its block form and the flat and view forms that
@@ -854,12 +906,15 @@ def division_rows(torch, m: int, seed: int):
 
 
 def test_rows(torch, m: int, seed: int):
-    g = torch.Generator().manual_seed(seed)
-    x = torch.randn(m, 128, generator=g) * 10
+    """m rows of normals x 10 drawn on the card (drawn on the host until
+    phase 16 came in: 13 M rows a rate, most of phase 2's block-form
+    checks), the first ones ``special_rows``."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(m, 128, generator=g, device="cuda") * 10
     sp = special_rows(torch)
     k = min(m, sp.shape[0])
-    x[:k] = sp[:k]
-    return x.cuda()
+    x[:k] = sp[:k].cuda()
+    return x
 
 
 def max_diff(a, b) -> float:
@@ -1056,7 +1111,7 @@ def time_decode(torch, m, bits, iters=50):
                             m * 128)
 
 
-def time_gather(torch, bits, n_blocks, serve):
+def time_gather(torch, bits, n_blocks, serve, iters=50):
     """Gather-decode of every block of an ``n_blocks`` pool in a SLOTS-row
     table; ``serve`` = (rows per token, rows per pool block, -)."""
     from repro_torch.kernels import ops
@@ -1070,8 +1125,8 @@ def time_gather(torch, bits, n_blocks, serve):
     uniq = int(torch.unique(idx).numel()) * rpb
     return timings(
         torch, lambda: ops.bq_gather_decode(pool, idx, bits),
-        lambda: ops.bq_gather_decode(pool, idx, bits, backend="torch")
-    ), bound(idx.numel() * 4 + uniq * row_bytes(torch, bits)
+        lambda: ops.bq_gather_decode(pool, idx, bits, backend="torch"),
+        iters), bound(idx.numel() * 4 + uniq * row_bytes(torch, bits)
              + rows * 128 * 4, rows * 128)
 
 
@@ -1149,19 +1204,21 @@ def time_bq(torch, card, rows, serve):
          *time_decode(torch, DP * zm, 16, **big))
     torch.cuda.empty_cache()
     # at 65536 rows, the pool's rate (every rate in BITS until phase 13
-    # came in; the script's time)
+    # came in; the script's time), 10 graph calls and 20 eager calls a
+    # timing (50 and 100 until phase 16 came in)
+    few = dict(iters=10)
     for bits in (MAIN_BITS,):
         show(card, "bq_encode", bits, "65536 rows",
-             *time_encode(torch, 65536, bits))
+             *time_encode(torch, 65536, bits, **few))
         show(card, "bq_decode", bits, "65536 rows",
-             *time_decode(torch, 65536, bits))
+             *time_decode(torch, 65536, bits, **few))
         show(card, "bq_gather_decode", bits, "65536 rows",
-             *time_gather(torch, bits, 65536 // serve[1], serve))
+             *time_gather(torch, bits, 65536 // serve[1], serve, **few))
         for kind, name in (("sum", "bq_decode_add_encode"),
                            ("wire", "bq_decode_add_encode_wire"),
                            ("add", "bq_decode_add")):
             show(card, name, bits, "65536 rows",
-                 *time_fused(torch, kind, 65536, bits))
+                 *time_fused(torch, kind, 65536, bits, **few))
     torch.cuda.empty_cache()
     return path, block_kms
 
@@ -1766,6 +1823,7 @@ def train_runs(card, runs: list) -> list:
         kws.append(train.rank_kwargs(args, backend=r["backend"],
                                      deterministic=True, time_staging=True,
                                      **r["kw"]))
+        r["tokens"] = args.global_batch * args.seq
         worlds.add(args.dp * args.cp * args.pp * args.tp)
     if len(worlds) != 1:
         fail(f"runs of one world need one world size, got {worlds}")
@@ -1789,7 +1847,7 @@ def train_runs(card, runs: list) -> list:
         print(f"  {r['label']}: losses {res[0]['losses']} grad norms "
               f"{[round(g, 6) for g in res[0]['grad_norms']]}; median "
               f"{ms:.1f} ms/step (steps {k + 1}-{r['steps']}, slowest "
-              f"rank), {GLOBAL_BATCH * SEQ / (ms / 1e3):.0f} tokens/s, peak "
+              f"rank), {r['tokens'] / (ms / 1e3):.0f} tokens/s, peak "
               f"{[round(x['peak_bytes'] / 2**30, 2) for x in res]} GiB per "
               f"rank, staging+exchange {min(share) * 100:.0f}-"
               f"{max(share) * 100:.0f} % of step time, "
@@ -1821,15 +1879,16 @@ def drive_hier(torch, card, only: str | None = None) -> tuple:
     ``--tp-nodes``, 9c ``--pp-nodes``) in one world of four ranks, through
     the kernels and (9a, 9b) the plain versions, then phase 10, the tuned
     step, phase 11, context parallelism, phase 12, serving, phase 13,
-    gemma3-4b with ZeRO-3, phase 14, qwen3-moe, and phase 15, the
-    recurrent families, in the same world (:func:`check_tune`,
-    :func:`check_cp`, :func:`check_serve`, :func:`check_zero3`,
-    :func:`check_moe`, :func:`check_recurrent`); returns each phase 9
-    run's launches per kernel and level (all ranks) and its numbers, phase
-    10's, 11's, 12's, 13's, 14's and 15's.  ``only="cp"`` runs phase 11
-    alone, ``only="serve"`` phase 12 alone, ``only="zero3"`` phase 13
-    alone, ``only="moe"`` phase 14 alone, ``only="recurrent"`` phase 15
-    alone."""
+    gemma3-4b with ZeRO-3, phase 14, qwen3-moe, phase 15, the recurrent
+    families, and phase 16, whisper-base, in the same world
+    (:func:`check_tune`, :func:`check_cp`, :func:`check_serve`,
+    :func:`check_zero3`, :func:`check_moe`, :func:`check_recurrent`,
+    :func:`check_encdec`); returns each phase 9 run's launches per kernel
+    and level (all ranks) and its numbers, phase 10's, 11's, 12's, 13's,
+    14's, 15's and 16's.  ``only="cp"`` runs phase 11 alone,
+    ``only="serve"`` phase 12 alone, ``only="zero3"`` phase 13 alone,
+    ``only="moe"`` phase 14 alone, ``only="recurrent"`` phase 15 alone,
+    ``only="encdec"`` phase 16 alone."""
     runs, names = [], []
     for name, scheme, steps, flags, plain, depth in \
             tuple(r + (0,) for r in (() if only else HIER_RUNS)) \
@@ -1889,6 +1948,16 @@ def drive_hier(torch, card, only: str | None = None) -> tuple:
                 runs.append(serve_run(f"15e {arch}", backend, arch=arch,
                                       depth=depth, **REC_SERVE))
                 names.append((f"15e {arch}", backend))
+    if only in (None, "encdec"):
+        for backend in (None, "torch"):
+            label = "16a kernels" if backend is None else "16b plain"
+            runs.append(run(label, ENC_SCHEME, backend, ENC_STEPS, ENC_FLAGS,
+                            dp=1, tp=1, arch=ENC_ARCH))
+            names.append(("16", backend))
+        for backend in (None, "torch"):
+            runs.append(serve_run("16c", backend, arch=ENC_ARCH,
+                                  **ENC_SERVE))
+            names.append(("16c", backend))
     t0 = time.perf_counter()
     res = dict(zip(names, train_runs(card, runs)))
     wall = time.perf_counter() - t0
@@ -1906,8 +1975,16 @@ def drive_hier(torch, card, only: str | None = None) -> tuple:
             for b in (None, "torch"))
         print(f"phase 15: {rec['seconds']:.1f} s of steps and serving "
               f"(rank 0) of the world's {wall:.1f} s [{card}]")
+    enc = check_encdec(card, res) if only in (None, "encdec") else {}
+    if enc:
+        # phase 16's runs' own seconds in the world
+        enc["seconds"] = sum(sum(res[("16", b)][0]["step_s"])
+                             + res[("16c", b)][0]["wall_s"]
+                             for b in (None, "torch"))
+        print(f"phase 16: {enc['seconds']:.1f} s of steps and serving "
+              f"(rank 0) of the world's {wall:.1f} s [{card}]")
     if only:
-        return {}, {}, cp, serve, z3, moe, rec
+        return {}, {}, cp, serve, z3, moe, rec, enc
     out = {}
     for name, scheme, steps, flags, plain in HIER_RUNS:
         k = res[(name, None)]
@@ -1955,7 +2032,7 @@ def drive_hier(torch, card, only: str | None = None) -> tuple:
                      "per_dim_level": r0["priced_per_dim_level"],
                      "link_bytes": r0["link_bytes"]}
     return out, check_tune(card, res[("10", None)], res[("10", "torch")]), \
-        cp, serve, z3, moe, rec
+        cp, serve, z3, moe, rec, enc
 
 
 def paged_prompts() -> list:
@@ -2438,6 +2515,22 @@ def rec_reckoned(cfg, b_loc: int, s_loc: int, tp: int, wire) -> dict:
     return out
 
 
+def encdec_reckoned(cfg, b_loc: int, s_loc: int, tp: int, wire) -> dict:
+    """``tp@attn_cross_kv``'s priced bytes per rank per training step of
+    ``cfg`` (an encoder-decoder) at ``b_loc`` rows and ``s_loc`` encoder
+    frames a rank over ``tp`` model ranks, reckoned by hand; ``wire(n)``
+    is the codec's wire bytes for n values.  In head mode each decoder
+    layer's cross-attention all-gathers the encoder's output [B, S_enc /
+    tp, D]: ``tp - 1`` ring hops of this rank's slice forward, and as many
+    of the same slice in its backward reduce-scatter.  Ring mode gathers
+    the projected K/V at ``tp@attn_kv`` instead: nothing here."""
+    n = 0.0
+    if tp > 1 and cfg.attn_mode_for(tp) == "head":
+        dec = sum(g.n for g in cfg.layer_groups if g.kind == "dec_attn")
+        n = dec * 2 * (tp - 1) * wire(b_loc * s_loc * cfg.d_model)
+    return {"tp@attn_cross_kv": float(n)}
+
+
 def rec_site_rows(cfg, b_loc: int, s_loc: int, tp: int) -> dict:
     """Wire rows of the recurrent sites' encodes and decodes: the state
     prefix's state payload and the conv halo on the flat forms (one
@@ -2460,6 +2553,149 @@ def rec_site_rows(cfg, b_loc: int, s_loc: int, tp: int) -> dict:
     if "slstm" in kinds:
         out["ep@slstm_transpose"] = ("block", tp * padded_rows(
             b_loc * s_loc * cfg.d_model // tp))
+    return out
+
+
+def check_encdec(card, res: dict) -> dict:
+    """Phase 16: whisper-base's training run through the kernels (16a)
+    equal to its plain run (16b) in losses, grad norms and the ledger
+    (measured per dim, priced per dim and per ``dim/level``), finite
+    losses, ``tp@attn_cross_kv``'s priced bytes equal to
+    :func:`encdec_reckoned`, the flat encode and decode launched at the
+    cross gather's rows (the encoder's slice, and its ``tp`` shards
+    gathered), nothing launched in the plain run; 16c's kernel run equal
+    to its plain run (tokens, every cache leaf after the prefill and at the
+    end by sha256, the cross-attention's ``xk`` / ``xv`` / ``xlen``
+    among them); no rank importing jax or repro.  Prints the numbers and
+    returns them."""
+    from repro_torch.core import codecs
+    from repro_torch.kernels.ops import padded_rows
+    from repro_torch.launch.train import model_config
+
+    cfg = model_config(ENC_ARCH)
+    k, p = res[("16", None)], res[("16", "torch")]
+    for rk, rp in zip(k, p):
+        if rk["foreign_modules"] or rp["foreign_modules"]:
+            fail(f"phase 16 rank {rk['rank']} imported "
+                 f"{rk['foreign_modules'] or rp['foreign_modules']}")
+        if not np.isfinite(rk["losses"]).all():
+            fail(f"phase 16a rank {rk['rank']}: losses {rk['losses']}")
+        for key in ("losses", "grad_norms", "wire_per_dim",
+                    "priced_per_dim", "priced_per_dim_level"):
+            if rk[key] != rp[key]:
+                fail(f"phase 16a/16b rank {rk['rank']}: {key} differ "
+                     f"between the kernel run ({rk[key]}) and the plain "
+                     f"run ({rp[key]})")
+    if any(v for r in p for v in r["launches"].values()):
+        fail(f"phase 16b: the plain run launched kernels: "
+             f"{[r['launches'] for r in p]}")
+    b_loc, s_loc = GLOBAL_BATCH // ENC_DP, ENC_SEQ // ENC_TP
+    want = encdec_reckoned(cfg, b_loc, s_loc, ENC_TP,
+                           codecs.get("bq16").wire_nbytes_for)
+    sites = k[0]["priced_per_site"]
+    for site, v in want.items():
+        if not v or abs(sites.get(site, 0.0) - v) > 1e-9 * v:
+            fail(f"phase 16a: {site} priced {sites.get(site, 0.0)} B per "
+                 f"rank per step, reckoned {v}")
+    shapes = {}
+    for r in k:
+        for kern, rows, bits, c in r["launch_shapes"]:
+            shapes[(kern, rows, bits)] = shapes.get((kern, rows, bits), 0) + c
+    rows = padded_rows(b_loc * s_loc * cfg.d_model)
+    at_site = {f"bq_encode_flat/{rows}":
+               shapes.get(("bq_encode_flat", rows, 16), 0),
+               f"bq_decode_flat/{ENC_TP * rows}":
+               shapes.get(("bq_decode_flat", ENC_TP * rows, 16), 0)}
+    if not all(at_site.values()):
+        fail(f"phase 16a: no launch at tp@attn_cross_kv's rows: {at_site}")
+    step = max(float(np.median(r["step_s"][1:])) for r in k)
+    share = [sum(r["staging_s"][1:]) / sum(r["step_s"][1:]) for r in k]
+    peak = [round(r["peak_bytes"] / 2**30, 2) for r in k]
+    r0 = k[0]
+    priced = {key: round(v / 1e6, 3)
+              for key, v in r0["priced_per_dim_level"].items() if v}
+    measured = {key: round(v / 1e6, 3)
+                for key, v in r0["wire_per_dim_level"].items() if v}
+    reck = {key: round(v / 1e6, 3) for key, v in want.items()}
+    out = {"step_ms": step * 1e3,
+           "tokens_per_s": GLOBAL_BATCH * ENC_SEQ / step, "peak_gib": peak,
+           "staging_share": [min(share), max(share)], "priced_mb": priced,
+           "measured_mb": measured, "reckoned_mb": reck,
+           "site_launches": at_site, "launches": launch_sums(k),
+           "levels": level_sums(k), "losses": r0["losses"],
+           "grad_norms": r0["grad_norms"]}
+    print(f"phase 16a/16b ({ENC_ARCH} full width and depth, "
+          f"{' '.join(ENC_FLAGS)}, global batch {GLOBAL_BATCH}, "
+          f"{ENC_SCHEME}): kernel run == plain run (losses, grad norms, "
+          f"ledger per dim and dim/level) on every rank; losses "
+          f"{r0['losses']}, grad norms "
+          f"{[round(g, 6) for g in r0['grad_norms']]}; {step * 1e3:.1f} "
+          f"ms/step (step {ENC_STEPS}, slowest rank), "
+          f"{out['tokens_per_s']:.0f} tokens/s, peak {peak} GiB per rank, "
+          f"staging+exchange {min(share) * 100:.0f}-"
+          f"{max(share) * 100:.0f} % [{card}]")
+    print(f"phase 16a MB per rank per step by dim/level: priced {priced}, "
+          f"measured {measured}; tp@attn_cross_kv priced "
+          f"{ {key: round(sites.get(key, 0) / 1e6, 3) for key in want} } == "
+          f"reckoned {reck}; launches at its rows (all ranks; the "
+          f"decoder's own gathers share them, S_enc = S) {at_site}; "
+          f"launches (all ranks) {out['launches']} [{card}]")
+    # 16c: serving
+    k, p = res[("16c", None)], res[("16c", "torch")]
+    toks = k[0]["tokens"]
+    if len(toks) != ENC_SERVE["batch"] or any(
+            len(t) != ENC_SERVE["gen"] or min(t) < 0
+            or max(t) >= cfg.vocab_size for t in toks) or any(
+            r["tokens"] != toks for r in k):
+        fail("phase 16c: malformed or disagreeing tokens")
+    for rk, rp in zip(k, p):
+        if rk["foreign_modules"]:
+            fail(f"phase 16c rank {rk['rank']} imported "
+                 f"{rk['foreign_modules']}")
+        if rk["tokens"] != rp["tokens"]:
+            fail(f"phase 16c rank {rk['rank']}: tokens differ between the "
+                 f"kernel run and the plain run")
+        for when, dig in rk["digests"].items():
+            cross = {leaf.rsplit("/", 1)[-1] for leaf in dig}
+            if not {"xk", "xv", "xlen"} <= cross:
+                fail(f"phase 16c rank {rk['rank']}: no cross-attention "
+                     f"cache among the {when} leaves {sorted(dig)}")
+            bad = sorted(leaf for leaf, h in dig.items()
+                         if rp["digests"][when][leaf] != h)
+            if bad:
+                fail(f"phase 16c rank {rk['rank']}: {when} caches {bad} "
+                     f"differ between the kernel run and the plain run")
+    if any(v for r in p for v in r["launches"].values()):
+        fail(f"phase 16c: the plain run launched kernels: "
+             f"{[r['launches'] for r in p]}")
+    levels = level_sums(k)
+    sprice = {ph: {key: round(v / 1e6, 3)
+                   for key, v in k[0]["ledger"][ph]["priced"].items() if v}
+              for ph in ("prefill", "decode")}
+    dec = [sum(r["decode_s"]) for r in k]
+    step_ms = max(float(np.median(r["decode_s"])) for r in k) * 1e3
+    sshare = [r["staging_s"] / r["wall_s"] for r in k]
+    speak = [round(r["peak_bytes"] / 2**30, 2) for r in k]
+    n_gen = ENC_SERVE["batch"] * (ENC_SERVE["gen"] - 1)
+    out["16c"] = {
+        "launches": launch_sums(k), "levels": levels,
+        "prefill_s": max(r["prefill_s"] for r in k),
+        "decode_ms_per_step": step_ms,
+        "gen_tokens_per_s": n_gen / max(dec), "peak_gib": speak,
+        "staging_share": [min(sshare), max(sshare)], "priced_mb": sprice}
+    print(f"phase 16c ({ENC_ARCH} full width and depth, batched --dp "
+          f"{ENC_DP} --tp {ENC_TP}, {ENC_SCHEME}, {ENC_SERVE['batch']} "
+          f"prompts of {ENC_SERVE['prompt_len']} + {ENC_SERVE['gen']}, "
+          f"frames of {ENC_SERVE['prompt_len']}): kernel run == plain run "
+          f"(tokens, every cache leaf after the prefill and at the end by "
+          f"sha256, xk / xv / xlen included) on every rank; tokens {toks}; "
+          f"prefill {out['16c']['prefill_s']:.2f} s, {step_ms:.2f} "
+          f"ms/decode step (median, slowest rank), "
+          f"{out['16c']['gen_tokens_per_s']:.1f} generated tok/s, peak "
+          f"{speak} GiB per rank, staging+exchange "
+          f"{min(sshare) * 100:.0f}-{max(sshare) * 100:.0f} %; priced MB "
+          f"per rank by dim/level {sprice}; launches (all ranks) by "
+          f"kernel/level {levels} [{card}]")
     return out
 
 
@@ -3364,25 +3600,28 @@ def main():
         # phases 9 to 12 alone
         os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
                               "expandable_segments:True")
-        hier, tune, cp, serve, z3, moe, rec = drive_hier(torch, card)
+        hier, tune, cp, serve, z3, moe, rec, enc = drive_hier(torch, card)
         print(json.dumps({"phase9": hier, "phase10": tune, "phase11": cp,
                           "phase12": serve, "phase13": z3, "phase14": moe,
-                          "phase15": rec}))
+                          "phase15": rec, "phase16": enc}))
         print(f"card: {card}")
         return
 
     if sys.argv[1:] in (["--cp-only"], ["--serve-only"], ["--zero3-only"],
-                        ["--moe-only"], ["--recurrent-only"]):
-        # phase 11, 12, 13, 14 or 15 alone
+                        ["--moe-only"], ["--recurrent-only"],
+                        ["--encdec-only"]):
+        # phase 11, 12, 13, 14, 15 or 16 alone
         os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
                               "expandable_segments:True")
         only = sys.argv[1][2:-5]
         t0 = time.perf_counter()
-        _, _, cp, serve, z3, moe, rec = drive_hier(torch, card, only=only)
+        _, _, cp, serve, z3, moe, rec, enc = drive_hier(torch, card,
+                                                        only=only)
         print(json.dumps({"cp": {"phase11": cp}, "serve": {"phase12": serve},
                           "zero3": {"phase13": z3},
                           "moe": {"phase14": moe},
-                          "recurrent": {"phase15": rec}}[only]))
+                          "recurrent": {"phase15": rec},
+                          "encdec": {"phase16": enc}}[only]))
         print(f"wall seconds of the phase {time.perf_counter() - t0:.1f} "
               f"[{card}]")
         print(f"card: {card}")
@@ -3623,7 +3862,7 @@ def main():
                             flat_elems(cfg8))
 
     # ---------------------------------------------------------- phase 9
-    starts["9 to 15"] = time.perf_counter()
+    starts["9 to 16"] = time.perf_counter()
     print(f"phase 9: node-factored meshes, gemma3-1b full width, four ranks "
           f"on this card, seq {SEQ}, global batch {GLOBAL_BATCH}: 9a --dp 4 "
           f"--nodes 2 --layers {HIER_RUNS[0][3][-1]} (hier_zpp_8_16), 9b "
@@ -3656,12 +3895,16 @@ def main():
           f"{SERVE_GEN} (kernels, plain); then phase 15, the recurrent "
           f"families at full width, {' '.join(REC_FLAGS)} ({REC_SCHEME}, "
           f"{REC_STEPS} steps): 15a/15b {REC_RUNS[0][2]}, the first "
-          f"{REC_RUNS[0][3]} mamba layers with the shared block twice, "
+          f"{REC_RUNS[0][3]} mamba layers with the shared block once, "
           f"15c/15d {REC_RUNS[1][2]}, the first {REC_RUNS[1][3]} layers "
           f"(kernels, plain), 15e both served batched, "
           f"{REC_SERVE['batch']} prompts of {SERVE_PROMPT} + {SERVE_GEN} "
+          f"(kernels, plain); then phase 16, {ENC_ARCH} at full width and "
+          f"depth, {' '.join(ENC_FLAGS)} ({ENC_SCHEME}, {ENC_STEPS} steps): "
+          f"16a kernels, 16b plain, 16c batched, {ENC_SERVE['batch']} "
+          f"prompts of {ENC_SERVE['prompt_len']} + {ENC_SERVE['gen']} "
           f"(kernels, plain) [{card}]")
-    hier, tune, cp, serve, z3, moe, rec = drive_hier(torch, card)
+    hier, tune, cp, serve, z3, moe, rec, enc = drive_hier(torch, card)
 
     starts["reckoning"] = time.perf_counter()
     # launches x (time - bound) per shape of phase 4's kernel run, timed in
@@ -3770,6 +4013,22 @@ def main():
                                if key.split("/")[0] in forms}}
                 for arch, m in rec.items() if isinstance(m, dict)}
 
+    def p16_launches(kernel: str) -> int:
+        return enc["launches"][kernel] + enc["16c"]["launches"][kernel]
+
+    def p16_entry(kernel: str) -> dict:
+        """Phase 16's launches of a kernel (all ranks, the kernel runs) per
+        run by link level, and 16a's at the cross gather's rows; a bq
+        kernel's flat and view forms count with it."""
+        forms = KERNEL_FORMS.get(kernel, (kernel,))
+        return {"16a": {key: v for key, v in enc["levels"].items()
+                        if key.split("/")[0] in forms},
+                "16a_cross_kv_rows": {key: v for key, v in
+                                      enc["site_launches"].items()
+                                      if key.split("/")[0] in forms},
+                "16c": {key: v for key, v in enc["16c"]["levels"].items()
+                        if key.split("/")[0] in forms}}
+
     def p13_entry(kernel: str) -> dict:
         """Phase 13's launches of a kernel (all ranks, the kernel runs) per
         run by link level, and 13a's at the zero site's rows; a bq
@@ -3824,7 +4083,7 @@ def main():
         entry["launches"] += p7_launches(name) + ckpt["launches"][name] \
             + p9_launches(name) + tune["launches"][name] \
             + p11_launches(name) + p12_launches(name) + p13_launches(name) \
-            + p14_launches(name) + p15_launches(name)
+            + p14_launches(name) + p15_launches(name) + p16_launches(name)
         entry["phase7"] = p7_entry(name)
         entry["phase8"] = ckpt["launches"][name]        # after the restore
         entry["phase9"] = p9_entry(name)
@@ -3834,6 +4093,7 @@ def main():
         entry["phase13"] = p13_entry(name)
         entry["phase14"] = p14_entry(name)
         entry["phase15"] = p15_entry(name)
+        entry["phase16"] = p16_entry(name)
         if name in ("bq_encode", "bq_decode"):
             # the block form's kernel alone, and the flat form the TP
             # all-gather calls (the same kernel, fused with its layout)
@@ -3858,7 +4118,8 @@ def main():
                 + p12_launches(f"{name}_flat")
                 + p13_launches(f"{name}_flat")
                 + p14_launches(f"{name}_flat")
-                + p15_launches(f"{name}_flat"),
+                + p15_launches(f"{name}_flat")
+                + p16_launches(f"{name}_flat"),
                 "phase7": p7_entry(f"{name}_flat"),
                 "max_abs_err": err[f"{name}_flat"],
                 "by_shape": by_shape.get(f"{name}_flat", [])}
@@ -3884,7 +4145,8 @@ def main():
                 "launches": t_launch[fname] + p7_launches(fname)
                 + p9_launches(fname) + p11_launches(fname)
                 + p12_launches(fname) + p13_launches(fname)
-                + p14_launches(fname) + p15_launches(fname),
+                + p14_launches(fname) + p15_launches(fname)
+                + p16_launches(fname),
                 "phase7": p7_entry(fname), "max_abs_err": err[fname],
                 "bound_by": "bytes",
                 "by_rows": {rows: {**ops_[op], "end": ops_["end"]}
@@ -3948,6 +4210,7 @@ def main():
         "phase13": {},            # nor the ZeRO-3 step (zhybrid_16_8)
         "phase14": {},            # nor the MoE runs (zhybrid_16_8)
         "phase15": {},            # nor the recurrent runs (zhybrid_16_8)
+        "phase16": {},            # nor whisper's (zhybrid_16_8)
         "max_abs_err": max(f["max_abs_err"] for f in forms.values()),
         **total, "bound_by": "bytes" if all(
             f["bound_by"] == "bytes" for f in forms.values()) else

@@ -2,9 +2,9 @@
 
 The dense decoders (gemma3-1b, gemma3-4b, minitron-4b, qwen2-72b),
 qwen2-vl-72b's backbone, the two Mixture-of-Experts decoders
-(qwen3-moe-235b-a22b, kimi-k2-1t-a32b) and the recurrent families
-(zamba2-1.2b, xlstm-1.3b) are ported; the reference's other architecture
-is named as not yet ported.
+(qwen3-moe-235b-a22b, kimi-k2-1t-a32b), the recurrent families
+(zamba2-1.2b, xlstm-1.3b) and the encoder-decoder whisper-base's backbone:
+all ten of the reference's architectures.
 """
 
 from __future__ import annotations
@@ -21,17 +21,11 @@ ARCH_IDS = (
     "kimi-k2-1t-a32b",
     "zamba2-1.2b",
     "xlstm-1.3b",
-)
-
-_NOT_YET = (
     "whisper-base",
 )
 
 
 def get(arch_id: str):
-    if arch_id in _NOT_YET:
-        raise NotImplementedError(f"arch {arch_id!r} is not yet ported; "
-                                  f"have {ARCH_IDS}")
     if arch_id not in ARCH_IDS:
         raise KeyError(f"unknown arch {arch_id!r}; have {ARCH_IDS}")
     mod = importlib.import_module(

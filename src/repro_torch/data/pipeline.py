@@ -6,7 +6,8 @@ A seeded *teacher* process with learnable structure:
     with prob noise:       next ~ Uniform(V)
 
 Batches are a pure function of (seed, step), drawn with numpy exactly as
-the reference draws them, so both packages train on identical tokens.
+the reference draws them, so both packages train on identical tokens; an
+encoder-decoder's stub frames (:meth:`SyntheticCorpus.frames`) are too.
 """
 
 from __future__ import annotations
@@ -54,6 +55,16 @@ class SyntheticCorpus:
             toks = toks[host_slice]
         return {"tokens": toks[:, :-1].astype(np.int32),
                 "labels": toks[:, 1:].astype(np.int32)}
+
+    def frames(self, step: int, d_model: int) -> np.ndarray:
+        """An encoder-decoder's stub encoder input for ``step``: [GB, S,
+        d_model] f32 normals from (seed, step), drawn as the reference's
+        serving launcher draws its frames.  The reference's batch has no
+        frames, so its training launcher cannot train whisper (fault
+        C.22); this stream is the port's own."""
+        cfg = self.cfg
+        return np.random.default_rng((cfg.seed, step)).normal(
+            size=(cfg.global_batch, cfg.seq_len, d_model)).astype(np.float32)
 
     def optimal_xent(self) -> float:
         """Entropy floor of the teacher (nats/token)."""

@@ -28,8 +28,15 @@ the command spawns ``dp * tp`` processes (``2 * dp * tp`` for
 ``disagg``).  A flag the chosen mode would not use, and ``--tp-nodes``
 with ``--mode disagg`` (which the reference ignores there), are refused,
 never ignored.  Paged serving needs head-mode attention, so ``--mode
-paged`` at a tp where the architecture runs ring attention raises the
-reference's ``NotImplementedError`` before anything starts.
+paged`` at a tp where the architecture runs ring attention, or on a
+stack with layers that have no paged cache (the recurrent families,
+whisper's encoder-decoder), raises the reference's
+``NotImplementedError`` before anything starts.
+
+An encoder-decoder (whisper-base) serves with stub frame embeddings
+drawn as the reference's batched launcher draws them
+(:func:`make_frames`, the encoder as long as the prompt), in ``--mode
+disagg`` too, where the reference's launcher feeds none (fault C.22).
 """
 
 from __future__ import annotations
@@ -150,6 +157,13 @@ def make_prompts(vocab: int, batch: int, prompt_len: int, seed: int):
     return rng.integers(0, vocab, (batch, prompt_len)).astype(np.int32)
 
 
+def make_frames(batch: int, length: int, d_model: int, seed: int):
+    """The reference batched launcher's stub encoder input for an
+    encoder-decoder: [batch, length, d_model] f32 normals from ``seed``."""
+    return np.random.default_rng(seed).normal(
+        size=(batch, length, d_model)).astype(np.float32)
+
+
 def serve_requests(model, params, prompts, gen: int, kv_codec: str = "none",
                    block_tokens: int = 16, slots: int = 4, kv_blocks: int = 0,
                    backend=None, scheme="baseline", ring_bidir: bool = False,
@@ -257,7 +271,8 @@ def serve_rank(*, rank: int = 0, world: int = 1, arch: str = "gemma3-1b",
     or alone.  ``cfg`` serves that config instead of ``arch``'s
     (``reduced``, ``depth`` cut as the training launcher cuts it);
     ``prompts`` (token lists) replace the seeded ``[batch, prompt_len]``
-    prompts of the reference's launcher; ``init_from`` names a pickle of a
+    prompts of the reference's launcher (an encoder-decoder's frames are
+    :func:`make_frames`' for the prompts' shape and ``seed``); ``init_from`` names a pickle of a
     global parameter tree (the reference's weights) to serve instead of
     ``seed``'s; ``backend="torch"`` runs every bq op through its plain
     version; ``deterministic`` turns on
@@ -348,6 +363,15 @@ def serve_rank(*, rank: int = 0, world: int = 1, arch: str = "gemma3-1b",
     d = mi.batch_axes.index if B > 1 else 0
     batch_t = {"tokens": torch.from_numpy(
         prompts[d * b_loc:(d + 1) * b_loc].copy()).to(dev)}
+    s_enc = 0
+    if cfg.encoder_layers:
+        # this rank's rows and tp slice of the encoder's input (the
+        # reference's batch spec P(batch, tp, None)), as long as the prompt
+        s_enc, t = S, mi.tp_axes.index
+        fr = make_frames(B, S, cfg.d_model, seed)
+        batch_t["frames"] = torch.from_numpy(np.ascontiguousarray(
+            fr[d * b_loc:(d + 1) * b_loc,
+               t * S // tp:(t + 1) * S // tp])).to(dev)
 
     def gather(tok):
         """This rank's tokens -> all B (uncompressed, outside the
@@ -372,7 +396,7 @@ def serve_rank(*, rank: int = 0, world: int = 1, arch: str = "gemma3-1b",
     out["ledger"]["prefill"] = _ledger(ev)
     if keep_state:
         out["prefill"] = _numpy(caches)
-    caches = srv.pad_prefill_caches(caches, B, s_max)
+    caches = srv.pad_prefill_caches(caches, B, s_max, s_enc)
     del batch_t
     out["digests"]["prefill"] = {p: _digest(t) for p, t in _leaves(caches)}
     if mode == "disagg":

@@ -66,7 +66,11 @@ the reference's do.
 ``--tune`` runs the self-tuning controller (:mod:`repro_torch.tune`) every
 ``--tune-interval`` steps, with ``--tune-guard`` its loss guard;
 ``--policy-from`` replays a ``tune_policy.json`` as static rules ahead of
-the scheme's.  The flags of unported features (``--pod``, and
+the scheme's.  An encoder-decoder (whisper-base) trains on stub frame
+embeddings beside the tokens (``SyntheticCorpus.frames``: seeded normals
+per step, which the reference's launcher never feeds: fault C.22);
+``--cp`` on it is refused (fault C.23), and ``--pp`` with the reference's
+message (its encoder context cannot cross stages).  The flags of unported features (``--pod``, and
 ``--host-devices``, an XLA host-device count with no counterpart here) are
 accepted and refused as not yet ported, never ignored.
 
@@ -265,16 +269,28 @@ def check_cp(cfg, cp: int) -> None:
     state crosses sequence shards over the model axes only
     (``cross_shard_prefix``), so each cp rank would start its recurrence
     from a zero state on its zigzag slice.  The reference's launcher runs
-    that silently and trains another model (fault C.20)."""
+    that silently and trains another model (fault C.20).  Refuse it on an
+    encoder-decoder too: the reference shards the frames over the batch
+    and tp axes only, yet gives the encoder zigzag cp positions and rings
+    its K/V over cp, so each frame is attended twice at two positions
+    (fault C.23)."""
+    if cp <= 1:
+        return
     kinds = sorted({g.kind for g in cfg.layer_groups
                     if g.kind in ("mamba", "mlstm", "slstm")})
-    if cp > 1 and kinds:
+    if kinds:
         raise ValueError(
             f"--cp {cp} is refused for {cfg.name}: its recurrent layers "
             f"{kinds} carry their state across sequence shards over the "
             f"model axes only, so a cp rank would start each recurrence "
             f"from zero on its zigzag slice (the reference computes that "
             f"silently)")
+    if cfg.encoder_layers:
+        raise ValueError(
+            f"--cp {cp} is refused for {cfg.name}: its encoder's frames "
+            f"are not split over cp, yet take zigzag cp positions and ring "
+            f"over cp, so every frame is attended twice at two positions "
+            f"(the reference computes that silently)")
 
 
 def node_counts(args) -> dict:
@@ -756,6 +772,14 @@ def train_rank(*, rank: int = 0, world: int = 1, arch: str,
         batch = {k: torch.from_numpy(np.ascontiguousarray(
                      v[d * b_loc:(d + 1) * b_loc, c * s_loc:(c + 1) * s_loc]))
                  .to(dev) for k, v in nb.items()}
+        if cfg.encoder_layers:
+            # this rank's rows and tp slice of the encoder's stub input
+            # (the reference's batch spec P(batch, tp, None))
+            t, s_tp = mi.tp_axes.index, seq // tp
+            batch["frames"] = torch.from_numpy(np.ascontiguousarray(
+                data.frames(step, cfg.d_model)[d * b_loc:(d + 1) * b_loc,
+                                               t * s_tp:(t + 1) * s_tp])
+            ).to(dev)
         trainer.opt.keep_flat_grad = bool(flat_grad_out) and rank == 0 \
             and step == start + steps - 1
         comms.reset_staging()

@@ -1,8 +1,10 @@
 """Attention (port of ``repro.models.attention``): training and prefill
-attention in head and ring mode, single-token decode against a dense KV
-cache in both modes (ring mode's shards merged by the flash-decoding
-combine), and the head-sharded decode path against a paged KV pool, on
-the reference's online-softmax core.
+attention in head and ring mode (self-attention, and whisper's
+cross-attention to the encoder's output), single-token decode against a
+dense KV cache in both modes (ring mode's shards merged by the
+flash-decoding combine; the cross-attention cache read, never written),
+and the head-sharded decode path against a paged KV pool, on the
+reference's online-softmax core.
 
 Mode selection (``cfg.attn_mode_for(tp)``):
 
@@ -231,39 +233,56 @@ def _theta(cfg, window):
 # --------------------------------------------------------------------------
 
 def attn_train(p, x, pos, cfg, mi: MeshInfo, mode: str, causal=True,
-               window=0, want_cache=False, pos3=None):
+               window=0, want_cache=False, pos3=None, cross=None,
+               cross_pos=None):
     """Training (and prefill) attention sublayer: x [B, S_loc, D]
     sequence-sharded, pos [B, S_loc] global positions -> [B, S_loc, D],
     and with ``want_cache`` the prefill cache ``(k, v, k_pos)`` too: in
     head mode the full (cp-local) sequence of this rank's KV heads, in
     ring mode this rank's sequence slice of every head.  ``pos3`` [B,
     S_loc, 3] are qwen2-vl's M-RoPE position ids, applied as the reference
-    applies them (to the projections of this rank's tokens as given)."""
+    applies them (to the projections of this rank's tokens as given).
+
+    ``cross`` [B, Se_loc, D] (this rank's slice of the encoder output,
+    whisper's decoder) and its global positions ``cross_pos`` [B, Se_loc]
+    make it cross-attention: the queries come from ``x``, the keys and
+    values from ``cross``.  Head mode all-gathers the encoder slices at
+    ``tp@attn_cross_kv`` and their positions at ``tp@attn_pos`` (on the
+    tp codec, as the reference's positions ride it: C.5); ring mode
+    projects K/V from the local encoder slice and gathers them at
+    ``tp@attn_kv``, so the cache is that slice's."""
     theta = _theta(cfg, window)
     if mode == "head":
         xg = comms.all_gather(x, mi.tp_axes, 1, comms.site("tp", "attn_in"))
         pos_g = _gather_pos(pos, mi)
-        q, k, v = _project_qkv(p, xg, xg, pos_g, pos_g, cfg, mi, theta,
+        if cross is not None:
+            kvg = comms.all_gather(cross, mi.tp_axes, 1,
+                                   comms.site("tp", "attn_cross_kv"))
+            pos_kv_g = _gather_pos(cross_pos, mi)
+        else:
+            kvg, pos_kv_g = xg, pos_g
+        q, k, v = _project_qkv(p, xg, kvg, pos_g, pos_kv_g, cfg, mi, theta,
                                pos3)
         if mi.cp > 1:   # q/k/v cover this rank's cp slice: ring over cp
-            o = ring_attention(q, k, v, pos_g, pos_g, mi, causal, window)
+            o = ring_attention(q, k, v, pos_g, pos_kv_g, mi, causal, window)
         else:
-            o = full_attention(q, k, v, pos_g, pos_g, causal, window)
+            o = full_attention(q, k, v, pos_g, pos_kv_g, causal, window)
         y = o.reshape(*o.shape[:2], -1) @ use(p["wo"], mi)
         out = comms.reduce_scatter(y, mi.tp_axes, 1,
                                    comms.site("tp", "attn_out"))
-        return (out, (k, v, pos_g)) if want_cache else out
+        return (out, (k, v, pos_kv_g)) if want_cache else out
     # ring: the sequence stays sharded, the weights are replicated
-    q, k, v = _project_qkv(p, x, x, pos, pos, cfg, mi, theta, pos3)
-    cache = (k, v, pos)
-    kb, vb, pkv = k, v, pos
+    xkv, pos_kv = (x, pos) if cross is None else (cross, cross_pos)
+    q, k, v = _project_qkv(p, x, xkv, pos, pos_kv, cfg, mi, theta, pos3)
+    cache = (k, v, pos_kv)
+    kb, vb, pkv = k, v, pos_kv
     if mi.tp > 1:
         # K/V are GQA-small: gather the tp sub-slices of this rank's cp
         # slice once, so the cp ring rotates whole slices and queries never
         # move
         kb = comms.all_gather(kb, mi.tp_axes, 1, comms.site("tp", "attn_kv"))
         vb = comms.all_gather(vb, mi.tp_axes, 1, comms.site("tp", "attn_kv"))
-        pkv = _gather_pos(pos, mi)
+        pkv = _gather_pos(pos_kv, mi)
     o = ring_attention(q, kb, vb, pos, pkv, mi, causal, window)
     out = o.reshape(*o.shape[:2], -1) @ use(p["wo"], mi)
     return (out, cache) if want_cache else out
@@ -280,7 +299,7 @@ def _gather_pos(pos, mi):
 # --------------------------------------------------------------------------
 
 def attn_decode(p, x, cache, index: int, cfg, mi: MeshInfo, mode: str,
-                window=0, seq_axes=None, pos3=None):
+                window=0, seq_axes=None, pos3=None, cross: bool = False):
     """Single-token decode against one layer's dense KV cache.
 
     x [B, 1, D] (replicated over model); ``cache`` {k, v} of this rank,
@@ -295,6 +314,16 @@ def attn_decode(p, x, cache, index: int, cfg, mi: MeshInfo, mode: str,
     partial softmax with the flash-decoding combine: a max, then two sums
     at ``tp@attn_combine`` over each entry of ``seq_axes`` (a pair's sums
     two-level).  ``pos3`` [B, 1, 3] are M-RoPE position ids (qwen2-vl).
+
+    ``cross`` reads whisper's cross-attention cache {k, v, len} (the
+    encoder's K/V, ``len`` its valid length), which prefill filled and
+    decode never writes.  Ring mode masks its frames by ``len``.  Head
+    mode, as the reference's, ignores ``cross``: it scatters the token's
+    own projection at ``index`` and masks by ``index + 1`` (fault C.24).
+    Past the encoder's length the scatter drops, as JAX drops an
+    out-of-range scatter, and every frame is valid; before it, the token
+    overwrites one frame for this step only (the reference's decode
+    discards the written cache) and the later frames are masked.
     Returns (out [B, 1, D], cache)."""
     theta = _theta(cfg, window)
     B = x.shape[0]
@@ -305,9 +334,12 @@ def attn_decode(p, x, cache, index: int, cfg, mi: MeshInfo, mode: str,
                                    pos3)
     k, v = cache["k"], cache["v"]
     if mode == "head":
-        k[:, index] = k_new[:, 0].to(k.dtype)
-        v[:, index] = v_new[:, 0].to(v.dtype)
         s_max = k.shape[1]
+        if index < s_max:       # JAX drops an out-of-range scatter
+            if cross:           # written for this step only
+                k, v = k.clone(), v.clone()
+            k[:, index] = k_new[:, 0].to(k.dtype)
+            v[:, index] = v_new[:, 0].to(v.dtype)
         k_pos = torch.arange(s_max, dtype=torch.long,
                              device=x.device)[None].expand(B, s_max)
         o = full_attention(q, k, v, pos_q, k_pos, causal=False,
@@ -322,14 +354,14 @@ def attn_decode(p, x, cache, index: int, cfg, mi: MeshInfo, mode: str,
     # the reference's dropped scatter wraps a local index in [-chunk, 0)
     # to the shard's end, as numpy indexing does (fault C.17): a masked
     # position that the owner's own write reaches before any read
-    if -chunk <= index - off < chunk:
+    if not cross and -chunk <= index - off < chunk:
         k[:, index - off] = k_new[:, 0].to(k.dtype)
         v[:, index - off] = v_new[:, 0].to(v.dtype)
     k_pos = off + torch.arange(chunk, dtype=torch.long,
                                device=x.device)[None].expand(B, chunk)
+    valid = k_pos < (cache["len"] if cross else index + 1)
     o, m, l = _attn_part(q, k, v,
-                         _mask_bias(pos_q, k_pos, False, window,
-                                    k_pos < index + 1),
+                         _mask_bias(pos_q, k_pos, False, window, valid),
                          cfg.head_dim_ ** -0.5)
     # flash-decoding combine across the sequence shards
     for ax in seq_axes:

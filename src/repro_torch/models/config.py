@@ -67,8 +67,9 @@ class ArchConfig:
     slstm_every: int = 0             # 1 sLSTM per k blocks (rest mLSTM)
     proj_factor: float = 2.0
 
-    # enc-dec field the reduced plan inspects
+    # enc-dec (whisper backbone)
     encoder_layers: int = 0
+    encoder_seq: int = 0             # 0 -> same as seq
 
     # norm / numerics
     norm: str = "rms"                # rms | ln
@@ -124,12 +125,17 @@ class ArchConfig:
         stack to uniform layers.  A ``shared_attn`` insertion is not a
         layer of ``n_layers`` (zamba2 counts its mamba layers): it is kept
         where the group before it is kept whole, so zamba2's first 12
-        layers are two whole ``[6 x mamba, shared_attn]`` blocks."""
+        layers are two whole ``[6 x mamba, shared_attn]`` blocks.  Nor is
+        an ``enc_attn`` layer (whisper's ``n_layers`` counts its decoder):
+        the encoder stack is kept whole."""
         if not 0 < n_layers <= self.n_layers:
             raise ValueError(f"cannot keep {n_layers} of {self.n_layers} "
                              "layers")
         out, left, whole = [], n_layers, True
         for g in self.layer_groups:
+            if g.kind == "enc_attn":
+                out.append(g)
+                continue
             if g.kind == "shared_attn":
                 if whole and out:
                     out.append(g)
@@ -220,6 +226,12 @@ def xlstm_groups(n_layers: int, slstm_every: int) -> tuple:
     if rem:
         out.append(BlockGroup("mlstm", rem))
     return tuple(out)
+
+
+def encdec_groups(enc: int, dec: int) -> tuple:
+    """whisper's plan: ``enc`` encoder layers, then ``dec`` decoder layers
+    (self-attention, cross-attention to the encoder's output, MLP)."""
+    return (BlockGroup("enc_attn", enc), BlockGroup("dec_attn", dec))
 
 
 def moe_groups(n_layers: int, first_dense: int = 0) -> tuple:

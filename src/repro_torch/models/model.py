@@ -3,8 +3,10 @@ forward, and the loss (port of ``repro.models.model`` for the dense
 decoders, qwen2-vl's backbone (its precomputed ``vision`` embeddings
 merged under ``vis_mask``, its M-RoPE ids ``pos3``), the
 Mixture-of-Experts decoders, whose load-balance aux term the loss adds,
-and the recurrent families: zamba2's mamba stack with its shared
-attention block, ``params["shared"]``, and xLSTM)."""
+the recurrent families: zamba2's mamba stack with its shared attention
+block, ``params["shared"]``, and xLSTM, and whisper's encoder-decoder
+backbone: its encoder stack over the stub ``frames`` embeddings, then
+``enc_norm``, whose output every decoder layer cross-attends to)."""
 
 from __future__ import annotations
 
@@ -14,7 +16,8 @@ from repro_torch.core import comms
 from repro_torch.models import layers, transformer
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.params import (MeshInfo, bind_fsdp, count_params,
-                                       init_params, resolve_device)
+                                       init_params, resolve_device,
+                                       torch_dtype)
 
 _LB_COEF = 0.01  # MoE load-balance aux weight
 
@@ -106,16 +109,41 @@ class Model:
             x = torch.where(mask, batch["vision"].to(x.dtype), x)
         return x
 
-    def run_decoder(self, params, x, pos, phase="train", pos3=None):
-        """Every layer group on ``x`` (a stage-free mesh) -> (x, each
-        group's stacked caches at ``phase="prefill"`` (else ``None`` s),
-        the MoE aux summed over the layers or ``None``)."""
+    def encode(self, params, frames):
+        """whisper's encoder over this rank's slice of the stub frame
+        embeddings [B_loc, Se_loc, D] (cast to the model's type; sharded
+        over tp as the reference's batch spec ``P(batch, tp, None)``) ->
+        (the encoder's output after ``enc_norm``, its global positions).
+        A config without ``enc_attn`` groups (the reference's reduced
+        whisper: fault C.21) runs ``enc_norm`` alone."""
+        cfg = self.cfg
+        x = frames.to(torch_dtype(cfg.dtype))
+        pos = self._positions(x.shape[0], x.shape[1])
+        for i, g in enumerate(cfg.layer_groups):
+            if g.kind == "enc_attn":
+                x, _, _ = transformer.run_group(self.group_params(params, i),
+                                                x, g, cfg, self.mi,
+                                                self.mode, pos)
+        return layers.norm(params["enc_norm"], x, cfg, self.mi), pos
+
+    def run_decoder(self, params, x, pos, phase="train", pos3=None,
+                    cross=None, cross_pos=None):
+        """Every decoder layer group on ``x`` (a stage-free mesh) -> (x,
+        each group's stacked caches at ``phase="prefill"`` (else
+        ``None`` s), the MoE aux summed over the layers or ``None``).
+        ``enc_attn`` groups are the encoder's (:meth:`encode`): skipped,
+        their cache ``None``; ``cross`` / ``cross_pos`` are the encoder's
+        output and positions, which the ``dec_attn`` layers attend to."""
         caches, aux = [], None
         shared = self.shared_params(params)
         for i, g in enumerate(self.cfg.layer_groups):
+            if g.kind == "enc_attn":
+                caches.append(None)
+                continue
             x, c, a = transformer.run_group(self.group_params(params, i), x,
                                             g, self.cfg, self.mi, self.mode,
-                                            pos, phase, pos3, shared)
+                                            pos, phase, pos3, shared, cross,
+                                            cross_pos)
             caches.append(c)
             aux = transformer.add_aux(aux, a)
         return x, caches, aux
@@ -144,15 +172,20 @@ class Model:
         if self.mi.pp > 1:
             raise ValueError("flat forward on a stage mesh: use "
                              "repro_torch.train.pipeline")
+        cross = cross_pos = None
+        if self.cfg.encoder_layers:
+            cross, cross_pos = self.encode(params, batch["frames"])
         x = self._embed_input(params, batch)
         pos = self._positions(x.shape[0], x.shape[1])
         pos3 = batch.get("pos3") if self.cfg.mrope else None
-        x, caches, aux = self.run_decoder(params, x, pos, phase, pos3)
+        x, caches, aux = self.run_decoder(params, x, pos, phase, pos3, cross,
+                                          cross_pos)
         return self.head(params, x), caches, aux
 
     def forward(self, params, batch, phase="train"):
         """batch {tokens [B_loc, S]} (an M-RoPE model's also ``vision``,
-        ``vis_mask`` and ``pos3`` [B_loc, S_loc, 3], each optional) ->
+        ``vis_mask`` and ``pos3`` [B_loc, S_loc, 3], each optional; an
+        encoder-decoder's also ``frames`` [B_loc, Se / tp, D]) ->
         logits [B_loc, S, V_loc] f32; at ``phase="prefill"`` -> (logits,
         the caches of every layer group, in the training layout:
         :mod:`repro_torch.serve.kv_cache`)."""

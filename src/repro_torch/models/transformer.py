@@ -1,7 +1,10 @@
 """Block assembly (port of ``repro.models.transformer``): parameter
 plans, the training and prefill bodies, and the dense and paged decode
 bodies of the attention, Mixture-of-Experts, Mamba2, mLSTM and sLSTM
-groups, and zamba2's shared attention block.
+groups, zamba2's shared attention block, and whisper's encoder
+(``enc_attn``: attention without the causal mask) and decoder
+(``dec_attn``: self-attention, cross-attention to the encoder's output,
+MLP) layers.
 
 Each group's ``n`` identical layers are stacked on a leading axis, as in
 the reference; where the reference runs ``lax.scan`` over that axis, a
@@ -45,7 +48,8 @@ _PP_UNSUPPORTED = ("enc_attn", "dec_attn", "shared_attn")
 # plans
 # --------------------------------------------------------------------------
 
-_PORTED_KINDS = ("attn", "moe", "mamba", "mlstm", "slstm", "shared_attn")
+_KINDS = ("attn", "moe", "mamba", "mlstm", "slstm", "shared_attn",
+          "enc_attn", "dec_attn")
 
 # the recurrent kinds: (plan, train/prefill body, decode body)
 _RECURRENT = {
@@ -55,9 +59,9 @@ _RECURRENT = {
 }
 
 
-def _check_kind(kind: str, what: str = "layer kind") -> None:
-    if kind not in _PORTED_KINDS:
-        raise NotImplementedError(f"{what} {kind!r} is not yet ported")
+def _check_kind(kind: str) -> None:
+    if kind not in _KINDS:
+        raise ValueError(kind)
 
 
 def block_plan(cfg: ArchConfig, kind: str, mode: str):
@@ -69,7 +73,12 @@ def block_plan(cfg: ArchConfig, kind: str, mode: str):
         p[kind] = _RECURRENT[kind][0](cfg)
         return p
     p["attn"] = attention.attn_plan(cfg, mode)
-    if kind == "moe":
+    if kind == "dec_attn":          # whisper's decoder: cross-attention
+        p.update(lnx=layers.norm_plan(cfg, cfg.d_model),
+                 xattn=attention.attn_plan(cfg, mode),
+                 ln2=layers.norm_plan(cfg, cfg.d_model),
+                 mlp=layers.mlp_plan(cfg))
+    elif kind == "moe":
         p.update(ln2=layers.norm_plan(cfg, cfg.d_model),
                  moe=moe.moe_plan(cfg))
     elif cfg.d_ff:
@@ -187,6 +196,8 @@ def model_plan(cfg: ArchConfig, mi: MeshInfo, vpp: int = 1):
     if any(g.kind == "shared_attn" for g in cfg.layer_groups):
         sp = block_plan(cfg, "attn", mode)
         plan["shared"] = apply_fsdp(sp, mi.dp) if cfg.fsdp_params else sp
+    if cfg.encoder_layers:
+        plan["enc_norm"] = layers.norm_plan(cfg, cfg.d_model)
     return plan
 
 
@@ -235,11 +246,14 @@ def add_aux(acc, aux):
 
 
 def run_block(kind, p, x, cfg, mi, mode, g: BlockGroup, pos,
-              phase="train", pos3=None):
+              phase="train", pos3=None, cross=None, cross_pos=None):
     """One training layer: x [B, S_loc, D] -> (x, its cache at
-    ``phase="prefill"`` ({k, v}, or a recurrent kind's decode-layout
-    state) else ``None``, its MoE aux or ``None``).  ``pos3`` are M-RoPE
-    position ids (qwen2-vl)."""
+    ``phase="prefill"`` ({k, v}, whisper's decoder also {xk, xv}, the
+    cross-attention's K/V; or a recurrent kind's decode-layout state) else
+    ``None``, its MoE aux or ``None``).  ``pos3`` are M-RoPE position ids
+    (qwen2-vl); ``cross`` / ``cross_pos`` are the encoder's output slice
+    and its positions, which a ``dec_attn`` layer attends to.  An
+    ``enc_attn`` layer attends without the causal mask."""
     _check_kind(kind)
     want_cache = phase == "prefill"
     cache = aux = None
@@ -252,12 +266,23 @@ def run_block(kind, p, x, cfg, mi, mode, g: BlockGroup, pos,
         return x + r.to(x.dtype), cache, None
     h = layers.norm(p["ln1"], x, cfg, mi)
     r = attention.attn_train(p["attn"], h, pos, cfg, mi, mode,
-                             causal=cfg.causal, window=g.window,
-                             want_cache=want_cache, pos3=pos3)
+                             causal=cfg.causal and kind != "enc_attn",
+                             window=g.window, want_cache=want_cache,
+                             pos3=pos3)
     if want_cache:
         r, (k, v, _) = r
         cache = {"k": k, "v": v}
     x = x + r
+    if kind == "dec_attn":
+        h = layers.norm(p["lnx"], x, cfg, mi)
+        r = attention.attn_train(p["xattn"], h, pos, cfg, mi, mode,
+                                 causal=False, window=0,
+                                 want_cache=want_cache, cross=cross,
+                                 cross_pos=cross_pos)
+        if want_cache:
+            r, (k, v, _) = r
+            cache.update(xk=k, xv=v)
+        x = x + r
     if kind == "moe":
         h = layers.norm(p["ln2"], x, cfg, mi)
         r, aux = moe.moe_block(p["moe"], h, cfg, mi, sp=True)
@@ -269,12 +294,13 @@ def run_block(kind, p, x, cfg, mi, mode, g: BlockGroup, pos,
 
 
 def run_group(gp, x, g: BlockGroup, cfg, mi, mode, pos, phase="train",
-              pos3=None, shared=None):
+              pos3=None, shared=None, cross=None, cross_pos=None):
     """The group's ``n`` layers in order -> (x, the layers' caches stacked
     [n, ...] at ``phase="prefill"`` else ``None``, the layers' MoE aux
     summed or ``None``).  A ``shared_attn`` group applies ``shared`` (the
     top-level block) at each insertion; its cache is the first one's,
-    unstacked, as the reference's."""
+    unstacked, as the reference's.  ``cross`` / ``cross_pos`` go to every
+    layer (:func:`run_block`)."""
     if phase not in ("train", "prefill"):
         raise ValueError(f"unknown phase {phase!r}")
     caches, aux = [], None
@@ -286,7 +312,7 @@ def run_group(gp, x, g: BlockGroup, cfg, mi, mode, pos, phase="train",
         return x, caches[0] if phase == "prefill" else None, None
     for p in _unstack(gp, g.n):
         x, c, a = run_block(g.kind, p, x, cfg, mi, mode, g, pos, phase,
-                            pos3)
+                            pos3, cross, cross_pos)
         caches.append(c)
         aux = add_aux(aux, a)
     if phase == "train":
@@ -302,9 +328,10 @@ def run_group(gp, x, g: BlockGroup, cfg, mi, mode, pos, phase="train",
 def decode_block(kind, p, x, cache, index: int, cfg, mi, mode,
                  g: BlockGroup, seq_axes=None, pos3=None):
     """One layer's single-token decode against its dense cache ({k, v},
-    or a recurrent kind's state), written in place.  Returns (x,
+    whisper's decoder also {xk, xv, xlen}; or a recurrent kind's state),
+    written in place (the cross-attention cache never is).  Returns (x,
     cache)."""
-    _check_kind(kind, "decode of layer kind")
+    _check_kind(kind)
     if kind in _RECURRENT:
         h = layers.norm(p["ln1"], x, cfg, mi)
         r, new = _RECURRENT[kind][2](p[kind], h, cache, cfg, mi)
@@ -312,10 +339,18 @@ def decode_block(kind, p, x, cache, index: int, cfg, mi, mode,
             cache[k].copy_(v)
         return x + r.to(x.dtype), cache
     h = layers.norm(p["ln1"], x, cfg, mi)
-    r, cache = attention.attn_decode(p["attn"], h, cache, index, cfg, mi,
-                                     mode, window=g.window,
-                                     seq_axes=seq_axes, pos3=pos3)
+    r, _ = attention.attn_decode(p["attn"], h,
+                                 {"k": cache["k"], "v": cache["v"]}, index,
+                                 cfg, mi, mode, window=g.window,
+                                 seq_axes=seq_axes, pos3=pos3)
     x = x + r
+    if kind == "dec_attn":
+        h = layers.norm(p["lnx"], x, cfg, mi)
+        r, _ = attention.attn_decode(
+            p["xattn"], h,
+            {"k": cache["xk"], "v": cache["xv"], "len": cache["xlen"]},
+            index, cfg, mi, mode, window=0, seq_axes=seq_axes, cross=True)
+        x = x + r
     if kind == "moe":
         h = layers.norm(p["ln2"], x, cfg, mi)
         x = x + moe.moe_block(p["moe"], h, cfg, mi, sp=False)[0]

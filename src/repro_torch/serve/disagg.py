@@ -78,15 +78,17 @@ class DisaggServer:
         tokens, prefill-layout caches)."""
         return self.srv.prefill(params, batch)
 
-    def pad_prefill_caches(self, caches, B: int, s_max: int):
-        return self.srv.pad_prefill_caches(caches, B, s_max)
+    def pad_prefill_caches(self, caches, B: int, s_max: int,
+                           s_enc: int = 0):
+        return self.srv.pad_prefill_caches(caches, B, s_max, s_enc)
 
     def handoff(self, caches):
         """Decode-layout caches -> the same, the decode pool now holding
         the prefill pool's KV (the prefill pool zeros).  Float leaves ride
         :func:`comms.pool_handoff` (compressed under the plan's ``kv``
-        codec, ledgered under ``kv``); integer leaves rotate
-        uncompressed."""
+        codec, ledgered under ``kv``; whisper's cross-attention ``xk`` /
+        ``xv`` too); integer leaves (its ``xlen``) rotate uncompressed; an
+        encoder group has no cache (``None``)."""
         ax = self.model.mi.pool_axis
 
         def hand(a):
@@ -97,7 +99,8 @@ class DisaggServer:
         with torch.no_grad(), policy_lib.use_plan(self.plan), \
                 comms.scope_facts(phase="kv_handoff",
                                   kv_codec=self.kv_codec):
-            return [{k: hand(v) for k, v in sorted(c.items())}
+            return [None if c is None else
+                    {k: hand(v) for k, v in sorted(c.items())}
                     for c in caches]
 
     def first_tokens(self, tok):

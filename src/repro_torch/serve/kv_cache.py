@@ -1,6 +1,7 @@
 """Dense cache layouts for the batched server (port of
-``repro.serve.kv_cache`` for the ``attn``, ``moe`` and ``shared_attn``
-kinds, whose attention caches are alike, and the recurrent kinds).
+``repro.serve.kv_cache``: the ``attn``, ``moe`` and ``shared_attn``
+kinds, whose attention caches are alike, whisper's ``dec_attn`` with its
+cross-attention cache, and the recurrent kinds).
 
 Every shape here is this rank's LOCAL shape; the spec beside it tags each
 dim as the reference's ``PartitionSpec`` does (``"data"`` for the batch
@@ -13,6 +14,9 @@ can find the counterpart.  The reference's global layouts:
   decode, attn(head)  k/v [L, B, S_max, KV, hd]  P(None, bs, None, model, None)
                       the KV heads sharded over the model axes
 
+  dec_attn            adds xk/xv [L, B, S_enc, KV, hd], laid out as k/v,
+                      and xlen [L] int32, replicated
+  enc_attn            no cache (``None``: the encoder runs at prefill)
   shared_attn         k/v [B, S_max, KV, hd]     one insertion point, unstacked
   mamba               conv [L, B, K-1, d_inner]   P(None, bs, None, model)
                       state [L, B, H, P, N] f32  P(None, bs, model, None, None)
@@ -26,8 +30,7 @@ Prefill emits its attention caches in the TRAINING layout
 head, head mode the whole sequence of this rank's heads;
 :meth:`~repro_torch.serve.serve_step.Server.pad_prefill_caches` moves them
 into the decode layout.  A recurrent block's prefill hands over its final
-state already in the decode layout.  Cross-attention caches are not yet
-ported.
+state already in the decode layout.
 """
 
 from __future__ import annotations
@@ -40,13 +43,13 @@ from repro_torch.serve.paged_kv import Struct, zero_pool
 
 
 _STATE_KINDS = ("mamba", "mlstm", "slstm")
-_KINDS = ("attn", "moe", "shared_attn") + _STATE_KINDS
+_KINDS = ("attn", "moe", "shared_attn", "enc_attn", "dec_attn") + \
+    _STATE_KINDS
 
 
 def _check_kind(g: BlockGroup) -> None:
     if g.kind not in _KINDS:
-        raise NotImplementedError(
-            f"dense KV cache of group kind {g.kind!r} is not yet ported")
+        raise ValueError(g.kind)
 
 
 def batch_local(B: int, mi: MeshInfo) -> int:
@@ -84,12 +87,13 @@ def _state_specs(cfg, kind: str, bs, tp: int) -> dict:
 
 
 def group_cache(cfg: ArchConfig, mi: MeshInfo, g: BlockGroup, B: int,
-                s_max: int, mode: str, dtype=None):
-    """-> (struct tree, spec tree) of one group's stacked decode caches."""
+                s_max: int, mode: str, dtype=None, s_enc: int = 0):
+    """-> (struct tree, spec tree) of one group's stacked decode caches
+    (a ``dec_attn`` group's cross-attention K/V ``s_enc`` long)."""
     _check_kind(g)
     dt = torch_dtype(dtype or cfg.dtype)
     f32 = torch.float32
-    hd, KV, L, tp = cfg.head_dim_, cfg.n_kv_heads, g.n, mi.tp
+    hd, L, tp = cfg.head_dim_, g.n, mi.tp
     b = batch_local(B, mi)
     bs = _bs(B)
     if g.kind in _STATE_KINDS:
@@ -110,31 +114,49 @@ def group_cache(cfg: ArchConfig, mi: MeshInfo, g: BlockGroup, B: int,
             shapes = {k: ((L, b, cfg.n_heads, cfg.d_model // cfg.n_heads),
                           f32) for k in "hcnm"}
         return {k: Struct(*v) for k, v in shapes.items()}, spec
+    kv_shape, spec = _kv_layout(cfg, mi, L, b, s_max, mode, bs)
+    st = {"k": Struct(kv_shape, dt), "v": Struct(kv_shape, dt)}
+    sp = {"k": spec, "v": spec}
+    if g.kind == "dec_attn":
+        x_shape, _ = _kv_layout(cfg, mi, L, b, s_enc, mode, bs)
+        st.update(xk=Struct(x_shape, dt), xv=Struct(x_shape, dt),
+                  xlen=Struct((L,), torch.int32))
+        sp.update(xk=spec, xv=spec, xlen=(None,))
+    if g.kind == "shared_attn":         # one insertion point, unstacked
+        st = {k: Struct(v.shape[1:], v.dtype) for k, v in st.items()}
+        sp = {k: v[1:] for k, v in sp.items()}
+    return st, sp
+
+
+def _kv_layout(cfg, mi: MeshInfo, L: int, b: int, s: int, mode: str, bs):
+    """Local shape and spec of a stacked K/V cache ``s`` long: head mode
+    the whole sequence of this rank's KV heads, ring mode this rank's
+    sequence shard of every head."""
+    hd, KV = cfg.head_dim_, cfg.n_kv_heads
     if mode == "head":
         if KV % mi.tp:
             raise ValueError(f"head-mode cache needs n_kv_heads ({KV}) "
                              f"divisible by tp ({mi.tp})")
-        shape = (L, b, s_max, KV // mi.tp, hd)
-        spec = (None, bs, None, "model", None)
-    else:
-        if s_max % mi.tp:
-            raise ValueError(f"ring-mode cache needs s_max ({s_max}) "
-                             f"divisible by tp ({mi.tp})")
-        shape = (L, b, s_max // mi.tp, KV, hd)
-        spec = (None, bs, "model", None, None)
-    if g.kind == "shared_attn":         # one insertion point, unstacked
-        shape, spec = shape[1:], spec[1:]
-    return ({"k": Struct(shape, dt), "v": Struct(shape, dt)},
-            {"k": spec, "v": spec})
+        return (L, b, s, KV // mi.tp, hd), (None, bs, None, "model", None)
+    if s % mi.tp:
+        raise ValueError(f"ring-mode cache needs its length ({s}) "
+                         f"divisible by tp ({mi.tp})")
+    return (L, b, s // mi.tp, KV, hd), (None, bs, "model", None, None)
 
 
-def cache_structs(cfg: ArchConfig, mi: MeshInfo, B: int, s_max: int):
+def cache_structs(cfg: ArchConfig, mi: MeshInfo, B: int, s_max: int,
+                  s_enc: int = 0):
     """The whole decode cache: (structs, specs), lists aligned with
-    ``cfg.layer_groups``."""
+    ``cfg.layer_groups`` (``None`` for an encoder group); ``s_enc`` is the
+    length of the cross-attention cache."""
     mode = cfg.attn_mode_for(mi.tp)
     structs, specs = [], []
     for g in cfg.layer_groups:
-        st, sp = group_cache(cfg, mi, g, B, s_max, mode)
+        if g.kind == "enc_attn":
+            structs.append(None)
+            specs.append(None)
+            continue
+        st, sp = group_cache(cfg, mi, g, B, s_max, mode, s_enc=s_enc)
         structs.append(st)
         specs.append(sp)
     return structs, specs
@@ -161,6 +183,10 @@ def prefill_cache_specs(cfg: ArchConfig, mi: MeshInfo, B: int):
             out.append(_state_specs(cfg, g.kind, bs, mi.tp))
         elif g.kind == "shared_attn":
             out.append({"k": kv[1:], "v": kv[1:]})
+        elif g.kind == "enc_attn":
+            out.append(None)
+        elif g.kind == "dec_attn":
+            out.append({"k": kv, "v": kv, "xk": kv, "xv": kv})
         else:
             out.append({"k": kv, "v": kv})
     return out

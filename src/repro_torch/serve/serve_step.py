@@ -66,8 +66,9 @@ class Server:
         self.ring_chunks = ring_chunks
 
     def prefill(self, params, batch):
-        """batch {tokens [B_loc, S]} -> (first tokens [B_loc] int32, the
-        caches in the prefill layout)."""
+        """batch {tokens [B_loc, S]} (an encoder-decoder's also ``frames``
+        [B_loc, S_enc / tp, D], the encoder's input) -> (first tokens
+        [B_loc] int32, the caches in the prefill layout)."""
         model = self.model
         with _bound(self.plan, self.ring_bidir, self.ring_chunks):
             logits, caches = model.forward(params, batch, phase="prefill")
@@ -87,6 +88,8 @@ class Server:
                 if cfg.mrope else None
             shared = model.shared_params(params)
             for i, g in enumerate(cfg.layer_groups):
+                if g.kind == "enc_attn":      # the encoder ran at prefill
+                    continue
                 x, caches[i] = transformer.decode_group(
                     model.group_params(params, i), x, caches[i], index, g,
                     cfg, mi, model.mode, self.seq_axes, pos3, shared)
@@ -95,11 +98,12 @@ class Server:
             tok = greedy_token(logits, cfg, mi)
         return tok, caches
 
-    def cache_structs(self, B: int, s_max: int):
+    def cache_structs(self, B: int, s_max: int, s_enc: int = 0):
         return kv_cache.cache_structs(self.model.cfg, self.model.mi, B,
-                                      s_max)
+                                      s_max, s_enc)
 
-    def pad_prefill_caches(self, caches, B: int, s_max: int):
+    def pad_prefill_caches(self, caches, B: int, s_max: int,
+                           s_enc: int = 0):
         """Prefill caches -> zero-padded decode-layout caches (new tensors).
 
         An attention cache's ``k`` and ``v`` ([L, B, S, KV, hd], or [B, S,
@@ -110,17 +114,28 @@ class Server:
         s_max / tp``, not its prefill slice ``[t, t + 1) * S / tp``, so
         the slices are gathered over the model axes first, uncompressed
         and outside the ledger (the reference pads on the host).  A
-        recurrent state has no sequence dim: prefill emits it in the
-        decode layout, and it is copied as it is."""
+        ``dec_attn`` group's cross-attention ``xk`` / ``xv`` are laid out
+        the same way at length ``s_enc`` (the encoder's, not padded to
+        ``s_max``), and its ``xlen`` holds ``s_enc``, as the reference's
+        launcher fills it.  A recurrent state has no sequence dim:
+        prefill emits it in the decode layout, and it is copied as it
+        is.  An encoder group has no cache (``None``)."""
         cfg, mi = self.model.cfg, self.model.mi
-        structs, specs = self.cache_structs(B, s_max)
+        structs, specs = self.cache_structs(B, s_max, s_enc)
         pre_specs = kv_cache.prefill_cache_specs(cfg, mi, B)
         out = []
         for st, sp, psp, pc in zip(structs, specs, pre_specs, caches):
+            if st is None:
+                out.append(None)
+                continue
             new = {}
             for k, s in st.items():
+                if k == "xlen":
+                    new[k] = torch.full(s.shape, s_enc, dtype=s.dtype,
+                                        device=self.model.device)
+                    continue
                 a = pc[k]
-                if k not in ("k", "v"):           # recurrent state
+                if k not in ("k", "v", "xk", "xv"):   # recurrent state
                     if tuple(a.shape) != tuple(s.shape):
                         raise ValueError(f"prefill state {k} of shape "
                                          f"{tuple(a.shape)}, decode wants "
@@ -128,9 +143,10 @@ class Server:
                     new[k] = a.to(s.dtype).clone()
                     continue
                 d = a.dim() - 3                   # the sequence dim
+                length = s_enc if k in ("xk", "xv") else s_max
                 if psp[k][d] == "model":          # the prefill's slice
                     a = comms.raw_all_gather(a, mi.tp_axes, d)
-                full = torch.zeros(a.shape[:d] + (s_max,) + a.shape[d + 1:],
+                full = torch.zeros(a.shape[:d] + (length,) + a.shape[d + 1:],
                                    dtype=s.dtype, device=a.device)
                 full.narrow(d, 0, a.shape[d]).copy_(a)
                 if sp[k][d] == "model":           # the decode shard

@@ -164,13 +164,16 @@ def _remat_wrap(fn, offload: bool):
     return checkpointed
 
 
-def _stage_body(model: Model, params, x, pos, v=None, pos3=None):
+def _stage_body(model: Model, params, x, pos, v=None, pos3=None,
+                cross=None, cross_pos=None):
     """One tick's layers -> (y, MoE aux or ``None``): the rank's chunk on a
     stage mesh, the whole decoder on a flat one (``pp == 1`` gradient
-    accumulation, which alone takes M-RoPE ids ``pos3``)."""
+    accumulation, which alone takes M-RoPE ids ``pos3`` and an encoder's
+    output ``cross`` / ``cross_pos``)."""
     if model.mi.pp > 1:
         return model.run_stage(params, x, pos, v)
-    x, _, aux = model.run_decoder(params, x, pos, pos3=pos3)
+    x, _, aux = model.run_decoder(params, x, pos, pos3=pos3, cross=cross,
+                                  cross_pos=cross_pos)
     return x, aux
 
 
@@ -202,8 +205,8 @@ def pipeline_loss_fn(model: Model, n_micro: int, remat_policy=None):
     sidx = stage_ax.index if pp > 1 else 0
     handoff = comms.site("pp", "stage_handoff")
 
-    def run(p, x, pos, v=None, pos3=None):
-        return _stage_body(model, p, x, pos, v, pos3)
+    def run(p, x, pos, v=None, pos3=None, cross=None, cross_pos=None):
+        return _stage_body(model, p, x, pos, v, pos3, cross, cross_pos)
     ckpt = _remat_wrap(run, roffload)
 
     def clip(i, hi):
@@ -268,10 +271,16 @@ def pipeline_loss_fn(model: Model, n_micro: int, remat_policy=None):
                                                     in mb.items()})
                 x_in = torch.where(first[takes_embed], e, recv) \
                     if pp > 1 else e
+                # the encoder over this microbatch's frames (pp == 1 only,
+                # refused above), outside the remat policy as in the
+                # reference
+                cross = cross_pos = None
+                if cfg.encoder_layers:
+                    cross, cross_pos = model.encode(params, mb["frames"][m])
                 # 3. this tick's layers, under the remat policy
                 pos3 = mb["pos3"][m] if cfg.mrope and "pos3" in mb else None
                 y, aux_t = (ckpt if remat else run)(params, x_in, pos, v,
-                                                    pos3)
+                                                    pos3, cross, cross_pos)
                 # the aux counts the ticks that hold a real microbatch
                 if live:
                     aux = transformer.add_aux(aux, aux_t)

@@ -1,15 +1,16 @@
 """The port's other dense decoders (qwen2-72b, gemma3-4b, minitron-4b,
 qwen2-vl-72b), its Mixture-of-Experts decoders (qwen3-moe-235b-a22b,
-kimi-k2-1t-a32b) and its recurrent families (zamba2-1.2b, xlstm-1.3b)
-beside gemma3-1b, against the reference, at ``--reduced`` on one
-device.
+kimi-k2-1t-a32b), its recurrent families (zamba2-1.2b, xlstm-1.3b) and
+whisper-base's encoder-decoder backbone beside gemma3-1b, against the
+reference, at ``--reduced`` on one device.
 
 Contract asserted here, with the tolerances and their reasons:
   * for each ported architecture, on the reference's weights
     (``from_jax_params``) and the reference's ``make_batch`` inputs
     (``tests/test_arch_smoke.py``: tokens and labels from a numpy seed,
-    and for qwen2-vl the ``vision`` embeddings merged under ``vis_mask``
-    and the M-RoPE ids ``pos3``), the loss within rtol 1e-5 and every
+    for whisper the encoder's stub ``frames``, and for qwen2-vl the
+    ``vision`` embeddings merged under ``vis_mask`` and the M-RoPE ids
+    ``pos3``), the loss within rtol 1e-5 and every
     parameter's gradient within 1e-4 of its largest entry (f32 throughout;
     the frameworks order the matmul and softmax sums differently, an ulp
     or so per op; the untied head, qkv bias, relu2, M-RoPE and the MoE
@@ -20,7 +21,8 @@ Contract asserted here, with the tolerances and their reasons:
     without allocating) the reference's parameter counts, layer plans and
     plausible sizes, as ``test_full_config_dims`` and
     ``test_param_counts_plausible`` hold the reference's;
-  * the architectures not yet ported raise ``NotImplementedError``;
+  * every architecture of the reference is ported: ``get`` returns its
+    config;
   * gradient accumulation (pp 1) takes qwen2-vl's vision and M-RoPE ids
     microbatch by microbatch, to the flat loss within rtol 1e-6, and a
     stage mesh refuses M-RoPE, as the reference's pipeline does.
@@ -33,20 +35,31 @@ from repro_torch import configs as tconfigs
 
 PORTED = ("gemma3-1b", "qwen2-72b", "gemma3-4b", "minitron-4b",
           "qwen2-vl-72b", "qwen3-moe-235b-a22b", "kimi-k2-1t-a32b",
-          "zamba2-1.2b", "xlstm-1.3b")
-NOT_YET = ("whisper-base",)
+          "zamba2-1.2b", "xlstm-1.3b", "whisper-base")
 
 
 def test_registry_splits_ported_and_not_yet():
     from repro import configs as jconfigs
     assert tconfigs.ARCH_IDS == PORTED
-    assert set(PORTED) | set(NOT_YET) == set(jconfigs.ARCH_IDS)
+    assert set(PORTED) == set(jconfigs.ARCH_IDS)
+    with pytest.raises(KeyError, match="unknown arch"):
+        tconfigs.get("whisper-tiny")
 
 
-@pytest.mark.parametrize("arch", NOT_YET)
-def test_not_yet_ported_arch_raises(arch):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tconfigs.get(arch)
+@pytest.mark.parametrize("arch", ("whisper-base",))
+def test_last_ported_arch_is_the_reference_config(arch):
+    """whisper-base, the last architecture the port took, is the
+    reference's: the encoder-decoder family with 6 + 6 layers, tied
+    embeddings, LayerNorm and GELU."""
+    from repro import configs as jconfigs
+    cfg, ref = tconfigs.get(arch), jconfigs.get(arch)
+    assert cfg.family == ref.family == "encdec"
+    assert (cfg.encoder_layers, cfg.encoder_seq, cfg.padded_vocab) == \
+        (ref.encoder_layers, ref.encoder_seq, ref.padded_vocab) == \
+        (6, 0, 51968)
+    assert [(g.kind, g.n) for g in cfg.layer_groups] == \
+        [(g.kind, g.n) for g in ref.layer_groups] == \
+        [("enc_attn", 6), ("dec_attn", 6)]
 
 
 @pytest.mark.parametrize("arch", PORTED)
@@ -81,13 +94,16 @@ def test_full_config_dims(arch):
         "kimi-k2-1t-a32b": (61, 7168, 64, 8, 18432, 163840),
         "zamba2-1.2b": (38, 2048, 32, 32, 8192, 32000),
         "xlstm-1.3b": (48, 2048, 4, 4, 0, 50304),
+        "whisper-base": (6, 512, 8, 8, 2048, 51865),
     }[arch]
     assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
             cfg.d_ff, cfg.vocab_size) == brief
-    # zamba2's shared-attention insertions are groups, not layers (as the
-    # reference's test_full_config_dims counts them)
+    # zamba2's shared-attention insertions are groups, not layers, and
+    # whisper's n_layers counts its decoder (as the reference's
+    # test_full_config_dims counts them)
     shared = sum(1 for g in cfg.layer_groups if g.kind == "shared_attn")
-    assert sum(g.n for g in cfg.layer_groups) == cfg.n_layers + shared
+    assert sum(g.n for g in cfg.layer_groups) == \
+        cfg.n_layers + cfg.encoder_layers + shared
 
 
 def test_param_counts_plausible():
@@ -104,7 +120,8 @@ def test_param_counts_plausible():
               "qwen2-vl-72b": (60e9, 85e9),
               "qwen3-moe-235b-a22b": (220e9, 250e9),
               "kimi-k2-1t-a32b": (0.9e12, 1.1e12),
-              "zamba2-1.2b": (0.8e9, 2.0e9), "xlstm-1.3b": (0.8e9, 2.0e9)}
+              "zamba2-1.2b": (0.8e9, 2.0e9), "xlstm-1.3b": (0.8e9, 2.0e9),
+              "whisper-base": (0.05e9, 0.1e9)}
     for arch, (lo, hi) in bounds.items():
         n = sum(d.size() for d in defs(transformer.model_plan(
             tconfigs.get(arch), MeshInfo())))
@@ -144,6 +161,9 @@ def _make_batch(cfg, B=2, S=16, seed=0):
     batch = {"tokens": rng.integers(0, cfg.vocab_size, (B, S)).astype(
         np.int32),
         "labels": rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)}
+    if cfg.encoder_layers:
+        batch["frames"] = rng.normal(size=(B, S, cfg.d_model)).astype(
+            np.float32)
     if cfg.mrope:
         batch["vision"] = rng.normal(size=(B, S, cfg.d_model)).astype(
             np.float32)
