@@ -5,13 +5,14 @@
     python3 chip_smoke.py --bq-only  # phase 1 and the bq timings alone
     python3 chip_smoke.py --pp-only  # phase 1, phase 4's step, phase 7
     python3 chip_smoke.py --ckpt-only  # phase 1, phase 6's plr8 run, phase 8
-    python3 chip_smoke.py --hier-only  # phase 1, phases 9 to 12
+    python3 chip_smoke.py --hier-only  # phase 1, phases 9 to 17
     python3 chip_smoke.py --cp-only    # phase 1 and phase 11
     python3 chip_smoke.py --serve-only # phase 1 and phase 12
     python3 chip_smoke.py --zero3-only # phase 1 and phase 13
     python3 chip_smoke.py --moe-only   # phase 1 and phase 14
     python3 chip_smoke.py --recurrent-only  # phase 1 and phase 15
     python3 chip_smoke.py --encdec-only     # phase 1 and phase 16
+    python3 chip_smoke.py --pod-only        # phase 1 and phase 17
 
 ``--bq-only`` prints the bq kernels' timings and those of the fused TP
 all-gather, TP reduce-scatter and KV-read ops beside the compositions
@@ -71,10 +72,11 @@ the 5:1 local:global pattern kept; 26 until phase 11 came in, 13 until
 phase 12) by
 continuous batching over a bq8 paged KV pool, 4 requests of
 560 + 8 tokens on 4 slots (8 of 560 + 24 on 8 until phase 14 came in),
-through the kernels, through their plain
-versions and with a dense pool, and requires identical tokens and pool
-planes between the first two and the bq8 error bound against the third,
-and the KV read through the fused form only.
+through the kernels and through their plain
+versions, and its first layer alone with a dense pool (the whole model
+until phase 17 came in: the check reads layer 0 only), and requires
+identical tokens and pool planes between the first two and the bq8 error
+bound against the third, and the KV read through the fused form only.
 Phase 4 drives the main path: the compressed ZeRO-1, Megatron-SP training
 step of gemma3-1b at full published width, its first 6 layers (one
 5:1 local:global block; all 26 until phase 13 came in, 13 until phase 16
@@ -107,11 +109,12 @@ bq4's priced ratios to phase 4's baseline.
 Phase 7 drives the pipeline (the paper's PP dimension): gemma3-1b at full
 published width, dp 1 x pp 2 x tp 2 (four ranks on the card), 4
 microbatches of 1 x 1024 tokens, zhybrid_16_8 (bq16 on the stage
-handoffs and the stage fold), deterministic: 7a 1F1B at ``--layers 8``, 2
+handoffs and the stage fold), deterministic: 7a 1F1B at ``--layers 4``, 2
 steps (cut from 26 layers when phase 10 came in, from 16 when phase 12
-did), and 7b interleaved (vpp 2, remat per_stage:0) at ``--layers 8``, 2
-steps (cut from 3 steps and 24 layers when phase 8 came in, from 16 when
-phase 12 did; gemma3-1b's
+did, from 8 when phase 17 did), and 7b interleaved (vpp 2, remat
+per_stage:0) at ``--layers 4``, 2 steps (cut from 3 steps and 24 layers
+when phase 8 came in, from 16 when phase 12 did, from 8 when phase 17
+did; gemma3-1b's
 5:1 local:global stack does not split into identical stages, so
 ``--layers`` makes it uniform), each through the kernels and
 through the plain versions.  It requires equal losses, grad norms and
@@ -124,15 +127,17 @@ bubble fraction and the stage fold's share of the step.
 
 Phase 8 checkpoints and resumes phase 6's plr8 kernel run (gemma3-1b at
 full published width, its first 6 layers, the pattern kept: 26 until
-phase 12 came in; dp 2 x tp 2, deterministic; phase 6's world trains the
-uninterrupted 6-layer run of 2 steps beside its own): 8a trains 1
+phase 12 came in; dp 2 x tp 2, deterministic; its first 2 steps are the
+uninterrupted run, which phase 6's world trained apart until phase 17
+came in): 8a trains 1
 step with ``--ckpt-dir .smoke/ckpt --ckpt-every 1`` (a non-blocking save
 of params, optimizer state and codec state, 14.9 GB at 26 layers), 8b
 resumes and trains 1 step, 8c resumes from step 1 at dp 4 x tp 1 and
 trains 1 step (8a and 8b trained 2 steps each until phase 14 came in);
-8c runs in 8b's world of processes, after rank 0 has read the heartbeat
-and pointed the checkpoints back at step 1 (a third world until phase 15
-came in).
+all three run in one world of processes, each building its mesh, model
+and state anew (8b and 8c restore them from the files), 8c after rank 0
+has read the heartbeat and pointed the checkpoints back at step 1 (three
+worlds until phase 15 came in, two until phase 17).
 It checks the free disk space first and fails with the numbers when it
 is short.  It requires 8a's losses and grad norms bit-equal to that
 run's first step and 8b's to its second, 8b's kernel launches per step
@@ -156,9 +161,11 @@ until phase 12 came in), 2
 steps (the DP gradient a bq16 reduce-scatter inside the node, then a bq8
 all-reduce of its half across, the param gather bq16 inside); 9b ``--tp
 4 --tp-nodes 2`` (tpnode 2 x model 2) under hier_tpp_8_16, ``--layers
-13`` (26 until phase 12 came in), 2 steps (every TP all-gather, reduce-scatter and f/g two-level, the
-class-C fold a two-level all-reduce, attention in ring mode); each
-through the kernels and the plain versions; and 9c ``--pp 4 --pp-nodes 2 --layers 8``, 4
+6`` (26 until phase 12 came in, 13 until phase 17), 2 steps (every TP
+all-gather, reduce-scatter and f/g two-level, the class-C fold a
+two-level all-reduce, attention in ring mode); each through the kernels
+and the plain versions; and 9c ``--pp 4 --pp-nodes 2 --layers 4`` (8
+until phase 17 came in), 4
 microbatches, 1F1B under hier_tpp_8_16, 2 steps, through the kernels
 (the middle handoff crosses a node, the other two stay inside one; the
 stage fold two-level).  It requires equal losses, grad norms and ledger
@@ -254,12 +261,12 @@ after phase 13: qwen3-moe-235b-a22b at full published width (d 4096, 64
 q and 4 kv heads of 128, qk-norm; experts of d_ff 1536, top-8, capacity
 factor 1.25; vocab 151936, untied), bf16, seed 0: 14a ``--dp 2 --tp 2``
 under zhybrid_16_8 (the ep all-to-alls on bq16 both ways) with the
-config's own ZeRO-3 (the expert leaves sharded over data), its first 2
-layers and its expert count cut from 128 to 16 (8 a rank; 128 do not
+config's own ZeRO-3 (the expert leaves sharded over data), its first
+layer (2 until phase 17 came in) and its expert count cut from 128 to 16 (8 a rank; 128 do not
 fit training), sequence 1024, global batch 4, 3 steps, through the
 kernels; 14b the same through the plain versions; 14c the batched dense
-Server at ``--tp 4`` with all 128 experts (32 a rank), its first 2
-layers, two prompts of 512 tokens plus 16 generated, kernels and plain.  It requires 14a equal to 14b
+Server at ``--tp 4`` with all 128 experts (32 a rank), its first
+layer, two prompts of 512 tokens plus 16 generated, kernels and plain.  It requires 14a equal to 14b
 (losses, grad norms, the load-balance loss and drop fraction per step,
 ledger per dim and ``dim/level``), finite losses, the priced ``ep`` bytes
 equal to their reckoning (four bq16 all-to-alls a layer of the [E * C,
@@ -322,6 +329,34 @@ staging share, the priced and measured MB per ``dim/level`` beside the
 reckoning, the launches at the cross gather's rows, the prefill seconds,
 decode ms per step and generated tokens/s, and the phase's seconds.
 
+Phase 17 runs in phase 9's world of four ranks after phase 16: 17a
+gemma3-1b at full width, its first 6 layers, ``--pod 2 --dp 2 --tp 1``
+(the outer data-parallel pod axis: the ZeRO-1 chunk of the data
+reduce-scatter all-reduces over the pods at ``dp@zero1_grad_pod``) under
+zhybrid_16_8, seq 1024, global batch 4, 3 steps, through the kernels,
+17b the same through the plain versions, beside a ``--dp 4`` run of the
+same scheme and data; 17c the long-context decode, gemma3-1b at full
+width and depth served by ``Server(seq_axes=("data", "model"))`` at dp 2
+x tp 2, a batch of one against 524288 positions (131072 a rank), the
+cache filled with seeded values to 8 short of the end in place of a
+prefill, 8 tokens decoded, through the kernels, 17d the same plain.  It
+requires 17a equal to 17b (losses, grad norms, ledger per ``dim/level``),
+finite falling losses within 1 % of ``--dp 4``'s, the ZeRO-1 sites'
+priced bytes equal to ``pod_reckoned``, #1-#4 launched in 17a (#3 with
+the sum: the pod all-reduce's tail) and nothing in 17b; 17c equal to 17d
+(tokens, every cache leaf after the fill and at the end by sha256),
+``tp@attn_combine`` priced as ``long_reckoned`` (the flash-decoding
+combine over data, then model).  17e, the dry-run of gemma3-1b's four
+cells on pod16x16 and pod2x16x16 on meta tensors (``repro_torch.launch.
+dryrun``), runs in a process of its own (``--dryrun FILE``) beside the
+world from the start of phase 9, and every cell must trace; its
+records and the report's tables are printed.  Phase 17 prints ms/step,
+tokens/s, peak memory, staging share, the priced MB per site beside the
+reckoning, the decode ms per step, the cache bytes a rank, the dry-run's
+seconds, and the whole step's share of the H100's dense bf16 peak (model
+FLOPs per device over the measured step time over 989e12, per rank and
+for the one card all ranks share) for 17a and phase 4.
+
 After phase 8, a fresh process (this script with ``--reckon FILE``, which
 the script starts itself) times each (kernel, rows, rate) that phase 4's
 kernel run launched, at its shape, and reckons launches x (time - bound)
@@ -335,8 +370,8 @@ their flat form, the encode and decode-add with the TP reduce-scatter's
 view forms, the gather-decode's times those of the fused KV read, and
 the bq kernels with the per-shape reckoning, phase 10's launches by
 rate and level, phase 13's at the zero site, phase 14's at the ep
-sites, phase 15's at the recurrent sites and phase 16's at the cross
-gather's rows) and the card line; the last
+sites, phase 15's at the recurrent sites, phase 16's at the cross
+gather's rows and phase 17's by run and level) and the card line; the last
 line is the result JSON.  Any failure exits non-zero;
 without a card, or outside a checkout, it fails before printing a result.
 """
@@ -365,7 +400,7 @@ MAIN_BITS = 8                 # the serving pool is bq8
 # 512 window); its first 6 layers (one 5:1 block, the pattern kept: cut
 # from 26 to 13 to pay for phase 11's runs, about half of phase 3's 199 s,
 # and from 13 to 6 for phase 12's); 8 slots and 560 + 24 until phase 14
-# came in
+# came in; the dense run on layer 0 alone since phase 17 came in
 SLOTS, BLOCK_TOKENS, PROMPT, GEN, SEED = 4, 16, 560, 8, 0
 SERVE_LAYERS = 6
 # main path: the training step at full width, its first 6 layers (one
@@ -393,15 +428,17 @@ CKPT_DIR = SCRATCH / "ckpt"   # phase 8's checkpoints
 CKPT_STEPS = 1                # phase 8: save after 8a's step (2 until
 #                               phase 14 came in)
 # phase 8 checkpoints phase 6's plr8 step at its first 6 layers (one 5:1
-# block, the pattern kept; cut from 26 when phase 12 came in), against an
-# uninterrupted 6-layer run of 2 * CKPT_STEPS steps that phase 6's world
-# trains beside its own
-CKPT_DEPTH = 6
+# block, the pattern kept; cut from 26 when phase 12 came in), against
+# the first 2 * CKPT_STEPS steps of phase 6's uninterrupted plr8 kernel
+# run (at MAIN_DEPTH, which CKPT_DEPTH must equal)
+CKPT_DEPTH = MAIN_DEPTH
 # phase 7: the pipeline, dp 1 x pp 2 x tp 2, 4 microbatches of 1 x SEQ;
 # (name, layers, steps, flags) of its two runs
 PP, PP_MICRO = 2, 4
-PP_RUNS = (("7a", 8, 2, ()),
-           ("7b", 8, 2, ("--vpp", "2", "--remat-policy", "per_stage:0")))
+# (--layers 8 until phase 17 came in; 4 is one layer a virtual stage of
+# 7b)
+PP_RUNS = (("7a", 4, 2, ()),
+           ("7b", 4, 2, ("--vpp", "2", "--remat-policy", "per_stage:0")))
 # wire rows of one handoff: a microbatch's bf16 [1, SEQ / TP, 1152]
 HANDOFF_ROWS = (GLOBAL_BATCH // PP_MICRO) * (SEQ // TP) * 1152 // 128
 # the stage-replicated leaves' fold: the tied embedding's vocab shard and
@@ -412,14 +449,15 @@ STAGE_FOLD_ELEMS = 262144 // TP * 1152 + 1152
 # ranks and half the ZeRO-1 state: at 26 layers the four need more than
 # the card's 80 GB (the Adam update ran out at 18.7 GiB per rank), so its
 # depth is cut to 13 (uniform global attention), its width kept, and to
-# 6 when phase 12 came in (the script's time)
+# 6 when phase 12 came in (the script's time); 9b's from 13 to 6 and 9c's
+# from 8 to 4 (one layer a stage) when phase 17 came in
 HIER_RUNS = (
     ("9a", "hier_zpp_8_16", 2, ("--dp", "4", "--tp", "1", "--nodes", "2",
                                 "--layers", "6"), True),
     ("9b", "hier_tpp_8_16", 2, ("--dp", "1", "--tp", "4", "--tp-nodes", "2",
-                                "--layers", "13"), True),
+                                "--layers", "6"), True),
     ("9c", "hier_tpp_8_16", 2, ("--dp", "1", "--tp", "1", "--pp", "4",
-                                "--pp-nodes", "2", "--layers", "8",
+                                "--pp-nodes", "2", "--layers", "4",
                                 "--microbatches", "4"), False))
 # the kernels each run's decomposition launches at each link level: the
 # rings of two ranks encode on their first hop and decode-add on their
@@ -566,7 +604,7 @@ Z3_SERVE_LEVELS = {"flat": {"bq_encode", "bq_gather_decode"}}
 # the kernels; its expert count cut from 128 to 16 (8 a rank at ep 2, the
 # config's own 8 experts a chip): one full-width layer of 128 experts
 # holds 2.42 B expert parameters, over 100 GB of training state at
-# phase 13's 38 B a parameter.  Its first 2 layers (``depth``): a rank
+# phase 13's 38 B a parameter.  Its first layer (``depth``): a rank
 # ran out of memory in the ZeRO-1 gather of the first step at 2 layers
 # (16.39 GiB
 # allocated and 2.32 GiB more asked, the four ranks holding 77.77 GiB) and
@@ -575,11 +613,13 @@ Z3_SERVE_LEVELS = {"flat": {"bq_encode", "bq_gather_decode"}}
 # untied table and head (622 M parameters a rank) beside the new ones; it
 # writes them in place since.  14b the same through the plain versions.
 # 14c the batched dense Server at ``--tp 4`` (ep 4, 32 experts a rank)
-# with all 128 experts, its first 2 layers, two prompts of 512 tokens plus
+# with all 128 experts, its first layer, two prompts of 512 tokens plus
 # 16 generated, kernels and plain.
+# (14a-14c at 2 layers until phase 17 came in: qwen3-moe's layers are
+# alike, each an attention and an MoE block)
 MOE_ARCH, MOE_DEPTH, MOE_EXPERTS, MOE_STEPS, MOE_SCHEME = \
-    "qwen3-moe-235b-a22b", 2, 16, 3, "zhybrid_16_8"
-MOE_SERVE_DEPTH = 2
+    "qwen3-moe-235b-a22b", 1, 16, 3, "zhybrid_16_8"
+MOE_SERVE_DEPTH = 1
 MOE_FLAGS = ("--dp", "2", "--tp", "2")
 MOE_SERVE = dict(mode="batched", tp=4, scheme="zhybrid_16_8", batch=2)
 # the ep sites' block encode and decode: the [E * C, D] dispatch buffer of
@@ -628,6 +668,32 @@ ENC_FLAGS = ("--dp", str(ENC_DP), "--tp", str(ENC_TP), "--seq",
              str(ENC_SEQ))
 ENC_SERVE = dict(mode="batched", dp=ENC_DP, tp=ENC_TP, scheme=ENC_SCHEME,
                  batch=4, prompt_len=432, gen=16, depth=0)
+
+# phase 17: the outer data-parallel pod axis, the long-context decode and
+# the dry-run, in phase 9's world of four ranks after phase 16.  17a
+# gemma3-1b at full published width, its first 6 layers (the 5:1 pattern
+# kept), ``--pod 2 --dp 2 --tp 1`` under zhybrid_16_8, seq 1024, global
+# batch 4, 3 steps, through the kernels; 17b the same through the plain
+# versions; beside them a ``--dp 4`` run of the same scheme on the same
+# data (the losses' yardstick).  17c gemma3-1b at full width and depth (26
+# layers), ``Server(seq_axes=("data", "model"))`` at dp 2 x tp 2 (ring
+# mode: one KV head), a batch of one against the long_500k cell's 524288
+# positions (131072 a rank): the cache filled with seeded values to 8
+# short of the end (a prefill of 524288 tokens is beyond eager
+# attention), then 8 tokens decoded, kernels; 17d the same, plain.  17e
+# the dry-run of gemma3-1b's four cells on pod16x16 and pod2x16x16, traced
+# on meta tensors in a process of its own on the host, beside the world.
+POD_ARCH, POD_DEPTH, POD_STEPS, POD_SCHEME = "gemma3-1b", 6, 3, \
+    "zhybrid_16_8"
+POD, POD_DP = 2, 2
+POD_FLAGS = ("--pod", str(POD), "--dp", str(POD_DP), "--tp", "1")
+POD_BASE_FLAGS = ("--dp", str(POD * POD_DP), "--tp", "1")
+LONG_DP, LONG_TP, LONG_S, LONG_GEN = 2, 2, 524288, 8
+LONG_SERVE = dict(mode="batched", dp=LONG_DP, tp=LONG_TP,
+                  scheme="zhybrid_16_8", depth=0, batch=1, prompt_len=2,
+                  gen=LONG_GEN + 1, max_len=LONG_S, fill=LONG_S - LONG_GEN,
+                  seq_axes=("data", "model"))
+DRY_ARCH = "gemma3-1b"
 
 
 # a bq kernel's wrappers: its block form and the flat and view forms that
@@ -921,10 +987,22 @@ def max_diff(a, b) -> float:
     return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
 
 
+def layer0_model(model, params):
+    """``model`` cut to its first layer and its parameters' slice: the same
+    embedding and layer-0 weights, so its layer-0 K/V are the model's."""
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import map_leaves
+
+    one = Model(model.cfg.truncated(1), model.mi, device=model.device)
+    return one, map_leaves(
+        lambda d, t: t[:d.shape[0]] if tuple(t.shape) != d.shape else t,
+        one.plan, params)
+
+
 def drive_serving(torch, model, params, card) -> dict:
     """Serve SLOTS random prompts through the kernels, through their plain
-    versions and with a dense pool; check the three runs against each
-    other; return the kernel run's launch counts."""
+    versions and, for layer 0 alone, with a dense pool; check the three
+    runs against each other; return the kernel run's launch counts."""
     from repro_torch.kernels import bq, ref
     from repro_torch.launch import serve
     from repro_torch.serve import paged_kv
@@ -939,7 +1017,7 @@ def drive_serving(torch, model, params, card) -> dict:
     serve.serve_requests(model, params, [prompts[0][:8]], 2, kv_codec="bq8",
                          block_tokens=bt, slots=slots)
 
-    def run(codec, backend):
+    def run(codec, backend, model=model, params=params):
         torch.cuda.reset_peak_memory_stats()
         bq.reset_launches()
         fin, pool, steps, secs = serve.serve_requests(
@@ -961,7 +1039,10 @@ def drive_serving(torch, model, params, card) -> dict:
 
     k_fin, k_pool, k_steps, k_secs, k_launch = run("bq8", None)
     p_fin, p_pool, _, p_secs, p_launch = run("bq8", "torch")
-    d_fin, d_pool, _, d_secs, _ = run("none", None)
+    # the dense pool only has to hold layer 0 (the check below reads no
+    # other), so that run serves the model's first layer alone
+    d_fin, d_pool, _, d_secs, _ = run("none", None,
+                                      *layer0_model(model, params))
 
     for name in ("bq_encode", "bq_gather_decode"):
         if k_launch[name] <= 0:
@@ -1002,11 +1083,9 @@ def drive_serving(torch, model, params, card) -> dict:
         if excess > 0:
             fail(f"layer 0 {nm}: bq8 pool off the dense pool beyond the "
                  f"error bound by {excess}")
-    same = sum(k_fin[i] == d_fin[i] for i in k_fin)
     print(f"phase 3: kernel run == plain run (tokens and every pool plane); "
           f"layer-0 bq8 pool within the error bound of the dense pool (max "
-          f"abs diff {worst:.3g}); {same}/{len(k_fin)} requests emit the "
-          f"same tokens under bq8 and none; dense run "
+          f"abs diff {worst:.3g}); dense run (layer 0 alone) "
           f"{d_secs * 1e3 / k_steps:.2f} ms/step, plain bq8 run "
           f"{p_secs * 1e3 / k_steps:.2f} ms/step [{card}]")
     return k_launch
@@ -1796,8 +1875,8 @@ def serve_run(label: str, backend=None, **kw) -> dict:
 
 
 def train_runs(card, runs: list) -> list:
-    """Runs of the launcher's training step in one world of ``dp x cp x pp
-    x tp`` processes on this card (:func:`run`; the ranks start once and
+    """Runs of the launcher's training step in one world of ``pod x dp x cp
+    x pp x tp`` processes on this card (:func:`run`; the ranks start once and
     train the runs in turn, each deterministic with its exchanges timed),
     and serving runs in the same world (:func:`serve_run`, whose numbers
     their phase prints); prints each training run's numbers and the
@@ -1824,7 +1903,7 @@ def train_runs(card, runs: list) -> list:
                                      deterministic=True, time_staging=True,
                                      **r["kw"]))
         r["tokens"] = args.global_batch * args.seq
-        worlds.add(args.dp * args.cp * args.pp * args.tp)
+        worlds.add(args.pod * args.dp * args.cp * args.pp * args.tp)
     if len(worlds) != 1:
         fail(f"runs of one world need one world size, got {worlds}")
     t0 = time.perf_counter()
@@ -1880,15 +1959,18 @@ def drive_hier(torch, card, only: str | None = None) -> tuple:
     the kernels and (9a, 9b) the plain versions, then phase 10, the tuned
     step, phase 11, context parallelism, phase 12, serving, phase 13,
     gemma3-4b with ZeRO-3, phase 14, qwen3-moe, phase 15, the recurrent
-    families, and phase 16, whisper-base, in the same world
-    (:func:`check_tune`, :func:`check_cp`, :func:`check_serve`,
-    :func:`check_zero3`, :func:`check_moe`, :func:`check_recurrent`,
-    :func:`check_encdec`); returns each phase 9 run's launches per kernel
-    and level (all ranks) and its numbers, phase 10's, 11's, 12's, 13's,
-    14's, 15's and 16's.  ``only="cp"`` runs phase 11 alone,
-    ``only="serve"`` phase 12 alone, ``only="zero3"`` phase 13 alone,
-    ``only="moe"`` phase 14 alone, ``only="recurrent"`` phase 15 alone,
-    ``only="encdec"`` phase 16 alone."""
+    families, phase 16, whisper-base, and phase 17, the pod axis and the
+    long-context decode, in the same world, the dry-run (17e) in a process
+    of its own beside it (:func:`check_tune`, :func:`check_cp`,
+    :func:`check_serve`, :func:`check_zero3`, :func:`check_moe`,
+    :func:`check_recurrent`, :func:`check_encdec`, :func:`check_pod`);
+    returns each phase 9 run's launches per kernel and level (all ranks)
+    and its numbers, phase 10's, 11's, 12's, 13's, 14's, 15's, 16's and
+    17's.  ``only="cp"`` runs phase 11 alone, ``only="serve"`` phase 12
+    alone, ``only="zero3"`` phase 13 alone, ``only="moe"`` phase 14 alone,
+    ``only="recurrent"`` phase 15 alone, ``only="encdec"`` phase 16 alone,
+    ``only="pod"`` phase 17 alone."""
+    dry = start_dryrun() if only in (None, "pod") else None
     runs, names = [], []
     for name, scheme, steps, flags, plain, depth in \
             tuple(r + (0,) for r in (() if only else HIER_RUNS)) \
@@ -1958,6 +2040,20 @@ def drive_hier(torch, card, only: str | None = None) -> tuple:
             runs.append(serve_run("16c", backend, arch=ENC_ARCH,
                                   **ENC_SERVE))
             names.append(("16c", backend))
+    if only in (None, "pod"):
+        for backend in (None, "torch"):
+            label = "17a kernels" if backend is None else "17b plain"
+            runs.append(run(label, POD_SCHEME, backend, POD_STEPS, POD_FLAGS,
+                            dp=1, tp=1, arch=POD_ARCH, depth=POD_DEPTH))
+            names.append(("17", backend))
+        runs.append(run("17 --dp 4", POD_SCHEME, None, POD_STEPS,
+                        POD_BASE_FLAGS, dp=1, tp=1, arch=POD_ARCH,
+                        depth=POD_DEPTH))
+        names.append(("17 dp4", None))
+        for backend in (None, "torch"):
+            runs.append(serve_run("17c" if backend is None else "17d",
+                                  backend, arch=POD_ARCH, **LONG_SERVE))
+            names.append(("17c", backend))
     t0 = time.perf_counter()
     res = dict(zip(names, train_runs(card, runs)))
     wall = time.perf_counter() - t0
@@ -1983,8 +2079,18 @@ def drive_hier(torch, card, only: str | None = None) -> tuple:
                              for b in (None, "torch"))
         print(f"phase 16: {enc['seconds']:.1f} s of steps and serving "
               f"(rank 0) of the world's {wall:.1f} s [{card}]")
+    pod = check_pod(card, res, finish_dryrun(dry)) \
+        if only in (None, "pod") else {}
+    if pod:
+        # phase 17's runs' own seconds in the world
+        pod["seconds"] = sum(sum(res[(n, b)][0]["step_s"]) for n, b in (
+            ("17", None), ("17", "torch"), ("17 dp4", None))) + sum(
+            res[("17c", b)][0]["wall_s"] for b in (None, "torch"))
+        print(f"phase 17: {pod['seconds']:.1f} s of steps and serving "
+              f"(rank 0) of the world's {wall:.1f} s; the dry-run "
+              f"{pod['17e']['seconds']:.1f} s beside it [{card}]")
     if only:
-        return {}, {}, cp, serve, z3, moe, rec, enc
+        return {}, {}, cp, serve, z3, moe, rec, enc, pod
     out = {}
     for name, scheme, steps, flags, plain in HIER_RUNS:
         k = res[(name, None)]
@@ -2032,7 +2138,7 @@ def drive_hier(torch, card, only: str | None = None) -> tuple:
                      "per_dim_level": r0["priced_per_dim_level"],
                      "link_bytes": r0["link_bytes"]}
     return out, check_tune(card, res[("10", None)], res[("10", "torch")]), \
-        cp, serve, z3, moe, rec, enc
+        cp, serve, z3, moe, rec, enc, pod
 
 
 def paged_prompts() -> list:
@@ -2375,7 +2481,7 @@ def check_moe(card, res: dict) -> dict:
     for r in k:
         for name, rows, bits, c in r["launch_shapes"]:
             shapes[(name, rows, bits)] = shapes.get((name, rows, bits), 0) + c
-    # per rank per step: 2 layers x 2 sites x (forward, backward)
+    # per rank per step: a layer's 2 sites x (forward, backward)
     want_n = MOE_DEPTH * 4 * len(k) * MOE_STEPS
     at_ep = {kern: shapes.get((kern, MOE_EP_ROWS, 16), 0)
              for kern in ("bq_encode", "bq_decode")}
@@ -3079,12 +3185,10 @@ def check_tune(card, k, p) -> dict:
             "levels": levels}
 
 
-def drive_pipeline(torch, card) -> dict:
-    """Phase 7: the pipeline at full width, dp 1 x pp 2 x tp 2 (four ranks
-    on the card), 1F1B and interleaved (vpp 2, remat per_stage:0) at
-    PP_RUNS' ``--layers``, through the kernels and the plain
-    versions; returns each run's launches (all ranks), by shape too."""
-    out, runs = {}, []
+def pipeline_runs() -> list:
+    """Phase 7's runs (:func:`run`): each of PP_RUNS through the kernels
+    and the plain versions."""
+    runs = []
     for name, layers, steps, extra in PP_RUNS:
         flags = ["--layers", str(layers), "--pp", str(PP), "--microbatches",
                  str(PP_MICRO), *extra]
@@ -3092,7 +3196,17 @@ def drive_pipeline(torch, card) -> dict:
                      dp=1),
                  run(f"{name} plain", "zhybrid_16_8", "torch", steps, flags,
                      dp=1)]
-    res = train_runs(card, runs)
+    return runs
+
+
+def drive_pipeline(torch, card, res=None) -> dict:
+    """Phase 7: the pipeline at full width, dp 1 x pp 2 x tp 2 (four ranks
+    on the card), 1F1B and interleaved (vpp 2, remat per_stage:0) at
+    PP_RUNS' ``--layers``, through the kernels and the plain versions
+    (``res``: their per-rank results, trained here when ``None``);
+    returns each run's launches (all ranks), by shape too."""
+    out = {}
+    res = res or train_runs(card, pipeline_runs())
     for i, (name, layers, steps, extra) in enumerate(PP_RUNS):
         k, p = res[2 * i], res[2 * i + 1]
         for rk, rp in zip(k, p):
@@ -3148,6 +3262,285 @@ def drive_pipeline(torch, card) -> dict:
               f"{launch_sums(k)} [{card}]")
         out[name] = {"launches": launch_sums(k), "shapes": shapes,
                      "step_ms": step * 1e3, "fold_ms": fold * 1e3}
+    return out
+
+
+def pod_reckoned(n_flat: int, dp: int, pod: int, wire8, wire16) -> dict:
+    """The ZeRO-1 sync's priced bytes per rank per step of an ``n_flat``
+    value gradient (every leaf whole: tp 1) at ``dp`` data x ``pod`` pod
+    ranks, reckoned by hand; ``wire8(n)`` and ``wire16(n)`` are the bq8 and
+    bq16 wire bytes of n values.  The reduce-scatter over data sends ``dp
+    - 1`` ring hops of its chunk (``padded_rows(ceil(n / dp))`` rows) under
+    bq8 (``dp@zero1_grad``); that chunk's all-reduce over the pods ``pod -
+    1`` reduce-scatter hops and as many all-gather hops of its own padded
+    ``1 / pod`` part under bq8 (``dp@zero1_grad_pod``), priced twice: the
+    ledger gives every psum event its backward twin (an all-reduce), as
+    the reference's does, though the optimizer's runs outside autodiff
+    (the measured wire is the half); the param gather ``dp - 1`` hops of
+    the chunk under bq16 (``zero@zero1_param``)."""
+    from repro_torch.kernels.ops import padded_rows
+
+    chunk = padded_rows(-(-n_flat // dp)) * 128
+    part = padded_rows(-(-chunk // pod)) * 128
+    return {"dp@zero1_grad": float((dp - 1) * wire8(chunk)),
+            "dp@zero1_grad_pod": float(2 * 2 * (pod - 1) * wire8(part)),
+            "zero@zero1_param": float((dp - 1) * wire16(chunk))}
+
+
+def long_reckoned(cfg, dp: int, tp: int, wire) -> dict:
+    """``tp@attn_combine``'s priced bytes per rank per decode step of the
+    long-context decode (a batch of one, the cache's sequence over (data,
+    model)), reckoned by hand; ``wire(n)`` is the bq16 wire bytes of n
+    values.  Every attention layer merges its shards' partial softmax by
+    two sums over each of data and model: the output [1, 1, H, hd] and the
+    denominator [1, 1, H], each a ring all-reduce of ``n`` ranks (``n -
+    1`` reduce-scatter and ``n - 1`` all-gather hops of its padded ``1 /
+    n`` part)."""
+    from repro_torch.kernels.ops import padded_rows
+
+    layers = sum(g.n for g in cfg.layer_groups
+                 if g.kind in ("attn", "moe", "dec_attn", "shared_attn"))
+    per = 0
+    for n in (dp, tp):
+        for elems in (cfg.n_heads * cfg.head_dim_, cfg.n_heads):
+            if n > 1:
+                per += 2 * (n - 1) * wire(padded_rows(-(-elems // n)) * 128)
+    return {"tp@attn_combine": float(layers * per)}
+
+
+def step_share(cfg, mi, step_s: float, ranks_per_card: int) -> dict:
+    """The cost model's per-device FLOPs and bytes of a training step of
+    ``cfg`` at GLOBAL_BATCH x SEQ on ``mi``, its model FLOPs (6 N D), and
+    the share of the H100's dense bf16 peak that the model FLOPs per
+    device reach at the measured ``step_s``; the ranks share one card, so
+    also the card's share (all ``ranks_per_card`` ranks' model FLOPs)."""
+    from repro_torch.analysis import costmodel, roofline
+    from repro_torch.models.params import count_params
+    from repro_torch.models.transformer import model_plan
+
+    peak = roofline.H100_PEAK_FLOPS
+    n = count_params(model_plan(cfg, mi))
+    n_act = roofline.active_params(cfg, n)
+    cost = costmodel.train_cost(cfg, mi, GLOBAL_BATCH, SEQ, n_act, n)
+    mf = roofline.model_flops(cfg, n_act, GLOBAL_BATCH * SEQ)
+    chips = mi.world_size
+    per_dev = mf / chips / step_s
+    return {"params": n, "cost_flops_per_device": cost.flops,
+            "cost_hbm_bytes_per_device": cost.hbm_bytes,
+            "model_flops": mf, "model_flops_per_device": mf / chips,
+            "step_s": step_s, "share_per_device": per_dev / peak,
+            "share_of_card": per_dev * ranks_per_card / peak}
+
+
+def start_dryrun():
+    """Phase 17e: the dry-run of DRY_ARCH's four cells on both production
+    meshes in a process of its own (host only: meta tensors, no card),
+    started now and read by :func:`finish_dryrun`."""
+    SCRATCH.mkdir(exist_ok=True)
+    out = SCRATCH / "dryrun.json"
+    out.unlink(missing_ok=True)
+    return out, subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                                  "--dryrun", str(out)])
+
+
+def finish_dryrun(dry) -> dict:
+    out, proc = dry
+    if proc.wait(timeout=600) != 0:
+        fail(f"phase 17e: the dry-run failed ({proc.returncode})")
+    return json.loads(out.read_text())
+
+
+def dryrun_main(path: str) -> None:
+    """``--dryrun FILE``: trace DRY_ARCH's four cells on pod16x16 and
+    pod2x16x16 on meta tensors (no card), write the records, the report's
+    roofline and dry-run tables and the wall seconds to FILE."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.analysis import report
+    from repro_torch.launch import dryrun, specs
+
+    t0 = time.perf_counter()
+    out = {"records": {}, "tables": {}}
+    for multi_pod in (False, True):
+        mesh = "pod2x16x16" if multi_pod else "pod16x16"
+        recs = {}
+        for shape in specs.SHAPES:
+            r = dryrun.run_cell(DRY_ARCH, shape, multi_pod, "zhybrid_16_8")
+            recs[(DRY_ARCH, shape)] = r
+            out["records"][f"{mesh}/{shape}"] = r
+        out["tables"][mesh] = {"roofline": report.roofline_table(recs),
+                               "dryrun": report.dryrun_table(recs)}
+    out["seconds"] = time.perf_counter() - t0
+    Path(path).write_text(json.dumps(out))
+
+
+def check_pod(card, res: dict, dry: dict) -> dict:
+    """Phase 17: the pod run through the kernels (17a) equal to its plain
+    run (17b) in losses, grad norms and the ledger per ``dim/level``
+    (priced and measured), finite and falling losses within 1 % of the
+    ``--dp 4`` run's, the three ZeRO-1 sites' priced bytes equal to
+    :func:`pod_reckoned`, the block encode (#1), decode (#2), the fused hop
+    with the sum (#3, the pod all-reduce's tail) and the decode-add (#4)
+    launched in 17a and nothing in 17b; the long-context decode through
+    the kernels (17c) equal to its plain run (17d) in tokens and every
+    cache leaf after the fill and at the end (sha256), ``tp@attn_combine``
+    priced as :func:`long_reckoned`; every dry-run cell (17e) traced; no
+    rank importing jax or repro.  Prints the numbers (and the whole-step
+    shares of the H100's peak) and returns them."""
+    from repro_torch.core import codecs
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import model_config
+    from repro_torch.models.params import count_params
+    from repro_torch.models.transformer import model_plan
+    from repro_torch.serve import kv_cache
+
+    cfg = model_config(POD_ARCH, depth=POD_DEPTH)
+    k, p, b = res[("17", None)], res[("17", "torch")], res[("17 dp4", None)]
+    for rk, rp, rb in zip(k, p, b):
+        if rk["foreign_modules"] or rp["foreign_modules"]:
+            fail(f"phase 17 rank {rk['rank']} imported "
+                 f"{rk['foreign_modules'] or rp['foreign_modules']}")
+        for key in ("losses", "grad_norms", "wire_per_dim_level",
+                    "priced_per_dim_level"):
+            if rk[key] != rp[key]:
+                fail(f"phase 17a/17b rank {rk['rank']}: {key} differ between "
+                     f"the kernel run ({rk[key]}) and the plain run "
+                     f"({rp[key]})")
+        ls = rk["losses"]
+        if not np.isfinite(ls).all() or not ls[-1] < ls[0]:
+            fail(f"phase 17a rank {rk['rank']}: losses {ls} not finite and "
+                 f"falling")
+        for s_, (lk, lb) in enumerate(zip(ls, rb["losses"])):
+            if abs(lk - lb) > 0.01 * abs(lb):
+                fail(f"phase 17a rank {rk['rank']} step {s_}: loss {lk} vs "
+                     f"--dp 4 {lb}")
+    if any(v for r in p for v in r["launches"].values()):
+        fail(f"phase 17b: the plain run launched kernels: "
+             f"{[r['launches'] for r in p]}")
+    launches = launch_sums(k)
+    need = ("bq_encode", "bq_decode", "bq_decode_add_encode", "bq_decode_add")
+    if not all(launches[n] > 0 for n in need):
+        fail(f"phase 17a: not every kernel of the pod sync launched: "
+             f"{launches}")
+    n_flat = count_params(model_plan(cfg, make_mesh(1, 1)))
+    want = pod_reckoned(n_flat, POD_DP, POD,
+                        codecs.get("bq8").wire_nbytes_for,
+                        codecs.get("bq16").wire_nbytes_for)
+    sites = k[0]["priced_per_site"]
+    for site, v in want.items():
+        if abs(sites.get(site, 0.0) - v) > 1e-9 * v:
+            fail(f"phase 17a: {site} priced {sites.get(site, 0.0)} B per "
+                 f"rank per step, reckoned {v}")
+    step = max(float(np.median(r["step_s"][1:])) for r in k)
+    base = max(float(np.median(r["step_s"][1:])) for r in b)
+    share = [sum(r["staging_s"][1:]) / sum(r["step_s"][1:]) for r in k]
+    peak = [round(r["peak_bytes"] / 2**30, 2) for r in k]
+    r0 = k[0]
+    out = {"step_ms": step * 1e3, "dp4_step_ms": base * 1e3,
+           "tokens_per_s": GLOBAL_BATCH * SEQ / step, "peak_gib": peak,
+           "staging_share": [min(share), max(share)],
+           "priced_mb": {s_: sites.get(s_, 0.0) / 1e6 for s_ in want},
+           "reckoned_mb": {s_: v / 1e6 for s_, v in want.items()},
+           "priced_per_dim_level": r0["priced_per_dim_level"],
+           "launches": launches, "levels": level_sums(k),
+           "losses": r0["losses"], "dp4_losses": b[0]["losses"],
+           "grad_norms": r0["grad_norms"], "n_flat": n_flat,
+           "share": step_share(cfg, make_mesh(POD_DP, 1, pod=POD, rank=0),
+                               step, POD * POD_DP)}
+    print(f"phase 17a/17b ({POD_ARCH} full width, its first {POD_DEPTH} "
+          f"layers, {' '.join(POD_FLAGS)}, global batch {GLOBAL_BATCH}, "
+          f"seq {SEQ}, {POD_SCHEME}): kernel run == plain run (losses, grad "
+          f"norms, ledger per dim/level) on every rank; losses "
+          f"{r0['losses']} (--dp 4: {b[0]['losses']}), grad norms "
+          f"{[round(g, 6) for g in r0['grad_norms']]}; {step * 1e3:.1f} "
+          f"ms/step (slowest rank; --dp 4 {base * 1e3:.1f}), "
+          f"{out['tokens_per_s']:.0f} tokens/s, peak {peak} GiB per rank, "
+          f"staging+exchange {min(share) * 100:.0f}-{max(share) * 100:.0f} "
+          f"% [{card}]")
+    print(f"phase 17a MB per rank per step: priced "
+          f"{ {s_: round(v, 3) for s_, v in out['priced_mb'].items()} } == "
+          f"reckoned { {s_: round(v, 3) for s_, v in out['reckoned_mb'].items()} }"
+          f" ({n_flat} values); by dim/level "
+          f"{ {d: round(v / 1e6, 3) for d, v in r0['priced_per_dim_level'].items() if v} }"
+          f"; launches (all ranks) {launches} [{card}]")
+    # 17c/17d: the long-context decode
+    k, p = res[("17c", None)], res[("17c", "torch")]
+    lcfg = model_config(POD_ARCH)
+    toks = k[0]["tokens"]
+    if len(toks) != 1 or len(toks[0]) != LONG_GEN + 1 or any(
+            not 0 <= t < lcfg.vocab_size for t in toks[0]) or any(
+            r["tokens"] != toks for r in k):
+        fail(f"phase 17c: malformed or disagreeing tokens {toks}")
+    for rk, rp in zip(k, p):
+        if rk["foreign_modules"]:
+            fail(f"phase 17c rank {rk['rank']} imported "
+                 f"{rk['foreign_modules']}")
+        if rk["tokens"] != rp["tokens"] or rk["digests"] != rp["digests"]:
+            fail(f"phase 17c/17d rank {rk['rank']}: tokens or cache "
+                 f"digests differ between the kernel run and the plain run")
+        if rk["s_max"] != LONG_S:
+            fail(f"phase 17c: cache of {rk['s_max']} positions")
+    if any(v for r in p for v in r["launches"].values()):
+        fail(f"phase 17d: the plain run launched kernels")
+    lwant = long_reckoned(lcfg, LONG_DP, LONG_TP,
+                          codecs.get("bq16").wire_nbytes_for)
+    from repro_torch.analysis import roofline
+    got = k[0]["ledger"]["decode"]
+    csite = roofline.ledger_summary(got["events"], train=False)["per_site"]
+    for site, v in lwant.items():
+        if abs(csite.get(site, 0.0) - v) > 1e-9 * v:
+            fail(f"phase 17c: {site} priced {csite.get(site, 0.0)} B per "
+                 f"rank per decode step, reckoned {v}")
+    dec_ms = max(float(np.median(r["decode_s"])) for r in k) * 1e3
+    structs, _ = kv_cache.cache_structs(
+        lcfg, make_mesh(LONG_DP, LONG_TP, rank=0), 1, LONG_S,
+        seq_axes=LONG_SERVE["seq_axes"])
+    cache_b = sum(int(np.prod(st.shape)) * st.dtype.itemsize
+                  for c in structs if c for st in c.values())
+    out["17c"] = {"tokens": toks, "decode_ms_per_step": dec_ms,
+                  "fill_s": k[0]["prefill_s"], "cache_bytes_per_rank":
+                  cache_b, "peak_gib": [round(r["peak_bytes"] / 2**30, 2)
+                                        for r in k],
+                  "combine_priced": csite.get("tp@attn_combine", 0.0),
+                  "combine_reckoned": lwant["tp@attn_combine"],
+                  "priced_mb": {d: v / 1e6 for d, v in got["priced"].items()},
+                  "launches": launch_sums(k), "levels": level_sums(k),
+                  "staging_share": [r["staging_s"] / max(r["wall_s"], 1e-9)
+                                    for r in k]}
+    print(f"phase 17c/17d ({POD_ARCH} full width and depth, dp {LONG_DP} x "
+          f"tp {LONG_TP}, seq_axes (data, model), 1 x {LONG_S} positions, "
+          f"{LONG_S // (LONG_DP * LONG_TP)} a rank, "
+          f"{cache_b / 1e9:.3f} GB of cache a rank, filled to "
+          f"{LONG_SERVE['fill']} in {k[0]['prefill_s']:.2f} s): kernel run "
+          f"== plain run (tokens, every cache leaf after the fill and at "
+          f"the end by sha256); tokens {toks[0]}; {dec_ms:.2f} ms a decode "
+          f"step (median, slowest rank); tp@attn_combine "
+          f"{csite.get('tp@attn_combine', 0.0):.0f} B == reckoned "
+          f"{lwant['tp@attn_combine']:.0f} B per rank per step; peak "
+          f"{out['17c']['peak_gib']} GiB per rank [{card}]")
+    # 17e: the dry-run
+    bad = {c: r["status"] for c, r in dry["records"].items()
+           if r["status"] != "traced"}
+    if bad or len(dry["records"]) != 8:
+        fail(f"phase 17e: cells not traced: {bad}")
+    out["17e"] = {"seconds": dry["seconds"], "records": {
+        c: {k_: r[k_] for k_ in ("roofline", "traced", "memory",
+                                 "collectives", "trace_s", "analytic")}
+        for c, r in dry["records"].items()}}
+    print(f"phase 17e: {DRY_ARCH}'s four cells on pod16x16 and pod2x16x16 "
+          f"traced on meta tensors in {dry['seconds']:.1f} s (host) "
+          f"[{card}]")
+    for mesh, tables in dry["tables"].items():
+        print(f"  {mesh} roofline (H100 peaks):\n{tables['roofline']}")
+        print(f"  {mesh} dry-run:\n{tables['dryrun']}")
+    sh = out["share"]
+    print(f"phase 17 share of the step: {POD_ARCH} {POD_DEPTH} layers, "
+          f"{sh['params']} params, model FLOPs {sh['model_flops']:.4g} a "
+          f"step, cost model {sh['cost_flops_per_device']:.4g} FLOP and "
+          f"{sh['cost_hbm_bytes_per_device']:.4g} B per device; "
+          f"{sh['model_flops_per_device']:.4g} model FLOPs per device at "
+          f"{step * 1e3:.1f} ms = {sh['share_per_device'] * 100:.3f} % of "
+          f"989e12 per rank, {sh['share_of_card'] * 100:.3f} % of the one "
+          f"card's peak (all {POD * POD_DP} ranks) [{card}]")
     return out
 
 
@@ -3236,17 +3629,26 @@ def time_matmul(torch, kind: str, rows: int, width: int, r: int):
         cold_ms(torch, library), passes
 
 
-def drive_training(torch, card) -> dict:
-    """Phase 4: the training step through the kernels, the plain versions
-    and baseline; returns the kernel run's launches (all ranks), the file
-    holding rank 0's flat gradient, and baseline's priced ledger."""
+GRAD_PATH = SCRATCH / "flat_grad.pt"   # phase 4's flat gradient, phase 5's
+
+
+def training_runs() -> list:
+    """Phase 4's runs (:func:`run`)."""
     SCRATCH.mkdir(exist_ok=True)
-    grad_path = SCRATCH / "flat_grad.pt"
-    k, p, b = train_runs(card, [
-        run("zhybrid_16_8 kernels", "zhybrid_16_8",
-            flat_grad_out=str(grad_path), depth=MAIN_DEPTH),
-        run("zhybrid_16_8 plain", "zhybrid_16_8", "torch", depth=MAIN_DEPTH),
-        run("baseline", "baseline", depth=MAIN_DEPTH)])
+    return [run("zhybrid_16_8 kernels", "zhybrid_16_8",
+                flat_grad_out=str(GRAD_PATH), depth=MAIN_DEPTH),
+            run("zhybrid_16_8 plain", "zhybrid_16_8", "torch",
+                depth=MAIN_DEPTH),
+            run("baseline", "baseline", depth=MAIN_DEPTH)]
+
+
+def drive_training(torch, card, res=None) -> dict:
+    """Phase 4: the training step through the kernels, the plain versions
+    and baseline (``res``: their per-rank results, trained here when
+    ``None``); returns the kernel run's launches (all ranks), the file
+    holding rank 0's flat gradient, and baseline's priced ledger."""
+    grad_path = GRAD_PATH
+    k, p, b = res or train_runs(card, training_runs())
     for rk, rp in zip(k, p):
         for key in ("losses", "grad_norms", "wire_per_dim", "priced_per_dim"):
             if rk[key] != rp[key]:
@@ -3293,6 +3695,7 @@ def drive_training(torch, card) -> dict:
         fail("phase 4 saved no flat gradient for phase 5")
     return {"launches": launches, "shapes": shape_sums(k),
             "grad_path": grad_path,
+            "step_s": max(float(np.median(r["step_s"][1:])) for r in k),
             "zhybrid": zk, "baseline": zb, "baseline_losses": b[0]["losses"]}
 
 
@@ -3307,22 +3710,24 @@ def flat_elems(cfg) -> int:
                for d in defs(model_plan(cfg, mi)))
 
 
-def drive_stateful(torch, card, train, n_flat) -> dict:
+def stateful_runs() -> list:
+    """Phase 6's runs (:func:`run`)."""
+    return [run("plr8 kernels", "zhybrid_16_8", None, STATEFUL_STEPS, PLR,
+                depth=MAIN_DEPTH),
+            run("plr8 plain", "zhybrid_16_8", "torch", STATEFUL_STEPS, PLR,
+                depth=MAIN_DEPTH),
+            run("ef_zhybrid_16_4 kernels", "ef_zhybrid_16_4", None,
+                STATEFUL_STEPS, depth=MAIN_DEPTH)]
+
+
+def drive_stateful(torch, card, train, n_flat, res=None) -> dict:
     """Phase 6: plr8 on the DP gradient sync through the kernels and the
-    plain versions, and ef_zhybrid_16_4 through the kernels; returns the
+    plain versions, and ef_zhybrid_16_4 through the kernels (``res``:
+    their per-rank results, trained here when ``None``); returns the
     kernel runs' launches (all ranks)."""
     from repro_torch.core import codecs
 
-    k, p, e, ref8 = train_runs(card, [
-        run("plr8 kernels", "zhybrid_16_8", None, STATEFUL_STEPS, PLR,
-            depth=MAIN_DEPTH),
-        run("plr8 plain", "zhybrid_16_8", "torch", STATEFUL_STEPS, PLR,
-            depth=MAIN_DEPTH),
-        run("ef_zhybrid_16_4 kernels", "ef_zhybrid_16_4", None,
-            STATEFUL_STEPS, depth=MAIN_DEPTH),
-        run(f"plr8 kernels, first {CKPT_DEPTH} layers (phase 8's "
-            f"reference)", "zhybrid_16_8", None, 2 * CKPT_STEPS, PLR,
-            depth=CKPT_DEPTH)])
+    k, p, e = res or train_runs(card, stateful_runs())
     for rk, rp in zip(k, p):
         for key in ("wire_per_dim", "priced_per_dim"):
             if rk[key] != rp[key]:
@@ -3346,8 +3751,7 @@ def drive_stateful(torch, card, train, n_flat) -> dict:
     for n in ("bq_encode", "bq_decode", "bq_decode_add"):
         if el[n] <= 0:
             fail(f"the ef_zhybrid_16_4 step never launched {n}: {el}")
-    for label, res in (("plr8", k), ("ef_zhybrid_16_4", e),
-                       (f"plr8 at {CKPT_DEPTH} layers", ref8)):
+    for label, res in (("plr8", k), ("ef_zhybrid_16_4", e)):
         for r in res:
             ls = r["losses"]
             if not (np.isfinite(ls).all() and ls[-1] < ls[0]):
@@ -3379,7 +3783,10 @@ def drive_stateful(torch, card, train, n_flat) -> dict:
           f"{e[0]['wire_per_dim']}; codec state rank 0: plr8 "
           f"{k[0]['codec_state']}, ef {e[0]['codec_state']}; launches (all "
           f"ranks) plr8 {kl}, ef {el} [{card}]")
-    return {"plr": kl, "ef": el, "plr_run": ref8}
+    # phase 8's uninterrupted run: the plr8 kernel run (CKPT_DEPTH is
+    # MAIN_DEPTH; phase 6's world trained a 2-step run of its own until
+    # phase 17 came in)
+    return {"plr": kl, "ef": el, "plr_run": k}
 
 
 def ckpt_bytes(cfg, n_flat) -> int:
@@ -3433,11 +3840,10 @@ def restart_point() -> dict:
     return hb
 
 
-def drive_checkpoint(torch, card, plr, cfg, n_flat) -> dict:
-    """Phase 8: save, resume and an elastic resume of phase 6's plr8
-    kernel run at CKPT_DEPTH layers ``plr`` (its per-rank results; ``cfg``
-    that depth's config, ``n_flat`` its flat gradient); returns 8b's
-    launches (all ranks) and the checkpoints' numbers."""
+def checkpoint_prepare(card, cfg, n_flat) -> tuple:
+    """Phase 8's checkpoint directory emptied and the free disk checked
+    for two checkpoints of ``cfg`` (``n_flat`` its flat gradient); ->
+    (free bytes, needed bytes)."""
     import shutil
 
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
@@ -3449,22 +3855,45 @@ def drive_checkpoint(torch, card, plr, cfg, n_flat) -> dict:
              f"checkpoints' directory, {free / 1e9:.1f} GB are")
     print(f"phase 8: {free / 1e9:.1f} GB free, {need / 1e9:.1f} GB needed "
           f"for two checkpoints [{card}]")
+    return free, need
+
+
+def checkpoint_runs() -> list:
+    """Phase 8's runs, in one world: 8a saves; 8b restarts from it
+    (train_rank builds its mesh, model and state anew and restores them
+    from the files, as a new process would); 8c then restarts from 8b's
+    restore point (rank 0 reads 8b's heartbeat and points the checkpoints
+    back between the two).  8a and 8b had a world each until phase 17
+    came in."""
     flags = [*PLR, "--ckpt-dir", str(CKPT_DIR), "--ckpt-every",
              str(CKPT_STEPS)]
-    try:
-        a = train_run(card, "8a plr8 kernels, save", "zhybrid_16_8", None,
-                      CKPT_STEPS, flags, depth=CKPT_DEPTH)
-        # a resume is a restart: 8b in a world of its own; 8c then restarts
-        # from 8b's restore point in the same world (rank 0 reads 8b's
-        # heartbeat and points the checkpoints back between the two)
-        b, hb, c = train_runs(card, [
+    return [run("8a plr8 kernels, save", "zhybrid_16_8", None, CKPT_STEPS,
+                flags, depth=CKPT_DEPTH),
             run("8b resume", "zhybrid_16_8", None, CKPT_STEPS,
                 [*flags, "--resume"], depth=CKPT_DEPTH),
             {"between": "restart_point"},
             run("8c resume at dp 4 x tp 1", "zhybrid_16_8", None, 1,
-                [*flags, "--resume"], dp=DP * TP, tp=1, depth=CKPT_DEPTH)])
-    finally:
-        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+                [*flags, "--resume"], dp=DP * TP, tp=1, depth=CKPT_DEPTH)]
+
+
+def drive_checkpoint(torch, card, plr, cfg, n_flat, res=None,
+                     disk=None) -> dict:
+    """Phase 8: save, resume and an elastic resume of phase 6's plr8
+    kernel run at CKPT_DEPTH layers ``plr`` (its per-rank results; ``cfg``
+    that depth's config, ``n_flat`` its flat gradient; ``res`` the runs'
+    results and ``disk`` :func:`checkpoint_prepare`'s, both made here when
+    ``None``); returns 8b's launches (all ranks) and the checkpoints'
+    numbers."""
+    import shutil
+
+    if res is None:
+        disk = checkpoint_prepare(card, cfg, n_flat)
+        try:
+            res = train_runs(card, checkpoint_runs())
+        finally:
+            shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    free, need = disk
+    a, b, hb, c = res
     ck = {label: r[0]["ckpt"] for label, r in (("8a", a), ("8b", b),
                                                ("8c", c))}
     for label, x in ck.items():
@@ -3481,7 +3910,7 @@ def drive_checkpoint(torch, card, plr, cfg, n_flat) -> dict:
     print(f"  step seconds, slowest rank: {secs} [{card}]")
     for ra, rb, rp in zip(a, b, plr):
         for key in ("losses", "grad_norms"):
-            if ra[key] + rb[key] != rp[key]:
+            if ra[key] + rb[key] != rp[key][:2 * CKPT_STEPS]:
                 fail(f"phase 8 rank {rp['rank']}: {key} of 8a and 8b "
                      f"{ra[key] + rb[key]} differ from phase 6's "
                      f"uninterrupted run {rp[key]}")
@@ -3490,10 +3919,11 @@ def drive_checkpoint(torch, card, plr, cfg, n_flat) -> dict:
              f"{2 * CKPT_STEPS - 1}")
     # 8b runs phase 6's step: the same launches per step
     lb, lp = launch_sums(b), launch_sums(plr)
-    if any(lb[n] * 2 != lp[n] for n in lp) or \
+    n_ref = len(plr[0]["losses"])
+    if any(lb[n] * n_ref != lp[n] * CKPT_STEPS for n in lp) or \
             not all(lb[f"matmul_{n}"] for n in MM_FORMS):
         fail(f"phase 8: 8b's launches {lb} in {CKPT_STEPS} steps are not "
-             f"phase 6's {lp} in {2 * CKPT_STEPS}")
+             f"phase 6's {lp} in {n_ref}")
     # the state restores where its global layout is the same at dp 4 x tp
     # 1, and falls back loudly where it is not (the reference's rule)
     same = {k: v == layout_shapes(cfg, DP * TP, 1)[k]
@@ -3523,17 +3953,25 @@ def drive_checkpoint(torch, card, plr, cfg, n_flat) -> dict:
             "need_bytes": need}
 
 
+def rings_rank(*, rank: int, world: int, **kw) -> tuple:
+    """One rank of phase 5's world: the cases through the kernels, then
+    through the plain versions (``ring_check.collectives_rank``)."""
+    from repro_torch.launch.ring_check import collectives_rank
+    return tuple(collectives_rank(rank=rank, world=world, backend=b, **kw)
+                 for b in (None, "torch"))
+
+
 def drive_rings(torch, card, grad_path) -> dict:
-    """Phase 5: the flat collectives alone over a 4-rank data axis."""
+    """Phase 5: the flat collectives alone over a 4-rank data axis, the
+    kernel and plain runs in one world (two until phase 17 came in)."""
     from repro_torch.launch.train import spawn_world
 
     cases = [dict(op=op, codec="bq8", bidir=bd, chunks=1)
              for bd in (False, True) for op in ("reduce_scatter_flat", "ring")]
     kw = dict(cases=cases, payload=str(grad_path), device="cuda",
               digest=True)
-    target = "repro_torch.launch.ring_check:collectives_rank"
-    k = spawn_world(target, RING_WORLD, {**kw, "backend": None})
-    p = spawn_world(target, RING_WORLD, {**kw, "backend": "torch"})
+    both = spawn_world("chip_smoke:rings_rank", RING_WORLD, kw)
+    k, p = [r[0] for r in both], [r[1] for r in both]
     for rk, rp in zip(k, p):
         for ck, cp in zip(rk, rp):
             if ck["result"] != cp["result"] or ck["wire"] != cp["wire"]:
@@ -3597,31 +4035,33 @@ def main():
         return
 
     if sys.argv[1:] == ["--hier-only"]:
-        # phases 9 to 12 alone
+        # phases 9 to 17 alone
         os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
                               "expandable_segments:True")
-        hier, tune, cp, serve, z3, moe, rec, enc = drive_hier(torch, card)
+        hier, tune, cp, serve, z3, moe, rec, enc, pod = drive_hier(torch,
+                                                                   card)
         print(json.dumps({"phase9": hier, "phase10": tune, "phase11": cp,
                           "phase12": serve, "phase13": z3, "phase14": moe,
-                          "phase15": rec, "phase16": enc}))
+                          "phase15": rec, "phase16": enc, "phase17": pod}))
         print(f"card: {card}")
         return
 
     if sys.argv[1:] in (["--cp-only"], ["--serve-only"], ["--zero3-only"],
                         ["--moe-only"], ["--recurrent-only"],
-                        ["--encdec-only"]):
-        # phase 11, 12, 13, 14, 15 or 16 alone
+                        ["--encdec-only"], ["--pod-only"]):
+        # phase 11, 12, 13, 14, 15, 16 or 17 alone
         os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
                               "expandable_segments:True")
         only = sys.argv[1][2:-5]
         t0 = time.perf_counter()
-        _, _, cp, serve, z3, moe, rec, enc = drive_hier(torch, card,
-                                                        only=only)
+        _, _, cp, serve, z3, moe, rec, enc, pod = drive_hier(torch, card,
+                                                             only=only)
         print(json.dumps({"cp": {"phase11": cp}, "serve": {"phase12": serve},
                           "zero3": {"phase13": z3},
                           "moe": {"phase14": moe},
                           "recurrent": {"phase15": rec},
-                          "encdec": {"phase16": enc}}[only]))
+                          "encdec": {"phase16": enc},
+                          "pod": {"phase17": pod}}[only]))
         print(f"wall seconds of the phase {time.perf_counter() - t0:.1f} "
               f"[{card}]")
         print(f"card: {card}")
@@ -3816,8 +4256,11 @@ def main():
     del model, params
     torch.cuda.empty_cache()
 
-    # ---------------------------------------------------------- phase 4
-    starts["4"] = time.perf_counter()
+    # ------------------------------------------------- phases 4, 6, 7, 8
+    # one world of four ranks trains the runs of phases 4, 6, 7 and 8 in
+    # turn (a world each until phase 17 came in); their checks follow,
+    # phase 5's rings (on phase 4's flat gradient) between them
+    starts["4, 6, 7, 8"] = time.perf_counter()
     # the ranks (fresh processes) share the card: growable segments keep
     # their reserved-but-free memory from fragmenting it
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
@@ -3828,46 +4271,51 @@ def main():
           f"{GLOBAL_BATCH}; this process keeps "
           f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved "
           f"[{card}]")
-    train = drive_training(torch, card)
-
-    # ---------------------------------------------------------- phase 5
-    starts["5"] = time.perf_counter()
-    rings = drive_rings(torch, card, train["grad_path"])
-    train["grad_path"].unlink()
-
-    # ---------------------------------------------------------- phase 6
-    starts["6"] = time.perf_counter()
     print(f"phase 6: carried-state codecs on phase 4's step, "
           f"{STATEFUL_STEPS} steps: plr8 on the DP sync (kernels, plain), "
           f"ef_zhybrid_16_4 (kernels) [{card}]")
-    stateful = drive_stateful(torch, card, train, n_flat)
-
-    # ---------------------------------------------------------- phase 7
-    starts["7"] = time.perf_counter()
     print(f"phase 7: the pipeline, gemma3-1b full width, dp 1 x pp {PP} x "
           f"tp {TP} ranks on this card, {PP_MICRO} microbatches, seq {SEQ}, "
           f"global batch {GLOBAL_BATCH}, zhybrid_16_8: 7a --layers "
           f"{PP_RUNS[0][1]} (1F1B), 7b --layers {PP_RUNS[1][1]} (vpp 2, "
           f"remat per_stage:0) [{card}]")
-    pipe = drive_pipeline(torch, card)
-
-    # ---------------------------------------------------------- phase 8
-    starts["8"] = time.perf_counter()
     print(f"phase 8: checkpoint and resume phase 6's plr8 kernel run at "
           f"its first {CKPT_DEPTH} layers "
           f"(8a {CKPT_STEPS} steps and a save, 8b resume {CKPT_STEPS} steps, "
           f"8c resume at dp {DP * TP} x tp 1, 1 step) [{card}]")
     cfg8 = cfg.truncated(CKPT_DEPTH)
+    disk = checkpoint_prepare(card, cfg8, flat_elems(cfg8))
+    groups = [training_runs(), stateful_runs(), pipeline_runs(),
+              checkpoint_runs()]
+    try:
+        res = train_runs(card, [r for g in groups for r in g])
+    finally:
+        import shutil
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    parts, at = [], 0
+    for g in groups:
+        parts.append(res[at:at + len(g)])
+        at += len(g)
+    train = drive_training(torch, card, res=parts[0])
+
+    # ---------------------------------------------------------- phase 5
+    starts["5"] = time.perf_counter()
+    rings = drive_rings(torch, card, train["grad_path"])
+    train["grad_path"].unlink()
+    starts["checks of 6, 7, 8"] = time.perf_counter()
+    stateful = drive_stateful(torch, card, train, n_flat, res=parts[1])
+    pipe = drive_pipeline(torch, card, res=parts[2])
     ckpt = drive_checkpoint(torch, card, stateful["plr_run"], cfg8,
-                            flat_elems(cfg8))
+                            flat_elems(cfg8), res=parts[3], disk=disk)
 
     # ---------------------------------------------------------- phase 9
-    starts["9 to 16"] = time.perf_counter()
+    starts["9 to 17"] = time.perf_counter()
     print(f"phase 9: node-factored meshes, gemma3-1b full width, four ranks "
           f"on this card, seq {SEQ}, global batch {GLOBAL_BATCH}: 9a --dp 4 "
           f"--nodes 2 --layers {HIER_RUNS[0][3][-1]} (hier_zpp_8_16), 9b "
-          f"--tp 4 --tp-nodes 2 --layers 13 "
-          f"(hier_tpp_8_16), 9c --pp 4 --pp-nodes 2 --layers 8 "
+          f"--tp 4 --tp-nodes 2 --layers {HIER_RUNS[1][3][-1]} "
+          f"(hier_tpp_8_16), 9c --pp 4 --pp-nodes 2 --layers "
+          f"{HIER_RUNS[2][3][-3]} "
           f"(hier_tpp_8_16, 1F1B); then phase 10 in the same world, the "
           f"tuned step: {' '.join(TUNE_FLAGS)} from {TUNE_SCHEME}, "
           f"{TUNE_STEPS} steps (kernels, plain); then phase 11, context "
@@ -3903,8 +4351,29 @@ def main():
           f"depth, {' '.join(ENC_FLAGS)} ({ENC_SCHEME}, {ENC_STEPS} steps): "
           f"16a kernels, 16b plain, 16c batched, {ENC_SERVE['batch']} "
           f"prompts of {ENC_SERVE['prompt_len']} + {ENC_SERVE['gen']} "
-          f"(kernels, plain) [{card}]")
-    hier, tune, cp, serve, z3, moe, rec, enc = drive_hier(torch, card)
+          f"(kernels, plain); then phase 17, {POD_ARCH} at full width: "
+          f"17a/17b the first {POD_DEPTH} layers, {' '.join(POD_FLAGS)} "
+          f"({POD_SCHEME}, {POD_STEPS} steps; kernels, plain) beside "
+          f"{' '.join(POD_BASE_FLAGS)}, 17c/17d all its layers served at "
+          f"dp {LONG_DP} x tp {LONG_TP} with the cache's {LONG_S} "
+          f"positions over (data, model), {LONG_GEN} tokens decoded "
+          f"(kernels, plain), 17e the dry-run beside the world [{card}]")
+    hier, tune, cp, serve, z3, moe, rec, enc, pod = drive_hier(torch, card)
+    # the whole-step shares of the H100's peak: phase 4's step and 17a's
+    from repro_torch.launch.mesh import make_mesh
+    sh4 = step_share(cfg.truncated(MAIN_DEPTH), make_mesh(DP, TP, rank=0),
+                     train["step_s"], DP * TP)
+    print(f"phase 4 share of the step: gemma3-1b {MAIN_DEPTH} layers, "
+          f"{sh4['params']} params, model FLOPs {sh4['model_flops']:.4g} a "
+          f"step, cost model {sh4['cost_flops_per_device']:.4g} FLOP and "
+          f"{sh4['cost_hbm_bytes_per_device']:.4g} B per device; "
+          f"{sh4['model_flops_per_device']:.4g} model FLOPs per device at "
+          f"{train['step_s'] * 1e3:.1f} ms = "
+          f"{sh4['share_per_device'] * 100:.3f} % of 989e12 per rank, "
+          f"{sh4['share_of_card'] * 100:.3f} % of the one card's peak (all "
+          f"{DP * TP} ranks); phase 17a "
+          f"{pod['share']['share_per_device'] * 100:.3f} % per rank, "
+          f"{pod['share']['share_of_card'] * 100:.3f} % of the card [{card}]")
 
     starts["reckoning"] = time.perf_counter()
     # launches x (time - bound) per shape of phase 4's kernel run, timed in
@@ -4016,6 +4485,19 @@ def main():
     def p16_launches(kernel: str) -> int:
         return enc["launches"][kernel] + enc["16c"]["launches"][kernel]
 
+    def p17_launches(kernel: str) -> int:
+        return pod["launches"][kernel] + pod["17c"]["launches"][kernel]
+
+    def p17_entry(kernel: str) -> dict:
+        """Phase 17's launches of a kernel (all ranks, the kernel runs) by
+        link level: 17a's and 17c's; a bq kernel's flat and view forms
+        count with it."""
+        forms = KERNEL_FORMS.get(kernel, (kernel,))
+        return {run: {key: v for key, v in levels.items()
+                      if key.split("/")[0] in forms}
+                for run, levels in (("17a", pod["levels"]),
+                                    ("17c", pod["17c"]["levels"]))}
+
     def p16_entry(kernel: str) -> dict:
         """Phase 16's launches of a kernel (all ranks, the kernel runs) per
         run by link level, and 16a's at the cross gather's rows; a bq
@@ -4083,7 +4565,8 @@ def main():
         entry["launches"] += p7_launches(name) + ckpt["launches"][name] \
             + p9_launches(name) + tune["launches"][name] \
             + p11_launches(name) + p12_launches(name) + p13_launches(name) \
-            + p14_launches(name) + p15_launches(name) + p16_launches(name)
+            + p14_launches(name) + p15_launches(name) + p16_launches(name) \
+            + p17_launches(name)
         entry["phase7"] = p7_entry(name)
         entry["phase8"] = ckpt["launches"][name]        # after the restore
         entry["phase9"] = p9_entry(name)
@@ -4094,6 +4577,7 @@ def main():
         entry["phase14"] = p14_entry(name)
         entry["phase15"] = p15_entry(name)
         entry["phase16"] = p16_entry(name)
+        entry["phase17"] = p17_entry(name)
         if name in ("bq_encode", "bq_decode"):
             # the block form's kernel alone, and the flat form the TP
             # all-gather calls (the same kernel, fused with its layout)
@@ -4119,7 +4603,8 @@ def main():
                 + p13_launches(f"{name}_flat")
                 + p14_launches(f"{name}_flat")
                 + p15_launches(f"{name}_flat")
-                + p16_launches(f"{name}_flat"),
+                + p16_launches(f"{name}_flat")
+                + p17_launches(f"{name}_flat"),
                 "phase7": p7_entry(f"{name}_flat"),
                 "max_abs_err": err[f"{name}_flat"],
                 "by_shape": by_shape.get(f"{name}_flat", [])}
@@ -4146,7 +4631,7 @@ def main():
                 + p9_launches(fname) + p11_launches(fname)
                 + p12_launches(fname) + p13_launches(fname)
                 + p14_launches(fname) + p15_launches(fname)
-                + p16_launches(fname),
+                + p16_launches(fname) + p17_launches(fname),
                 "phase7": p7_entry(fname), "max_abs_err": err[fname],
                 "bound_by": "bytes",
                 "by_rows": {rows: {**ops_[op], "end": ops_["end"]}
@@ -4211,6 +4696,7 @@ def main():
         "phase14": {},            # nor the MoE runs (zhybrid_16_8)
         "phase15": {},            # nor the recurrent runs (zhybrid_16_8)
         "phase16": {},            # nor whisper's (zhybrid_16_8)
+        "phase17": {},            # nor the pod runs (zhybrid_16_8)
         "max_abs_err": max(f["max_abs_err"] for f in forms.values()),
         **total, "bound_by": "bytes" if all(
             f["bound_by"] == "bytes" for f in forms.values()) else
@@ -4255,5 +4741,7 @@ if __name__ == "__main__":
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     if sys.argv[1:2] == ["--reckon"]:
         reckon_main(sys.argv[2])
+    elif sys.argv[1:2] == ["--dryrun"]:
+        dryrun_main(sys.argv[2])
     else:
         main()

@@ -1,5 +1,5 @@
-"""Collective bytes from the comms ledger (port of the ledger-pricing half
-of ``repro.analysis.roofline``).
+"""Collective bytes from the comms ledger, and the three-term roofline
+(port of ``repro.analysis.roofline``).
 
 :func:`ledger_summary` prices the analytic events of
 :class:`repro_torch.core.comms.record_traffic` exactly as the reference
@@ -17,12 +17,31 @@ are not carried over: the callers of :func:`collective_seconds`,
 :func:`kv_handoff_seconds`, :func:`suggest_scheme` and
 :func:`savings_report` name the rates of their own links.
 :func:`kv_hbm_bytes` prices a paged KV pool's resident bytes.
+
+:func:`roofline` turns per-device FLOPs, device-memory bytes and
+collective bytes into the three times of a step (compute, memory,
+collective) at the peaks its caller names.  The defaults are the NVIDIA
+H100 SXM's published dense peaks (data sheet, at 700 W): 989e12 FLOP/s
+bf16, 3.35e12 B/s HBM3, and 450e9 B/s NVLink per direction (900 GB/s both
+ways).  No TPU rate is a default.  :func:`model_flops` and
+:func:`active_params` count a step's model FLOPs (6 N D),
+:func:`activation_stash_bytes` and :func:`remat_tradeoff` the pipeline's
+saved activations against the remat recompute, and
+:func:`hlo_collective_counts` / :func:`collective_counts` the collectives
+of an HLO text and of a ledger.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import re
+
 from repro_torch.core import codecs
 from repro_torch.kernels import ops
+
+H100_PEAK_FLOPS = 989e12    # bf16 dense, H100 SXM (data sheet)
+H100_HBM_BW = 3.35e12       # bytes/s, HBM3, H100 SXM (data sheet)
+H100_NVLINK_BW = 450e9      # bytes/s per direction (900 GB/s NVLink total)
 
 _PER_DEVICE_FACTOR = {
     # fraction of the local payload E that crosses this device's link
@@ -411,3 +430,188 @@ def pipelined_step_time(base_step_s: float, pp: int, n_micro: int,
     """Step time with the schedule's bubble: the same per-rank work, busy
     ``1 - bubble`` of the ticks."""
     return base_step_s / max(1.0 - bubble_fraction(pp, n_micro, vpp), 1e-9)
+
+
+# --------------------------------------------------------------------------
+# activation memory: the pipeline's saved activations, and the remat trade
+# --------------------------------------------------------------------------
+
+def activation_stash_bytes(d_model: int, tokens_per_micro: int,
+                           layers_per_rank: int, n_micro: int, pp: int,
+                           vpp: int = 1, remat: bool = False,
+                           bytes_per_value: int = 2,
+                           saved_per_layer: float = 8.0) -> float:
+    """Peak per-rank activation stash of the pipeline's ticks, in bytes
+    (the reference's arithmetic).
+
+    What it models here: the tensors autograd saves through the eager tick
+    loop (:mod:`repro_torch.train.pipeline`).  Each of the ``T =
+    pipeline_ticks(...)`` ticks keeps its carry activation
+    (``tokens_per_micro * d_model``) alive for the backward pass, plus the
+    tensors saved by the layers that ran that tick (``layers_per_rank /
+    vpp``, one virtual slice) at ``saved_per_layer`` activations per layer
+    per token (attention q/k/v and probabilities, the MLP hidden: about 8
+    x d_model for a standard block).  ``remat=True`` models activation
+    checkpointing of the stage body: only the carry is saved per tick, and
+    the layers' tensors are recomputed in the backward pass."""
+    t = pipeline_ticks(pp, n_micro, vpp)
+    carry = tokens_per_micro * d_model * bytes_per_value
+    if remat:
+        return float(t * carry)
+    per_tick_layers = layers_per_rank / max(vpp, 1)
+    layer = tokens_per_micro * d_model * saved_per_layer * bytes_per_value
+    return float(t * (carry + per_tick_layers * layer))
+
+
+def remat_tradeoff(d_model: int, tokens_per_micro: int,
+                   layers_per_rank: int, n_micro: int, pp: int,
+                   vpp: int = 1, bytes_per_value: int = 2,
+                   peak_flops: float = H100_PEAK_FLOPS,
+                   handoff_s: float = 0.0) -> dict:
+    """Price the per-stage remat policy: the bytes it saves against the
+    seconds its recompute costs at ``peak_flops`` (the forward of the
+    rank's layers over all microbatches, ``12 * tokens * d_model^2`` a
+    layer), beside the stage-handoff seconds, as the reference's."""
+    stash = activation_stash_bytes(d_model, tokens_per_micro,
+                                   layers_per_rank, n_micro, pp, vpp,
+                                   remat=False,
+                                   bytes_per_value=bytes_per_value)
+    stash_remat = activation_stash_bytes(d_model, tokens_per_micro,
+                                         layers_per_rank, n_micro, pp, vpp,
+                                         remat=True,
+                                         bytes_per_value=bytes_per_value)
+    fwd_flops_per_layer = 12.0 * tokens_per_micro * d_model * d_model
+    extra_s = n_micro * layers_per_rank * fwd_flops_per_layer / peak_flops
+    return {
+        "ticks": pipeline_ticks(pp, n_micro, vpp),
+        "bubble_fraction": bubble_fraction(pp, n_micro, vpp),
+        "stash_bytes": stash,
+        "stash_bytes_remat": stash_remat,
+        "bytes_saved": stash - stash_remat,
+        "remat_extra_seconds": extra_s,
+        "stage_handoff_seconds": handoff_s,
+    }
+
+
+# --------------------------------------------------------------------------
+# collective counts: of an HLO text, and of a ledger
+# --------------------------------------------------------------------------
+
+_COLL_RE = re.compile(
+    r"=\s*(?:\([^)]*\)\s*)?[a-z0-9\[\],{}\s]*?"
+    r"(all-gather|all-reduce|reduce-scatter|all-to-all|collective-permute)"
+    r"(?:-start)?\(")
+
+
+def hlo_collective_counts(hlo_text: str) -> dict:
+    """Collective ops per kind in an HLO module's text (the reference's
+    parser; this package emits no HLO, see :func:`collective_counts`)."""
+    counts = {}
+    for m in _COLL_RE.finditer(hlo_text):
+        counts[m.group(1)] = counts.get(m.group(1), 0) + 1
+    return counts
+
+
+def collective_counts(events) -> dict:
+    """Collective calls per op (``all_reduce``, ``reduce_scatter``, ...) in
+    a ledger's analytic events: this package's counterpart of
+    :func:`hlo_collective_counts`, one count per recorded call."""
+    counts = {}
+    for ev in events:
+        counts[ev["op"]] = counts.get(ev["op"], 0) + 1
+    return counts
+
+
+# --------------------------------------------------------------------------
+# model flops
+# --------------------------------------------------------------------------
+
+def model_flops(cfg, n_params_active: int, tokens: int) -> float:
+    """6 * N * D (dense) / 6 * N_active * D (MoE)."""
+    return 6.0 * n_params_active * tokens
+
+
+def active_params(cfg, n_params_total: int) -> int:
+    """Approximate active parameters per token of an MoE architecture."""
+    if not cfg.n_experts:
+        return n_params_total
+    F = cfg.moe_d_ff or cfg.d_ff
+    expert_p = cfg.n_experts * 3 * cfg.d_model * F
+    per_layer_active = cfg.top_k * 3 * cfg.d_model * F
+    n_moe_layers = sum(g.n for g in cfg.layer_groups if g.kind == "moe")
+    return int(n_params_total - n_moe_layers * expert_p
+               + n_moe_layers * per_layer_active)
+
+
+# --------------------------------------------------------------------------
+# the three terms
+# --------------------------------------------------------------------------
+
+_ROOFLINE_KEYS = ("compute_s", "memory_s", "collective_s", "flops",
+                  "hbm_bytes", "coll_bytes", "model_flops")
+
+
+@dataclasses.dataclass
+class Roofline:
+    """The three terms of a step at ``peak_flops``, the compute peak the
+    step was priced at (which :attr:`mfu` divides by)."""
+
+    compute_s: float
+    memory_s: float
+    collective_s: float
+    flops: float
+    hbm_bytes: float
+    coll_bytes: float
+    model_flops: float
+    peak_flops: float = H100_PEAK_FLOPS
+
+    @property
+    def dominant(self) -> str:
+        terms = {"compute": self.compute_s, "memory": self.memory_s,
+                 "collective": self.collective_s}
+        return max(terms, key=terms.get)
+
+    @property
+    def step_time_s(self) -> float:
+        """Roofline step time = max of the three terms (perfect overlap)."""
+        return max(self.compute_s, self.memory_s, self.collective_s)
+
+    @property
+    def useful_ratio(self) -> float:
+        return self.model_flops / max(self.flops, 1.0)
+
+    @property
+    def mfu(self) -> float:
+        """Model-FLOPs utilization at the roofline step time."""
+        return (self.model_flops / max(self.step_time_s, 1e-12)) \
+            / self.peak_flops
+
+    def to_dict(self):
+        """The reference's keys (the peaks are the caller's to record)."""
+        return {**{k: getattr(self, k) for k in _ROOFLINE_KEYS},
+                "dominant": self.dominant, "mfu": self.mfu,
+                "useful_ratio": self.useful_ratio,
+                "step_time_s": self.step_time_s}
+
+
+def roofline(cost, coll_bytes_per_device: float, n_chips: int,
+             model_flops_total: float, *,
+             peak_flops: float = H100_PEAK_FLOPS,
+             hbm_bytes_per_s: float = H100_HBM_BW,
+             link_bytes_per_s: float = H100_NVLINK_BW) -> Roofline:
+    """The three terms of a step from its per-device cost (``{"flops",
+    "bytes accessed"}``), its per-device collective bytes and the model
+    FLOPs of the whole step over ``n_chips``, at the peaks the caller
+    names (by default the H100's)."""
+    flops = float(cost.get("flops", 0.0))
+    bytes_ = float(cost.get("bytes accessed", 0.0))
+    return Roofline(
+        compute_s=flops / peak_flops,
+        memory_s=bytes_ / hbm_bytes_per_s,
+        collective_s=coll_bytes_per_device / link_bytes_per_s,
+        flops=flops,
+        hbm_bytes=bytes_,
+        coll_bytes=coll_bytes_per_device,
+        model_flops=model_flops_total / n_chips,
+        peak_flops=peak_flops,
+    )

@@ -150,6 +150,7 @@ class _State:
     time_staging = False
     state_io = None
     tune_io = None
+    shape_only = 0
 
 
 _rec = _State()
@@ -242,6 +243,26 @@ class mute_ledger:
 
     def __exit__(self, *exc):
         _rec.muted -= 1
+        return False
+
+
+class shape_only:
+    """Trace on shapes alone: inside, the raw transports (the exchange,
+    all-gather, all-reduce, reduce-scatter and all-to-all every collective
+    of this module, :func:`raw_psum`, :func:`pmax`, :func:`raw_ppermute`
+    and :func:`raw_all_gather` reduce to) return a result of the right
+    shape and dtype on their input's device without moving or staging
+    anything, and need no process group.  The ledger records exactly what
+    a real run records.  The dry-run traces one rank's step on meta
+    tensors this way (:mod:`repro_torch.launch.dryrun`); the values that
+    come out are meaningless."""
+
+    def __enter__(self):
+        _rec.shape_only += 1
+        return self
+
+    def __exit__(self, *exc):
+        _rec.shape_only -= 1
         return False
 
 
@@ -601,6 +622,8 @@ def _exchange(buf: torch.Tensor, axis: Axis, perm) -> torch.Tensor:
     ``(src, dst)`` pair of axis indices, ``src`` sends and ``dst``
     receives; a rank that receives nothing gets zeros.  Every send and
     receive of the rank is posted together, so a ring cannot deadlock."""
+    if _rec.shape_only:
+        return torch.zeros_like(buf)
     idx = _bound(axis).index
     with _staged(buf):
         h = _host(buf)
@@ -626,6 +649,8 @@ def _shift_wire(wire: dict, axis: Axis, shift: int) -> dict:
 
 def _all_gather_raw(t: torch.Tensor, axis: Axis) -> torch.Tensor:
     """-> ``[n, *t.shape]``: every rank's ``t`` in axis order."""
+    if _rec.shape_only:
+        return t.new_zeros((axis.size,) + tuple(t.shape))
     _bound(axis)
     with _staged(t):
         h = _host(t)
@@ -650,6 +675,8 @@ def _reduce_dtype(dtype) -> torch.dtype:
 
 
 def _all_reduce_raw(x: torch.Tensor, axis: Axis, op=dist.ReduceOp.SUM):
+    if _rec.shape_only:
+        return x.clone()
     if _bound(axis).size == 1:
         return x
     with _staged(x):
@@ -661,8 +688,10 @@ def _all_reduce_raw(x: torch.Tensor, axis: Axis, op=dist.ReduceOp.SUM):
 def _psum_scatter_raw(x: torch.Tensor, axis: Axis, axis_dim: int):
     """Uncompressed tiled reduce-scatter of dim ``axis_dim``: an all-to-all
     of the n chunks, then a sum in axis order."""
-    n = _bound(axis).size
+    n = axis.size if _rec.shape_only else _bound(axis).size
     xs = x.unflatten(axis_dim, (n, -1)).movedim(axis_dim, 0)  # [n, ..chunk..]
+    if _rec.shape_only:
+        return xs.sum(dim=0).to(x.dtype)
     with _staged(x):
         h = _host(xs.to(_reduce_dtype(x.dtype)))
         out = _pinned_empty(h.shape, h.dtype, x)
@@ -674,6 +703,8 @@ def _all_to_all_raw(xs: torch.Tensor, axis: Axis) -> torch.Tensor:
     """``[n, ...]`` -> ``[n, ...]``: row ``j`` goes to axis index ``j``, and
     row ``j`` of the result came from axis index ``j``.  The rows travel as
     bytes, so any dtype crosses unchanged."""
+    if _rec.shape_only:
+        return torch.zeros_like(xs)
     n = _bound(axis).size
     with _staged(xs):
         h = _host(xs).reshape(n, -1).view(torch.uint8)

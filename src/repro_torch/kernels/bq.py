@@ -99,12 +99,58 @@ _level = "flat"     # process-wide, like the comms ledger
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 # plain PyTorch versions of the kernels: the CPU path, and the yardstick
-# the kernels are compared with on the card
-encode_plain = ref.bq_encode_ref
-decode_plain = ref.bq_decode_ref
-gather_decode_plain = ref.bq_gather_decode_ref
-decode_add_encode_plain = ref.bq_decode_add_encode_ref
-decode_add_plain = ref.bq_decode_add_ref
+# the kernels are compared with on the card.  On meta tensors (a trace on
+# shapes alone, the dry-run's) they give their results' shapes and types
+# without the arithmetic, which could only propagate shapes there.
+
+def _meta(*ts) -> bool:
+    return any(t is not None and t.device.type == "meta" for t in ts)
+
+
+def _meta_wire(lead: tuple, bits: int, like):
+    """Empty meta wire planes ``(q_hi, q_lo | None, scale)`` of rows
+    ``lead``."""
+    q_hi = like.new_empty(lead + (hi_width(bits),), dtype=hi_dtype(bits))
+    q_lo = like.new_empty(lead + (BLOCK,), dtype=torch.uint8) \
+        if bits == 24 else None
+    return q_hi, q_lo, like.new_empty(lead + (1,), dtype=torch.float32)
+
+
+def encode_plain(x: torch.Tensor, bits: int):
+    if _meta(x):
+        ref._check_bits(bits)
+        return _meta_wire(tuple(x.shape[:-1]), bits, x)
+    return ref.bq_encode_ref(x, bits)
+
+
+def decode_plain(q_hi, q_lo, scale, bits: int) -> torch.Tensor:
+    if _meta(q_hi, scale):
+        ref._check_bits(bits)
+        return scale.new_empty(tuple(scale.shape[:-1]) + (BLOCK,))
+    return ref.bq_decode_ref(q_hi, q_lo, scale, bits)
+
+
+def gather_decode_plain(q_hi, q_lo, scale, idx, bits: int) -> torch.Tensor:
+    if _meta(q_hi, scale, idx):
+        ref._check_bits(bits)
+        return scale.new_empty(tuple(idx.shape) + tuple(scale.shape[1:-1])
+                               + (BLOCK,))
+    return ref.bq_gather_decode_ref(q_hi, q_lo, scale, idx, bits)
+
+
+def decode_add_encode_plain(q_hi, q_lo, scale, local, bits: int):
+    if _meta(q_hi, scale, local):
+        ref._check_bits(bits)
+        return (*_meta_wire(tuple(local.shape[:-1]), bits, local),
+                local.new_empty(local.shape, dtype=torch.float32))
+    return ref.bq_decode_add_encode_ref(q_hi, q_lo, scale, local, bits)
+
+
+def decode_add_plain(q_hi, q_lo, scale, local, bits: int) -> torch.Tensor:
+    if _meta(q_hi, scale, local):
+        ref._check_bits(bits)
+        return local.new_empty(local.shape, dtype=torch.float32)
+    return ref.bq_decode_add_ref(q_hi, q_lo, scale, local, bits)
 
 
 def reset_launches() -> None:
@@ -413,12 +459,15 @@ def _check(t, name: str, dtype, shape=None, align: int = 4) -> None:
 
 
 def _on_cpu(*ts) -> bool:
+    """Whether the plain version runs: on CPU tensors, or on meta tensors
+    (a shape-only trace, where it propagates shapes alone).  CUDA tensors
+    run the kernel; a mix of devices raises."""
     devs = {t.device.type for t in ts if t is not None}
-    if devs == {"cpu"}:
+    if devs in ({"cpu"}, {"meta"}):
         return True
     if devs != {"cuda"}:
-        raise ValueError(f"bq kernels take all-CPU or all-CUDA tensors, "
-                         f"got devices {sorted(devs)}")
+        raise ValueError(f"bq kernels take all-CPU, all-meta or all-CUDA "
+                         f"tensors, got devices {sorted(devs)}")
     return False
 
 

@@ -332,12 +332,15 @@ def _matmul_kernel(a, b, out):
 
 
 def _on_cpu(*ts) -> bool:
+    """Whether the plain version runs: on CPU tensors, or on meta tensors
+    (a shape-only trace, where it propagates shapes alone).  CUDA tensors
+    run the kernel; a mix of devices raises."""
     devs = {t.device.type for t in ts if t is not None}
-    if devs == {"cpu"}:
+    if devs in ({"cpu"}, {"meta"}):
         return True
     if devs != {"cuda"}:
-        raise ValueError(f"lowrank kernels take all-CPU or all-CUDA tensors, "
-                         f"got devices {sorted(devs)}")
+        raise ValueError(f"lowrank kernels take all-CPU, all-meta or all-CUDA "
+                         f"tensors, got devices {sorted(devs)}")
     return False
 
 

@@ -14,6 +14,12 @@
     # slots and blocks split over 2 data ranks
     ... --mode paged --dp 2 --kv-codec bq8 --slots 4 --batch 8
 
+    # long-context decode: the cache's sequence over (data, model), a
+    # batch of one, the cache filled to 1016 of 1024 positions in place of
+    # a prefill, 8 tokens decoded
+    ... --mode batched --dp 2 --tp 2 --seq-axes data,model --batch 1 \
+        --max-len 1024 --fill 1016 --gen 9
+
     # prefill/decode disaggregation: a prefill pool and a decode pool of
     # dp x tp ranks each, the KV handoff compressed under the kv codec
     ... --mode disagg --dp 1 --tp 2 --kv-codec bq8 --batch 4
@@ -55,7 +61,9 @@ _MODE_FLAGS = (("kv_codec", "none", ("paged", "disagg")),
                ("block_tokens", 16, ("paged",)),
                ("slots", 4, ("paged",)),
                ("kv_blocks", 0, ("paged",)),
-               ("max_len", 0, ("batched", "disagg")))
+               ("max_len", 0, ("batched", "disagg")),
+               ("seq_axes", "model", ("batched",)),
+               ("fill", 0, ("batched",)))
 
 
 def parser() -> argparse.ArgumentParser:
@@ -99,6 +107,16 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--tp-nodes", default="1",
                     help="factor tp into (tpnode, model); the TP "
                          "collectives run two-level (batched and paged)")
+    ap.add_argument("--seq-axes", default="model",
+                    choices=("model", "data,model"),
+                    help="batched: the axes a ring-mode cache's sequence "
+                         "shards over; 'data,model' is the reference's "
+                         "long-context decode (dp x tp shards, the batch "
+                         "replicated over data)")
+    ap.add_argument("--fill", type=int, default=0,
+                    help="batched: skip the prefill and decode from a cache "
+                         "filled with seeded values up to this index (a "
+                         "context too long to prefill)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="cuda (default; raises without a card) or cpu")
@@ -265,7 +283,8 @@ def serve_rank(*, rank: int = 0, world: int = 1, arch: str = "gemma3-1b",
                ring_chunks: int = 1, seed: int = 0, device=None,
                backend=None, prompts=None, init_from: str = "",
                keep_state: bool = False, deterministic: bool = False,
-               time_staging: bool = False) -> dict:
+               time_staging: bool = False, seq_axes=("model",),
+               fill: int = 0, caches_from: str = "") -> dict:
     """Serve as rank ``rank`` of a ``dp x tp`` world (``2 x dp x tp`` in
     ``disagg`` mode, pool outermost) whose process group is initialized,
     or alone.  ``cfg`` serves that config instead of ``arch``'s
@@ -278,6 +297,16 @@ def serve_rank(*, rank: int = 0, world: int = 1, arch: str = "gemma3-1b",
     version; ``deterministic`` turns on
     ``torch.use_deterministic_algorithms`` and turns TF32 off;
     ``time_staging`` times every exchange (a device drain before each).
+    ``seq_axes`` shards a ring-mode cache's sequence as the reference's
+    ``Server`` takes it: ``("model",)``, or ``("data", "model")`` for the
+    long-context decode (the batch replicated over data, the combine over
+    both axes).  ``fill`` replaces the prefill by a cache filled to that
+    index (:func:`~repro_torch.serve.kv_cache.fill_caches`, from
+    ``seed``; ``caches_from`` names a pickle of the reference's GLOBAL
+    decode caches to start from instead, carried into this rank's layout
+    by :func:`~repro_torch.serve.kv_cache.local_cache`); the decode then
+    runs ``gen`` steps at positions ``fill`` on, from the prompts' first
+    tokens (a context too long to prefill).
 
     Returns this rank's record: the tokens (all requests; in ``disagg``
     mode meaningful on the decode pool, ``pool`` 1), seconds of the
@@ -358,9 +387,13 @@ def serve_rank(*, rank: int = 0, world: int = 1, arch: str = "gemma3-1b",
 
     prompts = np.asarray(prompts, np.int32)
     B, S = prompts.shape
-    s_max = max_len or -(-(S + gen) // (2 * tp)) * (2 * tp)
-    b_loc = kv_cache.batch_local(B, mi)
-    d = mi.batch_axes.index if B > 1 else 0
+    if fill:
+        S = fill            # decode step i runs at position S + i - 1
+    n_seq = kv_cache.seq_ways(mi, seq_axes)
+    s_max = max_len or -(-(S + gen) // (2 * n_seq)) * (2 * n_seq)
+    b_loc = kv_cache.batch_local(B, mi, seq_axes)
+    batched = b_loc < B     # the batch split over the batch axes
+    d = mi.batch_axes.index if batched else 0
     batch_t = {"tokens": torch.from_numpy(
         prompts[d * b_loc:(d + 1) * b_loc].copy()).to(dev)}
     s_enc = 0
@@ -376,7 +409,7 @@ def serve_rank(*, rank: int = 0, world: int = 1, arch: str = "gemma3-1b",
     def gather(tok):
         """This rank's tokens -> all B (uncompressed, outside the
         ledger)."""
-        if B > 1:
+        if batched:
             tok = comms.raw_all_gather(tok, mi.batch_axes, 0)
         return tok.cpu().numpy().astype(np.int32)
 
@@ -385,18 +418,36 @@ def serve_rank(*, rank: int = 0, world: int = 1, arch: str = "gemma3-1b",
                            ring_bidir=ring_bidir, ring_chunks=ring_chunks)
         batch_t = srv.stage_batch(batch_t)
     else:
-        srv = Server(model, scheme=pol, ring_bidir=ring_bidir,
-                     ring_chunks=ring_chunks)
+        srv = Server(model, scheme=pol, seq_axes=seq_axes,
+                     ring_bidir=ring_bidir, ring_chunks=ring_chunks)
     _sync(dev)
     t0 = start = time.perf_counter()
-    with comms.record_traffic() as ev:
-        tok, caches = srv.prefill(params, batch_t)
+    if fill:
+        # no prefill: the caches filled to ``fill`` (or the reference's),
+        # decoded from the prompts' first tokens
+        structs, cspecs = srv.cache_structs(B, s_max, s_enc)
+        if caches_from:
+            with open(caches_from, "rb") as f:
+                caches = [None if c is None else
+                          {k: torch.as_tensor(np.asarray(v)).to(
+                              device=dev, dtype=st[k].dtype)
+                           for k, v in c.items()} for c, st in
+                          zip(kv_cache.local_cache(pickle.load(f), cspecs,
+                                                   mi), structs)]
+        else:
+            caches = kv_cache.fill_caches(structs, cspecs, fill, seed, mi,
+                                          dev, s_enc)
+        tok = batch_t["tokens"][:, 0]
+    else:
+        with comms.record_traffic() as ev:
+            tok, caches = srv.prefill(params, batch_t)
+        out["ledger"]["prefill"] = _ledger(ev)
     _sync(dev)
     out["prefill_s"] = time.perf_counter() - t0
-    out["ledger"]["prefill"] = _ledger(ev)
-    if keep_state:
+    if keep_state and not fill:
         out["prefill"] = _numpy(caches)
-    caches = srv.pad_prefill_caches(caches, B, s_max, s_enc)
+    if not fill:
+        caches = srv.pad_prefill_caches(caches, B, s_max, s_enc)
     del batch_t
     out["digests"]["prefill"] = {p: _digest(t) for p, t in _leaves(caches)}
     if mode == "disagg":
@@ -428,6 +479,7 @@ def serve_rank(*, rank: int = 0, world: int = 1, arch: str = "gemma3-1b",
             out["ledger"]["decode"] = _ledger(ev)
         toks.append(gather(tok))
     out["wall_s"] = time.perf_counter() - start
+    out["s_max"] = s_max
     out["tokens"] = np.stack(toks, 1).tolist()
     out["steps"] = gen - 1
     out["meaningful"] = mode != "disagg" or out["pool"] == DECODE
@@ -472,6 +524,7 @@ def rank_kwargs(args, **extra) -> dict:
                 kv_codec=args.kv_codec, block_tokens=args.block_tokens,
                 slots=args.slots, kv_blocks=args.kv_blocks,
                 ring_bidir=args.ring_bidir, ring_chunks=args.ring_chunks,
+                seq_axes=tuple(args.seq_axes.split(",")), fill=args.fill,
                 seed=args.seed, device=dev.type, **extra)
 
 
@@ -529,8 +582,13 @@ def _report(res: list, args) -> None:
               f"({(args.gen - 1) * B / max(dt, 1e-9):.1f} tok/s) on "
               f"{r['device']}, {len(res)} ranks")
     else:
-        print(f"prefill[{B}x{S}] {r['prefill_s']:.2f}s -> first tokens "
-              f"{first[:4]}")
+        if args.fill:
+            print(f"cache [{B}x{r['s_max']}] filled to {args.fill} in "
+                  f"{r['prefill_s']:.2f}s (no prefill), its sequence over "
+                  f"{args.seq_axes.replace(',', ' x ')}")
+        else:
+            print(f"prefill[{B}x{S}] {r['prefill_s']:.2f}s -> first tokens "
+                  f"{first[:4]}")
         print(f"decoded {args.gen - 1} steps in {dt:.2f}s "
               f"({(args.gen - 1) * B / max(dt, 1e-9):.1f} tok/s) on "
               f"{r['device']}, {len(res)} ranks")

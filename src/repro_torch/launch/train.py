@@ -39,6 +39,10 @@
     ... --reduced --dp 4 --nodes 2 --scheme hier_zpp_16_16 \\
         --policy-from /tmp/ck/tune_policy.json --device cpu
 
+    # multi-pod: the outer data-parallel pod axis; the ZeRO-1 chunk of
+    # the data reduce-scatter all-reduces over the pods (dp@zero1_grad_pod)
+    ... --reduced --pod 2 --dp 2 --scheme zhybrid_16_8 --device cpu
+
     # pipeline stages: 1F1B over 2 stages, or interleaved with remat;
     # gemma3-1b's 5:1 local:global pattern does not tile into stages, so
     # --layers makes the stack uniform (global attention in every layer)
@@ -48,8 +52,8 @@
         --remat-policy per_stage:0
 
 Under ``torchrun`` (``RANK`` / ``WORLD_SIZE`` set) each process joins that
-group as one rank.  Otherwise the command spawns ``dp * cp * pp * tp``
-processes itself, so one command runs the step as in the reference.
+group as one rank.  Otherwise the command spawns ``pod * dp * cp * pp *
+tp`` processes itself, so one command runs the step as in the reference.
 Ranks exchange through ``torch.distributed``'s gloo backend: on the card,
 every encode, fused ring hop and decode runs as a kernel, and only the
 wire planes cross between ranks through host memory.
@@ -62,7 +66,8 @@ zigzag order, :func:`~repro_torch.train.train_step.zigzag_shard_seq`, and
 each rank takes its contiguous ``S / cp`` slice of it).  ``--nodes``,
 ``--cp-nodes``, ``--tp-nodes`` and ``--pp-nodes`` (an int, or ``NxD``: N
 nodes of D ranks) factor the data, cp, model and stage axes over nodes, as
-the reference's do.
+the reference's do.  ``--pod`` adds the reference's outer data-parallel
+axis, outermost; it excludes ``--nodes``, as in the reference.
 ``--tune`` runs the self-tuning controller (:mod:`repro_torch.tune`) every
 ``--tune-interval`` steps, with ``--tune-guard`` its loss guard;
 ``--policy-from`` replays a ``tune_policy.json`` as static rules ahead of
@@ -70,9 +75,9 @@ the scheme's.  An encoder-decoder (whisper-base) trains on stub frame
 embeddings beside the tokens (``SyntheticCorpus.frames``: seeded normals
 per step, which the reference's launcher never feeds: fault C.22);
 ``--cp`` on it is refused (fault C.23), and ``--pp`` with the reference's
-message (its encoder context cannot cross stages).  The flags of unported features (``--pod``, and
-``--host-devices``, an XLA host-device count with no counterpart here) are
-accepted and refused as not yet ported, never ignored.
+message (its encoder context cannot cross stages).  ``--host-devices``,
+an XLA host-device count with no counterpart in a world of processes, is
+accepted and refused, never ignored.
 
 Checkpoints are the reference's (:mod:`repro_torch.train.checkpoint`):
 each rank writes its own shards of the global leaves, every
@@ -108,7 +113,7 @@ import torch.distributed as dist
 
 # flags of the reference this package refuses at a non-default value:
 # (attribute, default)
-_UNPORTED = (("pod", 1), ("host_devices", 0))
+_UNPORTED = (("host_devices", 0),)
 
 
 def parser() -> argparse.ArgumentParser:
@@ -121,6 +126,12 @@ def parser() -> argparse.ArgumentParser:
                          "heterogeneous layer groups to uniform)")
     ap.add_argument("--dp", type=int, default=1)
     ap.add_argument("--tp", type=int, default=1)
+    ap.add_argument("--pod", type=int, default=1,
+                    help="outer data-parallel axis (multi-pod): the batch "
+                         "splits over pod x dp, and the ZeRO-1 gradient "
+                         "chunk all-reduces over the pods under the dp "
+                         "codec after the data reduce-scatter; excludes "
+                         "--nodes")
     ap.add_argument("--nodes", default="1",
                     help="factor dp into (node, data) sub-axes: the DP "
                          "sync runs two levels (hpZ); an int or 'NxD' (N "
@@ -197,10 +208,10 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--policy-from", default="",
                     help="replay a tune_policy.json: its site rules ahead "
                          "of the scheme's (first match wins)")
-    # refused: not yet ported
-    for flag, kw in (("--pod", dict(type=int, default=1)),
-                     ("--host-devices", dict(type=int, default=0))):
-        ap.add_argument(flag, help="not yet ported", **kw)
+    # refused: an XLA host-device count, which a world of processes has
+    # no counterpart of
+    ap.add_argument("--host-devices", type=int, default=0,
+                    help="not ported (an XLA host-device count)")
     return ap
 
 
@@ -211,8 +222,8 @@ def unported(args) -> list[str]:
         val = getattr(args, attr)
         if val != default:
             flag = "--" + attr.replace("_", "-")
-            out.append(f"{flag} {val!r} is not yet ported (this package "
-                       f"runs the dp x cp x pp x tp step)")
+            out.append(f"{flag} {val!r} is not ported (an XLA host-device "
+                       f"count: this package runs one process per rank)")
     return out
 
 
@@ -296,10 +307,18 @@ def check_cp(cfg, cp: int) -> None:
 def node_counts(args) -> dict:
     """``--nodes``, ``--tp-nodes``, ``--pp-nodes`` and ``--cp-nodes`` as
     node counts (``nodes``, ``tp_nodes``, ``pp_nodes``, ``cp_nodes``);
-    ``ValueError`` for a spec that does not divide its axis."""
+    ``ValueError`` for a spec that does not divide its axis, and for
+    ``--nodes`` beside ``--pod`` (the reference asserts they exclude each
+    other)."""
     from repro_torch.launch.mesh import parse_nodes_spec
 
-    return dict(nodes=parse_nodes_spec(args.nodes, args.dp),
+    if args.pod < 1:
+        raise ValueError(f"--pod {args.pod} must be >= 1")
+    nodes = parse_nodes_spec(args.nodes, args.dp)
+    if args.pod > 1 and nodes > 1:
+        raise ValueError(f"--pod {args.pod} and --nodes {args.nodes} are "
+                         f"mutually exclusive outer data-parallel axes")
+    return dict(nodes=nodes,
                 tp_nodes=parse_nodes_spec(args.tp_nodes, args.tp,
                                           flag="--tp-nodes"),
                 pp_nodes=parse_nodes_spec(args.pp_nodes, args.pp,
@@ -532,7 +551,8 @@ def rank_device(device, rank: int) -> torch.device:
 
 def train_rank(*, rank: int = 0, world: int = 1, arch: str,
                reduced: bool = False, layers: int = 0, depth: int = 0,
-               overrides: dict | None = None, dp: int = 1, tp: int = 1, pp: int = 1, cp: int = 1,
+               overrides: dict | None = None, dp: int = 1, tp: int = 1,
+               pp: int = 1, cp: int = 1, pod: int = 1,
                nodes: int = 1, tp_nodes: int = 1, pp_nodes: int = 1,
                cp_nodes: int = 1, microbatches: int = 1,
                vpp: int = 1, remat_policy: str = "none",
@@ -549,9 +569,10 @@ def train_rank(*, rank: int = 0, world: int = 1, arch: str,
                resume: bool = False, tune: bool = False,
                tune_interval: int = 50, tune_guard: float = 0.05,
                policy_from: str = "") -> dict:
-    """Train ``steps`` steps as rank ``rank`` of a ``dp x cp x pp x tp``
-    world whose process group is initialized (or alone, for a one-rank
-    world); ``nodes``, ``cp_nodes``, ``tp_nodes`` and ``pp_nodes`` factor
+    """Train ``steps`` steps as rank ``rank`` of a ``pod x dp x cp x pp x
+    tp`` world whose process group is initialized (or alone, for a
+    one-rank world); ``pod`` is the outer data-parallel axis (the batch
+    splits over ``pod x dp``); ``nodes``, ``cp_nodes``, ``tp_nodes`` and ``pp_nodes`` factor
     the data, cp, model and stage axes over nodes
     (:func:`~repro_torch.launch.mesh.make_mesh`); each batch is permuted
     into zigzag order on the host and this rank takes its rows and its
@@ -620,9 +641,9 @@ def train_rank(*, rank: int = 0, world: int = 1, arch: str,
     from repro_torch.tune.controller import (CompressionController,
                                              ControllerConfig)
 
-    if dp * cp * pp * tp != world:
-        raise ValueError(f"dp {dp} x cp {cp} x pp {pp} x tp {tp} != world "
-                         f"{world}")
+    if pod * dp * cp * pp * tp != world:
+        raise ValueError(f"pod {pod} x dp {dp} x cp {cp} x pp {pp} x tp {tp} "
+                         f"!= world {world}")
     validate_vpp(vpp, pp, microbatches)
     dev = rank_device(device, rank)
     if dev.type == "cpu":
@@ -638,7 +659,7 @@ def train_rank(*, rank: int = 0, world: int = 1, arch: str,
         cfg = cfg.replace(**overrides)
     check_cp(cfg, cp)
     mi = make_mesh(dp, tp, pp, nodes=nodes, tp_nodes=tp_nodes,
-                   pp_nodes=pp_nodes, cp=cp, cp_nodes=cp_nodes)
+                   pp_nodes=pp_nodes, cp=cp, cp_nodes=cp_nodes, pod=pod)
     model = Model(cfg, mi, device=dev, vpp=vpp)
     log = []
 
@@ -686,7 +707,7 @@ def train_rank(*, rank: int = 0, world: int = 1, arch: str,
         cstate = _restore_codec(trainer, codec_dir, start, checkpoint, say)
         ck["restore_s"] = time.perf_counter() - t0
         say(f"resumed from step {start} (elastic onto dp={dp} tp={tp} "
-            f"pp={pp})")
+            f"pp={pp}" + (f" pod={pod})" if pod > 1 else ")"))
     elif init_from:
         from repro_torch.models.params import from_jax_params
         with open(init_from, "rb") as f:
@@ -700,12 +721,13 @@ def train_rank(*, rank: int = 0, world: int = 1, arch: str,
             cstate = trainer.codec_state_from_jax(pickle.load(f))
     data = SyntheticCorpus(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
                                       global_batch=global_batch, seed=seed))
-    if global_batch % dp:
+    if global_batch % (pod * dp):
         raise ValueError(f"--global-batch {global_batch} not divisible by "
-                         f"--dp {dp}")
-    # the batch shards over the joint (node, data) axis, node-major, and
-    # the zigzag-permuted sequence contiguously over the cp axis
-    b_loc, d = global_batch // dp, mi.batch_axes.index
+                         f"--pod {pod} x --dp {dp}")
+    # the batch shards over the joint (pod, node, data) axis, pod- and
+    # node-major, and the zigzag-permuted sequence contiguously over the
+    # cp axis
+    b_loc, d = global_batch // (pod * dp), mi.batch_axes.index
     s_loc, c = seq // cp, mi.coords["cp"]
 
     def sync():
@@ -902,7 +924,7 @@ def rank_kwargs(args, **extra) -> dict:
 
     dev = resolve_device(args.device)
     return dict(arch=args.arch, reduced=args.reduced, layers=args.layers,
-                dp=args.dp, tp=args.tp, pp=args.pp, cp=args.cp,
+                dp=args.dp, tp=args.tp, pp=args.pp, cp=args.cp, pod=args.pod,
                 **node_counts(args),
                 microbatches=args.microbatches, vpp=args.vpp,
                 remat_policy=args.remat_policy, steps=args.steps,
@@ -921,12 +943,12 @@ def rank_kwargs(args, **extra) -> dict:
 
 def run(args, **extra) -> list:
     """Run the parsed flags (plus :func:`train_rank` keywords ``extra``) as
-    a world of ``dp * cp * pp * tp`` spawned processes; returns the
+    a world of ``pod * dp * cp * pp * tp`` spawned processes; returns the
     per-rank results."""
     from repro_torch.kernels import bq
 
     kwargs = rank_kwargs(args, **extra)      # no card: raise before spawning
-    world = args.dp * args.cp * args.pp * args.tp
+    world = args.pod * args.dp * args.cp * args.pp * args.tp
     if kwargs["device"] == "cuda":
         bq.build()                           # once, before the ranks start
         # ranks share one card: growable segments keep each rank's
@@ -1008,7 +1030,7 @@ def main(argv=None):
             res = train_rank(
                 rank=rank, world=world, arch=args.arch, reduced=args.reduced,
                 layers=args.layers, dp=args.dp, tp=args.tp, pp=args.pp,
-                cp=args.cp, **node_counts(args),
+                cp=args.cp, pod=args.pod, **node_counts(args),
                 microbatches=args.microbatches, vpp=args.vpp,
                 remat_policy=args.remat_policy, steps=args.steps,
                 seq=args.seq, global_batch=args.global_batch,

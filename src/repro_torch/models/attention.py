@@ -350,7 +350,7 @@ def attn_decode(p, x, cache, index: int, cfg, mi: MeshInfo, mode: str,
 
     seq_axes = (mi.tp_axes,) if seq_axes is None else tuple(seq_axes)
     chunk = k.shape[1]
-    off = _shard_index(seq_axes) * chunk
+    off = shard_index(seq_axes) * chunk
     # the reference's dropped scatter wraps a local index in [-chunk, 0)
     # to the shard's end, as numpy indexing does (fault C.17): a masked
     # position that the owner's own write reaches before any read
@@ -374,10 +374,11 @@ def attn_decode(p, x, cache, index: int, cfg, mi: MeshInfo, mode: str,
     return o.reshape(B, 1, -1) @ use(p["wo"], mi), cache
 
 
-def _shard_index(seq_axes) -> int:
+def shard_index(seq_axes) -> int:
     """This rank's linear shard index over the sequence sharding
-    ``seq_axes`` (an entry may be a pair, whose joint index is
-    outer-major)."""
+    ``seq_axes``, the first entry outermost (an entry may be a pair, whose
+    joint index is outer-major), as the reference's ``_shard_index``
+    linearizes ``("data", "model")``: ``d * tp + t``."""
     idx = 0
     for ax in seq_axes:
         idx = idx * ax.size + ax.index

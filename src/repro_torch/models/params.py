@@ -30,10 +30,11 @@ from repro_torch.core.comms import Axis, AxisPair
 
 def resolve_device(device=None) -> torch.device:
     """``None`` means the card.  Asking for the card without one raises;
-    the CPU runs only when the caller asks for it."""
+    the CPU runs only when the caller asks for it, and ``meta`` (shapes
+    alone, no storage: the dry-run's trace) likewise."""
     dev = torch.device("cuda" if device is None else device)
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"device must be cuda or cpu, got {dev}")
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"device must be cuda, cpu or meta, got {dev}")
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device found; pass device='cpu' to run "
                            "on the CPU")
@@ -42,7 +43,7 @@ def resolve_device(device=None) -> torch.device:
 
 @dataclasses.dataclass(frozen=True)
 class MeshInfo:
-    """Logical view of the ``(node, data, cpnode, cp, ppnode, stage,
+    """Logical view of the ``(pod, node, data, cpnode, cp, ppnode, stage,
     tpnode, model)`` mesh from this rank.
 
     As in the reference, ``tp`` and ``pp`` are the *joint* tensor-parallel
@@ -69,6 +70,14 @@ class MeshInfo:
     shapes, asks for.  A mesh with ``pp == 1`` has no stage axis
     (``stage_axes`` is ``None``), one with ``cp == 1`` no cp axis.
 
+    ``pod`` is the reference's outer data-parallel axis (multi-pod): the
+    batch splits over it too, ``(pod, node, data)`` pod-major
+    (:attr:`batch_axes`, :attr:`batch_ways`), every leaf and the ZeRO-1
+    chunks are replicated over it, and the optimizer all-reduces each
+    chunk over it after the data reduce-scatter (``pods``, read through
+    :attr:`pod_axes`, is ``None`` on a mesh without one).  As in the
+    reference, ``pod`` and ``node`` do not combine.
+
     ``pool`` counts the disaggregated serving pools (prefill and decode,
     :mod:`repro_torch.serve.disagg`), whose axis (``pools``, read through
     :attr:`pool_axis`) the kv handoff crosses.  It is serving-only and
@@ -80,6 +89,7 @@ class MeshInfo:
     tp: int = 1
     dp: int = 1
     pp: int = 1
+    pod: int = 1
     node: int = 1
     tp_node: int = 1
     pp_node: int = 1
@@ -95,6 +105,7 @@ class MeshInfo:
     cp_axis: str = "cp"
     cp_node_axis: str = "cpnode"
     pool_axis_name: str = "pool"
+    pod_axis_name: str = "pod"
     model: Axis | AxisPair | None = None
     data: Axis | None = None
     stage: Axis | AxisPair | None = None
@@ -104,25 +115,29 @@ class MeshInfo:
     batch_cp: Axis | None = None
     world: Axis | None = None
     pools: Axis | None = None
+    pods: Axis | None = None
 
     def __post_init__(self):
         for n, f in ((self.tp, self.tp_node), (self.pp, self.pp_node),
                      (self.cp, self.cp_node)):
             if n % f:
                 raise ValueError(f"{n} ways do not split over {f} nodes")
+        if self.pod > 1 and self.node > 1:
+            raise ValueError("pod and nodes are mutually exclusive")
         for ax, n in ((self.model, self.tp), (self.data, self.dp),
                       (self.stage, self.pp), (self.nodes, self.node),
-                      (self.batch, self.dp * self.node),
+                      (self.batch, self.batch_ways),
                       (self.context, self.cp),
-                      (self.batch_cp, self.dp * self.node * self.cp),
-                      (self.world, self.world_size), (self.pools, self.pool)):
+                      (self.batch_cp, self.batch_ways * self.cp),
+                      (self.world, self.world_size), (self.pools, self.pool),
+                      (self.pods, self.pod)):
             if ax is not None and ax.size != n:
                 raise ValueError(f"axis {ax!r} has size {ax.size}, mesh "
                                  f"wants {n}")
 
     @property
     def world_size(self) -> int:
-        return self.tp * self.dp * self.pp * self.node * self.cp
+        return self.tp * self.dp * self.pp * self.node * self.cp * self.pod
 
     @staticmethod
     def _pair(outer: str, inner: str, n_o: int, n: int) -> AxisPair:
@@ -154,6 +169,13 @@ class MeshInfo:
         return self.nodes or Axis(self.node_axis, self.node)
 
     @property
+    def pod_axes(self) -> Axis | None:
+        """The pod axis of a multi-pod mesh (``None`` without one)."""
+        if self.pod == 1:
+            return None
+        return self.pods or Axis(self.pod_axis_name, self.pod)
+
+    @property
     def data_pair(self) -> Axis | AxisPair:
         """The logical data axis: the ``(node, data)`` pair of a ``--nodes``
         mesh, else the data axis."""
@@ -163,12 +185,12 @@ class MeshInfo:
 
     @property
     def batch_axes(self) -> Axis:
-        """The joint axis the global batch is sharded over: ``(node,
-        data)``, node-major, or the data axis."""
-        if self.node == 1:
+        """The joint axis the global batch is sharded over: ``(pod, data)``
+        pod-major, ``(node, data)`` node-major, or the data axis."""
+        if self.node == 1 and self.pod == 1:
             return self.dp_axes
-        return self.batch or Axis((self.node_axis, self.data_axis),
-                                  self.dp * self.node)
+        outer = self.pod_axis_name if self.pod > 1 else self.node_axis
+        return self.batch or Axis((outer, self.data_axis), self.batch_ways)
 
     @property
     def stage_axes(self) -> Axis | AxisPair | None:
@@ -223,12 +245,13 @@ class MeshInfo:
             return self.batch_axes
         if self.batch_cp is not None:
             return self.batch_cp
-        names = tuple(n for n, k in ((self.node_axis, self.node),
+        names = tuple(n for n, k in ((self.pod_axis_name, self.pod),
+                                     (self.node_axis, self.node),
                                      (self.data_axis, self.dp),
                                      (self.cp_node_axis, self.cp_node),
                                      (self.cp_axis, self.cp // self.cp_node))
                       if k > 1)
-        return Axis(names, self.dp * self.node * self.cp)
+        return Axis(names, self.batch_ways * self.cp)
 
     @property
     def pool_axis(self) -> Axis | None:
@@ -240,22 +263,23 @@ class MeshInfo:
 
     @property
     def all_axes(self) -> Axis:
-        """Every rank, ordered node, data, cp, stage, model: global rank
-        ``(((n * dp + d) * cp + c) * pp + s) * tp + t`` (cp, stage and
-        model joint)."""
+        """Every rank, ordered pod, node, data, cp, stage, model: global
+        rank ``((((p * node + n) * dp + d) * cp + c) * pp + s) * tp + t``
+        (cp, stage and model joint)."""
         return self.world or Axis("world", self.world_size)
 
     @property
     def batch_ways(self) -> int:
-        return self.dp * self.node
+        return self.dp * self.node * self.pod
 
     @property
     def coords(self) -> dict:
         """This rank's index along each sharded spec tag (the joint index
-        of a factored axis), and along the node, cp and pool axes, over
-        which every leaf is replicated."""
+        of a factored axis), and along the pod, node, cp and pool axes,
+        over which every leaf is replicated."""
         return {"model": self.tp_axes.index, "data": self.dp_axes.index,
                 "stage": self.stage_axes.index if self.pp > 1 else 0,
+                "pod": self.pod_axes.index if self.pod > 1 else 0,
                 "node": self.node_axes.index if self.node > 1 else 0,
                 "cp": self.cp_axes.index if self.cp > 1 else 0,
                 "pool": self.pool_axis.index if self.pool > 1 else 0}
@@ -465,6 +489,16 @@ def init_params(plan, gen: torch.Generator, device,
             del g
         vals[path] = v.contiguous()
     return _fill(plan, vals)
+
+
+def meta_params(plan, mi: MeshInfo | None = None) -> dict:
+    """This rank's shards of the plan as empty meta tensors (shape and
+    dtype, no storage): the parameters of a step traced on shapes alone.
+    :func:`init_params` draws global tensors from a generator, which meta
+    cannot do."""
+    mi = mi or MeshInfo()
+    return map_leaves(lambda d, _: torch.empty(
+        local_shape(d, mi), dtype=torch_dtype(d.dtype), device="meta"), plan)
 
 
 def _fill(plan, vals, path=()):

@@ -19,7 +19,7 @@ import torch
 
 from repro_torch.core import comms
 from repro_torch.core import policy as policy_lib
-from repro_torch.models import layers, transformer
+from repro_torch.models import attention, layers, transformer
 from repro_torch.models.model import Model
 from repro_torch.models.params import MeshInfo
 from repro_torch.serve import kv_cache, paged_kv
@@ -52,16 +52,29 @@ class Server:
 
     ``scheme`` (a name or a policy) is compiled against the model's mesh
     once and bound around both steps, with the ring options.  A ring-mode
-    cache's sequence shards over the model axes (their joint, its
-    combine two-level on a ``--tp-nodes`` mesh), as in the reference's
-    batched decode (``seq_axes=("model",)``; the reference's other
-    sequence shardings are not yet ported)."""
+    cache's sequence shards over ``seq_axes``, as in the reference:
+    ``("model",)`` (batched decode) the joint model axes, its combine
+    two-level on a ``--tp-nodes`` mesh; ``("data", "model")`` (the
+    long-context decode) the inner data axis and the model axes, data
+    major, with the batch replicated over data (a batch of one): each rank
+    holds ``S_max / (dp x tp)`` positions, and the flash-decoding combine
+    runs over data, then over model."""
 
-    def __init__(self, model: Model, scheme="baseline",
+    def __init__(self, model: Model, scheme="baseline", seq_axes=("model",),
                  ring_bidir: bool = False, ring_chunks: int = 1):
         self.model = model
         self.plan = policy_lib.compile_plan(scheme, model.mi)
-        self.seq_axes = (model.mi.tp_axes,)
+        mi = model.mi
+        bad = [ax for ax in seq_axes if ax not in ("data", "model")]
+        if bad or not seq_axes:
+            raise ValueError(f"seq_axes {tuple(seq_axes)}: entries are "
+                             f"'data' and 'model'")
+        # the logical names (the cache layout's) and the comms axes they
+        # resolve to, "model" the joint model axes (a pair on a factored
+        # mesh), "data" the inner data axis
+        self.seq_names = tuple(seq_axes)
+        self.seq_axes = tuple(mi.tp_axes if ax == "model" else mi.dp_axes
+                              for ax in seq_axes)
         self.ring_bidir = ring_bidir
         self.ring_chunks = ring_chunks
 
@@ -100,7 +113,7 @@ class Server:
 
     def cache_structs(self, B: int, s_max: int, s_enc: int = 0):
         return kv_cache.cache_structs(self.model.cfg, self.model.mi, B,
-                                      s_max, s_enc)
+                                      s_max, s_enc, self.seq_names)
 
     def pad_prefill_caches(self, caches, B: int, s_max: int,
                            s_enc: int = 0):
@@ -110,10 +123,13 @@ class Server:
         KV, hd] unstacked for a shared block) are padded on their sequence
         dim.  Head mode: the prefill cache already holds the whole
         sequence of this rank's heads; it is padded to ``s_max``.  Ring
-        mode: the decode shard of model rank ``t`` covers ``[t, t + 1) *
-        s_max / tp``, not its prefill slice ``[t, t + 1) * S / tp``, so
-        the slices are gathered over the model axes first, uncompressed
-        and outside the ledger (the reference pads on the host).  A
+        mode: the decode shard of sequence shard ``t`` (over
+        ``seq_axes``) covers ``[t, t + 1) * s_max / n``, not its prefill
+        slice ``[t, t + 1) * S / tp``, so the slices are gathered over the
+        model axes first, uncompressed and outside the ledger (the
+        reference pads on the host).  Where ``seq_axes`` holds ``"data"``
+        the batch is replicated over data, so the prefill ran every row on
+        every data rank.  A
         ``dec_attn`` group's cross-attention ``xk`` / ``xv`` are laid out
         the same way at length ``s_enc`` (the encoder's, not padded to
         ``s_max``), and its ``xlen`` holds ``s_enc``, as the reference's
@@ -149,8 +165,8 @@ class Server:
                 full = torch.zeros(a.shape[:d] + (length,) + a.shape[d + 1:],
                                    dtype=s.dtype, device=a.device)
                 full.narrow(d, 0, a.shape[d]).copy_(a)
-                if sp[k][d] == "model":           # the decode shard
-                    lo = mi.tp_axes.index * s.shape[d]
+                if sp[k][d] is not None:          # the decode shard
+                    lo = attention.shard_index(self.seq_axes) * s.shape[d]
                     full = full.narrow(d, lo, s.shape[d]).clone()
                 new[k] = full
             out.append(new)

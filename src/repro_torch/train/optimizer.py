@@ -11,7 +11,8 @@ plan):
      codec for a leaf that is not model-sharded (``tp_bwd@grad_fsdp``),
      on a ``--nodes`` mesh one over the node axis per leaf
      (``dp_outer@grad_fsdp{i}``, ``i`` the leaf's index, so a stateful
-     dp codec keeps one slot per leaf), then Adam on f32 ``{master, m,
+     dp codec keeps one slot per leaf), on a multi-pod mesh one over the
+     pod axis per leaf (``dp@grad_fsdp{i}_pod``), then Adam on f32 ``{master, m,
      v}`` held at the leaf's own sharding (never bq8, never bucketed),
      scaled by the shared clip.
   B. model-sharded (TP/vocab): per-data-shard partial grads -> one flat
@@ -33,7 +34,10 @@ sync has two levels, as the reference's (ZeRO++ hpZ): a reduce-scatter
 over the inner data axis (site ``dp_inner@zero1_grad``), an all-reduce of
 that chunk over the node axis (``dp_outer@zero1_grad``), the update, and
 the param gather over the inner data axis (``zero_inner@zero1_param``):
-the master chunks are replicated per node.  On a ``--tp-nodes`` or
+the master chunks are replicated per node.  On a multi-pod mesh the chunk
+that the data reduce-scatter leaves is all-reduced over the outer pod axis
+(``dp@zero1_grad{b}_pod``) before the update, and the master chunks are
+replicated per pod.  On a ``--tp-nodes`` or
 ``--pp-nodes`` mesh the tp and stage folds are two-level all-reduces over
 their pairs.  The global grad-norm clip sums each class's squares divided
 by its replication factor over the whole world, uncompressed, as the
@@ -207,7 +211,8 @@ class Adam:
         minor, so this rank's is chunk ``(s * tp + t) * dp + d`` of the
         global vector, stage and model joint, data inner (bq8 m and v
         likewise by rows, ``q_lo`` none); a ``--nodes`` mesh replicates
-        the chunks per node, and its first node writes them, and a cp mesh
+        the chunks per node, and its first node writes them, a multi-pod
+        mesh per pod, and its first pod writes them, and a cp mesh
         replicates them over cp, and cp index 0 writes them; the
         ``step`` is one replicated int32.  The ``fsdp`` list holds, for
         each class-A leaf, its f32 ``{master, m, v}`` as global leaves of
@@ -223,11 +228,12 @@ class Adam:
         g = (c["stage"] * mi.tp + c["model"]) * mi.dp + c["data"]
 
         def chunk(rows, tail, dtype, value):
-            # replicated over nodes (hpZ) and cp: the ranks of the first
-            # node and cp index 0 write
+            # replicated over pods, nodes (hpZ) and cp: the ranks of the
+            # first pod, the first node and cp index 0 write
             return Shard((world * rows, *tail),
                          (slice(g * rows, (g + 1) * rows), *whole(tail)),
-                         dtype, value, c["node"] == 0 and c["cp"] == 0,
+                         dtype, value,
+                         c["pod"] == 0 and c["node"] == 0 and c["cp"] == 0,
                          device)
 
         def moment(k):
@@ -363,8 +369,8 @@ class Adam:
         # replication factor (after the cp fold every leaf is replicated
         # over cp too; stage-replicated leaves also over pp), summed over
         # the whole world
-        rep = {"A": mi.node * mi.cp, "B": mi.dp * mi.node * mi.cp,
-               "C": mi.dp * mi.tp * mi.node * mi.cp}
+        outer = mi.pod * mi.node * mi.cp
+        rep = {"A": outer, "B": mi.dp * outer, "C": mi.dp * mi.tp * outer}
         sq = torch.zeros((), dtype=_F32, device=ts[0].device)
         for g, c, r in zip(grads, classes, srep):
             sq = sq + torch.sum(g.to(_F32) ** 2) / (rep[c] * (mi.pp if r
@@ -390,6 +396,9 @@ class Adam:
                 gv = comms.psum(gv, mi.node_axes,
                                 comms.Site("dp", f"grad_fsdp{i}",
                                            level="outer"))
+            if mi.pod > 1:
+                gv = comms.psum(gv, mi.pod_axes,
+                                comms.Site("dp", f"grad_fsdp{i}_pod"))
             st = state["fsdp"][i]
             master, m, v = self._adam_update(gv * scale, st["m"], st["v"],
                                              st["master"], step)
@@ -421,6 +430,10 @@ class Adam:
                 gc = comms.psum(gc, mi.node_axes,
                                 comms.Site("dp", f"zero1_grad{sfx}",
                                            level="outer"))
+            # multi-pod: the chunk also sums over the outer pod axis
+            if mi.pod > 1:
+                gc = comms.psum(gc, mi.pod_axes,
+                                comms.Site("dp", f"zero1_grad{sfx}_pod"))
             chunks.append(gc)
         del gflat
         gchunk = chunks[0] if len(chunks) == 1 else torch.cat(chunks)

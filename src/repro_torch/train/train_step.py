@@ -103,7 +103,8 @@ class Trainer:
         """The carried-state-capable comm sites of the step, with their
         per-rank payload shapes: on a ``--nodes`` mesh the node fold of
         each class-A (ZeRO-3) leaf's gradient (``dp_outer@grad_fsdp{i}``,
-        the leaf's local shape), the cp fold of the whole gradient, the tp
+        the leaf's local shape), on a multi-pod mesh its pod fold
+        (``dp@grad_fsdp{i}_pod``), the cp fold of the whole gradient, the tp
         class-C gradient fold, the pp fold of the stage-replicated leaves
         and the flat ZeRO-1 dp/zero sync, one chain per grad-sync bucket,
         in the reference's order.  A fold over a node-factored pair
@@ -111,20 +112,25 @@ class Trainer:
         ``1/n_inner`` chunk outer, as :func:`comms._stateful_hier_psum`
         reads them), and so has the DP sync of a ``--nodes`` mesh (the
         reduce-scatter inner, the chunk's all-reduce outer, the param
-        gather inner).  Mirrors :meth:`Adam.apply` (site names, levels and
-        payload sizes), as the reference's ``Trainer.codec_sites`` does
-        without its pod sites."""
+        gather inner), and so has a multi-pod mesh's (the chunk's pod
+        all-reduce, ``dp@zero1_grad{b}_pod``).  Mirrors :meth:`Adam.apply`
+        (site names, levels and payload sizes), as the reference's
+        ``Trainer.codec_sites`` does."""
         mi = self.model.mi
         local = [(math.prod(local_shape(d, mi)), _leaf_class(d.spec))
                  for d in defs(self.model.plan)]
         f32 = torch.float32
         sites = []
-        if mi.node > 1:
-            for i, d in enumerate(defs(self.model.plan)):
-                if _leaf_class(d.spec) == "A":
-                    sites.append((comms.Site("dp", f"grad_fsdp{i}",
-                                             level="outer"),
-                                  local_shape(d, mi), f32))
+        for i, d in enumerate(defs(self.model.plan)):
+            if _leaf_class(d.spec) != "A":
+                continue
+            if mi.node > 1:
+                sites.append((comms.Site("dp", f"grad_fsdp{i}",
+                                         level="outer"),
+                              local_shape(d, mi), f32))
+            if mi.pod > 1:
+                sites.append((comms.Site("dp", f"grad_fsdp{i}_pod"),
+                              local_shape(d, mi), f32))
         folds = []
         if mi.cp > 1:
             folds.append(("cp", "grad_seq_rep", mi.cp_axes,
@@ -160,6 +166,9 @@ class Trainer:
             if hier:
                 sites.append((comms.Site("dp", f"zero1_grad{sfx}",
                                          level="outer"), (cl,), f32))
+            if mi.pod > 1:
+                sites.append((comms.Site("dp", f"zero1_grad{sfx}_pod"),
+                              (cl,), f32))
             sites.append((comms.Site("zero", f"zero1_param{sfx}", level=lvl),
                           (cl,), f32))
         return sites
@@ -207,7 +216,8 @@ class Trainer:
         or ``dp_inner@`` and ``dp_outer@`` on a ``--nodes`` mesh), the
         paper's aggressive-DP compression target.  Only sum collectives
         over axes larger than 1 qualify; the param gather stays on its
-        plan-static codec.  As the reference's."""
+        plan-static codec, and so does a multi-pod mesh's pod hop.  As the
+        reference's."""
         mi = self.model.mi
         n = sum(math.prod(local_shape(d, mi)) for d in defs(self.model.plan)
                 if _leaf_class(d.spec) != "A")
@@ -282,7 +292,7 @@ class Trainer:
     def codec_state_shards(self, state=None) -> dict:
         """The codec state as the reference's global leaves (its
         ``codec_structs``): every slot stacks each rank's along dim 0 in
-        the order of ``MeshInfo.all_axes`` (node, data, cp, stage, model,
+        the order of ``MeshInfo.all_axes`` (pod, node, data, cp, stage, model,
         the factored ones joint), which is the global rank here.  Each leaf
         is a :class:`~repro_torch.train.checkpoint.Shard` holding this
         rank's part (of ``state``, when given)."""

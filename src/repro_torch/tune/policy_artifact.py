@@ -17,8 +17,8 @@ Top-level fields:
   changes; loaders reject unknown majors loudly);
 * ``base_scheme`` — the policy name the run started from;
 * ``topology`` — the mesh the rules were derived on
-  (dp/tp/pp/cp/nodes/pods; this package runs no pods, so its ``pods`` is
-  1, as the reference writes it on a mesh without that axis);
+  (dp/tp/pp/cp/nodes/pods; ``pods`` is 1 on a mesh without a pod axis,
+  as the reference writes it);
 * ``plan_hash`` — ``CommPlan.table_hash()`` of the emitted assignment;
 * ``step`` — the training step of the last accepted decision;
 * ``rules`` — ordered site-override rules (dim/direction/level/name/
@@ -48,7 +48,7 @@ def topology_of(mi) -> dict:
     if mi is None:
         return {}
     return {"dp": mi.dp, "tp": mi.tp, "pp": mi.pp, "cp": mi.cp,
-            "nodes": mi.node, "pods": 1}
+            "nodes": mi.node, "pods": mi.pod}
 
 
 def _rule_dict(r) -> dict:

@@ -296,9 +296,15 @@ def test_cpu_tensors_run_plain_and_launch_nothing():
 
 
 def test_non_cpu_tensor_never_runs_plain():
+    """The dispatch rule: CPU tensors run the plain version, meta tensors
+    (a shape-only trace) the plain version's shapes, CUDA tensors the
+    kernel; a mix of devices, or an unknown backend, raises."""
     x = torch.empty((8, 128), device="meta")
+    hi, lo, scale = tbq.bq_encode(x, 8)
+    assert (hi.device.type, hi.shape, hi.dtype, lo, scale.shape) == \
+        ("meta", (8, 128), torch.int8, None, (8, 1))
     with pytest.raises(ValueError):
-        tbq.bq_encode(x, 8)
+        tbq.bq_decode_add(hi, lo, scale, torch.zeros((8, 128)), 8)
     with pytest.raises(ValueError):
         tops.bq_encode_blocks(x, 8, backend="triton")
 
@@ -317,7 +323,10 @@ def test_flat_ops_on_cpu_run_plain_and_launch_nothing():
     assert torch.equal(got.reshape(3, 10, 7), tops.ungather(
         tops.bq_decode_blocks(wire, 16), (3, 5, 7), torch.bfloat16, 1))
     assert not any(tbq.LAUNCHES.values()) and not tbq.LAUNCH_SHAPES
+    # meta runs the plain version's shapes; meta beside CPU raises
+    assert tbq.bq_encode_flat(torch.empty(8, device="meta"), 8)[0].shape \
+        == (8, 128)
     with pytest.raises(ValueError):
-        tbq.bq_encode_flat(torch.empty(8, device="meta"), 8)
+        tbq.bq_decode_flat(hi, None, scale.to("meta"), 16, 105)
     with pytest.raises(ValueError):          # inner must divide n
         tbq.bq_decode_flat(hi, None, scale, 16, 105, inner=10)

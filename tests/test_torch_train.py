@@ -33,7 +33,8 @@ Contract asserted here, with the tolerances and their reasons:
     shard of the gradient) hold the same factor Q, bit for bit;
   * the first step's ledger, priced per dimension, equals the reference's
     under every case, byte for byte;
-  * the launcher refuses unported flags, accepts the checkpoints' (and
+  * the launcher refuses unported flags (``--host-devices``), accepts
+    ``--pod`` and the checkpoints' (and
     checkpoints and resumes on the CPU), accepts the pipeline's and
     refuses a schedule it cannot run, trains pp 2 (and pp 2 x vpp 2) on
     the CPU when asked, builds ``--codec-for`` policies, runs on the CPU
@@ -427,10 +428,13 @@ def test_launcher_refuses_unported_flags():
     ok = ap.parse_args(["--arch", "gemma3-1b", "--dp", "2", "--tp", "2",
                         "--scheme", "zhybrid_16_8", "--ring-bidir"])
     assert tlaunch.unported(ok) == []
-    for extra in (["--pod", "2"], ["--host-devices", "8"]):
+    for extra in (["--host-devices", "8"],):
         args = ap.parse_args(["--arch", "gemma3-1b", *extra])
         msgs = tlaunch.unported(args)
-        assert len(msgs) == 1 and "not yet ported" in msgs[0], extra
+        assert len(msgs) == 1 and "is not ported" in msgs[0], extra
+    # the outer data-parallel pod axis is ported: --pod is accepted
+    pod = ap.parse_args(["--arch", "gemma3-1b", "--pod", "2", "--dp", "2"])
+    assert tlaunch.unported(pod) == [] and pod.pod == 2
     # context parallelism is ported: --cp and --cp-nodes are accepted
     cp = ap.parse_args(["--arch", "gemma3-1b", "--cp", "2"])
     assert tlaunch.unported(cp) == [] and cp.cp == 2
