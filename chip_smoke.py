@@ -71,7 +71,8 @@ Phase 3 serves gemma3-1b (full published width, its first 6 layers with
 the 5:1 local:global pattern kept; 26 until phase 11 came in, 13 until
 phase 12) by
 continuous batching over a bq8 paged KV pool, 4 requests of
-560 + 8 tokens on 4 slots (8 of 560 + 24 on 8 until phase 14 came in),
+520 + 8 tokens on 4 slots (8 of 560 + 24 on 8 until phase 14 came in,
+4 of 560 + 8 until the remat did),
 through the kernels and through their plain
 versions, and its first layer alone with a dense pool (the whole model
 until phase 17 came in: the check reads layer 0 only), and requires
@@ -90,7 +91,15 @@ the fused hops, of the flat encode and decode and of the view encode and
 fused decode-add in the first and none in the second, no block encode or
 decode-add at the TP reduce-scatters' rows, every loss finite and
 within 1 % of baseline's, and the dp and zero wire bytes below baseline's
-by their codecs' ratios.
+by their codecs' ratios.  Its config rematerializes every layer in
+training (``remat``, on in every full-size config, as in the reference:
+the layer's forward, collectives included, runs again in the backward),
+and a fourth run, the kernel run for 2 steps with remat off, must give
+the kernel run's first two losses and grad norms bit for bit on every
+rank and more device memory allocated at the end of each forward; the
+phase prints that memory, the peak GiB per rank and the priced MB per
+``dim/level`` both ways.  Every later training phase rematerializes
+too, and every reckoning of an in-layer site prices its forward twice.
 Phase 5 runs reduce_scatter_flat and the all-reduce ring over a 4-rank
 data axis at bq8, unidirectional and bidirectional, on one rank's flat
 gradient from phase 4, through the kernels and the plain versions, and
@@ -248,7 +257,9 @@ the same through the plain versions, and 13c paged serving ``--dp 2 --tp
 slots, kernels and plain.  It requires 13a equal to 13b (losses, grad
 norms, ledger per dim and ``dim/level``), finite losses, priced zero
 bytes, the flat encode and decode and the view encode and fused
-decode-add launched at the class-A shards' rows at rate 16, 13c's kernel
+decode-add launched at the class-A shards' rows at rate 16 (the
+gather's flat forms twice for each reduce-scatter: the remat re-gathers
+each shard in the backward), 13c's kernel
 run equal to its plain run bit for bit (tokens, every pool plane by
 sha256) with the pool write and KV read launched, and nothing launched
 in the plain runs; it prints ms/step, tokens/s, peak memory, staging
@@ -269,9 +280,10 @@ Server at ``--tp 4`` with all 128 experts (32 a rank), its first
 layer, two prompts of 512 tokens plus 16 generated, kernels and plain.  It requires 14a equal to 14b
 (losses, grad norms, the load-balance loss and drop fraction per step,
 ledger per dim and ``dim/level``), finite losses, the priced ``ep`` bytes
-equal to their reckoning (four bq16 all-to-alls a layer of the [E * C,
-D] dispatch buffer, half of each crossing), priced zero bytes, the block
-encode and decode launched at the ep sites' rows exactly four times a
+equal to their reckoning (two bq16 all-to-alls a layer of the [E * C,
+D] dispatch buffer, each priced forward, again in the remat and
+backward, half of each crossing), priced zero bytes, the block
+encode and decode launched at the ep sites' rows exactly six times a
 layer per rank per step, 14c's kernel run equal to its plain run (tokens,
 every cache leaf after the prefill and at the end by sha256), and nothing
 launched in the plain runs; it prints ms/step, tokens/s, peak memory,
@@ -396,12 +408,13 @@ SPIN_CYCLES = 2_000_000       # about 1 ms of the card's clock
 BITS = (4, 8, 16, 24)
 MAIN_BITS = 8                 # the serving pool is bq8
 
-# serving: gemma3-1b, 4 slots, 16-token blocks, 560 + 8 (prompts past the
-# 512 window); its first 6 layers (one 5:1 block, the pattern kept: cut
+# serving: gemma3-1b, 4 slots, 16-token blocks, 520 + 8 (prompts just past
+# the 512 window: 560 until the remat came in, each prompt token a decode
+# step); its first 6 layers (one 5:1 block, the pattern kept: cut
 # from 26 to 13 to pay for phase 11's runs, about half of phase 3's 199 s,
 # and from 13 to 6 for phase 12's); 8 slots and 560 + 24 until phase 14
 # came in; the dense run on layer 0 alone since phase 17 came in
-SLOTS, BLOCK_TOKENS, PROMPT, GEN, SEED = 4, 16, 560, 8, 0
+SLOTS, BLOCK_TOKENS, PROMPT, GEN, SEED = 4, 16, 520, 8, 0
 SERVE_LAYERS = 6
 # main path: the training step at full width, its first 6 layers (one
 # 5:1 local:global block, the pattern kept; all 26 until phase 13 came in:
@@ -411,6 +424,9 @@ SERVE_LAYERS = 6
 # rows, 75.5 s of 1199.7 on a slow host)
 DP, TP, STEPS, SEQ, GLOBAL_BATCH = 2, 2, 5, 1024, 4
 MAIN_DEPTH = 6
+# phase 4's kernel run again with remat off (its config's is on), for
+# these steps: the losses equal, the memory at the end of the forward
+REMAT_OFF_STEPS = 2
 RING_WORLD = 4                # phase 5's data axis
 STATEFUL_STEPS = 4            # phase 6
 PLR = ["--codec-for", "dp@zero1_grad*=plr8"]
@@ -1842,6 +1858,7 @@ def rank_runs(*, rank: int, world: int, runs: list) -> list:
     from repro_torch.launch.train import train_rank
     out = []
     for kw in runs:
+        t0 = time.perf_counter()
         if "serve" in kw:
             out.append(serve_rank(rank=rank, world=world, **kw["serve"]))
         elif "between" in kw:
@@ -1851,6 +1868,20 @@ def rank_runs(*, rank: int, world: int, runs: list) -> list:
         else:
             out.append(train_rank(rank=rank, world=world, **kw))
         torch.cuda.empty_cache()
+        if isinstance(out[-1], dict):
+            # the run's seconds in the world, its setup included
+            out[-1]["run_s"] = time.perf_counter() - t0
+    return out
+
+
+def phase_seconds(card, world: str, runs: dict) -> dict:
+    """Print and return the seconds each phase's runs took in a world
+    (rank 0: setup, steps, serving), from ``runs`` ``{phase: [per-rank
+    results of each run]}``."""
+    out = {ph: sum(r[0]["run_s"] for r in res) for ph, res in runs.items()}
+    print(f"seconds in the world of {world} by phase (rank 0, setup "
+          f"included): " + ", ".join(f"{ph} {v:.1f}" for ph, v in
+                                     out.items()) + f" [{card}]")
     return out
 
 
@@ -1923,7 +1954,9 @@ def train_runs(card, runs: list) -> list:
         step = [float(np.median(x["step_s"][k:])) for x in res]
         share = [sum(x["staging_s"][k:]) / sum(x["step_s"][k:]) for x in res]
         ms = max(step) * 1e3
-        print(f"  {r['label']}: losses {res[0]['losses']} grad norms "
+        setup = res[0]["run_s"] - sum(res[0]["step_s"])
+        print(f"  {r['label']}: {res[0]['run_s']:.1f} s in the world (setup "
+              f"{setup:.1f} s, rank 0); losses {res[0]['losses']} grad norms "
               f"{[round(g, 6) for g in res[0]['grad_norms']]}; median "
               f"{ms:.1f} ms/step (steps {k + 1}-{r['steps']}, slowest "
               f"rank), {r['tokens'] / (ms / 1e3):.0f} tokens/s, peak "
@@ -2057,6 +2090,11 @@ def drive_hier(torch, card, only: str | None = None) -> tuple:
     t0 = time.perf_counter()
     res = dict(zip(names, train_runs(card, runs)))
     wall = time.perf_counter() - t0
+    by_phase = {}
+    for (name, _), r in res.items():
+        by_phase.setdefault(re.match(r"\d+", name).group(), []).append(r)
+    phase_seconds(card, "phases 9 to 17" if only is None
+                  else f"phase {only}", by_phase)
     cp = check_cp(card, res) if only in (None, "cp") else {}
     serve = check_serve(card, res) if only in (None, "serve") else {}
     z3 = check_zero3(card, res) if only in (None, "zero3") else {}
@@ -2306,7 +2344,9 @@ def check_zero3(card, res: dict) -> dict:
     versions) in losses, grad norms and ledger (measured per dim, priced
     per dim and per ``dim/level``), finite losses, priced ``zero`` bytes,
     the four zero-site kernels launched at the class-A shards' rows at
-    rate 16 and nothing launched in 13b; 13c's kernel run equal to its
+    rate 16, the gather's flat encode and decode twice (the config's
+    remat) for each reduce-scatter's view encode and fused decode-add,
+    and nothing launched in 13b; 13c's kernel run equal to its
     plain run bit for bit (tokens and every pool plane by sha256) with
     the pool write and the KV read launched, none in the plain run; no
     rank importing jax or repro.  Prints the numbers and returns them."""
@@ -2344,11 +2384,23 @@ def check_zero3(card, res: dict) -> dict:
             fail(f"phase 13a: {kern} never launched at the zero site's rows "
                  f"{sorted(want)} (rate 16); launches by shape "
                  f"{sorted(key for key in shapes if key[0] == kern)}")
+    # each shard's gather runs in the forward (again in the remat's
+    # recompute: the flat encode and decode), its gradient's
+    # reduce-scatter once in the backward (the view encode, the fused
+    # decode-add)
+    cfg = configs.get(Z3_ARCH).truncated(Z3_DEPTH).replace(fsdp_params=True)
+    n_rs, n_ag = sum(at_zero["bq_encode_view"].values()), \
+        layer_passes(cfg) - 1
+    want_n = {"bq_encode_flat": n_ag * n_rs, "bq_decode_flat": n_ag * n_rs,
+              "bq_encode_view": n_rs, "bq_decode_add_flat": n_rs}
+    got_n = {kern: sum(v.values()) for kern, v in at_zero.items()}
+    if got_n != want_n:
+        fail(f"phase 13a: launches at the zero site's rows {got_n}, want "
+             f"{want_n} (the gather {n_ag} times a reduce-scatter)")
     r0 = k[0]
     priced = {key: v for key, v in r0["priced_per_dim_level"].items() if v}
     if not priced.get("zero/flat"):
         fail(f"phase 13a: no zero bytes priced: {priced}")
-    cfg = configs.get(Z3_ARCH).truncated(Z3_DEPTH).replace(fsdp_params=True)
     mi = MeshInfo(tp=2, dp=2)
     ds = defs(model_plan(cfg, mi))
     n_all = sum(int(np.prod(local_shape(d, mi))) for d in ds)
@@ -2434,13 +2486,23 @@ def check_zero3(card, res: dict) -> dict:
     return out
 
 
+def layer_passes(cfg) -> int:
+    """How often a training step moves a collective inside a layer group
+    (and the ledger prices it): its forward, its backward twin and, under
+    ``cfg.remat``, the forward again in the rematerialized backward."""
+    return 3 if cfg.remat else 2
+
+
 def moe_ep_reckoned() -> float:
-    """14a's priced ep bytes per rank per step, reckoned: four
-    all-to-alls a layer (dispatch and combine, each forward and back) of
-    the [E * C, D] buffer at bq16, (ep - 1) / ep of it crossing."""
+    """14a's priced ep bytes per rank per step, reckoned: two all-to-alls
+    a layer (dispatch and combine) of the [E * C, D] buffer at bq16, each
+    :func:`layer_passes` times (six a layer under the config's remat),
+    (ep - 1) / ep of it crossing."""
+    from repro_torch import configs
     from repro_torch.core import codecs
     elems = MOE_EXPERTS * 640 * 4096
-    return MOE_DEPTH * 4 * codecs.get("bq16").wire_nbytes_for(elems) / 2
+    return MOE_DEPTH * 2 * layer_passes(configs.get(MOE_ARCH)) \
+        * codecs.get("bq16").wire_nbytes_for(elems) / 2
 
 
 def check_moe(card, res: dict) -> dict:
@@ -2481,8 +2543,11 @@ def check_moe(card, res: dict) -> dict:
     for r in k:
         for name, rows, bits, c in r["launch_shapes"]:
             shapes[(name, rows, bits)] = shapes.get((name, rows, bits), 0) + c
-    # per rank per step: a layer's 2 sites x (forward, backward)
-    want_n = MOE_DEPTH * 4 * len(k) * MOE_STEPS
+    # per rank per step: a layer's 2 sites x (forward, the remat's
+    # forward, backward)
+    from repro_torch import configs
+    want_n = MOE_DEPTH * 2 * layer_passes(configs.get(MOE_ARCH)) * len(k) \
+        * MOE_STEPS
     at_ep = {kern: shapes.get((kern, MOE_EP_ROWS, 16), 0)
              for kern in ("bq_encode", "bq_decode")}
     if any(v != want_n for v in at_ep.values()):
@@ -2587,11 +2652,13 @@ def rec_reckoned(cfg, b_loc: int, s_loc: int, tp: int, wire) -> dict:
     N the q/k width; the denominator's, P = 1), and an sLSTM layer two
     all-to-alls of [B, S, D] (``ep@slstm_transpose``, ``(tp - 1) / tp``
     crossing) where ``b_loc`` divides by tp; every one forward and
-    backward."""
+    backward, and under ``cfg.remat`` forward again
+    (:func:`layer_passes`)."""
     out = {"pp@ssm_scan": 0.0, "pp@conv_halo": 0.0,
            "ep@slstm_transpose": 0.0}
     if tp == 1:
         return out
+    n = layer_passes(cfg)
 
     def prefix(H: int, P: int, N: int) -> int:
         n, step = 0, 1
@@ -2605,19 +2672,19 @@ def rec_reckoned(cfg, b_loc: int, s_loc: int, tp: int, wire) -> dict:
     for g in cfg.layer_groups:
         for _ in range(g.n):
             if g.kind == "mamba":
-                out["pp@ssm_scan"] += 2 * wire(prefix(
+                out["pp@ssm_scan"] += n * wire(prefix(
                     cfg.d_inner // cfg.ssm_head_dim, cfg.ssm_head_dim,
                     cfg.ssm_state))
-                out["pp@conv_halo"] += 2 * wire(
+                out["pp@conv_halo"] += n * wire(
                     b_loc * (cfg.conv_kernel - 1) * cfg.d_inner
                     * (tp - 1) // tp)
             elif g.kind == "mlstm":
                 for p in (pv, 1):
-                    out["pp@ssm_scan"] += 2 * wire(prefix(
+                    out["pp@ssm_scan"] += n * wire(prefix(
                         cfg.n_heads, p, cfg.head_dim_))
             elif g.kind == "slstm" and b_loc % tp == 0:
                 out["ep@slstm_transpose"] += \
-                    4 * wire(b_loc * s_loc * cfg.d_model) * (tp - 1) / tp
+                    2 * n * wire(b_loc * s_loc * cfg.d_model) * (tp - 1) / tp
     return out
 
 
@@ -2627,13 +2694,15 @@ def encdec_reckoned(cfg, b_loc: int, s_loc: int, tp: int, wire) -> dict:
     frames a rank over ``tp`` model ranks, reckoned by hand; ``wire(n)``
     is the codec's wire bytes for n values.  In head mode each decoder
     layer's cross-attention all-gathers the encoder's output [B, S_enc /
-    tp, D]: ``tp - 1`` ring hops of this rank's slice forward, and as many
-    of the same slice in its backward reduce-scatter.  Ring mode gathers
-    the projected K/V at ``tp@attn_kv`` instead: nothing here."""
+    tp, D]: ``tp - 1`` ring hops of this rank's slice forward (twice
+    under ``cfg.remat``: :func:`layer_passes`), and as many of the same
+    slice in its backward reduce-scatter.  Ring mode gathers the projected
+    K/V at ``tp@attn_kv`` instead: nothing here."""
     n = 0.0
     if tp > 1 and cfg.attn_mode_for(tp) == "head":
         dec = sum(g.n for g in cfg.layer_groups if g.kind == "dec_attn")
-        n = dec * 2 * (tp - 1) * wire(b_loc * s_loc * cfg.d_model)
+        n = dec * layer_passes(cfg) * (tp - 1) \
+            * wire(b_loc * s_loc * cfg.d_model)
     return {"tp@attn_cross_kv": float(n)}
 
 
@@ -3633,13 +3702,53 @@ GRAD_PATH = SCRATCH / "flat_grad.pt"   # phase 4's flat gradient, phase 5's
 
 
 def training_runs() -> list:
-    """Phase 4's runs (:func:`run`)."""
+    """Phase 4's runs (:func:`run`): the config's own remat (on, as in
+    every full-size config) through the kernels, the plain versions and
+    under baseline, and REMAT_OFF_STEPS steps of the kernel run with remat
+    off."""
     SCRATCH.mkdir(exist_ok=True)
     return [run("zhybrid_16_8 kernels", "zhybrid_16_8",
                 flat_grad_out=str(GRAD_PATH), depth=MAIN_DEPTH),
             run("zhybrid_16_8 plain", "zhybrid_16_8", "torch",
                 depth=MAIN_DEPTH),
-            run("baseline", "baseline", depth=MAIN_DEPTH)]
+            run("baseline", "baseline", depth=MAIN_DEPTH),
+            run("zhybrid_16_8 kernels, remat off", "zhybrid_16_8",
+                steps=REMAT_OFF_STEPS, depth=MAIN_DEPTH,
+                overrides={"remat": False})]
+
+
+def check_remat(card, k, off) -> dict:
+    """Phase 4's remat against its remat-off run: the kernel run (``k``,
+    the config's remat) and ``off`` (remat off) bit-equal in losses and
+    grad norms over ``off``'s steps on every rank, and less device memory
+    allocated at the end of every forward with remat; prints those bytes,
+    the peak GiB a rank and the priced MB per ``dim/level`` both ways."""
+    n = len(off[0]["losses"])
+    for rk, ro in zip(k, off):
+        for key in ("losses", "grad_norms"):
+            if rk[key][:n] != ro[key]:
+                fail(f"phase 4 rank {rk['rank']}: {key} differ with remat "
+                     f"({rk[key][:n]}) and without ({ro[key]})")
+    fwd = {w: [max(r["fwd_allocated"][:n]) for r in res]
+           for w, res in (("remat", k), ("off", off))}
+    if not all(a < b for a, b in zip(fwd["remat"], fwd["off"])):
+        fail(f"phase 4: device bytes at the end of the forward with remat "
+             f"{fwd['remat']} not below those without {fwd['off']}")
+    peak = {w: [round(r["peak_bytes"] / 2**30, 2) for r in res]
+            for w, res in (("remat", k), ("off", off))}
+    mb = {w: {key: round(v / 1e6, 3) for key, v in
+              res[0]["priced_per_dim_level"].items() if v}
+          for w, res in (("remat", k), ("off", off))}
+    gib = {w: [round(b / 2**30, 3) for b in v] for w, v in fwd.items()}
+    saved = [round((b - a) / 2**30, 3)
+             for a, b in zip(fwd["remat"], fwd["off"])]
+    print(f"phase 4 remat: losses and grad norms of steps 1-{n} bit-equal "
+          f"with and without remat on every rank; allocated at the end of "
+          f"the forward (max of those steps) {gib['remat']} GiB per rank "
+          f"with remat, {gib['off']} without (saved {saved}); peak {peak['remat']} vs {peak['off']} GiB per rank; priced "
+          f"MB per rank per step by dim/level {mb['remat']} with remat, "
+          f"{mb['off']} without [{card}]")
+    return {"fwd_allocated": fwd, "peak_gib": peak, "priced_mb": mb}
 
 
 def drive_training(torch, card, res=None) -> dict:
@@ -3648,7 +3757,7 @@ def drive_training(torch, card, res=None) -> dict:
     ``None``); returns the kernel run's launches (all ranks), the file
     holding rank 0's flat gradient, and baseline's priced ledger."""
     grad_path = GRAD_PATH
-    k, p, b = res or train_runs(card, training_runs())
+    k, p, b, off = res or train_runs(card, training_runs())
     for rk, rp in zip(k, p):
         for key in ("losses", "grad_norms", "wire_per_dim", "priced_per_dim"):
             if rk[key] != rp[key]:
@@ -3691,9 +3800,10 @@ def drive_training(torch, card, res=None) -> dict:
                       f"({ratio[d]:.4f})" for d in sorted(zb))
           + f"; measured {k[0]['wire_per_dim']}; launches (all ranks) "
           f"{launches} [{card}]")
+    remat = check_remat(card, k, off)
     if not grad_path.exists():
         fail("phase 4 saved no flat gradient for phase 5")
-    return {"launches": launches, "shapes": shape_sums(k),
+    return {"launches": launches, "shapes": shape_sums(k), "remat": remat,
             "grad_path": grad_path,
             "step_s": max(float(np.median(r["step_s"][1:])) for r in k),
             "zhybrid": zk, "baseline": zb, "baseline_losses": b[0]["losses"]}
@@ -4296,6 +4406,9 @@ def main():
     for g in groups:
         parts.append(res[at:at + len(g)])
         at += len(g)
+    phase_seconds(card, "phases 4, 6, 7 and 8", {
+        ph: [r for r in part if isinstance(r, list)]
+        for ph, part in zip(("4", "6", "7", "8"), parts)})
     train = drive_training(torch, card, res=parts[0])
 
     # ---------------------------------------------------------- phase 5

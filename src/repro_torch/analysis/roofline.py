@@ -114,13 +114,17 @@ def _coll_bytes(op: str, codec_name: str, elems: int, dtype: str, n: int,
 
 
 def event_bytes(ev: dict, train: bool) -> dict:
-    """Per-device link bytes of one ledger event: ``fwd`` and, when
-    ``train``, its backward twin ``bwd`` under the backward codec."""
+    """Per-device link bytes of one ledger event: ``fwd`` (twice in
+    training for a ``remat`` event, whose forward re-runs in the backward
+    pass) and, when ``train``, its backward twin ``bwd`` under the
+    backward codec."""
     n = ev["n"]
     if n <= 1:
         return {"fwd": 0.0, "bwd": 0.0}
     fwd = _coll_bytes(ev["op"], ev["codec_fwd"], ev["elems"], ev["dtype"],
                       n, bool(ev.get("bidir")), ev.get("ring"))
+    if train and ev.get("remat"):
+        fwd *= 2
     bwd = 0.0
     if train and ev.get("bwd_op"):
         op_b = ev["bwd_op"]

@@ -58,6 +58,12 @@ the codec-state region and the tune region are process-wide rather than
 thread-local: autograd runs the backward of CUDA tensors on its own
 thread, which must see the same bindings.
 
+Activation checkpointing (:func:`checkpointed`, for the remat'd layer
+groups and the pipeline's remat policy) re-runs a body's collectives in
+the backward pass: their analytic events are muted there, and a remat'd
+layer group's forward events carry ``remat`` (:class:`scope_remat`) so
+that the roofline prices their forward twice, as the reference's does.
+
 The all-to-all (:func:`all_to_all`, the expert-parallel ``ep`` token
 routing) splits its payload into one slice per rank; under a ``bq*``
 codec each slice is encoded in block form, the wire planes are exchanged
@@ -79,6 +85,7 @@ import time
 
 import torch
 import torch.distributed as dist
+import torch.utils.checkpoint
 
 from repro_torch.core import codecs, policy
 from repro_torch.kernels import bq, lowrank, ops
@@ -151,6 +158,7 @@ class _State:
     state_io = None
     tune_io = None
     shape_only = 0
+    remat = False
 
 
 _rec = _State()
@@ -212,9 +220,10 @@ class scope_facts:
     its ticks in ``scope_facts(vpp=V)``, as the reference does, so each
     event records which schedule produced it.
 
-    The reference's ``scope_mult`` has no counterpart: it multiplies the
-    events of a body traced once and run many times, where this package
-    runs every tick eagerly and records each call's events."""
+    The reference's ``scope_mult`` multiplies the events of a body traced
+    once and run many times, where this package runs every tick eagerly
+    and records each call's events; its ``remat`` mark is
+    :class:`scope_remat`."""
 
     def __init__(self, **facts):
         self.facts = facts
@@ -229,10 +238,30 @@ class scope_facts:
         return False
 
 
+class scope_remat:
+    """Mark the analytic events recorded inside ``remat`` when ``on``: the
+    forward collectives of a rematerialized layer group, which re-run in
+    the backward pass (``roofline.event_bytes`` prices their forward twice
+    in training), as the reference's ``scope_mult(remat=True)`` marks
+    them.  An outer mark stays on inside."""
+
+    def __init__(self, on: bool):
+        self.on = bool(on)
+
+    def __enter__(self):
+        self.prev = _rec.remat
+        _rec.remat = self.prev or self.on
+        return self
+
+    def __exit__(self, *exc):
+        _rec.remat = self.prev
+        return False
+
+
 class mute_ledger:
     """Drop the analytic events of the collectives called inside.
 
-    The pipeline's activation checkpointing re-runs a stage body during
+    Activation checkpointing (:func:`checkpointed`) re-runs a body during
     the backward pass; the reference's ledger counts a checkpointed body
     once (traced once), so the recompute's analytic events are muted.  Its
     measured wire events are kept: those bytes do cross."""
@@ -244,6 +273,32 @@ class mute_ledger:
     def __exit__(self, *exc):
         _rec.muted -= 1
         return False
+
+
+def checkpointed(fn):
+    """``fn`` under activation checkpointing: ``torch.utils.checkpoint``,
+    non-reentrant, so only its tensor inputs are saved and the backward
+    runs it again, whole (early stop off: every collective of the body
+    re-runs, in the same order on every rank).  The recompute runs where
+    the backward runs, on autograd's own thread for CUDA tensors, where
+    the forward's thread-local plan is unbound: it re-binds that plan, so
+    that its collectives take the same codecs, and mutes their analytic
+    events (:class:`mute_ledger`).  The bodies draw no random numbers, so
+    no RNG state is kept."""
+    def run(*args):
+        plan = policy.current_plan()
+        calls = []
+
+        def body(*a):
+            calls.append(1)
+            if len(calls) > 1:          # the recompute, in the backward
+                with policy.use_plan(plan), mute_ledger():
+                    return fn(*a)
+            return fn(*a)
+        with torch.utils.checkpoint.set_checkpoint_early_stop(False):
+            return torch.utils.checkpoint.checkpoint(
+                body, *args, use_reentrant=False, preserve_rng_state=False)
+    return run
 
 
 class shape_only:
@@ -287,7 +342,7 @@ def _account(op, tag, x, axis, c_fwd, c_bwd, bwd_op=None, level="flat",
         op=op, tag=tag, axis=axis.name, n=n,
         elems=int(elems), dtype=_dtype_name(x.dtype), nbytes=int(nbytes),
         codec_fwd=c_fwd.name, codec_bwd=c_bwd.name,
-        bwd_op=bwd_op, mult=1, remat=False,
+        bwd_op=bwd_op, mult=1, remat=_rec.remat,
         bidir=_bidir(), level=level, **_rec.facts)
     if op in ("all_reduce", "reduce_scatter") and n > 1:
         sched = _ring_schedule(ops.padded_rows(-(-int(elems) // n)))

@@ -607,7 +607,9 @@ def train_rank(*, rank: int = 0, world: int = 1, arch: str,
     its ``tune_restart_warnings`` said as ``WARNING:`` lines.  Returns
     this rank's metrics:
     losses, grad norms (an expert model's ``lb_loss`` and ``drop_frac``
-    too), step seconds, the staged bytes and (under
+    too), the device bytes allocated at the end of each step's forward
+    (``fwd_allocated``, the flat step on a card; else ``None``), step
+    seconds, the staged bytes and (under
     ``time_staging``) seconds and the seconds of the timed spans
     (``comms.SPANS``), peak device memory, kernel launches (also
     by bq kernel, wire rows and rate), the
@@ -781,7 +783,7 @@ def train_rank(*, rank: int = 0, world: int = 1, arch: str,
     out = {"rank": rank, "coords": [d, mi.coords["stage"], mi.tp_axes.index],
            "start": start, "restore_log": log, "straggler": [],
            "losses": [], "grad_norms": [], "step_s": [], "staging_s": [],
-           "span_s": [], "staging_bytes": [],
+           "span_s": [], "staging_bytes": [], "fwd_allocated": [],
            "ticks": roofline.pipeline_ticks(pp, microbatches, vpp),
            "bubble": roofline.bubble_fraction(pp, microbatches, vpp)}
     bq.reset_launches()
@@ -822,6 +824,7 @@ def train_rank(*, rank: int = 0, world: int = 1, arch: str,
         out["staging_bytes"].append(comms.STAGING["bytes"])
         out["losses"].append(float(metrics["loss"]))
         out["grad_norms"].append(float(metrics["grad_norm"]))
+        out["fwd_allocated"].append(trainer.fwd_allocated)
         if "lb_loss" in metrics:
             out.setdefault("lb_loss", []).append(float(metrics["lb_loss"]))
             out.setdefault("drop_frac", []).append(

@@ -11,8 +11,13 @@ the reference; where the reference runs ``lax.scan`` over that axis, a
 Python loop walks it here.  On a pipeline mesh the groups describe one
 stage's chunk and carry a leading stage dim (``[pp, n, ...]``, or ``[vpp,
 pp, n, ...]`` under interleaved virtual stages), as in the reference.
-Within a stage body every layer's activations stay alive for the backward
-pass; the pipeline's remat policy checkpoints whole stage bodies.
+A ``remat`` config (every full-size one) rematerializes its layers in
+training, where the reference wraps its scan body in ``jax.checkpoint``:
+each layer runs under :func:`~repro_torch.core.comms.checkpointed`, so
+only its input stays alive for the backward pass, which runs its forward
+again, collectives included; their forward events carry ``remat`` and
+are priced twice.  The pipeline's remat policy checkpoints whole stage
+bodies around that.
 
 A ``shared_attn`` group holds no weights of its own: it applies the
 top-level ``shared`` attention block (one set of weights) at each of its
@@ -34,6 +39,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.core import comms
 from repro_torch.models import attention, layers, moe, ssm, xlstm
 from repro_torch.models.config import ArchConfig, BlockGroup
 from repro_torch.models.params import MeshInfo, Pv, apply_fsdp, tree_map_defs
@@ -300,7 +306,10 @@ def run_group(gp, x, g: BlockGroup, cfg, mi, mode, pos, phase="train",
     summed or ``None``).  A ``shared_attn`` group applies ``shared`` (the
     top-level block) at each insertion; its cache is the first one's,
     unstacked, as the reference's.  ``cross`` / ``cross_pos`` go to every
-    layer (:func:`run_block`)."""
+    layer (:func:`run_block`).  Under ``cfg.remat`` at ``phase="train"``
+    the layers' ledger events carry ``remat`` and, while autograd
+    records, each layer is checkpointed; the shared block never is, as in
+    the reference, whose shared branch returns before its checkpoint."""
     if phase not in ("train", "prefill"):
         raise ValueError(f"unknown phase {phase!r}")
     caches, aux = [], None
@@ -310,11 +319,15 @@ def run_group(gp, x, g: BlockGroup, cfg, mi, mode, pos, phase="train",
                                 phase, pos3)
             caches.append(c)
         return x, caches[0] if phase == "prefill" else None, None
-    for p in _unstack(gp, g.n):
-        x, c, a = run_block(g.kind, p, x, cfg, mi, mode, g, pos, phase,
+    remat = cfg.remat and phase == "train"
+    block = comms.checkpointed(run_block) \
+        if remat and torch.is_grad_enabled() else run_block
+    with comms.scope_remat(remat):
+        for p in _unstack(gp, g.n):
+            x, c, a = block(g.kind, p, x, cfg, mi, mode, g, pos, phase,
                             pos3, cross, cross_pos)
-        caches.append(c)
-        aux = add_aux(aux, a)
+            caches.append(c)
+            aux = add_aux(aux, a)
     if phase == "train":
         return x, None, aux
     return x, {k: torch.stack([c[k] for c in caches]) for k in caches[0]}, \

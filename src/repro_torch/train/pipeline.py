@@ -58,18 +58,25 @@ How the SPMD schedule runs as processes:
   its load-balance mean divided by ``n_micro`` (the microbatches' means
   add up to ``n_micro`` times the whole batch's), as in the reference.
 
-Activation memory (``--remat-policy``): without remat every tick's
-activations live until the backward, as in the reference.  ``full``
-checkpoints every stage body (``torch.utils.checkpoint``, non-reentrant;
-its recompute re-runs the body's TP collectives, whose analytic ledger
-events are muted, as the reference's ledger counts a checkpointed body
-once); ``per_stage:<v,...>`` checkpoints the ticks where stage 0 runs the
-named slices, keyed on the tick, never on the rank's slice, as in the
-reference.  ``+offload`` parks the body's saved activations in pinned host
-memory (``torch.autograd.graph.save_on_cpu``) instead of recomputing them:
-the reference offloads its checkpoint's matmul residuals, which PyTorch
-has no policy for.  The handoff stays outside, so remat never re-sends
-stage traffic.
+Activation memory: a ``remat`` config (every full-size one) checkpoints
+each layer of the stage body, as the flat step does
+(:func:`repro_torch.models.transformer.run_group`), so a tick keeps only
+its layers' inputs; the recompute of each layer re-runs its TP, ZeRO-3
+and expert collectives, whose analytic events are muted while their
+forward events carry ``remat``, as in the reference.  ``--remat-policy``
+adds the reference's tick-level checkpoint around that: ``full``
+checkpoints every stage body, ``per_stage:<v,...>`` the ticks where stage
+0 runs the named slices, keyed on the tick, never on the rank's slice, as
+in the reference; the per-layer checkpoints nest inside it.  Both levels
+run under one helper, :func:`repro_torch.core.comms.checkpointed`
+(non-reentrant ``torch.utils.checkpoint``; its recompute re-binds the
+forward's plan on autograd's thread and mutes the recompute's analytic
+ledger events, as the reference's ledger counts a checkpointed body
+once).  ``+offload`` parks the stage body's saved activations in pinned
+host memory (``torch.autograd.graph.save_on_cpu``) instead of
+recomputing them: the reference offloads its checkpoint's matmul
+residuals, which PyTorch has no policy for.  The handoff stays outside,
+so remat never re-sends stage traffic.
 
 The gradients of the stage-replicated embedding and final norm are folded
 over the stage axis by :meth:`repro_torch.train.optimizer.Adam.apply`.
@@ -86,10 +93,9 @@ from __future__ import annotations
 import contextlib
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.analysis.roofline import pipeline_ticks
-from repro_torch.core import comms, policy
+from repro_torch.core import comms
 from repro_torch.models import layers, transformer
 from repro_torch.models.model import _LB_COEF, Model, lb_term
 from repro_torch.models.params import torch_dtype
@@ -138,30 +144,16 @@ def parse_remat_policy(spec, vpp: int):
 
 
 def _remat_wrap(fn, offload: bool):
-    """A stage body under the remat policy: checkpointed, or with
-    ``offload`` its saved activations parked in pinned host memory.  The
-    recompute runs in the backward, on autograd's thread for CUDA tensors:
-    it re-binds the forward's compiled plan (thread-local) so that its
-    collectives take the same codecs, and mutes their analytic ledger
-    events."""
+    """A stage body under the remat policy: checkpointed
+    (:func:`repro_torch.core.comms.checkpointed`, which a remat'd layer
+    group's layers also run under), or with ``offload`` its saved
+    activations parked in pinned host memory."""
     if offload:
         def parked(*args):
             with torch.autograd.graph.save_on_cpu(pin_memory=True):
                 return fn(*args)
         return parked
-
-    def checkpointed(*args):
-        plan = policy.current_plan()
-        calls = []
-
-        def body(*a):
-            calls.append(1)
-            if len(calls) > 1:          # the recompute, in the backward
-                with policy.use_plan(plan), comms.mute_ledger():
-                    return fn(*a)
-            return fn(*a)
-        return checkpoint(body, *args, use_reentrant=False)
-    return checkpointed
+    return comms.checkpointed(fn)
 
 
 def _stage_body(model: Model, params, x, pos, v=None, pos3=None,

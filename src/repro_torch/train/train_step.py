@@ -95,6 +95,9 @@ class Trainer:
         self.ring_chunks = ring_chunks
         self.tune = bool(tune)
         self.opt = Adam(opt_cfg or AdamConfig(), model.mi, model.plan)
+        # device bytes allocated when the last flat step's forward ended
+        # (what the backward starts from); None off the card
+        self.fwd_allocated = None
 
     # ------------------------------------------------------------------
     # codec state
@@ -376,6 +379,8 @@ class Trainer:
     def _loss_and_grads(self, params, batch, ts):
         """(loss, metrics, the gradients of ``ts`` as a list)."""
         loss, metrics = self.model.loss_fn(params, batch)
+        if loss.device.type == "cuda":
+            self.fwd_allocated = torch.cuda.memory_allocated(loss.device)
         return loss, metrics, list(torch.autograd.grad(loss, ts))
 
     def step(self, params, opt_state, codec_state, batch):

@@ -26,8 +26,15 @@ Contract asserted here:
   * the meta trace's ledger equals, event for event, rank 0's ledger of a
     real 4-rank CPU world running the same step (dp 2 x tp 2, and pod 2 x
     dp 2, under ``zhybrid_16_8``);
-  * the reference prices a remat'ed forward collective twice, the port
-    (which does not rematerialize its flat step) once (ROADMAP C.25);
+  * with remat on, ``run_cell`` on the training cell, a MoE cell
+    (qwen3-moe at the reduced widths) and a ZeRO-3 cell (gemma3-1b at d
+    512, d_ff 2048) equals the reference's, site by site: each layer's
+    forward collectives priced twice (the re-run in the backward pass),
+    the ep all-to-alls and the zero@ re-gathers among them (C.25,
+    repaired);
+  * the world's dp 2 x tp 2 step with remat on gives losses and grad
+    norms bit-equal to the same step with it off, and its ledger prices
+    every dim and site as the reference's lowered remat step does;
   * a meta tensor never reaches a CUDA kernel: the wrappers take the plain
     version on meta (a mix of devices raises), and a traced step with
     ``plr8`` on its DP sync launches nothing even with every launcher made
@@ -50,6 +57,7 @@ import torch_pod_reference as R
 BQ_TOL = 1e-4          # of a cache leaf's largest |value|
 TRACE_MESHES = {"dp_tp": dict(dp=2, tp=2), "pod_dp": dict(dp=2, pod=2)}
 TRACE_SCHEME = "zhybrid_16_8"
+REMAT_STEPS = 2         # the world's steps, remat on and off
 
 
 def world_jobs(*, rank: int, world: int, tree: str, caches: str) -> dict:
@@ -66,10 +74,20 @@ def world_jobs(*, rank: int, world: int, tree: str, caches: str) -> dict:
         device="cpu", keep_state=True)}
     for name, m in TRACE_MESHES.items():
         out[name] = train_rank(rank=rank, world=world, arch="gemma3-1b",
-                               reduced=True, steps=1, seq=R.SEQ,
+                               reduced=True, steps=REMAT_STEPS, seq=R.SEQ,
                                global_batch=R.GB, scheme=TRACE_SCHEME,
-                               device="cpu", **m)["events0"]
-    return out
+                               device="cpu", **m)
+    # the dp_tp step again with remat on (the reduced config's is off)
+    out["remat"] = train_rank(
+        rank=rank, world=world, arch="gemma3-1b", reduced=True,
+        steps=REMAT_STEPS, seq=R.SEQ, global_batch=R.GB,
+        scheme=R.REMAT_SCHEME, device="cpu", dp=R.REMAT_DP, tp=R.REMAT_TP,
+        overrides={"remat": True})
+    return {k: v if k == "long" else {
+        key: v[key] for key in ("events0", "losses", "grad_norms",
+                                "priced_per_dim", "priced_per_dim_level",
+                                "priced_per_site")}
+        for k, v in out.items()}
 
 
 @pytest.fixture(scope="module")
@@ -183,10 +201,11 @@ def test_run_cell_matches_reference(shape, results):
 
 
 def test_remat_prices_the_forward_twice_in_the_reference_c25(results):
-    """ROADMAP C.25: the reference's remat'ed layer scan re-runs each
-    forward collective in the backward pass and prices it twice; the
-    port's eager loop keeps its activations and runs it once, so its
-    ledger is the same with remat on or off."""
+    """ROADMAP C.25, repaired: the port's training cell with remat on
+    rematerializes its layers as the reference's layer scan does, so its
+    ledger marks their forward collectives and prices each twice, site
+    for site as the reference's; with remat off the layers' sites price
+    less and the ZeRO-1 sync, outside the layers, the same."""
     from repro_torch.launch import dryrun
 
     ref, _ = results
@@ -195,13 +214,56 @@ def test_remat_prices_the_forward_twice_in_the_reference_c25(results):
                                 cfg_overrides=dict(R.SMALL, remat=r),
                                 mesh_override=R.CELLS["train_4k"])
              for r in (False, True)}
-    assert cells[True]["collective"] == cells[False]["collective"]
-    want = ref["remat"]["collective"]["per_site"]
-    got = cells[True]["collective"]["per_site"]
+    want = ref["remat"]["train_4k"]
+    for key in ("params", "active_params", "tokens", "analytic",
+                "collective"):
+        assert cells[True][key] == want[key], key
+    on = cells[True]["collective"]["per_site"]
+    off = cells[False]["collective"]["per_site"]
     # a TP gather priced forward, re-run forward and backward, against
-    # the port's forward and backward
-    assert want["tp@attn_kv"] == pytest.approx(1.5 * got["tp@attn_kv"])
-    assert want["dp@zero1_grad"] == got["dp@zero1_grad"]
+    # forward and backward
+    assert on["tp@attn_kv"] == pytest.approx(1.5 * off["tp@attn_kv"])
+    assert on["dp@zero1_grad"] == off["dp@zero1_grad"]
+
+
+@pytest.mark.parametrize("cell", ["moe", "zero3"])
+def test_remat_cell_matches_reference(cell, results):
+    from repro_torch.launch import dryrun
+    from repro_torch.models.config import moe_groups
+
+    ref, _ = results
+    arch, _, mesh = R.REMAT_CELLS[cell]
+    got = dryrun.run_cell(arch, "train_4k", False, R.CELL_SCHEME,
+                          cfg_overrides=R.remat_overrides(cell, moe_groups),
+                          mesh_override=mesh)
+    assert got["status"] == "traced", got.get("trace")
+    want = ref["remat"][cell]
+    for key in ("params", "active_params", "tokens", "analytic",
+                "collective"):
+        assert got[key] == want[key], key
+    sites = got["collective"]["per_site"]
+    inner = ("ep@moe_dispatch", "ep@moe_combine") if cell == "moe" \
+        else ("zero@mlp_w1", "zero@mlp_w2", "zero@mlp_w3")
+    assert all(sites[s] > 0 for s in inner)
+
+
+def test_remat_step_bit_equal_and_priced_as_reference(results):
+    """The world's dp 2 x tp 2 step with remat on: losses and grad norms
+    bit-equal to the step without it on every rank, and rank 0's ledger
+    priced per dim, ``dim/level`` and site as the reference's remat
+    step."""
+    ref, port = results
+    for res in port:
+        on, off = res["remat"], res["dp_tp"]
+        assert on["losses"] == off["losses"]
+        assert on["grad_norms"] == off["grad_norms"]
+    want, got = ref["remat_step"], port[0]["remat"]
+    assert got["priced_per_dim"] == want["per_dim"]
+    assert got["priced_per_dim_level"] == want["per_dim_level"]
+    assert got["priced_per_site"] == want["per_site"]
+    off = port[0]["dp_tp"]["priced_per_site"]
+    assert got["priced_per_site"]["tp@mlp_in"] == pytest.approx(
+        1.5 * off["tp@mlp_in"])
 
 
 @pytest.mark.parametrize("mesh", list(TRACE_MESHES))
@@ -219,7 +281,7 @@ def test_meta_ledger_equals_real_rank0(mesh, results):
                 meta=dict(seq=R.SEQ, batch=R.GB))
     tr = dryrun.trace_cell(R.port_cfg(), mi, TRACE_SCHEME, "train_4k",
                            spec=spec)
-    real = port[0][mesh]
+    real = port[0][mesh]["events0"]
     assert len(tr["events"]) == len(real) > 0
     for a, b in zip(tr["events"], real):
         assert a == b

@@ -12,9 +12,12 @@ The subprocess runs on 8 XLA host devices:
   * the long-context decode: reduced gemma3-1b's ``Server`` with
     ``seq_axes=("data", "model")`` on a ``(data 2, model 2)`` mesh, a
     batch of one, from a cache filled with seeded values;
-  * ``run_cell(compile_=False)`` on three small cells, and the training
-    cell with remat on (lowered, never compiled: only the ledger and the
-    analytic numbers are compared).
+  * ``run_cell(compile_=False)`` on three small cells, and on three remat
+    cells: the training cell with remat on, a MoE cell and a ZeRO-3 cell
+    (lowered, never compiled: only the ledger and the analytic numbers
+    are compared);
+  * the ledger of reduced gemma3-1b's training step with remat on at dp 2
+    x tp 2, the world's size, lowered without compiling.
 
 Its result is a pickle in a directory every pytest worker of the session
 shares; a lock file makes exactly one worker start it, and the others
@@ -49,14 +52,34 @@ LONG_DP, LONG_TP, S_MAX, FILL, GEN = 2, 2, 64, 56, 6
 LONG_SEED, LONG_SCHEME, TOK0 = 3, "zhybrid_16_8", 7
 
 # dry-run cells, small enough to lower in seconds: gemma3-1b with the
-# reduced widths, two uniform layers, without remat (the port's flat step
-# does not rematerialize its layer groups, where the reference's re-runs
-# each remat'ed forward collective in the backward pass and prices it
-# twice: ROADMAP C.25)
+# reduced widths, two uniform layers, remat off (the training cell also
+# with it on, in REMAT_CELLS)
 SMALL = dict(d_model=64, n_heads=4, n_kv_heads=1, head_dim=16, d_ff=128,
              vocab_size=512, n_layers=2, groups=(), remat=False)
 CELLS = {"train_4k": (2, 2, 2), "prefill_32k": (2, 2), "decode_32k": (2, 2)}
 CELL_SCHEME = "zhybrid_16_8"
+# the training cell with remat on (each layer's forward collectives re-run
+# in the backward pass and are priced twice), and two more: qwen3-moe at
+# the reduced widths (two MoE layers of 4 experts, top 2: the ep sites)
+# and gemma3-1b at ZERO3's widths (its MLP leaves shard over data: the
+# zero@mlp_w* re-gathers); (arch, overrides, mesh)
+REMAT_CELLS = {
+    "train_4k": ("gemma3-1b", dict(SMALL, remat=True), CELLS["train_4k"]),
+    "moe": ("qwen3-moe-235b-a22b",
+            dict(SMALL, d_ff=0, moe_d_ff=64, n_experts=4, top_k=2,
+                 remat=True), (2, 2)),
+    "zero3": ("gemma3-1b", dict(SMALL, remat=True, **ZERO3), (2, 2))}
+# the world's remat step: reduced gemma3-1b at dp 2 x tp 2, remat on
+REMAT_DP, REMAT_TP, REMAT_SCHEME = 2, 2, "zhybrid_16_8"
+
+
+def remat_overrides(cell: str, moe_groups) -> dict:
+    """A remat cell's config overrides, its MoE layer groups built by the
+    package's own ``moe_groups``."""
+    arch, over, _ = REMAT_CELLS[cell]
+    if cell == "moe":
+        over = dict(over, groups=moe_groups(over["n_layers"]))
+    return over
 
 TIMEOUT = 900
 
@@ -119,12 +142,13 @@ def _reference(args: dict) -> None:
     from repro.data.pipeline import DataConfig, SyntheticCorpus
     from repro.launch import dryrun
     from repro.launch.mesh import make_mesh
+    from repro.models.config import moe_groups
     from repro.models.model import Model
     from repro.models.params import MeshInfo, Pv
     from repro.serve.serve_step import Server
     from repro.train import checkpoint
     from repro.train.optimizer import AdamConfig
-    from repro.train.train_step import batch_specs, make_trainer
+    from repro.train.train_step import Trainer, batch_specs, make_trainer
 
     def is_pv(x):
         return isinstance(x, Pv)
@@ -207,17 +231,33 @@ def _reference(args: dict) -> None:
         ledger=roofline.ledger_summary(ev_d, train=False)["per_dim_level"])
     jax.clear_caches()
 
-    # ---- dry-run cells, lowered without compiling (and the training
-    # cell with remat on: C.25) ----
+    # ---- dry-run cells, lowered without compiling, remat off and on ----
     for shape, mesh_override in CELLS.items():
         out["cells"][shape] = dryrun.run_cell(
             "gemma3-1b", shape, False, CELL_SCHEME, compile_=False,
             cfg_overrides=dict(SMALL), mesh_override=mesh_override)
         jax.clear_caches()
-    out["remat"] = dryrun.run_cell(
-        "gemma3-1b", "train_4k", False, CELL_SCHEME, compile_=False,
-        cfg_overrides=dict(SMALL, remat=True),
-        mesh_override=CELLS["train_4k"])
+    out["remat"] = {}
+    for cell, (arch, _, mesh_override) in REMAT_CELLS.items():
+        out["remat"][cell] = dryrun.run_cell(
+            arch, "train_4k", False, CELL_SCHEME, compile_=False,
+            cfg_overrides=remat_overrides(cell, moe_groups),
+            mesh_override=mesh_override)
+        jax.clear_caches()
+
+    # ---- the world's remat step, lowered: its ledger ----
+    cfg = configs.get("gemma3-1b").reduced().replace(remat=True)
+    mesh = make_mesh(REMAT_DP, REMAT_TP)
+    model = Model(cfg, MeshInfo.from_mesh(mesh))
+    tok = jax.ShapeDtypeStruct((GB, SEQ), jnp.int32)
+    with comms.record_traffic() as events:
+        tr = Trainer(model, mesh, scheme=REMAT_SCHEME)
+        pstructs = model.structs()
+        tr.step.lower(pstructs, jax.eval_shape(tr.opt_init, pstructs),
+                      tr.codec_structs(), {"tokens": tok, "labels": tok})
+    led = roofline.ledger_summary(events, train=True)
+    out["remat_step"] = {k: led[k] for k in ("per_dim", "per_dim_level",
+                                             "per_site")}
     tmp = args["out"] + ".part"
     with open(tmp, "wb") as f:
         pickle.dump(out, f)
