@@ -5,7 +5,7 @@
     python3 chip_smoke.py --bq-only  # phase 1 and the bq timings alone
     python3 chip_smoke.py --pp-only  # phase 1, phase 4's step, phase 7
     python3 chip_smoke.py --ckpt-only  # phase 1, phase 6's plr8 run, phase 8
-    python3 chip_smoke.py --hier-only  # phase 1, phases 9 to 17
+    python3 chip_smoke.py --hier-only  # phase 1, phases 9 to 18
     python3 chip_smoke.py --cp-only    # phase 1 and phase 11
     python3 chip_smoke.py --serve-only # phase 1 and phase 12
     python3 chip_smoke.py --zero3-only # phase 1 and phase 13
@@ -13,6 +13,7 @@
     python3 chip_smoke.py --recurrent-only  # phase 1 and phase 15
     python3 chip_smoke.py --encdec-only     # phase 1 and phase 16
     python3 chip_smoke.py --pod-only        # phase 1 and phase 17
+    python3 chip_smoke.py --archs-only      # phase 1 and phase 18
 
 ``--bq-only`` prints the bq kernels' timings and those of the fused TP
 all-gather, TP reduce-scatter and KV-read ops beside the compositions
@@ -66,7 +67,11 @@ step of each; the same for the TP reduce-scatter's end at tp 2 (bf16
 fused decode-add, alone and together, against ``_split_for_scatter``,
 block encode, block decode-add and ``from_blocks``) and for the paged KV
 read at the serving table (the fused read against gather-decode and
-cast).
+cast).  It checks and times phase 18's shapes the same way: the flat
+encode and decode at minitron-4b's TP gather (bf16 [2, 512, 3072]), the
+view encode and fused decode-add at its TP reduce-scatter ([2, 1024,
+3072] along axis 1, 24576 rows a chunk), and the fused KV read at
+kimi-k2's width 224 of 256-wide tokens on an 8 x 37 table.
 Phase 3 serves gemma3-1b (full published width, its first 6 layers with
 the 5:1 local:global pattern kept; 26 until phase 11 came in, 13 until
 phase 12) by
@@ -231,8 +236,8 @@ width, its first 6 layers (one 5:1 local:global block, window 512; all
 26 took 635.7 s), bf16, prompts of 512 tokens, 16 tokens generated: 12a ``--mode batched --dp 2 --tp 2``
 under zhybrid_16_8, batch 4 (ring attention, the flash-decoding combine
 at bq16), 12b ``--mode batched --tp 4 --tp-nodes 2`` under hier_tpp_8_16,
-12c ``--mode paged --dp 4 --kv-codec bq8``, 16 requests of 128-320
-tokens on 8 slots, 12d ``--mode disagg --dp 1 --tp 2 --kv-codec bq8``,
+12c ``--mode paged --dp 4 --kv-codec bq8``, 16 requests of 64-128
+tokens on 8 slots (128-320 until phase 18 came in), 12d ``--mode disagg --dp 1 --tp 2 --kv-codec bq8``,
 batch 4; 12a, 12c and 12d through the kernels and the plain versions,
 12b through the kernels.  It requires the kernel run equal to the plain
 run bit for bit (tokens, every cache leaf and pool plane after the
@@ -251,7 +256,8 @@ attention at tp 2), its first 6 layers (one 5:1 local:global block,
 window 1024), bf16, sequence 1024, global batch 4: 13a ``--dp 2 --tp 2``
 under zhybrid_16_8 with ZeRO-3 on (``fsdp_params=True``, a train_rank
 override; every class-A leaf re-gathered at the zero site under bq16 and
-its gradient reduce-scattered back), 3 steps, through the kernels, 13b
+its gradient reduce-scattered back), 2 steps (3 until phase 18 came
+in), through the kernels, 13b
 the same through the plain versions, and 13c paged serving ``--dp 2 --tp
 2 --kv-codec bq8``, 4 requests of 64-128 tokens plus 8 generated on 4
 slots, kernels and plain.  It requires 13a equal to 13b (losses, grad
@@ -348,7 +354,8 @@ reduce-scatter all-reduces over the pods at ``dp@zero1_grad_pod``) under
 zhybrid_16_8, seq 1024, global batch 4, 3 steps, through the kernels,
 17b the same through the plain versions, beside a ``--dp 4`` run of the
 same scheme and data; 17c the long-context decode, gemma3-1b at full
-width and depth served by ``Server(seq_axes=("data", "model"))`` at dp 2
+width, its first 6 layers (one 5:1 local:global block; all 26 until phase
+18 came in), served by ``Server(seq_axes=("data", "model"))`` at dp 2
 x tp 2, a batch of one against 524288 positions (131072 a rank), the
 cache filled with seeded values to 8 short of the end in place of a
 prefill, 8 tokens decoded, through the kernels, 17d the same plain.  It
@@ -369,6 +376,42 @@ seconds, and the whole step's share of the H100's dense bf16 peak (model
 FLOPs per device over the measured step time over 989e12, per rank and
 for the one card all ranks share) for 17a and phase 4.
 
+Phase 18 runs in phase 9's world of four ranks after phase 17, each
+rank's allocator capped at ARCH_FRACTION of the card in its training
+runs (uncapped, 18a ran out of memory in that world and in one of its
+own): the four
+architectures that had run on the CPU only, each at its full published
+width and its first 2 layers (the one cut), bf16 random weights from
+seed 0, under zhybrid_16_8.  18a minitron-4b (d 3072, 24 q and 8 kv heads
+of 128, head attention at tp 2; relu² MLP of 9216; vocab 256000, untied)
+``--dp 2 --tp 2`` with the config's ZeRO-1 and remat, sequence 1024,
+global batch 4, 2 steps, through the kernels, 18b the same through the
+plain versions; 18c minitron-4b served paged at ``--dp 2 --tp 2`` with a
+bq8 pool, phase 13c's four requests of 64-128 tokens plus 8 on 4 slots;
+18d qwen2-72b served paged at ``--tp 4`` (2 kv heads of 128 a rank),
+bq8 pool, the same requests, and qwen2-vl-72b batched at ``--tp 4``, two
+prompts of 512 plus 16 generated, its M-RoPE ids in the prefill and in
+every decode step; 18e kimi-k2-1t-a32b (the dense layer, then the first
+MoE layer with all 384 experts, 96 a rank, top-8, the shared expert)
+served paged at ``--tp 4`` with a bq8 pool (2 kv heads of 112 a rank: the
+fused KV read takes 224 values of a 256-wide token row), the same
+requests; each served run through the kernels and the plain versions.
+It requires 18a equal to 18b (losses, grad norms, ledger per dim and
+``dim/level``), finite losses, the training step's kernels launched
+(ARCH_KERNELS) and no block form at the TP reduce-scatters' rows; each
+served run's kernel run equal to its plain run (tokens, every cache leaf
+or pool plane by sha256), the pool write and the fused KV read launched
+in the paged runs and the TP collectives' kernels in the batched one,
+18e's ep all-to-alls' block encode and decode at their rows
+(``arch_ep_rows``) twice a decode step on every rank, nothing launched in
+a plain run and no rank importing jax or repro; it prints ms/step,
+tokens/s, peak memory, staging share and priced MB per ``dim/level`` of
+the training runs, the prefill seconds, decode ms per step, generated
+tokens/s, peak memory and priced MB of the served runs, the paged pools'
+bytes beside ``roofline.kv_hbm_bytes``, and the phase's seconds.  Training
+qwen2-72b, qwen2-vl-72b or kimi-k2 at full width fits no single card: the
+untied tables and heads alone need about 77 and 73 GiB of training state.
+
 After phase 8, a fresh process (this script with ``--reckon FILE``, which
 the script starts itself) times each (kernel, rows, rate) that phase 4's
 kernel run launched, at its shape, and reckons launches x (time - bound)
@@ -383,7 +426,8 @@ view forms, the gather-decode's times those of the fused KV read, and
 the bq kernels with the per-shape reckoning, phase 10's launches by
 rate and level, phase 13's at the zero site, phase 14's at the ep
 sites, phase 15's at the recurrent sites, phase 16's at the cross
-gather's rows and phase 17's by run and level) and the card line; the last
+gather's rows, phase 17's by run and level and phase 18's by run, level
+and 18e's ep rows) and the card line; the last
 line is the result JSON.  Any failure exits non-zero;
 without a card, or outside a checkout, it fails before printing a result.
 """
@@ -561,10 +605,11 @@ FAST_LINK_BYTES_PER_S, SLOW_LINK_BYTES_PER_S = 450e9, 50e9
 # (name, serve_rank keywords, with a plain run)
 SERVE_PROMPT, SERVE_GEN, SERVE_BATCH, SERVE_DEPTH = 512, 16, 4, 6
 # 12c's prompts: 16 requests on 8 slots (each slot serves two: slot and
-# block reuse over the data ranks); 128-320 tokens each (256-560 streamed
-# 1032 steps, 125 s of the script for the kernel and plain runs; phase 3
-# holds prompts past the 512 window on the paged read)
-PAGED_REQUESTS, PAGED_SLOTS, PAGED_LENS = 16, 8, (128, 320)
+# block reuse over the data ranks); 64-128 tokens each since phase 18 came
+# in (256-560 streamed 1032 steps, 125 s of the script for the kernel and
+# plain runs; 128-320 595 steps, about 76 s; phase 3 holds prompts past
+# the 512 window on the paged read)
+PAGED_REQUESTS, PAGED_SLOTS, PAGED_LENS = 16, 8, (64, 128)
 SERVE_RUNS = (
     ("12a", dict(mode="batched", dp=2, tp=2, scheme="zhybrid_16_8"), True),
     ("12b", dict(mode="batched", tp=4, tp_nodes=2, scheme="hier_tpp_8_16"),
@@ -595,12 +640,13 @@ SERVE_LEVELS = {
 # 2 --tp 2`` under zhybrid_16_8 with ZeRO-3 on (``fsdp_params=True``, a
 # train_rank override, as the reference's tests turn it on for a config
 # that ships without it: every class-A leaf is re-gathered at the zero
-# site under bq16, its gradient reduce-scattered back), 3 steps, through
-# the kernels; 13b the same through the plain versions; 13c paged serving,
+# site under bq16, its gradient reduce-scattered back), 2 steps (3 until
+# phase 18 came in), through the kernels; 13b the same through the plain
+# versions; 13c paged serving,
 # bq8 pool, 4 requests of 64-128 tokens plus 8 generated on 4 slots, at
 # ``--dp 2 --tp 2`` (the world's four ranks: a dp 1 x tp 2 run would need
 # a world of its own), kernels and plain: the first paged run at tp > 1.
-Z3_ARCH, Z3_DEPTH, Z3_STEPS, Z3_SCHEME = "gemma3-4b", 6, 3, "zhybrid_16_8"
+Z3_ARCH, Z3_DEPTH, Z3_STEPS, Z3_SCHEME = "gemma3-4b", 6, 2, "zhybrid_16_8"
 Z3_FLAGS = ("--dp", "2", "--tp", "2")
 Z3_REQUESTS, Z3_SLOTS, Z3_LENS, Z3_GEN = 4, 4, (64, 128), 8
 Z3_SERVE = dict(mode="paged", dp=2, tp=2, kv_codec="bq8", slots=Z3_SLOTS)
@@ -609,7 +655,7 @@ Z3_SERVE = dict(mode="paged", dp=2, tp=2, kv_codec="bq8", slots=Z3_SLOTS)
 # reduce-scatter on the view forms), and 13c's at tp 2
 Z3_ZERO_KERNELS = ("bq_encode_flat", "bq_decode_flat", "bq_encode_view",
                    "bq_decode_add_flat")
-Z3_SERVE_LEVELS = {"flat": {"bq_encode", "bq_gather_decode"}}
+Z3_SERVE_KERNELS = {"bq_encode", "bq_gather_decode"}
 # phase 14: Mixture-of-Experts in phase 9's world of four ranks after phase
 # 13: qwen3-moe-235b-a22b at full published width (d 4096, 64 q and 4 kv
 # heads of 128 with qk-norm, so head attention at tp 2 and tp 4; experts
@@ -691,8 +737,10 @@ ENC_SERVE = dict(mode="batched", dp=ENC_DP, tp=ENC_TP, scheme=ENC_SCHEME,
 # kept), ``--pod 2 --dp 2 --tp 1`` under zhybrid_16_8, seq 1024, global
 # batch 4, 3 steps, through the kernels; 17b the same through the plain
 # versions; beside them a ``--dp 4`` run of the same scheme on the same
-# data (the losses' yardstick).  17c gemma3-1b at full width and depth (26
-# layers), ``Server(seq_axes=("data", "model"))`` at dp 2 x tp 2 (ring
+# data (the losses' yardstick).  17c gemma3-1b at full width, its first 6
+# layers (one 5:1 local:global block, the pattern kept; all 26 until phase
+# 18 came in: 17c and 17d took about 68 s of the script at 26), served by
+# ``Server(seq_axes=("data", "model"))`` at dp 2 x tp 2 (ring
 # mode: one KV head), a batch of one against the long_500k cell's 524288
 # positions (131072 a rank): the cache filled with seeded values to 8
 # short of the end (a prefill of 524288 tokens is beyond eager
@@ -704,12 +752,74 @@ POD_ARCH, POD_DEPTH, POD_STEPS, POD_SCHEME = "gemma3-1b", 6, 3, \
 POD, POD_DP = 2, 2
 POD_FLAGS = ("--pod", str(POD), "--dp", str(POD_DP), "--tp", "1")
 POD_BASE_FLAGS = ("--dp", str(POD * POD_DP), "--tp", "1")
-LONG_DP, LONG_TP, LONG_S, LONG_GEN = 2, 2, 524288, 8
+LONG_DP, LONG_TP, LONG_S, LONG_GEN, LONG_DEPTH = 2, 2, 524288, 8, 6
 LONG_SERVE = dict(mode="batched", dp=LONG_DP, tp=LONG_TP,
-                  scheme="zhybrid_16_8", depth=0, batch=1, prompt_len=2,
+                  scheme="zhybrid_16_8", depth=LONG_DEPTH, batch=1,
+                  prompt_len=2,
                   gen=LONG_GEN + 1, max_len=LONG_S, fill=LONG_S - LONG_GEN,
                   seq_axes=("data", "model"))
 DRY_ARCH = "gemma3-1b"
+
+# phase 18: the four architectures that had run on the CPU only, in phase
+# 9's world of four ranks after phase 17, bf16 random weights from seed 0,
+# each at its published width and its first 2 layers (the one cut), under
+# zhybrid_16_8.  18a minitron-4b (d 3072, 24 q and 8 kv heads of 128, so
+# head attention at tp 2; relu² MLP of 9216; vocab 256000, untied; the
+# config's ZeRO-1 and remat) ``--dp 2 --tp 2``, seq 1024, global batch 4,
+# 2 steps, through the kernels; 18b the same through the plain versions
+# (by reckoning 0.87 B parameters a rank: about 12 GB of parameters,
+# gradients, flat gradient and Adam chunk, and 1.05 GB of f32 logits);
+# 18c minitron-4b served paged at ``--dp 2 --tp 2``, bq8 pool, phase 13c's
+# four requests of 64-128 tokens plus 8 on 4 slots; 18d qwen2-72b served
+# paged at ``--tp 4`` (2 kv heads of 128 a rank: a 256-wide read), bq8
+# pool, the same requests, and qwen2-vl-72b batched at ``--tp 4``, two
+# prompts of 512 plus 16 generated (its M-RoPE ids built in the prefill
+# and in every decode step); 18e kimi-k2-1t-a32b's first 2 layers (the
+# dense layer, then the first MoE layer with all 384 experts, 96 a rank,
+# top-8, and the shared expert; 8.46 GB of experts a rank) served paged
+# at ``--tp 4`` (2 kv heads of 112 a rank: a 224-wide read of a 256-wide
+# token row), bq8 pool, the same requests; each served run through the
+# kernels and the plain versions.  Training qwen2-72b, qwen2-vl-72b or
+# kimi-k2 fits no single card at any depth: their untied tables and heads
+# alone (2.49 B and 2.35 B parameters) need about 77 and 73 GiB of
+# training state at phase 13's 31 GiB a billion parameters.
+ARCH_DEPTH, ARCH_SCHEME, ARCH_STEPS = 2, "zhybrid_16_8", 2
+# 18a's and 18b's share of the card a rank: 0.23 of 79.18 GiB is 18.21
+# GiB, 0.71 GiB (4 %) above the most either run reserved a rank under a
+# cap (18b: 17.38 GiB allocated, 17.50 reserved under 0.23 and under
+# 0.225; 18a: 15.77 allocated, its allocator caching up to the cap, 18.07
+# reserved under 0.23); the four caps, 72.85 GiB, leave 6.33 GiB for what
+# the card holds besides, which 18a's line prints.  Uncapped, in phase 9's
+# world and in a fresh one, a rank with 11.34 GiB allocated found 0.38-2.87
+# GiB free for the 3.24 GiB f32 decode of its ZeRO-1 param gather, 76-79
+# GiB of the card in use where the four ranks' allocations came to about
+# 58: the rest, by inference, the other ranks' cached free blocks, which a
+# rank short of memory cannot make them give back
+ARCH_FRACTION = 0.23
+ARCH_TRAIN, ARCH_FLAGS = "minitron-4b", ("--dp", "2", "--tp", "2")
+_ARCH_PAGED = dict(mode="paged", kv_codec="bq8", slots=Z3_SLOTS, gen=Z3_GEN)
+# (name, arch, serve_rank keywords) of the served runs
+ARCH_SERVE = (
+    ("18c", "minitron-4b", dict(_ARCH_PAGED, dp=2, tp=2)),
+    ("18d qwen2-72b", "qwen2-72b", dict(_ARCH_PAGED, tp=4)),
+    ("18d qwen2-vl-72b", "qwen2-vl-72b",
+     dict(mode="batched", tp=4, batch=2, prompt_len=SERVE_PROMPT,
+          gen=SERVE_GEN)),
+    ("18e", "kimi-k2-1t-a32b", dict(_ARCH_PAGED, tp=4)))
+# the kernels each run launches (all at the flat level): 18a the training
+# step's (phase 4's); the paged runs' pool writes (#1) and fused KV reads
+# (#5); the batched run's TP gathers (flat forms), reduce-scatters (view
+# forms) and decode all-reduces (the block encode, the hop with the sum,
+# the block decode); 18e's ep all-to-alls, the block encode and decode at
+# arch_ep_rows()
+_PAGED_KERNELS = {"bq_encode", "bq_gather_decode"}
+ARCH_KERNELS = {
+    "18a": {"bq_encode", "bq_encode_flat", "bq_encode_view", "bq_decode",
+            "bq_decode_flat", "bq_decode_add_encode", "bq_decode_add",
+            "bq_decode_add_flat"},
+    "18c": _PAGED_KERNELS, "18d qwen2-72b": _PAGED_KERNELS,
+    "18d qwen2-vl-72b": SERVE_LEVELS["12a"]["flat"],
+    "18e": _PAGED_KERNELS | {"bq_decode"}}
 
 
 # a bq kernel's wrappers: its block form and the flat and view forms that
@@ -929,9 +1039,19 @@ def timings(torch, kernel, plain, iters: int = 50):
 
 def row_bytes(torch, bits: int) -> int:
     """Stored bytes of one 128-value row: q_hi (+ q_lo at rate 24) + scale."""
+    return token_read_bytes(torch, bits, 128)
+
+
+def token_read_bytes(torch, bits: int, width: int) -> int:
+    """Stored bytes that reading the first ``width`` values of a token's
+    128-value rows needs: the scale of each row the width reaches and the
+    q bytes (q_hi, + q_lo at rate 24) of those values alone."""
     from repro_torch.core import codecs
-    return sum(w * torch.empty((), dtype=d).element_size() for w, d in
-               codecs.get(f"bq{bits}").storage_row_layout().values())
+    rows, out = -(-width // 128), 0
+    for plane, (w, d) in codecs.get(f"bq{bits}").storage_row_layout().items():
+        size = torch.empty((), dtype=d).element_size()
+        out += rows * size if plane == "scale" else -(-width * w * size // 128)
+    return out
 
 
 def bound(nbytes: float, nops: float):
@@ -1356,19 +1476,36 @@ def same_bits(torch, a, b) -> bool:
     return torch.equal(na, nb) and torch.equal(a[~na], b[~nb])
 
 
+def arch_shapes() -> dict:
+    """Phase 18's kernel shapes that no earlier path gives: minitron-4b's
+    TP all-gather payload (``tp@mlp_in``, a rank's [2, 512, 3072]) and
+    reduce-scatter activation (``tp@mlp_out``, [2, 1024, 3072] along axis
+    1) at dp 2 x tp 2, and kimi-k2's paged pool at tp 4 (2 kv heads of
+    112 a rank: token rows of 2 x 128 values, the read's width 224) for an
+    8 x 37 block table."""
+    from repro_torch import configs
+    from repro_torch.serve import paged_kv
+    cfg, kimi = configs.get(ARCH_TRAIN), configs.get("kimi-k2-1t-a32b")
+    kv_loc = kimi.n_kv_heads // 4
+    r = paged_kv.token_rows(kv_loc, kimi.head_dim_)
+    return {"tp": tp_shape(cfg), "rs": (GLOBAL_BATCH // DP, SEQ, cfg.d_model),
+            "kv": (r, BLOCK_TOKENS * r, 8 * 37), "kv_slots": 8,
+            "kv_width": kv_loc * kimi.head_dim_}
+
+
 def check_flat(torch, err: dict) -> None:
     """Hold bq_encode_flat and bq_decode_flat against their plain versions
     (fail on any difference): encode from bf16, f16, f32 and int32, decode
-    to the three float types, at n in FLAT_N and the TP activation's size,
-    the encode also on a misaligned and a strided view; the gathered
-    decode of TP shards along every axis of a small 3-D shape and of the
-    TP activation's.  Scales of inf and NaN are planted in the decode's
-    wire, so NaN positions are held too."""
+    to the three float types, at n in FLAT_N and the TP activations' sizes
+    (gemma3-1b's and minitron-4b's), the encode also on a misaligned and a
+    strided view; the gathered decode of TP shards along every axis of a
+    small 3-D shape and of both TP activations'.  Scales of inf and NaN
+    are planted in the decode's wire, so NaN positions are held too."""
     from repro_torch import configs
     from repro_torch.kernels import bq, ops
 
-    shape = tp_shape(configs.get("gemma3-1b"))
-    sizes = FLAT_N + (int(np.prod(shape)),)
+    tp_shapes = (tp_shape(configs.get("gemma3-1b")), arch_shapes()["tp"])
+    sizes = FLAT_N + tuple(int(np.prod(sh)) for sh in tp_shapes)
     for bits in BITS:
         for dtype in FLAT_DTYPES + ("int32",):
             for n in sizes:
@@ -1391,7 +1528,7 @@ def check_flat(torch, err: dict) -> None:
                         *w, bits, n, x.dtype)):
                     fail(f"bq_decode_flat rate {bits} {dtype} n={n} differs")
         for dtype in FLAT_DTYPES:
-            for shp in GATHER_SHAPES + (shape,):
+            for shp in GATHER_SHAPES + tp_shapes:
                 ws = [ops.bq_encode(flat_input(torch, int(np.prod(shp)),
                                                dtype, seed=s).reshape(shp),
                                     bits, backend="torch")
@@ -1459,11 +1596,12 @@ def check_views(torch, err: dict, serve) -> None:
     """The TP reduce-scatter's view forms against their plain versions at
     rates 4/8/16/24 in bf16, f16 and f32, every chunk of payloads split 2,
     3 and 4 ways along each of three axes (aligned and misaligned) and of
-    the TP shapes (RS_SHAPES, along axis 1); the fused KV read (bf16, f16,
-    f32; widths 256, 192 and 100) against gather-decode, slice and cast at
-    the serving table, an id outside the pool writing NaN."""
+    the TP shapes (RS_SHAPES and minitron-4b's, along axis 1); the fused
+    KV read (bf16, f16, f32; widths 256, 192 and 100) against
+    gather-decode, slice and cast at the serving table, and at kimi-k2's
+    width 224 of 2-row tokens on an 8 x 37 table (``arch_shapes``), an id
+    outside the pool writing NaN."""
     from repro_torch.kernels import bq, ops
-    r, rpb, nb = serve
     for bits in BITS:
         for dtype in FLAT_DTYPES:
             for base in VIEW_BASES:
@@ -1480,37 +1618,46 @@ def check_views(torch, err: dict, serve) -> None:
                                            f"rate {bits} {dtype} {shape} "
                                            f"axis {ax}")
         torch.cuda.empty_cache()
-    for shape in RS_SHAPES:
+    arch = arch_shapes()
+    for shape in RS_SHAPES + (arch["rs"],):
         for bits in (8, 16):
             x = flat_input(torch, int(np.prod(shape)), "bfloat16", seed=bits)
             for view in view_spans(x.reshape(shape), 1, TP):
                 check_view(torch, view, bits, f"rate {bits} {list(shape)}")
-    w = ops.bq_encode_blocks(test_rows(torch, nb * rpb, seed=5), MAIN_BITS)
-    pool = [None if w[k] is None else w[k].reshape(nb, BLOCK_TOKENS, r, -1)
-            for k in ("q_hi", "q_lo", "scale")]
-    g = torch.Generator().manual_seed(5)
-    idx = torch.randint(0, nb, (SLOTS, nb // SLOTS), generator=g,
-                        dtype=torch.int32).cuda()
-    bad = idx.clone()
-    bad[0, 0], bad[1, 1] = nb, -1
-    ok = torch.ones(bad.shape, dtype=torch.bool, device="cuda")
-    ok[0, 0] = ok[1, 1] = False
-    for dtype in FLAT_DTYPES:
-        dt = getattr(torch, dtype)
-        for width in (100, 192, r * 128):
-            got = bq.bq_gather_decode(*pool, idx, MAIN_BITS, dtype=dt,
-                                      width=width)
-            want = bq.gather_decode_flat_plain(*pool, idx, MAIN_BITS, dt,
-                                               width)
-            if not same_bits(torch, got, want):
-                fail(f"bq_gather_decode {dtype} width {width} differs")
-        got = bq.bq_gather_decode(*pool, bad, MAIN_BITS, dtype=dt,
-                                  width=r * 128)   # want: this width's
-        torch.cuda.synchronize()
-        if not (got[0, 0].isnan().all() and got[1, 1].isnan().all()
-                and same_bits(torch, got[ok], want[ok])):
-            fail(f"bq_gather_decode {dtype}: out-of-range ids")
-    torch.cuda.empty_cache()
+    r, _, _ = serve
+    for (r, rpb, nb), slots, widths in (
+            (serve, SLOTS, (100, 192, r * 128)),
+            (arch["kv"], arch["kv_slots"], (arch["kv_width"],))):
+        w = ops.bq_encode_blocks(test_rows(torch, nb * rpb, seed=5),
+                                 MAIN_BITS)
+        pool = [None if w[k] is None else
+                w[k].reshape(nb, BLOCK_TOKENS, r, -1)
+                for k in ("q_hi", "q_lo", "scale")]
+        g = torch.Generator().manual_seed(5)
+        idx = torch.randint(0, nb, (slots, nb // slots), generator=g,
+                            dtype=torch.int32).cuda()
+        bad = idx.clone()
+        bad[0, 0], bad[1, 1] = nb, -1
+        ok = torch.ones(bad.shape, dtype=torch.bool, device="cuda")
+        ok[0, 0] = ok[1, 1] = False
+        for dtype in FLAT_DTYPES:
+            dt = getattr(torch, dtype)
+            for width in widths:
+                got = bq.bq_gather_decode(*pool, idx, MAIN_BITS, dtype=dt,
+                                          width=width)
+                want = bq.gather_decode_flat_plain(*pool, idx, MAIN_BITS, dt,
+                                                   width)
+                if not same_bits(torch, got, want):
+                    fail(f"bq_gather_decode {dtype} width {width} of "
+                         f"{r * 128}-wide tokens differs")
+            got = bq.bq_gather_decode(*pool, bad, MAIN_BITS, dtype=dt,
+                                      width=widths[-1])  # want: this width's
+            torch.cuda.synchronize()
+            if not (got[0, 0].isnan().all() and got[1, 1].isnan().all()
+                    and same_bits(torch, got[ok], want[ok])):
+                fail(f"bq_gather_decode {dtype} width {widths[-1]}: "
+                     f"out-of-range ids")
+        torch.cuda.empty_cache()
     err["bq_encode_view"] = err["bq_decode_add_encode_view"] = 0.0
     err["bq_decode_add_flat"] = 0.0
 
@@ -1606,22 +1753,28 @@ def rs_calls(torch, shape, bits: int = 16):
     return calls
 
 
-def kv_calls(torch, serve, bits: int = MAIN_BITS):
+def kv_calls(torch, serve, bits: int = MAIN_BITS, slots: int = SLOTS,
+             width: int | None = None):
     """The paged KV read of one pool plane at the serving table (every
-    block of the pool in a SLOTS-row table, as ``time_gather``) into bf16
-    tokens of ``R * 128`` values (``read_tables``): ``(fused, plain,
-    unfused, nbytes, nops)`` with the fused gather-decode writing bf16
-    (None before it existed), and the f32 gather-decode followed by the
-    cast the path ran before."""
+    block of the pool in a ``slots``-row table, as ``time_gather``) into
+    bf16 tokens of ``width`` values (``R * 128`` by default;
+    ``read_tables``): ``(fused, plain, unfused, nbytes, nops)`` with the
+    fused gather-decode writing bf16 (None before it existed), and the f32
+    gather-decode followed by the cast the path ran before.  The bytes
+    read are the table and, of each token it names, the scales and q
+    bytes of the first ``width`` values (:func:`token_read_bytes`: the
+    kernel loads no column past ``width``), those written ``width`` bf16
+    values a token."""
     from repro_torch.kernels import bq, ops
     r, rpb, nb = serve
+    width = r * 128 if width is None else width
     w = ops.bq_encode_blocks(test_rows(torch, nb * rpb, seed=3), bits)
     pool = {k: None if v is None else
             v.reshape(nb, BLOCK_TOKENS, r, -1) for k, v in w.items()}
     idx = torch.arange(nb, dtype=torch.int32,
-                       device="cuda").reshape(SLOTS, -1)
-    rows, width = idx.numel() * rpb, r * 128
-    read = idx.numel() * 4 + rows * row_bytes(torch, bits)
+                       device="cuda").reshape(slots, -1)
+    tokens = idx.numel() * BLOCK_TOKENS
+    read = idx.numel() * 4 + tokens * token_read_bytes(torch, bits, width)
 
     def unfused(backend=None):
         dec = ops.bq_gather_decode(pool, idx, bits, backend)
@@ -1632,7 +1785,7 @@ def kv_calls(torch, serve, bits: int = MAIN_BITS):
             return ops.bq_gather_decode(pool, idx, bits,
                                         dtype=torch.bfloat16, width=width)
     return {"read": (fused, lambda: unfused("torch"), unfused,
-                     read + rows * 128 * 2, rows * 128)}
+                     read + tokens * width * 2, tokens * width)}
 
 
 def time_ops(torch, card, label: str, calls: dict) -> dict:
@@ -1695,12 +1848,12 @@ def time_tp_ops(torch, card, shape) -> dict:
 RS_SHAPES = ((GLOBAL_BATCH // DP, SEQ, 1152), (GLOBAL_BATCH // DP, SEQ, 256))
 
 
-def time_rs_ops(torch, card) -> dict:
-    """:func:`time_ops` of the TP reduce-scatter's end at RS_SHAPES, keyed
-    by the chunk's wire rows."""
+def time_rs_ops(torch, card, shapes=RS_SHAPES) -> dict:
+    """:func:`time_ops` of the TP reduce-scatter's end at ``shapes``,
+    keyed by the chunk's wire rows."""
     from repro_torch.kernels import bq
     out = {}
-    for shape in RS_SHAPES:
+    for shape in shapes:
         rows = bq.padded_rows(int(np.prod(shape)) // TP)
         out[rows] = time_ops(
             torch, card, f"TP reduce-scatter {{op}}, bf16 {list(shape)} axis "
@@ -1708,12 +1861,16 @@ def time_rs_ops(torch, card) -> dict:
     return out
 
 
-def time_kv_ops(torch, card, serve) -> dict:
-    """:func:`time_ops` of the paged KV read at the serving table."""
+def time_kv_ops(torch, card, serve, slots: int = SLOTS,
+                width: int | None = None) -> dict:
+    """:func:`time_ops` of the paged KV read at the serving table (or
+    another: ``slots`` rows, tokens of ``width`` values)."""
     r, rpb, nb = serve
-    return time_ops(torch, card, f"paged KV {{op}}, idx {SLOTS}x"
-                    f"{nb // SLOTS}, {BLOCK_TOKENS} tokens x {r * 128} "
-                    f"values, rate {MAIN_BITS}", kv_calls(torch, serve))
+    width = r * 128 if width is None else width
+    return time_ops(torch, card, f"paged KV {{op}}, idx {slots}x"
+                    f"{nb // slots}, {BLOCK_TOKENS} tokens x {width} of "
+                    f"{r * 128} values, rate {MAIN_BITS}",
+                    kv_calls(torch, serve, slots=slots, width=width))
 
 
 def host_breakdown(torch, card, shape, bits: int = 16) -> None:
@@ -1850,7 +2007,13 @@ def rank_runs(*, rank: int, world: int, runs: list) -> list:
     keywords}``; for ``{"between": name}`` rank 0 calls this module's
     function ``name`` and every rank waits for it), in turn, each run's
     cached device memory given back before the next (the ranks share the
-    card, and a run's largest rank may be another than the last run's)."""
+    card, and a run's largest rank may be another than the last run's).
+    A training run's ``memory_fraction`` keeps this rank's allocator to
+    that share of the card for the run: past it the allocator gives its
+    own cached blocks back before it asks for more, where without a cap a
+    rank short of memory cannot make its neighbours give back theirs; the
+    card's bytes in use before such a run, every rank's cache given back,
+    are its ``card_used_before``."""
     import torch
     import torch.distributed as dist
 
@@ -1866,11 +2029,25 @@ def rank_runs(*, rank: int, world: int, runs: list) -> list:
             if world > 1:
                 dist.barrier()
         else:
+            kw = dict(kw)
+            fraction = kw.pop("memory_fraction", 0.0)
+            if fraction:
+                # the card's use before the run, every rank's cache given
+                # back: what the ranks' caps must leave room for
+                if world > 1:
+                    dist.barrier()
+                free, total = torch.cuda.mem_get_info()
+                torch.cuda.set_per_process_memory_fraction(fraction)
             out.append(train_rank(rank=rank, world=world, **kw))
-        torch.cuda.empty_cache()
+            if fraction:
+                torch.cuda.set_per_process_memory_fraction(1.0)
+                out[-1]["card_used_before"] = total - free
         if isinstance(out[-1], dict):
-            # the run's seconds in the world, its setup included
+            # the run's seconds in the world, its setup included, and its
+            # allocator's peak reserved bytes (allocated, and cached free)
             out[-1]["run_s"] = time.perf_counter() - t0
+            out[-1]["peak_reserved"] = torch.cuda.max_memory_reserved()
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1886,12 +2063,14 @@ def phase_seconds(card, world: str, runs: dict) -> dict:
 
 
 def run(label, scheme, backend=None, steps=STEPS, extra=(), dp=DP, tp=TP,
-        arch="gemma3-1b", **kw) -> dict:
+        arch="gemma3-1b", memory_fraction=0.0, **kw) -> dict:
     """One run of :func:`train_runs`: the launcher's flags for ``arch``
     (the main path's model by default), ``extra`` after them, and
-    ``train_rank`` keywords."""
+    ``train_rank`` keywords; ``memory_fraction`` caps each rank's
+    allocator in this run (:func:`rank_runs`)."""
     return dict(label=label, scheme=scheme, backend=backend, steps=steps,
-                extra=tuple(extra), dp=dp, tp=tp, arch=arch, kw=kw)
+                extra=tuple(extra), dp=dp, tp=tp, arch=arch, kw=kw,
+                memory_fraction=memory_fraction)
 
 
 def serve_run(label: str, backend=None, **kw) -> dict:
@@ -1933,6 +2112,8 @@ def train_runs(card, runs: list) -> list:
         kws.append(train.rank_kwargs(args, backend=r["backend"],
                                      deterministic=True, time_staging=True,
                                      **r["kw"]))
+        if r["memory_fraction"]:
+            kws[-1]["memory_fraction"] = r["memory_fraction"]
         r["tokens"] = args.global_batch * args.seq
         worlds.add(args.pod * args.dp * args.cp * args.pp * args.tp)
     if len(worlds) != 1:
@@ -1961,7 +2142,13 @@ def train_runs(card, runs: list) -> list:
               f"{ms:.1f} ms/step (steps {k + 1}-{r['steps']}, slowest "
               f"rank), {r['tokens'] / (ms / 1e3):.0f} tokens/s, peak "
               f"{[round(x['peak_bytes'] / 2**30, 2) for x in res]} GiB per "
-              f"rank, staging+exchange {min(share) * 100:.0f}-"
+              f"rank (reserved "
+              f"{[round(x['peak_reserved'] / 2**30, 2) for x in res]}"
+              + (f", under a cap of {r['memory_fraction']} of the card; "
+                 f"the card held {res[0]['card_used_before'] / 2**30:.2f} "
+                 f"GiB before the run" if r["memory_fraction"] else "")
+              + f"), "
+              f"staging+exchange {min(share) * 100:.0f}-"
               f"{max(share) * 100:.0f} % of step time, "
               f"{res[0]['staging_bytes'][-1] / 1e9:.2f} GB staged per step "
               f"(rank 0) [{card}]")
@@ -1992,17 +2179,19 @@ def drive_hier(torch, card, only: str | None = None) -> tuple:
     the kernels and (9a, 9b) the plain versions, then phase 10, the tuned
     step, phase 11, context parallelism, phase 12, serving, phase 13,
     gemma3-4b with ZeRO-3, phase 14, qwen3-moe, phase 15, the recurrent
-    families, phase 16, whisper-base, and phase 17, the pod axis and the
-    long-context decode, in the same world, the dry-run (17e) in a process
+    families, phase 16, whisper-base, phase 17, the pod axis and the
+    long-context decode, and phase 18, the four architectures that had run
+    on the CPU only, in the same world, the dry-run (17e) in a process
     of its own beside it (:func:`check_tune`, :func:`check_cp`,
     :func:`check_serve`, :func:`check_zero3`, :func:`check_moe`,
-    :func:`check_recurrent`, :func:`check_encdec`, :func:`check_pod`);
-    returns each phase 9 run's launches per kernel and level (all ranks)
-    and its numbers, phase 10's, 11's, 12's, 13's, 14's, 15's, 16's and
-    17's.  ``only="cp"`` runs phase 11 alone, ``only="serve"`` phase 12
-    alone, ``only="zero3"`` phase 13 alone, ``only="moe"`` phase 14 alone,
-    ``only="recurrent"`` phase 15 alone, ``only="encdec"`` phase 16 alone,
-    ``only="pod"`` phase 17 alone."""
+    :func:`check_recurrent`, :func:`check_encdec`, :func:`check_pod`,
+    :func:`check_archs`); returns each phase 9 run's launches per kernel
+    and level (all ranks) and its numbers, phase 10's, 11's, 12's, 13's,
+    14's, 15's, 16's, 17's and 18's.  ``only="cp"`` runs phase 11 alone,
+    ``only="serve"`` phase 12 alone, ``only="zero3"`` phase 13 alone,
+    ``only="moe"`` phase 14 alone, ``only="recurrent"`` phase 15 alone,
+    ``only="encdec"`` phase 16 alone, ``only="pod"`` phase 17 alone,
+    ``only="archs"`` phase 18 alone."""
     dry = start_dryrun() if only in (None, "pod") else None
     runs, names = [], []
     for name, scheme, steps, flags, plain, depth in \
@@ -2087,13 +2276,17 @@ def drive_hier(torch, card, only: str | None = None) -> tuple:
             runs.append(serve_run("17c" if backend is None else "17d",
                                   backend, arch=POD_ARCH, **LONG_SERVE))
             names.append(("17c", backend))
+    if only in (None, "archs"):
+        more, more_names = arch_runs()
+        runs += more
+        names += more_names
     t0 = time.perf_counter()
     res = dict(zip(names, train_runs(card, runs)))
     wall = time.perf_counter() - t0
     by_phase = {}
     for (name, _), r in res.items():
         by_phase.setdefault(re.match(r"\d+", name).group(), []).append(r)
-    phase_seconds(card, "phases 9 to 17" if only is None
+    phase_seconds(card, "phases 9 to 18" if only is None
                   else f"phase {only}", by_phase)
     cp = check_cp(card, res) if only in (None, "cp") else {}
     serve = check_serve(card, res) if only in (None, "serve") else {}
@@ -2127,8 +2320,17 @@ def drive_hier(torch, card, only: str | None = None) -> tuple:
         print(f"phase 17: {pod['seconds']:.1f} s of steps and serving "
               f"(rank 0) of the world's {wall:.1f} s; the dry-run "
               f"{pod['17e']['seconds']:.1f} s beside it [{card}]")
+    archs = check_archs(card, res) if only in (None, "archs") else {}
+    if archs:
+        # phase 18's runs' own seconds in the world
+        archs["seconds"] = sum(sum(res[("18", b)][0]["step_s"])
+                               for b in (None, "torch")) + sum(
+            res[(n, b)][0]["wall_s"] for n, _, _ in ARCH_SERVE
+            for b in (None, "torch"))
+        print(f"phase 18: {archs['seconds']:.1f} s of steps and serving "
+              f"(rank 0) of the world's {wall:.1f} s [{card}]")
     if only:
-        return {}, {}, cp, serve, z3, moe, rec, enc, pod
+        return {}, {}, cp, serve, z3, moe, rec, enc, pod, archs
     out = {}
     for name, scheme, steps, flags, plain in HIER_RUNS:
         k = res[(name, None)]
@@ -2176,7 +2378,49 @@ def drive_hier(torch, card, only: str | None = None) -> tuple:
                      "per_dim_level": r0["priced_per_dim_level"],
                      "link_bytes": r0["link_bytes"]}
     return out, check_tune(card, res[("10", None)], res[("10", "torch")]), \
-        cp, serve, z3, moe, rec, enc, pod
+        cp, serve, z3, moe, rec, enc, pod, archs
+
+
+# what a training run's kernel and plain runs must agree in
+TRAIN_KEYS = ("losses", "grad_norms", "wire_per_dim", "priced_per_dim",
+              "priced_per_dim_level")
+
+
+def same_runs(what: str, k, p, keys) -> None:
+    """Fail unless the kernel run ``k`` and the plain run ``p`` agree on
+    every rank in ``keys`` (and, for served runs, every cache leaf or pool
+    plane by sha256), no rank imported jax or repro, and ``p`` launched
+    nothing."""
+    for rk, rp in zip(k, p):
+        if rk["foreign_modules"] or rp["foreign_modules"]:
+            fail(f"phase {what} rank {rk['rank']} imported "
+                 f"{rk['foreign_modules'] or rp['foreign_modules']}")
+        for key in keys:
+            if rk[key] != rp[key]:
+                fail(f"phase {what} rank {rk['rank']}: {key} differ between "
+                     f"the kernel run ({rk[key]}) and the plain run "
+                     f"({rp[key]})")
+        for when, dig in rk.get("digests", {}).items():
+            bad = sorted(leaf for leaf, h in dig.items()
+                         if rp["digests"][when][leaf] != h)
+            if bad:
+                fail(f"phase {what} rank {rk['rank']}: {when} caches or pool "
+                     f"planes {bad} differ between the kernel run and the "
+                     f"plain run")
+    if any(v for r in p for v in r["launches"].values()):
+        fail(f"phase {what}: the plain run launched kernels: "
+             f"{[r['launches'] for r in p]}")
+
+
+def missing_kernels(what: str, k, kernels) -> dict:
+    """Launches (all ranks) by ``kernel/level`` of the kernel run ``k``;
+    fail if a kernel of ``kernels`` never launched at the flat level."""
+    levels = level_sums(k)
+    missing = sorted(n for n in kernels if not levels.get(f"{n}/flat"))
+    if missing:
+        fail(f"phase {what}: no launch of {missing}; launches by level "
+             f"{levels}")
+    return levels
 
 
 def paged_prompts() -> list:
@@ -2299,12 +2543,12 @@ def check_serve(card, res: dict) -> dict:
     return out
 
 
-def z3_prompts() -> list:
+def z3_prompts(vocab: int = 262144) -> list:
     """13c's requests: Z3_REQUESTS prompts of lengths in Z3_LENS, from
-    SEED."""
+    SEED, their token ids below ``vocab`` (phase 18's take each model's)."""
     rng = np.random.default_rng(SEED + 13)
     lens = rng.integers(Z3_LENS[0], Z3_LENS[1] + 1, Z3_REQUESTS)
-    return [rng.integers(0, 262144, int(n)).tolist() for n in lens]
+    return [rng.integers(0, vocab, int(n)).tolist() for n in lens]
 
 
 def z3_zero_rows() -> dict:
@@ -2355,20 +2599,10 @@ def check_zero3(card, res: dict) -> dict:
     from repro_torch import configs
 
     k, p = res[("13", None)], res[("13", "torch")]
-    for rk, rp in zip(k, p):
-        if rk["foreign_modules"] or rp["foreign_modules"]:
-            fail(f"phase 13 rank {rk['rank']} imported "
-                 f"{rk['foreign_modules'] or rp['foreign_modules']}")
+    same_runs("13a/13b", k, p, TRAIN_KEYS)
+    for rk in k:
         if not np.isfinite(rk["losses"]).all():
             fail(f"phase 13a rank {rk['rank']}: losses {rk['losses']}")
-        for key in ("losses", "grad_norms", "wire_per_dim", "priced_per_dim",
-                    "priced_per_dim_level"):
-            if rk[key] != rp[key]:
-                fail(f"phase 13 rank {rk['rank']}: {key} differ between the "
-                     f"kernel run ({rk[key]}) and the plain run ({rp[key]})")
-    if any(v for r in p for v in r["launches"].values()):
-        fail(f"phase 13b: the plain run launched kernels: "
-             f"{[r['launches'] for r in p]}")
     zrows = z3_zero_rows()
     shapes = {}
     for r in k:
@@ -2442,27 +2676,8 @@ def check_zero3(card, res: dict) -> dict:
             len(t) != Z3_GEN or min(t) < 0 or max(t) >= 262144
             for t in toks) or any(r["tokens"] != toks for r in k):
         fail("phase 13c: malformed or disagreeing tokens")
-    for rk, rp in zip(k, p):
-        if rk["foreign_modules"]:
-            fail(f"phase 13c rank {rk['rank']} imported "
-                 f"{rk['foreign_modules']}")
-        if rk["tokens"] != rp["tokens"]:
-            fail(f"phase 13c rank {rk['rank']}: tokens differ between the "
-                 f"kernel run and the plain run")
-        for when, dig in rk["digests"].items():
-            bad = sorted(leaf for leaf, h in dig.items()
-                         if rp["digests"][when][leaf] != h)
-            if bad:
-                fail(f"phase 13c rank {rk['rank']}: {when} pool planes "
-                     f"{bad} differ between the kernel run and the plain run")
-    if any(v for r in p for v in r["launches"].values()):
-        fail(f"phase 13c: the plain run launched kernels: "
-             f"{[r['launches'] for r in p]}")
-    levels = level_sums(k)
-    missing = sorted(f"{kern}/{lvl}" for lvl, kerns in Z3_SERVE_LEVELS.items()
-                     for kern in kerns if not levels.get(f"{kern}/{lvl}"))
-    if missing:
-        fail(f"phase 13c: no launch of {missing}; launches by level {levels}")
+    same_runs("13c", k, p, ("tokens",))
+    levels = missing_kernels("13c", k, Z3_SERVE_KERNELS)
     dec = [sum(r["decode_s"]) for r in k]
     step_ms = max(float(np.median(r["decode_s"])) for r in k) * 1e3
     n_gen = sum(len(t) for t in toks)
@@ -2516,21 +2731,10 @@ def check_moe(card, res: dict) -> dict:
     its ep all-to-alls launched; no rank importing jax or repro.  Prints
     the numbers and returns them."""
     k, p = res[("14", None)], res[("14", "torch")]
-    for rk, rp in zip(k, p):
-        if rk["foreign_modules"] or rp["foreign_modules"]:
-            fail(f"phase 14 rank {rk['rank']} imported "
-                 f"{rk['foreign_modules'] or rp['foreign_modules']}")
+    same_runs("14a/14b", k, p, TRAIN_KEYS + ("lb_loss", "drop_frac"))
+    for rk in k:
         if not np.isfinite(rk["losses"]).all():
             fail(f"phase 14a rank {rk['rank']}: losses {rk['losses']}")
-        for key in ("losses", "grad_norms", "lb_loss", "drop_frac",
-                    "wire_per_dim", "priced_per_dim",
-                    "priced_per_dim_level"):
-            if rk[key] != rp[key]:
-                fail(f"phase 14 rank {rk['rank']}: {key} differ between the "
-                     f"kernel run ({rk[key]}) and the plain run ({rp[key]})")
-    if any(v for r in p for v in r["launches"].values()):
-        fail(f"phase 14b: the plain run launched kernels: "
-             f"{[r['launches'] for r in p]}")
     r0 = k[0]
     priced = {key: v for key, v in r0["priced_per_dim_level"].items() if v}
     want_ep = moe_ep_reckoned()
@@ -2587,26 +2791,8 @@ def check_moe(card, res: dict) -> dict:
             len(t) != SERVE_GEN or min(t) < 0 or max(t) >= vocab
             for t in toks) or any(r["tokens"] != toks for r in k):
         fail("phase 14c: malformed or disagreeing tokens")
-    for rk, rp in zip(k, p):
-        if rk["foreign_modules"]:
-            fail(f"phase 14c rank {rk['rank']} imported "
-                 f"{rk['foreign_modules']}")
-        if rk["tokens"] != rp["tokens"]:
-            fail(f"phase 14c rank {rk['rank']}: tokens differ between the "
-                 f"kernel run and the plain run")
-        for when, dig in rk["digests"].items():
-            bad = sorted(leaf for leaf, h in dig.items()
-                         if rp["digests"][when][leaf] != h)
-            if bad:
-                fail(f"phase 14c rank {rk['rank']}: {when} caches {bad} "
-                     f"differ between the kernel run and the plain run")
-    if any(v for r in p for v in r["launches"].values()):
-        fail(f"phase 14c: the plain run launched kernels: "
-             f"{[r['launches'] for r in p]}")
-    levels = level_sums(k)
-    if not (levels.get("bq_encode/flat") and levels.get("bq_decode/flat")):
-        fail(f"phase 14c: no block encode or decode (the ep all-to-alls); "
-             f"launches by level {levels}")
+    same_runs("14c", k, p, ("tokens",))
+    levels = missing_kernels("14c", k, ("bq_encode", "bq_decode"))
     sprice = {ph: {key: round(v / 1e6, 3)
                    for key, v in k[0]["ledger"][ph]["priced"].items() if v}
               for ph in ("prefill", "decode")}
@@ -2635,6 +2821,170 @@ def check_moe(card, res: dict) -> dict:
           f"{max(sshare) * 100:.0f} %; priced MB per rank by dim/level "
           f"{sprice}; launches (all ranks) by kernel/level {levels} "
           f"[{card}]")
+    return out
+
+
+def arch_ep_rows(cfg, tokens: int) -> int:
+    """Wire rows of one rank's ep all-to-all (the whole [E * C, D] dispatch
+    buffer encoded at once) when ``tokens`` tokens are routed, C the
+    capacity (``moe.capacity``)."""
+    from repro_torch.kernels.bq import padded_rows
+    from repro_torch.models.moe import capacity
+    return padded_rows(cfg.n_experts * capacity(cfg, tokens) * cfg.d_model)
+
+
+def arch_runs() -> tuple:
+    """Phase 18's runs (:func:`run`, :func:`serve_run`) and their names:
+    18a/18b minitron-4b trained (kernels, plain), then each of ARCH_SERVE
+    served through the kernels and through the plain versions."""
+    from repro_torch import configs
+    runs, names = [], []
+    for backend in (None, "torch"):
+        label = "18a kernels" if backend is None else "18b plain"
+        runs.append(run(label, ARCH_SCHEME, backend, ARCH_STEPS, ARCH_FLAGS,
+                        dp=1, tp=1, arch=ARCH_TRAIN, depth=ARCH_DEPTH,
+                        memory_fraction=ARCH_FRACTION))
+        names.append(("18", backend))
+    for name, arch, kw in ARCH_SERVE:
+        extra = {"prompts": z3_prompts(configs.get(arch).vocab_size)} \
+            if kw["mode"] == "paged" else {}
+        for backend in (None, "torch"):
+            runs.append(serve_run(name, backend, arch=arch, depth=ARCH_DEPTH,
+                                  scheme=ARCH_SCHEME, **kw, **extra))
+            names.append((name, backend))
+    return runs, names
+
+
+def check_archs(card, res: dict) -> dict:
+    """Phase 18: 18a (minitron-4b trained through the kernels) equal to 18b
+    (the plain versions) in losses, grad norms and ledger (measured per
+    dim, priced per dim and per ``dim/level``), finite losses, each kernel
+    of ARCH_KERNELS["18a"] launched and no block encode or decode-add at
+    the TP reduce-scatters' rows; each served run of ARCH_SERVE equal to
+    its plain run (tokens, every cache leaf or pool plane by sha256), its
+    kernels launched, 18e's ep all-to-alls' block encode and decode at
+    :func:`arch_ep_rows` twice a decode step on every rank; nothing
+    launched in a plain run, no rank importing jax or repro.  Prints each
+    run's numbers and returns them."""
+    from repro_torch import configs
+    from repro_torch.analysis import roofline
+    from repro_torch.kernels.bq import padded_rows
+    from repro_torch.serve import paged_kv
+
+    k, p = res[("18", None)], res[("18", "torch")]
+    same_runs("18a/18b", k, p, TRAIN_KEYS)
+    for rk in k:
+        if not np.isfinite(rk["losses"]).all():
+            fail(f"phase 18a rank {rk['rank']}: losses {rk['losses']}")
+    levels = missing_kernels("18a", k, ARCH_KERNELS["18a"])
+    # the TP reduce-scatters' chunk: a rank's [2, SEQ, d_model] over tp 2
+    tp_rows = {padded_rows(GLOBAL_BATCH // 2 * SEQ
+                           * configs.get(ARCH_TRAIN).d_model // 2)}
+    block = {key: c for key, c in shape_sums(k).items()
+             if key[0] in ("bq_encode", "bq_decode_add") and key[1] in tp_rows}
+    if block:
+        fail(f"phase 18a: block forms at the TP reduce-scatters' rows "
+             f"{block}")
+    r0 = k[0]
+    step = max(float(np.median(r["step_s"][1:])) for r in k)
+    share = [sum(r["staging_s"][1:]) / sum(r["step_s"][1:]) for r in k]
+    peak = [round(r["peak_bytes"] / 2**30, 2) for r in k]
+    mb = {key: round(v / 1e6, 3) for key, v in
+          r0["priced_per_dim_level"].items() if v}
+    out = {"18a": {"step_ms": step * 1e3,
+                   "tokens_per_s": GLOBAL_BATCH * SEQ / step,
+                   "peak_gib": peak, "staging_share": [min(share), max(share)],
+                   "priced_mb": mb, "losses": r0["losses"],
+                   "grad_norms": r0["grad_norms"],
+                   "launches": launch_sums(k), "levels": levels}}
+    print(f"phase 18a/18b ({ARCH_TRAIN} full width, its first {ARCH_DEPTH} "
+          f"layers, {' '.join(ARCH_FLAGS)}, {ARCH_SCHEME}, ZeRO-1, remat): "
+          f"kernel run == plain run (losses, grad norms, ledger per dim and "
+          f"dim/level) on every rank; losses {r0['losses']}, grad norms "
+          f"{[round(g, 6) for g in r0['grad_norms']]}; {step * 1e3:.1f} "
+          f"ms/step (step {ARCH_STEPS}, slowest rank), "
+          f"{out['18a']['tokens_per_s']:.0f} tokens/s, peak {peak} GiB per "
+          f"rank, staging+exchange {min(share) * 100:.0f}-"
+          f"{max(share) * 100:.0f} %; priced MB per rank per step by "
+          f"dim/level {mb}; launches (all ranks) by kernel/level {levels} "
+          f"[{card}]")
+    for name, arch, kw in ARCH_SERVE:
+        cfg = configs.get(arch).truncated(ARCH_DEPTH)
+        k, p = res[(name, None)], res[(name, "torch")]
+        paged = kw["mode"] == "paged"
+        toks = k[0]["tokens"]
+        n_req = Z3_REQUESTS if paged else kw["batch"]
+        if len(toks) != n_req or any(
+                len(t) != kw["gen"] or min(t) < 0 or max(t) >= cfg.vocab_size
+                for t in toks) or any(r["tokens"] != toks for r in k):
+            fail(f"phase {name}: malformed or disagreeing tokens {toks}")
+        same_runs(name, k, p, ("tokens",))
+        levels = missing_kernels(name, k, ARCH_KERNELS[name])
+        dec = [sum(r["decode_s"]) for r in k]
+        step_ms = max(float(np.median(r["decode_s"])) for r in k) * 1e3
+        n_gen = sum(len(t) for t in toks) if paged \
+            else kw["batch"] * (kw["gen"] - 1)
+        sshare = [r["staging_s"] / r["wall_s"] for r in k]
+        speak = [round(r["peak_bytes"] / 2**30, 2) for r in k]
+        entry = {"launches": launch_sums(k), "levels": levels,
+                 "prefill_s": max(r["prefill_s"] for r in k),
+                 "decode_ms_per_step": step_ms, "steps": k[0]["steps"],
+                 "gen_tokens_per_s": n_gen / max(dec), "peak_gib": speak,
+                 "staging_share": [min(sshare), max(sshare)],
+                 "priced_mb": {ph: {key: round(v / 1e6, 4) for key, v in
+                                    led["priced"].items() if v}
+                               for ph, led in k[0]["ledger"].items()}}
+        extra = ""
+        if paged:
+            mbk = paged_kv.blocks_needed(
+                max(map(len, z3_prompts(cfg.vocab_size))) + kw["gen"],
+                BLOCK_TOKENS)
+            n_blocks = max(kw["slots"], kw.get("dp", 1)) * mbk
+            hbm = roofline.kv_hbm_bytes(n_blocks, BLOCK_TOKENS, ARCH_DEPTH,
+                                        cfg.n_kv_heads, cfg.head_dim_, "bq8",
+                                        "bfloat16")
+            kv_loc = cfg.n_kv_heads // kw["tp"]
+            entry.update(kv_hbm_bytes=hbm, n_blocks=n_blocks,
+                         pool_bytes=sum(r["pool_bytes"] for r in k),
+                         read_width=kv_loc * cfg.head_dim_,
+                         row_width=paged_kv.token_rows(
+                             kv_loc, cfg.head_dim_) * 128)
+            extra = (f"; pool {n_blocks} blocks: kv_hbm_bytes {hbm:.0f} B, "
+                     f"allocated {entry['pool_bytes']} B (all ranks); the "
+                     f"KV read {entry['read_width']} values of a "
+                     f"{entry['row_width']}-wide token row a rank")
+        if cfg.n_experts:
+            # every decode step routes its slots' tokens through the MoE
+            # layer: two all-to-alls, each one block encode and one block
+            # decode of the whole buffer at rate 16, on every rank
+            rows = arch_ep_rows(cfg, kw["slots"])
+            want = 2 * k[0]["steps"] * len(k) * sum(
+                g.n for g in cfg.layer_groups if g.kind == "moe")
+            at_ep = {n: sum(c for kk, r_, b, c in
+                            (x for rk in k for x in rk["launch_shapes"])
+                            if kk == n and r_ == rows and b == 16)
+                     for n in ("bq_encode", "bq_decode")}
+            if any(v != want for v in at_ep.values()):
+                fail(f"phase {name}: the ep all-to-alls' block launches at "
+                     f"{rows} rows (rate 16) {at_ep}, want {want} each")
+            entry.update(ep_rows=rows, ep_site_launches=at_ep)
+            extra += (f"; {cfg.n_experts} experts ({cfg.n_experts // kw['tp']}"
+                      f" a rank), the ep all-to-alls' block encode and decode "
+                      f"at {rows} rows {at_ep}")
+        same = "tokens, every pool plane" if paged else \
+            "tokens, every cache leaf after the prefill and at the end"
+        print(f"phase {name} ({arch} full width, its first {ARCH_DEPTH} "
+              f"layers, {', '.join(f'{a} {b}' for a, b in kw.items())}, "
+              f"{ARCH_SCHEME}): kernel run == plain run ({same} by sha256) "
+              f"on every rank; first tokens {[t[0] for t in toks]}; prefill "
+              f"{entry['prefill_s']:.3f} s, {entry['steps']} decode steps at "
+              f"{step_ms:.2f} ms/step (median, slowest rank), "
+              f"{entry['gen_tokens_per_s']:.1f} generated tok/s, peak "
+              f"{speak} GiB per rank, staging+exchange "
+              f"{min(sshare) * 100:.0f}-{max(sshare) * 100:.0f} %; priced MB "
+              f"per rank by dim/level {entry['priced_mb']}{extra}; launches "
+              f"(all ranks) by kernel/level {levels} [{card}]")
+        out[name] = entry
     return out
 
 
@@ -2749,21 +3099,10 @@ def check_encdec(card, res: dict) -> dict:
 
     cfg = model_config(ENC_ARCH)
     k, p = res[("16", None)], res[("16", "torch")]
-    for rk, rp in zip(k, p):
-        if rk["foreign_modules"] or rp["foreign_modules"]:
-            fail(f"phase 16 rank {rk['rank']} imported "
-                 f"{rk['foreign_modules'] or rp['foreign_modules']}")
+    same_runs("16a/16b", k, p, TRAIN_KEYS)
+    for rk in k:
         if not np.isfinite(rk["losses"]).all():
             fail(f"phase 16a rank {rk['rank']}: losses {rk['losses']}")
-        for key in ("losses", "grad_norms", "wire_per_dim",
-                    "priced_per_dim", "priced_per_dim_level"):
-            if rk[key] != rp[key]:
-                fail(f"phase 16a/16b rank {rk['rank']}: {key} differ "
-                     f"between the kernel run ({rk[key]}) and the plain "
-                     f"run ({rp[key]})")
-    if any(v for r in p for v in r["launches"].values()):
-        fail(f"phase 16b: the plain run launched kernels: "
-             f"{[r['launches'] for r in p]}")
     b_loc, s_loc = GLOBAL_BATCH // ENC_DP, ENC_SEQ // ENC_TP
     want = encdec_reckoned(cfg, b_loc, s_loc, ENC_TP,
                            codecs.get("bq16").wire_nbytes_for)
@@ -2823,26 +3162,13 @@ def check_encdec(card, res: dict) -> dict:
             or max(t) >= cfg.vocab_size for t in toks) or any(
             r["tokens"] != toks for r in k):
         fail("phase 16c: malformed or disagreeing tokens")
-    for rk, rp in zip(k, p):
-        if rk["foreign_modules"]:
-            fail(f"phase 16c rank {rk['rank']} imported "
-                 f"{rk['foreign_modules']}")
-        if rk["tokens"] != rp["tokens"]:
-            fail(f"phase 16c rank {rk['rank']}: tokens differ between the "
-                 f"kernel run and the plain run")
+    same_runs("16c", k, p, ("tokens",))
+    for rk in k:
         for when, dig in rk["digests"].items():
             cross = {leaf.rsplit("/", 1)[-1] for leaf in dig}
             if not {"xk", "xv", "xlen"} <= cross:
                 fail(f"phase 16c rank {rk['rank']}: no cross-attention "
                      f"cache among the {when} leaves {sorted(dig)}")
-            bad = sorted(leaf for leaf, h in dig.items()
-                         if rp["digests"][when][leaf] != h)
-            if bad:
-                fail(f"phase 16c rank {rk['rank']}: {when} caches {bad} "
-                     f"differ between the kernel run and the plain run")
-    if any(v for r in p for v in r["launches"].values()):
-        fail(f"phase 16c: the plain run launched kernels: "
-             f"{[r['launches'] for r in p]}")
     levels = level_sums(k)
     sprice = {ph: {key: round(v / 1e6, 3)
                    for key, v in k[0]["ledger"][ph]["priced"].items() if v}
@@ -2892,22 +3218,11 @@ def check_recurrent(card, res: dict) -> dict:
     b_loc, s_loc = GLOBAL_BATCH // REC_DP, SEQ // REC_TP
     for name, pname, arch, depth in REC_RUNS:
         k, p = res[(name, None)], res[(name, "torch")]
-        for rk, rp in zip(k, p):
-            if rk["foreign_modules"] or rp["foreign_modules"]:
-                fail(f"phase {name} rank {rk['rank']} imported "
-                     f"{rk['foreign_modules'] or rp['foreign_modules']}")
+        same_runs(f"{name}/{pname}", k, p, TRAIN_KEYS)
+        for rk in k:
             if not np.isfinite(rk["losses"]).all():
                 fail(f"phase {name} rank {rk['rank']}: losses "
                      f"{rk['losses']}")
-            for key in ("losses", "grad_norms", "wire_per_dim",
-                        "priced_per_dim", "priced_per_dim_level"):
-                if rk[key] != rp[key]:
-                    fail(f"phase {name}/{pname} rank {rk['rank']}: {key} "
-                         f"differ between the kernel run ({rk[key]}) and "
-                         f"the plain run ({rp[key]})")
-        if any(v for r in p for v in r["launches"].values()):
-            fail(f"phase {pname}: the plain run launched kernels: "
-                 f"{[r['launches'] for r in p]}")
         cfg = model_config(arch, depth=depth)
         want = rec_reckoned(cfg, b_loc, s_loc, REC_TP, wire)
         sites = k[0]["priced_per_site"]
@@ -2969,23 +3284,7 @@ def check_recurrent(card, res: dict) -> dict:
                 cfg.vocab_size for t in toks) or any(
                 r["tokens"] != toks for r in k):
             fail(f"phase 15e {arch}: malformed or disagreeing tokens")
-        for rk, rp in zip(k, p):
-            if rk["foreign_modules"]:
-                fail(f"phase 15e rank {rk['rank']} imported "
-                     f"{rk['foreign_modules']}")
-            if rk["tokens"] != rp["tokens"]:
-                fail(f"phase 15e {arch} rank {rk['rank']}: tokens differ "
-                     f"between the kernel run and the plain run")
-            for when, dig in rk["digests"].items():
-                bad = sorted(leaf for leaf, h in dig.items()
-                             if rp["digests"][when][leaf] != h)
-                if bad:
-                    fail(f"phase 15e {arch} rank {rk['rank']}: {when} "
-                         f"caches {bad} differ between the kernel run and "
-                         f"the plain run")
-        if any(v for r in p for v in r["launches"].values()):
-            fail(f"phase 15e {arch}: the plain run launched kernels: "
-                 f"{[r['launches'] for r in p]}")
+        same_runs(f"15e {arch}", k, p, ("tokens",))
         levels = level_sums(k)
         sprice = {ph: {key: round(v / 1e6, 3)
                        for key, v in k[0]["ledger"][ph]["priced"].items()
@@ -3533,7 +3832,7 @@ def check_pod(card, res: dict, dry: dict) -> dict:
           f"; launches (all ranks) {launches} [{card}]")
     # 17c/17d: the long-context decode
     k, p = res[("17c", None)], res[("17c", "torch")]
-    lcfg = model_config(POD_ARCH)
+    lcfg = model_config(POD_ARCH, depth=LONG_DEPTH)
     toks = k[0]["tokens"]
     if len(toks) != 1 or len(toks[0]) != LONG_GEN + 1 or any(
             not 0 <= t < lcfg.vocab_size for t in toks[0]) or any(
@@ -3575,7 +3874,8 @@ def check_pod(card, res: dict, dry: dict) -> dict:
                   "launches": launch_sums(k), "levels": level_sums(k),
                   "staging_share": [r["staging_s"] / max(r["wall_s"], 1e-9)
                                     for r in k]}
-    print(f"phase 17c/17d ({POD_ARCH} full width and depth, dp {LONG_DP} x "
+    print(f"phase 17c/17d ({POD_ARCH} full width, its first {LONG_DEPTH} "
+          f"layers, dp {LONG_DP} x "
           f"tp {LONG_TP}, seq_axes (data, model), 1 x {LONG_S} positions, "
           f"{LONG_S // (LONG_DP * LONG_TP)} a rank, "
           f"{cache_b / 1e9:.3f} GB of cache a rank, filled to "
@@ -4145,33 +4445,35 @@ def main():
         return
 
     if sys.argv[1:] == ["--hier-only"]:
-        # phases 9 to 17 alone
+        # phases 9 to 18 alone
         os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
                               "expandable_segments:True")
-        hier, tune, cp, serve, z3, moe, rec, enc, pod = drive_hier(torch,
-                                                                   card)
+        hier, tune, cp, serve, z3, moe, rec, enc, pod, archs = drive_hier(
+            torch, card)
         print(json.dumps({"phase9": hier, "phase10": tune, "phase11": cp,
                           "phase12": serve, "phase13": z3, "phase14": moe,
-                          "phase15": rec, "phase16": enc, "phase17": pod}))
+                          "phase15": rec, "phase16": enc, "phase17": pod,
+                          "phase18": archs}))
         print(f"card: {card}")
         return
 
     if sys.argv[1:] in (["--cp-only"], ["--serve-only"], ["--zero3-only"],
                         ["--moe-only"], ["--recurrent-only"],
-                        ["--encdec-only"], ["--pod-only"]):
-        # phase 11, 12, 13, 14, 15, 16 or 17 alone
+                        ["--encdec-only"], ["--pod-only"], ["--archs-only"]):
+        # phase 11, 12, 13, 14, 15, 16, 17 or 18 alone
         os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
                               "expandable_segments:True")
         only = sys.argv[1][2:-5]
         t0 = time.perf_counter()
-        _, _, cp, serve, z3, moe, rec, enc, pod = drive_hier(torch, card,
-                                                             only=only)
+        _, _, cp, serve, z3, moe, rec, enc, pod, archs = drive_hier(
+            torch, card, only=only)
         print(json.dumps({"cp": {"phase11": cp}, "serve": {"phase12": serve},
                           "zero3": {"phase13": z3},
                           "moe": {"phase14": moe},
                           "recurrent": {"phase15": rec},
                           "encdec": {"phase16": enc},
-                          "pod": {"phase17": pod}}[only]))
+                          "pod": {"phase17": pod},
+                          "archs": {"phase18": archs}}[only]))
         print(f"wall seconds of the phase {time.perf_counter() - t0:.1f} "
               f"[{card}]")
         print(f"card: {card}")
@@ -4285,9 +4587,10 @@ def main():
     print(f"phase 2: flat encode and decode == plain versions bit for bit "
           f"(NaN positions equal) at rates {list(BITS)}, in "
           f"{list(FLAT_DTYPES)} (encode also int32) at n = {list(FLAT_N)} "
-          f"and the TP activation's {int(np.prod(tp_shape(cfg)))}, "
+          f"and the TP activations' {int(np.prod(tp_shape(cfg)))} and "
+          f"{int(np.prod(arch_shapes()['tp']))} (phase 18's minitron-4b), "
           f"misaligned and strided inputs included; gathered decode of "
-          f"{TP} shards of {list(GATHER_SHAPES)} and the TP activation "
+          f"{TP} shards of {list(GATHER_SHAPES)} and both TP activations "
           f"along axes 0, 1 and 2 [{card}]")
     check_views(torch, err, (r, rpb, nb))
     parts["view forms checked"] = time.perf_counter()
@@ -4296,14 +4599,24 @@ def main():
           f"equal) at rates {list(BITS)} in {list(FLAT_DTYPES)}, every chunk "
           f"of {list(VIEW_BASES)} split 2, 3 and 4 ways along each axis "
           f"(whole and ring-part rows, aligned and misaligned) and of "
-          f"{[list(s) for s in RS_SHAPES]} along axis 1; fused KV read == "
-          f"gather-decode, slice and cast at the serving table in "
-          f"{list(FLAT_DTYPES)}, out-of-range ids NaN [{card}]")
+          f"{[list(s) for s in RS_SHAPES + (arch_shapes()['rs'],)]} along "
+          f"axis 1; fused KV read == gather-decode, slice and cast at the "
+          f"serving table and at width {arch_shapes()['kv_width']} of "
+          f"{arch_shapes()['kv'][0] * 128}-wide tokens on an "
+          f"{arch_shapes()['kv_slots']} x {arch_shapes()['kv'][2] // arch_shapes()['kv_slots']}"
+          f" table in {list(FLAT_DTYPES)}, out-of-range ids NaN [{card}]")
     path, block_kms = time_bq(torch, card, rows, (r, rpb, nb))
     parts["bq timed"] = time.perf_counter()
     tp_ops = time_tp_ops(torch, card, tp_shape(cfg))
     rs_ops = time_rs_ops(torch, card)
     kv_ops = time_kv_ops(torch, card, (r, rpb, nb))
+    # phase 18's shapes: minitron-4b's TP gather and reduce-scatter, kimi-k2's
+    # 224-wide KV read
+    arch = arch_shapes()
+    tp_ops_arch = time_tp_ops(torch, card, arch["tp"])
+    rs_ops_arch = time_rs_ops(torch, card, (arch["rs"],))
+    kv_ops_arch = time_kv_ops(torch, card, arch["kv"], arch["kv_slots"],
+                              arch["kv_width"])
     host_breakdown(torch, card, tp_shape(cfg))
     parts["fused ops timed"] = time.perf_counter()
 
@@ -4422,7 +4735,7 @@ def main():
                             flat_elems(cfg8), res=parts[3], disk=disk)
 
     # ---------------------------------------------------------- phase 9
-    starts["9 to 17"] = time.perf_counter()
+    starts["9 to 18"] = time.perf_counter()
     print(f"phase 9: node-factored meshes, gemma3-1b full width, four ranks "
           f"on this card, seq {SEQ}, global batch {GLOBAL_BATCH}: 9a --dp 4 "
           f"--nodes 2 --layers {HIER_RUNS[0][3][-1]} (hier_zpp_8_16), 9b "
@@ -4467,11 +4780,19 @@ def main():
           f"(kernels, plain); then phase 17, {POD_ARCH} at full width: "
           f"17a/17b the first {POD_DEPTH} layers, {' '.join(POD_FLAGS)} "
           f"({POD_SCHEME}, {POD_STEPS} steps; kernels, plain) beside "
-          f"{' '.join(POD_BASE_FLAGS)}, 17c/17d all its layers served at "
+          f"{' '.join(POD_BASE_FLAGS)}, 17c/17d its first {LONG_DEPTH} "
+          f"layers served at "
           f"dp {LONG_DP} x tp {LONG_TP} with the cache's {LONG_S} "
           f"positions over (data, model), {LONG_GEN} tokens decoded "
-          f"(kernels, plain), 17e the dry-run beside the world [{card}]")
-    hier, tune, cp, serve, z3, moe, rec, enc, pod = drive_hier(torch, card)
+          f"(kernels, plain), 17e the dry-run beside the world; then phase "
+          f"18, the first {ARCH_DEPTH} layers at full width ({ARCH_SCHEME}): "
+          f"18a/18b {ARCH_TRAIN} {' '.join(ARCH_FLAGS)}, {ARCH_STEPS} steps "
+          f"(kernels, plain), "
+          + ", ".join(f"{n} {a} {kw['mode']} --tp {kw['tp']}"
+                      for n, a, kw in ARCH_SERVE)
+          + f" (kernels, plain) [{card}]")
+    hier, tune, cp, serve, z3, moe, rec, enc, pod, archs = drive_hier(torch,
+                                                                      card)
     # the whole-step shares of the H100's peak: phase 4's step and 17a's
     from repro_torch.launch.mesh import make_mesh
     sh4 = step_share(cfg.truncated(MAIN_DEPTH), make_mesh(DP, TP, rank=0),
@@ -4611,6 +4932,24 @@ def main():
                 for run, levels in (("17a", pod["levels"]),
                                     ("17c", pod["17c"]["levels"]))}
 
+    def p18_launches(kernel: str) -> int:
+        return sum(r["launches"][kernel] for r in archs.values()
+                   if isinstance(r, dict))
+
+    def p18_entry(kernel: str) -> dict:
+        """Phase 18's launches of a kernel (all ranks, the kernel runs)
+        per run by link level, and 18e's at the ep all-to-alls' rows; a bq
+        kernel's flat and view forms count with it."""
+        forms = KERNEL_FORMS.get(kernel, (kernel,))
+        out = {run: {key: v for key, v in r["levels"].items()
+                     if key.split("/")[0] in forms}
+               for run, r in archs.items() if isinstance(r, dict)}
+        if kernel in archs["18e"]["ep_site_launches"]:
+            out["18e_ep_sites"] = {
+                f"{kernel}/{archs['18e']['ep_rows']}":
+                archs["18e"]["ep_site_launches"][kernel]}
+        return out
+
     def p16_entry(kernel: str) -> dict:
         """Phase 16's launches of a kernel (all ranks, the kernel runs) per
         run by link level, and 16a's at the cross gather's rows; a bq
@@ -4679,7 +5018,7 @@ def main():
             + p9_launches(name) + tune["launches"][name] \
             + p11_launches(name) + p12_launches(name) + p13_launches(name) \
             + p14_launches(name) + p15_launches(name) + p16_launches(name) \
-            + p17_launches(name)
+            + p17_launches(name) + p18_launches(name)
         entry["phase7"] = p7_entry(name)
         entry["phase8"] = ckpt["launches"][name]        # after the restore
         entry["phase9"] = p9_entry(name)
@@ -4691,6 +5030,7 @@ def main():
         entry["phase15"] = p15_entry(name)
         entry["phase16"] = p16_entry(name)
         entry["phase17"] = p17_entry(name)
+        entry["phase18"] = p18_entry(name)
         if name in ("bq_encode", "bq_decode"):
             # the block form's kernel alone, and the flat form the TP
             # all-gather calls (the same kernel, fused with its layout)
@@ -4717,10 +5057,17 @@ def main():
                 + p14_launches(f"{name}_flat")
                 + p15_launches(f"{name}_flat")
                 + p16_launches(f"{name}_flat")
-                + p17_launches(f"{name}_flat"),
+                + p17_launches(f"{name}_flat")
+                + p18_launches(f"{name}_flat"),
                 "phase7": p7_entry(f"{name}_flat"),
                 "max_abs_err": err[f"{name}_flat"],
-                "by_shape": by_shape.get(f"{name}_flat", [])}
+                "by_shape": by_shape.get(f"{name}_flat", []),
+                "minitron_4b": {
+                    "path": "phase 18a tp@mlp_in all-gather, bf16 "
+                            f"{list(arch['tp'])} x {TP} shards",
+                    **{key: tp_ops_arch[name[3:]][key] for key in (
+                        "ms", "plain_ms", "unfused_ms", "warm_l2_ms",
+                        "kernel_ms", "bound_ms", "stream_kernel_ms")}}}
         entry["by_shape"] = by_shape.get(name, [])
         if name == "bq_decode_add_encode":
             entry["wire_only"]["by_shape"] = by_shape.get(
@@ -4744,11 +5091,13 @@ def main():
                 + p9_launches(fname) + p11_launches(fname)
                 + p12_launches(fname) + p13_launches(fname)
                 + p14_launches(fname) + p15_launches(fname)
-                + p16_launches(fname) + p17_launches(fname),
+                + p16_launches(fname) + p17_launches(fname)
+                + p18_launches(fname),
                 "phase7": p7_entry(fname), "max_abs_err": err[fname],
                 "bound_by": "bytes",
                 "by_rows": {rows: {**ops_[op], "end": ops_["end"]}
-                            for rows, ops_ in rs_ops.items()},
+                            for rows, ops_ in {**rs_ops,
+                                               **rs_ops_arch}.items()},
                 "by_shape": by_shape.get(fname, [])}
         if name == "bq_gather_decode":
             # the serving path reads through the fused KV read (bf16): the
@@ -4762,6 +5111,15 @@ def main():
                 "unfused_kernel_ms": kv["unfused_kernel_ms"],
                 "stream_kernel_ms": kv["stream_kernel_ms"],
                 "path": "serving read (fused KV read, bf16)"})
+            kv = kv_ops_arch["read"]
+            entry["width_224"] = {
+                "path": f"phase 18e's read (kimi-k2 at tp 4): "
+                        f"{arch['kv_width']} of {arch['kv'][0] * 128} values "
+                        f"a token, {arch['kv_slots']} x "
+                        f"{arch['kv'][2] // arch['kv_slots']} table",
+                **{key: kv[key] for key in (
+                    "ms", "plain_ms", "bound_ms", "warm_l2_ms", "kernel_ms",
+                    "unfused_ms", "unfused_kernel_ms", "stream_kernel_ms")}}
         kernels.append(entry)
     # the lowrank matmul: one plr exchange runs each form once, so the
     # entry's times are the three forms' sums at the path's r = 8
@@ -4810,6 +5168,7 @@ def main():
         "phase15": {},            # nor the recurrent runs (zhybrid_16_8)
         "phase16": {},            # nor whisper's (zhybrid_16_8)
         "phase17": {},            # nor the pod runs (zhybrid_16_8)
+        "phase18": {},            # nor phase 18's (zhybrid_16_8)
         "max_abs_err": max(f["max_abs_err"] for f in forms.values()),
         **total, "bound_by": "bytes" if all(
             f["bound_by"] == "bytes" for f in forms.values()) else

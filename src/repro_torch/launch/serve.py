@@ -314,7 +314,8 @@ def serve_rank(*, rank: int = 0, world: int = 1, arch: str = "gemma3-1b",
     first decode step and of the handoff (analytic events, priced and
     measured bytes per ``dim/level``), sha256 digests of every cache leaf
     or pool plane after the prefill (decode layout) and at the end, the
-    kernel launches by kernel and by link level, the peak device memory,
+    kernel launches by kernel, by (kernel, wire rows, rate) and by link
+    level, the peak device memory,
     the staged bytes and seconds, the wall seconds from the prefill to the
     last token (``wall_s``), and with ``keep_state`` the prefill
     caches (their own layout), the final caches or pool and the paged
@@ -352,7 +353,7 @@ def serve_rank(*, rank: int = 0, world: int = 1, arch: str = "gemma3-1b",
         with open(init_from, "rb") as f:
             params = from_jax_params(pickle.load(f), cfg, dev, mi)
     else:
-        params = model.init(seed)
+        params = _init_in_turn(model, seed, rank, world, dev)
     pol = comm_policy(scheme, codec_for, no_compress_below)
     if prompts is None:
         prompts = make_prompts(cfg.vocab_size, batch, prompt_len, seed)
@@ -489,11 +490,35 @@ def serve_rank(*, rank: int = 0, world: int = 1, arch: str = "gemma3-1b",
     return _finish(out, dev)
 
 
+def _init_in_turn(model, seed: int, rank: int, world: int, dev) -> dict:
+    """``model.init(seed)``; where the world has more ranks than cards,
+    so that ranks share a card, they draw in turn, each giving its cached
+    memory back before the next.  The init draws every leaf's GLOBAL f32
+    tensor before keeping its shard, and the largest may not fit once per
+    rank: an expert leaf of kimi-k2's first MoE layer is 21.0 GiB in f32,
+    and four ranks on one H100 80GB drawing at once ran out of memory (a
+    rank asked 21.00 GiB with 4.58 GiB free and 70.20 GiB in use).  The
+    weights are the same either way."""
+    if dev.type != "cuda" or world == 1 or \
+            torch.cuda.device_count() >= world:
+        return model.init(seed)
+    import torch.distributed as dist
+    params = None
+    for r in range(world):
+        if r == rank:
+            params = model.init(seed)
+            torch.cuda.synchronize(dev)
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return params
+
+
 def _finish(out: dict, dev) -> dict:
     from repro_torch.core import comms
     from repro_torch.kernels import bq
 
     out["launches"] = dict(bq.LAUNCHES)
+    out["launch_shapes"] = bq.launch_shapes()
     out["launch_levels"] = {f"{k}/{lvl}": v for (k, lvl), v
                             in sorted(bq.LAUNCH_LEVELS.items())}
     out["staging_bytes"] = comms.STAGING["bytes"]

@@ -32,7 +32,13 @@ Contract asserted here, with the tolerances and their reasons:
     layer 1); paged at tp 2 on the
     ``n_kv_heads=2`` variant under ``none`` the same; paged under
     ``none`` token-exact against the dense ``Server`` streamed token by
-    token (port only, ``serve_page_check.py``'s part 1);
+    token (port only, ``serve_page_check.py``'s part 1); paged under
+    ``bq8`` the architectures the card serves in ``chip_smoke.py``'s phase
+    18, ``minitron-4b`` and ``qwen2-72b --reduced`` at dp 2 x tp 2 and
+    ``kimi-k2 --reduced`` at tp 2 with its published ``head_dim`` of 112
+    (a token row's read width, 112, not a multiple of 128; its MoE layers
+    and shared expert): tokens and every pool plane the same way, each
+    plane sharded over model as the reference's;
   * ``serve_page_check.py``'s own case, paged ``qwen2-72b --reduced`` at
     dp 2 x tp 2 (head attention: 2 kv heads) under ``none``: tokens and
     every pool plane as the reference's (the same tolerances), and the
@@ -92,6 +98,15 @@ PAGED = {
     "paged_bq8": dict(dp=2, codec="bq8"),
     "paged_tp": dict(tp=2, codec="none", kv2=True),
     "paged_qwen2": dict(dp=2, tp=2, codec="none", arch="qwen2-72b"),
+    # the architectures phase 18 serves on the card, each with a bq8 pool:
+    # minitron-4b and qwen2-72b at dp 2 x tp 2 (head attention: 1 kv head
+    # of 16 a rank), kimi-k2 at tp 2 with its published head_dim of 112
+    # (a rank's token row 112 of 128 values: the fused KV read's width is
+    # not a multiple of 128), its MoE layers and shared expert
+    "paged_minitron_bq8": dict(dp=2, tp=2, codec="bq8", arch="minitron-4b"),
+    "paged_qwen2_bq8": dict(dp=2, tp=2, codec="bq8", arch="qwen2-72b"),
+    "paged_kimi_bq8": dict(tp=2, codec="bq8", arch="kimi-k2-1t-a32b",
+                           hd=112),
 }
 DISAGG = {"disagg_none": dict(tp=2, codec="none"),
           "disagg_bq8": dict(tp=2, codec="bq8")}
@@ -99,7 +114,13 @@ DISAGG = {"disagg_none": dict(tp=2, codec="none"),
 
 def _c(c: dict) -> dict:
     return dict(dict(dp=1, tp=1, tp_nodes=1, scheme="baseline", kv2=False,
-                     codec="none", arch="gemma3-1b"), **c)
+                     codec="none", arch="gemma3-1b", hd=0), **c)
+
+
+def _key(c: dict) -> tuple:
+    """The config a case serves: ``_jcfg``'s and ``_tcfg``'s arguments."""
+    c = _c(c)
+    return c["kv2"], c["arch"], c["hd"]
 
 
 def _prompts():
@@ -124,10 +145,11 @@ def _mb() -> int:
 # the reference (subprocesses)
 # --------------------------------------------------------------------------
 
-def _jcfg(kv2: bool, arch: str = "gemma3-1b"):
+def _jcfg(kv2: bool, arch: str = "gemma3-1b", hd: int = 0):
     from repro import configs
     cfg = configs.get(arch).reduced()
-    return cfg.replace(n_kv_heads=2) if kv2 else cfg
+    cfg = cfg.replace(n_kv_heads=2) if kv2 else cfg
+    return cfg.replace(head_dim=hd) if hd else cfg
 
 
 def _ledger(roofline, events) -> dict:
@@ -223,7 +245,7 @@ def _reference(out_path: str, group: str) -> None:
             c = _c(c)
             mesh = make_mesh(c["dp"], c["tp"])
             mi = MeshInfo.from_mesh(mesh)
-            model = Model(_jcfg(c["kv2"], c["arch"]), mi)
+            model = Model(_jcfg(c["kv2"], c["arch"], c["hd"]), mi)
             params = model.init(key)
             psrv = PagedServer(model, mesh, kv_codec=c["codec"],
                                block_tokens=BT)
@@ -339,21 +361,22 @@ def dense_stream(*, rank: int, world: int, cfg, dp: int, tp: int,
     return {"tokens": out}
 
 
-def _tcfg(kv2: bool, arch: str = "gemma3-1b"):
+def _tcfg(kv2: bool, arch: str = "gemma3-1b", hd: int = 0):
     from repro_torch import configs
     cfg = configs.get(arch).reduced()
-    return cfg.replace(n_kv_heads=2) if kv2 else cfg
+    cfg = cfg.replace(n_kv_heads=2) if kv2 else cfg
+    return cfg.replace(head_dim=hd) if hd else cfg
 
 
 def _head(c: dict) -> bool:
     """Whether the case runs head-mode attention (its caches shard the
     kv heads over model, not the sequence)."""
-    return _tcfg(c["kv2"], c["arch"]).attn_mode_for(c["tp"]) == "head"
+    return _tcfg(*_key(c)).attn_mode_for(c["tp"]) == "head"
 
 
 def _kwargs(c: dict, mode: str, tree: str) -> dict:
     c = _c(c)
-    kw = dict(cfg=_tcfg(c["kv2"], c["arch"]), mode=mode, dp=c["dp"],
+    kw = dict(cfg=_tcfg(*_key(c)), mode=mode, dp=c["dp"],
               tp=c["tp"],
               tp_nodes=c["tp_nodes"], gen=GEN, scheme=c["scheme"],
               kv_codec=c["codec"], device="cpu", init_from=tree,
@@ -395,11 +418,10 @@ def results(tmp_path_factory):
         # draws each global leaf from its key)
         mi = MeshInfo.from_mesh(compat.make_mesh((1, 1), ("data", "model")))
         trees = {}
-        for key in {(_c(c)["arch"], _c(c)["kv2"])
-                    for c in (*BATCHED.values(), *PAGED.values())}:
-            params = Model(_jcfg(key[1], key[0]), mi).init(
+        for key in {_key(c) for c in (*BATCHED.values(), *PAGED.values())}:
+            params = Model(_jcfg(*key), mi).init(
                 jax.random.key(SEED))
-            trees[key] = str(base / f"tree_{key[0]}_{key[1]}.pkl")
+            trees[key] = str(base / "tree_{}_{}_{}.pkl".format(*key))
             with open(trees[key], "wb") as f:
                 pickle.dump(jax.tree.map(lambda pv: np.asarray(pv.v), params,
                                          is_leaf=lambda x: isinstance(x, Pv)),
@@ -409,11 +431,11 @@ def results(tmp_path_factory):
                             (DISAGG, "disagg")):
             for case, c in cases.items():
                 groups.setdefault(_world(c, mode), {})[case] = _kwargs(
-                    c, mode, trees[(_c(c)["arch"], _c(c)["kv2"])])
+                    c, mode, trees[_key(c)])
         # serve_page_check.py's dense reference on the paged case's world
         c = _c(PAGED["paged_qwen2"])
         groups[_world(c, "paged")]["stream_qwen2"] = dict(
-            _kwargs(c, "paged", trees[(c["arch"], False)]), stream=True)
+            _kwargs(c, "paged", trees[_key(c)]), stream=True)
         with ThreadPoolExecutor(len(groups)) as pool:
             futs = {w: pool.submit(spawn_world, f"{__name__}:run_jobs", w,
                                    dict(jobs=jobs), 900)
@@ -523,12 +545,18 @@ def test_paged_matches_reference(case, results):
                            f"rank {r} pool {gi} {nm}")
                     continue
                 for pl in ("q_hi", "scale"):
-                    w = _rows(g[nm][pl], d, c["dp"]).astype(np.float32)
+                    # the pool's token rows shard over model (axis 3)
+                    w = _shard(_rows(g[nm][pl], d, c["dp"]), 3, t,
+                               c["tp"]).astype(np.float32)
                     got_pl = res["final"][f"/{gi}/{nm}/{pl}"]
+                    assert got_pl.shape == w.shape
                     if pl == "scale":
-                        np.testing.assert_allclose(
-                            got_pl, w, rtol=1e-6 if gi == 0 else 1 / 127,
-                            atol=0)
+                        # the model's first layer tight, later ones within
+                        # a bq8 step (a group holds one layer or several)
+                        for li in range(w.shape[0]):
+                            np.testing.assert_allclose(
+                                got_pl[li], w[li], atol=0,
+                                rtol=1e-6 if (gi, li) == (0, 0) else 1 / 127)
                     else:
                         assert np.abs(got_pl - w).max() <= 1
     leaf = got[0]["final"]["/0/k" if c["codec"] == "none" else "/0/k/q_hi"]
@@ -551,7 +579,7 @@ def test_paged_matches_dense_server_streamed(results):
     _, _, trees = results
     cfg = _tcfg(False)
     model = Model(cfg, device="cpu")
-    with open(trees[("gemma3-1b", False)], "rb") as f:
+    with open(trees[_key({})], "rb") as f:
         params = from_jax_params(pickle.load(f), cfg, "cpu")
     prompts = _paged_prompts()
     fin, _, _, _ = serve_requests(model, params, prompts, GEN, kv_codec="none",
